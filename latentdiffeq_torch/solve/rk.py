@@ -1,0 +1,163 @@
+"""Explicit Runge–Kutta tableaus and the single step (counterpart of
+latentdiffeq/solve/rk.py).
+
+Tableaus are Python floats (float64) and meet float32 state at use, as in
+the JAX package. States carry any leading batch dimensions: the RHS
+``f(y, p, t)`` works on the last axis, so one call steps a whole batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+__all__ = ["ButcherTableau", "AbstractSolver", "Euler", "Midpoint", "RK4",
+           "Tsit5", "Dopri5", "rk_step", "n_solution_stages"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ButcherTableau:
+    c: tuple          # (s,)
+    a: tuple          # strictly lower triangular rows
+    b: tuple          # (s,) solution weights
+    b_err: tuple      # (s,) error weights (b - b_hat), or None
+    order: int
+    fsal: bool        # last stage == f(t+dt, y1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractSolver:
+    @property
+    def tableau(self) -> ButcherTableau:
+        raise NotImplementedError
+
+    @property
+    def is_adaptive_capable(self) -> bool:
+        return self.tableau.b_err is not None
+
+
+_EULER = ButcherTableau(c=(0.0,), a=((),), b=(1.0,), b_err=None, order=1,
+                        fsal=False)
+
+_MIDPOINT = ButcherTableau(c=(0.0, 0.5), a=((), (0.5,)), b=(0.0, 1.0),
+                           b_err=None, order=2, fsal=False)
+
+_RK4 = ButcherTableau(
+    c=(0.0, 0.5, 0.5, 1.0),
+    a=((), (0.5,), (0.0, 0.5), (0.0, 0.0, 1.0)),
+    b=(1 / 6, 1 / 3, 1 / 3, 1 / 6), b_err=None, order=4, fsal=False)
+
+# Tsitouras 5(4) (Tsitouras 2011), the reference's default solver.
+_TSIT5 = ButcherTableau(
+    c=(0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0),
+    a=(
+        (),
+        (0.161,),
+        (-0.008480655492356989, 0.335480655492357),
+        (2.8971530571054935, -6.359448489975075, 4.3622954328695815),
+        (5.325864828439257, -11.748883564062828, 7.4955393428898365,
+         -0.09249506636175525),
+        (5.86145544294642, -12.92096931784711, 8.159367898576159,
+         -0.071584973281401, -0.028269050394068383),
+        (0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742,
+         -3.290069515436081, 2.324710524099774),
+    ),
+    b=(0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742,
+       -3.290069515436081, 2.324710524099774, 0.0),
+    b_err=(-0.00178001105222577714, -0.0008164344596567469,
+           0.007880878010261995, -0.1447110071732629, 0.5823571654525552,
+           -0.45808210592918697, 0.015151515151515152),
+    order=5, fsal=True)
+
+# Dormand–Prince 5(4).
+_DOPRI5 = ButcherTableau(
+    c=(0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0),
+    a=(
+        (),
+        (1 / 5,),
+        (3 / 40, 9 / 40),
+        (44 / 45, -56 / 15, 32 / 9),
+        (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+        (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+        (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+    ),
+    b=(35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0),
+    b_err=(71 / 57600, 0.0, -71 / 16695, 71 / 1920, -17253 / 339200,
+           22 / 525, -1 / 40),
+    order=5, fsal=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class Euler(AbstractSolver):
+    @property
+    def tableau(self):
+        return _EULER
+
+
+@dataclasses.dataclass(frozen=True)
+class Midpoint(AbstractSolver):
+    @property
+    def tableau(self):
+        return _MIDPOINT
+
+
+@dataclasses.dataclass(frozen=True)
+class RK4(AbstractSolver):
+    @property
+    def tableau(self):
+        return _RK4
+
+
+@dataclasses.dataclass(frozen=True)
+class Tsit5(AbstractSolver):
+    @property
+    def tableau(self):
+        return _TSIT5
+
+
+@dataclasses.dataclass(frozen=True)
+class Dopri5(AbstractSolver):
+    @property
+    def tableau(self):
+        return _DOPRI5
+
+
+def n_solution_stages(tab: ButcherTableau) -> int:
+    """Stages with nonzero solution weight: the fixed-step stage count
+    (Tsit5's FSAL 7th stage is skipped). Every fixed-step path and kernel
+    agrees on it."""
+    return max(i for i in range(len(tab.b)) if tab.b[i] != 0.0) + 1
+
+
+def rk_step(f: Callable, tab: ButcherTableau, y, p, t, dt, f0=None,
+            with_error: bool = True):
+    """One explicit RK step; returns ``(y1, err, ks)`` (rk.py:184-222).
+    Zero coefficients are skipped, and in fixed-step mode the trailing
+    zero-weight stages are not evaluated."""
+    need_err = with_error and tab.b_err is not None
+    s = len(tab.b) if need_err else n_solution_stages(tab)
+    ks = []
+    for i in range(s):
+        if i == 0:
+            k = f0 if f0 is not None else f(y, p, t)
+        else:
+            yi = y
+            for j, aij in enumerate(tab.a[i]):
+                if aij != 0.0:
+                    yi = yi + (dt * aij) * ks[j]
+            k = f(yi, p, t + tab.c[i] * dt)
+        ks.append(k)
+
+    y1 = y
+    for bi, k in zip(tab.b, ks):
+        if bi != 0.0:
+            y1 = y1 + (dt * bi) * k
+
+    err = None
+    if need_err:
+        err = torch.zeros_like(y)
+        for bei, k in zip(tab.b_err, ks):
+            if bei != 0.0:
+                err = err + (dt * bei) * k
+    return y1, err, ks

@@ -1,0 +1,14 @@
+from .losses import kl, vector_kl, vector_mse, reconstruction_loss, loss_batch
+from .annealing import frange_cycle_linear
+from .data import splitobs, sample_window, DataLoader
+from .optim import FluxAdam, adam, adamw
+from .checkpoint import (jax_param_paths, load_jax_params, save_checkpoint,
+                         load_checkpoint)
+from .trainer import TrainConfig, Trainer
+
+__all__ = [
+    "kl", "vector_kl", "vector_mse", "reconstruction_loss", "loss_batch",
+    "frange_cycle_linear", "splitobs", "sample_window", "DataLoader",
+    "FluxAdam", "adam", "adamw", "jax_param_paths", "load_jax_params",
+    "save_checkpoint", "load_checkpoint", "TrainConfig", "Trainer",
+]

@@ -1,0 +1,133 @@
+"""Checkpoints and the JAX weight bridge (counterpart of
+latentdiffeq/train/checkpoint.py).
+
+The port's modules name and register their parameters as the JAX pytree
+does, so ``named_parameters()`` with '.' read as '/' yields the JAX key
+paths (``_path_str`` in the JAX package, e.g.
+``encoder/pattern_extractor/1/cells/0/Wi``) in JAX flatten order.
+
+Both JAX ``.npz`` formats load:
+  v2: ``leaf::<path>`` keys plus ``__meta__`` = {"format_version", "meta",
+      "paths"}; paths such as ``model/encoder/feature_extractor/layers/0/W``.
+  v1: ``leaf_{i}`` keys in flatten order, ``__meta__`` = the user meta.
+      Files written by the JAX Trainer hold the tree {"key", "model",
+      "opt_state"}: leaf_0 is the PRNG key, then the model's n leaves,
+      then Adam's m (n), t (1) and v (n).
+The port writes v2.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["jax_param_paths", "load_jax_params", "save_checkpoint",
+           "load_checkpoint", "FORMAT_VERSION"]
+
+FORMAT_VERSION = 2
+_LEAF_PREFIX = "leaf::"
+
+
+def jax_param_paths(model: torch.nn.Module) -> List[str]:
+    """The model's parameter paths in JAX flatten order."""
+    return [name.replace(".", "/") for name, _ in model.named_parameters()]
+
+
+def load_jax_params(model: torch.nn.Module, arrays: Dict[str, np.ndarray]):
+    """Copy arrays keyed by JAX key-path strings into ``model``. The key
+    set must equal the model's paths and every shape must match."""
+    params = dict(zip(jax_param_paths(model), model.parameters()))
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise ValueError(f"JAX params do not match the model: missing "
+                         f"{missing[:8]}, unexpected {extra[:8]}")
+    with torch.no_grad():
+        for path, p in params.items():
+            a = np.asarray(arrays[path])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"'{path}': array shape {a.shape} != "
+                                 f"parameter shape {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))
+    return model
+
+
+def _opt_arrays(optimizer, paths):
+    """Adam's state in JAX flatten order: m, t, v."""
+    st = optimizer.state_dict()
+    out = {f"opt_state/m/{p}": t.detach().cpu().numpy()
+           for p, t in zip(paths, st["m"])}
+    out["opt_state/t"] = np.asarray(st["t"], np.int32)
+    out.update({f"opt_state/v/{p}": t.detach().cpu().numpy()
+                for p, t in zip(paths, st["v"])})
+    return out
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
+                    meta: Optional[dict] = None):
+    """Write ``{"model", "opt_state"}`` as a format-v2 ``.npz``."""
+    paths = jax_param_paths(model)
+    arrays = {f"model/{p}": t.detach().cpu().numpy()
+              for p, t in zip(paths, model.parameters())}
+    if optimizer is not None:
+        arrays.update(_opt_arrays(optimizer, paths))
+    names = list(arrays)
+    blob = {"format_version": FORMAT_VERSION, "meta": meta or {},
+            "paths": names}
+    out = {_LEAF_PREFIX + k: arrays[k] for k in names}
+    out["__meta__"] = np.frombuffer(json.dumps(blob).encode(), np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **out)
+    os.replace(tmp, path)
+
+
+def _split_v1(data, paths):
+    n = len(paths)
+    stored = len([k for k in data.files if k != "__meta__"])
+    leaf = lambda i: data[f"leaf_{i}"]  # noqa: E731
+    if stored == n:                       # a bare model tree
+        return {p: leaf(i) for i, p in enumerate(paths)}, None
+    if stored == 3 * n + 2:               # {"key", "model", "opt_state"}
+        model = {p: leaf(1 + i) for i, p in enumerate(paths)}
+        opt = {"m": [leaf(1 + n + i) for i in range(n)],
+               "t": int(leaf(1 + 2 * n)),
+               "v": [leaf(2 + 2 * n + i) for i in range(n)]}
+        return model, opt
+    raise ValueError(f"legacy (v1) checkpoint has {stored} leaves; a model "
+                     f"with {n} parameters expects {n} or {3 * n + 2}")
+
+
+def _split_v2(data, names, paths):
+    model = {k[len("model/"):]: data[_LEAF_PREFIX + k] for k in names
+             if k.startswith("model/")}
+    opt = None
+    if "opt_state/t" in names:
+        opt = {"m": [data[f"{_LEAF_PREFIX}opt_state/m/{p}"] for p in paths],
+               "t": int(data[_LEAF_PREFIX + "opt_state/t"]),
+               "v": [data[f"{_LEAF_PREFIX}opt_state/v/{p}"] for p in paths]}
+    return model, opt
+
+
+def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None):
+    """Load a JAX or port ``.npz`` (v1 or v2) into ``model`` (and into
+    ``optimizer``'s Adam moments when given and present). Returns the
+    stored user meta dict."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint not found: {path}")
+    paths = jax_param_paths(model)
+    with np.load(path) as data:
+        blob = json.loads(bytes(data["__meta__"]).decode())
+        if "format_version" in blob:
+            meta = blob.get("meta", {})
+            arrays, opt = _split_v2(data, blob["paths"], paths)
+        else:
+            meta = blob
+            arrays, opt = _split_v1(data, paths)
+    load_jax_params(model, arrays)
+    if optimizer is not None and opt is not None:
+        optimizer.load_state_dict(opt)
+    return meta

@@ -1,0 +1,56 @@
+"""Data utilities (counterpart of latentdiffeq/train/data.py): the 90/10
+split, one shared random time window per minibatch, and a shuffled
+drop-partial minibatcher. Layout (samples, time, features)."""
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import torch
+
+__all__ = ["splitobs", "sample_window", "DataLoader"]
+
+
+def splitobs(x, at: float = 0.9):
+    """Split along the sample axis, no shuffle (model_train.jl:115-117)."""
+    k = int(x.shape[0] * at)
+    return x[:k], x[k:]
+
+
+def sample_window(x, seq_len: int,
+                  generator: Optional[torch.Generator] = None,
+                  start: Optional[int] = None):
+    """One random contiguous window of ``seq_len`` frames shared by the
+    whole batch; the start is uniform over [0, full - seq_len) (0 when the
+    window spans the sequence), drawn from ``generator`` unless given."""
+    full = x.shape[1]
+    if start is None:
+        start = int(torch.randint(0, max(full - seq_len, 1), (1,),
+                                  generator=generator))
+    return x[:, start:start + seq_len]
+
+
+class DataLoader:
+    """Shuffled, drop-partial minibatcher (Flux ``DataLoader(batchsize,
+    shuffle=true, partial=false)``, model_train.jl:120)."""
+
+    def __init__(self, data, batch_size: int, shuffle: bool = True,
+                 drop_partial: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        self.data = data
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_partial = drop_partial
+        self.generator = generator
+
+    def __len__(self) -> int:
+        n = self.data.shape[0]
+        return (n // self.batch_size if self.drop_partial
+                else -(-n // self.batch_size))
+
+    def __iter__(self) -> Iterator:
+        n = self.data.shape[0]
+        idx = (torch.randperm(n, generator=self.generator) if self.shuffle
+               else torch.arange(n))
+        stop = (n - n % self.batch_size) if self.drop_partial else n
+        for i in range(0, stop, self.batch_size):
+            yield self.data[idx[i:i + self.batch_size].to(self.data.device)]

@@ -1,0 +1,86 @@
+"""ELBO losses (counterpart of latentdiffeq/train/losses.py).
+
+Layout (batch, time, pixels):
+  reconstruction = sum over pixels of mean over (batch, time) of sq. error
+  KL             = per (z0, theta) group: sum over latent dims of the batch
+                   mean; groups summed
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["kl", "vector_kl", "vector_mse", "reconstruction_loss",
+           "loss_batch"]
+
+
+def kl(mu, logvar):
+    """Elementwise KL(N(mu, exp(logvar)) || N(0, 1)) (utils.jl:16)."""
+    return (torch.exp(logvar) + mu ** 2 - logvar - 1) / 2
+
+
+def _kl_group(mu, logvar, free_bits: float = 0.0):
+    per_dim = torch.mean(kl(mu, logvar), dim=0)
+    if free_bits > 0.0:
+        per_dim = torch.clamp(per_dim, min=free_bits)
+    return torch.sum(per_dim)
+
+
+def vector_kl(mu, logvar, free_bits: float = 0.0):
+    """KL of a (batch, latent) tensor or a tuple of them; ``free_bits``
+    floors each latent dim's batch-mean KL (0 = reference semantics)."""
+    if isinstance(mu, (tuple, list)):
+        return sum(_kl_group(m, lv, free_bits) for m, lv in zip(mu, logvar))
+    return _kl_group(mu, logvar, free_bits)
+
+
+def vector_mse(x, x_hat):
+    """Sum over features of mean over (batch, time) squared error."""
+    return torch.sum(torch.mean((x - x_hat) ** 2, dim=(0, 1)))
+
+
+reconstruction_loss = vector_mse
+
+
+def loss_batch(model, x, t, beta, *, variational: bool = True,
+               generator: Optional[torch.Generator] = None, eps=None,
+               mask_failures: bool = False, free_bits: float = 0.0,
+               cur_len=None, anchor=None, anchor_weight: float = 0.0,
+               anchor_frames=None):
+    """reconstruction + beta * KL (model_train.jl:225-238). Returns
+    ``(loss, metrics)``.
+
+    ``mask_failures``: samples whose solve failed are left out of the
+    reconstruction term. ``cur_len``: only the first ``cur_len`` frames are
+    real (masked curriculum). ``generator``/``eps``: the reparameterisation
+    noise source (see LatentDiffEqModel.forward). The latent-chart
+    ``anchor`` terms are not ported yet and raise."""
+    if anchor is not None or anchor_weight or anchor_frames is not None:
+        raise NotImplementedError("loss_batch anchor terms are not ported "
+                                  "yet")
+    (x_hat, z_hat, l_hat), mu, logvar, aux = model(
+        x, t, variational=variational, generator=generator, eps=eps,
+        cur_len=cur_len)
+    se = (x - x_hat) ** 2
+    if cur_len is not None:
+        tmask = torch.arange(x.shape[1], device=x.device) < cur_len
+        se = torch.where(tmask[None, :, None], se, torch.zeros_like(se))
+        n_frames = cur_len
+    else:
+        n_frames = x.shape[1]
+    if mask_failures:
+        ok = aux["success"]
+        se = torch.where(ok[:, None, None], se, torch.zeros_like(se))
+        denom = torch.clamp(ok.sum(), min=1)
+        rec = torch.sum(torch.sum(se, dim=(0, 1)) / (denom * n_frames))
+    elif cur_len is not None:
+        rec = torch.sum(torch.sum(se, dim=(0, 1)) / (x.shape[0] * n_frames))
+    else:
+        rec = reconstruction_loss(x, x_hat)
+    kld = vector_kl(mu, logvar, free_bits)
+    loss = rec + beta * kld
+    metrics = {"loss": loss, "rec": rec, "kl": kld,
+               "n_failed": torch.sum(~aux["success"]),
+               "n_rhs_evals": aux["stats"]["n_rhs_evals"]}
+    return loss, metrics
