@@ -7,19 +7,26 @@ Phases, each printing one line (any failure exits non-zero):
               parallel) and print the card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               (TF32 off) at the training, validation and a ragged batch shape;
+              the neural-field solve also with RK4 and sub-steps, at the
+              8-wide and the 128-256-256-128 field and with tanh, each beside
+              a float64 plain solve; fields the kernel does not take raise;
   3. grads    gradients through each kernel's autograd.Function against plain
-              autograd;
-  4. train    the main path: generate the 450 x 100 x 28 x 28 pendulum video
-              on the card, build full-width GOKU with both kernel switches on,
-              Trainer.fit for 2 epochs (6 steps each, validation after every
-              step); losses must be finite, every kernel must have launched,
-              and the kernel path must agree with the plain path;
+              autograd; the neural-field backward kernel also against the
+              plain reverse sweep over the same trajectory and in float64;
+  4. train    the main paths, on the 450 x 100 x 28 x 28 pendulum video
+              generated on the card: full-width GOKU with both kernel
+              switches on, then full-width LatentODE with the kernel solve,
+              each Trainer.fit for 2 epochs (6 steps each, validation after
+              every step); losses must be finite, every kernel must have
+              launched the expected number of times, and the kernel path must
+              agree with the plain path;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time, its bytes/operations bound and a latency
               model of its serial chain; with --profile, a torch.profiler
-              breakdown of one training step plus validation, written to
-              chiprun_out/profile_step.txt.
+              breakdown of one training step plus validation of each model,
+              written to chiprun_out/profile_step.txt and
+              chiprun_out/profile_step_latent_ode.txt.
 It then prints the kernels JSON line, the card line and, last, the result
 line {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result.
@@ -43,6 +50,27 @@ F32_FLOPS_PER_S = 67e12
 TOL = 1e-5          # kernel vs plain version, float32, both kernels
 GRAD_TOL = 1e-5     # gradients: the same recompute on the same cotangents
 PATH_TOL = 1e-4     # model output, kernel path vs plain path
+# Neural-field solve, kernel vs plain float32 (states of order 1, up to 297
+# RK steps): the products are summed in another order than aten::mm's, so
+# the two differ in the last bits and the field's dynamics carry that along.
+# Besides the absolute tolerance, the kernel may be at most twice as far from
+# a float64 plain solve as the float32 plain solve is (plus 1e-6).
+NODE_TOL = 1e-5
+# Its gradients, as max |difference| over max |gradient| of each tensor.
+# The backward kernel is held against the plain reverse sweep over the SAME
+# saved trajectory in float64, and end to end against plain autograd. For a
+# smooth field (tanh) the tolerance is 1e-5. A relu field's gradient is
+# discontinuous: a unit whose pre-activation lies within rounding of zero is
+# on in one float32 evaluation and off in another (the phase counts such
+# units), which changes the gradient by a finite amount however close the
+# two are, and the plain float32 versions are as far from float64 as the
+# kernel is (both are printed). So relu fields get RELU_GRAD_TOL, which
+# still catches a wrong derivative or a dropped term, and the arithmetic at
+# every width is pinned by the tanh cases.
+NODE_GRAD_TOL = 1e-5
+RELU_GRAD_TOL = 1e-2
+NODE_WIDTHS = (16, 200, 200, 16)
+WIDE_WIDTHS = (128, 256, 256, 128)
 
 
 def fail(msg: str):
@@ -93,6 +121,25 @@ def device_ms(fn, kernel: str, reps: int = 20):
              for e in prof.events()
              if e.device_type.name == "CUDA" and kernel in e.name)
     return us / 1e3 / reps if us else None
+
+
+def step_times(trainer, data, val_set, beta, reps: int = 5):
+    """(train step, validation pass) in ms, each the median of ``reps``
+    synchronised runs on the host clock."""
+    step_t, val_t = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(data, beta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.val_step(val_set, beta)
+        torch.cuda.synchronize()
+        step_t.append(t1 - t0)
+        val_t.append(time.perf_counter() - t1)
+    step_t.sort()
+    val_t.sort()
+    return 1e3 * step_t[reps // 2], 1e3 * val_t[reps // 2]
 
 
 def fmt_ms(ms) -> str:
@@ -170,6 +217,462 @@ def max_sm_clock_mhz() -> float:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60, check=True)
     return float(out.stdout.strip().splitlines()[0])
+
+
+def node_work(B, T, widths, substeps, tab, n_stages, backward=False):
+    """(bytes, float32 operations) of the neural-field solve or of its
+    reverse sweep. Forward: u0s, saveat and the weights in, ys out; per
+    stage the layer products (2 per multiply-add), bias and activation (2
+    per unit) and the stage combination; per step the solution update.
+    Backward: ys, g, saveat and the weights in, du0 and one weight gradient
+    out; per stage the recomputed products, the input-gradient products and
+    the weight-gradient products (three times the forward's), bias
+    gradients and activation derivatives."""
+    dim = widths[0]
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    units = sum(widths[1:])
+    n_w = macs + units
+    combos = sum(sum(1 for a in tab.a[s] if a != 0.0)
+                 for s in range(n_stages)) * 2 * dim
+    update = sum(1 for b in tab.b[:n_stages] if b != 0.0) * 2 * dim
+    steps = B * (T - 1) * substeps
+    if not backward:
+        nbytes = 4 * (B * dim + T + n_w + B * T * dim)
+        ops = steps * (n_stages * (2 * macs + 2 * units) + combos + update)
+    else:
+        nbytes = 4 * (2 * B * T * dim + T + n_w + B * dim + n_w)
+        ops = steps * (n_stages * (6 * macs + 5 * units)
+                       + 2 * (combos + update))
+    return nbytes, ops
+
+
+def node_latency_ms(T, substeps, n_stages, widths, clock_mhz,
+                    backward=False):
+    """Least time of one tile's chain if every dot product were a tree
+    reduction: per layer ceil(log2(in)) FMA levels and a block barrier, per
+    stage one more FMA for the combination. The reverse sweep recomputes the
+    stages and then walks the layers back (the weight gradients lie off the
+    chain), so its chain is twice as long."""
+    per_stage = sum(math.ceil(math.log2(w)) * FMA_CYC + BAR_CYC
+                    for w in widths[:-1]) + FMA_CYC
+    cyc = (T - 1) * substeps * (n_stages * per_stage + FMA_CYC)
+    return (2 if backward else 1) * cyc / (clock_mhz * 1e3)
+
+
+def make_field(widths, act="relu", seed=0, device="cuda"):
+    """A Chain-of-Dense field with the port's default weight init and
+    biases from N(0, 0.1^2), made on the CPU from a seed."""
+    from latentdiffeq_torch import nn
+    g = torch.Generator().manual_seed(seed)
+    m = nn.mlp(widths, getattr(nn, act), nn.identity, generator=g)
+    with torch.no_grad():
+        for lyr in m.layers:
+            lyr.b.copy_(torch.randn(lyr.b.shape, generator=g) * 0.1)
+    return m.to(device)
+
+
+def node_inputs(widths, B, T, seed, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    u0s = (torch.randn(B, widths[0], generator=g) * 0.5).to(device)
+    saveat = torch.arange(T, dtype=torch.float32, device=device) * 0.05
+    w = torch.randn(B, T, widths[0], generator=g).to(device)
+    return u0s, saveat, w
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@torch.no_grad()
+def relu_switches(m, tab, ys, saveat):
+    """(switched, all): hidden relu units whose on/off state differs between
+    a float32 and a float64 recompute of every RK stage of every interval
+    from the saved states, as the reverse sweep recomputes them."""
+    from latentdiffeq_torch.solve.rk import n_solution_stages
+    hidden = m.layers[:-1]
+    last = m.layers[-1]
+    dt = (saveat[1:] - saveat[:-1])[None, :, None]
+    switched = units = 0
+    k32, k64 = [], []
+    y32, y64 = ys[:, :-1], ys[:, :-1].double()
+    for s in range(n_solution_stages(tab)):
+        h32, h64 = y32, y64
+        for q, a in enumerate(tab.a[s]):
+            if a != 0.0:
+                h32 = h32 + (dt * a) * k32[q]
+                h64 = h64 + (dt.double() * a) * k64[q]
+        for lyr in hidden:
+            h32 = torch.relu(h32 @ lyr.W + lyr.b)
+            h64 = torch.relu(h64 @ lyr.W.double() + lyr.b.double())
+            switched += int(((h32 > 0) != (h64 > 0)).sum())
+            units += h32.numel()
+        k32.append(h32 @ last.W + last.b)
+        k64.append(h64 @ last.W.double() + last.b.double())
+    return switched, units
+
+
+def node_kernel_checks(gen_seed: int = 0) -> float:
+    """Phase 2 for the neural-field forward kernel; returns the largest
+    error against the plain float32 version."""
+    from latentdiffeq_torch import nn
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.solve.rk import RK4, Tsit5
+    cases = [("train", NODE_WIDTHS, 64, 50, Tsit5(), 1, "relu"),
+             ("val", NODE_WIDTHS, 45, 100, Tsit5(), 1, "relu"),
+             ("ragged", NODE_WIDTHS, 37, 21, Tsit5(), 1, "relu"),
+             ("rk4-substeps3", NODE_WIDTHS, 64, 50, RK4(), 3, "relu"),
+             ("d8", (8, 200, 200, 8), 64, 50, Tsit5(), 1, "relu"),
+             ("wide", WIDE_WIDTHS, 256, 50, Tsit5(), 1, "relu"),
+             ("tanh", NODE_WIDTHS, 64, 50, Tsit5(), 1, "tanh")]
+    worst = 0.0
+    with torch.no_grad():
+        for i, (label, widths, B, T, solver, sub, act) in enumerate(cases):
+            m = make_field(widths, act, seed=gen_seed + i)
+            u0s, saveat, _ = node_inputs(widths, B, T, seed=100 + i)
+            got = node_cuda.solve_neural_field_cuda(m, solver, u0s, saveat,
+                                                    substeps=sub)
+            ref = node_cuda.solve_neural_field_reference(
+                m, solver, u0s, saveat, substeps=sub)[0]
+            ref64 = node_cuda.solve_neural_field_reference(
+                copy.deepcopy(m).double(), solver, u0s.double(),
+                saveat.double(), substeps=sub)[0]
+            e = max_err(got, ref)
+            e_k, e_p = max_err(got.double(), ref64), max_err(ref.double(),
+                                                             ref64)
+            worst = max(worst, e)
+            log("kernels", f"node_field_fwd {label} {widths} B={B} T={T} "
+                           f"{type(solver).__name__} substeps={sub} {act}: "
+                           f"max abs err {e:.3e} (tol {NODE_TOL:.0e}); vs "
+                           f"float64: kernel {e_k:.3e}, plain {e_p:.3e}; "
+                           f"max |y| {float(ref.abs().max()):.3f}")
+            if not (e <= NODE_TOL and e_k <= 2 * e_p + 1e-6
+                    and bool(torch.isfinite(got).all())):
+                fail(f"node_field_fwd {label}: {e} > {NODE_TOL} or "
+                     f"{e_k} > 2 * {e_p} + 1e-6")
+
+    # no fallback: what the kernel does not take raises on CUDA tensors
+    u0s, saveat, _ = node_inputs((8, 8), 4, 5, seed=0)
+    refused = {
+        "unknown activation": (
+            ValueError, lambda: node_cuda.solve_neural_field(
+                nn.mlp((8, 16, 8), torch.nn.functional.gelu).cuda(),
+                Tsit5(), u0s, saveat)),
+        "too deep": (
+            ValueError, lambda: node_cuda.solve_neural_field(
+                nn.mlp((8,) * (node_cuda.MAX_LAYERS + 2), nn.relu).cuda(),
+                Tsit5(), u0s, saveat)),
+        "not a Chain of Dense": (
+            TypeError, lambda: node_cuda.solve_neural_field(
+                nn.Chain([nn.Dense(8, 8, nn.relu), nn.SkipConnection(
+                    nn.Dense(8, 8))]).cuda(), Tsit5(), u0s, saveat)),
+        "too wide for a block": (
+            ValueError, lambda: node_cuda.kernel_plan(
+                (4096, 4096, 4096), 6, 64, backward=True)),
+    }
+    before = (node_cuda.solve_neural_field_cuda.launches,
+              node_cuda.solve_neural_field_backward_cuda.launches)
+    for what, (exc, call) in refused.items():
+        try:
+            call()
+        except exc as err:
+            log("kernels", f"node_field refuses ({what}): "
+                           f"{type(err).__name__}: {str(err)[:90]}")
+        else:
+            fail(f"node_field: {what} did not raise")
+    if before != (node_cuda.solve_neural_field_cuda.launches,
+                  node_cuda.solve_neural_field_backward_cuda.launches):
+        fail("a refused field launched a kernel")
+    return worst
+
+
+def node_grad_checks() -> float:
+    """Phase 3 for the neural-field backward kernel; returns the largest
+    absolute error against the float64 plain reverse sweep over the same
+    saved trajectory."""
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5
+    solver = Tsit5()
+    names = ["du0", "dW0", "db0", "dW1", "db1", "dW2", "db2"]
+
+    def flat(out):
+        du0, dWs, dbs = out
+        return [du0] + [t for pair in zip(dWs, dbs) for t in pair]
+
+    def through(fn, m, u0s, saveat, w, **kw):
+        u = u0s.detach().clone().requires_grad_()
+        ys = fn(m, solver, u, saveat, **kw)[0]
+        return torch.autograd.grad((ys * w.to(ys.dtype)).sum(),
+                                   [u] + list(m.parameters()))
+
+    worst = 0.0
+    cases = [("train", NODE_WIDTHS, 64, 50, "relu"),
+             ("train-tanh", NODE_WIDTHS, 64, 50, "tanh"),
+             ("val", NODE_WIDTHS, 45, 100, "relu"),
+             ("wide", WIDE_WIDTHS, 256, 50, "relu"),
+             ("wide-tanh", WIDE_WIDTHS, 256, 50, "tanh")]
+    for i, (label, widths, B, T, act) in enumerate(cases):
+        m = make_field(widths, act, seed=20 + i)
+        m64 = copy.deepcopy(m).double()
+        u0s, saveat, w = node_inputs(widths, B, T, seed=200 + i)
+        tol = RELU_GRAD_TOL if act == "relu" else NODE_GRAD_TOL
+        # (a) the sweep alone, on the kernel's own trajectory
+        with torch.no_grad():
+            ys = node_cuda.solve_neural_field_cuda(m, solver, u0s, saveat)
+        got = flat(node_cuda.solve_neural_field_backward_cuda(
+            m, solver, saveat, ys, w))
+        ref = flat(node_cuda.solve_neural_field_backward_reference(
+            m, solver, saveat, ys, w))
+        ref64 = flat(node_cuda.solve_neural_field_backward_reference(
+            m64, solver, saveat.double(), ys.double(), w.double()))
+        e_sweep = max(rel_err(a, b) for a, b in zip(got, ref))
+        e_k = max(rel_err(a.double(), c) for a, c in zip(got, ref64))
+        e_p = max(rel_err(b.double(), c) for b, c in zip(ref, ref64))
+        e_abs = max(max_err(a.double(), c) for a, c in zip(got, ref64))
+        worst = max(worst, e_abs)
+        log("grads", f"node_field_bwd {label} {widths} B={B} T={T} {act}, "
+                     f"reverse sweep over the same ys, max rel err: kernel "
+                     f"vs float64 plain {e_k:.3e} (tol {tol:.0e}; max abs "
+                     f"err {e_abs:.3e}, largest gradient "
+                     f"{max(float(c.abs().max()) for c in ref64):.3g}), "
+                     f"float32 plain vs float64 plain {e_p:.3e}, kernel vs "
+                     f"float32 plain {e_sweep:.3e}")
+        if act == "relu":
+            flips, units = relu_switches(m, solver.tableau, ys, saveat)
+            log("grads", f"  relu units that are on in a float32 recompute "
+                         f"of the sweep's stages and off in a float64 one, or "
+                         f"the other way round: {flips} of {units}")
+        if not (e_k <= tol and (act == "relu" or e_sweep <= tol)):
+            fail(f"node_field_bwd {label} vs reverse sweep: {e_k}, "
+                 f"{e_sweep} > {tol}")
+        # (b) end to end through autograd: kernel route, recompute route,
+        # plain autograd (its own forward), float64 plain autograd
+        k = through(node_cuda.solve_neural_field, m, u0s, saveat, w)
+        r = through(node_cuda.solve_neural_field, m, u0s, saveat, w,
+                    backward="autograd")
+        p = through(node_cuda.solve_neural_field_reference, m, u0s, saveat,
+                    w)
+        d = through(node_cuda.solve_neural_field_reference, m64,
+                    u0s.double(), saveat.double(), w)
+        e_kp = [rel_err(a, b) for a, b in zip(k, p)]
+        e_kr = [rel_err(a, b) for a, b in zip(k, r)]
+        e_kd = [rel_err(a.double(), c) for a, c in zip(k, d)]
+        e_pd = [rel_err(b.double(), c) for b, c in zip(p, d)]
+        log("grads", f"node_field_bwd {label}: kernel vs plain autograd max "
+                     f"rel err {max(e_kp):.3e}, vs backward='autograd' "
+                     f"{max(e_kr):.3e} (tol {tol:.0e}); vs float64 autograd: "
+                     f"kernel {max(e_kd):.3e}, plain {max(e_pd):.3e}")
+        log("grads", "  per tensor kernel|plain vs float64: " + ", ".join(
+            f"{n} {a:.1e}|{b:.1e}" for n, a, b in zip(names, e_kd, e_pd)))
+        if not (max(e_kp) <= tol and max(e_kr) <= tol
+                and all(bool(torch.isfinite(t).all()) for t in k)):
+            fail(f"node_field_bwd {label} vs autograd: {max(e_kp)}, "
+                 f"{max(e_kr)} > {tol}")
+    return worst
+
+
+def latent_ode_path(train_set, val_set, dev, gpu):
+    """The second main path: full-width LatentODE (the defaults of
+    examples/pendulum/train_latent_ode.py) with the kernel solve,
+    Trainer.fit for 2 epochs. Returns (launches, trainer, batch, beta)."""
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (LatentDiffEqModel, LatentODE, NODE,
+                                           default_layers)
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.train import TrainConfig, Trainer
+
+    g = torch.Generator().manual_seed(1)
+    mt = LatentODE(use_kernel_solve=True)
+    node = NODE(16, options=SolveOptions(adaptive=False, substeps=1),
+                generator=g, device=dev)
+    enc, dec = default_layers(mt, 784, node, generator=g, device=dev)
+    model = LatentDiffEqModel.build(mt, enc, dec)
+    widths = tuple([node.dudt.layers[0].in_dim]
+                   + [lyr.out_dim for lyr in node.dudt.layers])
+    if widths != NODE_WIDTHS:
+        fail(f"LatentODE field widths {widths}, expected {NODE_WIDTHS}")
+    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False)
+    trainer = Trainer(model, cfg, device=dev)
+    counters = {"node_field_fwd": node_cuda.solve_neural_field_cuda,
+                "node_field_bwd": node_cuda.solve_neural_field_backward_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = train_set.shape[0] // cfg.batch_size
+    for rec in hist:
+        log("train", f"LatentODE epoch {rec['epoch']}: train loss "
+                     f"{rec['train_loss']:.6f} val loss {rec['val_loss']:.6f}"
+                     f" kl {rec['kl']:.6f} beta {rec['beta']:.4f} "
+                     f"{rec['epoch_s']:.4f} s")
+        if not (math.isfinite(rec["train_loss"])
+                and math.isfinite(rec["val_loss"])):
+            fail(f"LatentODE: non-finite loss in epoch {rec['epoch']}")
+    # forward: one per train step and one per validation pass; backward:
+    # one per train step
+    expected = {"node_field_fwd": 2 * steps * 2, "node_field_bwd": 2 * steps}
+    log("train", f"LatentODE fit 2 epochs x {steps} steps in {fit_s:.3f} s; "
+                 f"kernel launches {launches} (expected {expected})")
+    if launches != expected:
+        fail(f"LatentODE main path launched {launches}, expected {expected}")
+
+    plain = copy.deepcopy(model)
+    plain.model_type = plain.encoder.model_type = \
+        plain.decoder.model_type = LatentODE()
+    t_val = torch.arange(100, dtype=torch.float32, device=dev) * cfg.dt
+    with torch.no_grad():
+        (xk, zk, _), _, _, aux = model(val_set, t_val)
+        (xp, zp, _), _, _, _ = plain(val_set, t_val)
+    e = max(max_err(xk, xp), max_err(zk, zp))
+    log("train", f"trained LatentODE, kernel vs plain path on the val set: "
+                 f"x_hat {tuple(xk.shape)} z_hat {tuple(zk.shape)} max abs "
+                 f"err {e:.3e} (tol {PATH_TOL:.0e}); all solves ok: "
+                 f"{bool(aux['success'].all())}")
+    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())
+            and tuple(xk.shape) == (45, 100, 784)
+            and tuple(zk.shape) == (45, 100, 16)):
+        fail(f"LatentODE kernel path vs plain path: {e}")
+
+    data = train_set[:cfg.batch_size, :cfg.seq_len]
+    beta = float(hist[-1]["beta"])
+    step_ms, val_ms = step_times(trainer, data, val_set, beta)
+    log("train", f"LatentODE step time (median of 5, synchronised): train "
+                 f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; card "
+                 f"{gpu}")
+    # the same step and pass with the plain solve and autograd
+    step_ms, val_ms = step_times(Trainer(plain, cfg, device=dev), data,
+                                 val_set, beta, reps=3)
+    log("train", f"LatentODE plain path (median of 3): train step "
+                 f"{step_ms:.3f} ms, val pass {val_ms:.3f} ms")
+    return launches, trainer, data, beta
+
+
+def node_timing(clock):
+    """Phase 5 for the neural-field kernels: {name: (ms, plain_ms, bound_ms,
+    bound_by)} at the training shape; the validation shape and the wide
+    field are logged."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    solver = Tsit5()
+    tab = solver.tableau
+    n_st = n_solution_stages(tab)
+    out = {}
+    for label, widths, B, T in (("train", NODE_WIDTHS, 64, 50),
+                                ("val", NODE_WIDTHS, 45, 100),
+                                ("wide", WIDE_WIDTHS, 256, 50)):
+        m = make_field(widths, seed=40)
+        u0s, saveat, w = node_inputs(widths, B, T, seed=41)
+        reps = 20 if label != "wide" else 5
+        with torch.no_grad():
+            ys = node_cuda.solve_neural_field_cuda(m, solver, u0s, saveat)
+            f_ms = time_ms(lambda: node_cuda.solve_neural_field_cuda(
+                m, solver, u0s, saveat), reps=reps)
+            f_dev = device_ms(lambda: node_cuda.solve_neural_field_cuda(
+                m, solver, u0s, saveat), "node_field_fwd_kernel", reps=reps)
+            f_plain = time_ms(lambda: node_cuda.solve_neural_field_reference(
+                m, solver, u0s, saveat), reps=3, warmup=1)
+            b_ms_ = time_ms(
+                lambda: node_cuda.solve_neural_field_backward_cuda(
+                    m, solver, saveat, ys, w), reps=reps)
+            b_dev = device_ms(
+                lambda: node_cuda.solve_neural_field_backward_cuda(
+                    m, solver, saveat, ys, w), "node_field_bwd_kernel",
+                reps=reps)
+            sweep_ms = time_ms(
+                lambda: node_cuda.solve_neural_field_backward_reference(
+                    m, solver, saveat, ys, w), reps=2, warmup=1)
+        # plain backward: autograd through the plain solve's graph
+        u = u0s.clone().requires_grad_()
+        ys_p = node_cuda.solve_neural_field_reference(m, solver, u,
+                                                      saveat)[0]
+        targets = [u] + list(m.parameters())
+        b_plain = time_ms(lambda: torch.autograd.grad(
+            ys_p, targets, w, retain_graph=True), reps=3, warmup=1)
+        del ys_p
+        for name, k_ms, d_ms, p_ms, bwd in (
+                ("node_field_fwd", f_ms, f_dev, f_plain, False),
+                ("node_field_bwd", b_ms_, b_dev, b_plain, True)):
+            bd, by, t_b, t_o = bound_ms(*node_work(B, T, widths, 1, tab,
+                                                   n_st, backward=bwd))
+            lat = node_latency_ms(T, 1, n_st, widths, clock, backward=bwd)
+            extra = (f", plain reverse sweep {sweep_ms:.4f} ms"
+                     if bwd else "")
+            log("timing", f"{name} {label} {widths} B={B} T={T}: kernel "
+                          f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
+                          f"device), plain {p_ms:.4f} ms{extra}, bound "
+                          f"{bd:.6f} ms ({by}; bytes {t_b:.6f} ms, "
+                          f"operations {t_o:.6f} ms), latency model "
+                          f"{lat:.6f} ms at {clock:.0f} MHz")
+            if label == "train":
+                out[name] = (k_ms, p_ms, bd, by)
+        if label == "train":
+            # rows per block: the host side's default (one row a block at
+            # this batch, so 64 SMs work) against fuller tiles
+            with torch.no_grad():
+                for rows in (1, 2, 4, 8):
+                    rf = time_ms(lambda: node_cuda.solve_neural_field_cuda(
+                        m, solver, u0s, saveat, rows_per_block=rows))
+                    rb = time_ms(
+                        lambda: node_cuda.solve_neural_field_backward_cuda(
+                            m, solver, saveat, ys, w, rows_per_block=rows),
+                        reps=10)
+                    log("timing", f"node_field train, {rows} rows a block "
+                                  f"({-(-B // rows)} blocks): forward "
+                                  f"{rf:.4f} ms, backward {rb:.4f} ms per "
+                                  f"call")
+            # the kernel route calls no library matrix product
+            u = u0s.clone().requires_grad_()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                ys_k = node_cuda.solve_neural_field(m, solver, u, saveat)[0]
+                torch.autograd.grad(ys_k, [u] + list(m.parameters()), w)
+                torch.cuda.synchronize()
+            ops = sorted({e.name for e in prof.events()
+                          if e.device_type.name == "CPU"
+                          and e.name.startswith("aten::")})
+            devk = sorted({e.name[:60] for e in prof.events()
+                           if e.device_type.name == "CUDA"})
+            log("timing", f"solve_neural_field forward + backward, kernel "
+                          f"route: aten ops {ops}")
+            log("timing", f"  device kernels {devk}")
+            banned = [o for o in ops if any(
+                k in o for k in ("mm", "matmul", "linear", "bmm", "einsum"))]
+            if banned or not (any("node_field_fwd_kernel" in k for k in devk)
+                              and any("node_field_bwd_kernel" in k
+                                      for k in devk)):
+                fail(f"kernel route ran {banned}; device kernels {devk}")
+    return out
+
+
+def profile_step(trainer, data, val_set, beta, fname, what):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(data, beta)
+        trainer.val_step(val_set, beta)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=25)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", fname), "w") as f:
+        f.write(table)
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(getattr(e, "device_time", None)
+                  or getattr(e, "cuda_time", 0) for e in evs)
+    span_us = (max(e.time_range.end for e in evs)
+               - min(e.time_range.start for e in evs)) if evs else 0
+    log("profile", f"{what}, one train step + val pass: {len(evs)} device "
+                   f"ops, device busy {busy_us / 1e3:.3f} ms of a "
+                   f"{span_us / 1e3:.3f} ms span; table in "
+                   f"chiprun_out/{fname}")
+    for line in table.splitlines()[:14]:
+        log("profile", line)
 
 
 def bound_ms(nbytes, flops):
@@ -257,6 +760,7 @@ def main():
                            f"{e:.3e} (tol {TOL:.0e})")
             if not e <= TOL:
                 fail(f"rk_fixed_grid {label}: {e} > {TOL}")
+    errs["node_field_fwd"] = node_kernel_checks()
     torch.cuda.synchronize()
 
     # ---- 3. gradients -----------------------------------------------------
@@ -294,6 +798,8 @@ def main():
     log("grads", f"rk_fixed_grid: max abs err {e:.3e} (tol {GRAD_TOL:.0e})")
     if not e <= GRAD_TOL:
         fail(f"rk_fixed_grid grads: {e} > {GRAD_TOL}")
+
+    errs["node_field_bwd"] = node_grad_checks()
 
     # ---- 4. main path: GOKU training on pendulum video --------------------
     t0 = time.perf_counter()
@@ -366,20 +872,14 @@ def main():
     # step time, synchronised: one training step, then the validation pass
     data = train_set[:cfg.batch_size, :cfg.seq_len]
     beta = float(hist[-1]["beta"])
-    step_t, val_t = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(data, beta)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        trainer.val_step(val_set, beta)
-        torch.cuda.synchronize()
-        step_t.append(t1 - t0)
-        val_t.append(time.perf_counter() - t1)
+    step_ms, val_ms = step_times(trainer, data, val_set, beta)
     log("train", f"step time (median of 5, synchronised): train step "
-                 f"{1e3 * float(np.median(step_t)):.3f} ms, val pass "
-                 f"{1e3 * float(np.median(val_t)):.3f} ms; card {gpu}")
+                 f"{step_ms:.3f} ms, val pass {val_ms:.3f} ms; card {gpu}")
+
+    # ---- 4b. second main path: LatentODE training on the same video ------
+    node_launches, node_trainer, node_data, node_beta = latent_ode_path(
+        train_set, val_set, dev, gpu)
+    launches.update(node_launches)
 
     # ---- 5. kernel timing -------------------------------------------------
     tab = Tsit5().tableau
@@ -425,11 +925,17 @@ def main():
                           f"at {clock:.0f} MHz")
             if label == "train":
                 rk_t = (k_ms, p_ms, b_ms, b_by)
+    node_t = node_timing(clock)
     for name, src, replaces, (k_ms, p_ms, b_ms, b_by) in (
             ("goku_heads", "latentdiffeq_torch/csrc/goku_heads.cu",
              "latentdiffeq/ops/recurrent_pallas.py:86", heads_t),
             ("rk_fixed_grid", "latentdiffeq_torch/csrc/rk_fixed_grid.cu",
-             "latentdiffeq/ops/ode_pallas.py:130", rk_t)):
+             "latentdiffeq/ops/ode_pallas.py:130", rk_t),
+            ("node_field_fwd", "latentdiffeq_torch/csrc/node_field.cu",
+             "latentdiffeq/ops/node_pallas.py:154", node_t["node_field_fwd"]),
+            ("node_field_bwd", "latentdiffeq_torch/csrc/node_field.cu",
+             "latentdiffeq/ops/node_pallas.py:269",
+             node_t["node_field_bwd"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": k_ms,
@@ -437,29 +943,9 @@ def main():
                         "bound_by": b_by, "library_ms": None})
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            trainer.train_step(data, beta)
-            trainer.val_step(val_set, beta)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=25)
-        os.makedirs("chiprun_out", exist_ok=True)
-        with open(os.path.join("chiprun_out", "profile_step.txt"), "w") as f:
-            f.write(table)
-        evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        busy_us = sum(getattr(e, "device_time", None)
-                      or getattr(e, "cuda_time", 0) for e in evs)
-        span_us = (max(e.time_range.end for e in evs)
-                   - min(e.time_range.start for e in evs)) if evs else 0
-        log("profile", f"one train step + val pass: {len(evs)} device ops, "
-                       f"device busy {busy_us / 1e3:.3f} ms of a "
-                       f"{span_us / 1e3:.3f} ms span; table in "
-                       f"chiprun_out/profile_step.txt")
-        for line in table.splitlines()[:14]:
-            log("profile", line)
+        profile_step(trainer, data, val_set, beta, "profile_step.txt", "GOKU")
+        profile_step(node_trainer, node_data, val_set, node_beta,
+                     "profile_step_latent_ode.txt", "LatentODE")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

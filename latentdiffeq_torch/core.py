@@ -1,4 +1,4 @@
-"""Device selection for the PyTorch port.
+"""Device selection and the identity layer of the PyTorch port.
 
 Every entry point of the port (model construction, the data generator, the
 trainer) takes an explicit ``device``. The default is the card: without
@@ -11,7 +11,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "DeviceLike"]
+__all__ = ["resolve_device", "DeviceLike", "Identity"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -30,3 +30,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class Identity(torch.nn.Module):
+    """The identity layer, parameter-free (the LatentODE ``latent_out``
+    slot; reference: ``x -> x`` at LatentODE.jl:149)."""
+
+    def forward(self, x):
+        return x

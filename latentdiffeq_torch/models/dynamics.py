@@ -1,20 +1,24 @@
-"""Dynamics spec for the diffeq slot (counterpart of
-latentdiffeq/models/dynamics.py:35-45).
+"""Dynamics specs for the diffeq slot (counterpart of
+latentdiffeq/models/dynamics.py:35-45, 73-93).
 
 ``ODEDynamics`` is static configuration with no parameters: a mechanistic
 vector field ``f(u, theta, t)`` whose parameters theta the GOKU encoder
-infers per sample.
+infers per sample. ``NeuralODEDynamics`` holds the trainable vector field
+of a Latent ODE, so it is a module whose child ``dudt`` registers its
+weights (``decoder/diffeq/dudt/layers/...`` in the checkpoint).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+from torch import nn
+
 from ..adjoint.modes import AbstractSensealg, Unrolled
 from ..adjoint.odeint import SolveOptions
 from ..solve.rk import AbstractSolver, Tsit5
 
-__all__ = ["ODEDynamics"]
+__all__ = ["ODEDynamics", "NeuralODEDynamics"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,3 +30,30 @@ class ODEDynamics:
     sensealg: AbstractSensealg = Unrolled()
     options: SolveOptions = SolveOptions()
     transform: Optional[Callable] = None
+
+
+class NeuralODEDynamics(nn.Module):
+    """Neural ODE latent dynamics (reference: nODE.jl:13-31).
+
+    ``dudt``: trainable network mapping (..., dim) -> (..., dim) with
+    dim = latent_dim_in + augment_dim. ``augment_dim > 0`` gives an
+    augmented neural ODE: the initial state is padded with zeros
+    (reference: LatentODE.jl:72). The other fields are static."""
+
+    def __init__(self, dudt: nn.Module, latent_dim_in: int = 16,
+                 augment_dim: int = 0, solver: AbstractSolver = Tsit5(),
+                 sensealg: AbstractSensealg = Unrolled(),
+                 options: SolveOptions = SolveOptions(),
+                 transform: Optional[Callable] = None):
+        super().__init__()
+        self.dudt = dudt
+        self.latent_dim_in = latent_dim_in
+        self.augment_dim = augment_dim
+        self.solver = solver
+        self.sensealg = sensealg
+        self.options = options
+        self.transform = transform
+
+    @property
+    def latent_dim_out(self) -> int:
+        return self.latent_dim_in + self.augment_dim

@@ -75,7 +75,10 @@ class Decoder(nn.Module):
                  model_type: ModelType):
         super().__init__()
         self.latent_out = _slot(latent_out)
-        self.diffeq = diffeq          # static spec, no parameters
+        # a static spec (ODEDynamics) or a module whose weights register
+        # here, between latent_out's and the reconstructor's
+        # (NeuralODEDynamics)
+        self.diffeq = diffeq
         self.reconstructor = _slot(reconstructor)
         self.model_type = model_type
 

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per Pallas TPU kernel
 of the JAX package, each beside its plain PyTorch version."""
 from ._build import build_kernels, load_kernel
+from .node_cuda import (solve_neural_field, solve_neural_field_cuda,
+                        solve_neural_field_backward_cuda,
+                        solve_neural_field_reference,
+                        solve_neural_field_backward_reference)
 from .ode_cuda import (solve_fixed_grid_batched,
                        solve_fixed_grid_batched_cuda,
                        solve_fixed_grid_batched_reference)
@@ -10,4 +14,8 @@ from .recurrent_cuda import (goku_heads, goku_heads_cuda,
 __all__ = ["build_kernels", "load_kernel", "solve_fixed_grid_batched",
            "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_reference", "goku_heads",
-           "goku_heads_cuda", "goku_heads_reference", "pack_goku_heads"]
+           "goku_heads_cuda", "goku_heads_reference", "pack_goku_heads",
+           "solve_neural_field", "solve_neural_field_cuda",
+           "solve_neural_field_backward_cuda",
+           "solve_neural_field_reference",
+           "solve_neural_field_backward_reference"]

@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 KERNEL_SOURCES = {
     "goku_heads": "goku_heads.cu",
     "rk_fixed_grid": "rk_fixed_grid.cu",
+    "node_field": "node_field.cu",
 }
 
 # -Xptxas=-v records registers, shared memory and spills in the build log.

@@ -18,7 +18,7 @@ from typing import Callable
 import torch
 
 from ..solve.fixed import fixed_grid_stats, solve_fixed_grid
-from ..solve.rk import AbstractSolver, n_solution_stages
+from ..solve.rk import AbstractSolver, n_solution_stages, tableau_f32
 from ._build import load_kernel
 
 __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
@@ -60,18 +60,6 @@ def _lib():
     return lib
 
 
-def _tableau_f32(solver: AbstractSolver, n_stages: int):
-    """(a, b, c) as float32 host tensors, a row-major (n, n)."""
-    tab = solver.tableau
-    a = torch.zeros(n_stages, n_stages, dtype=torch.float32)
-    for i in range(n_stages):
-        for j, aij in enumerate(tab.a[i]):
-            a[i, j] = aij
-    b = torch.tensor(tab.b[:n_stages], dtype=torch.float32)
-    c = torch.tensor(tab.c[:n_stages], dtype=torch.float32)
-    return a.contiguous(), b, c
-
-
 def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
                                   ps, saveat, *, substeps: int = 1):
     """Launch the kernel once (no autograd); returns ys (B, T, dim)."""
@@ -90,8 +78,7 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
         raise ValueError("substeps must be >= 1")
     u0s, ps, saveat = u0s.contiguous(), ps.contiguous(), saveat.contiguous()
     B, T = u0s.shape[0], saveat.shape[0]
-    n_stages = n_solution_stages(solver.tableau)
-    a, b, c = _tableau_f32(solver, n_stages)
+    n_stages, a, b, c = tableau_f32(solver)
     ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
     lib = _lib()
     stream = torch.cuda.current_stream(u0s.device).cuda_stream

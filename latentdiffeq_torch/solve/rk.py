@@ -8,12 +8,13 @@ the JAX package. States carry any leading batch dimensions: the RHS
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 __all__ = ["ButcherTableau", "AbstractSolver", "Euler", "Midpoint", "RK4",
-           "Tsit5", "Dopri5", "rk_step", "n_solution_stages"]
+           "Tsit5", "Dopri5", "rk_step", "n_solution_stages", "tableau_f32"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +129,23 @@ def n_solution_stages(tab: ButcherTableau) -> int:
     (Tsit5's FSAL 7th stage is skipped). Every fixed-step path and kernel
     agrees on it."""
     return max(i for i in range(len(tab.b)) if tab.b[i] != 0.0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def tableau_f32(solver: AbstractSolver):
+    """``(n_stages, a, b, c)`` of the fixed-step method for the CUDA
+    kernels: the first ``n_solution_stages`` stages as float32 host tensors,
+    ``a`` row-major (n, n). Built once per solver (solvers are frozen
+    dataclasses, so they hash by value); callers must not write to them."""
+    tab = solver.tableau
+    n = n_solution_stages(tab)
+    a = torch.zeros(n, n, dtype=torch.float32)
+    for i in range(n):
+        for j, aij in enumerate(tab.a[i]):
+            a[i, j] = aij
+    b = torch.tensor(tab.b[:n], dtype=torch.float32)
+    c = torch.tensor(tab.c[:n], dtype=torch.float32)
+    return n, a.contiguous(), b, c
 
 
 def rk_step(f: Callable, tab: ButcherTableau, y, p, t, dt, f0=None,

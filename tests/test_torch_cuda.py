@@ -7,16 +7,27 @@ runs on a machine that has no JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Float32 with TF32 off; kernel vs plain version atol 1e-5 (the same
-arithmetic, summed in another order).
+arithmetic, summed in another order). The neural-field backward kernel is
+held to 1e-5 of each gradient's size against the plain reverse sweep over
+the same saved trajectory, in float32 and in float64, and against plain
+autograd, for smooth fields (tanh, sigmoid, softplus). A relu field's
+gradient jumps when a unit's pre-activation lies within rounding of zero,
+on in one evaluation and off in the other, however close the two are; the
+plain float32 versions are then as far from float64 as the kernel is, so
+relu fields get 1e-2 against the float64 sweep and against autograd.
 """
+import copy
+
+
 import pytest
 import torch
 
 from latentdiffeq_torch import nn as tnn
 from latentdiffeq_torch.adjoint import SolveOptions
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                       LatentODE, NODE, default_layers,
                                        goku_default_layers)
-from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
 from latentdiffeq_torch.pendulum import (Pendulum, pendulum_f,
                                          pendulum_friction_f)
 from latentdiffeq_torch.solve import rk as trk
@@ -134,3 +145,196 @@ def test_goku_kernel_path_matches_plain_path_on_card(dev):
     assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1]
     assert xk.shape == (6, 10, 24) and bool(torch.isfinite(xk).all())
     assert float((xk - xp).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The neural-field solve (csrc/node_field.cu).
+
+def field_on(dev, widths, act=tnn.relu, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    m = tnn.mlp(widths, act, tnn.identity, generator=g)
+    with torch.no_grad():
+        for lyr in m.layers:
+            lyr.b.copy_(torch.randn(lyr.b.shape, generator=g) * 0.1)
+    return m.to(dev)
+
+
+def field_inputs(dev, widths, B, T, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    u0s = (torch.randn(B, widths[0], generator=g) * 0.5).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
+    w = torch.randn(B, T, widths[0], generator=g).to(dev)
+    return u0s, saveat, w
+
+
+def rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+FIELD_CASES = [
+    ("train", (16, 200, 200, 16), 64, 50, "Tsit5", 1, tnn.relu),
+    ("val", (16, 200, 200, 16), 45, 100, "Tsit5", 1, tnn.relu),
+    ("ragged", (16, 200, 200, 16), 37, 21, "Tsit5", 1, tnn.relu),
+    ("rk4-substeps3", (16, 200, 200, 16), 64, 50, "RK4", 3, tnn.relu),
+    ("d8", (8, 200, 200, 8), 64, 50, "Tsit5", 1, tnn.relu),
+    ("small", (8, 16, 16, 8), 20, 7, "Tsit5", 1, tnn.relu),
+    ("wide", (128, 256, 256, 128), 256, 50, "Tsit5", 1, tnn.relu),
+    ("tanh", (16, 200, 200, 16), 64, 50, "Tsit5", 1, tnn.tanh),
+    ("val-softplus", (16, 200, 200, 16), 45, 100, "Tsit5", 1, tnn.softplus),
+    ("wide-tanh", (128, 256, 256, 128), 256, 50, "Tsit5", 1, tnn.tanh),
+    ("odd-softplus", (5, 7, 9, 5), 11, 6, "Dopri5", 2, tnn.softplus),
+    ("one-layer-sigmoid", (3, 3), 5, 6, "Euler", 1, tnn.sigmoid),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,widths,B,T,solver,substeps,act", FIELD_CASES,
+                         ids=[c[0] for c in FIELD_CASES])
+def test_neural_field_kernels_match_plain_on_card(dev, label, widths, B, T,
+                                                  solver, substeps, act):
+    """Forward kernel vs the plain solve (atol 1e-5, and no more than twice
+    as far from a float64 plain solve as the float32 plain solve is, plus
+    1e-6); backward kernel vs the plain reverse sweep over the same
+    trajectory in float64 (1e-5 of each gradient's size, relu 1e-2) and,
+    for a smooth field, in float32 (1e-5)."""
+    s = getattr(trk, solver)()
+    m = field_on(dev, widths, act)
+    if len(widths) == 2:      # a single layer keeps its activation
+        m.layers[0].activation = act
+    u0s, saveat, w = field_inputs(dev, widths, B, T)
+    with torch.no_grad():
+        ys = node_cuda.solve_neural_field_cuda(m, s, u0s, saveat,
+                                               substeps=substeps)
+        ref = node_cuda.solve_neural_field_reference(
+            m, s, u0s, saveat, substeps=substeps)[0]
+        ref64 = node_cuda.solve_neural_field_reference(
+            copy.deepcopy(m).double(), s, u0s.double(), saveat.double(),
+            substeps=substeps)[0]
+    assert ys.shape == (B, T, widths[0])
+    assert float((ys - ref).abs().max()) <= ATOL
+    assert float((ys - ref64).abs().max()) <= 2 * float(
+        (ref - ref64).abs().max()) + 1e-6
+    du0, dWs, dbs = node_cuda.solve_neural_field_backward_cuda(
+        m, s, saveat, ys, w, substeps=substeps)
+    ru0, rWs, rbs = node_cuda.solve_neural_field_backward_reference(
+        m, s, saveat, ys, w, substeps=substeps)
+    du0_64, dWs_64, dbs_64 = node_cuda.solve_neural_field_backward_reference(
+        copy.deepcopy(m).double(), s, saveat.double(), ys.double(),
+        w.double(), substeps=substeps)
+    tol = 1e-2 if act is tnn.relu else 1e-5
+    for a, b, c in zip([du0, *dWs, *dbs], [ru0, *rWs, *rbs],
+                       [du0_64, *dWs_64, *dbs_64]):
+        assert a.shape == b.shape
+        assert rel(a.double(), c) <= tol
+        if act is not tnn.relu:
+            assert rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_neural_field_kernels_at_every_tile_size_on_card(dev, rows):
+    """A ragged batch (37 rows) with 1, 2, 4 and 8 rows a block: rows past
+    the batch end add nothing to the weight gradients."""
+    s = trk.Tsit5()
+    widths = (8, 16, 16, 8)
+    m = field_on(dev, widths, tnn.tanh, seed=3)
+    u0s, saveat, w = field_inputs(dev, widths, 37, 9, seed=4)
+    with torch.no_grad():
+        ys = node_cuda.solve_neural_field_cuda(m, s, u0s, saveat,
+                                               rows_per_block=rows)
+        ref = node_cuda.solve_neural_field_reference(m, s, u0s, saveat)[0]
+    assert float((ys - ref).abs().max()) <= ATOL
+    got = node_cuda.solve_neural_field_backward_cuda(
+        m, s, saveat, ys, w, rows_per_block=rows)
+    want = node_cuda.solve_neural_field_backward_reference(m, s, saveat, ys,
+                                                           w)
+    for a, b in zip([got[0], *got[1], *got[2]],
+                    [want[0], *want[1], *want[2]]):
+        assert rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,tol", [(tnn.tanh, 1e-5), (tnn.relu, 1e-2)],
+                         ids=["tanh", "relu"])
+def test_neural_field_gradients_match_plain_autograd_on_card(dev, act, tol):
+    """d sum(w * ys) / d (u0s, W, b) through the backward kernel against
+    plain autograd through the plain solve and against
+    backward="autograd", at the training shape."""
+    s = trk.Tsit5()
+    widths = (16, 200, 200, 16)
+    m = field_on(dev, widths, act, seed=5)
+    u0s, saveat, w = field_inputs(dev, widths, 64, 50, seed=6)
+
+    def grads(fn, **kw):
+        u = u0s.clone().requires_grad_()
+        ys = fn(m, s, u, saveat, **kw)[0]
+        return torch.autograd.grad((ys * w).sum(), [u] + list(m.parameters()))
+
+    before = (node_cuda.solve_neural_field_cuda.launches,
+              node_cuda.solve_neural_field_backward_cuda.launches)
+    k = grads(node_cuda.solve_neural_field)
+    assert (node_cuda.solve_neural_field_cuda.launches - before[0],
+            node_cuda.solve_neural_field_backward_cuda.launches
+            - before[1]) == (1, 1)
+    r = grads(node_cuda.solve_neural_field, backward="autograd")
+    p = grads(node_cuda.solve_neural_field_reference)
+    for a, b, c in zip(k, r, p):
+        assert rel(a, c) <= tol and rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+def test_neural_field_kernel_refuses_what_it_does_not_take_on_card(dev):
+    """No fallback on CUDA tensors: an unknown activation, a field deeper
+    than MAX_LAYERS, one too wide for a block's shared memory and a
+    non-float32 state raise, and nothing launches."""
+    s = trk.Tsit5()
+    u0s, saveat, _ = field_inputs(dev, (8, 8), 4, 5)
+    before = (node_cuda.solve_neural_field_cuda.launches,
+              node_cuda.solve_neural_field_backward_cuda.launches)
+    with pytest.raises(ValueError, match="activations"):
+        node_cuda.solve_neural_field(
+            tnn.mlp((8, 16, 8), torch.nn.functional.gelu).to(dev), s, u0s,
+            saveat)
+    with pytest.raises(ValueError, match="layers"):
+        node_cuda.solve_neural_field(
+            tnn.mlp((8,) * (node_cuda.MAX_LAYERS + 2), tnn.relu).to(dev), s,
+            u0s, saveat)
+    with pytest.raises(ValueError, match="too wide"):
+        node_cuda.kernel_plan((4096, 4096, 4096), 6, 64, backward=True)
+    with pytest.raises(ValueError, match="float32"):
+        node_cuda.solve_neural_field(field_on(dev, (8, 16, 8)), s,
+                                     u0s.double(), saveat)
+    assert before == (node_cuda.solve_neural_field_cuda.launches,
+                      node_cuda.solve_neural_field_backward_cuda.launches)
+
+
+@pytest.mark.cuda
+def test_latent_ode_kernel_path_matches_plain_path_on_card(dev):
+    """A small LatentODE with the kernel solve launches the forward kernel
+    once per forward and the backward kernel once per backward, and agrees
+    with the same weights run plainly, outputs and gradients."""
+    node = NODE(6, hidden_dim=16, augment_dim=2, activation=tnn.tanh,
+                device=dev, options=SolveOptions(adaptive=False, substeps=1))
+    layers = default_layers(LatentODE(), 24, node, hidden_dim_resnet=16,
+                            rnn_input_dim=8, rnn_output_dim=8, device=dev)
+    km = LatentDiffEqModel.build(LatentODE(use_kernel_solve=True), *layers)
+    pm = LatentDiffEqModel.build(LatentODE(), *layers)
+    x = torch.rand(6, 10, 24, device=dev)
+    t = torch.arange(10, dtype=torch.float32, device=dev) * 0.05
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.solve_neural_field_backward_cuda)
+    before = [fn.launches for fn in counters]
+    params = list(km.parameters())
+    eps = torch.randn(6, 6, device=dev)
+    (xk, zk, _), _, _, aux = km(x, t, variational=True, eps=eps)
+    gk = torch.autograd.grad((xk ** 2).sum(), params)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1]
+    (xp, zp, _), _, _, _ = pm(x, t, variational=True, eps=eps)
+    gp = torch.autograd.grad((xp ** 2).sum(), params)
+    assert xk.shape == (6, 10, 24) and zk.shape == (6, 10, 8)
+    assert bool(aux["success"].all())
+    assert int(aux["stats"]["n_rhs_evals"]) == 6 * 9 * 6
+    assert float((xk - xp).abs().max()) <= 1e-4
+    assert float((zk - zp).abs().max()) <= 1e-4
+    for a, b in zip(gk, gp):
+        assert rel(a, b) <= 1e-4

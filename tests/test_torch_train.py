@@ -1,7 +1,8 @@
 """Parity of the PyTorch port's training pieces against the JAX package, on
 the CPU: losses, the KL schedule, Flux ADAMW over three GOKU training
-steps, the pendulum renderer and data generator, the trainer loop, and the
-rule that the port never imports JAX or the JAX package."""
+steps and two variational LatentODE steps, the pendulum renderer and data
+generator, the trainer loop for both model types, and the rule that the
+port never imports JAX or the JAX package."""
 import ast
 import os
 import sys
@@ -19,6 +20,8 @@ from pendulum import Pendulum as JPendulum  # noqa: E402
 
 from latentdiffeq import make_options  # noqa: E402
 from latentdiffeq.models import GOKUBasic as JGOKUBasic  # noqa: E402
+from latentdiffeq.models import LatentODE as JLatentODE  # noqa: E402
+from latentdiffeq.models import NODE as JNODE  # noqa: E402
 from latentdiffeq.models import LatentDiffEqModel as JModel  # noqa: E402
 from latentdiffeq.models import default_layers as jdefault_layers  # noqa: E402
 from latentdiffeq.train import annealing as jann  # noqa: E402
@@ -28,6 +31,7 @@ from latentdiffeq.train.checkpoint import _path_str  # noqa: E402
 from latentdiffeq_torch import pendulum_data  # noqa: E402
 from latentdiffeq_torch.adjoint import SolveOptions  # noqa: E402
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,  # noqa: E402
+                                       LatentODE, NODE, default_layers,
                                        goku_default_layers)
 from latentdiffeq_torch.pendulum import Pendulum  # noqa: E402
 from latentdiffeq_torch.train import (DataLoader, TrainConfig,  # noqa: E402
@@ -166,6 +170,120 @@ def test_adamw_three_training_steps_track_jax():
                                        rtol=0, atol=1e-5,
                                        err_msg=f"step {step}")
     assert trainer.opt.t == int(jstate["t"]) == 3
+
+
+LODE = dict(hidden_dim_resnet=16, rnn_input_dim=8, rnn_output_dim=8)
+
+
+def latent_ode_pair(seed=0, scale=0.2, use_kernel_solve=False):
+    """A narrow LatentODE (input 24, latent 6, field 6-16-16-6) in both
+    packages, the same random weights."""
+    kn, kl = jax.random.split(jax.random.PRNGKey(seed))
+    jnode = JNODE(kn, 6, hidden_dim=16,
+                  options=make_options(adaptive=False, substeps=1))
+    enc, dec = jdefault_layers(kl, JLatentODE(), D_IN, jnode, **LODE)
+    jm = JModel.build(JLatentODE(), enc, dec)
+    rng = np.random.default_rng(seed)
+    leaves, treedef = jax.tree_util.tree_flatten(jm)
+    jm = jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray((rng.normal(size=l.shape) * scale).astype(np.float32))
+        for l in leaves])
+    mt = LatentODE(use_kernel_solve=use_kernel_solve)
+    node = NODE(6, hidden_dim=16, device="cpu",
+                options=SolveOptions(adaptive=False, substeps=1))
+    tenc, tdec = default_layers(mt, D_IN, node, device="cpu", **LODE)
+    tm = LatentDiffEqModel.build(mt, tenc, tdec)
+    load_jax_params(tm, {_path_str(p): np.asarray(l) for p, l in
+                         jax.tree_util.tree_flatten_with_path(jm)[0]})
+    return jm, tm
+
+
+@pytest.mark.parametrize("use_kernel_solve", [False, True])
+def test_latent_ode_two_adamw_steps_track_jax(use_kernel_solve):
+    """Two variational LatentODE steps with Flux ADAMW (decay 1e-4), the
+    reparameterisation noise fixed to what the JAX model draws from its
+    key: loss and KL agree to rtol 1e-5 and every parameter to atol 1e-5
+    (one Adam step moves a weight by lr = 1e-3, so 1e-5 is 1 % of a step).
+    With the switch on, CPU tensors take the gradient of the solve with
+    the hand-written reverse sweep of the backward kernel."""
+    jm, tm = latent_ode_pair(seed=3, use_kernel_solve=use_kernel_solve)
+    cfg = TrainConfig(lr=1e-3, decay=1e-4, batch_size=6, seq_len=8, seed=1,
+                      save_best=False)
+    trainer = Trainer(tm, cfg, device="cpu")
+    jopt = joptim.adamw(cfg.lr, 0.9, 0.999, cfg.decay)
+    jstate = jopt.init(jm)
+    t = jnp.arange(cfg.seq_len, dtype=jnp.float32) * cfg.dt
+
+    @jax.jit
+    def jstep(m, st, x, beta, key):
+        def lf(mm):
+            return jlosses.loss_batch(mm, x, t, beta, variational=True,
+                                      key=key)
+        (loss, metrics), g = jax.value_and_grad(lf, has_aux=True)(m)
+        upd, st = jopt.update(g, st, m)
+        return joptim.apply_updates(m, upd), st, loss, metrics["kl"]
+
+    full, _ = data(B=6, T=20, seed=4)
+    for step, (start, beta) in enumerate(((2, 0.3), (9, 1.0))):
+        x = full[:, start:start + cfg.seq_len]
+        key = jax.random.PRNGKey(10 + step)
+        eps = torch.from_numpy(np.array(jax.random.normal(
+            jax.random.split(key)[0], (6, 6))))
+        jm, jstate, lj, klj = jstep(jm, jstate, jnp.asarray(x), beta, key)
+        mt = trainer.train_step(torch.from_numpy(x), beta, eps=eps)
+        np.testing.assert_allclose(float(mt["loss"]), float(lj), rtol=1e-5)
+        np.testing.assert_allclose(float(mt["kl"]), float(klj), rtol=1e-5)
+        assert int(mt["n_rhs_evals"]) == 6 * 7 * 6
+        for p, leaf in zip(tm.parameters(), jax.tree_util.tree_leaves(jm)):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(leaf),
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"step {step}")
+    assert trainer.opt.t == int(jstate["t"]) == 2
+
+
+@pytest.mark.parametrize("use_kernel_solve", [False, True])
+def test_latent_ode_trainer_save_restore_round_trip(tmp_path,
+                                                    use_kernel_solve):
+    """Trainer.fit on a LatentODE (single-tensor latent, parameters in the
+    diffeq slot): finite losses, a best snapshot, and a checkpoint that
+    restores the weights, Adam moments and epoch into a fresh trainer,
+    which then steps exactly as the first one does."""
+    _, tm = latent_ode_pair(seed=5, use_kernel_solve=use_kernel_solve)
+    x = np.random.default_rng(6).uniform(0, 1, (20, 12, D_IN)).astype(
+        np.float32)
+    tr, va = splitobs(x, 0.8)
+    cfg = TrainConfig(decay=1e-4, seed=1, batch_size=8, seq_len=8, epochs=10,
+                      checkpoint_dir=str(tmp_path))
+    trainer = Trainer(tm, cfg, device="cpu")
+    hist = trainer.fit(tr, va, epochs=2, verbose=False)
+    assert [h["epoch"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"])
+               and np.isfinite(h["kl"]) for h in hist)
+    assert trainer.best_val_loss == min(h["val_loss"] for h in hist)
+    assert set(trainer.best["model"]) == set(tm.state_dict())
+    assert "decoder.diffeq.dudt.layers.1.W" in trainer.best["model"]
+    path = str(tmp_path / "latent_ode.npz")
+    trainer.save(path)
+    with np.load(path) as d:
+        assert "leaf::model/decoder/diffeq/dudt/layers/2/b" in d.files
+        assert "leaf::opt_state/v/decoder/diffeq/dudt/layers/0/W" in d.files
+    _, other = latent_ode_pair(seed=7, use_kernel_solve=use_kernel_solve)
+    trainer2 = Trainer(other, cfg, device="cpu").restore(path)
+    assert trainer2.epoch == 2 and trainer2.opt.t == trainer.opt.t
+    assert trainer2.best_val_loss == trainer.best_val_loss
+    for a, b in zip(trainer.model.parameters(), trainer2.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(trainer.opt.m + trainer.opt.v,
+                    trainer2.opt.m + trainer2.opt.v):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    eps = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(8, 6)).astype(np.float32))
+    xb = torch.from_numpy(tr[:8, :8])
+    la = trainer.train_step(xb, 0.5, eps=eps)["loss"]
+    lb = trainer2.train_step(xb, 0.5, eps=eps)["loss"]
+    assert float(la) == float(lb)
+    for a, b in zip(trainer.model.parameters(), trainer2.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_render_frames_match_jax():
