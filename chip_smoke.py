@@ -9,10 +9,13 @@ Phases, each printing one line (any failure exits non-zero):
               (TF32 off) at the training, validation and a ragged batch shape;
               the neural-field solve also with RK4 and sub-steps, at the
               8-wide and the 128-256-256-128 field and with tanh, each beside
-              a float64 plain solve; fields the kernel does not take raise;
+              a float64 plain solve, and its tape-writing variant against the
+              plain tape; fields the kernel does not take raise;
   3. grads    gradients through each kernel's autograd.Function against plain
-              autograd; the neural-field backward kernel also against the
-              plain reverse sweep over the same trajectory and in float64;
+              autograd; the neural-field sweep and weight-gradient kernels
+              against their plain versions on the same tape, and the whole
+              backward against the plain reverse sweep that recomputes from
+              the same trajectory, in float32 and float64;
   4. train    the main paths, on the 450 x 100 x 28 x 28 pendulum video
               generated on the card: full-width GOKU with both kernel
               switches on, then full-width LatentODE with the kernel solve,
@@ -23,7 +26,11 @@ Phases, each printing one line (any failure exits non-zero):
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time, its bytes/operations bound and a latency
-              model of its serial chain; with --profile, a torch.profiler
+              model of its serial chain; the neural-field kernels' launch
+              plan and their time at 1 and 2 rows a block; the three cuDNN
+              calls that compute the GOKU heads' recurrences, as
+              goku_heads' yardstick (the port never calls them); with
+              --profile, a torch.profiler
               breakdown of one training step plus validation of each model,
               written to chiprun_out/profile_step.txt and
               chiprun_out/profile_step_latent_ode.txt.
@@ -219,15 +226,18 @@ def max_sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def node_work(B, T, widths, substeps, tab, n_stages, backward=False):
-    """(bytes, float32 operations) of the neural-field solve or of its
-    reverse sweep. Forward: u0s, saveat and the weights in, ys out; per
-    stage the layer products (2 per multiply-add), bias and activation (2
-    per unit) and the stage combination; per step the solution update.
-    Backward: ys, g, saveat and the weights in, du0 and one weight gradient
-    out; per stage the recomputed products, the input-gradient products and
-    the weight-gradient products (three times the forward's), bias
-    gradients and activation derivatives."""
+def node_work(B, T, widths, substeps, tab, n_stages, part="fwd"):
+    """(bytes, float32 operations) of one neural-field kernel, each input
+    read once and each output written once.
+    fwd:   u0s, saveat and the weights in, ys out; per stage the layer
+           products (2 per multiply-add), bias and activation (2 per unit)
+           and the stage combination; per step the solution update.
+    sweep: the tape (layer outputs, unpadded), g, saveat and the weights
+           in, du0 and Delta out; per stage the input-gradient products,
+           the activation derivatives (2 per unit) and the cotangent
+           updates; per step the kbar initialisation.
+    dw:    the layer inputs of the tape and Delta in, the weight gradient
+           out; 2 operations per multiply-add of [H, 1]^T Delta."""
     dim = widths[0]
     macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     units = sum(widths[1:])
@@ -236,27 +246,30 @@ def node_work(B, T, widths, substeps, tab, n_stages, backward=False):
                  for s in range(n_stages)) * 2 * dim
     update = sum(1 for b in tab.b[:n_stages] if b != 0.0) * 2 * dim
     steps = B * (T - 1) * substeps
-    if not backward:
+    if part == "fwd":
         nbytes = 4 * (B * dim + T + n_w + B * T * dim)
         ops = steps * (n_stages * (2 * macs + 2 * units) + combos + update)
+    elif part == "sweep":
+        nbytes = 4 * (steps * n_stages * (sum(widths) + units)
+                      + B * T * dim + T + macs + B * dim)
+        ops = steps * (n_stages * (2 * macs + 2 * units) + combos + update)
     else:
-        nbytes = 4 * (2 * B * T * dim + T + n_w + B * dim + n_w)
-        ops = steps * (n_stages * (6 * macs + 5 * units)
-                       + 2 * (combos + update))
+        aug = sum((a + 1) * b for a, b in zip(widths[:-1], widths[1:]))
+        nbytes = 4 * (steps * n_stages * (sum(widths[:-1]) + units) + n_w)
+        ops = 2 * steps * n_stages * aug
     return nbytes, ops
 
 
-def node_latency_ms(T, substeps, n_stages, widths, clock_mhz,
-                    backward=False):
+def node_latency_ms(T, substeps, n_stages, widths, clock_mhz):
     """Least time of one tile's chain if every dot product were a tree
     reduction: per layer ceil(log2(in)) FMA levels and a block barrier, per
-    stage one more FMA for the combination. The reverse sweep recomputes the
-    stages and then walks the layers back (the weight gradients lie off the
-    chain), so its chain is twice as long."""
+    stage one more FMA for the combination. The reverse sweep's chain has
+    the same links (one input-gradient product per layer; the weight
+    gradients lie off it, in node_field_dw)."""
     per_stage = sum(math.ceil(math.log2(w)) * FMA_CYC + BAR_CYC
                     for w in widths[:-1]) + FMA_CYC
     cyc = (T - 1) * substeps * (n_stages * per_stage + FMA_CYC)
-    return (2 if backward else 1) * cyc / (clock_mhz * 1e3)
+    return cyc / (clock_mhz * 1e3)
 
 
 def make_field(widths, act="relu", seed=0, device="cuda"):
@@ -333,6 +346,13 @@ def node_kernel_checks(gen_seed: int = 0) -> float:
                                                     substeps=sub)
             ref = node_cuda.solve_neural_field_reference(
                 m, solver, u0s, saveat, substeps=sub)[0]
+            ys_t, tape = node_cuda.solve_neural_field_cuda(
+                m, solver, u0s, saveat, substeps=sub, tape=True)
+            tape_p = node_cuda.solve_neural_field_taped_reference(
+                m, solver, u0s, saveat, substeps=sub)[1]
+            hp = node_cuda.tape_layout(widths)[0]
+            e_tape = max(rel_err(tape[..., o:o + n], tape_p[..., o:o + n])
+                         for o, n in zip(hp, widths))
             ref64 = node_cuda.solve_neural_field_reference(
                 copy.deepcopy(m).double(), solver, u0s.double(),
                 saveat.double(), substeps=sub)[0]
@@ -344,11 +364,15 @@ def node_kernel_checks(gen_seed: int = 0) -> float:
                            f"{type(solver).__name__} substeps={sub} {act}: "
                            f"max abs err {e:.3e} (tol {NODE_TOL:.0e}); vs "
                            f"float64: kernel {e_k:.3e}, plain {e_p:.3e}; "
-                           f"max |y| {float(ref.abs().max()):.3f}")
+                           f"max |y| {float(ref.abs().max()):.3f}; "
+                           f"tape-writing variant: same ys "
+                           f"{torch.equal(ys_t, got)}, tape vs plain tape "
+                           f"max rel err {e_tape:.3e} (tol {NODE_TOL:.0e})")
             if not (e <= NODE_TOL and e_k <= 2 * e_p + 1e-6
-                    and bool(torch.isfinite(got).all())):
+                    and bool(torch.isfinite(got).all())
+                    and torch.equal(ys_t, got) and e_tape <= NODE_TOL):
                 fail(f"node_field_fwd {label}: {e} > {NODE_TOL} or "
-                     f"{e_k} > 2 * {e_p} + 1e-6")
+                     f"{e_k} > 2 * {e_p} + 1e-6 or tape {e_tape}")
 
     # no fallback: what the kernel does not take raises on CUDA tensors
     u0s, saveat, _ = node_inputs((8, 8), 4, 5, seed=0)
@@ -369,8 +393,10 @@ def node_kernel_checks(gen_seed: int = 0) -> float:
             ValueError, lambda: node_cuda.kernel_plan(
                 (4096, 4096, 4096), 6, 64, backward=True)),
     }
-    before = (node_cuda.solve_neural_field_cuda.launches,
-              node_cuda.solve_neural_field_backward_cuda.launches)
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda,
+                node_cuda.neural_field_dw_cuda)
+    before = [fn.launches for fn in counters]
     for what, (exc, call) in refused.items():
         try:
             call()
@@ -379,16 +405,16 @@ def node_kernel_checks(gen_seed: int = 0) -> float:
                            f"{type(err).__name__}: {str(err)[:90]}")
         else:
             fail(f"node_field: {what} did not raise")
-    if before != (node_cuda.solve_neural_field_cuda.launches,
-                  node_cuda.solve_neural_field_backward_cuda.launches):
+    if before != [fn.launches for fn in counters]:
         fail("a refused field launched a kernel")
     return worst
 
 
-def node_grad_checks() -> float:
-    """Phase 3 for the neural-field backward kernel; returns the largest
-    absolute error against the float64 plain reverse sweep over the same
-    saved trajectory."""
+def node_grad_checks():
+    """Phase 3 for the neural-field backward kernels; returns the largest
+    absolute errors of the sweep kernel (du0 and Delta) and of the
+    weight-gradient kernel against their plain versions on the same
+    inputs."""
     from latentdiffeq_torch.ops import node_cuda
     from latentdiffeq_torch.solve.rk import Tsit5
     solver = Tsit5()
@@ -404,7 +430,7 @@ def node_grad_checks() -> float:
         return torch.autograd.grad((ys * w.to(ys.dtype)).sum(),
                                    [u] + list(m.parameters()))
 
-    worst = 0.0
+    worst_sweep = worst_dw = 0.0
     cases = [("train", NODE_WIDTHS, 64, 50, "relu"),
              ("train-tanh", NODE_WIDTHS, 64, 50, "tanh"),
              ("val", NODE_WIDTHS, 45, 100, "relu"),
@@ -415,11 +441,37 @@ def node_grad_checks() -> float:
         m64 = copy.deepcopy(m).double()
         u0s, saveat, w = node_inputs(widths, B, T, seed=200 + i)
         tol = RELU_GRAD_TOL if act == "relu" else NODE_GRAD_TOL
-        # (a) the sweep alone, on the kernel's own trajectory
+        # (a) each kernel against its plain version on the same inputs:
+        # both read the same tape, so relu fields agree as closely as
+        # smooth ones
         with torch.no_grad():
-            ys = node_cuda.solve_neural_field_cuda(m, solver, u0s, saveat)
-        got = flat(node_cuda.solve_neural_field_backward_cuda(
-            m, solver, saveat, ys, w))
+            ys, tape = node_cuda.solve_neural_field_cuda(m, solver, u0s,
+                                                         saveat, tape=True)
+        du0, delta = node_cuda.neural_field_sweep_cuda(m, solver, saveat,
+                                                       tape, w)
+        du0_p, delta_p = node_cuda.neural_field_sweep_reference(
+            m, solver, saveat, tape, w)
+        _, _, dp, _ = node_cuda.tape_layout(widths)
+        pieces = [(du0, du0_p)] + [(delta[..., o:o + n], delta_p[..., o:o + n])
+                                   for o, n in zip(dp, widths[1:])]
+        e_sw = max(rel_err(a, b) for a, b in pieces)
+        worst_sweep = max(worst_sweep, max(max_err(a, b) for a, b in pieces))
+        dWs, dbs = node_cuda.neural_field_dw_cuda(m, tape, delta)
+        dWs_p, dbs_p = node_cuda.neural_field_dw_reference(m, tape, delta)
+        e_dw = max(rel_err(a, b) for a, b in zip(dWs + dbs, dWs_p + dbs_p))
+        worst_dw = max(worst_dw, max(max_err(a, b) for a, b in
+                                     zip(dWs + dbs, dWs_p + dbs_p)))
+        log("grads", f"{label} {widths} B={B} T={T} {act}: node_field_bwd "
+                     f"(sweep) vs plain sweep on the same tape, max rel err "
+                     f"{e_sw:.3e}; node_field_dw vs plain product on the "
+                     f"same tape and Delta {e_dw:.3e} (tol "
+                     f"{NODE_GRAD_TOL:.0e})")
+        if not (e_sw <= NODE_GRAD_TOL and e_dw <= NODE_GRAD_TOL):
+            fail(f"node_field sweep / dw {label}: {e_sw}, {e_dw} > "
+                 f"{NODE_GRAD_TOL}")
+        # (b) the whole backward against the sweep that recomputes the
+        # stages from the same saved trajectory
+        got = [du0] + [t for pair in zip(dWs, dbs) for t in pair]
         ref = flat(node_cuda.solve_neural_field_backward_reference(
             m, solver, saveat, ys, w))
         ref64 = flat(node_cuda.solve_neural_field_backward_reference(
@@ -428,13 +480,12 @@ def node_grad_checks() -> float:
         e_k = max(rel_err(a.double(), c) for a, c in zip(got, ref64))
         e_p = max(rel_err(b.double(), c) for b, c in zip(ref, ref64))
         e_abs = max(max_err(a.double(), c) for a, c in zip(got, ref64))
-        worst = max(worst, e_abs)
-        log("grads", f"node_field_bwd {label} {widths} B={B} T={T} {act}, "
-                     f"reverse sweep over the same ys, max rel err: kernel "
-                     f"vs float64 plain {e_k:.3e} (tol {tol:.0e}; max abs "
-                     f"err {e_abs:.3e}, largest gradient "
+        log("grads", f"node_field backward {label}, over the same ys, max "
+                     f"rel err: kernels vs float64 plain recompute sweep "
+                     f"{e_k:.3e} (tol {tol:.0e}; max abs err {e_abs:.3e}, "
+                     f"largest gradient "
                      f"{max(float(c.abs().max()) for c in ref64):.3g}), "
-                     f"float32 plain vs float64 plain {e_p:.3e}, kernel vs "
+                     f"float32 plain vs float64 plain {e_p:.3e}, kernels vs "
                      f"float32 plain {e_sweep:.3e}")
         if act == "relu":
             flips, units = relu_switches(m, solver.tableau, ys, saveat)
@@ -442,9 +493,9 @@ def node_grad_checks() -> float:
                          f"of the sweep's stages and off in a float64 one, or "
                          f"the other way round: {flips} of {units}")
         if not (e_k <= tol and (act == "relu" or e_sweep <= tol)):
-            fail(f"node_field_bwd {label} vs reverse sweep: {e_k}, "
+            fail(f"node_field backward {label} vs reverse sweep: {e_k}, "
                  f"{e_sweep} > {tol}")
-        # (b) end to end through autograd: kernel route, recompute route,
+    # (b) end to end through autograd: kernel route, recompute route,
         # plain autograd (its own forward), float64 plain autograd
         k = through(node_cuda.solve_neural_field, m, u0s, saveat, w)
         r = through(node_cuda.solve_neural_field, m, u0s, saveat, w,
@@ -457,7 +508,7 @@ def node_grad_checks() -> float:
         e_kr = [rel_err(a, b) for a, b in zip(k, r)]
         e_kd = [rel_err(a.double(), c) for a, c in zip(k, d)]
         e_pd = [rel_err(b.double(), c) for b, c in zip(p, d)]
-        log("grads", f"node_field_bwd {label}: kernel vs plain autograd max "
+        log("grads", f"node_field backward {label}: kernels vs plain autograd max "
                      f"rel err {max(e_kp):.3e}, vs backward='autograd' "
                      f"{max(e_kr):.3e} (tol {tol:.0e}); vs float64 autograd: "
                      f"kernel {max(e_kd):.3e}, plain {max(e_pd):.3e}")
@@ -465,9 +516,9 @@ def node_grad_checks() -> float:
             f"{n} {a:.1e}|{b:.1e}" for n, a, b in zip(names, e_kd, e_pd)))
         if not (max(e_kp) <= tol and max(e_kr) <= tol
                 and all(bool(torch.isfinite(t).all()) for t in k)):
-            fail(f"node_field_bwd {label} vs autograd: {max(e_kp)}, "
+            fail(f"node_field backward {label} vs autograd: {max(e_kp)}, "
                  f"{max(e_kr)} > {tol}")
-    return worst
+    return worst_sweep, worst_dw
 
 
 def latent_ode_path(train_set, val_set, dev, gpu):
@@ -493,7 +544,8 @@ def latent_ode_path(train_set, val_set, dev, gpu):
     cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False)
     trainer = Trainer(model, cfg, device=dev)
     counters = {"node_field_fwd": node_cuda.solve_neural_field_cuda,
-                "node_field_bwd": node_cuda.solve_neural_field_backward_cuda}
+                "node_field_bwd": node_cuda.neural_field_sweep_cuda,
+                "node_field_dw": node_cuda.neural_field_dw_cuda}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -511,9 +563,11 @@ def latent_ode_path(train_set, val_set, dev, gpu):
         if not (math.isfinite(rec["train_loss"])
                 and math.isfinite(rec["val_loss"])):
             fail(f"LatentODE: non-finite loss in epoch {rec['epoch']}")
-    # forward: one per train step and one per validation pass; backward:
-    # one per train step
-    expected = {"node_field_fwd": 2 * steps * 2, "node_field_bwd": 2 * steps}
+    # forward: one per train step (writing the tape) and one per
+    # validation pass (writing none); sweep and weight gradients: one each
+    # per train step
+    expected = {"node_field_fwd": 2 * steps * 2, "node_field_bwd": 2 * steps,
+                "node_field_dw": 2 * steps}
     log("train", f"LatentODE fit 2 epochs x {steps} steps in {fit_s:.3f} s; "
                  f"kernel launches {launches} (expected {expected})")
     if launches != expected:
@@ -551,9 +605,11 @@ def latent_ode_path(train_set, val_set, dev, gpu):
 
 
 def node_timing(clock):
-    """Phase 5 for the neural-field kernels: {name: (ms, plain_ms, bound_ms,
-    bound_by)} at the training shape; the validation shape and the wide
-    field are logged."""
+    """Phase 5 for the neural-field kernels: {name: (ms, plain_ms,
+    bound_ms, bound_by)} at the training shape for node_field_fwd (the
+    variant without a tape), node_field_bwd (the sweep) and node_field_dw;
+    the tape-writing forward, the validation shape, the wide field, the
+    launch plan and 1 against 2 rows a block are logged."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from latentdiffeq_torch.ops import node_cuda
@@ -568,63 +624,85 @@ def node_timing(clock):
         m = make_field(widths, seed=40)
         u0s, saveat, w = node_inputs(widths, B, T, seed=41)
         reps = 20 if label != "wide" else 5
+        for bwd in (False, True):
+            rows, place, reg, threads, nbytes = node_cuda.kernel_plan(
+                widths, n_st, B, backward=bwd)
+            log("timing", f"node_field {label} {widths} B={B} "
+                          f"{'sweep' if bwd else 'forward'} plan: {rows} "
+                          f"row(s) a block, {-(-B // rows)} blocks of "
+                          f"{threads} threads, weights in {place} (register "
+                          f"layer {reg}), {nbytes} B of shared memory")
         with torch.no_grad():
-            ys = node_cuda.solve_neural_field_cuda(m, solver, u0s, saveat)
-            f_ms = time_ms(lambda: node_cuda.solve_neural_field_cuda(
-                m, solver, u0s, saveat), reps=reps)
-            f_dev = device_ms(lambda: node_cuda.solve_neural_field_cuda(
-                m, solver, u0s, saveat), "node_field_fwd_kernel", reps=reps)
-            f_plain = time_ms(lambda: node_cuda.solve_neural_field_reference(
-                m, solver, u0s, saveat), reps=3, warmup=1)
-            b_ms_ = time_ms(
-                lambda: node_cuda.solve_neural_field_backward_cuda(
-                    m, solver, saveat, ys, w), reps=reps)
-            b_dev = device_ms(
-                lambda: node_cuda.solve_neural_field_backward_cuda(
-                    m, solver, saveat, ys, w), "node_field_bwd_kernel",
-                reps=reps)
-            sweep_ms = time_ms(
-                lambda: node_cuda.solve_neural_field_backward_reference(
-                    m, solver, saveat, ys, w), reps=2, warmup=1)
+            ys, tape = node_cuda.solve_neural_field_cuda(m, solver, u0s,
+                                                         saveat, tape=True)
+            _, delta = node_cuda.neural_field_sweep_cuda(m, solver, saveat,
+                                                         tape, w)
+            calls = {
+                "node_field_fwd": (
+                    lambda: node_cuda.solve_neural_field_cuda(
+                        m, solver, u0s, saveat),
+                    lambda: node_cuda.solve_neural_field_reference(
+                        m, solver, u0s, saveat),
+                    "node_field_fwd_kernel", "fwd"),
+                "node_field_fwd (writing the tape)": (
+                    lambda: node_cuda.solve_neural_field_cuda(
+                        m, solver, u0s, saveat, tape=True),
+                    lambda: node_cuda.solve_neural_field_taped_reference(
+                        m, solver, u0s, saveat),
+                    "node_field_fwd_kernel", None),
+                "node_field_bwd": (
+                    lambda: node_cuda.neural_field_sweep_cuda(
+                        m, solver, saveat, tape, w),
+                    lambda: node_cuda.neural_field_sweep_reference(
+                        m, solver, saveat, tape, w),
+                    "node_field_bwd_kernel", "sweep"),
+                "node_field_dw": (
+                    lambda: node_cuda.neural_field_dw_cuda(m, tape, delta),
+                    lambda: node_cuda.neural_field_dw_reference(m, tape,
+                                                                delta),
+                    "node_field_dw_kernel", "dw"),
+            }
+            for name, (kernel, plain, kname, part) in calls.items():
+                k_ms = time_ms(kernel, reps=reps)
+                d_ms = device_ms(kernel, kname, reps=reps)
+                p_ms = time_ms(plain, reps=2 if label != "train" else 3,
+                               warmup=1)
+                line = (f"{name} {label} {widths} B={B} T={T}: kernel "
+                        f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
+                        f"device), plain {p_ms:.4f} ms")
+                if part is not None:
+                    bd, by, t_b, t_o = bound_ms(*node_work(
+                        B, T, widths, 1, tab, n_st, part=part))
+                    line += (f", bound {bd:.6f} ms ({by}; bytes "
+                             f"{t_b:.6f} ms, operations {t_o:.6f} ms)")
+                    if part != "dw":
+                        lat = node_latency_ms(T, 1, n_st, widths, clock)
+                        line += (f", latency model {lat:.6f} ms at "
+                                 f"{clock:.0f} MHz")
+                    if label == "train":
+                        out[name] = (k_ms, p_ms, bd, by)
+                log("timing", line)
         # plain backward: autograd through the plain solve's graph
         u = u0s.clone().requires_grad_()
         ys_p = node_cuda.solve_neural_field_reference(m, solver, u,
                                                       saveat)[0]
         targets = [u] + list(m.parameters())
         b_plain = time_ms(lambda: torch.autograd.grad(
-            ys_p, targets, w, retain_graph=True), reps=3, warmup=1)
+            ys_p, targets, w, retain_graph=True), reps=2, warmup=1)
         del ys_p
-        for name, k_ms, d_ms, p_ms, bwd in (
-                ("node_field_fwd", f_ms, f_dev, f_plain, False),
-                ("node_field_bwd", b_ms_, b_dev, b_plain, True)):
-            bd, by, t_b, t_o = bound_ms(*node_work(B, T, widths, 1, tab,
-                                                   n_st, backward=bwd))
-            lat = node_latency_ms(T, 1, n_st, widths, clock, backward=bwd)
-            extra = (f", plain reverse sweep {sweep_ms:.4f} ms"
-                     if bwd else "")
-            log("timing", f"{name} {label} {widths} B={B} T={T}: kernel "
-                          f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
-                          f"device), plain {p_ms:.4f} ms{extra}, bound "
-                          f"{bd:.6f} ms ({by}; bytes {t_b:.6f} ms, "
-                          f"operations {t_o:.6f} ms), latency model "
-                          f"{lat:.6f} ms at {clock:.0f} MHz")
-            if label == "train":
-                out[name] = (k_ms, p_ms, bd, by)
+        log("timing", f"node_field {label}: plain autograd backward "
+                      f"{b_plain:.4f} ms")
         if label == "train":
-            # rows per block: the host side's default (one row a block at
-            # this batch, so 64 SMs work) against fuller tiles
+            # the layout: the default of one row a block against two
             with torch.no_grad():
-                for rows in (1, 2, 4, 8):
+                for rows in (1, 2):
                     rf = time_ms(lambda: node_cuda.solve_neural_field_cuda(
                         m, solver, u0s, saveat, rows_per_block=rows))
-                    rb = time_ms(
-                        lambda: node_cuda.solve_neural_field_backward_cuda(
-                            m, solver, saveat, ys, w, rows_per_block=rows),
-                        reps=10)
-                    log("timing", f"node_field train, {rows} rows a block "
-                                  f"({-(-B // rows)} blocks): forward "
-                                  f"{rf:.4f} ms, backward {rb:.4f} ms per "
-                                  f"call")
+                    rb = time_ms(lambda: node_cuda.neural_field_sweep_cuda(
+                        m, solver, saveat, tape, w, rows_per_block=rows))
+                    log("timing", f"node_field train, {rows} row(s) a "
+                                  f"block ({-(-B // rows)} blocks): forward "
+                                  f"{rf:.4f} ms, sweep {rb:.4f} ms per call")
             # the kernel route calls no library matrix product
             u = u0s.clone().requires_grad_()
             with tprofile(activities=[ProfilerActivity.CPU,
@@ -642,11 +720,50 @@ def node_timing(clock):
             log("timing", f"  device kernels {devk}")
             banned = [o for o in ops if any(
                 k in o for k in ("mm", "matmul", "linear", "bmm", "einsum"))]
-            if banned or not (any("node_field_fwd_kernel" in k for k in devk)
-                              and any("node_field_bwd_kernel" in k
-                                      for k in devk)):
+            if banned or not all(any(n in k for k in devk) for n in (
+                    "node_field_fwd_kernel", "node_field_bwd_kernel",
+                    "node_field_dw_kernel")):
                 fail(f"kernel route ran {banned}; device kernels {devk}")
     return out
+
+
+def cudnn_heads(heads, dev):
+    """The three GOKU heads as torch.nn.RNN (relu) and two torch.nn.LSTM
+    modules on the same weights: W_ih = Wi^T, W_hh = Wh^T, Flux's one bias
+    as b_ih with b_hh = 0, gates i, f, g, o in both. Returns
+    ``run(xs, xs_reversed)``, the three cuDNN calls, giving (z0, theta)."""
+    rnn_h, lstm_f, lstm_b = heads
+    D = rnn_h.cells[0].Wi.shape[0]
+    H = rnn_h.cells[0].hidden_dim
+    L = len(rnn_h.cells)
+    mods = (torch.nn.RNN(D, H, num_layers=L, nonlinearity="relu",
+                         batch_first=True),
+            torch.nn.LSTM(D, H, num_layers=L, batch_first=True),
+            torch.nn.LSTM(D, H, num_layers=L, batch_first=True))
+    mods = [mod.to(dev) for mod in mods]
+    with torch.no_grad():
+        for mod, head in zip(mods, heads):
+            for k, cell in enumerate(head.cells):
+                getattr(mod, f"weight_ih_l{k}").copy_(cell.Wi.t())
+                getattr(mod, f"weight_hh_l{k}").copy_(cell.Wh.t())
+                getattr(mod, f"bias_ih_l{k}").copy_(cell.b)
+                getattr(mod, f"bias_hh_l{k}").zero_()
+            mod.flatten_parameters()
+
+    def state(head, name, B):
+        return torch.stack([getattr(c, name).detach().expand(B, H)
+                            for c in head.cells]).contiguous()
+
+    def run(xs, xr):
+        B = xs.shape[0]
+        _, hz = mods[0](xr, state(rnn_h, "h0", B))
+        _, (hf, _) = mods[1](xs, (state(lstm_f, "h0", B),
+                                  state(lstm_f, "c0", B)))
+        _, (hb, _) = mods[2](xr, (state(lstm_b, "h0", B),
+                                  state(lstm_b, "c0", B)))
+        return hz[-1], torch.cat([hf[-1], hb[-1]], dim=-1)
+
+    return mods, state, run
 
 
 def profile_step(trainer, data, val_set, beta, fname, what):
@@ -799,7 +916,7 @@ def main():
     if not e <= GRAD_TOL:
         fail(f"rk_fixed_grid grads: {e} > {GRAD_TOL}")
 
-    errs["node_field_bwd"] = node_grad_checks()
+    errs["node_field_bwd"], errs["node_field_dw"] = node_grad_checks()
 
     # ---- 4. main path: GOKU training on pendulum video --------------------
     t0 = time.perf_counter()
@@ -886,6 +1003,8 @@ def main():
     n_st = n_solution_stages(tab)
     clock = max_sm_clock_mhz()
     kernels = []
+    mods, state, cudnn_run = cudnn_heads(heads, dev)
+    heads_lib = None
     with torch.no_grad():
         for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
             xs = torch.randn(B, T, 32, generator=gen, device=dev)
@@ -905,6 +1024,31 @@ def main():
                           f"at {clock:.0f} MHz")
             if label == "train":
                 heads_t = (k_ms, p_ms, b_ms, b_by)
+            # the yardstick: the three cuDNN calls on the same weights,
+            # checked against the plain version first
+            xr = xs.flip(1).contiguous()
+            z_c, th_c = cudnn_run(xs, xr)
+            z_p, th_p = recurrent_cuda.goku_heads_reference(*heads, xs)
+            e = max(max_err(z_c, z_p), max_err(th_c, th_p))
+            if not e <= 1e-4:
+                fail(f"cuDNN RNN/LSTM vs goku_heads' plain version: {e}")
+            s_z = state(heads[0], "h0", B)
+            s_f = (state(heads[1], "h0", B), state(heads[1], "c0", B))
+            s_b = (state(heads[2], "h0", B), state(heads[2], "c0", B))
+
+            def three():
+                mods[0](xr, s_z)
+                mods[1](xs, s_f)
+                mods[2](xr, s_b)
+
+            l_ms = time_ms(three)
+            log("timing", f"goku_heads {label} yardstick: torch.nn.RNN "
+                          f"(relu) + 2 torch.nn.LSTM, 2 layers each, cuDNN "
+                          f"{torch.backends.cudnn.version()}, "
+                          f"{l_ms:.4f} ms for the three calls (vs the plain "
+                          f"version max abs err {e:.3e}, tol 1e-4)")
+            if label == "train":
+                heads_lib = l_ms
             u0s = torch.rand(B, 2, generator=gen, device=dev) * 2 - 1
             ps = 1 + torch.rand(B, 1, generator=gen, device=dev)
             saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
@@ -935,12 +1079,17 @@ def main():
              "latentdiffeq/ops/node_pallas.py:154", node_t["node_field_fwd"]),
             ("node_field_bwd", "latentdiffeq_torch/csrc/node_field.cu",
              "latentdiffeq/ops/node_pallas.py:269",
-             node_t["node_field_bwd"])):
+             node_t["node_field_bwd"]),
+            ("node_field_dw", "latentdiffeq_torch/csrc/node_field.cu",
+             "latentdiffeq/ops/node_pallas.py:269",
+             node_t["node_field_dw"])):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+                        "bound_by": b_by,
+                        "library_ms": heads_lib if name == "goku_heads"
+                        else None})
 
     if profile:
         profile_step(trainer, data, val_set, beta, "profile_step.txt", "GOKU")

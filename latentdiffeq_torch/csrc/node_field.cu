@@ -1,49 +1,67 @@
 // Batched fixed-grid explicit Runge-Kutta solve of dy/dt = MLP(y) for a
-// Chain-of-Dense vector field, and its gradient, each as one kernel.
+// Chain-of-Dense vector field, and its gradient, as three kernels:
+//   node_field_fwd_kernel  the solve; optionally writes a tape of every
+//                          layer output of every stage of every step;
+//   node_field_bwd_kernel  the reverse sweep over that tape: the cotangent
+//                          of the state and, for every stage and layer, the
+//                          cotangent of the layer's pre-activation (Delta);
+//   node_field_dw_kernel   the weight gradients dW_l = H_l^T Delta_l and
+//                          db_l = sum Delta_l over all rows, steps and stages.
 //
 // Replaces the Pallas TPU kernel latentdiffeq/ops/node_pallas.py
 // (`pallas_solve_neural_field`: forward `_node_kernel`, backward
 // `_node_bwd_kernel`). The field ignores t. Success flags and counters are
-// computed outside, as in the JAX package.
+// computed outside, as in the JAX package. The TPU backward recomputes each
+// interval's stages from ys so that nothing goes to device memory; on an
+// 80 GB card the tape (64 rows x 294 stages x 432 floats = 32.5 MB at the
+// main path's training shape) is cheap, and keeping it takes a whole
+// product off the backward's serial chain.
 //
 // What bounds it: a serial chain of (T-1) * substeps * stages field
 // evaluations, each a chain of L small dense layers separated by block
 // barriers; at the main path's sizes (64 or 45 rows, widths 16-200-200-16)
-// the bytes (one trajectory in, one out) and the float32 operations are
-// worth microseconds, so the kernels are bound by the latency of that chain
-// and by how many multiply-adds one SM issues per clock. Design:
-//   * one block per tile of TB batch rows (TB = 8, 4, 2 or 1, chosen on the
-//     host so the block's shared memory fits); the state y, the stage slopes
-//     k_s and every activation of the tile stay in shared memory for the
-//     whole integration, stored feature-major ([feature][row]) so a thread
-//     reads all TB rows of one feature with one or two 16-byte loads;
-//   * in a dense layer a thread owns 4 adjacent output columns and one of
-//     8 (or, for a layer with few columns, 32) slices of the reduction
-//     dimension, with 4 x TB accumulators in registers, so one 16-byte
-//     weight load feeds 4 x TB multiply-adds; the partial sums of a column
-//     sit in one warp and are added by a shuffle butterfly in a fixed order
-//     (no atomics, no scratch memory, one block barrier a layer), so
-//     results do not depend on timing;
-//   * as few rows per block as still put the whole batch on the card in one
-//     wave of blocks (1 row at the main path's 64 and 45): the chain is
-//     serial within a tile, so spreading rows over SMs is what shortens it;
-//   * forward: the weights are staged in shared memory when they fit beside
-//     the tile (they do at 16-200-200-16: 187 KB of the 227 KB a block may
-//     use) and are read through the read-only cache from global memory when
-//     they do not (128-256-256-128 is 524 KB);
-//   * backward: a reverse sweep over the saved trajectory. Each RK step is
-//     recomputed from ys[:, i] with every layer output of every stage kept
-//     in shared memory (activation derivatives are taken from the outputs),
-//     then the cotangent is pulled back stage by stage: for
-//     u_s = y + dt sum_q a_sq k_q, k_s = F(u_s), y1 = y + dt sum_s b_s k_s,
-//     start kbar_s = dt b_s lambda, ybar = lambda, and for s = S-1..0:
-//     ubar_s = J_F(u_s)^T kbar_s, ybar += ubar_s, kbar_q += dt a_sq ubar_s.
-//     The MLP's backward uses transposed weight copies (made by the caller)
-//     so both products read weights along rows. Weight gradients accumulate
-//     into a per-block slice of a global buffer in which every element is
-//     owned by one thread (no atomics across or inside blocks); the caller
-//     sums the slices over blocks. Rows past the batch end carry zero
-//     state and zero cotangent and so add nothing.
+// the bytes and the float32 operations are worth microseconds, so the
+// solve and the sweep are bound by the latency of one link of that chain.
+// Design:
+//   * one block per tile of TB = 1 or 2 batch rows (as few as still put
+//     the batch on the card in one wave): the chain is serial within a
+//     tile, so spreading rows over SMs is what shortens it. State, slopes,
+//     activations and cotangents of the tile stay in shared memory,
+//     feature-major ([feature][row]);
+//   * the largest layer with at most 208 outputs, a multiple of 4, keeps
+//     rows 0..159 of its weights in registers for the whole solve: 416
+//     threads = 52 groups of 4 columns x 8 slices of the reduction, 80
+//     weights a thread (its further rows, 40 of a 200 x 200 layer, stay in
+//     shared memory: 13 warps may have 128 registers a thread, and 100
+//     weights a thread spilled). A 200 x 200 layer at one row with all its
+//     weights in registers takes 455 ns against 1628 ns streamed from
+//     shared memory (scripts/node_field_levers.py, H100). The other layers
+//     sit in shared memory, or are read through the read-only cache when
+//     they do not fit (the 128-256-256-128 field);
+//   * in a dense layer a thread owns 4 adjacent output columns (1 for a
+//     width that is no multiple of 4) and one slice of the reduction; the
+//     partial sums of a column sit in one warp and are added by a shuffle
+//     butterfly in a fixed order (no atomics), then one block barrier. A
+//     block barrier costs 62 ns, a cluster barrier with a distributed
+//     shared-memory exchange 692 ns (same script), so no clusters;
+//   * one barrier per layer and nothing else: the stage inputs and the
+//     solution update are accumulated as each slope comes, in the last
+//     layer's epilogue, by the thread that owns the column (the same thread
+//     at every stage); the sweep's ybar / kbar updates likewise inside its
+//     last product's epilogue;
+//   * the sweep runs only the input-gradient products, with transposed
+//     weights and the activation derivatives taken from the tape. The next
+//     step's tape slice and g row come into shared memory by cp.async while
+//     the current step computes; Delta is streamed out as it is produced;
+//   * the weight gradient is a tiled float32 product over all the SMs
+//     (64 x 64 output tiles, split over the records) into per-split
+//     partial buffers that the caller sums in order: no float atomics, the
+//     result does not depend on timing.
+// The reverse recursion, for u_s = y + dt sum_q a_sq k_q, k_s = F(u_s),
+// y1 = y + dt sum_s b_s k_s: kbar_s = dt b_s lambda, ybar = lambda, and for
+// s = S-1..0: ubar_s = J_F(u_s)^T kbar_s, ybar += ubar_s, kbar_q += dt a_sq
+// ubar_s. Rows past the batch end carry zero state and zero cotangent and
+// are never stored.
 
 #include <cuda_runtime.h>
 
@@ -51,14 +69,24 @@ namespace {
 
 constexpr int kMaxStages = 7;
 constexpr int kMaxLayers = 8;
-constexpr int kMaxThreads = 512;    // the kernels' launch bound
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
-constexpr int kWaveBlocks = 132;    // SMs of an H100: blocks in one wave
+constexpr int kThreads = 512;        // the launch bound without a register layer
+constexpr int kRegThreads = 416;     // with one: 13 warps
+constexpr int kRegKS = 20;           // reduction values a slice holds in
+                                     // registers: rows 0..159 of W
+constexpr int kRegRows = 8 * kRegKS;
+constexpr int kRegMaxOut = 4 * 4 * (kRegThreads / 32);   // 208
+constexpr int kSmemLimit = 232448;   // bytes a block may use on sm_90
+constexpr int kDwTile = 64;          // weight-gradient output tile
+constexpr int kDwK = 16;             // records per weight-gradient pass
+constexpr int kDwThreads = 256;
 
 // Error codes of the C interface besides cudaError_t (which is positive).
 constexpr int kErrDepth = -1;   // more than kMaxLayers layers (or none)
 constexpr int kErrFit = -2;     // the tile does not fit in shared memory
 constexpr int kErrArgs = -3;    // any other invalid argument
+
+// Where a pass keeps its weights.
+enum Place { kReg = 0, kSmem = 1, kGlobal = 2 };
 
 struct Tableau {
   float a[kMaxStages][kMaxStages];
@@ -66,24 +94,34 @@ struct Tableau {
   int ns;
 };
 
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
 // The field: L dense layers h <- act(h W_l + b_l), W_l (w[l], w[l+1])
 // row-major. w_off / b_off: offsets of W_l and b_l in the packed layout
-// [W_0, b_0, W_1, b_1, ...] (each piece padded to a multiple of 4 floats,
-// so every piece is 16-byte aligned) used for the staged weights and for
-// the gradient buffer. h_off[l]: offset (in features) of layer l's input in a
-// stage's tape, h_off[L] that of the field's output.
+// [W_0, b_0, W_1, b_1, ...] (each piece padded to a multiple of 4 floats)
+// of the weight gradient. A tape record (one row, step and stage) holds
+// h_0 = the stage input, h_1, ..., h_L = the slope at hp_off[l], each
+// padded to 4 floats, sumw4 in all; a Delta record holds the cotangent of
+// layer l's pre-activation at dp_off[l], dsum4 in all. reg: the layer whose
+// weights the pass keeps in registers (-1: none); sw_off / sb_off: offsets
+// of the weights / biases in the pass's shared-memory copy (-1: not there).
 struct Field {
   int L;
   int w[kMaxLayers + 1];
   int act[kMaxLayers];
   int w_off[kMaxLayers];
   int b_off[kMaxLayers];
-  int h_off[kMaxLayers + 1];
+  int hp_off[kMaxLayers + 1];
+  int dp_off[kMaxLayers];
   int total;   // packed size in floats
-  int maxw;    // widest layer boundary
-  int sumw;    // sum of w[0..L]
-  const float* W[kMaxLayers];
-  const float* Wt[kMaxLayers];   // W_l transposed, (w[l+1], w[l]); backward
+  int sumw4;
+  int dsum4;
+  int maxw;
+  int reg;
+  int sw_off[kMaxLayers];
+  int sb_off[kMaxLayers];
+  int sw_total;
+  const float* W[kMaxLayers];    // forward: W_l; sweep: W_l transposed
   const float* b[kMaxLayers];
 };
 
@@ -114,16 +152,7 @@ __device__ __forceinline__ float act_grad(int code, float h) {
 template <int TB>
 __device__ __forceinline__ void load_rows(const float* __restrict__ p,
                                           float (&v)[TB]) {
-  if constexpr (TB % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < TB / 4; ++i) {
-      const float4 q = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i + 0] = q.x;
-      v[4 * i + 1] = q.y;
-      v[4 * i + 2] = q.z;
-      v[4 * i + 3] = q.w;
-    }
-  } else if constexpr (TB == 2) {
+  if constexpr (TB == 2) {
     const float2 q = *reinterpret_cast<const float2*>(p);
     v[0] = q.x;
     v[1] = q.y;
@@ -132,46 +161,8 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ p,
   }
 }
 
-enum Epilogue { kBiasAct = 0, kActGrad = 1, kNone = 2 };
-
-__device__ __forceinline__ float epilogue(int epi, int code, float v,
-                                          const float* __restrict__ aux,
-                                          int n, int idx) {
-  if (epi == kBiasAct) return act_fn(code, v + aux[n]);
-  if (epi == kActGrad) return v * act_grad(code, aux[idx]);
-  return v;
-}
-
-// acc[c * TB + r] += sum_{k = k0, k0 + STRIDE, ... < in_dim} in[k][r] *
-// W[k][n0 + c], c < CT. With CT == 4 the four weights come in one 16-byte
-// load (n0 and out_dim are multiples of 4 then, and W is 16-byte aligned).
-template <int TB, int CT, bool GW, int STRIDE>
-__device__ __forceinline__ void mac_slice(const float* __restrict__ in,
-                                          const float* __restrict__ W,
-                                          int in_dim, int out_dim, int n0,
-                                          int k0, float (&acc)[CT * TB]) {
-#pragma unroll 4
-  for (int k = k0; k < in_dim; k += STRIDE) {
-    const float* wp = W + (size_t)k * out_dim + n0;
-    float w[CT];
-    if constexpr (CT == 4) {
-      const float4 q = GW ? __ldg(reinterpret_cast<const float4*>(wp))
-                          : *reinterpret_cast<const float4*>(wp);
-      w[0] = q.x;
-      w[1] = q.y;
-      w[2] = q.z;
-      w[3] = q.w;
-    } else {
-      w[0] = GW ? __ldg(wp) : *wp;
-    }
-    float h[TB];
-    load_rows<TB>(in + k * TB, h);
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int r = 0; r < TB; ++r)
-        acc[c * TB + r] = fmaf(h[r], w[c], acc[c * TB + r]);
-  }
+__host__ __device__ constexpr int ilog2(int n) {
+  return n <= 1 ? 0 : 1 + ilog2(n / 2);
 }
 
 // Adds the N partial sums v[0..N) of the 2^STEPS lanes that differ in the
@@ -207,26 +198,94 @@ __device__ __forceinline__ int reduce_scatter(float* v, int slice,
   }
 }
 
-__host__ __device__ constexpr int ilog2(int n) {
-  return n <= 1 ? 0 : 1 + ilog2(n / 2);
+// ---------------------------------------------------------------------------
+// Operands of a dense layer, row values of input feature k for the tile.
+
+// A feature-major buffer in shared memory.
+template <int TB>
+struct RowsIn {
+  const float* p;
+  __device__ __forceinline__ void load(int k, float (&h)[TB]) const {
+    load_rows<TB>(p + k * TB, h);
+  }
+};
+
+// The sweep's first product input: kbar_s * act'(h_L), h_L in the tape
+// buffer ([row][feature], rows `rstride` apart).
+template <int TB>
+struct CotIn {
+  const float* kbar;
+  const float* hL;
+  int rstride;
+  int code;
+  __device__ __forceinline__ void load(int k, float (&h)[TB]) const {
+#pragma unroll
+    for (int r = 0; r < TB; ++r)
+      h[r] = kbar[k * TB + r] * act_grad(code, hL[r * rstride + k]);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Dense layers. out[n][r] = epi(sum_k in[k][r] * W[k][n]); the thread that
+// finishes (n, r) stores it and then calls post(n, r, idx, value).
+
+enum Epilogue { kBiasAct = 0, kActGrad = 1, kNone = 2 };
+
+// `aux`: the bias (kBiasAct) or the activation outputs, [row][feature]
+// with rows `arow` apart (kActGrad).
+__device__ __forceinline__ float epilogue(int epi, int code, float v,
+                                          const float* __restrict__ aux,
+                                          int arow, int n, int r) {
+  if (epi == kBiasAct) return act_fn(code, v + aux[n]);
+  if (epi == kActGrad) return v * act_grad(code, aux[r * arow + n]);
+  return v;
 }
 
-// out[n][r] = epilogue(sum_k in[k][r] * W[k][n]) for the tile's TB rows.
-// `in` and `out` are shared memory ([feature][row]); W is (in_dim, out_dim)
-// row-major in global (GW) or shared memory. `aux` is the bias (kBiasAct)
-// or the tape holding this product's activation outputs (kActGrad).
+// acc[c * TB + r] += sum_{k = k0, k0 + STRIDE, ... < in_dim} in[k][r] *
+// W[k][n0 + c], c < CT. With CT == 4 the four weights come in one 16-byte
+// load (n0 and out_dim are multiples of 4 then, and W is 16-byte aligned).
+template <int TB, int CT, bool GW, int STRIDE, int UNROLL, class In>
+__device__ __forceinline__ void mac_slice(const In& in,
+                                          const float* __restrict__ W,
+                                          int in_dim, int out_dim, int n0,
+                                          int k0, float (&acc)[CT * TB]) {
+#pragma unroll UNROLL
+  for (int k = k0; k < in_dim; k += STRIDE) {
+    const float* wp = W + (size_t)k * out_dim + n0;
+    float w[CT];
+    if constexpr (CT == 4) {
+      const float4 q = GW ? __ldg(reinterpret_cast<const float4*>(wp))
+                          : *reinterpret_cast<const float4*>(wp);
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    } else {
+      w[0] = GW ? __ldg(wp) : *wp;
+    }
+    float h[TB];
+    in.load(k, h);
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int r = 0; r < TB; ++r)
+        acc[c * TB + r] = fmaf(h[r], w[c], acc[c * TB + r]);
+  }
+}
+
 // A warp's 32 lanes are 2^SB slices of the reduction dimension
 // (k = slice, slice + 2^SB, ...) x 32 >> SB groups of CT adjacent columns;
 // the partial sums of a group are added and dealt out over its lanes by
 // `reduce_scatter`, and each lane finishes and stores its share. Ends with
 // a block barrier.
-template <int TB, int CT, bool GW, int SB>
-__device__ __forceinline__ void dense_sb(const float* __restrict__ in,
+template <int TB, int CT, bool GW, int SB, int UNROLL, class In, class Post>
+__device__ __forceinline__ void dense_sb(const In& in,
                                          const float* __restrict__ W,
                                          int in_dim, int out_dim,
                                          float* __restrict__ out, int epi,
                                          int code,
-                                         const float* __restrict__ aux) {
+                                         const float* __restrict__ aux,
+                                         int arow, const Post& post) {
   constexpr int N = CT * TB;               // sums per column group
   constexpr int G = 32 >> SB;              // column groups per warp
   constexpr int SCATTER = ilog2(N) < SB ? ilog2(N) : SB;
@@ -243,16 +302,19 @@ __device__ __forceinline__ void dense_sb(const float* __restrict__ in,
 #pragma unroll
     for (int j = 0; j < N; ++j) acc[j] = 0.f;
     if (live)
-      mac_slice<TB, CT, GW, (1 << SB)>(in, W, in_dim, out_dim, n0, slice,
-                                       acc);
+      mac_slice<TB, CT, GW, (1 << SB), UNROLL>(in, W, in_dim, out_dim, n0,
+                                               slice, acc);
     const int base = reduce_scatter<N, SB>(acc, slice, G);
     // lanes that differ only in slice bits above the scatter hold copies
     if (live && (slice >> SCATTER) == 0) {
 #pragma unroll
       for (int i = 0; i < MINE; ++i) {
         const int j = base + i;            // = c * TB + r
+        const int n = n0 + j / TB, r = j % TB;
         const int idx = n0 * TB + j;
-        out[idx] = epilogue(epi, code, acc[i], aux, n0 + j / TB, idx);
+        const float v = epilogue(epi, code, acc[i], aux, arow, n, r);
+        out[idx] = v;
+        post(n, r, idx, v);
       }
     }
   }
@@ -261,435 +323,771 @@ __device__ __forceinline__ void dense_sb(const float* __restrict__ in,
 
 // A layer with no more column groups than the block has warps gives every
 // group a whole warp (32 slices); otherwise a warp takes 4 groups of 8
-// slices.
-template <int TB, bool GW>
-__device__ __forceinline__ void dense(const float* __restrict__ in,
+// slices. UNROLL: of the reduction loop (1 where registers are scarce).
+template <int TB, bool GW, int UNROLL, class In, class Post>
+__device__ __forceinline__ void dense(const In& in,
                                       const float* __restrict__ W,
                                       int in_dim, int out_dim,
                                       float* __restrict__ out, int epi,
                                       int code,
-                                      const float* __restrict__ aux) {
+                                      const float* __restrict__ aux,
+                                      int arow, const Post& post) {
   const int nwarps = blockDim.x >> 5;
   if (out_dim % 4 == 0) {
     if (out_dim / 4 <= nwarps)
-      dense_sb<TB, 4, GW, 5>(in, W, in_dim, out_dim, out, epi, code, aux);
+      dense_sb<TB, 4, GW, 5, UNROLL>(in, W, in_dim, out_dim, out, epi, code, aux,
+                             arow, post);
     else
-      dense_sb<TB, 4, GW, 3>(in, W, in_dim, out_dim, out, epi, code, aux);
+      dense_sb<TB, 4, GW, 3, UNROLL>(in, W, in_dim, out_dim, out, epi, code, aux,
+                             arow, post);
   } else {
     if (out_dim <= nwarps)
-      dense_sb<TB, 1, GW, 5>(in, W, in_dim, out_dim, out, epi, code, aux);
+      dense_sb<TB, 1, GW, 5, UNROLL>(in, W, in_dim, out_dim, out, epi, code, aux,
+                             arow, post);
     else
-      dense_sb<TB, 1, GW, 3>(in, W, in_dim, out_dim, out, epi, code, aux);
+      dense_sb<TB, 1, GW, 3, UNROLL>(in, W, in_dim, out_dim, out, epi, code, aux,
+                             arow, post);
   }
 }
 
-// dW[k][n] += sum_r h[k][r] * d[n][r]; dW is (in_dim, out_dim) row-major
-// in shared or global memory, 16-byte aligned. Every element is owned by
-// one thread of the block: row k by warp k mod nwarps, column group cg by
-// lane cg mod 32.
-template <int TB, int CT>
-__device__ __forceinline__ void accum_dw_ct(const float* __restrict__ h,
-                                            const float* __restrict__ d,
-                                            float* __restrict__ dW,
-                                            int in_dim, int out_dim) {
+// The register layer's weights: group cg = warp * 4 + lane % 4 owns columns
+// 4 cg .. 4 cg + 3, slice = lane / 4 owns k = slice + 8 i; for i < kRegKS
+// wr[c * kRegKS + i] = W[k][4 cg + c], zero past the layer's edges. Rows
+// from kRegRows on stay in shared memory: 100 weights a thread for a
+// 200 x 200 layer would leave too few of the 128 registers a thread of 13
+// warps may have (4 warps share a quarter of the register file) for the
+// rest of the solve, and the compiler would spill.
+__device__ __forceinline__ void load_reg_weights(
+    const float* __restrict__ W, int in_dim, int out_dim,
+    float (&wr)[4 * kRegKS]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int ncg = out_dim / CT;
-  for (int cg = lane; cg < ncg; cg += 32) {
-    float dv[CT][TB];
+  const int slice = lane >> 2;
+  const int cg = warp * 4 + (lane & 3);
+  const bool live = cg < out_dim / 4;
 #pragma unroll
-    for (int c = 0; c < CT; ++c) load_rows<TB>(d + (cg * CT + c) * TB, dv[c]);
-#pragma unroll 2
-    for (int k = warp; k < in_dim; k += nwarps) {
-      float hv[TB];
-      load_rows<TB>(h + k * TB, hv);
-      float acc[CT];
+  for (int i = 0; i < kRegKS; ++i) {
+    const int k = slice + 8 * i;
 #pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        float a = 0.f;
-#pragma unroll
-        for (int r = 0; r < TB; ++r) a = fmaf(hv[r], dv[c][r], a);
-        acc[c] = a;
-      }
-      float* p = dW + (size_t)k * out_dim + cg * CT;
-      if constexpr (CT == 4) {
-        float4 q = *reinterpret_cast<float4*>(p);
-        q.x += acc[0];
-        q.y += acc[1];
-        q.z += acc[2];
-        q.w += acc[3];
-        *reinterpret_cast<float4*>(p) = q;
-      } else {
-        p[0] += acc[0];
-      }
-    }
+    for (int c = 0; c < 4; ++c)
+      wr[c * kRegKS + i] =
+          (live && k < in_dim) ? W[(size_t)k * out_dim + cg * 4 + c] : 0.f;
   }
 }
 
-template <int TB>
-__device__ __forceinline__ void accum_dw(const float* __restrict__ h,
-                                         const float* __restrict__ d,
-                                         float* __restrict__ dW, int in_dim,
-                                         int out_dim) {
-  if (out_dim % 4 == 0)
-    accum_dw_ct<TB, 4>(h, d, dW, in_dim, out_dim);
-  else
-    accum_dw_ct<TB, 1>(h, d, dW, in_dim, out_dim);
+// The same product as dense_sb<TB, 4, *, 3> (same slices, same order of
+// additions) with rows 0..kRegRows-1 of the weights in registers and the
+// rest (`tail`, (in_dim - kRegRows) x out_dim) in shared memory; every
+// group is live at once.
+template <int TB, class In, class Post>
+__device__ __forceinline__ void dense_reg(const In& in,
+                                          const float (&wr)[4 * kRegKS],
+                                          const float* __restrict__ tail,
+                                          int in_dim, int out_dim,
+                                          float* __restrict__ out, int epi,
+                                          int code,
+                                          const float* __restrict__ aux,
+                                          int arow, const Post& post) {
+  constexpr int N = 4 * TB;
+  constexpr int SCATTER = ilog2(N) < 3 ? ilog2(N) : 3;
+  constexpr int MINE = N >> SCATTER;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = lane >> 2;
+  const int cg = warp * 4 + (lane & 3);
+  const bool live = cg < out_dim / 4;
+  const int n0 = cg * 4;
+  float acc[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRegKS; ++i) {
+    const int k = slice + 8 * i;
+    if (k < in_dim) {
+      float h[TB];
+      in.load(k, h);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < TB; ++r)
+          acc[c * TB + r] = fmaf(h[r], wr[c * kRegKS + i], acc[c * TB + r]);
+    }
+  }
+  if (live) {
+#pragma unroll 1
+    for (int k = kRegRows + slice; k < in_dim; k += 8) {
+      const float4 q = *reinterpret_cast<const float4*>(
+          tail + (size_t)(k - kRegRows) * out_dim + n0);
+      const float w[4] = {q.x, q.y, q.z, q.w};
+      float h[TB];
+      in.load(k, h);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < TB; ++r)
+          acc[c * TB + r] = fmaf(h[r], w[c], acc[c * TB + r]);
+    }
+  }
+  const int base = reduce_scatter<N, 3>(acc, slice, 4);
+  if (live && (slice >> SCATTER) == 0) {
+#pragma unroll
+    for (int i = 0; i < MINE; ++i) {
+      const int j = base + i;
+      const int n = n0 + j / TB, r = j % TB;
+      const int idx = n0 * TB + j;
+      const float v = epilogue(epi, code, acc[i], aux, arow, n, r);
+      out[idx] = v;
+      post(n, r, idx, v);
+    }
+  }
+  __syncthreads();
 }
 
-template <int TB>
-__device__ void accum_db(const float* __restrict__ d, float* __restrict__ db,
-                         int out_dim) {
-  for (int n = threadIdx.x; n < out_dim; n += blockDim.x) {
-    float dv[TB];
-    load_rows<TB>(d + n * TB, dv);
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < TB; ++r) acc += dv[r];
-    db[n] += acc;
+// Layer l of a pass: from registers, shared memory or global memory.
+template <int TB, int PL, class In, class Post>
+__device__ __forceinline__ void layer(const Field& f, int l,
+                                      const float (&wr)[4 * kRegKS],
+                                      const float* __restrict__ wsm,
+                                      const In& in, int in_dim, int out_dim,
+                                      float* __restrict__ out, int epi,
+                                      int code,
+                                      const float* __restrict__ aux,
+                                      int arow, const Post& post) {
+  if constexpr (PL == kReg) {
+    if (l == f.reg) {
+      dense_reg<TB>(in, wr, wsm + f.sw_off[l], in_dim, out_dim, out, epi,
+                    code, aux, arow, post);
+      return;
+    }
+    dense<TB, false, 1>(in, wsm + f.sw_off[l], in_dim, out_dim, out, epi,
+                        code, aux, arow, post);
+  } else if constexpr (PL == kGlobal) {
+    dense<TB, true, 4>(in, f.W[l], in_dim, out_dim, out, epi, code, aux,
+                       arow, post);
+  } else {
+    dense<TB, false, 4>(in, wsm + f.sw_off[l], in_dim, out_dim, out, epi,
+                        code, aux, arow, post);
   }
 }
 
-// u[e] = y[e] + sum_{q < s, a_sq != 0} (dt a_sq) k_q[e]; k_q = kbase +
-// q * kstride. No barrier.
-__device__ __forceinline__ void stage_input(const Tableau& tab, int s,
-                                            float dt,
-                                            const float* __restrict__ y,
-                                            const float* __restrict__ kbase,
-                                            int kstride,
-                                            float* __restrict__ u,
-                                            int count) {
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    float v = y[e];
-    for (int q = 0; q < s; ++q) {
-      const float a = tab.a[s][q];
-      if (a != 0.f) v = v + (dt * a) * kbase[q * kstride + e];
-    }
-    u[e] = v;
+// The tableau in shared memory: a at [s * kMaxStages + q], b after it.
+__device__ __forceinline__ void stage_tableau(const Tableau& tab,
+                                              float* tabsm) {
+  for (int e = threadIdx.x; e < kMaxStages * (kMaxStages + 1);
+       e += blockDim.x) {
+    const int s = e / kMaxStages, q = e % kMaxStages;
+    tabsm[e] = s < kMaxStages ? tab.a[s][q] : tab.b[q];
+  }
+}
+
+// Copies the pass's shared-memory weights (the register layer's rows from
+// kRegRows on only) and, forward, biases. `backward`: the pass's layer l
+// is W_l transposed, (w[l+1], w[l]).
+__device__ __forceinline__ void stage_weights(const Field& f, float* wsm,
+                                              bool backward) {
+  const bool biases = !backward;
+  for (int l = 0; l < f.L; ++l) {
+    const int in = backward ? f.w[l + 1] : f.w[l];
+    const int out = backward ? f.w[l] : f.w[l + 1];
+    const int skip = l == f.reg ? kRegRows * out : 0;
+    const int nw = in * out - skip;
+    if (f.sw_off[l] >= 0)
+      for (int e = threadIdx.x; e < nw; e += blockDim.x)
+        wsm[f.sw_off[l] + e] = f.W[l][skip + e];
+    if (biases && f.sb_off[l] >= 0)
+      for (int e = threadIdx.x; e < f.w[l + 1]; e += blockDim.x)
+        wsm[f.sb_off[l] + e] = f.b[l][e];
   }
 }
 
 // ---------------------------------------------------------------------------
 // Forward: ys[b, 0] = u0s[b]; ys[b, i + 1] = `substeps` RK steps from
-// ys[b, i]. WS: weights and biases staged in shared memory.
-template <int TB, bool WS>
-__global__ void __launch_bounds__(kMaxThreads)
+// ys[b, i]. With `tape`, every layer output of every stage of every step
+// goes to tape[((b * nsteps + step) * ns + s) * sumw4 + hp_off[l] + n].
+
+// The stage inputs are accumulated as the slopes come: u_s = y + sum_{q <
+// s} (dt a_sq) k_q and y1 = y + sum_s (dt b_s) k_s, both in the order of q
+// (the order of `rk_step`), by the thread that finishes column n of the
+// last layer, which is the same thread at every stage. So a stage's first
+// layer reads its input ready-made and nothing waits for a separate pass.
+// The last layer's epilogue: the slope to the tape; k_s into every later
+// stage input and into y; the next stage input (complete now) to the tape;
+// after the last stage the save point and every stage input reset to the
+// new y (unless `reset` is false: with one layer the operands read them,
+// so that waits for the layer's barrier).
+template <int TB>
+struct FwdPost {
+  float* rec;          // the tape record of row 0 at this stage, or null
+  size_t rstride;      // tape floats between rows
+  int hoff;            // where this layer's output goes in a record
+  int nvalid;          // rows of the tile inside the batch
+  bool last;           // the field's last layer: the rest applies
+  float* uacc;         // ns stage inputs, `tile` apart
+  float* yacc;
+  const float* tabsm;  // a at [s * kMaxStages + q], b after it
+  int s, ns, tile;
+  float dt;
+  bool more;           // a later stage input exists (this step or next)
+  int h0off, sumw4;
+  float* ysave;        // &ys[row0, i + 1, 0] after the last stage, or null
+  size_t ystride;
+  bool reset;          // after the last stage: reset the stage inputs
+  __device__ __forceinline__ void operator()(int n, int r, int idx,
+                                             float v) const {
+    const bool store = rec != nullptr && r < nvalid;
+    if (store) rec[r * rstride + hoff + n] = v;
+    if (!last) return;
+    for (int q = s + 1; q < ns; ++q) {
+      const float a = tabsm[q * kMaxStages + s];
+      if (a != 0.f) uacc[q * tile + idx] += (dt * a) * v;
+    }
+    const float bs = tabsm[kMaxStages * kMaxStages + s];
+    float yv = yacc[idx];
+    if (bs != 0.f) yv = yv + (dt * bs) * v;
+    yacc[idx] = yv;
+    if (s < ns - 1) {
+      if (store && more)
+        rec[r * rstride + sumw4 + h0off + n] = uacc[(s + 1) * tile + idx];
+      return;
+    }
+    if (ysave != nullptr && r < nvalid) ysave[r * ystride + n] = yv;
+    if (!reset) return;
+    for (int q = 0; q < ns; ++q) uacc[q * tile + idx] = yv;
+    if (store && more) rec[r * rstride + sumw4 + h0off + n] = yv;
+  }
+};
+
+template <int TB, int PL>
+__global__ void __launch_bounds__(PL == kReg ? kRegThreads : kThreads, 1)
 node_field_fwd_kernel(Tableau tab, Field f,
                       const float* __restrict__ saveat,
                       const float* __restrict__ u0s, float* __restrict__ ys,
-                      int B, int T, int substeps) {
+                      float* __restrict__ tape, int B, int T,
+                      int substeps) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int dim = f.w[0];
   const int tile = dim * TB;
   const int row0 = blockIdx.x * TB;
-  float* y = smem;
-  float* u = y + tile;
-  float* ks = u + tile;                       // ns slopes
-  float* h0 = ks + tab.ns * tile;
-  float* h1 = h0 + f.maxw * TB;
-  // f.total floats when WS, 16-byte aligned
-  float* wsm = smem + (((int)(h1 - smem) + f.maxw * TB + 3) & ~3);
+  const int nvalid = min(TB, B - row0);
+  const int ns = tab.ns;
+  const int nsteps = (T - 1) * substeps;
+  const size_t rstride = (size_t)nsteps * ns * f.sumw4;
+  float* tabsm = smem;                            // kMaxStages * 8
+  float* yacc = tabsm + kMaxStages * (kMaxStages + 1);
+  float* uacc = yacc + pad4(tile);                // ns stage inputs
+  float* h0 = uacc + pad4(ns * tile);
+  float* h1 = h0 + pad4(f.maxw * TB);
+  float* wsm = h1 + pad4(f.maxw * TB);            // f.sw_total floats
 
-  if (WS) {
-    for (int l = 0; l < f.L; ++l) {
-      const int nw = f.w[l] * f.w[l + 1];
-      for (int e = tid; e < nw; e += nt) wsm[f.w_off[l] + e] = f.W[l][e];
-      for (int e = tid; e < f.w[l + 1]; e += nt)
-        wsm[f.b_off[l] + e] = f.b[l][e];
-    }
-  }
+  float wr[4 * kRegKS];
+  if constexpr (PL == kReg)
+    load_reg_weights(f.W[f.reg], f.w[f.reg], f.w[f.reg + 1], wr);
+  stage_tableau(tab, tabsm);
+  if (PL != kGlobal) stage_weights(f, wsm, false);
+  float* tape0 = tape == nullptr ? nullptr : tape + (size_t)row0 * rstride;
   for (int e = tid; e < tile; e += nt) {
     const int r = e / dim, d = e - r * dim;
-    const int row = row0 + r;
     float v = 0.f;
-    if (row < B) {
-      v = u0s[(size_t)row * dim + d];
-      ys[(size_t)row * T * dim + d] = v;
+    if (r < nvalid) {
+      v = u0s[(size_t)(row0 + r) * dim + d];
+      ys[(size_t)(row0 + r) * T * dim + d] = v;
+      if (tape0 != nullptr && nsteps > 0)
+        tape0[r * rstride + f.hp_off[0] + d] = v;
     }
-    y[d * TB + r] = v;
+    yacc[d * TB + r] = v;
+    for (int q = 0; q < ns; ++q) uacc[q * tile + d * TB + r] = v;
   }
   __syncthreads();
 
+  const int L = f.L;
   for (int i = 0; i < T - 1; ++i) {
     const float dt = (saveat[i + 1] - saveat[i]) / (float)substeps;
     for (int j = 0; j < substeps; ++j) {
-      for (int s = 0; s < tab.ns; ++s) {
-        stage_input(tab, s, dt, y, ks, tile, u, tile);
+      const int step = i * substeps + j;
+      for (int s = 0; s < ns; ++s) {
+        const size_t at = (size_t)step * ns + s;
+        float* rec = tape0 == nullptr ? nullptr : tape0 + at * f.sumw4;
+        const bool last_stage = (s == ns - 1);
+        for (int l = 0; l < L; ++l) {
+          const bool last = (l == L - 1);
+          float* out = (l & 1) ? h1 : h0;
+          const float* in = l == 0 ? uacc + s * tile : ((l & 1) ? h0 : h1);
+          const float* bias = PL == kGlobal ? f.b[l] : wsm + f.sb_off[l];
+          const FwdPost<TB> post{
+              rec, rstride, f.hp_off[l + 1], nvalid, last, uacc, yacc,
+              tabsm, s, ns, tile, dt, at + 1 < (size_t)nsteps * ns,
+              f.hp_off[0], f.sumw4,
+              last_stage && j == substeps - 1
+                  ? ys + ((size_t)row0 * T + i + 1) * dim
+                  : nullptr,
+              (size_t)T * dim, L > 1};
+          layer<TB, PL>(f, l, wr, wsm, RowsIn<TB>{in}, f.w[l], f.w[l + 1],
+                        out, kBiasAct, f.act[l], bias, 0, post);
+        }
+      }
+      if (L == 1) {
+        for (int e = tid; e < tile; e += nt) {
+          const int d = e / TB, r = e - d * TB;
+          for (int q = 0; q < ns; ++q) uacc[q * tile + e] = yacc[e];
+          if (tape0 != nullptr && r < nvalid && step + 1 < nsteps)
+            tape0[r * rstride + (size_t)(step + 1) * ns * f.sumw4 +
+                  f.hp_off[0] + d] = yacc[e];
+        }
         __syncthreads();
-        const float* in = u;
-        for (int l = 0; l < f.L; ++l) {
-          float* out = (l == f.L - 1) ? ks + s * tile : ((l & 1) ? h1 : h0);
-          const float* W = WS ? wsm + f.w_off[l] : f.W[l];
-          const float* b = WS ? wsm + f.b_off[l] : f.b[l];
-          dense<TB, !WS>(in, W, f.w[l], f.w[l + 1], out, kBiasAct, f.act[l],
-                         b);
-          in = out;
-        }
       }
-      // y <- y + sum_s (dt b_s) k_s, and the interval's end state to ys
-      const bool save = (j == substeps - 1);
-      for (int e = tid; e < tile; e += nt) {
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Reverse sweep over the tape: lambda <- g[:, T-1]; for every step from
+// the last: pull lambda back through its stages, adding g[:, i] at the
+// start of interval i; Delta of every stage and layer to
+// delta[((b * nsteps + step) * ns + s) * dsum4 + dp_off[l] + n].
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Products for layers l >= 1: Delta_{l-1} to device memory.
+struct DeltaPost {
+  float* rec;          // the Delta record of row 0 at this stage
+  size_t rstride;
+  int doff;
+  int nvalid;
+  __device__ __forceinline__ void operator()(int n, int r, int, float v)
+      const {
+    if (r < nvalid) rec[r * rstride + doff + n] = v;
+  }
+};
+
+// The product for layer 0 gives ubar_s: ybar += ubar_s, kbar_q += dt a_sq
+// ubar_s; after stage 0 the step is done: lambda = ybar (+ g at the start
+// of an interval), then the next (earlier) step's kbar_q = dt' b_q lambda
+// and ybar = lambda (unless `init_next` is false: with one layer the
+// product's operands read kbar, so that waits for its barrier), or du0 =
+// lambda after the first step.
+template <int TB>
+struct UbarPost {
+  float* ybar;
+  float* kbar;
+  const float* arow;    // a_s. in shared memory
+  const float* bsm;
+  int s, tile;
+  float dt;
+  bool step_end;
+  const float* gadd;    // g[:, i] in shared memory, or null
+  float dt_next;        // the next step's dt (step_end)
+  bool init_next;
+  float* du0;           // &du0[row0, 0] after the first step, else null
+  int dim, nvalid;
+  int ns;
+  __device__ __forceinline__ void operator()(int n, int r, int idx,
+                                             float v) const {
+    float yb = ybar[idx] + v;
+    for (int q = 0; q < s; ++q) {
+      const float a = arow[q];
+      if (a != 0.f) kbar[q * tile + idx] += (dt * a) * v;
+    }
+    if (!step_end) {
+      ybar[idx] = yb;
+      return;
+    }
+    if (gadd != nullptr) yb += gadd[idx];
+    ybar[idx] = yb;
+    if (du0 != nullptr) {
+      if (r < nvalid) du0[r * dim + n] = yb;
+      return;
+    }
+    if (!init_next) return;
+    for (int q = 0; q < ns; ++q) {
+      const float bq = bsm[q];
+      kbar[q * tile + idx] = bq != 0.f ? (dt_next * bq) * yb : 0.f;
+    }
+  }
+};
+
+template <int TB, int PL>
+__global__ void __launch_bounds__(PL == kReg ? kRegThreads : kThreads, 1)
+node_field_bwd_kernel(Tableau tab, Field f,
+                      const float* __restrict__ saveat,
+                      const float* __restrict__ tape,
+                      const float* __restrict__ g, float* __restrict__ du0,
+                      float* __restrict__ delta, int B, int T,
+                      int substeps) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int dim = f.w[0];
+  const int tile = dim * TB;
+  const int row0 = blockIdx.x * TB;
+  const int nvalid = min(TB, B - row0);
+  const int ns = tab.ns;
+  const int L = f.L;
+  const int rec4 = f.sumw4;
+  float* tabsm = smem;
+  float* ybar = tabsm + kMaxStages * (kMaxStages + 1);
+  float* kbar = ybar + pad4(tile);               // ns cotangents
+  float* d0 = kbar + pad4(ns * tile);
+  float* d1 = d0 + pad4(f.maxw * TB);
+  float* gbuf = d1 + pad4(f.maxw * TB);          // 2 x tile
+  float* tbuf = gbuf + 2 * pad4(tile);           // 2 x ns x TB x rec4
+  float* wsm = tbuf + 2 * ns * TB * rec4;        // f.sw_total floats
+  const float* bsm = tabsm + kMaxStages * kMaxStages;
+  const int nsteps = (T - 1) * substeps;
+  const size_t rstride = (size_t)nsteps * ns * rec4;
+  const size_t drstride = (size_t)nsteps * ns * f.dsum4;
+
+  float wr[4 * kRegKS];
+  if constexpr (PL == kReg)
+    load_reg_weights(f.W[f.reg], f.w[f.reg + 1], f.w[f.reg], wr);
+  stage_tableau(tab, tabsm);
+  if (PL != kGlobal) stage_weights(f, wsm, true);
+  for (int e = tid; e < 2 * ns * TB * rec4; e += nt) tbuf[e] = 0.f;
+  for (int e = tid; e < 2 * pad4(tile); e += nt) gbuf[e] = 0.f;
+  __syncthreads();
+
+  // step `step`'s tape slice (and g[:, i] at the start of interval i) to
+  // buffer `slot`, asynchronously; [stage][row][feature]
+  auto prefetch = [&](int step, int slot) {
+    float* tb = tbuf + slot * ns * TB * rec4;
+    const int chunks = rec4 / 4;
+    for (int e = tid; e < ns * nvalid * chunks; e += nt) {
+      const int c = e % chunks, sr = e / chunks;
+      const int r = sr % nvalid, s = sr / nvalid;
+      cp_async16(tb + (s * TB + r) * rec4 + 4 * c,
+                 tape + (size_t)(row0 + r) * rstride +
+                     ((size_t)step * ns + s) * rec4 + 4 * c);
+    }
+    if (step % substeps == 0) {
+      const int i = step / substeps;
+      float* gb = gbuf + slot * pad4(tile);
+      for (int e = tid; e < nvalid * dim; e += nt) {
         const int r = e / dim, d = e - r * dim;
-        const int idx = d * TB + r;
-        float v = y[idx];
-        for (int s = 0; s < tab.ns; ++s) {
-          const float bs = tab.b[s];
-          if (bs != 0.f) v = v + (dt * bs) * ks[s * tile + idx];
-        }
-        y[idx] = v;
-        const int row = row0 + r;
-        if (save && row < B)
-          ys[((size_t)row * T + (i + 1)) * dim + d] = v;
+        cp_async4(gb + d * TB + r, g + ((size_t)(row0 + r) * T + i) * dim + d);
       }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // lambda = g[:, T-1]: ybar = lambda, kbar_q = dt b_q lambda
+  {
+    const float dt_last =
+        T > 1 ? (saveat[T - 1] - saveat[T - 2]) / (float)substeps : 0.f;
+    for (int e = tid; e < tile; e += nt) {
+      const int d = e / TB, r = e - d * TB;
+      const float lam =
+          r < nvalid ? g[((size_t)(row0 + r) * T + (T - 1)) * dim + d] : 0.f;
+      ybar[e] = lam;
+      for (int q = 0; q < ns; ++q) {
+        const float bq = tab.b[q];
+        kbar[q * tile + e] = bq != 0.f ? (dt_last * bq) * lam : 0.f;
+      }
+      if (nsteps == 0 && r < nvalid) du0[(size_t)(row0 + r) * dim + d] = lam;
+    }
+  }
+  if (nsteps > 0) prefetch(nsteps - 1, (nsteps - 1) & 1);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int step = nsteps - 1; step >= 0; --step) {
+    const int slot = step & 1;
+    if (step > 0) prefetch(step - 1, slot ^ 1);
+    const int i = step / substeps;
+    const float dt = (saveat[i + 1] - saveat[i]) / (float)substeps;
+    const int ip = (step - 1) / substeps;
+    const float dt_next =
+        step > 0 ? (saveat[ip + 1] - saveat[ip]) / (float)substeps : 0.f;
+    const float* tb = tbuf + slot * ns * TB * rec4;
+    for (int s = ns - 1; s >= 0; --s) {
+      const float* ts = tb + s * TB * rec4;      // [row][feature]
+      float* drec = delta + (size_t)row0 * drstride +
+                    ((size_t)step * ns + s) * f.dsum4;
+      const CotIn<TB> cin{kbar + s * tile, ts + f.hp_off[L], rec4,
+                          f.act[L - 1]};
+      // Delta_{L-1} = kbar_s * act'(h_L)
+      for (int e = tid; e < tile; e += nt) {
+        const int d = e / TB, r = e - d * TB;
+        if (r < nvalid) {
+          float h[TB];
+          cin.load(d, h);
+          drec[r * drstride + f.dp_off[L - 1] + d] = h[r];
+        }
+      }
+      float* cur = d0;
+      for (int l = L - 1; l >= 0; --l) {
+        float* nxt = (cur == d0) ? d1 : d0;
+        // in: w[l + 1] features, out: w[l]
+        if (l > 0) {
+          const DeltaPost post{drec, drstride, f.dp_off[l - 1], nvalid};
+          if (l == L - 1)
+            layer<TB, PL>(f, l, wr, wsm, cin, f.w[l + 1], f.w[l], nxt,
+                          kActGrad, f.act[l - 1], ts + f.hp_off[l], rec4,
+                          post);
+          else
+            layer<TB, PL>(f, l, wr, wsm, RowsIn<TB>{cur}, f.w[l + 1], f.w[l],
+                          nxt, kActGrad, f.act[l - 1], ts + f.hp_off[l],
+                          rec4, post);
+        } else {
+          const bool step_end = (s == 0);
+          if (step_end) cp_async_wait_all();   // the next slot, before the
+                                               // product's closing barrier
+          const UbarPost<TB> post{
+              ybar, kbar, tabsm + s * kMaxStages, bsm, s, tile, dt,
+              step_end,
+              step_end && step % substeps == 0 ? gbuf + slot * pad4(tile)
+                                               : nullptr,
+              dt_next, L > 1,
+              step_end && step == 0 ? du0 + (size_t)row0 * dim : nullptr,
+              dim, nvalid, ns};
+          if (L == 1)
+            layer<TB, PL>(f, l, wr, wsm, cin, f.w[1], f.w[0], nxt, kNone, 0,
+                          nullptr, 0, post);
+          else
+            layer<TB, PL>(f, l, wr, wsm, RowsIn<TB>{cur}, f.w[1], f.w[0],
+                          nxt, kNone, 0, nullptr, 0, post);
+        }
+        cur = nxt;
+      }
+    }
+    if (L == 1 && step > 0) {
+      for (int e = tid; e < tile; e += nt)
+        for (int q = 0; q < ns; ++q) {
+          const float bq = bsm[q];
+          kbar[q * tile + e] = bq != 0.f ? (dt_next * bq) * ybar[e] : 0.f;
+        }
       __syncthreads();
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward: lambda <- g[:, T-1]; for i = T-2..0: pull lambda back through
-// the interval's RK steps (recomputed from ys[:, i]), add g[:, i], and
-// accumulate the weight gradients into this block's slice of `dwb`: in
-// shared memory for the whole sweep when they fit beside the tape (DS),
-// written out once at the end, else in the slice itself.
-// `ysub` (n_blocks, substeps, dim * TB) holds the sub-step start states of
-// the current interval when substeps > 1.
-
-// One RK step's stages from y, every layer output kept in the tape.
-template <int TB>
-__device__ __forceinline__ void taped_stages(const Tableau& tab,
-                                             const Field& f, float dt,
-                                             const float* __restrict__ y,
-                                             float* __restrict__ tape) {
-  const int tile = f.w[0] * TB;
-  const int stride = f.sumw * TB;               // one stage's tape
-  const float* kbase = tape + f.h_off[f.L] * TB;
-  for (int s = 0; s < tab.ns; ++s) {
-    float* ts = tape + s * stride;
-    stage_input(tab, s, dt, y, kbase, stride, ts, tile);
-    __syncthreads();
-    for (int l = 0; l < f.L; ++l)
-      dense<TB, true>(ts + f.h_off[l] * TB, f.W[l], f.w[l], f.w[l + 1],
-                      ts + f.h_off[l + 1] * TB, kBiasAct, f.act[l], f.b[l]);
+// Weight gradients: for layer l, the (w[l] + 1) x w[l+1] product
+// [H_l, 1]^T Delta_l over the records [r0, r1) of this block's split, the
+// row w[l] being the bias. Block (tile, split) writes its 64 x 64 tile of
+// part[split] in the packed layout.
+__global__ void __launch_bounds__(kDwThreads)
+node_field_dw_kernel(Field f, const float* __restrict__ tape,
+                     const float* __restrict__ delta,
+                     float* __restrict__ part, int R, int per_split) {
+  __shared__ __align__(16) float As[kDwK][kDwTile];
+  __shared__ __align__(16) float Bs[kDwK][kDwTile];
+  int t = blockIdx.x, l = 0;
+  for (; l < f.L - 1; ++l) {
+    const int n = ((f.w[l] + 1 + kDwTile - 1) / kDwTile) *
+                  ((f.w[l + 1] + kDwTile - 1) / kDwTile);
+    if (t < n) break;
+    t -= n;
   }
-}
+  const int M = f.w[l], N = f.w[l + 1];        // rows M..M: the bias row
+  const int ntn = (N + kDwTile - 1) / kDwTile;
+  const int k0 = (t / ntn) * kDwTile, n0 = (t % ntn) * kDwTile;
+  const int r0 = blockIdx.y * per_split;
+  const int r1 = min(R, r0 + per_split);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;      // 4 x 4 outputs a thread
+  const int lr = tid >> 4, lc = (tid & 15) * 4;  // loader: record, column
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 
-template <int TB, bool DS>
-__global__ void __launch_bounds__(kMaxThreads)
-node_field_bwd_kernel(Tableau tab, Field f,
-                      const float* __restrict__ saveat,
-                      const float* __restrict__ ys,
-                      const float* __restrict__ g, float* __restrict__ du0,
-                      float* __restrict__ dwb, float* __restrict__ ysub,
-                      int B, int T, int substeps) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int dim = f.w[0];
-  const int tile = dim * TB;
-  const int row0 = blockIdx.x * TB;
-  const int stride = f.sumw * TB;
-  float* lam = smem;
-  float* ybar = lam + tile;
-  float* y = ybar + tile;
-  float* kbar = y + tile;                     // ns cotangents of the slopes
-  float* tape = kbar + tab.ns * tile;         // ns * sumw * TB
-  float* d0 = tape + tab.ns * stride;
-  float* d1 = d0 + f.maxw * TB;
-  // f.total floats when DS, 16-byte aligned
-  float* dws = smem + (((int)(d1 - smem) + f.maxw * TB + 3) & ~3);
-  float* slice = dwb + (size_t)blockIdx.x * f.total;
-  float* mydw = DS ? dws : slice;
-  float* mysub = ysub ? ysub + (size_t)blockIdx.x * substeps * tile : nullptr;
-
-  for (int e = tid; e < tile; e += nt) {
-    const int r = e / dim, d = e - r * dim;
-    const int row = row0 + r;
-    lam[d * TB + r] =
-        row < B ? g[((size_t)row * T + (T - 1)) * dim + d] : 0.f;
-  }
-  if (DS)
-    for (int e = tid; e < f.total; e += nt) dws[e] = 0.f;
-  __syncthreads();
-
-  for (int i = T - 2; i >= 0; --i) {
-    const float dt = (saveat[i + 1] - saveat[i]) / (float)substeps;
-    for (int e = tid; e < tile; e += nt) {
-      const int r = e / dim, d = e - r * dim;
-      const int row = row0 + r;
-      y[d * TB + r] = row < B ? ys[((size_t)row * T + i) * dim + d] : 0.f;
+  for (int rb = r0; rb < r1; rb += kDwK) {
+    const int rec = rb + lr;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (rec < r1) {
+      const float* hp = tape + (size_t)rec * f.sumw4 + f.hp_off[l];
+      const int k = k0 + lc;
+      if (k + 3 < M) {
+        av = *reinterpret_cast<const float4*>(hp + k);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          v[c] = k + c < M ? hp[k + c] : (k + c == M ? 1.f : 0.f);
+        av = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      const float* dp = delta + (size_t)rec * f.dsum4 + f.dp_off[l];
+      const int n = n0 + lc;
+      if (n + 3 < N) {
+        bv = *reinterpret_cast<const float4*>(dp + n);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = n + c < N ? dp[n + c] : 0.f;
+        bv = make_float4(v[0], v[1], v[2], v[3]);
+      }
     }
+    *reinterpret_cast<float4*>(&As[lr][lc]) = av;
+    *reinterpret_cast<float4*>(&Bs[lr][lc]) = bv;
     __syncthreads();
-    if (substeps > 1) {
-      // forward through the interval, keeping each sub-step's start state;
-      // a thread reads back only the elements it wrote itself
-      for (int j = 0; j < substeps; ++j) {
-        for (int e = tid; e < tile; e += nt) mysub[j * tile + e] = y[e];
-        if (j == substeps - 1) break;
-        taped_stages<TB>(tab, f, dt, y, tape);
-        const float* kbase = tape + f.h_off[f.L] * TB;
-        for (int e = tid; e < tile; e += nt) {
-          float v = y[e];
-          for (int s = 0; s < tab.ns; ++s) {
-            const float bs = tab.b[s];
-            if (bs != 0.f) v = v + (dt * bs) * kbase[s * stride + e];
-          }
-          y[e] = v;
-        }
-        __syncthreads();
-      }
-    }
-    for (int j = substeps - 1; j >= 0; --j) {
-      if (substeps > 1) {
-        for (int e = tid; e < tile; e += nt) y[e] = mysub[j * tile + e];
-        __syncthreads();
-      }
-      taped_stages<TB>(tab, f, dt, y, tape);
-
-      for (int e = tid; e < tile; e += nt) {
-        const float l = lam[e];
-        ybar[e] = l;
-        for (int s = 0; s < tab.ns; ++s) {
-          const float bs = tab.b[s];
-          kbar[s * tile + e] = bs != 0.f ? (dt * bs) * l : 0.f;
-        }
-      }
-      __syncthreads();
-      for (int s = tab.ns - 1; s >= 0; --s) {
-        const float* ts = tape + s * stride;
-        float* cur = d0;
-        {
-          const float* hL = ts + f.h_off[f.L] * TB;
-          const int code = f.act[f.L - 1];
-          for (int e = tid; e < tile; e += nt)
-            cur[e] = kbar[s * tile + e] * act_grad(code, hL[e]);
-        }
-        __syncthreads();
-        for (int l = f.L - 1; l >= 0; --l) {
-          const float* hin = ts + f.h_off[l] * TB;
-          accum_dw<TB>(hin, cur, mydw + f.w_off[l], f.w[l], f.w[l + 1]);
-          accum_db<TB>(cur, mydw + f.b_off[l], f.w[l + 1]);
-          float* nxt = (cur == d0) ? d1 : d0;
-          // delta_in = (delta W_l^T) * act'_{l-1}(h_l); the field's input
-          // (l == 0) has no activation
-          dense<TB, true>(cur, f.Wt[l], f.w[l + 1], f.w[l], nxt,
-                          l > 0 ? kActGrad : kNone, l > 0 ? f.act[l - 1] : 0,
-                          hin);
-          cur = nxt;
-        }
-        // cur = ubar_s
-        for (int e = tid; e < tile; e += nt) {
-          const float ub = cur[e];
-          ybar[e] += ub;
-          for (int q = 0; q < s; ++q) {
-            const float a = tab.a[s][q];
-            if (a != 0.f) kbar[q * tile + e] += (dt * a) * ub;
-          }
-        }
-        __syncthreads();
-      }
-      for (int e = tid; e < tile; e += nt) lam[e] = ybar[e];
-      __syncthreads();
-    }
-    for (int e = tid; e < tile; e += nt) {
-      const int r = e / dim, d = e - r * dim;
-      const int row = row0 + r;
-      if (row < B) lam[d * TB + r] += g[((size_t)row * T + i) * dim + d];
+#pragma unroll
+    for (int kk = 0; kk < kDwK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av4[4] = {a.x, a.y, a.z, a.w};
+      const float bv4[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av4[p], bv4[q], acc[p][q]);
     }
     __syncthreads();
   }
-  for (int e = tid; e < tile; e += nt) {
-    const int r = e / dim, d = e - r * dim;
-    const int row = row0 + r;
-    if (row < B) du0[(size_t)row * dim + d] = lam[d * TB + r];
+  float* out = part + (size_t)blockIdx.y * f.total;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int k = k0 + ty * 4 + p;
+    if (k > M) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (n >= N) continue;
+      out[k < M ? f.w_off[l] + (size_t)k * N + n : f.b_off[l] + n] =
+          acc[p][q];
+    }
   }
-  if (DS)
-    for (int e = tid; e < f.total; e += nt) slice[e] = dws[e];
 }
 
 // ---------------------------------------------------------------------------
 // Host side.
 
 int build_field(int n_layers, const int* widths, const int* acts,
-                const void* const* Ws, const void* const* Wts,
-                const void* const* bs, Field* f) {
+                const void* const* Ws, const void* const* bs, Field* f) {
   if (n_layers < 1 || n_layers > kMaxLayers) return kErrDepth;
   if (widths == nullptr) return kErrArgs;
   *f = Field{};
   f->L = n_layers;
-  int off = 0, hoff = 0;
+  f->reg = -1;
+  int hoff = 0;
   for (int l = 0; l <= n_layers; ++l) {
     const int w = widths[l];
     if (w < 1) return kErrArgs;
     f->w[l] = w;
-    f->h_off[l] = hoff;
-    hoff += w;
+    f->hp_off[l] = hoff;
+    hoff += pad4(w);
     if (w > f->maxw) f->maxw = w;
   }
-  f->sumw = hoff;
+  f->sumw4 = hoff;
   if (f->w[0] != f->w[n_layers]) return kErrArgs;   // dy/dt has y's shape
+  int off = 0, doff = 0;
   for (int l = 0; l < n_layers; ++l) {
     if (acts != nullptr) {
       if (acts[l] < 0 || acts[l] > 4) return kErrArgs;
       f->act[l] = acts[l];
     }
     f->w_off[l] = off;
-    off += (f->w[l] * f->w[l + 1] + 3) & ~3;
+    off += pad4(f->w[l] * f->w[l + 1]);
     f->b_off[l] = off;
-    off += (f->w[l + 1] + 3) & ~3;
+    off += pad4(f->w[l + 1]);
+    f->dp_off[l] = doff;
+    doff += pad4(f->w[l + 1]);
     f->W[l] = Ws ? (const float*)Ws[l] : nullptr;
-    f->Wt[l] = Wts ? (const float*)Wts[l] : nullptr;
     f->b[l] = bs ? (const float*)bs[l] : nullptr;
+    f->sw_off[l] = f->sb_off[l] = -1;
   }
   f->total = off;
+  f->dsum4 = doff;
   return 0;
 }
 
-size_t fwd_smem(const Field& f, int ns, int tb, bool ws) {
-  const size_t tile = (size_t)f.w[0] * tb;
-  return sizeof(float) * ((2 + ns) * tile + 2 * (size_t)f.maxw * tb +
-                          (ws ? f.total + 3 : 0));
+// The layer a pass keeps in registers (-1: none): the largest whose
+// outputs (with the sweep's transposed product) fit the register layout.
+int reg_layer(const Field& f, bool backward) {
+  int best = -1, most = 0;
+  for (int l = 0; l < f.L; ++l) {
+    const int in = backward ? f.w[l + 1] : f.w[l];
+    const int out = backward ? f.w[l] : f.w[l + 1];
+    if (out <= kRegMaxOut && out % 4 == 0 && in * out > most) {
+      best = l;
+      most = in * out;
+    }
+  }
+  return best;
 }
 
-size_t bwd_smem(const Field& f, int ns, int tb, bool ds) {
-  const size_t tile = (size_t)f.w[0] * tb;
-  return sizeof(float) * ((3 + ns) * tile + (size_t)ns * f.sumw * tb +
-                          2 * (size_t)f.maxw * tb + (ds ? f.total + 3 : 0));
+// Lays out the pass's shared-memory weights for a placement; returns their
+// floats.
+int place_weights(Field* f, int pl, bool backward) {
+  int off = 0;
+  for (int l = 0; l < f->L; ++l) {
+    f->sw_off[l] = f->sb_off[l] = -1;
+    if (pl == kGlobal) continue;
+    const int in = backward ? f->w[l + 1] : f->w[l];
+    const int out = backward ? f->w[l] : f->w[l + 1];
+    const int rows = (pl == kReg && l == f->reg) ? in - kRegRows : in;
+    f->sw_off[l] = off;
+    if (rows > 0) off += pad4(rows * out);
+    if (!backward) {
+      f->sb_off[l] = off;
+      off += pad4(f->w[l + 1]);
+    }
+  }
+  f->sw_total = off;
+  return off;
 }
 
-bool valid_rows(int rows) {
-  return rows == 1 || rows == 2 || rows == 4 || rows == 8;
+size_t pass_smem(const Field& f, int ns, int tb, bool backward) {
+  const size_t tile = pad4(f.w[0] * tb);
+  size_t fl = kMaxStages * (kMaxStages + 1) + tile + pad4(ns * f.w[0] * tb) +
+              2 * (size_t)pad4(f.maxw * tb) + f.sw_total;
+  if (backward) fl += 2 * tile + 2 * (size_t)ns * tb * f.sumw4;
+  return sizeof(float) * fl;
 }
 
-// Picks the rows per block and whether the big array of the pass lives in
-// shared memory (forward: the weights; backward: the weight-gradient
-// accumulators). *rows == 0 asks for the default. With the big array in
-// shared memory (tried first) that is the fewest rows that still put the
-// batch on the card in one wave of blocks (one block per SM): a tile's
-// chain of stages is serial, so more blocks shorten it. Without, every
-// block streams the array from L2 once per stage whatever its rows, so the
-// default is the most rows that fit.
-int plan(const Field& f, int ns, int nt, bool backward, int B, int* rows,
-         bool* in_smem, size_t* bytes) {
-  if (ns < 1 || ns > kMaxStages || nt < 32 || nt > kMaxThreads ||
-      nt % 32 != 0 || B < 1)
-    return kErrArgs;
+// The current device's SMs: the blocks of one wave (0 if it cannot be
+// read).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// Picks the rows per block (1 or 2; *rows == 0 asks for the default: 1
+// when the batch fits one wave of blocks on the current device, else 2) and
+// where the pass keeps its weights (*place: the first that fits of one
+// layer in registers and the rest in shared memory, all in shared memory,
+// all read through the read-only cache). Fills f's placement fields.
+int plan(Field* f, int ns, bool backward, int B, int* rows, int* place,
+         int* threads, size_t* bytes) {
+  if (ns < 1 || ns > kMaxStages || B < 1) return kErrArgs;
   const int asked = *rows;
-  if (asked != 0 && !valid_rows(asked)) return kErrArgs;
-  int wave = 1;
-  while (wave < 8 && (B + wave - 1) / wave > kWaveBlocks) wave *= 2;
-  for (int pass = 0; pass < 2; ++pass) {
-    const bool big = (pass == 0);
-    for (int r = asked != 0 ? asked : (big ? wave : 8); r >= 1; r /= 2) {
-      const size_t need = backward ? bwd_smem(f, ns, r, big)
-                                   : fwd_smem(f, ns, r, big);
-      if (need <= (size_t)kSmemLimit) {
-        *rows = r;
-        *in_smem = big;
-        *bytes = need;
-        return 0;
-      }
-      if (asked != 0) break;   // a requested tile is taken or refused
+  if (asked != 0 && asked != 1 && asked != 2) return kErrArgs;
+  int tb = asked;
+  if (tb == 0) {
+    const int wave = sm_count();
+    if (wave < 1) return kErrArgs;
+    tb = B > wave ? 2 : 1;
+  }
+  const int reg = reg_layer(*f, backward);
+  for (int pl = kReg; pl <= kGlobal; ++pl) {
+    if (pl == kReg && reg < 0) continue;
+    f->reg = pl == kReg ? reg : -1;
+    place_weights(f, pl, backward);
+    const size_t need = pass_smem(*f, ns, tb, backward);
+    if (need <= (size_t)kSmemLimit) {
+      *rows = tb;
+      *place = pl;
+      *threads = pl == kReg ? kRegThreads : kThreads;
+      *bytes = need;
+      return 0;
     }
   }
   return kErrFit;
@@ -707,34 +1105,44 @@ int fill_tableau(int n_stages, const float* a, const float* b, Tableau* tab) {
   return 0;
 }
 
-template <int TB, bool WS>
+template <class K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int TB, int PL>
 cudaError_t launch_fwd(const Tableau& tab, const Field& f,
                        const float* saveat, const float* u0s, float* ys,
-                       int B, int T, int substeps, int nt, size_t bytes,
-                       cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      node_field_fwd_kernel<TB, WS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                       float* tape, int B, int T, int substeps, int nt,
+                       size_t bytes, cudaStream_t st) {
+  cudaError_t e = set_smem(node_field_fwd_kernel<TB, PL>, bytes);
   if (e != cudaSuccess) return e;
-  const int blocks = (B + TB - 1) / TB;
-  node_field_fwd_kernel<TB, WS><<<blocks, nt, bytes, st>>>(
-      tab, f, saveat, u0s, ys, B, T, substeps);
+  node_field_fwd_kernel<TB, PL><<<(B + TB - 1) / TB, nt, bytes, st>>>(
+      tab, f, saveat, u0s, ys, tape, B, T, substeps);
   return cudaGetLastError();
 }
 
-template <int TB, bool DS>
+template <int TB, int PL>
 cudaError_t launch_bwd(const Tableau& tab, const Field& f,
-                       const float* saveat, const float* ys, const float* g,
-                       float* du0, float* dwb, float* ysub, int B, int T,
-                       int substeps, int nt, size_t bytes, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      node_field_bwd_kernel<TB, DS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                       const float* saveat, const float* tape,
+                       const float* g, float* du0, float* delta, int B,
+                       int T, int substeps, int nt, size_t bytes,
+                       cudaStream_t st) {
+  cudaError_t e = set_smem(node_field_bwd_kernel<TB, PL>, bytes);
   if (e != cudaSuccess) return e;
-  const int blocks = (B + TB - 1) / TB;
-  node_field_bwd_kernel<TB, DS><<<blocks, nt, bytes, st>>>(
-      tab, f, saveat, ys, g, du0, dwb, ysub, B, T, substeps);
+  node_field_bwd_kernel<TB, PL><<<(B + TB - 1) / TB, nt, bytes, st>>>(
+      tab, f, saveat, tape, g, du0, delta, B, T, substeps);
   return cudaGetLastError();
+}
+
+int dw_tiles(const Field& f) {
+  int n = 0;
+  for (int l = 0; l < f.L; ++l)
+    n += ((f.w[l] + 1 + kDwTile - 1) / kDwTile) *
+         ((f.w[l + 1] + kDwTile - 1) / kDwTile);
+  return n;
 }
 
 }  // namespace
@@ -745,29 +1153,43 @@ extern "C" int ldq_node_field_max_layers() { return kMaxLayers; }
 extern "C" int ldq_node_field_packed_size(int n_layers, const int* widths) {
   Field f;
   const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
-                             nullptr, &f);
+                             &f);
   return rc != 0 ? rc : f.total;
 }
 
-// The launch configuration for a field and a batch of B rows: rows per
-// block (*rows in: 0 = the default, else a request; out: the choice),
-// whether the pass keeps its big array in shared memory (forward: the
-// weights; backward: the weight-gradient accumulators), and the block's
-// dynamic shared memory. Returns 0, or kErrDepth / kErrFit / kErrArgs.
-extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
-                                   int n_stages, int threads, int backward,
-                                   int B, int* rows, int* in_smem,
-                                   int* smem_bytes) {
+// Floats in one tape record and in one Delta record (0 or an error code).
+extern "C" int ldq_node_field_records(int n_layers, const int* widths,
+                                      int* tape_floats, int* delta_floats) {
   Field f;
-  int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr, nullptr,
-                       &f);
+  const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
+                             &f);
   if (rc != 0) return rc;
-  if (rows == nullptr) return kErrArgs;
-  bool ws = false;
+  if (tape_floats == nullptr || delta_floats == nullptr) return kErrArgs;
+  *tape_floats = f.sumw4;
+  *delta_floats = f.dsum4;
+  return 0;
+}
+
+// The launch configuration of a pass (backward: the sweep) for a batch of
+// B rows on the current device: rows per block (*rows in: 0 = the default,
+// else 1 or 2; out: the choice), where the weights live (*place out: 0 one
+// layer in registers, 1 shared memory, 2 global), that layer (-1: none),
+// threads per block and dynamic shared memory. Returns 0, or kErrDepth /
+// kErrFit / kErrArgs.
+extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
+                                   int n_stages, int backward, int B,
+                                   int* rows, int* place, int* reg,
+                                   int* threads, int* smem_bytes) {
+  Field f;
+  int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr, &f);
+  if (rc != 0) return rc;
+  if (rows == nullptr || place == nullptr) return kErrArgs;
+  int nt = 0;
   size_t bytes = 0;
-  rc = plan(f, n_stages, threads, backward != 0, B, rows, &ws, &bytes);
+  rc = plan(&f, n_stages, backward != 0, B, rows, place, &nt, &bytes);
   if (rc != 0) return rc;
-  if (in_smem) *in_smem = ws ? 1 : 0;
+  if (reg) *reg = f.reg;
+  if (threads) *threads = nt;
   if (smem_bytes) *smem_bytes = (int)bytes;
   return 0;
 }
@@ -776,91 +1198,125 @@ extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
 // codes; Ws / bs: n_layers device pointers (float32, W_l row-major
 // (widths[l], widths[l+1])); a: n_stages x n_stages row-major, b: n_stages,
 // both float32 on the host; saveat (T,), u0s (B, dim), ys (B, T, dim) on
-// the device. rows: 0 = default. Returns 0 on a successful launch, a
-// cudaError_t (> 0) or a negative code above. Does not synchronise.
+// the device; tape (B, (T-1) * substeps, n_stages, tape record) or null.
+// rows: 0 = default (see ldq_node_field_plan).
+// Returns 0 on a successful launch, a cudaError_t (> 0) or a negative code
+// above. Does not synchronise.
 extern "C" int ldq_node_field_fwd(int n_layers, const int* widths,
                                   const int* acts, const void* const* Ws,
                                   const void* const* bs, int n_stages,
                                   const float* a, const float* b,
                                   const float* saveat, const float* u0s,
-                                  float* ys, int B, int T, int substeps,
-                                  int rows, int threads, void* stream) {
+                                  float* ys, float* tape, int B, int T,
+                                  int substeps, int rows, void* stream) {
   if (B < 1 || T < 1 || substeps < 1 || acts == nullptr || Ws == nullptr ||
       bs == nullptr || saveat == nullptr || u0s == nullptr || ys == nullptr)
     return kErrArgs;
   Field f;
-  int rc = build_field(n_layers, widths, acts, Ws, nullptr, bs, &f);
+  int rc = build_field(n_layers, widths, acts, Ws, bs, &f);
   if (rc != 0) return rc;
   Tableau tab;
   rc = fill_tableau(n_stages, a, b, &tab);
   if (rc != 0) return rc;
-  bool ws = false;
+  int pl = 0, nt = 0;
   size_t bytes = 0;
-  rc = plan(f, n_stages, threads, false, B, &rows, &ws, &bytes);
+  rc = plan(&f, n_stages, false, B, &rows, &pl, &nt, &bytes);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaErrorInvalidValue;
-#define LDQ_FWD_CASE(TB)                                                    \
-  case TB:                                                                  \
-    e = ws ? launch_fwd<TB, true>(tab, f, saveat, u0s, ys, B, T, substeps,  \
-                                  threads, bytes, st)                       \
-           : launch_fwd<TB, false>(tab, f, saveat, u0s, ys, B, T, substeps, \
-                                   threads, bytes, st);                     \
-    break;
-  switch (rows) {
-    LDQ_FWD_CASE(8)
-    LDQ_FWD_CASE(4)
-    LDQ_FWD_CASE(2)
-    LDQ_FWD_CASE(1)
+#define LDQ_FWD(TB, PL)                                                    \
+  e = launch_fwd<TB, PL>(tab, f, saveat, u0s, ys, tape, B, T, substeps, nt, \
+                         bytes, st)
+  if (rows == 1) {
+    if (pl == kReg) LDQ_FWD(1, kReg);
+    else if (pl == kSmem) LDQ_FWD(1, kSmem);
+    else LDQ_FWD(1, kGlobal);
+  } else {
+    if (pl == kReg) LDQ_FWD(2, kReg);
+    else if (pl == kSmem) LDQ_FWD(2, kSmem);
+    else LDQ_FWD(2, kGlobal);
   }
-#undef LDQ_FWD_CASE
+#undef LDQ_FWD
   return (int)e;
 }
 
-// Backward sweep. Wts: W_l transposed (widths[l+1], widths[l]) row-major.
-// ys, g (B, T, dim); du0 (B, dim); dwb (n_blocks, packed size), zeroed by
-// the caller on this stream, n_blocks = ceil(B / rows); ysub (n_blocks,
-// substeps, dim * rows) scratch, may be null when substeps == 1. `rows`
-// must be the value ldq_node_field_plan gave for this B (it sizes dwb).
+// Reverse sweep. Wts: W_l transposed (widths[l+1], widths[l]) row-major.
+// tape: as the forward wrote it; g (B, T, dim); du0 (B, dim); delta (B,
+// (T-1) * substeps, n_stages, Delta record). rows: as the forward's.
 extern "C" int ldq_node_field_bwd(int n_layers, const int* widths,
-                                  const int* acts, const void* const* Ws,
-                                  const void* const* Wts,
-                                  const void* const* bs, int n_stages,
-                                  const float* a, const float* b,
-                                  const float* saveat, const float* ys,
-                                  const float* g, float* du0, float* dwb,
-                                  float* ysub, int B, int T, int substeps,
-                                  int rows, int threads, void* stream) {
-  if (B < 1 || T < 1 || substeps < 1 || acts == nullptr || Ws == nullptr ||
-      Wts == nullptr || bs == nullptr || saveat == nullptr ||
-      ys == nullptr || g == nullptr || du0 == nullptr || dwb == nullptr ||
-      (substeps > 1 && ysub == nullptr) || !valid_rows(rows))
+                                  const int* acts, const void* const* Wts,
+                                  int n_stages, const float* a,
+                                  const float* b, const float* saveat,
+                                  const float* tape, const float* g,
+                                  float* du0, float* delta, int B, int T,
+                                  int substeps, int rows, void* stream) {
+  if (B < 1 || T < 1 || substeps < 1 || acts == nullptr || Wts == nullptr ||
+      saveat == nullptr || tape == nullptr || g == nullptr ||
+      du0 == nullptr || delta == nullptr)
     return kErrArgs;
   Field f;
-  int rc = build_field(n_layers, widths, acts, Ws, Wts, bs, &f);
+  int rc = build_field(n_layers, widths, acts, Wts, nullptr, &f);
   if (rc != 0) return rc;
   Tableau tab;
   rc = fill_tableau(n_stages, a, b, &tab);
   if (rc != 0) return rc;
-  bool ds = false;
+  int pl = 0, nt = 0;
   size_t bytes = 0;
-  rc = plan(f, n_stages, threads, true, B, &rows, &ds, &bytes);
+  rc = plan(&f, n_stages, true, B, &rows, &pl, &nt, &bytes);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaErrorInvalidValue;
-#define LDQ_BWD_CASE(TB)                                                   \
-  case TB:                                                                 \
-    e = ds ? launch_bwd<TB, true>(tab, f, saveat, ys, g, du0, dwb, ysub,   \
-                                  B, T, substeps, threads, bytes, st)      \
-           : launch_bwd<TB, false>(tab, f, saveat, ys, g, du0, dwb, ysub,  \
-                                   B, T, substeps, threads, bytes, st);    \
-    break;
-  switch (rows) {
-    LDQ_BWD_CASE(8)
-    LDQ_BWD_CASE(4)
-    LDQ_BWD_CASE(2)
-    LDQ_BWD_CASE(1)
+#define LDQ_BWD(TB, PL)                                                  \
+  e = launch_bwd<TB, PL>(tab, f, saveat, tape, g, du0, delta, B, T,      \
+                         substeps, nt, bytes, st)
+  if (rows == 1) {
+    if (pl == kReg) LDQ_BWD(1, kReg);
+    else if (pl == kSmem) LDQ_BWD(1, kSmem);
+    else LDQ_BWD(1, kGlobal);
+  } else {
+    if (pl == kReg) LDQ_BWD(2, kReg);
+    else if (pl == kSmem) LDQ_BWD(2, kSmem);
+    else LDQ_BWD(2, kGlobal);
   }
-#undef LDQ_BWD_CASE
+#undef LDQ_BWD
   return (int)e;
+}
+
+// Splits of the weight-gradient product over R records: enough blocks for
+// two waves of the current device, at least 256 records a split.
+extern "C" int ldq_node_field_dw_splits(int n_layers, const int* widths,
+                                        int R) {
+  Field f;
+  const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
+                             &f);
+  if (rc != 0) return rc;
+  const int wave = sm_count();
+  if (R < 1 || wave < 1) return kErrArgs;
+  const int tiles = dw_tiles(f);
+  int splits = (2 * wave + tiles - 1) / tiles;
+  const int most = (R + 255) / 256;
+  if (splits > most) splits = most;
+  return splits < 1 ? 1 : splits;
+}
+
+// Weight gradients from the tape and Delta over R = B * steps * stages
+// records: part (splits, packed size), every element of the packed layout
+// written by exactly one block of each split (the padding is not); the
+// caller sums over splits.
+extern "C" int ldq_node_field_dw(int n_layers, const int* widths,
+                                 const float* tape, const float* delta,
+                                 float* part, int R, int splits,
+                                 void* stream) {
+  if (tape == nullptr || delta == nullptr || part == nullptr || R < 1 ||
+      splits < 1)
+    return kErrArgs;
+  Field f;
+  const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
+                             &f);
+  if (rc != 0) return rc;
+  const int per_split = (R + splits - 1) / splits;
+  node_field_dw_kernel<<<dim3(dw_tiles(f), splits), kDwThreads, 0,
+                         (cudaStream_t)stream>>>(f, tape, delta, part, R,
+                                                 per_split);
+  return (int)cudaGetLastError();
 }

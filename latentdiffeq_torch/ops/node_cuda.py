@@ -5,21 +5,27 @@ latentdiffeq/ops/node_pallas.py::pallas_solve_neural_field: forward
 
 ``solve_neural_field`` integrates ``dy/dt = mlp(y)`` for a `Chain` of
 `Dense` layers. On CUDA tensors the forward is one launch of
-``node_field_fwd_kernel`` and the gradient one launch of
-``node_field_bwd_kernel`` (csrc/node_field.cu): a reverse sweep over the
-saved trajectory that recomputes each interval's stages, pulls the cotangent
-back by hand and accumulates the weight gradients per block; the per-block
-slices are summed here. Neither route calls a library matrix product. On
-CPU tensors the same two functions run their plain PyTorch versions,
-``solve_neural_field_reference`` and
-``solve_neural_field_backward_reference``. ``backward="autograd"`` (the
-JAX package's ``backward="xla"``) instead recomputes the plain solve with
-autograd. ``saveat`` gets no gradient. Nothing falls back: a field the
-kernel does not take raises.
+``node_field_fwd_kernel`` (csrc/node_field.cu); when a gradient will be
+taken it also writes a tape of every layer output of every stage of every
+step. The gradient is one launch of ``node_field_bwd_kernel``, a reverse
+sweep over that tape that runs only the input-gradient products and
+streams out each layer's pre-activation cotangent (Delta), then one launch
+of ``node_field_dw_kernel``, the weight gradients as a tiled product of the
+tape and Delta over all rows, steps and stages (per-split partial sums,
+added here in order). Neither route calls a library matrix product. On CPU
+tensors the same functions run their plain PyTorch versions
+(``solve_neural_field_taped_reference``,
+``neural_field_sweep_reference``, ``neural_field_dw_reference``);
+``solve_neural_field_backward_reference`` is the same recursion
+recomputing each interval's stages from the saved trajectory, as the JAX
+kernel does. ``backward="autograd"`` (the JAX package's
+``backward="xla"``) instead recomputes the plain solve with autograd.
+``saveat`` gets no gradient. Nothing falls back: a field the kernels do
+not take raises.
 
 Shapes on the main path: u0s (64, 16), 50 save points in training; (45, 16),
 100 points in validation; widths 16-200-200-16, relu; Tsit5 (6 stages),
-substeps 1.
+substeps 1. Tape (64, 49, 6, 432) and Delta (64, 49, 6, 416) floats.
 """
 from __future__ import annotations
 
@@ -36,15 +42,18 @@ from ..solve.rk import AbstractSolver, n_solution_stages, tableau_f32
 from ._build import load_kernel
 
 __all__ = ["solve_neural_field", "solve_neural_field_cuda",
+           "neural_field_sweep_cuda", "neural_field_dw_cuda",
            "solve_neural_field_backward_cuda",
            "solve_neural_field_reference",
+           "solve_neural_field_taped_reference",
+           "neural_field_sweep_reference", "neural_field_dw_reference",
            "solve_neural_field_backward_reference", "dense_stack",
-           "kernel_plan", "ACT_CODES", "MAX_LAYERS", "THREADS"]
+           "tape_layout", "kernel_plan", "ACT_CODES", "MAX_LAYERS"]
 
 # Activation codes understood by the kernels (csrc/node_field.cu).
 ACT_CODES = {identity: 0, relu: 1, tanh: 2, sigmoid: 3, softplus: 4}
 MAX_LAYERS = 8      # kMaxLayers in csrc/node_field.cu
-THREADS = 512       # threads per block, the kernels' launch bound
+PLACES = ("registers", "shared", "global")   # where a pass keeps weights
 _ERRORS = {
     -1: f"the field has more than {MAX_LAYERS} layers",
     -2: "the field is too wide: one batch row's state does not fit in a "
@@ -106,6 +115,27 @@ def _apply_field(field: _Field, Ws: Sequence[torch.Tensor],
     return h
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def tape_layout(widths):
+    """``(hp_off, tape_floats, dp_off, delta_floats)``: the records of
+    csrc/node_field.cu. A tape record (one row, step and stage) holds the
+    stage input h_0, every layer output h_1 .. h_L at ``hp_off[l]``; a
+    Delta record the cotangent of layer l's pre-activation at
+    ``dp_off[l]``; every piece padded to a multiple of 4 floats."""
+    hp, off = [], 0
+    for w in widths:
+        hp.append(off)
+        off += _pad4(w)
+    dp, doff = [], 0
+    for w in widths[1:]:
+        dp.append(doff)
+        doff += _pad4(w)
+    return hp, off, dp, doff
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions.
 
@@ -135,50 +165,146 @@ def _act_grad(act, h):
     return torch.ones_like(h)
 
 
+def _stages(field: _Field, tab, S: int, y, dt):
+    """One RK step's stages from y: tape[s][l] is layer l's input at stage
+    s and tape[s][L] = k_s, in the arithmetic of `rk_step`."""
+    L = len(field.Ws)
+    tape = []
+    for s in range(S):
+        u = y
+        for q, a in enumerate(tab.a[s]):
+            if a != 0.0:
+                u = u + (dt * a) * tape[q][L]
+        hs = [u]
+        for W, b, act in zip(field.Ws, field.bs, field.acts):
+            hs.append(act(hs[-1] @ W + b))
+        tape.append(hs)
+    return tape
+
+
+def _advance(tab, y, dt, tape):
+    for b, hs in zip(tab.b, tape):
+        if b != 0.0:
+            y = y + (dt * b) * hs[-1]
+    return y
+
+
+def _detached(field: _Field) -> _Field:
+    return field._replace(Ws=[W.detach() for W in field.Ws],
+                          bs=[b.detach() for b in field.bs])
+
+
+@torch.no_grad()
+def solve_neural_field_taped_reference(mlp, solver: AbstractSolver, u0s,
+                                       saveat, *, substeps: int = 1):
+    """The plain forward that also keeps the tape, as the forward kernel
+    writes it when a gradient will be taken. Returns ``(ys (B, T, dim),
+    tape (B, (T-1) * substeps, stages, tape record))``; ys equal the plain
+    solve's."""
+    field = _detached(dense_stack(mlp))
+    tab = solver.tableau
+    S = n_solution_stages(tab)
+    hp, rec, _, _ = tape_layout(field.widths)
+    u0s, saveat = u0s.detach(), saveat.detach()
+    B, T = u0s.shape[0], saveat.shape[0]
+    tape = u0s.new_zeros(B, (T - 1) * substeps, S, rec)
+    y, ys, step = u0s, [u0s], 0
+    for i in range(T - 1):
+        dt = (saveat[i + 1] - saveat[i]) / substeps
+        for _ in range(substeps):
+            stages = _stages(field, tab, S, y, dt)
+            for s, hs in enumerate(stages):
+                for off, h in zip(hp, hs):
+                    tape[:, step, s, off:off + h.shape[-1]] = h
+            y = _advance(tab, y, dt, stages)
+            step += 1
+        ys.append(y)
+    return torch.stack(ys, dim=1), tape
+
+
+@torch.no_grad()
+def neural_field_sweep_reference(mlp, solver: AbstractSolver, saveat, tape,
+                                 g, *, substeps: int = 1):
+    """The plain reverse sweep over the tape, step for step the recursion
+    of the sweep kernel: ``lam = g[:, T-1]``; for each step from the last,
+    with u_s = y + dt sum_q a_sq k_q, k_s = F(u_s), y1 = y + dt sum_s b_s
+    k_s: kbar_s = dt b_s lam, ybar = lam, and for s = S-1 .. 0: Delta_{L-1}
+    = kbar_s act'(h_L), Delta_{l-1} = (Delta_l W_l^T) act'(h_l), ubar_s =
+    Delta_0 W_0^T, ybar += ubar_s, kbar_q += dt a_sq ubar_s; lam = ybar,
+    plus g[:, i] at the start of interval i. The activation derivatives
+    come from the tape. Returns ``(du0 (B, dim), delta (B, steps, stages,
+    Delta record))``."""
+    field = _detached(dense_stack(mlp))
+    tab = solver.tableau
+    S = n_solution_stages(tab)
+    L, w = len(field.Ws), field.widths
+    hp, _, dp, drec = tape_layout(w)
+    g, saveat = g.detach(), saveat.detach()
+    B, T = g.shape[0], g.shape[1]
+    nsteps = (T - 1) * substeps
+    delta = g.new_zeros(B, nsteps, S, drec)
+    lam = g[:, T - 1]
+    for step in range(nsteps - 1, -1, -1):
+        i = step // substeps
+        dt = (saveat[i + 1] - saveat[i]) / substeps
+
+        def h(s, l):
+            return tape[:, step, s, hp[l]:hp[l] + w[l]]
+
+        ybar = lam
+        kbar = [(dt * b) * lam if b != 0.0 else torch.zeros_like(lam)
+                for b in tab.b[:S]]
+        for s in range(S - 1, -1, -1):
+            d = kbar[s] * _act_grad(field.acts[L - 1], h(s, L))
+            for l in range(L - 1, -1, -1):
+                delta[:, step, s, dp[l]:dp[l] + w[l + 1]] = d
+                d = d @ field.Ws[l].t()
+                if l > 0:
+                    d = d * _act_grad(field.acts[l - 1], h(s, l))
+            ybar = ybar + d
+            for q, a in enumerate(tab.a[s]):
+                if a != 0.0:
+                    kbar[q] = kbar[q] + (dt * a) * d
+        lam = ybar
+        if step % substeps == 0:
+            lam = lam + g[:, i]
+    return lam, delta
+
+
+@torch.no_grad()
+def neural_field_dw_reference(mlp, tape, delta):
+    """The plain weight gradients from the tape and Delta: dW_l = H_l^T
+    Delta_l and db_l = sum Delta_l over every row, step and stage, H_l
+    being layer l's input. Returns ``([dW_l], [db_l])``."""
+    field = dense_stack(mlp)
+    w = field.widths
+    hp, rec, dp, drec = tape_layout(w)
+    H, D = tape.reshape(-1, rec), delta.reshape(-1, drec)
+    dWs, dbs = [], []
+    for l in range(len(field.Ws)):
+        Dl = D[:, dp[l]:dp[l] + w[l + 1]]
+        dWs.append(H[:, hp[l]:hp[l] + w[l]].t() @ Dl)
+        dbs.append(Dl.sum(dim=0))
+    return dWs, dbs
+
+
 @torch.no_grad()
 def solve_neural_field_backward_reference(mlp, solver: AbstractSolver,
                                           saveat, ys, g, *,
                                           substeps: int = 1):
-    """The plain reverse sweep, step for step the recursion of the
-    backward kernel, with the VJP written out by hand: ``lam = g[:, T-1]``;
-    for i = T-2 .. 0 recompute interval i's stages from the saved
-    ``ys[:, i]`` keeping every layer output, pull ``lam`` back through its
-    RK steps, add ``g[:, i]``, and accumulate the weight gradients. For one
-    step with u_s = y + dt sum_q a_sq k_q, k_s = F(u_s),
-    y1 = y + dt sum_s b_s k_s: kbar_s = dt b_s lam, ybar = lam, and for
-    s = S-1 .. 0: ubar_s = J_F(u_s)^T kbar_s (the MLP's backward, which
-    also gives dW += h_in^T delta and db += sum_rows delta), ybar += ubar_s,
-    kbar_q += dt a_sq ubar_s. Returns ``(du0 (B, dim), [dW_l], [db_l])``."""
-    field = dense_stack(mlp)
+    """The plain reverse sweep that keeps no tape: for i = T-2 .. 0 it
+    recomputes interval i's stages from the saved ``ys[:, i]`` keeping
+    every layer output (as the JAX kernel does), pulls ``lam`` back through
+    its RK steps with the recursion of `neural_field_sweep_reference`, adds
+    ``g[:, i]``, and accumulates dW += h_in^T delta and db += sum_rows
+    delta. Returns ``(du0 (B, dim), [dW_l], [db_l])``."""
+    field = _detached(dense_stack(mlp))
     tab = solver.tableau
     S = n_solution_stages(tab)
-    Ws = [W.detach() for W in field.Ws]
-    bs = [b.detach() for b in field.bs]
-    acts = field.acts
+    Ws, acts = field.Ws, field.acts
     L = len(Ws)
     dWs = [torch.zeros_like(W) for W in Ws]
-    dbs = [torch.zeros_like(b) for b in bs]
-
-    def stages(y, dt):
-        """tape[s][l]: layer l's input at stage s; tape[s][L] = k_s."""
-        tape = []
-        for s in range(S):
-            u = y
-            for q, a in enumerate(tab.a[s]):
-                if a != 0.0:
-                    u = u + (dt * a) * tape[q][L]
-            hs = [u]
-            for W, b, act in zip(Ws, bs, acts):
-                hs.append(act(hs[-1] @ W + b))
-            tape.append(hs)
-        return tape
-
-    def advance(y, dt, tape):
-        for b, hs in zip(tab.b, tape):
-            if b != 0.0:
-                y = y + (dt * b) * hs[L]
-        return y
-
+    dbs = [torch.zeros_like(b) for b in field.bs]
     ys, g, saveat = ys.detach(), g.detach(), saveat.detach()
     T = ys.shape[1]
     lam = g[:, T - 1]
@@ -186,9 +312,10 @@ def solve_neural_field_backward_reference(mlp, solver: AbstractSolver,
         dt = (saveat[i + 1] - saveat[i]) / substeps
         starts = [ys[:, i]]
         for _ in range(substeps - 1):
-            starts.append(advance(starts[-1], dt, stages(starts[-1], dt)))
+            starts.append(_advance(tab, starts[-1], dt,
+                                   _stages(field, tab, S, starts[-1], dt)))
         for y in reversed(starts):
-            tape = stages(y, dt)
+            tape = _stages(field, tab, S, y, dt)
             ybar = lam
             kbar = [(dt * b) * lam if b != 0.0 else torch.zeros_like(lam)
                     for b in tab.b[:S]]
@@ -225,17 +352,21 @@ def _lib():
         lib.ldq_node_field_max_layers.restype = ci
         lib.ldq_node_field_packed_size.argtypes = [ci, _INTS]
         lib.ldq_node_field_packed_size.restype = ci
-        lib.ldq_node_field_plan.argtypes = [ci, _INTS, ci, ci, ci, ci,
-                                            _INTS, _INTS, _INTS]
+        lib.ldq_node_field_records.argtypes = [ci, _INTS, _INTS, _INTS]
+        lib.ldq_node_field_records.restype = ci
+        lib.ldq_node_field_plan.argtypes = [ci, _INTS, ci, ci, ci] + [_INTS] * 5
         lib.ldq_node_field_plan.restype = ci
         lib.ldq_node_field_fwd.argtypes = (
-            [ci, _INTS, _INTS, _PTRS, _PTRS, ci] + [vp] * 5
-            + [ci] * 5 + [vp])
+            [ci, _INTS, _INTS, _PTRS, _PTRS, ci] + [vp] * 6 + [ci] * 4
+            + [vp])
         lib.ldq_node_field_fwd.restype = ci
         lib.ldq_node_field_bwd.argtypes = (
-            [ci, _INTS, _INTS, _PTRS, _PTRS, _PTRS, ci] + [vp] * 8
-            + [ci] * 5 + [vp])
+            [ci, _INTS, _INTS, _PTRS, ci] + [vp] * 7 + [ci] * 4 + [vp])
         lib.ldq_node_field_bwd.restype = ci
+        lib.ldq_node_field_dw_splits.argtypes = [ci, _INTS, ci]
+        lib.ldq_node_field_dw_splits.restype = ci
+        lib.ldq_node_field_dw.argtypes = [ci, _INTS, vp, vp, vp, ci, ci, vp]
+        lib.ldq_node_field_dw.restype = ci
         if lib.ldq_node_field_max_layers() != MAX_LAYERS:
             raise RuntimeError("csrc/node_field.cu and ops/node_cuda.py "
                                "disagree on the deepest field")
@@ -260,19 +391,21 @@ def _ptrs(tensors):
 
 def kernel_plan(widths, n_stages: int, batch: int, *, backward: bool,
                 rows_per_block: int = 0):
-    """``(rows per block, big array in shared memory, shared-memory
-    bytes)`` the kernel would launch with for a batch of ``batch`` rows;
-    the big array is the weights (forward) or the weight-gradient
-    accumulators (backward). Raises ValueError for a field it cannot
-    take."""
+    """``(rows per block, where the weights live, the register layer or
+    -1, threads per block, shared-memory bytes)`` that the forward (or,
+    with ``backward``, the sweep) would launch with for a batch of
+    ``batch`` rows on the current CUDA device; the weights live in
+    "registers" (one layer, its rows past 160 and the other layers in
+    shared memory), "shared" memory or "global" memory, the first of these
+    that fits. Raises ValueError for a field the kernels cannot take."""
     lib = _lib()
-    rows, big, nbytes = (ctypes.c_int(rows_per_block), ctypes.c_int(0),
-                         ctypes.c_int(0))
+    outs = [ctypes.c_int(0) for _ in range(5)]
+    outs[0].value = rows_per_block
     _check(lib.ldq_node_field_plan(
-        len(widths) - 1, _ints(widths), n_stages, THREADS, int(backward),
-        batch, ctypes.byref(rows), ctypes.byref(big), ctypes.byref(nbytes)),
-        "solve_neural_field")
-    return rows.value, bool(big.value), nbytes.value
+        len(widths) - 1, _ints(widths), n_stages, int(backward), batch,
+        *[ctypes.byref(o) for o in outs]), "solve_neural_field")
+    rows, place, reg, threads, nbytes = (o.value for o in outs)
+    return rows, PLACES[place], reg, threads, nbytes
 
 
 def _f32_cuda(name: str, t, device=None):
@@ -292,10 +425,31 @@ def _prepare(field: _Field, device):
     return Ws, bs
 
 
+def _records(lib, widths):
+    rec, drec = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib.ldq_node_field_records(len(widths) - 1, _ints(widths),
+                                      ctypes.byref(rec), ctypes.byref(drec)),
+           "solve_neural_field")
+    if (rec.value, drec.value) != tape_layout(widths)[1::2]:
+        raise RuntimeError("csrc/node_field.cu and ops/node_cuda.py "
+                           "disagree on the tape layout")
+    return rec.value, drec.value
+
+
+def _tape_shape(tape, B: int, nsteps: int, S: int, rec: int, what: str):
+    if tuple(tape.shape) != (B, nsteps, S, rec):
+        raise ValueError(f"solve_neural_field backward: {what} must be "
+                         f"{(B, nsteps, S, rec)}, got {tuple(tape.shape)}")
+
+
 def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
-                            substeps: int = 1, rows_per_block: int = 0):
+                            substeps: int = 1, rows_per_block: int = 0,
+                            tape: bool = False):
     """Launch the forward kernel once (no autograd); returns ys (B, T,
-    dim). ``rows_per_block`` 0 lets the kernel's host side choose."""
+    dim), or ``(ys, tape)`` with ``tape`` (the variant that writes every
+    layer output of every stage: (B, (T-1) * substeps, stages, tape
+    record)). ``rows_per_block`` 0 lets the kernel's host side choose (see
+    `kernel_plan`)."""
     field = dense_stack(mlp)
     dim = field.widths[0]
     u0s = _f32_cuda("u0s", u0s)
@@ -309,85 +463,135 @@ def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
     Ws, bs = _prepare(field, u0s.device)
     B, T = u0s.shape[0], saveat.shape[0]
     n_stages, a, b, _ = tableau_f32(solver)
-    ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
     lib = _lib()
+    ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
+    tp = None
+    if tape:
+        rec, _ = _records(lib, field.widths)
+        tp = torch.empty(B, (T - 1) * substeps, n_stages, rec,
+                         device=u0s.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(u0s.device).cuda_stream
     with torch.cuda.device(u0s.device):
         err = lib.ldq_node_field_fwd(
             len(Ws), _ints(field.widths), _ints(field.codes), _ptrs(Ws),
             _ptrs(bs), n_stages, a.data_ptr(), b.data_ptr(),
-            saveat.data_ptr(), u0s.data_ptr(), ys.data_ptr(), B, T, substeps,
-            rows_per_block, THREADS, stream)
+            saveat.data_ptr(), u0s.data_ptr(), ys.data_ptr(),
+            None if tp is None else tp.data_ptr(), B, T, substeps,
+            rows_per_block, stream)
     _check(err, "solve_neural_field (forward)")
     solve_neural_field_cuda.launches += 1
-    return ys
+    return (ys, tp) if tape else ys
 
 
 solve_neural_field_cuda.launches = 0
 
 
-def solve_neural_field_backward_cuda(mlp, solver: AbstractSolver, saveat,
-                                     ys, g, *, substeps: int = 1,
-                                     rows_per_block: int = 0):
-    """Launch the backward kernel once. ``ys``: the forward trajectory
-    (B, T, dim); ``g``: its cotangent. Returns ``(du0, [dW_l], [db_l])``;
-    the per-block weight-gradient slices are summed over blocks here."""
+def neural_field_sweep_cuda(mlp, solver: AbstractSolver, saveat, tape, g, *,
+                            substeps: int = 1, rows_per_block: int = 0):
+    """Launch the sweep kernel once over the forward's ``tape`` with the
+    cotangent ``g`` (B, T, dim) of ys. Returns ``(du0 (B, dim), delta (B,
+    steps, stages, Delta record))``."""
     field = dense_stack(mlp)
     dim = field.widths[0]
-    ys = _f32_cuda("ys", ys)
-    g = _f32_cuda("g", g, ys.device)
-    saveat = _f32_cuda("saveat", saveat, ys.device)
-    if (ys.dim() != 3 or ys.shape[2] != dim or g.shape != ys.shape
-            or saveat.shape != (ys.shape[1],)):
-        raise ValueError(f"solve_neural_field backward: expected ys and g "
-                         f"(B, T, {dim}) and saveat (T,); got "
-                         f"{tuple(ys.shape)}, {tuple(g.shape)}, "
+    g = _f32_cuda("g", g)
+    dev = g.device
+    tape = _f32_cuda("tape", tape, dev)
+    saveat = _f32_cuda("saveat", saveat, dev)
+    if g.dim() != 3 or g.shape[2] != dim or saveat.shape != (g.shape[1],):
+        raise ValueError(f"solve_neural_field backward: expected g (B, T, "
+                         f"{dim}) and saveat (T,); got {tuple(g.shape)}, "
                          f"{tuple(saveat.shape)}")
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
-    dev = ys.device
-    Ws, bs = _prepare(field, dev)
-    Wts = [W.t().contiguous() for W in Ws]
-    B, T = ys.shape[0], ys.shape[1]
+    B, T = g.shape[0], g.shape[1]
     n_stages, a, b, _ = tableau_f32(solver)
     lib = _lib()
-    widths = _ints(field.widths)
+    rec, drec = _records(lib, field.widths)
+    nsteps = (T - 1) * substeps
+    _tape_shape(tape, B, nsteps, n_stages, rec, "the tape")
+    Wts = [W.t().contiguous() for W in _prepare(field, dev)[0]]
+    du0 = torch.empty(B, dim, device=dev, dtype=torch.float32)
+    delta = torch.empty(B, nsteps, n_stages, drec, device=dev,
+                        dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rows, _, _ = kernel_plan(field.widths, n_stages, B, backward=True,
-                                 rows_per_block=rows_per_block)
-        n_blocks = -(-B // rows)
-        total = lib.ldq_node_field_packed_size(len(Ws), widths)
-        # zeroed on the launch stream; every block adds into its own slice
-        dwb = torch.zeros(n_blocks, total, device=dev, dtype=torch.float32)
-        du0 = torch.empty(B, dim, device=dev, dtype=torch.float32)
-        ysub = (torch.empty(n_blocks, substeps, dim * rows, device=dev,
-                            dtype=torch.float32) if substeps > 1 else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ldq_node_field_bwd(
-            len(Ws), widths, _ints(field.codes), _ptrs(Ws), _ptrs(Wts),
-            _ptrs(bs), n_stages, a.data_ptr(), b.data_ptr(),
-            saveat.data_ptr(), ys.data_ptr(), g.data_ptr(), du0.data_ptr(),
-            dwb.data_ptr(), None if ysub is None else ysub.data_ptr(), B, T,
-            substeps, rows, THREADS, stream)
-    _check(err, "solve_neural_field (backward)")
-    solve_neural_field_backward_cuda.launches += 1
+            len(Wts), _ints(field.widths), _ints(field.codes), _ptrs(Wts),
+            n_stages, a.data_ptr(), b.data_ptr(), saveat.data_ptr(),
+            tape.data_ptr(), g.data_ptr(), du0.data_ptr(), delta.data_ptr(),
+            B, T, substeps, rows_per_block, stream)
+    _check(err, "solve_neural_field (backward sweep)")
+    neural_field_sweep_cuda.launches += 1
+    return du0, delta
+
+
+neural_field_sweep_cuda.launches = 0
+
+
+def neural_field_dw_cuda(mlp, tape, delta):
+    """Launch the weight-gradient kernel once: dW_l = H_l^T Delta_l, db_l =
+    sum Delta_l over every row, step and stage of ``tape`` and ``delta``
+    (as the forward and the sweep wrote them). The kernel's per-split
+    partial sums are added here, in split order. Returns ``([dW_l],
+    [db_l])``."""
+    field = dense_stack(mlp)
+    dev = tape.device
+    tape = _f32_cuda("tape", tape, dev)
+    delta = _f32_cuda("delta", delta, dev)
+    lib = _lib()
+    rec, drec = _records(lib, field.widths)
+    B, nsteps, S = tape.shape[:3]
+    _tape_shape(tape, B, nsteps, S, rec, "the tape")
+    _tape_shape(delta, B, nsteps, S, drec, "delta")
+    widths = _ints(field.widths)
+    L = len(field.Ws)
+    total = lib.ldq_node_field_packed_size(L, widths)
+    R = B * nsteps * S
+    if R == 0:       # a single save point: no step, no gradient
+        flat = torch.zeros(total, device=dev, dtype=torch.float32)
+    else:
+        with torch.cuda.device(dev):
+            splits = lib.ldq_node_field_dw_splits(L, widths, R)
+            _check(min(splits, 0), "solve_neural_field (weight gradients)")
+            part = torch.empty(splits, total, device=dev,
+                               dtype=torch.float32)
+            err = lib.ldq_node_field_dw(
+                L, widths, tape.data_ptr(), delta.data_ptr(),
+                part.data_ptr(), R, splits,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check(err, "solve_neural_field (weight gradients)")
+        neural_field_dw_cuda.launches += 1
+        flat = part.sum(dim=0)
     # the packed layout [W_0, b_0, W_1, b_1, ...], each piece padded to a
     # multiple of 4 floats
-    flat = dwb.sum(dim=0)
     dWs, dbs, off = [], [], 0
-    for W, bias in zip(Ws, bs):
-        dWs.append(flat[off:off + W.numel()].view_as(W))
-        off += -(-W.numel() // 4) * 4
+    for W, bias in zip(field.Ws, field.bs):
+        dWs.append(flat[off:off + W.numel()].view(W.shape))
+        off += _pad4(W.numel())
         dbs.append(flat[off:off + bias.numel()])
-        off += -(-bias.numel() // 4) * 4
+        off += _pad4(bias.numel())
     if off != total:
         raise RuntimeError(f"solve_neural_field backward: the kernel's "
                            f"packed layout holds {total} floats, the "
                            f"wrapper's {off}")
+    return dWs, dbs
+
+
+neural_field_dw_cuda.launches = 0
+
+
+def solve_neural_field_backward_cuda(mlp, solver: AbstractSolver, saveat,
+                                     tape, g, *, substeps: int = 1,
+                                     rows_per_block: int = 0):
+    """The gradient on the card: the sweep kernel, then the
+    weight-gradient kernel. ``tape``: from ``solve_neural_field_cuda(...,
+    tape=True)``; ``g``: the cotangent of ys. Returns ``(du0, [dW_l],
+    [db_l])``."""
+    du0, delta = neural_field_sweep_cuda(mlp, solver, saveat, tape, g,
+                                         substeps=substeps,
+                                         rows_per_block=rows_per_block)
+    dWs, dbs = neural_field_dw_cuda(mlp, tape, delta)
     return du0, dWs, dbs
-
-
-solve_neural_field_backward_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -395,32 +599,48 @@ solve_neural_field_backward_cuda.launches = 0
 
 class _NodeSolveFn(torch.autograd.Function):
     """ys = solve(u0s; W_0, b_0, ...). The kernels for CUDA tensors, the
-    plain versions for CPU tensors; gradients come back in input order."""
+    plain versions for CPU tensors; gradients come back in input order.
+    With ``keep_tape`` (a gradient will be taken) and the kernel backward,
+    the forward keeps the tape for the sweep."""
 
     @staticmethod
-    def forward(ctx, field, solver, substeps, backward, u0s, saveat, *wb):
+    def forward(ctx, field, solver, substeps, backward, keep_tape, u0s,
+                saveat, *wb):
         live = field._replace(Ws=list(wb[0::2]), bs=list(wb[1::2]))
+        taped = keep_tape and backward == "kernel"
+        tape = None
         if u0s.is_cuda:
-            ys = solve_neural_field_cuda(live, solver, u0s, saveat,
-                                         substeps=substeps)
+            out = solve_neural_field_cuda(live, solver, u0s, saveat,
+                                          substeps=substeps, tape=taped)
+            ys, tape = out if taped else (out, None)
+        elif taped:
+            ys, tape = solve_neural_field_taped_reference(
+                live, solver, u0s, saveat, substeps=substeps)
         else:
             ys = solve_neural_field_reference(live, solver, u0s, saveat,
                                               substeps=substeps)[0]
         ctx.spec = (field, solver, substeps, backward)
-        ctx.save_for_backward(ys, u0s, saveat, *wb)
+        ctx.save_for_backward(u0s, saveat, tape, *wb)
         return ys
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         field, solver, substeps, backward = ctx.spec
-        ys, u0s, saveat, *wb = ctx.saved_tensors
+        u0s, saveat, tape, *wb = ctx.saved_tensors
         live = field._replace(Ws=list(wb[0::2]), bs=list(wb[1::2]))
         if backward == "kernel":
-            sweep = (solve_neural_field_backward_cuda if ys.is_cuda
-                     else solve_neural_field_backward_reference)
-            du0, dWs, dbs = sweep(live, solver, saveat, ys, g.contiguous(),
-                                  substeps=substeps)
+            if tape is None:
+                raise RuntimeError("solve_neural_field: the forward ran "
+                                   "without a gradient and kept no tape")
+            if tape.is_cuda:
+                du0, dWs, dbs = solve_neural_field_backward_cuda(
+                    live, solver, saveat, tape, g.contiguous(),
+                    substeps=substeps)
+            else:
+                du0, delta = neural_field_sweep_reference(
+                    live, solver, saveat, tape, g, substeps=substeps)
+                dWs, dbs = neural_field_dw_reference(live, tape, delta)
         else:
             # recompute the plain solve and differentiate it with autograd
             u0_ = u0s.detach().requires_grad_()
@@ -434,7 +654,7 @@ class _NodeSolveFn(torch.autograd.Function):
             L = len(Ws)
             du0, dWs, dbs = grads[0], grads[1:1 + L], grads[1 + L:]
         dwb = [d for pair in zip(dWs, dbs) for d in pair]
-        return (None, None, None, None, du0, None, *dwb)
+        return (None, None, None, None, None, du0, None, *dwb)
 
 
 def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
@@ -444,17 +664,19 @@ def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
     (B, dim), ``saveat`` (T,). Returns ``(ys (B, T, dim), success (B,),
     stats)`` with per-trajectory analytic counters.
 
-    ``backward``: "kernel" takes the gradient with the reverse sweep over
-    the saved trajectory (the backward kernel on the card, its plain
-    version on the CPU); "autograd" recomputes the plain solve and
-    differentiates it with autograd."""
+    ``backward``: "kernel" keeps the forward's tape and takes the gradient
+    with the reverse sweep and the weight-gradient product over it (the
+    kernels on the card, their plain versions on the CPU); "autograd"
+    recomputes the plain solve and differentiates it with autograd."""
     if backward not in ("kernel", "autograd"):
         raise ValueError(f"backward must be 'kernel' or 'autograd': "
                          f"{backward!r}")
     field = dense_stack(mlp)
     wb = [t for pair in zip(field.Ws, field.bs) for t in pair]
-    ys = _NodeSolveFn.apply(field, solver, substeps, backward, u0s, saveat,
-                            *wb)
+    keep_tape = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [u0s] + wb)
+    ys = _NodeSolveFn.apply(field, solver, substeps, backward, keep_tape,
+                            u0s, saveat, *wb)
     success = torch.isfinite(ys).all(dim=2).all(dim=1)
     stats = fixed_grid_stats((u0s.shape[0],), saveat.shape[0] - 1, substeps,
                              tableau_f32(solver)[0], device=u0s.device)

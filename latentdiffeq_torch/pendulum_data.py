@@ -3,17 +3,14 @@ examples/pendulum/create_data.py:31-135; reference:
 examples/pendulum_friction-less/create_data.jl).
 
 Draws the initial conditions and lengths with the same numpy calls on
-``default_rng(seed)`` as the JAX package, so they are identical; integrates
-the true pendulum with the port's plain fixed-grid Tsit5; and rasterises
-every frame at once with a vectorised anti-aliased torch renderer of the
-same geometry: pivot at (0, -8.5), a fixed visual rod length of 19 px,
-disc radius 1.75, rod width 3.75, a black tick across the rod midpoint and
-a black hub on the pivot.
-
-The JAX package integrates with adaptive Tsit5 (rtol 1e-3, atol 1e-6);
-the port's fixed grid is converged to the exact solution already at one
-step per frame, so its angles differ from the JAX data by the adaptive
-solve's own error (up to ~3e-3 rad).
+``default_rng(seed)`` as the JAX package, so they are identical;
+integrates the true pendulum as the JAX generator does, with adaptive
+Tsit5 at the default tolerances (rtol 1e-3, atol 1e-6) and dense output
+on the frame grid, batched over the trajectories; and rasterises every
+frame at once with a vectorised anti-aliased torch renderer of the same
+geometry: pivot at (0, -8.5), a fixed visual rod length of 19 px, disc
+radius 1.75, rod width 3.75, a black tick across the rod midpoint and a
+black hub on the pivot.
 """
 from __future__ import annotations
 
@@ -24,7 +21,7 @@ import torch
 
 from .core import resolve_device
 from .pendulum import Pendulum
-from .solve.fixed import solve_fixed_grid
+from .solve.adaptive import AdaptiveConfig, solve_adaptive
 from .solve.rk import Tsit5
 
 __all__ = ["TSPAN", "DT", "N_TRAJ", "SEED", "HIGH_DIM_ARGS", "H", "W",
@@ -102,12 +99,13 @@ def render_frames(angles, *, pendulum_length: float = HIGH_DIM_ARGS[0],
 
 
 def generate_dataset(*, n_traj: int = N_TRAJ, seed: int = SEED,
-                     tspan=TSPAN, dt: float = DT, substeps: int = 4,
-                     diffeq=None, device=None):
+                     tspan=TSPAN, dt: float = DT, diffeq=None,
+                     device=None):
     """The pendulum video dataset on ``device`` (default: the card).
 
     Returns ``(latent (n, T, 2), u0s (n, 2), ps (n, 1), frames (n, T, H,
-    W))`` float32 tensors, frames in [0, 1]."""
+    W))`` float32 tensors, frames in [0, 1]. Raises unless every
+    trajectory's solve succeeds."""
     device = resolve_device(device)
     if diffeq is None:
         diffeq = Pendulum()
@@ -118,8 +116,8 @@ def generate_dataset(*, n_traj: int = N_TRAJ, seed: int = SEED,
     u0s = torch.as_tensor(u0s_np, device=device)
     ps = torch.as_tensor(ps_np, device=device)
     with torch.no_grad():
-        latent, ok, _ = solve_fixed_grid(diffeq.f, Tsit5(), u0s, ps, saveat,
-                                         substeps=substeps)
+        latent, ok, _ = solve_adaptive(diffeq.f, Tsit5(), u0s, ps, saveat,
+                                       AdaptiveConfig())
         if not bool(ok.all()):
             raise RuntimeError("data-generation solves must succeed")
         frames = render_frames(latent[..., 0])

@@ -7,10 +7,13 @@ runs on a machine that has no JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Float32 with TF32 off; kernel vs plain version atol 1e-5 (the same
-arithmetic, summed in another order). The neural-field backward kernel is
-held to 1e-5 of each gradient's size against the plain reverse sweep over
-the same saved trajectory, in float32 and in float64, and against plain
-autograd, for smooth fields (tanh, sigmoid, softplus). A relu field's
+arithmetic, summed in another order). The neural-field forward's tape, its
+sweep kernel and its weight-gradient kernel are each held to 1e-5 of each
+tensor's size against their plain versions on the same inputs; the whole
+backward to 1e-5 of each gradient's size against the plain reverse sweep
+that recomputes from the saved trajectory, in float32 and in float64, and
+against plain autograd, for smooth fields (tanh, sigmoid, softplus). A relu
+field's
 gradient jumps when a unit's pre-activation lies within rounding of zero,
 on in one evaluation and off in the other, however close the two are; the
 plain float32 versions are then as far from float64 as the kernel is, so
@@ -194,9 +197,13 @@ def test_neural_field_kernels_match_plain_on_card(dev, label, widths, B, T,
                                                   solver, substeps, act):
     """Forward kernel vs the plain solve (atol 1e-5, and no more than twice
     as far from a float64 plain solve as the float32 plain solve is, plus
-    1e-6); backward kernel vs the plain reverse sweep over the same
-    trajectory in float64 (1e-5 of each gradient's size, relu 1e-2) and,
-    for a smooth field, in float32 (1e-5)."""
+    1e-6); the tape-writing variant gives the same ys and the plain
+    version's tape; the sweep and weight-gradient kernels vs their plain
+    versions on the same tape and Delta (1e-5 of each tensor's size, relu
+    too: both read the same activations); the backward vs the plain
+    reverse sweep that recomputes from the same trajectory in float64
+    (1e-5 of each gradient's size, relu 1e-2) and, for a smooth field, in
+    float32 (1e-5)."""
     s = getattr(trk, solver)()
     m = field_on(dev, widths, act)
     if len(widths) == 2:      # a single layer keeps its activation
@@ -214,8 +221,28 @@ def test_neural_field_kernels_match_plain_on_card(dev, label, widths, B, T,
     assert float((ys - ref).abs().max()) <= ATOL
     assert float((ys - ref64).abs().max()) <= 2 * float(
         (ref - ref64).abs().max()) + 1e-6
+    with torch.no_grad():
+        ys_t, tape = node_cuda.solve_neural_field_cuda(
+            m, s, u0s, saveat, substeps=substeps, tape=True)
+    assert torch.equal(ys_t, ys)
+    _, tape_p = node_cuda.solve_neural_field_taped_reference(
+        m, s, u0s, saveat, substeps=substeps)
+    hp, _, dp, _ = node_cuda.tape_layout(widths)
+    for off, wd in zip(hp, widths):
+        assert rel(tape[..., off:off + wd], tape_p[..., off:off + wd]) <= 1e-5
+    du0_s, delta = node_cuda.neural_field_sweep_cuda(m, s, saveat, tape, w,
+                                                     substeps=substeps)
+    du0_r, delta_r = node_cuda.neural_field_sweep_reference(
+        m, s, saveat, tape, w, substeps=substeps)
+    assert rel(du0_s, du0_r) <= 1e-5
+    for off, wd in zip(dp, widths[1:]):
+        assert rel(delta[..., off:off + wd], delta_r[..., off:off + wd]) <= 1e-5
+    dWk, dbk = node_cuda.neural_field_dw_cuda(m, tape, delta)
+    dWr, dbr = node_cuda.neural_field_dw_reference(m, tape, delta)
+    for a, b in zip(dWk + dbk, dWr + dbr):
+        assert rel(a, b) <= 1e-5
     du0, dWs, dbs = node_cuda.solve_neural_field_backward_cuda(
-        m, s, saveat, ys, w, substeps=substeps)
+        m, s, saveat, tape, w, substeps=substeps)
     ru0, rWs, rbs = node_cuda.solve_neural_field_backward_reference(
         m, s, saveat, ys, w, substeps=substeps)
     du0_64, dWs_64, dbs_64 = node_cuda.solve_neural_field_backward_reference(
@@ -231,21 +258,21 @@ def test_neural_field_kernels_match_plain_on_card(dev, label, widths, B, T,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [0, 1, 2])
 def test_neural_field_kernels_at_every_tile_size_on_card(dev, rows):
-    """A ragged batch (37 rows) with 1, 2, 4 and 8 rows a block: rows past
-    the batch end add nothing to the weight gradients."""
+    """A ragged batch (37 rows) with the default tile, 1 and 2 rows a
+    block: rows past the batch end add nothing to the weight gradients."""
     s = trk.Tsit5()
     widths = (8, 16, 16, 8)
     m = field_on(dev, widths, tnn.tanh, seed=3)
     u0s, saveat, w = field_inputs(dev, widths, 37, 9, seed=4)
     with torch.no_grad():
-        ys = node_cuda.solve_neural_field_cuda(m, s, u0s, saveat,
-                                               rows_per_block=rows)
+        ys, tape = node_cuda.solve_neural_field_cuda(
+            m, s, u0s, saveat, rows_per_block=rows, tape=True)
         ref = node_cuda.solve_neural_field_reference(m, s, u0s, saveat)[0]
     assert float((ys - ref).abs().max()) <= ATOL
     got = node_cuda.solve_neural_field_backward_cuda(
-        m, s, saveat, ys, w, rows_per_block=rows)
+        m, s, saveat, tape, w, rows_per_block=rows)
     want = node_cuda.solve_neural_field_backward_reference(m, s, saveat, ys,
                                                            w)
     for a, b in zip([got[0], *got[1], *got[2]],
@@ -270,12 +297,12 @@ def test_neural_field_gradients_match_plain_autograd_on_card(dev, act, tol):
         ys = fn(m, s, u, saveat, **kw)[0]
         return torch.autograd.grad((ys * w).sum(), [u] + list(m.parameters()))
 
-    before = (node_cuda.solve_neural_field_cuda.launches,
-              node_cuda.solve_neural_field_backward_cuda.launches)
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda,
+                node_cuda.neural_field_dw_cuda)
+    before = [fn.launches for fn in counters]
     k = grads(node_cuda.solve_neural_field)
-    assert (node_cuda.solve_neural_field_cuda.launches - before[0],
-            node_cuda.solve_neural_field_backward_cuda.launches
-            - before[1]) == (1, 1)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 1]
     r = grads(node_cuda.solve_neural_field, backward="autograd")
     p = grads(node_cuda.solve_neural_field_reference)
     for a, b, c in zip(k, r, p):
@@ -289,8 +316,10 @@ def test_neural_field_kernel_refuses_what_it_does_not_take_on_card(dev):
     non-float32 state raise, and nothing launches."""
     s = trk.Tsit5()
     u0s, saveat, _ = field_inputs(dev, (8, 8), 4, 5)
-    before = (node_cuda.solve_neural_field_cuda.launches,
-              node_cuda.solve_neural_field_backward_cuda.launches)
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda,
+                node_cuda.neural_field_dw_cuda)
+    before = [fn.launches for fn in counters]
     with pytest.raises(ValueError, match="activations"):
         node_cuda.solve_neural_field(
             tnn.mlp((8, 16, 8), torch.nn.functional.gelu).to(dev), s, u0s,
@@ -304,15 +333,32 @@ def test_neural_field_kernel_refuses_what_it_does_not_take_on_card(dev):
     with pytest.raises(ValueError, match="float32"):
         node_cuda.solve_neural_field(field_on(dev, (8, 16, 8)), s,
                                      u0s.double(), saveat)
-    assert before == (node_cuda.solve_neural_field_cuda.launches,
-                      node_cuda.solve_neural_field_backward_cuda.launches)
+    with pytest.raises(ValueError, match="invalid"):
+        node_cuda.kernel_plan((16, 200, 200, 16), 6, 64, backward=False,
+                              rows_per_block=4)
+    assert before == [fn.launches for fn in counters]
+
+
+@pytest.mark.cuda
+def test_neural_field_plan_keeps_the_hidden_layer_in_registers_on_card(dev):
+    """The main path's field keeps its 200 x 200 layer in registers (416
+    threads, one row a block) in both passes; the wide field reads its
+    weights through the cache, two rows a block at B 256."""
+    for backward in (False, True):
+        rows, place, reg, threads, _ = node_cuda.kernel_plan(
+            (16, 200, 200, 16), 6, 64, backward=backward)
+        assert (rows, place, reg, threads) == (1, "registers", 1, 416)
+        rows, place, reg, threads, _ = node_cuda.kernel_plan(
+            (128, 256, 256, 128), 6, 256, backward=backward)
+        assert (rows, place, reg, threads) == (2, "global", -1, 512)
 
 
 @pytest.mark.cuda
 def test_latent_ode_kernel_path_matches_plain_path_on_card(dev):
     """A small LatentODE with the kernel solve launches the forward kernel
-    once per forward and the backward kernel once per backward, and agrees
-    with the same weights run plainly, outputs and gradients."""
+    once per forward and the sweep and weight-gradient kernels once per
+    backward, and agrees with the same weights run plainly, outputs and
+    gradients."""
     node = NODE(6, hidden_dim=16, augment_dim=2, activation=tnn.tanh,
                 device=dev, options=SolveOptions(adaptive=False, substeps=1))
     layers = default_layers(LatentODE(), 24, node, hidden_dim_resnet=16,
@@ -322,13 +368,14 @@ def test_latent_ode_kernel_path_matches_plain_path_on_card(dev):
     x = torch.rand(6, 10, 24, device=dev)
     t = torch.arange(10, dtype=torch.float32, device=dev) * 0.05
     counters = (node_cuda.solve_neural_field_cuda,
-                node_cuda.solve_neural_field_backward_cuda)
+                node_cuda.neural_field_sweep_cuda,
+                node_cuda.neural_field_dw_cuda)
     before = [fn.launches for fn in counters]
     params = list(km.parameters())
     eps = torch.randn(6, 6, device=dev)
     (xk, zk, _), _, _, aux = km(x, t, variational=True, eps=eps)
     gk = torch.autograd.grad((xk ** 2).sum(), params)
-    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1]
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 1]
     (xp, zp, _), _, _, _ = pm(x, t, variational=True, eps=eps)
     gp = torch.autograd.grad((xp ** 2).sum(), params)
     assert xk.shape == (6, 10, 24) and zk.shape == (6, 10, 8)

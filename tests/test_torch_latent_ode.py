@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's LatentODE against the JAX package, on
-the CPU: the neural-field solve and its gradients (plain autograd and the
-hand-written reverse sweep that the CUDA backward kernel follows) against
+the CPU: the neural-field solve and its gradients (plain autograd, the
+tape-reading reverse sweep and weight-gradient product that the CUDA
+backward kernels follow, and the sweep that recomputes from ys) against
 `pallas_solve_neural_field` in interpret mode and the vmapped
 `solve_fixed_grid`; the full-width model on the committed
 `benchmarks/artifacts/latent_ode_d8_winner.npz` weights; augmentation; the
@@ -200,6 +201,45 @@ def test_reverse_sweep_function_returns_the_pulled_back_cotangent():
     got = [du0] + [t for pair in zip(dWs, dbs) for t in pair]
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("B", [20, 13], ids=["B20", "ragged-B13"])
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+def test_taped_sweep_and_weight_gradients_match_jax(act, substeps, B):
+    """The new backward's plain versions: the forward that keeps the tape
+    (ys equal the plain solve's), the sweep over it and the (H, Delta) ->
+    dW product, against the sweep that recomputes from ys (1e-5 relative:
+    the same recursion, dW summed in another order) and against both JAX
+    backward modes (rtol 2e-5, atol 2e-6)."""
+    jm, tm = field_pair(act=act, seed=11)
+    u0s, saveat = solve_inputs(B=B, seed=12)
+    js, ts = jrk.Tsit5(), trk.Tsit5()
+    u, sv = torch.from_numpy(u0s), torch.from_numpy(saveat)
+    ys, tape = node_cuda.solve_neural_field_taped_reference(
+        tm, ts, u, sv, substeps=substeps)
+    plain = node_cuda.solve_neural_field_reference(tm, ts, u, sv,
+                                                   substeps=substeps)[0]
+    torch.testing.assert_close(ys, plain.detach(), rtol=0, atol=0)
+    hp, rec, dp, drec = node_cuda.tape_layout((8, 16, 16, 8))
+    assert (hp, rec, dp, drec) == ([0, 8, 24, 40], 48, [0, 16, 32], 40)
+    assert tape.shape == (B, 6 * substeps, 6, rec)
+    g = 2 * ys                                  # d sum(ys^2) / d ys
+    du0, delta = node_cuda.neural_field_sweep_reference(
+        tm, ts, sv, tape, g, substeps=substeps)
+    assert delta.shape == (B, 6 * substeps, 6, drec)
+    dWs, dbs = node_cuda.neural_field_dw_reference(tm, tape, delta)
+    got = [du0] + [t for pair in zip(dWs, dbs) for t in pair]
+    r0, rWs, rbs = node_cuda.solve_neural_field_backward_reference(
+        tm, ts, sv, ys, g, substeps=substeps)
+    for a, b in zip(got, [r0] + [t for pair in zip(rWs, rbs) for t in pair]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for mode in ("xla", "pallas"):
+        ref = jax_grads(jm, js, jnp.asarray(u0s), jnp.asarray(saveat),
+                        substeps, mode)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-6,
+                                       err_msg=f"vs jax {mode}")
 
 
 def test_relu_derivative_at_zero_is_zero():

@@ -297,9 +297,19 @@ def test_render_frames_match_jax():
 
 
 def test_dataset_matches_jax_generator():
-    """Initial conditions are identical; angles agree to the JAX data's
-    own adaptive-solve error (rtol 1e-3 there; measured up to 2.7e-3 rad
-    on the 450-trajectory set), so the bound is 5e-3."""
+    """Initial conditions are identical, and both generators integrate
+    with adaptive Tsit5 at rtol 1e-3, atol 1e-6 and emit the frames by
+    dense output. The angles, which the frames are drawn from, agree to
+    1e-4 on these rows, the velocities to 5e-4 (5e-3 for both with the
+    fixed grid the port used before, whose angles were up to 2.7e-3 off).
+    What is left is float32 rounding read by the step controller: the
+    first step's error estimate is at rounding level, so any two float32
+    evaluations choose different next steps and their dense outputs differ
+    by the solve's own error. The JAX solve jitted and run eagerly differ
+    from each other by as much as the two packages do, and in float64 the
+    two packages agree to 1e-10 with equal step counts on every row
+    (scripts/dataset_vs_jax.py; the "pendulum-dataset" case of
+    test_solve_adaptive_matches_jax)."""
     from create_data import generate_dataset as jgen
     lat_j, u0_j, ps_j, _ = jgen(n_traj=6)
     lat, u0s, ps, frames = pendulum_data.generate_dataset(n_traj=6,
@@ -307,7 +317,10 @@ def test_dataset_matches_jax_generator():
     np.testing.assert_array_equal(u0s.numpy(), u0_j)
     np.testing.assert_array_equal(ps.numpy(), ps_j)
     assert lat.shape == (6, 100, 2) and frames.shape == (6, 100, 28, 28)
-    np.testing.assert_allclose(lat.numpy(), lat_j, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(lat[..., 0].numpy(), lat_j[..., 0], rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(lat[..., 1].numpy(), lat_j[..., 1], rtol=0,
+                               atol=5e-4)
     assert float(frames.min()) >= 0 and float(frames.max()) <= 1
 
 
