@@ -5,34 +5,47 @@
 Phases, each printing one line (any failure exits non-zero):
   1. build    compile every CUDA kernel of the port (one nvcc per source, in
               parallel) and print the card's name and power limit;
-  2. kernels  each kernel against its plain PyTorch version on the card
-              (TF32 off) at the training, validation and a ragged batch shape;
-              the neural-field solve also with RK4 and sub-steps, at the
-              8-wide and the 128-256-256-128 field and with tanh, each beside
-              a float64 plain solve, and its tape-writing variant against the
-              plain tape; fields the kernel does not take raise;
-  3. grads    gradients through each kernel's autograd.Function against plain
-              autograd; the neural-field sweep and weight-gradient kernels
-              against their plain versions on the same tape, and the whole
-              backward against the plain reverse sweep that recomputes from
-              the same trajectory, in float32 and float64;
+  2. kernels  each forward kernel against its plain PyTorch version on the
+              card (TF32 off) at the training, validation and ragged batch
+              shapes, and the tape-writing variants (goku_heads,
+              node_field_fwd) against the plain tape; goku_heads also with
+              heads wider than its compiled widths; the neural-field
+              solve also with RK4 and sub-steps, at the 8-wide and the
+              128-256-256-128 field and with tanh, each beside a float64
+              plain solve; fields the kernel does not take raise;
+  3. grads    each backward kernel against its plain version on the same
+              inputs: goku_heads_bwd against the plain sweep on the same
+              tape (relu and tanh RNN, and wide heads), rk_fixed_grid_bwd
+              against the plain reverse sweep over the same trajectory, the
+              neural-field sweep and weight-gradient kernels on the same
+              tape; then each whole backward against plain autograd (the
+              neural field also against backward="autograd" and the plain
+              recomputing sweep in float32 and float64); relu units that
+              flip between the kernel's and the plain forward are counted;
   4. train    the main paths, on the 450 x 100 x 28 x 28 pendulum video
               generated on the card: full-width GOKU with both kernel
               switches on, then full-width LatentODE with the kernel solve,
               each Trainer.fit for 2 epochs (6 steps each, validation after
               every step); losses must be finite, every kernel must have
-              launched the expected number of times, and the kernel path must
-              agree with the plain path;
+              launched the expected number of times (GOKU: 24 forward and
+              12 backward launches of each of its two kernels, and no call
+              of their plain versions), and the kernel path must agree with
+              the plain path; step and validation times, and the device
+              ops of one GOKU step;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
-              version's time, its bytes/operations bound and a latency
-              model of its serial chain; the neural-field kernels' launch
-              plan and their time at 1 and 2 rows a block; the three cuDNN
-              calls that compute the GOKU heads' recurrences, as
-              goku_heads' yardstick (the port never calls them); with
-              --profile, a torch.profiler
-              breakdown of one training step plus validation of each model,
-              written to chiprun_out/profile_step.txt and
+              version's time on the same inputs, its bytes/operations
+              bound and a latency model of its serial chain; the GOKU
+              heads' products; forward + backward of the heads and of the
+              RK solve by the kernel route and by plain autograd, and of
+              the heads by cuDNN (torch.nn.RNN + 2 torch.nn.LSTM forward,
+              and forward + backward, goku_heads' yardstick; the port
+              never calls them); the neural-field kernels' launch plan,
+              their time at 1 and 2 rows a block, and torch.mm per layer
+              as node_field_dw's yardstick; with --profile, a
+              torch.profiler breakdown of one training step plus
+              validation of each model, written to
+              chiprun_out/profile_step.txt and
               chiprun_out/profile_step_latent_ode.txt.
 It then prints the kernels JSON line, the card line and, last, the result
 line {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
@@ -55,7 +68,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL = 1e-5          # kernel vs plain version, float32, both kernels
-GRAD_TOL = 1e-5     # gradients: the same recompute on the same cotangents
+GRAD_TOL = 1e-5     # gradients, of each tensor's size: the same VJP
 PATH_TOL = 1e-4     # model output, kernel path vs plain path
 # Neural-field solve, kernel vs plain float32 (states of order 1, up to 297
 # RK steps): the products are summed in another order than aten::mm's, so
@@ -198,16 +211,39 @@ FMA_CYC, SFU_CYC, BAR_CYC = 4, 20, 20
 
 
 def heads_latency_ms(T, L, D, H, clock_mhz):
-    """Least time of the heads' T-step dependent chain if each gate dot
-    product were a tree reduction: per layer, ceil(log2(din + H)) FMA
-    levels, the LSTM cell update (sigmoid, FMA, tanh, multiply: 4
-    special-function steps and 2 FMAs) and the two barriers."""
-    cyc = 0
-    for l in range(L):
-        din = D if l == 0 else H
-        cyc += (math.ceil(math.log2(din + H)) + 2) * FMA_CYC \
-            + 4 * SFU_CYC + 2 * BAR_CYC
-    return T * cyc / (clock_mhz * 1e3)
+    """Least time of the forward's chain as csrc/goku_heads.cu runs it, a
+    wavefront of T + L - 1 links (layer l + 1 one step behind layer l), if
+    each gate product were a tree reduction: per link the longest layer,
+    ceil(log2(D + H)) FMA levels, the LSTM cell update (sigmoid, FMA, tanh,
+    multiply: 4 special-function steps and 2 FMAs) and one barrier."""
+    cyc = (math.ceil(math.log2(D + H)) + 2) * FMA_CYC + 4 * SFU_CYC + BAR_CYC
+    return (T + L - 1) * cyc / (clock_mhz * 1e3)
+
+
+def heads_bwd_latency_ms(T, L, H, clock_mhz):
+    """The same for the sweep: per link the LSTM cell's backward (one tanh,
+    4 dependent FMAs), the 4H-term products as a tree, and one barrier."""
+    cyc = (math.ceil(math.log2(4 * H)) + 4) * FMA_CYC + SFU_CYC + BAR_CYC
+    return (T + L - 1) * cyc / (clock_mhz * 1e3)
+
+
+def heads_bwd_work(B, T, D, H, L):
+    """(bytes, float32 operations) of the sweep: the tape, the cotangents
+    and the recurrent and inter-layer weights in, dgates, dh0 and dc0 out;
+    per row-step and cell the products dgates Wh^T (and dgates Wi^T above
+    layer 0; 2 flops per multiply-add) and the cell's backward (~16
+    operations per LSTM unit, 2 per RNN unit)."""
+    n_w = 0
+    ops = 0
+    for s in range(3):
+        G = H if s == 0 else 4 * H
+        for l in range(L):
+            prods = 2 if l else 1
+            n_w += prods * H * G
+            ops += 2 * prods * H * G + (16 * H if s else 2 * H)
+    nbytes = 4 * (B * T * 13 * H * L + B * 3 * H + n_w
+                  + B * T * 9 * H * L + 2 * B * 3 * L * H)
+    return nbytes, B * T * ops
 
 
 def rk_latency_ms(T, substeps, n_stages, clock_mhz):
@@ -216,6 +252,24 @@ def rk_latency_ms(T, substeps, n_stages, clock_mhz):
     special-function steps, 2 FMAs); per step, one more FMA."""
     per_step = n_stages * (3 * FMA_CYC + 3 * SFU_CYC) + FMA_CYC
     return (T - 1) * substeps * per_step / (clock_mhz * 1e3)
+
+
+def rk_bwd_latency_ms(T, substeps, n_stages, clock_mhz):
+    """Least time of the reverse sweep's chain per trajectory: the forward
+    stages recomputed (as `rk_latency_ms`), then per stage the RHS's VJP
+    (cos, sin, a reciprocal: 3 special-function steps, 3 FMAs)."""
+    per_step = 2 * n_stages * (3 * FMA_CYC + 3 * SFU_CYC) + FMA_CYC
+    return (T - 1) * substeps * per_step / (clock_mhz * 1e3)
+
+
+def rk_bwd_work(B, T, dim, pdim, substeps, tab, n_stages):
+    """(bytes, float32 operations) of the RK reverse sweep: saveat, ys, ps
+    and g in, du0 and dp out; per step the forward stages again and, per
+    stage, the VJP (~8 operations: cos, sin, reciprocal, products) and the
+    cotangent updates (as the stage combinations)."""
+    nbytes = 4 * (T + 2 * B * T * dim + 2 * B * pdim + B * dim)
+    fwd_ops = rk_work(B, T, dim, pdim, substeps, tab, n_stages)[1]
+    return nbytes, 2 * fwd_ops + B * (T - 1) * substeps * n_stages * 8
 
 
 def max_sm_clock_mhz() -> float:
@@ -637,6 +691,11 @@ def node_timing(clock):
                                                          saveat, tape=True)
             _, delta = node_cuda.neural_field_sweep_cuda(m, solver, saveat,
                                                          tape, w)
+            hp, rec, dp, drec = node_cuda.tape_layout(widths)
+            dw_ops = [(tape.reshape(-1, rec)[:, o:o + a].contiguous(),
+                       delta.reshape(-1, drec)[:, q:q + b].contiguous())
+                      for o, a, q, b in zip(hp, widths[:-1], dp,
+                                            widths[1:])]
             calls = {
                 "node_field_fwd": (
                     lambda: node_cuda.solve_neural_field_cuda(
@@ -679,8 +738,16 @@ def node_timing(clock):
                         lat = node_latency_ms(T, 1, n_st, widths, clock)
                         line += (f", latency model {lat:.6f} ms at "
                                  f"{clock:.0f} MHz")
-                    if label == "train":
-                        out[name] = (k_ms, p_ms, bd, by)
+                lib = None
+                if part == "dw":
+                    # the library yardstick: one torch.mm per layer on the
+                    # same tape and Delta (contiguous copies), summed
+                    lib = time_ms(lambda: [a.t() @ b for a, b in dw_ops],
+                                  reps=reps)
+                    line += (f", library (torch.mm per layer) {lib:.4f} "
+                             f"ms")
+                if part is not None and label == "train":
+                    out[name] = (k_ms, p_ms, bd, by, lib)
                 log("timing", line)
         # plain backward: autograd through the plain solve's graph
         u = u0s.clone().requires_grad_()
@@ -703,12 +770,16 @@ def node_timing(clock):
                     log("timing", f"node_field train, {rows} row(s) a "
                                   f"block ({-(-B // rows)} blocks): forward "
                                   f"{rf:.4f} ms, sweep {rb:.4f} ms per call")
-            # the kernel route calls no library matrix product
+            # the kernel route calls no library matrix product (two
+            # rounds under the profiler: its tracing may miss the launch
+            # that opens the window)
             u = u0s.clone().requires_grad_()
             with tprofile(activities=[ProfilerActivity.CPU,
                                       ProfilerActivity.CUDA]) as prof:
-                ys_k = node_cuda.solve_neural_field(m, solver, u, saveat)[0]
-                torch.autograd.grad(ys_k, [u] + list(m.parameters()), w)
+                for _ in range(2):
+                    ys_k = node_cuda.solve_neural_field(m, solver, u,
+                                                        saveat)[0]
+                    torch.autograd.grad(ys_k, [u] + list(m.parameters()), w)
                 torch.cuda.synchronize()
             ops = sorted({e.name for e in prof.events()
                           if e.device_type.name == "CPU"
@@ -766,6 +837,348 @@ def cudnn_heads(heads, dev):
     return mods, state, run
 
 
+# Heads wider than goku_heads' compiled widths (32, 16): they run at their
+# own widths in the kernels that read the widths at run time.
+WIDE_HEADS = (64, 32, 2)
+
+
+def wide_heads(act="relu", seed=5):
+    """GOKU-shaped heads at WIDE_HEADS, every tensor from N(0, 0.15^2)."""
+    from latentdiffeq_torch import nn as tnn
+    D, H, L = WIDE_HEADS
+    g = torch.Generator().manual_seed(seed)
+    heads = (tnn.Recurrent.rnn(D, (H,) * L, getattr(tnn, act)),
+             tnn.Recurrent.lstm(D, (H,) * L), tnn.Recurrent.lstm(D, (H,) * L))
+    with torch.no_grad():
+        for p in (p for h in heads for p in h.parameters()):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.15)
+    return tuple(h.to("cuda") for h in heads)
+
+
+def goku_kernel_checks(heads, gen) -> float:
+    """Phase 2 for goku_heads: the forward kernel and its tape-writing
+    variant against the plain versions (the same outputs, and the tape
+    against the plain tape) at the train, validation and two ragged
+    shapes, and wide heads at the train shape. Returns the largest
+    absolute error of the outputs."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    worst = 0.0
+    with torch.no_grad():
+        for label, hs, (B, T) in (
+                ("train", heads, (64, 50)), ("val", heads, (45, 100)),
+                ("ragged", heads, (100, 50)),
+                ("ragged-short", heads, (37, 21)),
+                (f"wide {WIDE_HEADS}", wide_heads(), (64, 50))):
+            D = hs[0].cells[0].Wi.shape[0]
+            xs = torch.randn(B, T, D, generator=gen, device="cuda")
+            z, th = rc.goku_heads_cuda(*hs, xs)
+            zt, tht, tape = rc.goku_heads_cuda(*hs, xs, tape=True)
+            zp, thp, tape_p = rc.goku_heads_taped_reference(*hs, xs)
+            e = max(max_err(z, zp), max_err(th, thp))
+            e_tape = rel_err(tape, tape_p)
+            same = torch.equal(z, zt) and torch.equal(th, tht)
+            worst = max(worst, e)
+            log("kernels", f"goku_heads {label} B={B} T={T}: max abs err "
+                           f"{e:.3e} (tol {TOL:.0e}); tape-writing variant: "
+                           f"same outputs {same}, tape vs plain tape max rel "
+                           f"err {e_tape:.3e} (tol {TOL:.0e})")
+            if not (e <= TOL and same and e_tape <= TOL):
+                fail(f"goku_heads {label}: {e}, tape {e_tape}, same {same}")
+    return worst
+
+
+def heads_relu_flips(tape, tape_p, L, H):
+    """(flipped, all): z0 RNN units on (h > 0) in the kernel's tape and off
+    in the plain tape, or the other way round."""
+    a, b = tape[..., :L * H] > 0, tape_p[..., :L * H] > 0
+    return int((a != b).sum()), a.numel()
+
+
+def goku_grad_checks(heads, gen):
+    """Phase 3 for goku_heads: the sweep kernel against the plain sweep on
+    the same tape, then the whole backward against plain autograd, for the
+    main path's relu heads and the same heads with a tanh RNN at the train
+    and validation shapes, and for wide heads (relu and tanh) at the train
+    shape. Returns the largest absolute error of the sweep."""
+    from latentdiffeq_torch import nn as tnn
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    tanh_heads = copy.deepcopy(heads)
+    for cell in tanh_heads[0].cells:
+        cell.activation = tnn.tanh
+    both = (("train", (64, 50)), ("val", (45, 100)))
+    worst = 0.0
+    for act, hs, shapes in (
+            ("relu", heads, both), ("tanh", tanh_heads, both),
+            (f"wide {WIDE_HEADS} relu", wide_heads("relu"), both[:1]),
+            (f"wide {WIDE_HEADS} tanh", wide_heads("tanh"), both[:1])):
+        params = rc._heads_params(*hs)
+        L, H = len(hs[0].cells), hs[0].cells[0].hidden_dim
+        D = hs[0].cells[0].Wi.shape[0]
+        for label, (B, T) in shapes:
+            xs = torch.randn(B, T, D, generator=gen, device="cuda")
+            gz = torch.randn(B, H, generator=gen, device="cuda")
+            gt = torch.randn(B, 2 * H, generator=gen, device="cuda")
+            with torch.no_grad():
+                _, _, tape = rc.goku_heads_cuda(*hs, xs, tape=True)
+                tape_p = rc.goku_heads_taped_reference(*hs, xs)[2]
+            got = rc.goku_heads_bwd_cuda(*hs, tape, gz, gt)
+            ref = rc.goku_heads_sweep_reference(*hs, tape, gz, gt)
+            e_sw = max(rel_err(a, b) for a, b in zip(got, ref))
+            worst = max(worst, max(max_err(a, b) for a, b in zip(got, ref)))
+
+            def grads(fn):
+                x = xs.clone().requires_grad_()
+                z, th = fn(*hs, x)
+                return torch.autograd.grad((z, th), [x] + params, (gz, gt))
+
+            k = grads(rc.goku_heads)
+            p = grads(rc.goku_heads_reference)
+            e_kp = max(rel_err(a, b) for a, b in zip(k, p))
+            flips, units = heads_relu_flips(tape, tape_p, L, H)
+            tol = (GRAD_TOL if act.endswith("tanh") or flips == 0
+                   else RELU_GRAD_TOL)
+            log("grads", f"goku_heads {act} RNN {label} B={B} T={T}: "
+                         f"goku_heads_bwd vs plain sweep on the same tape max "
+                         f"rel err {e_sw:.3e} (tol {GRAD_TOL:.0e}); whole "
+                         f"backward vs plain autograd {e_kp:.3e} (tol "
+                         f"{tol:.0e}); relu units on in the kernel's tape and "
+                         f"off in the plain tape or back: {flips} of {units}")
+            if not (e_sw <= GRAD_TOL and e_kp <= tol
+                    and all(bool(torch.isfinite(t).all()) for t in k)):
+                fail(f"goku_heads grads {act} {label}: sweep {e_sw}, whole "
+                     f"{e_kp} > {tol}")
+    return worst
+
+
+def rk_grad_checks(gen):
+    """Phase 3 for rk_fixed_grid: the backward kernel against the plain
+    reverse sweep over the same trajectory, then the whole backward against
+    plain autograd.
+    Returns the largest absolute error of the kernel vs the plain sweep."""
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.pendulum import pendulum_f, pendulum_friction_f
+    from latentdiffeq_torch.solve.rk import RK4, Tsit5
+    worst = 0.0
+    for label, f, solver, sub, B, T in (
+            ("train", pendulum_f, Tsit5(), 1, 64, 50),
+            ("val", pendulum_f, Tsit5(), 1, 45, 100),
+            ("rk4-substeps3", pendulum_f, RK4(), 3, 64, 50),
+            ("friction", pendulum_friction_f, Tsit5(), 1, 64, 50)):
+        u0s = torch.rand(B, 2, generator=gen, device="cuda") * 2 - 1
+        ps = 1 + torch.rand(B, 1, generator=gen, device="cuda")
+        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * 0.05
+        w = torch.randn(B, T, 2, generator=gen, device="cuda")
+        with torch.no_grad():
+            ys = ode_cuda.solve_fixed_grid_batched_cuda(f, solver, u0s, ps,
+                                                        saveat, substeps=sub)
+        got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, solver, saveat, ys, ps, w, substeps=sub)
+        ref = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, solver, saveat, ys, ps, w, substeps=sub)
+        e_sw = max(rel_err(a, b) for a, b in zip(got, ref))
+        worst = max(worst, max(max_err(a, b) for a, b in zip(got, ref)))
+
+        def grads(fn):
+            u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+            y = fn(f, solver, u, p, saveat, substeps=sub)[0]
+            return torch.autograd.grad(y, [u, p], w)
+
+        k = grads(ode_cuda.solve_fixed_grid_batched)
+        p = grads(ode_cuda.solve_fixed_grid_batched_reference)
+        e_kp = max(rel_err(a, b) for a, b in zip(k, p))
+        log("grads", f"rk_fixed_grid {label} B={B} T={T} "
+                     f"{type(solver).__name__} substeps={sub}: "
+                     f"rk_fixed_grid_bwd vs plain reverse sweep on the same "
+                     f"ys max rel err {e_sw:.3e}; whole backward vs plain "
+                     f"autograd {e_kp:.3e} (tol {GRAD_TOL:.0e})")
+        if not (e_sw <= GRAD_TOL and e_kp <= GRAD_TOL):
+            fail(f"rk_fixed_grid grads {label}: {e_sw}, {e_kp}")
+    return worst
+
+
+def goku_timing(heads, gen, clock, dev):
+    """Phase 5 for the GOKU kernels at the train and validation shapes:
+    each kernel's time per call and on the device beside its plain version
+    on the same inputs (a backward kernel's: the plain sweep), its bound
+    and its latency model; the heads' products; forward + backward of the
+    heads by the kernel route, plain autograd and cuDNN (torch.nn.RNN and
+    two torch.nn.LSTM on the same weights, the yardstick; the port never
+    calls them), and of the RK solve by the kernel route and plain
+    autograd. Returns {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)} at the train shape."""
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    from latentdiffeq_torch.pendulum import pendulum_f
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    tab = Tsit5().tableau
+    n_st = n_solution_stages(tab)
+    L, H = len(heads[0].cells), heads[0].cells[0].hidden_dim
+    params = rc._heads_params(*heads)
+    mods, state, cudnn_run = cudnn_heads(heads, dev)
+    mod_params = [p for m in mods for p in m.parameters()]
+    out = {}
+    for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
+        xs = torch.randn(B, T, 32, generator=gen, device=dev)
+        gz = torch.randn(B, H, generator=gen, device=dev)
+        gt = torch.randn(B, 2 * H, generator=gen, device=dev)
+        with torch.no_grad():
+            _, _, tape = rc.goku_heads_cuda(*heads, xs, tape=True)
+            dg, dh0, dc0 = rc.goku_heads_bwd_cuda(*heads, tape, gz, gt)
+        x = xs.clone().requires_grad_()
+
+        def route(fn, **kw):
+            z, th = fn(*heads, x, **kw)
+            torch.autograd.grad((z, th), [x] + params, (gz, gt))
+
+        # the yardstick, checked against the plain version first
+        xr = xs.flip(1).contiguous()
+        with torch.no_grad():
+            z_c, th_c = cudnn_run(xs, xr)
+            z_p, th_p = rc.goku_heads_reference(*heads, xs)
+        e = max(max_err(z_c, z_p), max_err(th_c, th_p))
+        if not e <= 1e-4:
+            fail(f"cuDNN RNN/LSTM vs goku_heads' plain version: {e}")
+        s_z = state(heads[0], "h0", B)
+        s_f = (state(heads[1], "h0", B), state(heads[1], "c0", B))
+        s_b = (state(heads[2], "h0", B), state(heads[2], "c0", B))
+        xl, xrl = xs.clone().requires_grad_(), xr.clone().requires_grad_()
+
+        def three():
+            return (mods[0](xr, s_z)[1], mods[1](xs, s_f)[1][0],
+                    mods[2](xr, s_b)[1][0])
+
+        def three_grad():
+            hz = mods[0](xrl, s_z)[1]
+            hf = mods[1](xl, s_f)[1][0]
+            hb = mods[2](xrl, s_b)[1][0]
+            torch.autograd.grad((hz[-1], hf[-1], hb[-1]),
+                                [xl, xrl] + mod_params,
+                                (gz, gt[:, :H], gt[:, H:]))
+
+        with torch.no_grad():
+            lib_f = time_ms(three)
+        lib_fb = time_ms(three_grad)
+        log("timing", f"goku_heads {label} yardstick: torch.nn.RNN (relu) + "
+                      f"2 torch.nn.LSTM, {L} layers each, cuDNN "
+                      f"{torch.backends.cudnn.version()}: forward "
+                      f"{lib_f:.4f} ms, forward + backward {lib_fb:.4f} ms "
+                      f"for the three (vs the plain version max abs err "
+                      f"{e:.3e}, tol 1e-4)")
+        k_route = time_ms(lambda: route(rc.goku_heads))
+        p_route = time_ms(lambda: route(rc.goku_heads_reference), reps=3,
+                          warmup=1)
+        log("timing", f"goku_heads {label} forward + backward, per call: "
+                      f"kernel route (tape forward, goku_heads_bwd, "
+                      f"products) {k_route:.4f} ms, plain autograd "
+                      f"{p_route:.4f} ms, cuDNN {lib_fb:.4f} ms")
+        with torch.no_grad():
+            prod_ms = time_ms(lambda: rc.goku_heads_param_grads(
+                *heads, xs, tape, dg, dh0, dc0))
+        log("timing", f"goku_heads {label} products (dxs, dW, db, dh0, dc0; "
+                      f"PyTorch matrix products): {prod_ms:.4f} ms per call")
+        u0s = torch.rand(B, 2, generator=gen, device=dev) * 2 - 1
+        ps = 1 + torch.rand(B, 1, generator=gen, device=dev)
+        saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
+        w = torch.randn(B, T, 2, generator=gen, device=dev)
+        with torch.no_grad():
+            ys = ode_cuda.solve_fixed_grid_batched_cuda(pendulum_f, Tsit5(),
+                                                        u0s, ps, saveat)
+        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+
+        def rk_route(fn):
+            y = fn(pendulum_f, Tsit5(), u, p, saveat)[0]
+            torch.autograd.grad(y, [u, p], w)
+
+        k_rk = time_ms(lambda: rk_route(ode_cuda.solve_fixed_grid_batched))
+        p_rk = time_ms(lambda: rk_route(
+            ode_cuda.solve_fixed_grid_batched_reference), reps=3, warmup=1)
+        log("timing", f"rk_fixed_grid {label} forward + backward, per call: "
+                      f"kernel route (rk_fixed_grid, rk_fixed_grid_bwd) "
+                      f"{k_rk:.4f} ms, plain autograd {p_rk:.4f} ms")
+        calls = {
+            "goku_heads": (
+                lambda: rc.goku_heads_cuda(*heads, xs),
+                lambda: rc.goku_heads_reference(*heads, xs),
+                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L),
+                heads_latency_ms(T, L, 32, H, clock), lib_f),
+            "goku_heads (writing the tape)": (
+                lambda: rc.goku_heads_cuda(*heads, xs, tape=True),
+                lambda: rc.goku_heads_taped_reference(*heads, xs),
+                "goku_heads_fwd_kernel", None,
+                heads_latency_ms(T, L, 32, H, clock), None),
+            "goku_heads_bwd": (
+                lambda: rc.goku_heads_bwd_cuda(*heads, tape, gz, gt),
+                lambda: rc.goku_heads_sweep_reference(*heads, tape, gz, gt),
+                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L),
+                heads_bwd_latency_ms(T, L, H, clock), None),
+            "rk_fixed_grid": (
+                lambda: ode_cuda.solve_fixed_grid_batched_cuda(
+                    pendulum_f, Tsit5(), u0s, ps, saveat),
+                lambda: ode_cuda.solve_fixed_grid_batched_reference(
+                    pendulum_f, Tsit5(), u0s, ps, saveat),
+                "rk_fixed_grid_kernel", rk_work(B, T, 2, 1, 1, tab, n_st),
+                rk_latency_ms(T, 1, n_st, clock), None),
+            "rk_fixed_grid_bwd": (
+                lambda: ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+                    pendulum_f, Tsit5(), saveat, ys, ps, w),
+                lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
+                    pendulum_f, Tsit5(), saveat, ys, ps, w),
+                "rk_fixed_grid_bwd_kernel",
+                rk_bwd_work(B, T, 2, 1, 1, tab, n_st),
+                rk_bwd_latency_ms(T, 1, n_st, clock), None),
+        }
+        with torch.no_grad():
+            for name, (kernel, plain, kname, work, lat, lib) in calls.items():
+                k_ms = time_ms(kernel)
+                d_ms = device_ms(kernel, kname)
+                p_ms = time_ms(plain, reps=3, warmup=1)
+                line = (f"{name} {label} B={B} T={T}: kernel {k_ms:.4f} ms "
+                        f"per call ({fmt_ms(d_ms)} on the device), plain "
+                        f"{p_ms:.4f} ms")
+                if work is not None:
+                    b_ms, b_by, t_b, t_o = bound_ms(*work)
+                    line += (f", bound {b_ms:.6f} ms ({b_by}; bytes "
+                             f"{t_b:.6f} ms, operations {t_o:.6f} ms)")
+                line += f", latency model {lat:.6f} ms at {clock:.0f} MHz"
+                log("timing", line)
+                if label == "train" and work is not None:
+                    out[name] = (k_ms, p_ms, b_ms, b_by, lib)
+    # heads wider than the compiled widths run in the any-width kernels (off
+    # the main path, not tuned)
+    wh = wide_heads()
+    D, Hw, _ = WIDE_HEADS
+    xs = torch.randn(64, 50, D, generator=gen, device=dev)
+    gz = torch.randn(64, Hw, generator=gen, device=dev)
+    gt = torch.randn(64, 2 * Hw, generator=gen, device=dev)
+    with torch.no_grad():
+        _, _, tape = rc.goku_heads_cuda(*wh, xs, tape=True)
+        f_ms = device_ms(lambda: rc.goku_heads_cuda(*wh, xs),
+                         "goku_heads_fwd_any_kernel")
+        b_ms = device_ms(lambda: rc.goku_heads_bwd_cuda(*wh, tape, gz, gt),
+                         "goku_heads_bwd_any_kernel")
+    log("timing", f"goku_heads wide {WIDE_HEADS} B=64 T=50, the any-width "
+                  f"kernels: forward {fmt_ms(f_ms)}, sweep {fmt_ms(b_ms)} on "
+                  f"the device")
+    return out
+
+
+def step_device_ops(trainer, data, beta):
+    """(device ops, device busy ms, span ms) of one train step under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(data, beta)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_us = sum(getattr(e, "device_time", None)
+                  or getattr(e, "cuda_time", 0) for e in evs)
+    span_us = (max(e.time_range.end for e in evs)
+               - min(e.time_range.start for e in evs)) if evs else 0
+    return len(evs), busy_us / 1e3, span_us / 1e3
+
+
 def profile_step(trainer, data, val_set, beta, fname, what):
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -817,7 +1230,7 @@ def main():
                                              pendulum_friction_f)
     from latentdiffeq_torch.pendulum_data import (draw_initial_conditions,
                                                   generate_dataset)
-    from latentdiffeq_torch.solve.rk import RK4, Tsit5, n_solution_stages
+    from latentdiffeq_torch.solve.rk import RK4, Tsit5
     from latentdiffeq_torch.train import TrainConfig, Trainer, splitobs
 
     profile = "--profile" in sys.argv[1:]
@@ -846,19 +1259,9 @@ def main():
         device=dev)
     heads = enc[1]
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"goku_heads": 0.0, "rk_fixed_grid": 0.0}
+    errs = {"goku_heads": goku_kernel_checks(heads, gen), "rk_fixed_grid": 0.0}
     shapes = {"train": (64, 50), "val": (45, 100), "ragged": (100, 50)}
     with torch.no_grad():
-        for label, (B, T) in shapes.items():
-            xs = torch.randn(B, T, 32, generator=gen, device=dev)
-            got = recurrent_cuda.goku_heads_cuda(*heads, xs)
-            ref = recurrent_cuda.goku_heads_reference(*heads, xs)
-            e = max(max_err(a, b) for a, b in zip(got, ref))
-            errs["goku_heads"] = max(errs["goku_heads"], e)
-            log("kernels", f"goku_heads {label} B={B} T={T}: max abs err "
-                           f"{e:.3e} (tol {TOL:.0e})")
-            if not e <= TOL:
-                fail(f"goku_heads {label}: {e} > {TOL}")
         cases = [(label, B, T, pendulum_f, Tsit5(), 1)
                  for label, (B, T) in shapes.items()]
         cases += [("rk4-substeps3", 64, 50, pendulum_f, RK4(), 3),
@@ -881,41 +1284,8 @@ def main():
     torch.cuda.synchronize()
 
     # ---- 3. gradients -----------------------------------------------------
-    xs = torch.randn(64, 50, 32, generator=gen, device=dev,
-                     requires_grad=True)
-    w_z0 = torch.randn(64, 16, generator=gen, device=dev)
-    w_th = torch.randn(64, 32, generator=gen, device=dev)
-    params = recurrent_cuda._heads_params(*heads)
-
-    def heads_grads(fn):
-        z0, th = fn(*heads, xs)
-        return torch.autograd.grad((z0 * w_z0).sum() + (th * w_th).sum(),
-                                   [xs] + params)
-
-    e = max(max_err(a, b) for a, b in zip(
-        heads_grads(recurrent_cuda.goku_heads),
-        heads_grads(recurrent_cuda.goku_heads_reference)))
-    log("grads", f"goku_heads: max abs err {e:.3e} (tol {GRAD_TOL:.0e})")
-    if not e <= GRAD_TOL:
-        fail(f"goku_heads grads: {e} > {GRAD_TOL}")
-
-    u0s = (torch.rand(64, 2, generator=gen, device=dev) * 2 - 1
-           ).requires_grad_()
-    ps = (1 + torch.rand(64, 1, generator=gen, device=dev)).requires_grad_()
-    saveat = torch.arange(50, dtype=torch.float32, device=dev) * 0.05
-    w_ys = torch.randn(64, 50, 2, generator=gen, device=dev)
-
-    def rk_grads(fn):
-        ys = fn(pendulum_f, Tsit5(), u0s, ps, saveat)[0]
-        return torch.autograd.grad((ys * w_ys).sum(), [u0s, ps])
-
-    e = max(max_err(a, b) for a, b in zip(
-        rk_grads(ode_cuda.solve_fixed_grid_batched),
-        rk_grads(ode_cuda.solve_fixed_grid_batched_reference)))
-    log("grads", f"rk_fixed_grid: max abs err {e:.3e} (tol {GRAD_TOL:.0e})")
-    if not e <= GRAD_TOL:
-        fail(f"rk_fixed_grid grads: {e} > {GRAD_TOL}")
-
+    errs["goku_heads_bwd"] = goku_grad_checks(heads, gen)
+    errs["rk_fixed_grid_bwd"] = rk_grad_checks(gen)
     errs["node_field_bwd"], errs["node_field_dw"] = node_grad_checks()
 
     # ---- 4. main path: GOKU training on pendulum video --------------------
@@ -945,15 +1315,22 @@ def main():
     cfg = TrainConfig(epochs=1500, save_best=False)
     trainer = Trainer(model, cfg, device=dev)
     counters = {"goku_heads": recurrent_cuda.goku_heads_cuda,
-                "rk_fixed_grid": ode_cuda.solve_fixed_grid_batched_cuda}
+                "rk_fixed_grid": ode_cuda.solve_fixed_grid_batched_cuda,
+                "goku_heads_bwd": recurrent_cuda.goku_heads_bwd_cuda,
+                "rk_fixed_grid_bwd": ode_cuda.solve_fixed_grid_batched_bwd_cuda}
+    plains = (recurrent_cuda.goku_heads_reference,
+              ode_cuda.solve_fixed_grid_batched_reference)
     for fn in counters.values():
         fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    plain_calls = [fn.calls for fn in plains]
     steps = train_set.shape[0] // cfg.batch_size
     for rec in hist:
         log("train", f"epoch {rec['epoch']}: train loss "
@@ -962,13 +1339,18 @@ def main():
         if not (math.isfinite(rec["train_loss"])
                 and math.isfinite(rec["val_loss"])):
             fail(f"non-finite loss in epoch {rec['epoch']}")
-    expected = 2 * steps * 2        # (train step + val pass) per step
+    # forward kernels: one per train step (writing the tape) and one per
+    # validation pass; backward kernels: one per train step
+    expected = {"goku_heads": 2 * steps * 2, "rk_fixed_grid": 2 * steps * 2,
+                "goku_heads_bwd": 2 * steps, "rk_fixed_grid_bwd": 2 * steps}
     log("train", f"fit 2 epochs x {steps} steps in {fit_s:.3f} s; kernel "
-                 f"launches {launches} (expected {expected} each)")
-    for k, n in launches.items():
-        if n != expected:
-            fail(f"kernel {k} launched {n} times on the main path, "
-                 f"expected {expected}")
+                 f"launches {launches} (expected {expected}); calls of the "
+                 f"plain goku_heads / RK solve: "
+                 f"{plain_calls} (expected [0, 0])")
+    if launches != expected:
+        fail(f"GOKU main path launched {launches}, expected {expected}")
+    if plain_calls != [0, 0]:
+        fail(f"the plain version ran during the GOKU fit: {plain_calls}")
 
     # the kernel path against the plain path, same weights, on the card
     plain = copy.deepcopy(model)
@@ -992,6 +1374,9 @@ def main():
     step_ms, val_ms = step_times(trainer, data, val_set, beta)
     log("train", f"step time (median of 5, synchronised): train step "
                  f"{step_ms:.3f} ms, val pass {val_ms:.3f} ms; card {gpu}")
+    n_ops, busy, span = step_device_ops(trainer, data, beta)
+    log("train", f"one GOKU train step under torch.profiler: {n_ops} device "
+                 f"ops, device busy {busy:.3f} ms of a {span:.3f} ms span")
 
     # ---- 4b. second main path: LatentODE training on the same video ------
     node_launches, node_trainer, node_data, node_beta = latent_ode_path(
@@ -999,97 +1384,36 @@ def main():
     launches.update(node_launches)
 
     # ---- 5. kernel timing -------------------------------------------------
-    tab = Tsit5().tableau
-    n_st = n_solution_stages(tab)
     clock = max_sm_clock_mhz()
     kernels = []
-    mods, state, cudnn_run = cudnn_heads(heads, dev)
-    heads_lib = None
-    with torch.no_grad():
-        for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
-            xs = torch.randn(B, T, 32, generator=gen, device=dev)
-            k_ms = time_ms(lambda: recurrent_cuda.goku_heads_cuda(*heads,
-                                                                  xs))
-            p_ms = time_ms(lambda: recurrent_cuda.goku_heads_reference(
-                *heads, xs), reps=5, warmup=1)
-            d_ms = device_ms(lambda: recurrent_cuda.goku_heads_cuda(
-                *heads, xs), "goku_heads_kernel")
-            b_ms, b_by, t_b, t_o = bound_ms(*heads_work(B, T, 32, 16, 2))
-            log("timing", f"goku_heads {label} B={B} T={T}: kernel "
-                          f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
-                          f"device), plain {p_ms:.4f} ms, bound "
-                          f"{b_ms:.6f} ms ({b_by}; bytes {t_b:.6f} ms, "
-                          f"operations {t_o:.6f} ms), latency model "
-                          f"{heads_latency_ms(T, 2, 32, 16, clock):.6f} ms "
-                          f"at {clock:.0f} MHz")
-            if label == "train":
-                heads_t = (k_ms, p_ms, b_ms, b_by)
-            # the yardstick: the three cuDNN calls on the same weights,
-            # checked against the plain version first
-            xr = xs.flip(1).contiguous()
-            z_c, th_c = cudnn_run(xs, xr)
-            z_p, th_p = recurrent_cuda.goku_heads_reference(*heads, xs)
-            e = max(max_err(z_c, z_p), max_err(th_c, th_p))
-            if not e <= 1e-4:
-                fail(f"cuDNN RNN/LSTM vs goku_heads' plain version: {e}")
-            s_z = state(heads[0], "h0", B)
-            s_f = (state(heads[1], "h0", B), state(heads[1], "c0", B))
-            s_b = (state(heads[2], "h0", B), state(heads[2], "c0", B))
-
-            def three():
-                mods[0](xr, s_z)
-                mods[1](xs, s_f)
-                mods[2](xr, s_b)
-
-            l_ms = time_ms(three)
-            log("timing", f"goku_heads {label} yardstick: torch.nn.RNN "
-                          f"(relu) + 2 torch.nn.LSTM, 2 layers each, cuDNN "
-                          f"{torch.backends.cudnn.version()}, "
-                          f"{l_ms:.4f} ms for the three calls (vs the plain "
-                          f"version max abs err {e:.3e}, tol 1e-4)")
-            if label == "train":
-                heads_lib = l_ms
-            u0s = torch.rand(B, 2, generator=gen, device=dev) * 2 - 1
-            ps = 1 + torch.rand(B, 1, generator=gen, device=dev)
-            saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
-            k_ms = time_ms(lambda: ode_cuda.solve_fixed_grid_batched_cuda(
-                pendulum_f, Tsit5(), u0s, ps, saveat))
-            p_ms = time_ms(lambda: ode_cuda.solve_fixed_grid_batched_reference(
-                pendulum_f, Tsit5(), u0s, ps, saveat), reps=5, warmup=1)
-            d_ms = device_ms(lambda: ode_cuda.solve_fixed_grid_batched_cuda(
-                pendulum_f, Tsit5(), u0s, ps, saveat), "rk_fixed_grid_kernel")
-            b_ms, b_by, t_b, t_o = bound_ms(*rk_work(B, T, 2, 1, 1, tab,
-                                                     n_st))
-            log("timing", f"rk_fixed_grid {label} B={B} T={T}: kernel "
-                          f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
-                          f"device), plain {p_ms:.4f} ms, bound "
-                          f"{b_ms:.6f} ms ({b_by}; bytes {t_b:.6f} ms, "
-                          f"operations {t_o:.6f} ms), latency model "
-                          f"{rk_latency_ms(T, 1, n_st, clock):.6f} ms "
-                          f"at {clock:.0f} MHz")
-            if label == "train":
-                rk_t = (k_ms, p_ms, b_ms, b_by)
+    goku_t = goku_timing(heads, gen, clock, dev)
     node_t = node_timing(clock)
-    for name, src, replaces, (k_ms, p_ms, b_ms, b_by) in (
-            ("goku_heads", "latentdiffeq_torch/csrc/goku_heads.cu",
-             "latentdiffeq/ops/recurrent_pallas.py:86", heads_t),
-            ("rk_fixed_grid", "latentdiffeq_torch/csrc/rk_fixed_grid.cu",
-             "latentdiffeq/ops/ode_pallas.py:130", rk_t),
-            ("node_field_fwd", "latentdiffeq_torch/csrc/node_field.cu",
+    heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
+    rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
+    node_src = "latentdiffeq_torch/csrc/node_field.cu"
+    for name, src, replaces, times in (
+            ("goku_heads", heads_src,
+             "latentdiffeq/ops/recurrent_pallas.py:86", goku_t["goku_heads"]),
+            ("goku_heads_bwd", heads_src,
+             "latentdiffeq/ops/recurrent_pallas.py:142",
+             goku_t["goku_heads_bwd"]),
+            ("rk_fixed_grid", rk_src, "latentdiffeq/ops/ode_pallas.py:130",
+             goku_t["rk_fixed_grid"]),
+            ("rk_fixed_grid_bwd", rk_src,
+             "latentdiffeq/ops/ode_pallas.py:156",
+             goku_t["rk_fixed_grid_bwd"]),
+            ("node_field_fwd", node_src,
              "latentdiffeq/ops/node_pallas.py:154", node_t["node_field_fwd"]),
-            ("node_field_bwd", "latentdiffeq_torch/csrc/node_field.cu",
-             "latentdiffeq/ops/node_pallas.py:269",
-             node_t["node_field_bwd"]),
-            ("node_field_dw", "latentdiffeq_torch/csrc/node_field.cu",
-             "latentdiffeq/ops/node_pallas.py:269",
-             node_t["node_field_dw"])):
+            ("node_field_bwd", node_src,
+             "latentdiffeq/ops/node_pallas.py:269", node_t["node_field_bwd"]),
+            ("node_field_dw", node_src,
+             "latentdiffeq/ops/node_pallas.py:269", node_t["node_field_dw"])):
+        k_ms, p_ms, b_ms, b_by, lib_ms = times
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by,
-                        "library_ms": heads_lib if name == "goku_heads"
-                        else None})
+                        "bound_by": b_by, "library_ms": lib_ms})
 
     if profile:
         profile_step(trainer, data, val_set, beta, "profile_step.txt", "GOKU")

@@ -1,21 +1,53 @@
 // GOKU encoder heads: all three recurrent stacks over the whole sequence in
-// one kernel.
+// one kernel, and the reverse sweep of their gradient in a second.
 //
 // Replaces the Pallas TPU kernel latentdiffeq/ops/recurrent_pallas.py
-// (`pallas_goku_heads`, kernel body `_kernel`). Step t advances the forward
-// LSTM stack on x[t] and, on x[T-1-t], the z0 RNN stack and the backward
-// LSTM stack. Outputs z0 (B, H) = top RNN state and theta (B, 2H) = top
-// forward LSTM state ++ top backward LSTM state.
+// (`pallas_goku_heads`, kernel body `_kernel`; its `custom_vjp` recomputes
+// through plain XLA, `_bwd`). Step t advances the forward LSTM stack on x[t]
+// and, on x[T-1-t], the z0 RNN stack and the backward LSTM stack. Outputs z0
+// (B, H) = top RNN state and theta (B, 2H) = top forward LSTM state ++ top
+// backward LSTM state.
 //
-// What bounds it: the T-step dependent chain. Each step is a few hundred
-// multiply-adds per thread on data already on the chip, separated by block
-// barriers, so the kernel is latency bound; the bytes (xs once, ~48 KB of
-// weights per block from L2) and the operations are far below the card's
-// rates. Design: one block per tile of R batch rows; all weights are
-// copied into shared memory once and h/c states stay in shared memory for
-// the whole loop; one thread per (row, gate unit) of the LSTMs (4H threads
-// per row), the first H of which also own the RNN unit and the state
-// updates. Two barriers per layer per step.
+// What bounds it: the T-step dependent chain of each stack. A step is one
+// (din + H)-term product per gate and a cell update, on data already on the
+// chip; bytes and operations are far below the card's rates, so the kernel
+// is latency bound and the design shortens each link of the chain:
+//   - one block per batch row, one warp per (stack, layer): 3 * L warps;
+//   - lane j < H owns hidden unit j and computes all four of its gates; lane
+//     j + 16 takes the second half of the din + H terms and one
+//     __shfl_xor_sync adds the halves, so the cell update is lane-local and
+//     no gate exchange is needed;
+//   - each lane's weight columns live in registers (96 floats for layer 0 of
+//     an LSTM at D 32, H 16; 64 for layer 1); (D, H) are template
+//     parameters so every loop unrolls;
+//   - layer l + 1 runs one step behind layer l (a wavefront): h_{l,t} passes
+//     from warp to warp through a two-slot ring in shared memory, one block
+//     barrier per step, so the chain is T + L - 1 layer-steps, not T * L;
+//   - the next x row is loaded into a register a step ahead.
+// No tensor cores: each product has one row (M = 1), and TF32 rounding would
+// move the float32 gates past the 1e-5 the port holds them to. Accurate
+// expf / tanhf, no fast math.
+//
+// The kernel is compiled for D = 32, H = 16 (the GOKU heads). Narrower heads
+// run in the same instance: the wrapper packs the weights with zero rows for
+// the missing inputs and zero columns for the missing units (such a unit
+// stays at 0 in every cell and feeds nothing), and the kernel reads only the
+// D real columns of xs. Wider heads run at their own widths in a second pair
+// of kernels (`goku_heads_fwd_any_kernel`, `goku_heads_bwd_any_kernel`) with
+// the same warp layout, wavefront and tape, whose widths are read at run
+// time: lane u (and u + 32, ...) owns hidden unit u, its weights are read
+// through the cache, and the operand slots, the cell state and the sweep's
+// carries live in dynamic shared memory. Those serve shapes off the main
+// path and are not tuned.
+//
+// With a tape (a gradient will be taken) the forward also writes, per row
+// and step, for each stack and layer: the RNN's h; the LSTM's activated
+// gates i, f, g, o, then c and h. The sweep kernel runs backward over t with
+// the same warp layout and a reverse wavefront (layer l - 1 one step behind
+// layer l), streams each cell's pre-activation cotangents (dgates) out, and
+// leaves the carries at t = -1 (dh0, dc0 per row). The weight and input
+// gradients are products of the tape and dgates over all rows and steps,
+// computed outside (ops/recurrent_cuda.py).
 //
 // Packed weight layout (ops/recurrent_cuda.py::pack_goku_heads): for each
 // stack in (z0 RNN, forward LSTM, backward LSTM), for each layer l:
@@ -28,6 +60,9 @@
 namespace {
 
 constexpr int kMaxLayers = 4;
+constexpr int kD = 32;     // compiled input width
+constexpr int kH = 16;     // compiled hidden width
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Offsets {
   // [stack][layer]; stack 0 = z0 RNN, 1 = forward LSTM, 2 = backward LSTM
@@ -50,107 +85,569 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-// gates[j] = (in @ Wi)[j] + (h @ Wh)[j] + b[j], summed in that order as
-// the plain version does.
-__device__ __forceinline__ float gate(const float* __restrict__ w, int wi,
-                                      int wh, int b, const float* in,
-                                      int din, const float* h, int H, int G,
-                                      int j) {
-  float ax = 0.0f;
-  for (int k = 0; k < din; ++k) ax += in[k] * w[wi + k * G + j];
-  float ah = 0.0f;
-  for (int k = 0; k < H; ++k) ah += h[k] * w[wh + k * G + j];
-  return (ax + ah) + w[b + j];
+// d act / d pre-activation from the output h (relu: 0 at 0, as autograd).
+__device__ __forceinline__ float act_grad(float h, int act) {
+  switch (act) {
+    case 1: return h > 0.0f ? 1.0f : 0.0f;
+    case 2: return 1.0f - h * h;
+    default: return 1.0f;
+  }
 }
 
-__global__ void goku_heads_kernel(const float* __restrict__ xs,
-                                  const float* __restrict__ wts, int n_w,
-                                  Offsets off, float* __restrict__ z0_out,
-                                  float* __restrict__ th_out, int B, int T,
-                                  int D, int H, int L, int act, int R) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int LH = L * H;
-  const int row_floats = 5 * LH + 2 * G + H + 2 * D;
+// One barrier for the block's 3 * L warps. Each warp reaches it from its own
+// code path (the warps are specialised by stack and layer), once per step.
+__device__ __forceinline__ void step_barrier(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
 
-  float* w = smem;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) w[i] = wts[i];
+// Float offsets of one row-step's tape record and dgates record.
+__device__ __forceinline__ int tape_off(int s, int l, int L, int H) {
+  return s == 0 ? l * H : L * H + (s - 1) * 6 * H * L + l * 6 * H;
+}
+__device__ __forceinline__ int dg_off(int s, int l, int L, int H) {
+  return s == 0 ? l * H : L * H + (s - 1) * 4 * H * L + l * 4 * H;
+}
 
-  const int r = threadIdx.x / G;      // row within the tile
-  const int j = threadIdx.x % G;      // gate unit
-  const int row = blockIdx.x * R + r;
-  const bool live = r < R && row < B;
+// Per warp: two slots of the layer's operand vector [input (DIN), h (H)].
+constexpr int kSlot = kD + kH;
 
-  float* st = w + n_w + r * row_floats;
-  float* hz = st;             // (L, H) z0 RNN states
-  float* hf = hz + LH;        // (L, H) forward LSTM h
-  float* cf = hf + LH;        // (L, H) forward LSTM c
-  float* hb = cf + LH;        // (L, H) backward LSTM h
-  float* cb = hb + LH;        // (L, H) backward LSTM c
-  float* gf = cb + LH;        // (G) forward gates
-  float* gb = gf + G;         // (G) backward gates
-  float* rz = gb + G;         // (H) RNN pre-activation
-  float* xf = rz + H;         // (D) x[t]
-  float* xr = xf + D;         // (D) x[T-1-t]
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// Forward: one warp advances one layer of one stack.
+template <int DIN, bool LSTM, bool TAPE>
+__device__ __forceinline__ void fwd_layer(
+    const float* __restrict__ xrow, int Dx, bool reverse,
+    const float* __restrict__ wts, int wi, int wh, int bo, int h0o, int c0o,
+    float* my, float* up, float* __restrict__ tape_row, int toff, int rec,
+    float* __restrict__ out, int T, int L, int l, int act, int threads) {
+  constexpr int H = kH;
+  constexpr int G = LSTM ? 4 : 1;
+  constexpr int GH = G * H;
+  constexpr int K = DIN + H;
+  constexpr int K0 = K / 2;           // terms per half warp
+  static_assert(K0 % 8 == 0, "half a layer's terms: whole float4 pairs");
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int j = lane & 15;
+  const bool first = l == 0;
 
-  if (live && j < H) {
-    for (int l = 0; l < L; ++l) {
-      hz[l * H + j] = w[off.h0[0][l] + j];
-      hf[l * H + j] = w[off.h0[1][l] + j];
-      cf[l * H + j] = w[off.c0[1][l] + j];
-      hb[l * H + j] = w[off.h0[2][l] + j];
-      cb[l * H + j] = w[off.c0[2][l] + j];
+  float w[G][K0];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int kk = 0; kk < K0; ++kk) {
+      const int k = half * K0 + kk;
+      w[q][kk] = k < DIN ? wts[wi + k * GH + q * H + j]
+                         : wts[wh + (k - DIN) * GH + q * H + j];
     }
   }
+  float bq[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) bq[q] = wts[bo + q * H + j];
+  float h = wts[h0o + j];
+  float c = LSTM ? wts[c0o + j] : 0.0f;
 
-  const float* xrow = xs + (size_t)row * T * D;
-  for (int t = 0; t < T; ++t) {
-    if (live) {
-      for (int k = j; k < D; k += G) {
-        xf[k] = xrow[(size_t)t * D + k];
-        xr[k] = xrow[(size_t)(T - 1 - t) * D + k];
+  // slot 0: x at step 0 (layer 0) and h0
+  if (half == 0) my[DIN + j] = h;
+  if (first) {
+    const int tx = reverse ? T - 1 : 0;
+    my[lane] = lane < Dx ? xrow[(size_t)tx * Dx + lane] : 0.0f;
+  }
+  step_barrier(threads);
+
+  for (int i = 0; i < T + L - 1; ++i) {
+    const int t = i - l;
+    if (t >= 0 && t < T) {
+      float xn = 0.0f;
+      if (first && t + 1 < T && lane < Dx) {
+        const int tx = reverse ? T - 2 - t : t + 1;
+        xn = __ldg(xrow + (size_t)tx * Dx + lane);
       }
-    }
-    __syncthreads();
-    for (int l = 0; l < L; ++l) {
-      const int din = l == 0 ? D : H;
-      if (live) {
-        const float* in_f = l == 0 ? xf : hf + (l - 1) * H;
-        const float* in_b = l == 0 ? xr : hb + (l - 1) * H;
-        gf[j] = gate(w, off.wi[1][l], off.wh[1][l], off.b[1][l], in_f, din,
-                     hf + l * H, H, G, j);
-        gb[j] = gate(w, off.wi[2][l], off.wh[2][l], off.b[2][l], in_b, din,
-                     hb + l * H, H, G, j);
-        if (j < H) {
-          const float* in_z = l == 0 ? xr : hz + (l - 1) * H;
-          rz[j] = gate(w, off.wi[0][l], off.wh[0][l], off.b[0][l], in_z,
-                       din, hz + l * H, H, H, j);
+      const float* v = my + (t & 1) * kSlot + half * K0;
+      float acc[G][2];
+#pragma unroll
+      for (int q = 0; q < G; ++q) acc[q][0] = acc[q][1] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < K0; kk += 4) {
+        const float4 v4 = *reinterpret_cast<const float4*>(v + kk);
+        const int p = (kk >> 2) & 1;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          acc[q][p] = fmaf(v4.x, w[q][kk], acc[q][p]);
+          acc[q][p] = fmaf(v4.y, w[q][kk + 1], acc[q][p]);
+          acc[q][p] = fmaf(v4.z, w[q][kk + 2], acc[q][p]);
+          acc[q][p] = fmaf(v4.w, w[q][kk + 3], acc[q][p]);
         }
       }
-      __syncthreads();
-      if (live && j < H) {
-        const int s = l * H + j;
-        float c = sigmoidf_(gf[H + j]) * cf[s]
-                  + sigmoidf_(gf[j]) * tanhf(gf[2 * H + j]);
-        cf[s] = c;
-        hf[s] = sigmoidf_(gf[3 * H + j]) * tanhf(c);
-        c = sigmoidf_(gb[H + j]) * cb[s]
-            + sigmoidf_(gb[j]) * tanhf(gb[2 * H + j]);
-        cb[s] = c;
-        hb[s] = sigmoidf_(gb[3 * H + j]) * tanhf(c);
-        hz[s] = activate(rz[j], act);
+      float z[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float a = acc[q][0] + acc[q][1];
+        z[q] = (a + __shfl_xor_sync(kFull, a, 16)) + bq[q];
       }
-      __syncthreads();
+      float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f;
+      if constexpr (LSTM) {
+        gi = sigmoidf_(z[0]);
+        gf = sigmoidf_(z[1]);
+        gg = tanhf(z[2]);
+        go = sigmoidf_(z[3]);
+        c = gf * c + gi * gg;
+        h = go * tanhf(c);
+      } else {
+        h = activate(z[0], act);
+      }
+      if (half == 0) {
+        my[((t + 1) & 1) * kSlot + DIN + j] = h;
+        if (up != nullptr) up[(t & 1) * kSlot + j] = h;
+        if constexpr (TAPE) {
+          float* r = tape_row + (size_t)t * rec + toff;
+          if constexpr (LSTM) {
+            r[j] = gi;
+            r[H + j] = gf;
+            r[2 * H + j] = gg;
+            r[3 * H + j] = go;
+            r[4 * H + j] = c;
+            r[5 * H + j] = h;
+          } else {
+            r[j] = h;
+          }
+        }
+      }
+      if (first && t + 1 < T) my[((t + 1) & 1) * kSlot + lane] = xn;
     }
+    step_barrier(threads);
   }
+  if (out != nullptr && half == 0) out[j] = h;
+}
 
-  if (live && j < H) {
-    const int top = (L - 1) * H + j;
-    z0_out[(size_t)row * H + j] = hz[top];
-    th_out[(size_t)row * 2 * H + j] = hf[top];
-    th_out[(size_t)row * 2 * H + H + j] = hb[top];
+template <bool TAPE>
+__global__ void __launch_bounds__(3 * kMaxLayers * 32)
+    goku_heads_fwd_kernel(const float* __restrict__ xs,
+                          const float* __restrict__ wts, Offsets off,
+                          float* __restrict__ z0_out,
+                          float* __restrict__ th_out,
+                          float* __restrict__ tape, int T, int Dx, int L,
+                          int act) {
+  __shared__ __align__(16) float vin[3 * kMaxLayers][2 * kSlot];
+  const int warp = threadIdx.x >> 5;
+  const int s = warp / L;
+  const int l = warp % L;
+  const int row = blockIdx.x;
+  const int threads = blockDim.x;
+  const int rec = 13 * kH * L;
+  const float* xrow = xs + (size_t)row * T * Dx;
+  float* my = vin[warp];
+  float* up = l + 1 < L ? vin[warp + 1] : nullptr;
+  float* tape_row = TAPE ? tape + (size_t)row * T * rec : nullptr;
+  const int toff = tape_off(s, l, L, kH);
+  float* out = nullptr;
+  if (l == L - 1) {
+    out = s == 0 ? z0_out + (size_t)row * kH
+                 : th_out + (size_t)row * 2 * kH + (s - 1) * kH;
   }
+  const bool rev = s != 1;
+#define LDQ_FWD(DIN, LSTM)                                                   \
+  fwd_layer<DIN, LSTM, TAPE>(xrow, Dx, rev, wts, off.wi[s][l], off.wh[s][l], \
+                             off.b[s][l], off.h0[s][l], off.c0[s][l], my,    \
+                             up, tape_row, toff, rec, out, T, L, l, act,     \
+                             threads)
+  if (s == 0) {
+    if (l == 0) LDQ_FWD(kD, false); else LDQ_FWD(kH, false);
+  } else {
+    if (l == 0) LDQ_FWD(kD, true); else LDQ_FWD(kH, true);
+  }
+#undef LDQ_FWD
+}
+
+// ---------------------------------------------------------------------------
+// Reverse sweep: one warp takes one layer of one stack back over t.
+//
+// Per step, with dh = the cotangent of h_{l,t} (the carry from step t + 1
+// plus, below the top, layer l + 1's dgates_{l+1,t} Wi_{l+1}^T):
+//   LSTM: dc = dc_carry + dh o (1 - tanh(c)^2); dz_i = dc g i (1 - i);
+//         dz_f = dc c_{t-1} f (1 - f); dz_g = dc i (1 - g^2);
+//         dz_o = dh tanh(c) o (1 - o); dc_carry = dc f;
+//   RNN:  dz = dh act'(h);
+// then dh_carry = dz Wh^T and, for l > 0, dz Wi^T goes to layer l - 1.
+// Lane j < 16 sums the first half of the G gate terms for unit j, lane
+// j + 16 the second half, from transposed weight rows held in registers.
+template <int G>
+__device__ __forceinline__ int dg_pos(int m) {
+  return m + (m >= G * kH / 2 ? 4 : 0);   // halves in other banks
+}
+constexpr int kDgSlot = 4 * kH + 4;
+
+template <bool LSTM, bool WI>
+__device__ __forceinline__ void bwd_layer(
+    const float* __restrict__ wts, int wi, int wh, int c0o,
+    const float* __restrict__ tape_row, int toff, int rec,
+    float* __restrict__ dg_row, int goff, int grec, float g_top,
+    float* dgs, float* ring_in, float* ring_down, float* dh0, float* dc0,
+    int T, int L, int l, int act, int threads) {
+  constexpr int H = kH;
+  constexpr int G = LSTM ? 4 : 1;
+  constexpr int GH = G * H;
+  constexpr int M0 = GH / 2;
+  static_assert(M0 % 4 == 0, "half a layer's gate terms: whole float4s");
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int j = lane & 15;
+
+  float whT[M0], wiT[WI ? M0 : 1];
+#pragma unroll
+  for (int kk = 0; kk < M0; ++kk) {
+    whT[kk] = wts[wh + j * GH + half * M0 + kk];
+    if constexpr (WI) wiT[kk] = wts[wi + j * GH + half * M0 + kk];
+  }
+  const float c0 = LSTM ? wts[c0o + j] : 0.0f;
+  float dh = g_top, dc = 0.0f;
+
+  // the tape of the current step, loaded one step ahead
+  auto load = [&](int t, float* r) {
+    const float* p = tape_row + (size_t)t * rec + toff;
+    if constexpr (LSTM) {
+      r[0] = p[j];
+      r[1] = p[H + j];
+      r[2] = p[2 * H + j];
+      r[3] = p[3 * H + j];
+      r[4] = p[4 * H + j];
+      r[5] = t > 0 ? p[4 * H + j - rec] : c0;   // c_{t-1}
+    } else {
+      r[0] = p[j];
+    }
+  };
+  float cur[LSTM ? 6 : 1], nxt[LSTM ? 6 : 1];
+  load(T - 1, cur);
+
+  for (int i = 0; i < T + L - 1; ++i) {
+    const int t = T - 1 - (i - (L - 1 - l));
+    if (t >= 0 && t < T) {
+      if (t > 0) load(t - 1, nxt);
+      if (ring_in != nullptr) dh += ring_in[(t & 1) * H + j];
+      float dz[G];
+      if constexpr (LSTM) {
+        const float gi = cur[0], gf = cur[1], gg = cur[2], go = cur[3];
+        const float tc = tanhf(cur[4]);
+        const float dct = dc + dh * go * (1.0f - tc * tc);
+        dz[0] = dct * gg * gi * (1.0f - gi);
+        dz[1] = dct * cur[5] * gf * (1.0f - gf);
+        dz[2] = dct * gi * (1.0f - gg * gg);
+        dz[3] = dh * tc * go * (1.0f - go);
+        dc = dct * gf;
+      } else {
+        dz[0] = dh * act_grad(cur[0], act);
+      }
+      if (half == 0) {
+        float* o = dg_row + (size_t)t * grec + goff;
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          dgs[dg_pos<G>(q * H + j)] = dz[q];
+          o[q * H + j] = dz[q];
+        }
+      }
+      __syncwarp();
+      float ah[2] = {0.0f, 0.0f}, ai[2] = {0.0f, 0.0f};
+      const float* d = dgs + dg_pos<G>(half * M0);
+#pragma unroll
+      for (int kk = 0; kk < M0; kk += 4) {
+        const float4 d4 = *reinterpret_cast<const float4*>(d + kk);
+        const int p = (kk >> 2) & 1;
+        ah[p] = fmaf(d4.x, whT[kk], ah[p]);
+        ah[p] = fmaf(d4.y, whT[kk + 1], ah[p]);
+        ah[p] = fmaf(d4.z, whT[kk + 2], ah[p]);
+        ah[p] = fmaf(d4.w, whT[kk + 3], ah[p]);
+        if constexpr (WI) {
+          ai[p] = fmaf(d4.x, wiT[kk], ai[p]);
+          ai[p] = fmaf(d4.y, wiT[kk + 1], ai[p]);
+          ai[p] = fmaf(d4.z, wiT[kk + 2], ai[p]);
+          ai[p] = fmaf(d4.w, wiT[kk + 3], ai[p]);
+        }
+      }
+      const float a = ah[0] + ah[1];
+      dh = a + __shfl_xor_sync(kFull, a, 16);
+      if constexpr (WI) {
+        const float b = ai[0] + ai[1];
+        const float down = b + __shfl_xor_sync(kFull, b, 16);
+        if (half == 0) ring_down[(t & 1) * H + j] = down;
+      }
+      if constexpr (LSTM) {
+#pragma unroll
+        for (int r = 0; r < 6; ++r) cur[r] = nxt[r];
+      } else {
+        cur[0] = nxt[0];
+      }
+    }
+    step_barrier(threads);
+  }
+  if (half == 0) {
+    dh0[j] = dh;
+    dc0[j] = dc;
+  }
+}
+
+__global__ void __launch_bounds__(3 * kMaxLayers * 32)
+    goku_heads_bwd_kernel(const float* __restrict__ wts, Offsets off,
+                          const float* __restrict__ tape,
+                          const float* __restrict__ g_z0,
+                          const float* __restrict__ g_th,
+                          float* __restrict__ dgates,
+                          float* __restrict__ dh0, float* __restrict__ dc0,
+                          int T, int L, int act) {
+  __shared__ __align__(16) float dgs[3 * kMaxLayers][kDgSlot];
+  __shared__ __align__(16) float ring[3 * kMaxLayers][2 * kH];
+  const int warp = threadIdx.x >> 5;
+  const int s = warp / L;
+  const int l = warp % L;
+  const int row = blockIdx.x;
+  const int threads = blockDim.x;
+  const int j = threadIdx.x & 15;
+  const int rec = 13 * kH * L;
+  const int grec = 9 * kH * L;
+  float g_top = 0.0f;
+  if (l == L - 1) {
+    g_top = s == 0 ? g_z0[(size_t)row * kH + j]
+                   : g_th[(size_t)row * 2 * kH + (s - 1) * kH + j];
+  }
+  const float* tape_row = tape + (size_t)row * T * rec;
+  float* dg_row = dgates + (size_t)row * T * grec;
+  float* ring_in = l + 1 < L ? ring[warp] : nullptr;
+  float* ring_down = l > 0 ? ring[warp - 1] : nullptr;
+  const size_t st = (((size_t)row * 3 + s) * L + l) * kH;
+  const int toff = tape_off(s, l, L, kH);
+  const int goff = dg_off(s, l, L, kH);
+#define LDQ_BWD(LSTM, WI)                                                     \
+  bwd_layer<LSTM, WI>(wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],          \
+                      tape_row, toff, rec, dg_row, goff, grec, g_top,        \
+                      dgs[warp], ring_in, ring_down, dh0 + st, dc0 + st, T,  \
+                      L, l, act, threads)
+  if (s == 0) {
+    if (l == 0) LDQ_BWD(false, false); else LDQ_BWD(false, true);
+  } else {
+    if (l == 0) LDQ_BWD(true, false); else LDQ_BWD(true, true);
+  }
+#undef LDQ_BWD
+}
+
+// ---------------------------------------------------------------------------
+// Any widths (D, H), read at run time. Floats of dynamic shared memory per
+// warp: forward, two operand slots [input (D), h (H)] and the cell state
+// (H); sweep, dgates (4H), the two-slot ring from the layer above (2H), and
+// the dh and dc carries (H each).
+__host__ __device__ inline int any_fwd_floats(int D, int H) {
+  return 2 * (D + H) + H;
+}
+__host__ __device__ inline int any_bwd_floats(int H) { return 8 * H; }
+
+template <bool LSTM, bool TAPE>
+__device__ __forceinline__ void fwd_layer_any(
+    const float* __restrict__ xrow, int D, int H, int din, bool reverse,
+    const float* __restrict__ wts, int wi, int wh, int bo, int h0o, int c0o,
+    float* my, float* up, float* cst, float* __restrict__ tape_row,
+    int toff, int rec, float* __restrict__ out, int T, int L, int l,
+    int act, int threads) {
+  constexpr int G = LSTM ? 4 : 1;
+  const int GH = G * H;
+  const int S = D + H;                   // slot stride of every warp
+  const int lane = threadIdx.x & 31;
+  for (int u = lane; u < H; u += 32) {
+    my[din + u] = wts[h0o + u];
+    if constexpr (LSTM) cst[u] = wts[c0o + u];
+  }
+  if (l == 0) {
+    const int tx = reverse ? T - 1 : 0;
+    for (int k = lane; k < D; k += 32) my[k] = xrow[(size_t)tx * D + k];
+  }
+  step_barrier(threads);
+
+  for (int i = 0; i < T + L - 1; ++i) {
+    const int t = i - l;
+    if (t >= 0 && t < T) {
+      const float* v = my + (t & 1) * S;
+      float* nx = my + ((t + 1) & 1) * S;
+      for (int u = lane; u < H; u += 32) {
+        float z[G];
+#pragma unroll
+        for (int q = 0; q < G; ++q) z[q] = 0.0f;
+        for (int k = 0; k < din; ++k) {
+          const float a = v[k];
+          const float* w = wts + wi + k * GH + u;
+#pragma unroll
+          for (int q = 0; q < G; ++q) z[q] = fmaf(a, __ldg(w + q * H), z[q]);
+        }
+        for (int k = 0; k < H; ++k) {
+          const float a = v[din + k];
+          const float* w = wts + wh + k * GH + u;
+#pragma unroll
+          for (int q = 0; q < G; ++q) z[q] = fmaf(a, __ldg(w + q * H), z[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < G; ++q) z[q] += __ldg(wts + bo + q * H + u);
+        float h;
+        float* r = TAPE ? tape_row + (size_t)t * rec + toff : nullptr;
+        if constexpr (LSTM) {
+          const float gi = sigmoidf_(z[0]), gf = sigmoidf_(z[1]);
+          const float gg = tanhf(z[2]), go = sigmoidf_(z[3]);
+          const float c = gf * cst[u] + gi * gg;
+          cst[u] = c;
+          h = go * tanhf(c);
+          if constexpr (TAPE) {
+            r[u] = gi;
+            r[H + u] = gf;
+            r[2 * H + u] = gg;
+            r[3 * H + u] = go;
+            r[4 * H + u] = c;
+            r[5 * H + u] = h;
+          }
+        } else {
+          h = activate(z[0], act);
+          if constexpr (TAPE) r[u] = h;
+        }
+        nx[din + u] = h;
+        if (up != nullptr) up[(t & 1) * S + u] = h;
+      }
+      if (l == 0 && t + 1 < T) {
+        const int tx = reverse ? T - 2 - t : t + 1;
+        for (int k = lane; k < D; k += 32) nx[k] = xrow[(size_t)tx * D + k];
+      }
+    }
+    step_barrier(threads);
+  }
+  if (out != nullptr) {
+    for (int u = lane; u < H; u += 32) out[u] = my[(T & 1) * S + din + u];
+  }
+}
+
+template <bool TAPE>
+__global__ void __launch_bounds__(3 * kMaxLayers * 32)
+    goku_heads_fwd_any_kernel(const float* __restrict__ xs,
+                              const float* __restrict__ wts, Offsets off,
+                              float* __restrict__ z0_out,
+                              float* __restrict__ th_out,
+                              float* __restrict__ tape, int T, int D, int H,
+                              int L, int act) {
+  extern __shared__ __align__(16) float dyn[];
+  const int warp = threadIdx.x >> 5;
+  const int s = warp / L;
+  const int l = warp % L;
+  const int row = blockIdx.x;
+  const int per = any_fwd_floats(D, H);
+  const int rec = 13 * H * L;
+  float* my = dyn + warp * per;
+  float* up = l + 1 < L ? dyn + (warp + 1) * per : nullptr;
+  float* out = nullptr;
+  if (l == L - 1) {
+    out = s == 0 ? z0_out + (size_t)row * H
+                 : th_out + (size_t)row * 2 * H + (s - 1) * H;
+  }
+#define LDQ_FWD_ANY(LSTM)                                                     \
+  fwd_layer_any<LSTM, TAPE>(                                                  \
+      xs + (size_t)row * T * D, D, H, l == 0 ? D : H, s != 1, wts,            \
+      off.wi[s][l], off.wh[s][l], off.b[s][l], off.h0[s][l], off.c0[s][l],    \
+      my, up, my + 2 * (D + H), TAPE ? tape + (size_t)row * T * rec : nullptr,\
+      tape_off(s, l, L, H), rec, out, T, L, l, act, blockDim.x)
+  if (s == 0) LDQ_FWD_ANY(false); else LDQ_FWD_ANY(true);
+#undef LDQ_FWD_ANY
+}
+
+template <bool LSTM>
+__device__ __forceinline__ void bwd_layer_any(
+    const float* __restrict__ wts, int wi, int wh, int c0o,
+    const float* __restrict__ tape_row, int toff, int rec,
+    float* __restrict__ dg_row, int goff, int grec,
+    const float* __restrict__ g_top, float* dgs, float* dhc, float* dcc,
+    float* ring_in, float* ring_down, float* dh0, float* dc0, int T, int L,
+    int l, int H, int act, int threads) {
+  constexpr int G = LSTM ? 4 : 1;
+  const int GH = G * H;
+  const int lane = threadIdx.x & 31;
+  for (int u = lane; u < H; u += 32) {
+    dhc[u] = g_top != nullptr ? g_top[u] : 0.0f;
+    dcc[u] = 0.0f;
+  }
+  for (int i = 0; i < T + L - 1; ++i) {
+    const int t = T - 1 - (i - (L - 1 - l));
+    if (t >= 0 && t < T) {
+      const float* p = tape_row + (size_t)t * rec + toff;
+      float* o = dg_row + (size_t)t * grec + goff;
+      for (int u = lane; u < H; u += 32) {
+        float dh = dhc[u];
+        if (ring_in != nullptr) dh += ring_in[(t & 1) * H + u];
+        float dz[G];
+        if constexpr (LSTM) {
+          const float gi = p[u], gf = p[H + u], gg = p[2 * H + u];
+          const float go = p[3 * H + u];
+          const float cp = t > 0 ? p[4 * H + u - rec] : wts[c0o + u];
+          const float tc = tanhf(p[4 * H + u]);
+          const float dct = dcc[u] + dh * go * (1.0f - tc * tc);
+          dz[0] = dct * gg * gi * (1.0f - gi);
+          dz[1] = dct * cp * gf * (1.0f - gf);
+          dz[2] = dct * gi * (1.0f - gg * gg);
+          dz[3] = dh * tc * go * (1.0f - go);
+          dcc[u] = dct * gf;
+        } else {
+          dz[0] = dh * act_grad(p[u], act);
+        }
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          dgs[q * H + u] = dz[q];
+          o[q * H + u] = dz[q];
+        }
+      }
+      __syncwarp();
+      for (int u = lane; u < H; u += 32) {
+        const float* whr = wts + wh + (size_t)u * GH;
+        const float* wir = wts + wi + (size_t)u * GH;
+        float a = 0.0f, b = 0.0f;
+        for (int m = 0; m < GH; ++m) {
+          a = fmaf(dgs[m], __ldg(whr + m), a);
+          if (ring_down != nullptr) b = fmaf(dgs[m], __ldg(wir + m), b);
+        }
+        dhc[u] = a;
+        if (ring_down != nullptr) ring_down[(t & 1) * H + u] = b;
+      }
+    }
+    step_barrier(threads);
+  }
+  for (int u = lane; u < H; u += 32) {
+    dh0[u] = dhc[u];
+    dc0[u] = dcc[u];
+  }
+}
+
+__global__ void __launch_bounds__(3 * kMaxLayers * 32)
+    goku_heads_bwd_any_kernel(const float* __restrict__ wts, Offsets off,
+                              const float* __restrict__ tape,
+                              const float* __restrict__ g_z0,
+                              const float* __restrict__ g_th,
+                              float* __restrict__ dgates,
+                              float* __restrict__ dh0,
+                              float* __restrict__ dc0, int T, int H, int L,
+                              int act) {
+  extern __shared__ __align__(16) float dyn[];
+  const int warp = threadIdx.x >> 5;
+  const int s = warp / L;
+  const int l = warp % L;
+  const int row = blockIdx.x;
+  const int per = any_bwd_floats(H);
+  const int rec = 13 * H * L;
+  const int grec = 9 * H * L;
+  float* base = dyn + warp * per;
+  const float* g_top = nullptr;
+  if (l == L - 1) {
+    g_top = s == 0 ? g_z0 + (size_t)row * H
+                   : g_th + (size_t)row * 2 * H + (s - 1) * H;
+  }
+  float* ring_in = l + 1 < L ? base + 4 * H : nullptr;
+  float* ring_down = l > 0 ? base - per + 4 * H : nullptr;
+  const size_t st = (((size_t)row * 3 + s) * L + l) * H;
+#define LDQ_BWD_ANY(LSTM)                                                     \
+  bwd_layer_any<LSTM>(wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],          \
+                      tape + (size_t)row * T * rec, tape_off(s, l, L, H), rec,\
+                      dgates + (size_t)row * T * grec, dg_off(s, l, L, H),    \
+                      grec, g_top, base, base + 6 * H, base + 7 * H, ring_in, \
+                      ring_down, dh0 + st, dc0 + st, T, L, l, H, act,         \
+                      blockDim.x)
+  if (s == 0) LDQ_BWD_ANY(false); else LDQ_BWD_ANY(true);
+#undef LDQ_BWD_ANY
 }
 
 }  // namespace
@@ -182,34 +679,98 @@ static int goku_heads_layout(int D, int H, int L, Offsets* off) {
   return pos;
 }
 
+// The compiled widths (kD, kH): heads that fit run there, packed at them.
+extern "C" int ldq_goku_heads_dims(int* D, int* H, int* max_layers) {
+  *D = kD;
+  *H = kH;
+  *max_layers = kMaxLayers;
+  return 0;
+}
+
 extern "C" int ldq_goku_heads_n_weights(int D, int H, int L) {
   return goku_heads_layout(D, H, L, nullptr);
 }
 
-extern "C" int ldq_goku_heads_max_layers() { return kMaxLayers; }
+// Bytes of dynamic shared memory the any-width kernels take at (D, H, L).
+extern "C" int ldq_goku_heads_smem(int D, int H, int L) {
+  const int per = any_fwd_floats(D, H) > any_bwd_floats(H)
+                      ? any_fwd_floats(D, H) : any_bwd_floats(H);
+  return (int)sizeof(float) * 3 * L * per;
+}
 
-// Returns a cudaError_t (0 on a successful launch). Does not synchronise.
+static cudaError_t allow_smem(const void* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// xs (B, T, Dx) float32; wts packed at (D, H): (kD, kH) with Dx <= kD runs
+// the compiled instance, any other (D, H) with Dx == D the any-width one;
+// tape null or (B, T, 13 H L). Returns a cudaError_t (0 on a successful
+// launch). Does not synchronise.
 extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
-                              float* z0_out, float* th_out, int B, int T,
-                              int D, int H, int L, int act,
-                              int rows_per_block, void* stream) {
-  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 || rows_per_block < 1)
+                              float* z0_out, float* th_out, float* tape,
+                              int B, int T, int Dx, int D, int H, int L,
+                              int act, void* stream) {
+  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 || Dx < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool compiled = D == kD && H == kH;
+  if (compiled ? Dx > kD : Dx != D) return (int)cudaErrorInvalidValue;
+  Offsets off;
+  if (goku_heads_layout(D, H, L, &off) != n_w)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 3 * L * 32;
+  if (!compiled) {
+    const int smem = (int)sizeof(float) * 3 * L * any_fwd_floats(D, H);
+    const void* k = tape != nullptr
+                        ? (const void*)goku_heads_fwd_any_kernel<true>
+                        : (const void*)goku_heads_fwd_any_kernel<false>;
+    cudaError_t e = allow_smem(k, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (tape != nullptr) {
+      goku_heads_fwd_any_kernel<true>
+          <<<B, threads, smem, (cudaStream_t)stream>>>(
+              xs, wts, off, z0_out, th_out, tape, T, D, H, L, act);
+    } else {
+      goku_heads_fwd_any_kernel<false>
+          <<<B, threads, smem, (cudaStream_t)stream>>>(
+              xs, wts, off, z0_out, th_out, nullptr, T, D, H, L, act);
+    }
+  } else if (tape != nullptr) {
+    goku_heads_fwd_kernel<true><<<B, threads, 0, (cudaStream_t)stream>>>(
+        xs, wts, off, z0_out, th_out, tape, T, Dx, L, act);
+  } else {
+    goku_heads_fwd_kernel<false><<<B, threads, 0, (cudaStream_t)stream>>>(
+        xs, wts, off, z0_out, th_out, nullptr, T, Dx, L, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+// wts packed at (D, H) as for the forward; tape (B, T, 13 H L) from the
+// forward; g_z0 (B, H), g_th (B, 2 H); writes dgates (B, T, 9 H L), dh0 and
+// dc0 (B, 3, L, H; dc0 of the RNN is 0). Returns a cudaError_t. Does not
+// synchronise.
+extern "C" int ldq_goku_heads_bwd(const float* wts, int n_w,
+                                  const float* tape, const float* g_z0,
+                                  const float* g_th, float* dgates,
+                                  float* dh0, float* dc0, int B, int T,
+                                  int D, int H, int L, int act,
+                                  void* stream) {
+  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   Offsets off;
   if (goku_heads_layout(D, H, L, &off) != n_w)
     return (int)cudaErrorInvalidValue;
-  const int G = 4 * H;
-  const int threads = rows_per_block * G;
-  const int row_floats = 5 * L * H + 2 * G + H + 2 * D;
-  const size_t smem =
-      sizeof(float) * ((size_t)n_w + (size_t)rows_per_block * row_floats);
-  cudaError_t e = cudaFuncSetAttribute(
-      goku_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  goku_heads_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      xs, wts, n_w, off, z0_out, th_out, B, T, D, H, L, act,
-      rows_per_block);
+  const int threads = 3 * L * 32;
+  if (D == kD && H == kH) {
+    goku_heads_bwd_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, L, act);
+  } else {
+    const int smem = (int)sizeof(float) * 3 * L * any_bwd_floats(H);
+    cudaError_t e = allow_smem((const void*)goku_heads_bwd_any_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    goku_heads_bwd_any_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, H, L, act);
+  }
   return (int)cudaGetLastError();
 }

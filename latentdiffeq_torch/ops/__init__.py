@@ -10,15 +10,26 @@ from .node_cuda import (neural_field_dw_cuda, neural_field_dw_reference,
                         solve_neural_field_reference,
                         solve_neural_field_taped_reference)
 from .ode_cuda import (solve_fixed_grid_batched,
+                       solve_fixed_grid_batched_backward_reference,
+                       solve_fixed_grid_batched_bwd_cuda,
                        solve_fixed_grid_batched_cuda,
                        solve_fixed_grid_batched_reference)
-from .recurrent_cuda import (goku_heads, goku_heads_cuda,
-                             goku_heads_reference, pack_goku_heads)
+from .recurrent_cuda import (goku_heads, goku_heads_backward_cuda,
+                             goku_heads_backward_reference,
+                             goku_heads_bwd_cuda, goku_heads_cuda,
+                             goku_heads_reference,
+                             goku_heads_sweep_reference,
+                             goku_heads_taped_reference, pack_goku_heads)
 
 __all__ = ["build_kernels", "load_kernel", "solve_fixed_grid_batched",
            "solve_fixed_grid_batched_cuda",
-           "solve_fixed_grid_batched_reference", "goku_heads",
-           "goku_heads_cuda", "goku_heads_reference", "pack_goku_heads",
+           "solve_fixed_grid_batched_reference",
+           "solve_fixed_grid_batched_bwd_cuda",
+           "solve_fixed_grid_batched_backward_reference", "goku_heads",
+           "goku_heads_cuda", "goku_heads_bwd_cuda",
+           "goku_heads_backward_cuda", "goku_heads_reference",
+           "goku_heads_taped_reference", "goku_heads_sweep_reference",
+           "goku_heads_backward_reference", "pack_goku_heads",
            "solve_neural_field", "solve_neural_field_cuda",
            "solve_neural_field_backward_cuda",
            "solve_neural_field_reference",

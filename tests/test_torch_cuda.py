@@ -7,7 +7,13 @@ runs on a machine that has no JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Float32 with TF32 off; kernel vs plain version atol 1e-5 (the same
-arithmetic, summed in another order). The neural-field forward's tape, its
+arithmetic, summed in another order). The GOKU heads' tape and their sweep
+kernel (dgates, dh0, dc0 on the same tape), and the RK backward kernel
+(against the plain reverse sweep over the same trajectory) are held to
+1e-5 of each tensor's size, and their whole backwards to 1e-5 of each
+gradient's size against plain autograd (a relu RNN to 1e-2 when one of its
+units flips between the kernel's and the plain forward, as below). The
+neural-field forward's tape, its
 sweep kernel and its weight-gradient kernel are each held to 1e-5 of each
 tensor's size against their plain versions on the same inputs; the whole
 backward to 1e-5 of each gradient's size against the plain reverse sweep
@@ -98,9 +104,9 @@ def test_rk_kernel_matches_plain_on_card(dev, solver):
 
 @pytest.mark.cuda
 def test_kernel_gradients_match_plain_autograd_on_card(dev):
-    """Each autograd.Function's backward recomputes through the plain
-    version, so its gradients equal plain autograd's (to 1e-5 relative to
-    the gradient's size)."""
+    """Each autograd.Function's backward (the backward kernels by default)
+    gives plain autograd's gradients (to 1e-5 relative to the gradient's
+    size)."""
     heads = heads_on(dev, seed=1)
     params = [p for h in heads for p in h.parameters()]
     xs = torch.randn(16, 12, 32, device=dev, requires_grad=True)
@@ -127,6 +133,150 @@ def test_kernel_gradients_match_plain_autograd_on_card(dev):
         assert float((a - b).abs().max()) <= ATOL * (1 + float(b.abs().max()))
 
 
+def heads_with(dev, act, D=32, H=16, L=2, seed=0):
+    """GOKU-shaped heads with an RNN activation ``act``, weights as in
+    ``heads_on``."""
+    g = torch.Generator().manual_seed(seed)
+    heads = (tnn.Recurrent.rnn(D, (H,) * L, act),
+             tnn.Recurrent.lstm(D, (H,) * L), tnn.Recurrent.lstm(D, (H,) * L))
+    with torch.no_grad():
+        for p in (p for h in heads for p in h.parameters()):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.15)
+    return tuple(h.to(dev) for h in heads)
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (45, 100), (37, 21)])
+@pytest.mark.parametrize("D,H,L", [(32, 16, 2), (32, 16, 1), (32, 16, 4),
+                                   (10, 8, 2), (64, 32, 2), (40, 20, 3),
+                                   (24, 40, 1)])
+def test_goku_heads_tape_variant_matches_plain_on_card(dev, B, T, D, H, L):
+    """The forward kernel at every layer count it takes, with narrow heads
+    (run at the compiled widths) and wide ones (run at their own widths),
+    with and without a tape: the same outputs, within 1e-5 of the plain
+    version, the tape (at the kernel's hidden width) within 1e-5 of the
+    plain tape's size."""
+    heads = heads_with(dev, tnn.relu, D, H, L)
+    xs = torch.randn(B, T, D, device=dev)
+    with torch.no_grad():
+        z, th = recurrent_cuda.goku_heads_cuda(*heads, xs)
+        zt, tht, tape = recurrent_cuda.goku_heads_cuda(*heads, xs, tape=True)
+        zp, thp, tape_p = recurrent_cuda.goku_heads_taped_reference(*heads,
+                                                                    xs)
+    assert torch.equal(z, zt) and torch.equal(th, tht)
+    assert float((z - zp).abs().max()) <= ATOL
+    assert float((th - thp).abs().max()) <= ATOL
+    Hk = recurrent_cuda.kernel_widths(D, H)[1]
+    assert tape.shape == (B, T, 13 * Hk * L)
+    if H == Hk:
+        assert rel_err(tape, tape_p) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [tnn.relu, tnn.tanh, tnn.identity],
+                         ids=["relu", "tanh", "identity"])
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("D,H", [(32, 16), (64, 32), (24, 40)])
+def test_goku_heads_bwd_kernel_matches_plain_sweep_on_card(dev, act, L, D,
+                                                           H):
+    """The sweep kernel (the compiled widths, and heads wider than them at
+    their own) against the plain sweep on the same tape: dgates, dh0 and
+    dc0 within 1e-5 of each tensor's size."""
+    heads = heads_with(dev, act, D, H, L=L, seed=L)
+    B, T = 45, 30
+    xs = torch.randn(B, T, D, device=dev)
+    gz = torch.randn(B, H, device=dev)
+    gt = torch.randn(B, 2 * H, device=dev)
+    with torch.no_grad():
+        _, _, tape = recurrent_cuda.goku_heads_cuda(*heads, xs, tape=True)
+    got = recurrent_cuda.goku_heads_bwd_cuda(*heads, tape, gz, gt)
+    ref = recurrent_cuda.goku_heads_sweep_reference(*heads, tape, gz, gt)
+    for a, b in zip(got, ref):
+        assert rel_err(a, b) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [tnn.tanh, tnn.relu], ids=["tanh", "relu"])
+@pytest.mark.parametrize("D,H", [(32, 16), (10, 8), (64, 32)])
+def test_goku_heads_whole_backward_matches_autograd_on_card(dev, act, D, H):
+    """The whole backward (tape forward, sweep kernel, products) against
+    plain autograd, within 1e-5 of each gradient's size; a relu RNN unit
+    whose pre-activation lies within rounding of zero may be on in the
+    kernel's forward and off in the plain one, which moves the gradient by
+    a finite amount, so relu is held to 1e-5 only when no unit flipped and
+    to 1e-2 otherwise."""
+    heads = heads_with(dev, act, D, H, seed=7)
+    params = [p for h in heads for p in h.parameters()]
+    xs = torch.randn(64, 50, D, device=dev)
+    gz = torch.randn(64, H, device=dev)
+    gt = torch.randn(64, 2 * H, device=dev)
+
+    def grads(fn):
+        x = xs.clone().requires_grad_()
+        z0, th = fn(*heads, x)
+        return torch.autograd.grad((z0, th), [x] + params, (gz, gt))
+
+    k = grads(recurrent_cuda.goku_heads)
+    p = grads(recurrent_cuda.goku_heads_reference)
+    tol = ATOL
+    if act is tnn.relu:
+        with torch.no_grad():
+            tape = recurrent_cuda.goku_heads_cuda(*heads, xs, tape=True)[2]
+            tape_p = recurrent_cuda.goku_heads_taped_reference(*heads,
+                                                               xs)[2]
+        Hk = recurrent_cuda.kernel_widths(D, H)[1]
+        on = tape[..., :2 * Hk] > 0
+        on_p = torch.zeros_like(on)
+        for l in range(2):
+            on_p[..., l * Hk:l * Hk + H] = tape_p[..., l * H:(l + 1) * H] > 0
+        if bool((on != on_p).any()):
+            tol = 1e-2
+    for a, b in zip(k, p):
+        assert rel_err(a, b) <= tol
+
+
+@pytest.mark.cuda
+def test_goku_heads_refuses_heads_too_wide_for_a_block_on_card(dev):
+    """Heads whose any-width kernels would need more shared memory than a
+    block may have raise ValueError and launch nothing."""
+    heads = heads_with(dev, tnn.relu, D=16384, H=16, L=1)
+    xs = torch.zeros(2, 3, 16384, device=dev)
+    before = recurrent_cuda.goku_heads_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        recurrent_cuda.goku_heads(*heads, xs)
+    assert recurrent_cuda.goku_heads_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("substeps", [1, 3])
+def test_rk_bwd_kernel_matches_plain_sweep_on_card(dev, solver, substeps):
+    """The RK backward kernel against the plain reverse sweep over the same
+    trajectory, and the whole backward against plain autograd, within
+    1e-5 of each gradient's size, for both pendulum RHSs."""
+    u0s, ps, saveat = rk_inputs(dev, B=70, T=40, seed=8)
+    s = getattr(trk, solver)()
+    for f in (pendulum_f, pendulum_friction_f):
+        w = torch.randn(70, 40, 2, device=dev)
+        with torch.no_grad():
+            ys = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                        substeps=substeps)
+        got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys, ps, w, substeps=substeps)
+        ref = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat, ys, ps, w, substeps=substeps)
+        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+        y = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u, p, saveat, substeps=substeps)[0]
+        auto = torch.autograd.grad(y, [u, p], w)
+        for a, b, c in zip(got, ref, auto):
+            assert rel_err(a, b) <= ATOL and rel_err(a, c) <= ATOL
+
+
 @pytest.mark.cuda
 def test_goku_kernel_path_matches_plain_path_on_card(dev):
     """A small GOKU with both kernel switches on launches each kernel once
@@ -140,12 +290,18 @@ def test_goku_kernel_path_matches_plain_path_on_card(dev):
     x = torch.rand(6, 10, 24, device=dev)
     t = torch.arange(10, dtype=torch.float32, device=dev) * 0.05
     counters = (recurrent_cuda.goku_heads_cuda,
-                ode_cuda.solve_fixed_grid_batched_cuda)
+                ode_cuda.solve_fixed_grid_batched_cuda,
+                recurrent_cuda.goku_heads_bwd_cuda,
+                ode_cuda.solve_fixed_grid_batched_bwd_cuda)
     before = [fn.launches for fn in counters]
     with torch.no_grad():
         xk = km(x, t)[0][0]
         xp = pm(x, t)[0][0]
-    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1]
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0,
+                                                                   0]
+    km(x, t)[0][0].square().sum().backward()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 2, 1,
+                                                                   1]
     assert xk.shape == (6, 10, 24) and bool(torch.isfinite(xk).all())
     assert float((xk - xp).abs().max()) <= 1e-4
 
