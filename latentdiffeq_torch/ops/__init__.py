@@ -10,9 +10,11 @@ from .node_cuda import (neural_field_dw_cuda, neural_field_dw_reference,
                         solve_neural_field_reference,
                         solve_neural_field_taped_reference)
 from .ode_cuda import (solve_fixed_grid_batched,
+                       solve_fixed_grid_batched_affine_sweep_reference,
                        solve_fixed_grid_batched_backward_reference,
                        solve_fixed_grid_batched_bwd_cuda,
                        solve_fixed_grid_batched_cuda,
+                       solve_fixed_grid_batched_interval_maps_reference,
                        solve_fixed_grid_batched_reference)
 from .recurrent_cuda import (goku_heads, goku_heads_backward_cuda,
                              goku_heads_backward_reference,
@@ -25,7 +27,9 @@ __all__ = ["build_kernels", "load_kernel", "solve_fixed_grid_batched",
            "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_reference",
            "solve_fixed_grid_batched_bwd_cuda",
-           "solve_fixed_grid_batched_backward_reference", "goku_heads",
+           "solve_fixed_grid_batched_backward_reference",
+           "solve_fixed_grid_batched_interval_maps_reference",
+           "solve_fixed_grid_batched_affine_sweep_reference", "goku_heads",
            "goku_heads_cuda", "goku_heads_bwd_cuda",
            "goku_heads_backward_cuda", "goku_heads_reference",
            "goku_heads_taped_reference", "goku_heads_sweep_reference",

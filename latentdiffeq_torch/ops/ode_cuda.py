@@ -1,16 +1,24 @@
-"""CUDA kernel for the batched fixed-grid RK solve (replaces the Pallas TPU
-kernel latentdiffeq/ops/ode_pallas.py::pallas_solve_fixed_grid_batched).
+"""CUDA kernels for the batched fixed-grid RK solve and its gradient
+(replace the Pallas TPU kernel
+latentdiffeq/ops/ode_pallas.py::pallas_solve_fixed_grid_batched and its
+``custom_vjp``).
 
-``solve_fixed_grid_batched`` runs the kernel (csrc/rk_fixed_grid.cu) on
+``solve_fixed_grid_batched`` runs the kernels (csrc/rk_fixed_grid.cu) on
 CUDA tensors and the plain PyTorch version on CPU tensors. The RHS must
 name a device functor (its ``device_rhs`` attribute, see pendulum.py);
 one without raises ValueError on either device rather than dropping to the
-plain solve. The gradient is the VJP the JAX ``custom_vjp`` takes by
-recomputing the plain solve: on the card one launch of
-``rk_fixed_grid_bwd_kernel``, a reverse sweep that recomputes each step's
-stages from the saved trajectory.
-``solve_fixed_grid_batched_backward_reference``
-is the sweep's plain version, with the RHS's VJP written by hand
+plain solve. The forward kernel also writes the per-row success flag. Tsit5
+and RK4 run an instance with their float32 coefficients compiled in
+(``tableau_instance``); any other tableau the instance that reads it at run
+time. The gradient is the VJP the JAX ``custom_vjp`` takes by recomputing
+the plain solve: on the card one launch of ``rk_fixed_grid_bwd_kernel``,
+which builds every interval's map (J_n = d ys[n+1] / d ys[n], r_n =
+d ys[n+1] / d p) in parallel from the saved trajectory and then runs a short
+affine sweep over them. Its plain versions are
+``solve_fixed_grid_batched_interval_maps_reference`` and
+``solve_fixed_grid_batched_affine_sweep_reference``;
+``solve_fixed_grid_batched_backward_reference`` is the step-by-step reverse
+sweep over the same trajectory. All three use the RHS's VJP written by hand
 (``RHS_VJP``). ``saveat`` gets no gradient. Shapes on the main path: u0s
 (64, 2), ps (64, 1), 50 save points in training; (45, 2), (45, 1), 100
 points in validation; Tsit5 (6 stages), substeps 1.
@@ -18,24 +26,34 @@ points in validation; Tsit5 (6 stages), substeps 1.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..solve.fixed import fixed_grid_stats, solve_fixed_grid
-from ..solve.rk import AbstractSolver, n_solution_stages, tableau_f32
+from ..solve.rk import (RK4, AbstractSolver, Tsit5, n_solution_stages,
+                        tableau_f32)
 from ._build import load_kernel
 
 __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_bwd_cuda",
            "solve_fixed_grid_batched_reference",
-           "solve_fixed_grid_batched_backward_reference", "DEVICE_RHS",
+           "solve_fixed_grid_batched_backward_reference",
+           "solve_fixed_grid_batched_interval_maps_reference",
+           "solve_fixed_grid_batched_affine_sweep_reference",
+           "tableau_instance", "sincos_cuda", "BAKED_TABLEAUS", "DEVICE_RHS",
            "RHS_VJP"]
 
 # device_rhs name -> functor index in csrc/rk_fixed_grid.cu, with the
 # (state, parameter) widths the functor is compiled for.
 DEVICE_RHS = {"pendulum": (0, 2, 1), "pendulum_friction": (1, 2, 1)}
+
+# Kernel instance index -> the solver whose float32 tableau
+# csrc/rk_fixed_grid.cu compiles in (Tsit5Tab, Rk4Tab). The library refuses
+# an index whose tableau is not exactly the one it was handed.
+BAKED_TABLEAUS = {1: Tsit5(), 2: RK4()}
 
 
 def _device_rhs(f: Callable):
@@ -47,6 +65,21 @@ def _device_rhs(f: Callable):
             f"{sorted(DEVICE_RHS)}); set use_kernel_solver=False to solve "
             f"it with the plain PyTorch path")
     return DEVICE_RHS[name]
+
+
+@functools.lru_cache(maxsize=None)
+def tableau_instance(solver: AbstractSolver) -> int:
+    """The kernel instance for ``solver``: the index in ``BAKED_TABLEAUS``
+    of the baked tableau whose float32 coefficients (``tableau_f32``) equal
+    the solver's, value by value, else 0, the instance that reads the
+    tableau at run time."""
+    n, a, b, c = tableau_f32(solver)
+    for kind, baked in BAKED_TABLEAUS.items():
+        m, a2, b2, c2 = tableau_f32(baked)
+        if (n == m and torch.equal(a, a2) and torch.equal(b, b2)
+                and torch.equal(c, c2)):
+            return kind
+    return 0
 
 
 def solve_fixed_grid_batched_reference(f: Callable, solver: AbstractSolver,
@@ -83,8 +116,9 @@ def solve_fixed_grid_batched_backward_reference(f: Callable,
                                                 solver: AbstractSolver,
                                                 saveat, ys, ps, g, *,
                                                 substeps: int = 1):
-    """The plain reverse sweep, step for step the recursion of the backward
-    kernel: from ``ys`` (B, T, dim), the trajectory the forward saved, and
+    """The plain reverse sweep, the backward one step at a time and the
+    end-to-end plain version of the backward kernel's two phases: from
+    ``ys`` (B, T, dim), the trajectory the forward saved, and
     the cotangent ``g`` of ys, ``ybar = g[:, T-1]``; for each step from the
     last, recompute the stage inputs Y_s and slopes from the step's start
     (ys[:, n] advanced j sub-steps), kbar_s = dt b_s ybar, and for s = S-1
@@ -134,26 +168,119 @@ def solve_fixed_grid_batched_backward_reference(f: Callable,
     return ybar, pbar
 
 
-def _lib():
-    lib = load_kernel("rk_fixed_grid")
+@torch.no_grad()
+def solve_fixed_grid_batched_interval_maps_reference(
+        f: Callable, solver: AbstractSolver, saveat, ys, ps, *,
+        substeps: int = 1):
+    """The first phase of the backward kernel, vectorised over rows and
+    intervals: each interval's map from the state at its start, the saved
+    ``ys[:, n]``, to ``ys[:, n+1]``. All intervals run their sub-steps at
+    once; each sub-step's Jacobians are the step's VJP (``RHS_VJP`` through
+    the stages in reverse, as the plain reverse sweep has it) of each basis
+    cotangent, and the sub-steps compose as J = Js J, r = Js r + Rs.
+    Returns ``J (B, T-1, dim, dim)``, J[b, n, i, j] = d ys[b, n+1, i] /
+    d ys[b, n, j], and ``r (B, T-1, dim, pdim)``, r[b, n, i, q] =
+    d ys[b, n+1, i] / d ps[b, q]."""
+    _device_rhs(f)
+    vjp = RHS_VJP[f.device_rhs]
+    tab = solver.tableau
+    S = n_solution_stages(tab)
+    ys, ps, saveat = ys.detach(), ps.detach(), saveat.detach()
+    B, T, D = ys.shape
+    y = ys[:, :-1]
+    p = ps[:, None, :].expand(B, T - 1, ps.shape[-1])
+    ta = saveat[:-1][None, :, None]
+    dt = ((saveat[1:] - saveat[:-1]) / substeps)[None, :, None]
+    eye = torch.eye(D, dtype=ys.dtype, device=ys.device)
+    J = r = None
+    for j in range(substeps):
+        t = ta + j * dt
+        Y, k = [], []
+        for s in range(S):
+            u = y
+            for q, a in enumerate(tab.a[s]):
+                if a != 0.0:
+                    u = u + (dt * a) * k[q]
+            Y.append(u)
+            k.append(f(u, p, t + tab.c[s] * dt))
+        rows_j, rows_r = [], []
+        for e in range(D):
+            ybar = eye[e].expand_as(y)
+            pbar = torch.zeros_like(p)
+            kbar = [(dt * b) * ybar for b in tab.b[:S]]
+            for s in range(S - 1, -1, -1):
+                ubar, pb = vjp(Y[s], p, kbar[s])
+                pbar = pbar + pb
+                ybar = ybar + ubar
+                for q, a in enumerate(tab.a[s]):
+                    if a != 0.0:
+                        kbar[q] = kbar[q] + (dt * a) * ubar
+            rows_j.append(ybar)
+            rows_r.append(pbar)
+        Js = torch.stack(rows_j, dim=-2)
+        Rs = torch.stack(rows_r, dim=-2)
+        if J is None:
+            J, r = Js, Rs
+        else:
+            J, r = Js @ J, Js @ r + Rs
+        for b, ks in zip(tab.b, k):
+            if b != 0.0:
+                y = y + (dt * b) * ks
+    return J, r
+
+
+@torch.no_grad()
+def solve_fixed_grid_batched_affine_sweep_reference(J, r, g):
+    """The second phase of the backward kernel: from the interval maps ``J``
+    (B, T-1, dim, dim), ``r`` (B, T-1, dim, pdim) and the cotangent ``g``
+    (B, T, dim) of ys, ybar = g[:, T-1], then for n = T-2 .. 0: pbar +=
+    r_n^T ybar, ybar = J_n^T ybar + g[:, n]. Returns ``(du0 (B, dim),
+    dp (B, pdim))``."""
+    T = g.shape[1]
+    ybar = g[:, T - 1]
+    pbar = g.new_zeros(g.shape[0], r.shape[-1])
+    for n in range(T - 2, -1, -1):
+        pbar = pbar + torch.einsum("biq,bi->bq", r[:, n], ybar)
+        ybar = torch.einsum("bij,bi->bj", J[:, n], ybar) + g[:, n]
+    return ybar, pbar
+
+
+def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded csrc/rk_fixed_grid.cu library
+    (also for scripts/rk_levers.py, which builds it with other flags)."""
     if not getattr(lib, "_ldq_typed", False):
         lib.ldq_rk_fixed_grid.argtypes = (
-            [ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 7
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid.restype = ctypes.c_int
         lib.ldq_rk_fixed_grid_bwd.argtypes = (
-            [ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 9
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid_bwd.restype = ctypes.c_int
+        lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
+                                      + [ctypes.c_int] * 2
+                                      + [ctypes.c_void_p])
+        lib.ldq_rk_sincos.restype = ctypes.c_int
         lib._ldq_typed = True
     return lib
 
 
+def _lib():
+    return typed_library(load_kernel("rk_fixed_grid"))
+
+
+def _instance(solver: AbstractSolver, generic: bool) -> int:
+    return 0 if generic else tableau_instance(solver)
+
+
 def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
-                                  ps, saveat, *, substeps: int = 1):
-    """Launch the kernel once (no autograd); returns ys (B, T, dim)."""
+                                  ps, saveat, *, substeps: int = 1,
+                                  generic: bool = False):
+    """Launch the forward kernel once (no autograd); returns ``(ys (B, T,
+    dim), success (B,))``, success true where every value of the row is
+    finite. ``generic=True`` runs the instance that reads the tableau at
+    run time even where a baked one exists (for the checks that hold the two
+    against each other)."""
     kind, dim, pdim = _device_rhs(f)
     for name, t in (("u0s", u0s), ("ps", ps), ("saveat", saveat)):
         if not t.is_cuda or t.dtype != torch.float32:
@@ -171,19 +298,20 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
     B, T = u0s.shape[0], saveat.shape[0]
     n_stages, a, b, c = tableau_f32(solver)
     ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
+    success = torch.empty(B, device=u0s.device, dtype=torch.bool)
     lib = _lib()
     stream = torch.cuda.current_stream(u0s.device).cuda_stream
     with torch.cuda.device(u0s.device):
-        err = lib.ldq_rk_fixed_grid(kind, n_stages, a.data_ptr(),
-                                    b.data_ptr(), c.data_ptr(),
-                                    saveat.data_ptr(), u0s.data_ptr(),
-                                    ps.data_ptr(), ys.data_ptr(), B, T,
-                                    substeps, stream)
+        err = lib.ldq_rk_fixed_grid(
+            kind, _instance(solver, generic), n_stages, a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), saveat.data_ptr(), u0s.data_ptr(),
+            ps.data_ptr(), ys.data_ptr(), success.data_ptr(), B, T, substeps,
+            stream)
     if err != 0:
         raise RuntimeError(f"rk_fixed_grid kernel launch failed: CUDA error "
                            f"{err}")
     solve_fixed_grid_batched_cuda.launches += 1
-    return ys
+    return ys, success
 
 
 solve_fixed_grid_batched_cuda.launches = 0
@@ -191,10 +319,15 @@ solve_fixed_grid_batched_cuda.launches = 0
 
 def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
                                       saveat, ys, ps, g, *,
-                                      substeps: int = 1):
-    """Launch the backward kernel once: the reverse sweep over ``ys`` (B,
-    T, dim), the trajectory the forward kernel wrote, with the cotangent
-    ``g`` of ys. Returns ``(du0 (B, dim), dp (B, pdim))``."""
+                                      substeps: int = 1, maps: bool = False,
+                                      generic: bool = False):
+    """Launch the backward kernel once: the interval maps over ``ys`` (B,
+    T, dim), the trajectory the forward kernel wrote, and the affine sweep
+    with the cotangent ``g`` of ys. Returns ``(du0 (B, dim), dp (B,
+    pdim))``; with ``maps=True`` also the maps the kernel built, ``J`` (B,
+    T-1, dim, dim) and ``r`` (B, T-1, dim, pdim), as
+    ``solve_fixed_grid_batched_interval_maps_reference`` returns them.
+    ``generic`` as for the forward."""
     kind, dim, pdim = _device_rhs(f)
     for name, t in (("saveat", saveat), ("ys", ys), ("ps", ps), ("g", g)):
         if not t.is_cuda or t.dtype != torch.float32:
@@ -213,39 +346,70 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
     n_stages, a, b, c = tableau_f32(solver)
     du0 = torch.empty(B, dim, device=ys.device, dtype=torch.float32)
     dp = torch.empty(B, pdim, device=ys.device, dtype=torch.float32)
+    J = r = None
+    if maps:
+        J = torch.empty(B, T - 1, dim, dim, device=ys.device,
+                        dtype=torch.float32)
+        r = torch.empty(B, T - 1, dim, pdim, device=ys.device,
+                        dtype=torch.float32)
     lib = _lib()
     stream = torch.cuda.current_stream(ys.device).cuda_stream
     with torch.cuda.device(ys.device):
         err = lib.ldq_rk_fixed_grid_bwd(
-            kind, n_stages, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            saveat.data_ptr(), ys.data_ptr(), ps.data_ptr(), g.data_ptr(),
-            du0.data_ptr(), dp.data_ptr(), B, T, substeps, stream)
+            kind, _instance(solver, generic), n_stages, a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), saveat.data_ptr(), ys.data_ptr(),
+            ps.data_ptr(), g.data_ptr(), du0.data_ptr(), dp.data_ptr(),
+            J.data_ptr() if maps else None, r.data_ptr() if maps else None,
+            B, T, substeps, stream)
     if err != 0:
         raise RuntimeError(f"rk_fixed_grid backward kernel launch failed: "
                            f"CUDA error {err}")
     solve_fixed_grid_batched_bwd_cuda.launches += 1
-    return du0, dp
+    return (du0, dp, J, r) if maps else (du0, dp)
 
 
 solve_fixed_grid_batched_bwd_cuda.launches = 0
 
 
+def sincos_cuda(x, *, accurate: bool = False):
+    """The sine and cosine the RK kernels evaluate, on a float32 CUDA tensor
+    ``x``: the branch-free ``sincos_fast`` (valid for |x| <= 105615), or
+    with ``accurate=True`` CUDA's sincosf, which the kernels rerun a step
+    with when a stage angle passes that bound. Returns ``(sin, cos)``. For
+    the checks that hold the one against the other."""
+    if not x.is_cuda or x.dtype != torch.float32:
+        raise ValueError("sincos_cuda: x must be a float32 CUDA tensor")
+    x = x.contiguous()
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ldq_rk_sincos(x.data_ptr(), s.data_ptr(), c.data_ptr(),
+                                x.numel(), int(accurate), stream)
+    if err != 0:
+        raise RuntimeError(f"rk sincos kernel launch failed: CUDA error "
+                           f"{err}")
+    return s, c
+
+
 class _RKSolveFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f, solver, substeps, u0s, ps, saveat):
-        ys = solve_fixed_grid_batched_cuda(f, solver, u0s, ps, saveat,
-                                           substeps=substeps)
+        ys, success = solve_fixed_grid_batched_cuda(f, solver, u0s, ps,
+                                                    saveat, substeps=substeps)
+        ctx.mark_non_differentiable(success)
+        ctx.set_materialize_grads(False)  # no zero fill for success
         ctx.spec = (f, solver, substeps)
         ctx.save_for_backward(ps, saveat, ys)
-        return ys
+        return ys, success
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         f, solver, substeps = ctx.spec
         ps, saveat, ys = ctx.saved_tensors
         want = ctx.needs_input_grad[3:5]
-        if not any(want):
+        if g is None or not any(want):
             return None, None, None, None, None, None
         du0, dp = solve_fixed_grid_batched_bwd_cuda(
             f, solver, saveat, ys, ps, g, substeps=substeps)
@@ -255,18 +419,17 @@ class _RKSolveFn(torch.autograd.Function):
 
 def solve_fixed_grid_batched(f: Callable, solver: AbstractSolver, u0s, ps,
                              saveat, *, substeps: int = 1):
-    """Batched fixed-grid solve: the CUDA kernel for CUDA tensors, the
+    """Batched fixed-grid solve: the CUDA kernels for CUDA tensors, the
     plain version (differentiated by autograd) for CPU tensors. ``u0s``
     (B, dim), ``ps`` (B, pdim), ``saveat`` (T,). Returns ``(ys (B, T,
     dim), success (B,), stats)`` with per-trajectory analytic counters
-    (ode_pallas.py:175-183). On the card the gradient is the reverse-sweep
-    kernel."""
+    (ode_pallas.py:175-183). On the card the forward kernel writes the
+    success flags and the gradient is the backward kernel."""
     _device_rhs(f)
     if u0s.device.type == "cpu":
         return solve_fixed_grid_batched_reference(f, solver, u0s, ps, saveat,
                                                   substeps=substeps)
-    ys = _RKSolveFn.apply(f, solver, substeps, u0s, ps, saveat)
-    success = torch.isfinite(ys).all(dim=2).all(dim=1)
+    ys, success = _RKSolveFn.apply(f, solver, substeps, u0s, ps, saveat)
     stats = fixed_grid_stats((u0s.shape[0],), saveat.shape[0] - 1, substeps,
                              n_solution_stages(solver.tableau),
                              device=u0s.device)

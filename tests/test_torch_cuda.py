@@ -9,10 +9,14 @@ runs on a machine that has no JAX:
 Float32 with TF32 off; kernel vs plain version atol 1e-5 (the same
 arithmetic, summed in another order). The GOKU heads' tape and their sweep
 kernel (dgates, dh0, dc0 on the same tape), and the RK backward kernel
-(against the plain reverse sweep over the same trajectory) are held to
-1e-5 of each tensor's size, and their whole backwards to 1e-5 of each
-gradient's size against plain autograd (a relu RNN to 1e-2 when one of its
-units flips between the kernel's and the plain forward, as below). The
+(its interval maps against the plain maps, its gradients against the
+two-phase plain version and the plain reverse sweep over the same
+trajectory) are held to 1e-5 of each tensor's size, and their whole
+backwards to 1e-5 of each gradient's size against plain autograd (a relu
+RNN to 1e-2 when one of its units flips between the kernel's and the plain
+forward, as below). The RK kernels' baked tableau instances must equal the
+generic one bit for bit, and their branch-free sine lie within 2.4e-7 of
+float64 over the range they use it in. The
 neural-field forward's tape, its
 sweep kernel and its weight-gradient kernel are each held to 1e-5 of each
 tensor's size against their plain versions on the same inputs; the whole
@@ -95,11 +99,12 @@ def test_rk_kernel_matches_plain_on_card(dev, solver):
     u0s, ps, saveat = rk_inputs(dev, B=70, T=40, seed=6)
     s = getattr(trk, solver)()
     for f in (pendulum_f, pendulum_friction_f):
-        got = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
-                                                     substeps=2)
-        ref, _, _ = ode_cuda.solve_fixed_grid_batched_reference(
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=2)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
             f, s, u0s, ps, saveat, substeps=2)
         assert float((got - ref).abs().max()) <= ATOL
+        assert torch.equal(ok, ok_p)
 
 
 @pytest.mark.cuda
@@ -263,8 +268,8 @@ def test_rk_bwd_kernel_matches_plain_sweep_on_card(dev, solver, substeps):
     for f in (pendulum_f, pendulum_friction_f):
         w = torch.randn(70, 40, 2, device=dev)
         with torch.no_grad():
-            ys = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
-                                                        substeps=substeps)
+            ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
+                f, s, u0s, ps, saveat, substeps=substeps)
         got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
             f, s, saveat, ys, ps, w, substeps=substeps)
         ref = ode_cuda.solve_fixed_grid_batched_backward_reference(
@@ -275,6 +280,229 @@ def test_rk_bwd_kernel_matches_plain_sweep_on_card(dev, solver, substeps):
         auto = torch.autograd.grad(y, [u, p], w)
         for a, b, c in zip(got, ref, auto):
             assert rel_err(a, b) <= ATOL and rel_err(a, c) <= ATOL
+
+
+RK_SHAPES = [(64, 50), (45, 100), (70, 40)]
+
+
+def rk_cotangent(dev, B, T, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, T, 2, generator=g).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", RK_SHAPES)
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
+def test_rk_baked_instance_equals_generic_on_card(dev, B, T, substeps,
+                                                  solver):
+    """Tsit5 and RK4 with their float32 coefficients compiled in give the
+    same bits as the instance that reads the same tableau at run time,
+    forward (ys, success) and backward (gradients and interval maps): the
+    same operations in the same order on the same values."""
+    u0s, ps, saveat = rk_inputs(dev, B, T, seed=20)
+    s = getattr(trk, solver)()
+    assert ode_cuda.tableau_instance(s) != 0
+    for f in (pendulum_f, pendulum_friction_f):
+        baked = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=substeps)
+        generic = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=substeps, generic=True)
+        w = rk_cotangent(dev, B, T, 21)
+        baked += ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, baked[0], ps, w, substeps=substeps, maps=True)
+        generic += ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, baked[0], ps, w, substeps=substeps, maps=True,
+            generic=True)
+        for a, b in zip(baked, generic):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_rk_kernel_success_flags_on_card(dev, solver):
+    """The forward kernel's success flag is isfinite(ys).all over each row,
+    and the plain version's flag: rows 1 (a NaN angle), 3 (L = 0) and 5 (an
+    infinite velocity) fail; row 6 (L = 1e-30) runs to huge but finite
+    values through the accurate rerun."""
+    u0s, ps, saveat = rk_inputs(dev, 8, 30, seed=22)
+    u0s[1, 0] = float("nan")
+    ps[3, 0] = 0.0
+    u0s[5, 1] = float("inf")
+    ps[6, 0] = 1e-30
+    s = getattr(trk, solver)()
+    for f in (pendulum_f, pendulum_friction_f):
+        ys, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                        saveat)
+        _, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat)
+        assert ok.dtype == torch.bool and ok.shape == (8,)
+        assert torch.equal(ok, torch.isfinite(ys).all(dim=2).all(dim=1))
+        assert torch.equal(ok, ok_p)
+        assert ok.tolist() == [True, False, True, False, True, False, True,
+                               True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", RK_SHAPES)
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_rk_bwd_kernel_matches_two_phase_plain_on_card(dev, B, T, substeps,
+                                                       solver):
+    """The backward kernel's interval maps against the plain maps over the
+    same trajectory, and its gradients against the two-phase plain version
+    (plain maps, then the plain affine sweep), the plain step-by-step
+    reverse sweep over the same trajectory and plain autograd, each within
+    1e-5 of the tensor's size, for both pendulum RHSs; without the maps
+    output the kernel gives the same bits."""
+    u0s, ps, saveat = rk_inputs(dev, B, T, seed=23)
+    s = getattr(trk, solver)()
+    for f in (pendulum_f, pendulum_friction_f):
+        w = rk_cotangent(dev, B, T, 24)
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=substeps)
+        du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys, ps, w, substeps=substeps, maps=True)
+        J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+            f, s, saveat, ys, ps, substeps=substeps)
+        assert rel_err(J, J_p) <= ATOL and rel_err(r, r_p) <= ATOL
+        two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(
+            J_p, r_p, w)
+        sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat, ys, ps, w, substeps=substeps)
+        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+        y = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u, p, saveat, substeps=substeps)[0]
+        auto = torch.autograd.grad(y, [u, p], w)
+        for a, b, c, d in zip((du0, dp), two, sweep, auto):
+            assert rel_err(a, b) <= ATOL and rel_err(a, c) <= ATOL
+            assert rel_err(a, d) <= ATOL
+        plain_out = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys, ps, w, substeps=substeps)
+        assert torch.equal(plain_out[0], du0)
+        assert torch.equal(plain_out[1], dp)
+
+
+@pytest.mark.cuda
+def test_rk_kernels_on_a_grid_of_several_chunks_on_card(dev):
+    """T = 1100: the forward computes its step sizes in two tables of 1024,
+    the backward takes its 1099 intervals in five chunks of 256 threads,
+    the last first. The backward against the plain maps and the two plain
+    sweeps over the same trajectory (1e-5 of each tensor's size). Over 1099
+    steps the kernel's and the plain float32 trajectories part by more than
+    rounding (the phase drifts), so the forward is held as the neural-field
+    forward is: at most twice as far from a float64 plain solve as the
+    plain float32 solve is, plus 1e-6."""
+    B, T = 16, 1100
+    u0s, ps, saveat = rk_inputs(dev, B, T, seed=26)
+    s = trk.Tsit5()
+    for f in (pendulum_f, pendulum_friction_f):
+        ys, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                        saveat)
+        ref = ode_cuda.solve_fixed_grid_batched_reference(f, s, u0s, ps,
+                                                          saveat)[0]
+        ref64 = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s.double(), ps.double(), saveat.double())[0]
+        e_k = float((ys.double() - ref64).abs().max())
+        e_p = float((ref.double() - ref64).abs().max())
+        assert bool(ok.all()) and e_k <= 2 * e_p + 1e-6
+        w = rk_cotangent(dev, B, T, 27)
+        du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys, ps, w, maps=True)
+        J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+            f, s, saveat, ys, ps)
+        assert rel_err(J, J_p) <= ATOL and rel_err(r, r_p) <= ATOL
+        two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(
+            J_p, r_p, w)
+        sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat, ys, ps, w)
+        for a, b, c in zip((du0, dp), two, sweep):
+            assert rel_err(a, b) <= ATOL and rel_err(a, c) <= ATOL
+
+
+# Angles past the branch-free sine's bound (|x| > 105615): from 2e5, where
+# the fast path is still close, to 1e9, where its reduction is meaningless.
+BIG_ANGLES = [2e5, -3e6, 4.5e7, 1e9, -2.5e8]
+
+
+@pytest.mark.cuda
+def test_rk_kernels_rerun_large_angles_accurately_on_card(dev):
+    """Rows whose stage angles pass the bound rerun their steps with sinf,
+    as the plain version computes every sine, while the other rows of the
+    same warp stay on the fast path: the forward agrees with the plain
+    version (each state component within 1e-5 of its size over the rows,
+    the fast rows within 1e-5 abs) and the backward with the plain sweep
+    over the same trajectory. The fast sine alone is far off at these
+    angles, so a missing rerun would show."""
+    B, T = 40, 30
+    u0s, ps, saveat = rk_inputs(dev, B, T, seed=25)
+    big = torch.arange(0, B, 8, device=dev)
+    x = torch.tensor(BIG_ANGLES, device=dev)
+    u0s[big, 0] = x
+    fast, _ = ode_cuda.sincos_cuda(x)
+    assert float((fast - torch.sin(x)).abs().max()) > 1e-3
+    small = torch.ones(B, dtype=torch.bool, device=dev)
+    small[big] = False
+    for solver in ("Tsit5", "RK4", "Dopri5"):
+        s = getattr(trk, solver)()
+        for f in (pendulum_f, pendulum_friction_f):
+            ys, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                            saveat)
+            ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+                f, s, u0s, ps, saveat)
+            assert bool(ok.all()) and bool(ok_p.all())
+            assert float((ys[small] - ref[small]).abs().max()) <= ATOL
+            for d in range(2):
+                assert rel_err(ys[big, :, d], ref[big, :, d]) <= ATOL
+            w = rk_cotangent(dev, B, T, 28)
+            got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(f, s, saveat,
+                                                             ys, ps, w)
+            sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+                f, s, saveat, ys, ps, w)
+            for a, b in zip(got, sweep):
+                assert rel_err(a, b) <= ATOL
+
+
+@pytest.mark.cuda
+def test_rk_branch_free_sine_matches_sincosf_on_card(dev):
+    """The kernels' branch-free sine and cosine against sincosf and against
+    float64 over |x| <= 105615, the range in which the kernels use them: a
+    uniform grid of 2^24 points, a dense grid on [-8, 8], and the floats
+    nearest to each multiple of pi/2 in the range and their neighbours (the
+    hardest arguments for the reduction). Within 2.4e-7 abs of float64
+    (4 units in the last place of values in [0.5, 1)), as sincosf is."""
+    k = torch.arange(-67237, 67238, dtype=torch.float64, device=dev)
+    near = (k * (torch.pi / 2)).float()
+    steps = torch.arange(-3, 4, device=dev, dtype=torch.int32)
+    near = (near.view(torch.int32)[:, None] + steps).view(torch.float32)
+    x = torch.cat([torch.linspace(-105615.0, 105615.0, 1 << 24, device=dev),
+                   torch.linspace(-8.0, 8.0, 1 << 22, device=dev),
+                   near.flatten()])
+    x = x[x.abs() <= 105615.0]
+    s, c = ode_cuda.sincos_cuda(x)
+    s_acc, c_acc = ode_cuda.sincos_cuda(x, accurate=True)
+    s64, c64 = torch.sin(x.double()), torch.cos(x.double())
+    for got, ref in ((s, s64), (c, c64), (s_acc, s64), (c_acc, c64)):
+        assert float((got.double() - ref).abs().max()) <= 2.4e-7
+
+
+@pytest.mark.cuda
+def test_rk_library_refuses_a_tableau_not_its_baked_one_on_card(dev):
+    """The C interface runs a baked instance only for exactly its
+    coefficients: RK4's tableau under Tsit5's index is refused with
+    cudaErrorInvalidValue (1), and nothing is written."""
+    u0s, ps, saveat = rk_inputs(dev, 4, 5)
+    n, a, b, c = trk.tableau_f32(trk.RK4())
+    ys = torch.zeros(4, 5, 2, device=dev)
+    ok = torch.zeros(4, dtype=torch.bool, device=dev)
+    lib = ode_cuda._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.ldq_rk_fixed_grid(0, 1, n, a.data_ptr(), b.data_ptr(),
+                                c.data_ptr(), saveat.data_ptr(),
+                                u0s.data_ptr(), ps.data_ptr(), ys.data_ptr(),
+                                ok.data_ptr(), 4, 5, 1, stream)
+    torch.cuda.synchronize()
+    assert err == 1 and not bool(ys.any()) and not bool(ok.any())
 
 
 @pytest.mark.cuda
