@@ -14,7 +14,10 @@ Phases, each printing one line (any failure exits non-zero):
               (also on failing rows), its baked tableau instances against
               the generic one bit for bit, rows past its fast sine's bound
               (the accurate rerun), a 1100-point grid beside a float64
-              solve, and its sine against float64; the neural-field
+              solve, and its sine against float64, and with the Van der
+              Pol and Kuramoto-10 functors (also with frequency offsets)
+              at their paths' shapes, each beside a float64 solve; the
+              neural-field
               solve also with RK4 and sub-steps, at the 8-wide and the
               128-256-256-128 field and with tanh, each beside a float64
               plain solve; fields the kernel does not take raise;
@@ -23,7 +26,8 @@ Phases, each printing one line (any failure exits non-zero):
               tape (relu and tanh RNN, and wide heads), rk_fixed_grid_bwd's
               interval maps against the plain maps and its gradients
               against the two-phase plain version and the plain reverse
-              sweep over the same trajectory, the
+              sweep over the same trajectory (also for Van der Pol and
+              Kuramoto-10, and at T 300 beside a float64 sweep), the
               neural-field sweep and weight-gradient kernels on the same
               tape; then each whole backward against plain autograd (the
               neural field also against backward="autograd" and the plain
@@ -38,13 +42,18 @@ Phases, each printing one line (any failure exits non-zero):
               12 backward launches of each of its two kernels, and no call
               of their plain versions), and the kernel path must agree with
               the plain path; step and validation times, and the device
-              ops of one GOKU step;
+              ops of one GOKU step; then GOKU at the JAX examples' width on
+              Van der Pol (mu_max 4) and on Kuramoto-10 data made on the
+              card, the same checks with the RK kernels' instance for that
+              RHS; then the solve API and both adjoints on CUDA tensors
+              against the same calls on CPU tensors (float64);
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
               bound and a latency model of its serial chain; the GOKU
               heads' products; forward + backward of the heads and of the
-              RK solve by the kernel route and by plain autograd, and of
+              RK solve (pendulum, Van der Pol, Kuramoto-10) by the kernel
+              route and by plain autograd, and of
               the heads by cuDNN (torch.nn.RNN + 2 torch.nn.LSTM forward,
               and forward + backward, goku_heads' yardstick; the port
               never calls them); the neural-field kernels' launch plan,
@@ -196,18 +205,35 @@ def heads_work(B, T, D, H, L):
     return nbytes, B * T * flops_step
 
 
-def rk_work(B, T, dim, pdim, substeps, tab, n_stages):
+def rhs_ops(which, dim):
+    """(operations of one RHS evaluation, of one VJP) of an RK device
+    functor: the pendulum 3 (divide, multiply, sin) and 8 (cos, sin,
+    reciprocal, products); Van der Pol 5 (x x, 1 -, mu *, * y, - x) and 13;
+    Kuramoto N the N(N-1)/2 differences and their sines, N(N-2) adds of the
+    sums and 3 N more, and for the VJP 3 N(N-1) products and adds for the
+    cosine sums, N(N-1) for the sine sums again and ~5 N more."""
+    if which == "pendulum":
+        return 3, 8
+    if which == "vdp":
+        return 5, 13
+    n = dim
+    return n * (n - 1) + n * (n - 2) + 3 * n, 4 * n * (n - 1) + 5 * n
+
+
+def rk_work(B, T, dim, pdim, substeps, tab, n_stages, which="pendulum",
+            n_cst=0):
     """(bytes, float32 operations) of the batched RK solve: u0s, ps,
-    saveat in and ys out once; per step, the stage combinations (a
-    multiply and an add per state entry per nonzero coefficient, plus the
-    dt * a product), the stage times, and the pendulum RHS (divide,
-    multiply, sin: 3 operations)."""
+    saveat and the functor's n_cst run-time constants in and ys out once;
+    per step, the stage combinations (a multiply and an add per state entry
+    per nonzero coefficient, plus the dt * a product), the stage times, and
+    the RHS (rhs_ops)."""
+    ev = rhs_ops(which, dim)[0]
     ops = 0
     for s in range(n_stages):
         nz = sum(1 for a in tab.a[s] if a != 0.0)
-        ops += nz * (2 * dim + 1) + 2 + 3
+        ops += nz * (2 * dim + 1) + 2 + ev
     ops += sum(1 for b in tab.b[:n_stages] if b != 0.0) * (2 * dim + 1)
-    nbytes = 4 * (B * dim + B * pdim + T + B * T * dim)
+    nbytes = 4 * (B * dim + B * pdim + T + B * T * dim + n_cst)
     return nbytes, B * (T - 1) * substeps * ops
 
 
@@ -261,33 +287,49 @@ SIN_STEPS = 11
 RK_BWD_CHUNK = 256  # intervals a chunk of the RK backward kernel
 
 
-def rk_step_cycles(n_stages):
-    """Cycles of one RK step on the pendulum's chain. Stage s's angle needs
-    only the sines of stages <= s - 2 (a stage's velocity enters the angle
-    one stage later), so a step is two interleaved chains of
-    ceil(n_stages / 2) sines; a link is the sine, the slope's product and
-    two unfused multiply-adds (4 steps: into the next stage's velocity, then
-    into the angle after it)."""
-    return math.ceil(n_stages / 2) * (SIN_STEPS + 5) * FMA_CYC
+def rk_step_cycles(n_stages, which="pendulum", dim=2):
+    """Cycles of one RK step on a trajectory's chain. The pendulum: stage
+    s's angle needs only the sines of stages <= s - 2 (a stage's velocity
+    enters the angle one stage later), so a step is two interleaved chains
+    of ceil(n_stages / 2) sines; a link is the sine, the slope's product and
+    two unfused multiply-adds (4 steps: into the next stage's velocity,
+    then into the angle after it). The others, per stage its input (an
+    unfused multiply and add on the previous stage's slope) and the RHS's
+    own chain: Van der Pol 5 dependent operations; Kuramoto a difference,
+    the sine (sincosf, out of line: ~30 steps with the call) and the sum
+    over N-1 terms, then the product and the add."""
+    if which == "pendulum":
+        return math.ceil(n_stages / 2) * (SIN_STEPS + 5) * FMA_CYC
+    per = 2 + (5 if which == "vdp" else 1 + 30 + (dim - 1) + 2)
+    return n_stages * per * FMA_CYC
 
 
-def rk_latency_ms(T, substeps, n_stages, clock_mhz):
+def rk_latency_ms(T, substeps, n_stages, clock_mhz, which="pendulum", dim=2):
     """Least time of one trajectory's chain in the forward kernel:
     (T - 1) * substeps steps of `rk_step_cycles`."""
-    return (T - 1) * substeps * rk_step_cycles(n_stages) / (clock_mhz * 1e3)
+    return ((T - 1) * substeps * rk_step_cycles(n_stages, which, dim)
+            / (clock_mhz * 1e3))
 
 
-def rk_bwd_latency_ms(T, substeps, n_stages, clock_mhz):
+# Dependent steps of one stage's VJP of one basis cotangent.
+VJP_STEPS = {"pendulum": 3, "vdp": 4}
+
+
+def rk_bwd_latency_ms(T, substeps, n_stages, clock_mhz, which="pendulum",
+                      dim=2):
     """Least time of the backward kernel's chain per trajectory: per chunk
     of RK_BWD_CHUNK intervals, one interval's work (per sub-step the stages,
-    as in the forward; the VJP of the basis cotangents through the stages
-    in reverse, 3 unfused steps a stage; the composition, 2 steps) and a
-    barrier; then the T - 1 links of the affine sweep, ybar' = J^T ybar + g
-    (a multiply and two adds)."""
-    interval = substeps * (rk_step_cycles(n_stages) + 3 * n_stages * FMA_CYC
-                           + 2 * FMA_CYC)
+    as in the forward; the VJP of the dim basis cotangents through the
+    stages in reverse, VJP_STEPS a stage (Kuramoto dim + 2), the cotangents
+    in parallel up to dim 4 and one after another above, where the kernel
+    keeps the loop rolled; the dim-term composition) and a barrier; then
+    the T - 1 links of the affine sweep, ybar' = J^T ybar + g (a dim-term
+    dot product and an add)."""
+    vjp = VJP_STEPS.get(which, dim + 2) * (dim if dim > 4 else 1)
+    interval = substeps * (rk_step_cycles(n_stages, which, dim)
+                           + (n_stages * vjp + dim) * FMA_CYC)
     chunks = math.ceil((T - 1) / RK_BWD_CHUNK)
-    cyc = chunks * (interval + BAR_CYC) + (T - 1) * 3 * FMA_CYC
+    cyc = chunks * (interval + BAR_CYC) + (T - 1) * (dim + 1) * FMA_CYC
     return cyc / (clock_mhz * 1e3)
 
 
@@ -300,14 +342,16 @@ def rk_sweep_latency_ms(T, substeps, n_stages, clock_mhz):
     return (T - 1) * substeps * per_step / (clock_mhz * 1e3)
 
 
-def rk_bwd_work(B, T, dim, pdim, substeps, tab, n_stages):
-    """(bytes, float32 operations) of the RK reverse sweep: saveat, ys, ps
-    and g in, du0 and dp out; per step the forward stages again and, per
-    stage, the VJP (~8 operations: cos, sin, reciprocal, products) and the
-    cotangent updates (as the stage combinations)."""
-    nbytes = 4 * (T + 2 * B * T * dim + 2 * B * pdim + B * dim)
-    fwd_ops = rk_work(B, T, dim, pdim, substeps, tab, n_stages)[1]
-    return nbytes, 2 * fwd_ops + B * (T - 1) * substeps * n_stages * 8
+def rk_bwd_work(B, T, dim, pdim, substeps, tab, n_stages, which="pendulum",
+                n_cst=0):
+    """(bytes, float32 operations) of the RK reverse sweep: saveat, ys, ps,
+    g and the run-time constants in, du0 and dp out; per step the forward
+    stages again and, per stage, the VJP (rhs_ops) and the cotangent
+    updates (as the stage combinations)."""
+    nbytes = 4 * (T + 2 * B * T * dim + 2 * B * pdim + B * dim + n_cst)
+    fwd_ops = rk_work(B, T, dim, pdim, substeps, tab, n_stages, which)[1]
+    return (nbytes, 2 * fwd_ops
+            + B * (T - 1) * substeps * n_stages * rhs_ops(which, dim)[1])
 
 
 def max_sm_clock_mhz() -> float:
@@ -1026,36 +1070,103 @@ def rk_trig_check():
     return max(errs[0])
 
 
-def rk_kernel_checks(gen) -> float:
+# The RK kernels' instances on the GOKU paths beside the pendulum's: Van der
+# Pol (mu_max 4) and Kuramoto-10 at their paths' train and validation
+# shapes, 4 sub-steps (kuramoto10-spread: with frequency offsets, the same
+# instance).
+CUSTOM = ("vdp", "kuramoto10")
+CUSTOM_SHAPES = (("train", 64, 50), ("val", 26, 100))
+CUSTOM_SUBSTEPS = 4
+CUSTOM_DT = 0.1
+
+
+def rk_rhs(which):
+    """(f, state width, parameter width, functor family) of an RK case."""
+    from latentdiffeq_torch import custom_dynamics as cdyn
+    from latentdiffeq_torch.pendulum import pendulum_f, pendulum_friction_f
+    if which == "pendulum":
+        return pendulum_f, 2, 1, "pendulum"
+    if which == "friction":
+        return pendulum_friction_f, 2, 1, "pendulum"
+    if which == "vdp":
+        return cdyn.vdp_f, 2, 1, "vdp"
+    spread = 0.5 if which.endswith("spread") else 0.0
+    return cdyn.Kuramoto(10, omega_spread=spread).f, 10, 2, "kuramoto"
+
+
+def rk_name(kernel, f, dim):
+    """The kernels line's name of an RK kernel for ``f``: the pendulum's
+    instances under the kernel's own name, the others with their
+    instance, as rk_fixed_grid[vdp]."""
+    from latentdiffeq_torch.ops import ode_cuda
+    inst = ode_cuda.rhs_instance(f, dim)
+    return kernel if inst.startswith("pendulum") else f"{kernel}[{inst}]"
+
+
+def rk_inputs(which, B, T, gen, dev="cuda"):
+    """(u0s, ps, saveat) of an RK case: the pendulum's angle and velocity
+    ~ U(-1, 1), its parameter ~ U(1, 2), dt 0.05; the examples' draws for
+    the others, dt 0.1: VdP u0 ~ U(-2, 2), mu ~ U(0.5, 4) (mu_max 4);
+    Kuramoto phases ~ U(-pi, pi), omega ~ U(1, 3), K ~ U(0.2, 2)."""
+    _, n, _, family = rk_rhs(which)
+    if family == "pendulum":
+        u0s = torch.rand(B, 2, generator=gen, device=dev) * 2 - 1
+        ps = 1 + torch.rand(B, 1, generator=gen, device=dev)
+        dt = 0.05
+    elif family == "vdp":
+        u0s = torch.rand(B, 2, generator=gen, device=dev) * 4 - 2
+        ps = 0.5 + 3.5 * torch.rand(B, 1, generator=gen, device=dev)
+        dt = CUSTOM_DT
+    else:
+        u0s = (torch.rand(B, n, generator=gen, device=dev) * 2 - 1) * math.pi
+        ps = torch.stack([1 + 2 * torch.rand(B, generator=gen, device=dev),
+                          0.2 + 1.8 * torch.rand(B, generator=gen,
+                                                 device=dev)], dim=1)
+        dt = CUSTOM_DT
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * dt
+    return u0s, ps, saveat
+
+
+def rk_custom_cases():
+    """(label, which, B, T, solver, substeps) of the Van der Pol and
+    Kuramoto-10 instances: Tsit5 at both shapes."""
+    from latentdiffeq_torch.solve.rk import Tsit5
+    return [(label, which, B, T, Tsit5(), CUSTOM_SUBSTEPS)
+            for which in CUSTOM + ("kuramoto10-spread",)
+            for label, B, T in CUSTOM_SHAPES]
+
+
+def rk_kernel_checks(gen):
     """Phase 2 for rk_fixed_grid: the forward kernel against the plain
-    version at the train, validation and ragged shapes, with RK4, Dopri5
-    and sub-steps and the damped RHS; its success flags against the plain
-    flags and isfinite(ys) (also on rows that fail); the baked tableau
+    version, for the pendulum at the train, validation and ragged shapes,
+    with RK4, Dopri5 and sub-steps and the damped RHS, and for Van der Pol
+    and Kuramoto-10 (also with frequency offsets) at their paths' shapes;
+    its success flags against the plain flags and isfinite(ys) (also on
+    rows that fail; all rows ok for the new functors); the baked tableau
     instances (Tsit5, RK4) against the instance that reads the same tableau
     at run time, bit for bit; rows past the fast sine's bound, which rerun
     their steps with sinf; a grid of 1100 points, held against float64 (its
-    float32 trajectories part by more than rounding: the phase drifts); and
-    the sine itself. Returns the largest absolute error against the plain
-    version."""
+    float32 trajectories part by more than rounding: the phase drifts); the
+    float64-distance gate also for the new functors; and the sine itself.
+    Returns {kernel name: largest absolute error against the plain
+    version}."""
     from latentdiffeq_torch.ops import ode_cuda
-    from latentdiffeq_torch.pendulum import pendulum_f, pendulum_friction_f
     from latentdiffeq_torch.solve.rk import RK4, Dopri5, Tsit5
-    worst = 0.0
+    worst = {}
     with torch.no_grad():
-        cases = [("train", 64, 50, pendulum_f, Tsit5(), 1),
-                 ("val", 45, 100, pendulum_f, Tsit5(), 1),
-                 ("ragged", 100, 50, pendulum_f, Tsit5(), 1),
-                 ("rk4-substeps3", 64, 50, pendulum_f, RK4(), 3),
-                 ("dopri5-substeps3", 64, 50, pendulum_f, Dopri5(), 3),
-                 ("friction", 64, 50, pendulum_friction_f, Tsit5(), 1),
-                 ("non-finite rows", 64, 50, pendulum_f, Tsit5(), 1),
-                 ("large angles", 64, 50, pendulum_f, Tsit5(), 1),
-                 ("long", 16, 1100, pendulum_f, Tsit5(), 1)]
-        for label, B, T, f, solver, sub in cases:
-            u0s = (torch.rand(B, 2, generator=gen, device="cuda") * 2 - 1)
-            ps = 1 + torch.rand(B, 1, generator=gen, device="cuda")
-            saveat = torch.arange(T, dtype=torch.float32,
-                                  device="cuda") * 0.05
+        cases = [("train", "pendulum", 64, 50, Tsit5(), 1),
+                 ("val", "pendulum", 45, 100, Tsit5(), 1),
+                 ("ragged", "pendulum", 100, 50, Tsit5(), 1),
+                 ("rk4-substeps3", "pendulum", 64, 50, RK4(), 3),
+                 ("dopri5-substeps3", "pendulum", 64, 50, Dopri5(), 3),
+                 ("friction", "friction", 64, 50, Tsit5(), 1),
+                 ("non-finite rows", "pendulum", 64, 50, Tsit5(), 1),
+                 ("large angles", "pendulum", 64, 50, Tsit5(), 1),
+                 ("long", "pendulum", 16, 1100, Tsit5(), 1)]
+        for label, which, B, T, solver, sub in cases + rk_custom_cases():
+            f, n, _, family = rk_rhs(which)
+            name = rk_name("rk_fixed_grid", f, n)
+            u0s, ps, saveat = rk_inputs(which, B, T, gen)
             big = torch.zeros(B, dtype=torch.bool, device="cuda")
             if label == "non-finite rows":
                 u0s[1, 0], ps[3, 0], u0s[5, 1] = math.nan, 0.0, math.inf
@@ -1068,16 +1179,19 @@ def rk_kernel_checks(gen) -> float:
                 f, solver, u0s, ps, saveat, substeps=sub)
             flags = (torch.equal(ok, ok_p) and torch.equal(
                 ok, torch.isfinite(got).all(dim=2).all(dim=1)))
+            if family != "pendulum":
+                flags = flags and bool(ok.all())
             fine = ok & ok_p & ~big
             e = max_err(got[fine], ref[fine])
             tol = ("held against float64" if label == "long"
                    else f"tol {TOL:.0e}")
-            line = (f"rk_fixed_grid {label} B={B} T={T} "
+            tag = label if family == "pendulum" else f"{which} {label}"
+            line = (f"{name} {tag} B={B} T={T} "
                     f"{type(solver).__name__} substeps={sub}: max abs err "
                     f"{e:.3e} ({tol}); success flags as plain and "
                     f"isfinite: {flags} ({int(ok.sum())} of {B} rows)")
-            good = flags and e <= TOL
-            if label == "long":
+            good = flags and (e <= TOL or label == "long")
+            if label == "long" or family != "pendulum":
                 # the kernel at most twice as far from float64 as the plain
                 # float32 solve, as the neural-field forward is held
                 ref64 = ode_cuda.solve_fixed_grid_batched_reference(
@@ -1085,10 +1199,11 @@ def rk_kernel_checks(gen) -> float:
                     substeps=sub)[0]
                 e_k = max_err(got.double(), ref64)
                 e_p = max_err(ref.double(), ref64)
-                line += f"; vs float64: kernel {e_k:.3e}, plain {e_p:.3e}"
-                good = flags and e_k <= 2 * e_p + 1e-6
-            else:
-                worst = max(worst, e)
+                line += (f"; vs float64: kernel {e_k:.3e}, plain {e_p:.3e} "
+                         f"(gate 2 x plain + 1e-6)")
+                good = good and e_k <= 2 * e_p + 1e-6
+            if label != "long":
+                worst[name] = max(worst.get(name, 0.0), e)
             if label == "large angles":
                 e_big = max(rel_err(got[big][..., d], ref[big][..., d])
                             for d in range(2))
@@ -1106,7 +1221,7 @@ def rk_kernel_checks(gen) -> float:
                 good = good and same
             log("kernels", line)
             if not good:
-                fail(f"rk_fixed_grid {label}: {line}")
+                fail(f"{name} {tag}: {line}")
     rk_trig_check()
     return worst
 
@@ -1116,27 +1231,36 @@ def rk_grad_checks(gen):
     against the plain maps over the same trajectory, its gradients against
     the two-phase plain version (plain maps, then the plain affine sweep)
     and the plain step-by-step reverse sweep over the same trajectory, then
-    the whole backward against plain autograd; on a grid of several chunks
-    (T 1100) only against the plain versions on the same trajectory (the
-    plain forward's own trajectory drifts from the kernel's over 1099
-    steps, see rk_kernel_checks). Returns the largest absolute error of the
-    kernel's gradients against the plain versions on the same trajectory,
-    at the grids of 50 and 100 points."""
+    the whole backward against plain autograd, for the pendulum cases and
+    Van der Pol and Kuramoto-10 at their paths' shapes. On grids of several
+    chunks only against the plain versions on the same trajectory (the
+    plain forward's own trajectory drifts from the kernel's, see
+    rk_kernel_checks): the pendulum's T 1100 against both; Van der Pol and
+    Kuramoto-10 at T 300 (1196 steps, over which the interval maps and the
+    step-by-step sweep, two float32 orders, can part by more than GRAD_TOL;
+    for Kuramoto the maps, the kernel's and the plain ones alike, end
+    farther from float64) against the two-phase plain version, and against
+    a float64 sweep over the same trajectory, at most twice as far from it
+    as the two-phase plain version is. Returns {kernel name: largest absolute error of the kernel's
+    gradients against the plain versions on the same trajectory}, at the
+    grids of 50 and 100 points."""
     from latentdiffeq_torch.ops import ode_cuda
-    from latentdiffeq_torch.pendulum import pendulum_f, pendulum_friction_f
     from latentdiffeq_torch.solve.rk import RK4, Dopri5, Tsit5
-    worst = 0.0
-    for label, f, solver, sub, B, T in (
-            ("train", pendulum_f, Tsit5(), 1, 64, 50),
-            ("val", pendulum_f, Tsit5(), 1, 45, 100),
-            ("rk4-substeps3", pendulum_f, RK4(), 3, 64, 50),
-            ("dopri5-substeps3", pendulum_f, Dopri5(), 3, 64, 50),
-            ("friction", pendulum_friction_f, Tsit5(), 1, 64, 50),
-            ("long", pendulum_f, Tsit5(), 1, 16, 1100)):
-        u0s = torch.rand(B, 2, generator=gen, device="cuda") * 2 - 1
-        ps = 1 + torch.rand(B, 1, generator=gen, device="cuda")
-        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * 0.05
-        w = torch.randn(B, T, 2, generator=gen, device="cuda")
+    worst = {}
+    cases = [("train", "pendulum", 64, 50, Tsit5(), 1),
+             ("val", "pendulum", 45, 100, Tsit5(), 1),
+             ("rk4-substeps3", "pendulum", 64, 50, RK4(), 3),
+             ("dopri5-substeps3", "pendulum", 64, 50, Dopri5(), 3),
+             ("friction", "friction", 64, 50, Tsit5(), 1),
+             ("long", "pendulum", 16, 1100, Tsit5(), 1)]
+    cases += rk_custom_cases() + [("long", which, 16, 300, Tsit5(),
+                                   CUSTOM_SUBSTEPS) for which in CUSTOM]
+    for label, which, B, T, solver, sub in cases:
+        f, n, _, family = rk_rhs(which)
+        name = rk_name("rk_fixed_grid_bwd", f, n)
+        tag = label if family == "pendulum" else f"{which} {label}"
+        u0s, ps, saveat = rk_inputs(which, B, T, gen)
+        w = torch.randn(B, T, n, generator=gen, device="cuda")
         with torch.no_grad():
             ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
                 f, solver, u0s, ps, saveat, substeps=sub)
@@ -1153,15 +1277,17 @@ def rk_grad_checks(gen):
         e_two = max(rel_err(a, b) for a, b in zip(got, two))
         e_sw = max(rel_err(a, b) for a, b in zip(got, sweep))
         if label != "long":  # its gradients reach ~1e3: held relatively
-            worst = max(worst,
-                        max(max_err(a, b) for a, b in zip(got, sweep)),
-                        max(max_err(a, b) for a, b in zip(got, two)))
-        line = (f"rk_fixed_grid {label} B={B} T={T} "
-                f"{type(solver).__name__} substeps={sub}: rk_fixed_grid_bwd "
-                f"interval maps vs plain maps on the same ys max rel err "
-                f"{e_maps:.3e}; gradients vs two-phase plain {e_two:.3e}, vs "
-                f"plain reverse sweep {e_sw:.3e}")
+            worst[name] = max(worst.get(name, 0.0),
+                              max(max_err(a, b) for a, b in zip(got, sweep)),
+                              max(max_err(a, b) for a, b in zip(got, two)))
+        line = (f"{name} {tag} B={B} T={T} "
+                f"{type(solver).__name__} substeps={sub}: interval maps vs "
+                f"plain maps on the same ys max rel err {e_maps:.3e}; "
+                f"gradients vs two-phase plain {e_two:.3e}, vs plain reverse "
+                f"sweep {e_sw:.3e}")
         e_kp = 0.0
+        gated = [e_maps, e_two, e_sw]
+        far = True
         if label != "long":
             def grads(fn):
                 u = u0s.clone().requires_grad_()
@@ -1173,11 +1299,104 @@ def rk_grad_checks(gen):
             p = grads(ode_cuda.solve_fixed_grid_batched_reference)
             e_kp = max(rel_err(a, b) for a, b in zip(k, p))
             line += f"; whole backward vs plain autograd {e_kp:.3e}"
+            gated.append(e_kp)
+        elif family != "pendulum":
+            sweep64 = ode_cuda.solve_fixed_grid_batched_backward_reference(
+                f, solver, saveat.double(), ys.double(), ps.double(),
+                w.double(), substeps=sub)
+            d = [[rel_err(a.double(), ref) for a, ref in zip(grads, sweep64)]
+                 for grads in (got, two, sweep)]
+            far = all(k <= 2 * t for k, t in zip(d[0], d[1]))
+            line += ("; vs a float64 sweep (du0, dp): kernel "
+                     f"{d[0][0]:.3e}, {d[0][1]:.3e}; two-phase plain "
+                     f"{d[1][0]:.3e}, {d[1][1]:.3e}; step-by-step sweep "
+                     f"{d[2][0]:.3e}, {d[2][1]:.3e} (gate kernel <= 2 x "
+                     f"two-phase)")
+            gated.remove(e_sw)  # another float32 order, held through float64
         log("grads", line + f" (tol {GRAD_TOL:.0e})")
-        if not max(e_maps, e_two, e_sw, e_kp) <= GRAD_TOL:
-            fail(f"rk_fixed_grid grads {label}: maps {e_maps}, two-phase "
-                 f"{e_two}, sweep {e_sw}, autograd {e_kp}")
+        if not (max(gated) <= GRAD_TOL and far):
+            fail(f"{name} {tag}: maps {e_maps}, two-phase {e_two}, sweep "
+                 f"{e_sw}, autograd {e_kp}, float64 gate {far}")
     return worst
+
+
+def rk_timing(gen, clock):
+    """Phase 5 for the RK kernels, Tsit5: the pendulum at its GOKU path's
+    train (B 64, T 50) and validation (B 45, T 100) shapes, substeps 1, and
+    Van der Pol and Kuramoto-10 at theirs (B 64, T 50; B 26, T 100),
+    substeps 4: each kernel's time per call and on the device beside its
+    plain version on the same inputs (the backward's: the plain reverse
+    sweep), its bound and latency model; forward + backward by the kernel
+    route and by plain autograd. Returns {name: (ms, plain_ms, bound_ms,
+    bound_by, library_ms)} at the train shape."""
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    s = Tsit5()
+    tab = s.tableau
+    n_st = n_solution_stages(tab)
+    cases = [("pendulum", "train", 64, 50, 1), ("pendulum", "val", 45, 100, 1)]
+    cases += [(which, label, B, T, CUSTOM_SUBSTEPS) for which in CUSTOM
+              for label, B, T in CUSTOM_SHAPES]
+    out = {}
+    for which, label, B, T, sub in cases:
+        f, n, pdim, family = rk_rhs(which)
+        n_cst = n if family == "kuramoto" else 0
+        fwd_name = rk_name("rk_fixed_grid", f, n)
+        bwd_name = rk_name("rk_fixed_grid_bwd", f, n)
+        u0s, ps, saveat = rk_inputs(which, B, T, gen)
+        w = torch.randn(B, T, n, generator=gen, device="cuda")
+        with torch.no_grad():
+            ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
+                f, s, u0s, ps, saveat, substeps=sub)
+        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+
+        def route(fn):
+            y = fn(f, s, u, p, saveat, substeps=sub)[0]
+            torch.autograd.grad(y, [u, p], w)
+
+        k_r = time_ms(lambda: route(ode_cuda.solve_fixed_grid_batched))
+        p_r = time_ms(lambda: route(
+            ode_cuda.solve_fixed_grid_batched_reference), reps=3, warmup=1)
+        log("timing", f"{fwd_name} {label} forward + backward, per call: "
+                      f"kernel route (rk_fixed_grid, rk_fixed_grid_bwd) "
+                      f"{k_r:.4f} ms, plain autograd {p_r:.4f} ms")
+        calls = {
+            fwd_name: (
+                lambda: ode_cuda.solve_fixed_grid_batched_cuda(
+                    f, s, u0s, ps, saveat, substeps=sub),
+                lambda: ode_cuda.solve_fixed_grid_batched_reference(
+                    f, s, u0s, ps, saveat, substeps=sub),
+                "rk_fixed_grid_kernel",
+                rk_work(B, T, n, pdim, sub, tab, n_st, family, n_cst),
+                rk_latency_ms(T, sub, n_st, clock, family, n)),
+            bwd_name: (
+                lambda: ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+                    f, s, saveat, ys, ps, w, substeps=sub),
+                lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
+                    f, s, saveat, ys, ps, w, substeps=sub),
+                "rk_fixed_grid_bwd_kernel",
+                rk_bwd_work(B, T, n, pdim, sub, tab, n_st, family, n_cst),
+                rk_bwd_latency_ms(T, sub, n_st, clock, family, n))}
+        with torch.no_grad():
+            for name, (kernel, plain, kname, work, lat) in calls.items():
+                k_ms = time_ms(kernel)
+                d_ms = device_ms(kernel, kname)
+                p_ms = time_ms(plain, reps=3, warmup=1)
+                b_ms, b_by, t_b, t_o = bound_ms(*work)
+                line = (f"{name} {label} B={B} T={T} substeps={sub}: kernel "
+                        f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
+                        f"device), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+                        f"({b_by}; bytes {t_b:.6f} ms, operations "
+                        f"{t_o:.6f} ms), latency model {lat:.6f} ms at "
+                        f"{clock:.0f} MHz; library: none")
+                if name == "rk_fixed_grid_bwd":
+                    line += (f" (the step-by-step reverse sweep's model "
+                             f"{rk_sweep_latency_ms(T, sub, n_st, clock):.6f}"
+                             f" ms)")
+                log("timing", line)
+                if label == "train":
+                    out[name] = (k_ms, p_ms, b_ms, b_by, None)
+    return out
 
 
 def goku_timing(heads, gen, clock, dev):
@@ -1187,15 +1406,9 @@ def goku_timing(heads, gen, clock, dev):
     and its latency model; the heads' products; forward + backward of the
     heads by the kernel route, plain autograd and cuDNN (torch.nn.RNN and
     two torch.nn.LSTM on the same weights, the yardstick; the port never
-    calls them), and of the RK solve by the kernel route and plain
-    autograd. Returns {name: (ms, plain_ms, bound_ms, bound_by,
+    calls them). Returns {name: (ms, plain_ms, bound_ms, bound_by,
     library_ms)} at the train shape."""
-    from latentdiffeq_torch.ops import ode_cuda
     from latentdiffeq_torch.ops import recurrent_cuda as rc
-    from latentdiffeq_torch.pendulum import pendulum_f
-    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
-    tab = Tsit5().tableau
-    n_st = n_solution_stages(tab)
     L, H = len(heads[0].cells), heads[0].cells[0].hidden_dim
     params = rc._heads_params(*heads)
     mods, state, cudnn_run = cudnn_heads(heads, dev)
@@ -1260,25 +1473,6 @@ def goku_timing(heads, gen, clock, dev):
                 *heads, xs, tape, dg, dh0, dc0))
         log("timing", f"goku_heads {label} products (dxs, dW, db, dh0, dc0; "
                       f"PyTorch matrix products): {prod_ms:.4f} ms per call")
-        u0s = torch.rand(B, 2, generator=gen, device=dev) * 2 - 1
-        ps = 1 + torch.rand(B, 1, generator=gen, device=dev)
-        saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
-        w = torch.randn(B, T, 2, generator=gen, device=dev)
-        with torch.no_grad():
-            ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
-                pendulum_f, Tsit5(), u0s, ps, saveat)
-        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
-
-        def rk_route(fn):
-            y = fn(pendulum_f, Tsit5(), u, p, saveat)[0]
-            torch.autograd.grad(y, [u, p], w)
-
-        k_rk = time_ms(lambda: rk_route(ode_cuda.solve_fixed_grid_batched))
-        p_rk = time_ms(lambda: rk_route(
-            ode_cuda.solve_fixed_grid_batched_reference), reps=3, warmup=1)
-        log("timing", f"rk_fixed_grid {label} forward + backward, per call: "
-                      f"kernel route (rk_fixed_grid, rk_fixed_grid_bwd) "
-                      f"{k_rk:.4f} ms, plain autograd {p_rk:.4f} ms")
         calls = {
             "goku_heads": (
                 lambda: rc.goku_heads_cuda(*heads, xs),
@@ -1295,21 +1489,6 @@ def goku_timing(heads, gen, clock, dev):
                 lambda: rc.goku_heads_sweep_reference(*heads, tape, gz, gt),
                 "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L),
                 heads_bwd_latency_ms(T, L, H, clock), None),
-            "rk_fixed_grid": (
-                lambda: ode_cuda.solve_fixed_grid_batched_cuda(
-                    pendulum_f, Tsit5(), u0s, ps, saveat),
-                lambda: ode_cuda.solve_fixed_grid_batched_reference(
-                    pendulum_f, Tsit5(), u0s, ps, saveat),
-                "rk_fixed_grid_kernel", rk_work(B, T, 2, 1, 1, tab, n_st),
-                rk_latency_ms(T, 1, n_st, clock), None),
-            "rk_fixed_grid_bwd": (
-                lambda: ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-                    pendulum_f, Tsit5(), saveat, ys, ps, w),
-                lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
-                    pendulum_f, Tsit5(), saveat, ys, ps, w),
-                "rk_fixed_grid_bwd_kernel",
-                rk_bwd_work(B, T, 2, 1, 1, tab, n_st),
-                rk_bwd_latency_ms(T, 1, n_st, clock), None),
         }
         with torch.no_grad():
             for name, (kernel, plain, kname, work, lat, lib) in calls.items():
@@ -1324,10 +1503,6 @@ def goku_timing(heads, gen, clock, dev):
                     line += (f", bound {b_ms:.6f} ms ({b_by}; bytes "
                              f"{t_b:.6f} ms, operations {t_o:.6f} ms)")
                 line += f", latency model {lat:.6f} ms at {clock:.0f} MHz"
-                if name == "rk_fixed_grid_bwd":
-                    line += (f" (the step-by-step reverse sweep's model "
-                             f"{rk_sweep_latency_ms(T, 1, n_st, clock):.6f} "
-                             f"ms)")
                 log("timing", line)
                 if label == "train" and work is not None:
                     out[name] = (k_ms, p_ms, b_ms, b_by, lib)
@@ -1348,6 +1523,215 @@ def goku_timing(heads, gen, clock, dev):
                   f"kernels: forward {fmt_ms(f_ms)}, sweep {fmt_ms(b_ms)} on "
                   f"the device")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The GOKU paths and the counters they read.
+
+def reset_counts():
+    """Every kernel wrapper's launch count (the RK launchers' by instance)
+    and the plain versions' call counts to 0."""
+    from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
+    for fn in (recurrent_cuda.goku_heads_cuda,
+               recurrent_cuda.goku_heads_bwd_cuda,
+               node_cuda.solve_neural_field_cuda,
+               node_cuda.neural_field_sweep_cuda,
+               node_cuda.neural_field_dw_cuda):
+        fn.launches = 0
+    ode_cuda.solve_fixed_grid_batched_cuda.launches.clear()
+    ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches.clear()
+    recurrent_cuda.goku_heads_reference.calls = 0
+    ode_cuda.solve_fixed_grid_batched_reference.calls = 0
+
+
+def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
+    """A GOKU main path: GOKUBasic with both kernel switches on, on
+    ``layers`` (encoder, decoder) for ``diffeq``, Trainer.fit under ``cfg``
+    for 2 epochs, each followed by validation. Per train step it must
+    launch goku_heads and the RK kernel's instance for ``diffeq``'s RHS
+    (writing the tape) and both backward kernels, per validation pass the
+    two forward kernels, no other RK instance and no plain version; then
+    the trained model, kernel route against the plain route on the same
+    weights on the validation set, and the step and validation times and
+    the device ops of one step. Returns (launches, trainer, batch, beta)."""
+    from latentdiffeq_torch.models import GOKUBasic, LatentDiffEqModel
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    from latentdiffeq_torch.train import Trainer
+
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
+    trainer = Trainer(model, cfg, device=dev)
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda
+    inst = ode_cuda.rhs_instance(diffeq.f, diffeq.z_dim)
+    names = (rk_name("rk_fixed_grid", diffeq.f, diffeq.z_dim),
+             rk_name("rk_fixed_grid_bwd", diffeq.f, diffeq.z_dim))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"goku_heads": recurrent_cuda.goku_heads_cuda.launches,
+                "goku_heads_bwd": recurrent_cuda.goku_heads_bwd_cuda.launches,
+                names[0]: fwd.launches.get(inst, 0),
+                names[1]: bwd.launches.get(inst, 0)}
+    others = (sum(fwd.launches.values()) - launches[names[0]],
+              sum(bwd.launches.values()) - launches[names[1]])
+    plain_calls = [recurrent_cuda.goku_heads_reference.calls,
+                   ode_cuda.solve_fixed_grid_batched_reference.calls]
+    steps = train_set.shape[0] // cfg.batch_size
+    for rec in hist:
+        log("train", f"{what} epoch {rec['epoch']}: train loss "
+                     f"{rec['train_loss']:.6f} val loss {rec['val_loss']:.6f}"
+                     f" beta {rec['beta']:.4f} {rec['epoch_s']:.4f} s")
+        if not (math.isfinite(rec["train_loss"])
+                and math.isfinite(rec["val_loss"])):
+            fail(f"{what}: non-finite loss in epoch {rec['epoch']}")
+    # forward kernels: one per train step (writing the tape) and one per
+    # validation pass; backward kernels: one per train step
+    expected = {"goku_heads": 2 * steps * 2, "goku_heads_bwd": 2 * steps,
+                names[0]: 2 * steps * 2, names[1]: 2 * steps}
+    log("train", f"{what} fit 2 epochs x {steps} steps in {fit_s:.3f} s; "
+                 f"kernel launches {launches} (expected {expected}); "
+                 f"launches of other RK instances {others} (expected (0, "
+                 f"0)); calls of the plain goku_heads / RK solve: "
+                 f"{plain_calls} (expected [0, 0])")
+    if launches != expected or others != (0, 0):
+        fail(f"{what} path launched {launches} (+{others}), expected "
+             f"{expected}")
+    if plain_calls != [0, 0]:
+        fail(f"the plain version ran during the {what} fit: {plain_calls}")
+
+    # the kernel path against the plain path, same weights, on the card
+    plain = copy.deepcopy(model)
+    plain.model_type = plain.encoder.model_type = \
+        plain.decoder.model_type = GOKUBasic()
+    t_val = torch.arange(val_set.shape[1], dtype=torch.float32,
+                         device=dev) * cfg.dt
+    with torch.no_grad():
+        (xk, zk, _), _, _, aux = model(val_set, t_val)
+        (xp, zp, _), _, _, _ = plain(val_set, t_val)
+    e = max(max_err(xk, xp), max_err(zk, zp))
+    log("train", f"trained {what} GOKU, kernel vs plain path on the val "
+                 f"set: x_hat {tuple(xk.shape)} z_hat {tuple(zk.shape)} max "
+                 f"abs err {e:.3e} (tol {PATH_TOL:.0e}); all solves ok: "
+                 f"{bool(aux['success'].all())}")
+    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())
+            and xk.shape == val_set.shape
+            and tuple(zk.shape) == (*val_set.shape[:2], diffeq.z_dim)):
+        fail(f"{what} kernel path vs plain path: {e}")
+
+    data = train_set[:cfg.batch_size, :cfg.seq_len]
+    beta = float(hist[-1]["beta"])
+    step_ms, val_ms = step_times(trainer, data, val_set, beta)
+    n_ops, busy, span = step_device_ops(trainer, data, beta)
+    log("train", f"{what} step time (median of 5, synchronised): train "
+                 f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; one "
+                 f"train step under torch.profiler: {n_ops} device ops, "
+                 f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
+                 f"{100 * (1 - busy / span) if span else 0:.1f} %); card "
+                 f"{gpu}")
+    return launches, trainer, data, beta
+
+
+def custom_dataset(which, dev):
+    """The Van der Pol (mu_max 4) or Kuramoto-10 GOKU path's data and
+    config, as the JAX examples have them: 256 trajectories x 100 frames of
+    64 channels made on the card (230 / 26 split), batch 64, seq 50, dt
+    0.1; Van der Pol with TrainConfig(seed=7), Kuramoto-10 with the KL
+    ceiling 0.01 in one cycle. Returns (train set, val set, dynamics,
+    config)."""
+    from latentdiffeq_torch.custom_data import (make_kuramoto_data,
+                                                make_vdp_data)
+    from latentdiffeq_torch.train import TrainConfig, splitobs
+
+    t0 = time.perf_counter()
+    if which == "vdp":
+        x, _, _, diffeq = make_vdp_data(mu_max=4.0, device=dev)
+        cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+                          epochs=300, save_best=False)
+    else:
+        x, _, _, diffeq = make_kuramoto_data(device=dev)
+        cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+                          epochs=300, start_beta=0.0, end_beta=0.01,
+                          n_cycle=1, save_best=False)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if (tuple(x.shape) != (256, 100, 64) or not bool(torch.isfinite(x).all())
+            or float(x.min()) != 0.0 or float(x.max()) != 1.0):
+        fail(f"{which} data: shape {tuple(x.shape)}, range "
+             f"[{float(x.min())}, {float(x.max())}]")
+    train_set, val_set = splitobs(x, 0.9)
+    log("train", f"{which}: data 256x100x64 on {dev} in {gen_s:.3f} s "
+                 f"(port's solve_ensemble, fixed grid, 4 sub-steps); train "
+                 f"{tuple(train_set.shape)} val {tuple(val_set.shape)}")
+    return train_set, val_set, diffeq, cfg
+
+
+API_TOL = 1e-9  # float64, card vs CPU: the same steps, sums in other orders
+
+
+def solve_api_card_checks(dev):
+    """The solve API and the adjoints on CUDA tensors against the same calls
+    on CPU tensors (float64, small): solve_ensemble on the fixed grid and
+    adaptively, odeint(adaptive=True) with Unrolled gradients, both
+    adjoints over an adaptive forward (per-row parameters), and the
+    backsolve with a neural field as p (its per-row parameter adjoint
+    through torch.func on the card). Returns the largest relative error."""
+    import latentdiffeq_torch as ldt
+    from latentdiffeq_torch import nn as tnn
+    from latentdiffeq_torch.custom_dynamics import vdp_f
+
+    g = torch.Generator().manual_seed(3)
+    u0s = torch.rand(6, 2, generator=g, dtype=torch.float64) * 4 - 2
+    ps = 0.5 + 3.5 * torch.rand(6, 1, generator=g, dtype=torch.float64)
+    saveat = torch.arange(20, dtype=torch.float64) * CUSTOM_DT
+    w = torch.randn(6, 20, 2, generator=g, dtype=torch.float64)
+    field = tnn.mlp((2, 8, 2), tnn.tanh, generator=g, dtype=torch.float64)
+    ada = dict(rtol=1e-6, atol=1e-9)
+
+    def run(device):
+        u, p, s, ww = (t.to(device) for t in (u0s, ps, saveat, w))
+        prob = ldt.ODEProblem(f=vdp_f, u0=u[0], tspan=(0.0, 1.9), p=p[0])
+        out = {"solve_ensemble fixed": (ldt.solve_ensemble(
+                   prob, ldt.Tsit5(), u0s=u, ps=p, saveat=s, adaptive=False,
+                   substeps=4).ys,),
+               "solve_ensemble adaptive": (ldt.solve_ensemble(
+                   prob, ldt.Tsit5(), u0s=u, ps=p, saveat=s, **ada).ys,)}
+        for name, sa in (("odeint adaptive", ldt.Unrolled()),
+                         ("InterpolatingAdjoint", ldt.InterpolatingAdjoint()),
+                         ("BacksolveAdjoint", ldt.BacksolveAdjoint())):
+            uu, pp = u.clone().requires_grad_(), p.clone().requires_grad_()
+            ys = ldt.odeint(vdp_f, ldt.Tsit5(), uu, pp, s,
+                            ldt.make_options(**ada), sa)[0]
+            out[name] = (ys,) + torch.autograd.grad((ys * ww).sum(),
+                                                    [uu, pp])
+        fm = copy.deepcopy(field).to(device)
+        uu = u.clone().requires_grad_()
+        ys = ldt.odeint(lambda y, q, t: q(y), ldt.Tsit5(), uu, fm, s,
+                        ldt.make_options(adaptive=False, substeps=2),
+                        ldt.BacksolveAdjoint(bwd_substeps=4))[0]
+        out["BacksolveAdjoint, neural field p"] = (ys,) + torch.autograd.grad(
+            (ys * ww).sum(), [uu] + list(fm.parameters()))
+        return out
+
+    t0 = time.perf_counter()
+    got = run(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ref = run("cpu")
+    worst = 0.0
+    for name, tensors in got.items():
+        e = max(rel_err(a.cpu(), b) for a, b in zip(tensors, ref[name]))
+        worst = max(worst, e)
+        log("api", f"{name} on the card vs the CPU (float64): max rel err "
+                   f"{e:.3e} over ys and the gradients (tol {API_TOL:.0e})")
+        if not (e <= API_TOL and all(bool(torch.isfinite(a).all())
+                                     for a in tensors)):
+            fail(f"{name} card vs CPU: {e}")
+    log("api", f"solve API and adjoints on the card in {card_s:.3f} s")
+    return worst
 
 
 def step_device_ops(trainer, data, beta):
@@ -1410,14 +1794,12 @@ def main():
     import numpy as np
 
     from latentdiffeq_torch.adjoint import SolveOptions
-    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
-                                           goku_default_layers)
+    from latentdiffeq_torch.models import goku_default_layers
     from latentdiffeq_torch.ops import _build
-    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
     from latentdiffeq_torch.pendulum import Pendulum
     from latentdiffeq_torch.pendulum_data import (draw_initial_conditions,
                                                   generate_dataset)
-    from latentdiffeq_torch.train import TrainConfig, Trainer, splitobs
+    from latentdiffeq_torch.train import TrainConfig, splitobs
 
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda")
@@ -1445,14 +1827,14 @@ def main():
         device=dev)
     heads = enc[1]
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"goku_heads": goku_kernel_checks(heads, gen),
-            "rk_fixed_grid": rk_kernel_checks(gen)}
+    errs = {"goku_heads": goku_kernel_checks(heads, gen)}
+    errs.update(rk_kernel_checks(gen))
     errs["node_field_fwd"] = node_kernel_checks()
     torch.cuda.synchronize()
 
     # ---- 3. gradients -----------------------------------------------------
     errs["goku_heads_bwd"] = goku_grad_checks(heads, gen)
-    errs["rk_fixed_grid_bwd"] = rk_grad_checks(gen)
+    errs.update(rk_grad_checks(gen))
     errs["node_field_bwd"], errs["node_field_dw"] = node_grad_checks()
 
     # ---- 4. main path: GOKU training on pendulum video --------------------
@@ -1473,111 +1855,59 @@ def main():
     train_set, val_set = splitobs(x, 0.9)
     log("train", f"dataset 450x100x28x28 on {dev} in {gen_s:.3f} s; "
                  f"train {tuple(train_set.shape)} val {tuple(val_set.shape)}")
-
-    mt = GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True)
-    enc, dec = goku_default_layers(
+    layers = goku_default_layers(
         784, diffeq, generator=torch.Generator().manual_seed(333),
         device=dev)
-    model = LatentDiffEqModel.build(mt, enc, dec)
-    cfg = TrainConfig(epochs=1500, save_best=False)
-    trainer = Trainer(model, cfg, device=dev)
-    counters = {"goku_heads": recurrent_cuda.goku_heads_cuda,
-                "rk_fixed_grid": ode_cuda.solve_fixed_grid_batched_cuda,
-                "goku_heads_bwd": recurrent_cuda.goku_heads_bwd_cuda,
-                "rk_fixed_grid_bwd": ode_cuda.solve_fixed_grid_batched_bwd_cuda}
-    plains = (recurrent_cuda.goku_heads_reference,
-              ode_cuda.solve_fixed_grid_batched_reference)
-    for fn in counters.values():
-        fn.launches = 0
-    for fn in plains:
-        fn.calls = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    plain_calls = [fn.calls for fn in plains]
-    steps = train_set.shape[0] // cfg.batch_size
-    for rec in hist:
-        log("train", f"epoch {rec['epoch']}: train loss "
-                     f"{rec['train_loss']:.6f} val loss {rec['val_loss']:.6f}"
-                     f" beta {rec['beta']:.4f} {rec['epoch_s']:.4f} s")
-        if not (math.isfinite(rec["train_loss"])
-                and math.isfinite(rec["val_loss"])):
-            fail(f"non-finite loss in epoch {rec['epoch']}")
-    # forward kernels: one per train step (writing the tape) and one per
-    # validation pass; backward kernels: one per train step
-    expected = {"goku_heads": 2 * steps * 2, "rk_fixed_grid": 2 * steps * 2,
-                "goku_heads_bwd": 2 * steps, "rk_fixed_grid_bwd": 2 * steps}
-    log("train", f"fit 2 epochs x {steps} steps in {fit_s:.3f} s; kernel "
-                 f"launches {launches} (expected {expected}); calls of the "
-                 f"plain goku_heads / RK solve: "
-                 f"{plain_calls} (expected [0, 0])")
-    if launches != expected:
-        fail(f"GOKU main path launched {launches}, expected {expected}")
-    if plain_calls != [0, 0]:
-        fail(f"the plain version ran during the GOKU fit: {plain_calls}")
-
-    # the kernel path against the plain path, same weights, on the card
-    plain = copy.deepcopy(model)
-    plain.model_type = plain.encoder.model_type = \
-        plain.decoder.model_type = GOKUBasic()
-    t_val = torch.arange(100, dtype=torch.float32, device=dev) * cfg.dt
-    with torch.no_grad():
-        (xk, zk, _), _, _, aux = model(val_set, t_val)
-        (xp, zp, _), _, _, _ = plain(val_set, t_val)
-    e = max(max_err(xk, xp), max_err(zk, zp))
-    log("train", f"trained model, kernel vs plain path on the val set: "
-                 f"x_hat {tuple(xk.shape)} max abs err {e:.3e} (tol "
-                 f"{PATH_TOL:.0e}); all solves ok: "
-                 f"{bool(aux['success'].all())}")
-    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())):
-        fail(f"kernel path vs plain path: {e}")
-
-    # step time, synchronised: one training step, then the validation pass
-    data = train_set[:cfg.batch_size, :cfg.seq_len]
-    beta = float(hist[-1]["beta"])
-    step_ms, val_ms = step_times(trainer, data, val_set, beta)
-    log("train", f"step time (median of 5, synchronised): train step "
-                 f"{step_ms:.3f} ms, val pass {val_ms:.3f} ms; card {gpu}")
-    n_ops, busy, span = step_device_ops(trainer, data, beta)
-    log("train", f"one GOKU train step under torch.profiler: {n_ops} device "
-                 f"ops, device busy {busy:.3f} ms of a {span:.3f} ms span")
+    launches, trainer, data, beta = goku_path(
+        "pendulum", train_set, val_set, diffeq, layers,
+        TrainConfig(epochs=1500, save_best=False), dev, gpu)
 
     # ---- 4b. second main path: LatentODE training on the same video ------
     node_launches, node_trainer, node_data, node_beta = latent_ode_path(
         train_set, val_set, dev, gpu)
     launches.update(node_launches)
 
+    # ---- 4c, 4d. GOKU on Van der Pol and on Kuramoto-10 at the JAX
+    # examples' width: goku_default_layers(64, diffeq, hidden_dim_resnet=100,
+    # latent_to_diffeq_dim=100), RNN/LSTM 32->16->16, latent 16 (the kernels
+    # line's goku_heads counts stay the pendulum path's)
+    for which in CUSTOM:
+        c_train, c_val, c_diffeq, c_cfg = custom_dataset(which, dev)
+        layers = goku_default_layers(
+            64, c_diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
+            generator=torch.Generator().manual_seed(0), device=dev)
+        path_launches = goku_path(which, c_train, c_val, c_diffeq, layers,
+                                  c_cfg, dev, gpu)[0]
+        launches.update({k: v for k, v in path_launches.items()
+                         if k.startswith("rk_fixed_grid")})
+
+    # ---- 4e. the solve API and the adjoints on the card -------------------
+    solve_api_card_checks(dev)
+
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
-    kernels = []
-    goku_t = goku_timing(heads, gen, clock, dev)
-    node_t = node_timing(clock)
+    times = goku_timing(heads, gen, clock, dev)
+    times.update(rk_timing(gen, clock))
+    times.update(node_timing(clock))
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
     node_src = "latentdiffeq_torch/csrc/node_field.cu"
-    for name, src, replaces, times in (
-            ("goku_heads", heads_src,
-             "latentdiffeq/ops/recurrent_pallas.py:86", goku_t["goku_heads"]),
-            ("goku_heads_bwd", heads_src,
-             "latentdiffeq/ops/recurrent_pallas.py:142",
-             goku_t["goku_heads_bwd"]),
-            ("rk_fixed_grid", rk_src, "latentdiffeq/ops/ode_pallas.py:130",
-             goku_t["rk_fixed_grid"]),
-            ("rk_fixed_grid_bwd", rk_src,
-             "latentdiffeq/ops/ode_pallas.py:156",
-             goku_t["rk_fixed_grid_bwd"]),
-            ("node_field_fwd", node_src,
-             "latentdiffeq/ops/node_pallas.py:154", node_t["node_field_fwd"]),
-            ("node_field_bwd", node_src,
-             "latentdiffeq/ops/node_pallas.py:269", node_t["node_field_bwd"]),
-            ("node_field_dw", node_src,
-             "latentdiffeq/ops/node_pallas.py:269", node_t["node_field_dw"])):
-        k_ms, p_ms, b_ms, b_by, lib_ms = times
+    origin = {"goku_heads": (heads_src, "recurrent_pallas.py:86"),
+              "goku_heads_bwd": (heads_src, "recurrent_pallas.py:142"),
+              "rk_fixed_grid": (rk_src, "ode_pallas.py:130"),
+              "rk_fixed_grid_bwd": (rk_src, "ode_pallas.py:156"),
+              "node_field_fwd": (node_src, "node_pallas.py:154"),
+              "node_field_bwd": (node_src, "node_pallas.py:269"),
+              "node_field_dw": (node_src, "node_pallas.py:269")}
+    kernels = []
+    for name in (list(origin) + [f"{k}[{inst}]" for inst in CUSTOM
+                                 for k in ("rk_fixed_grid",
+                                           "rk_fixed_grid_bwd")]):
+        src, replaces = origin[name.split("[")[0]]
+        k_ms, p_ms, b_ms, b_by, lib_ms = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": f"latentdiffeq/ops/{replaces}",
+                        "launches": launches[name],
                         "max_abs_err": errs[name], "ms": k_ms,
                         "plain_ms": p_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib_ms})

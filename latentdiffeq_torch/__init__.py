@@ -3,14 +3,18 @@
 A second package beside the JAX one (which stays the reference), laid out
 the same way so each module's counterpart is easy to find:
   nn/        Dense / resnet-MLP / RNN and LSTM cells, Flux init
-  solve/     RK tableaus and the fixed-grid solve
-  adjoint/   SolveOptions and odeint (Unrolled gradients)
+  solve/     RK tableaus, the fixed-grid and adaptive solves, problems and
+             the solve / solve_ensemble API
+  adjoint/   SolveOptions and odeint (Unrolled gradients, the
+             interpolating and backsolve adjoints)
   ops/       hand-written CUDA kernels for Hopper, each beside its plain
              PyTorch version (csrc/ holds the sources)
   models/    the six-slot template, GOKU, LatentODE
   train/     ELBO losses, KL annealing, windows, Flux ADAMW, trainer,
              checkpoints and the JAX weight bridge
   pendulum.py, pendulum_data.py: the pendulum problem and its video data
+  custom_dynamics.py, custom_data.py: Van der Pol and Kuramoto, and their
+             lifted observations
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
@@ -20,9 +24,21 @@ __version__ = "0.1.0"
 
 from .core import Identity, resolve_device
 from . import nn, solve, adjoint, ops, models, train
-from .solve import Euler, Midpoint, RK4, Tsit5, Dopri5
-from .adjoint import SolveOptions, Unrolled, odeint
+from .solve import (ODEProblem, SDEProblem, Solution, remake, Euler,
+                    Midpoint, RK4, Tsit5, Dopri5, solve, solve_ensemble,
+                    make_options, autosize_max_steps, AdaptiveConfig)
+from .adjoint import (Unrolled, InterpolatingAdjoint, BacksolveAdjoint,
+                      odeint, SolveOptions)
+from .train import (vector_mse, kl, vector_kl, frange_cycle_linear,
+                    normalize_to_unit_segment, denormalize_unit_segment,
+                    time_loader, rand_time)
 
-__all__ = ["resolve_device", "Identity", "nn", "solve", "adjoint", "ops", "models",
-           "train", "Euler", "Midpoint", "RK4", "Tsit5", "Dopri5",
-           "SolveOptions", "Unrolled", "odeint"]
+__all__ = ["resolve_device", "Identity", "nn", "ODEProblem", "SDEProblem",
+           "Solution", "remake", "Euler", "Midpoint", "RK4", "Tsit5",
+           "Dopri5", "solve", "solve_ensemble", "make_options",
+           "autosize_max_steps", "AdaptiveConfig", "Unrolled",
+           "InterpolatingAdjoint", "BacksolveAdjoint", "odeint",
+           "SolveOptions", "vector_mse", "kl", "vector_kl",
+           "frange_cycle_linear", "normalize_to_unit_segment",
+           "denormalize_unit_segment", "time_loader", "rand_time",
+           "adjoint", "ops", "models", "train"]

@@ -1,4 +1,6 @@
-from .modes import AbstractSensealg, Unrolled
+from .modes import (AbstractSensealg, BacksolveAdjoint, InterpolatingAdjoint,
+                    Unrolled)
 from .odeint import SolveOptions, odeint
 
-__all__ = ["AbstractSensealg", "Unrolled", "SolveOptions", "odeint"]
+__all__ = ["AbstractSensealg", "Unrolled", "InterpolatingAdjoint",
+           "BacksolveAdjoint", "SolveOptions", "odeint"]

@@ -88,9 +88,12 @@ class GOKU(ModelType):
         if self.use_kernel_solver and uses_fixed_grid(de.solver,
                                                       de.options):
             if de.options.interp_stride != 1:
+                # the kernel has no strided mode; the JAX package's kernel
+                # route ignores the option (goku.py:130-135), which would
+                # change results, so the port refuses instead
                 raise NotImplementedError(
-                    "use_kernel_solver with interp_stride > 1 is not "
-                    "ported yet")
+                    "use_kernel_solver has no interp_stride > 1 mode; set "
+                    "use_kernel_solver=False to solve it strided")
             ys, success, stats = solve_fixed_grid_batched(
                 de.f, de.solver, z0_hat, th_hat, t,
                 substeps=de.options.substeps)

@@ -10,14 +10,15 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .init import Initializer, default_init
 
-__all__ = ["Dense", "Chain", "SkipConnection", "mlp", "resnet_mlp",
-           "identity", "relu", "softplus", "sigmoid", "tanh"]
+__all__ = ["Dense", "Chain", "SkipConnection", "FrozenLinear", "mlp",
+           "resnet_mlp", "identity", "relu", "softplus", "sigmoid", "tanh"]
 
 
 def identity(x):
@@ -86,6 +87,46 @@ class SkipConnection(nn.Module):
 
     def forward(self, x):
         return self.layer(x) + x
+
+
+class FrozenLinear(nn.Module):
+    """``y = activation(x @ W + b) * out_scale + out_shift`` with W and b
+    held as buffers, not parameters, so neither autograd nor ADAMW's
+    decoupled weight decay ever touches them, and the JAX weight bridge
+    (which reads parameters) skips them: the JAX checkpoint has no leaves
+    for them either (layers.py:126-188). A known observation model in the
+    reconstructor slot, as the Kuramoto known-lift campaign uses it. The
+    product runs in W's type (float32); the result is cast back to x's."""
+
+    def __init__(self, W, b, activation: Callable = identity,
+                 out_scale: float = 1.0, out_shift: float = 0.0):
+        super().__init__()
+        W = torch.as_tensor(W, dtype=torch.float32)
+        b = torch.as_tensor(b, dtype=torch.float32)
+        if W.dim() != 2 or tuple(b.shape) != (W.shape[1],):
+            raise ValueError(
+                f"FrozenLinear: W must be 2-D and b must have shape "
+                f"(W.shape[1],); got W {tuple(W.shape)}, b "
+                f"{tuple(b.shape)}")
+        self.register_buffer("W", W.clone())
+        self.register_buffer("b", b.clone())
+        self.activation = activation
+        self.out_scale = float(out_scale)
+        self.out_shift = float(out_shift)
+
+    @staticmethod
+    def from_arrays(W, b, activation: Callable = identity,
+                    out_scale: float = 1.0,
+                    out_shift: float = 0.0) -> "FrozenLinear":
+        """From numpy arrays or tensors (on the CPU; move it with
+        ``.to(device)``)."""
+        return FrozenLinear(torch.as_tensor(np.asarray(W, np.float32)),
+                            torch.as_tensor(np.asarray(b, np.float32)),
+                            activation, out_scale, out_shift)
+
+    def forward(self, x):
+        y = self.activation(x.to(self.W.dtype) @ self.W + self.b)
+        return (y * self.out_scale + self.out_shift).to(x.dtype)
 
 
 def mlp(dims, activation: Callable = relu,

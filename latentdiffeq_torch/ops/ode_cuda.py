@@ -5,23 +5,28 @@ latentdiffeq/ops/ode_pallas.py::pallas_solve_fixed_grid_batched and its
 
 ``solve_fixed_grid_batched`` runs the kernels (csrc/rk_fixed_grid.cu) on
 CUDA tensors and the plain PyTorch version on CPU tensors. The RHS must
-name a device functor (its ``device_rhs`` attribute, see pendulum.py);
-one without raises ValueError on either device rather than dropping to the
-plain solve. The forward kernel also writes the per-row success flag. Tsit5
-and RK4 run an instance with their float32 coefficients compiled in
-(``tableau_instance``); any other tableau the instance that reads it at run
-time. The gradient is the VJP the JAX ``custom_vjp`` takes by recomputing
-the plain solve: on the card one launch of ``rk_fixed_grid_bwd_kernel``,
-which builds every interval's map (J_n = d ys[n+1] / d ys[n], r_n =
-d ys[n+1] / d p) in parallel from the saved trajectory and then runs a short
-affine sweep over them. Its plain versions are
+name a device functor family (its ``device_rhs`` attribute, see pendulum.py
+and custom_dynamics.py); one without raises ValueError on either device
+rather than dropping to the plain solve. A family is compiled for the state
+widths in ``DEVICE_RHS`` (Kuramoto for 4 and 10 oscillators); on CUDA
+tensors another width raises ValueError, while the plain versions take any.
+An RHS with run-time constants (Kuramoto's frequency offsets) carries
+``rhs_consts(device, dtype)``, which gives them on a device. The forward kernel also writes the per-row success
+flag. Tsit5 and RK4 run an instance with their float32 coefficients
+compiled in (``tableau_instance``); any other tableau the instance that
+reads it at run time. The gradient is the VJP the JAX ``custom_vjp`` takes
+by recomputing the plain solve: on the card one launch of
+``rk_fixed_grid_bwd_kernel``, which builds every interval's map (J_n =
+d ys[n+1] / d ys[n], r_n = d ys[n+1] / d p) in parallel from the saved
+trajectory and then runs a short affine sweep over them. Its plain versions are
 ``solve_fixed_grid_batched_interval_maps_reference`` and
 ``solve_fixed_grid_batched_affine_sweep_reference``;
 ``solve_fixed_grid_batched_backward_reference`` is the step-by-step reverse
 sweep over the same trajectory. All three use the RHS's VJP written by hand
-(``RHS_VJP``). ``saveat`` gets no gradient. Shapes on the main path: u0s
-(64, 2), ps (64, 1), 50 save points in training; (45, 2), (45, 1), 100
-points in validation; Tsit5 (6 stages), substeps 1.
+(``RHS_VJP``). ``saveat`` gets no gradient. Shapes on the main paths: the
+pendulum u0s (64, 2), ps (64, 1), 50 save points in training; (45, 2),
+(45, 1), 100 points in validation; Tsit5 (6 stages), substeps 1; Van der
+Pol and Kuramoto-10 (64, 2 or 10) and (26, 2 or 10), substeps 4.
 """
 from __future__ import annotations
 
@@ -44,11 +49,16 @@ __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_interval_maps_reference",
            "solve_fixed_grid_batched_affine_sweep_reference",
            "tableau_instance", "sincos_cuda", "BAKED_TABLEAUS", "DEVICE_RHS",
-           "RHS_VJP"]
+           "RHS_VJP", "rhs_instance"]
 
-# device_rhs name -> functor index in csrc/rk_fixed_grid.cu, with the
-# (state, parameter) widths the functor is compiled for.
-DEVICE_RHS = {"pendulum": (0, 2, 1), "pendulum_friction": (1, 2, 1)}
+# device_rhs family -> {state width: (functor index in csrc/rk_fixed_grid.cu,
+# parameter width, instance name)}: the widths each functor is compiled for.
+DEVICE_RHS = {
+    "pendulum": {2: (0, 1, "pendulum")},
+    "pendulum_friction": {2: (1, 1, "pendulum_friction")},
+    "vdp": {2: (2, 1, "vdp")},
+    "kuramoto": {4: (3, 2, "kuramoto4"), 10: (4, 2, "kuramoto10")},
+}
 
 # Kernel instance index -> the solver whose float32 tableau
 # csrc/rk_fixed_grid.cu compiles in (Tsit5Tab, Rk4Tab). The library refuses
@@ -56,7 +66,8 @@ DEVICE_RHS = {"pendulum": (0, 2, 1), "pendulum_friction": (1, 2, 1)}
 BAKED_TABLEAUS = {1: Tsit5(), 2: RK4()}
 
 
-def _device_rhs(f: Callable):
+def _rhs_family(f: Callable) -> str:
+    """The device functor family ``f`` names; ValueError if none."""
     name = getattr(f, "device_rhs", None)
     if name not in DEVICE_RHS:
         raise ValueError(
@@ -64,7 +75,42 @@ def _device_rhs(f: Callable):
             f"{getattr(f, '__name__', f)!r} (device_rhs={name!r}; known: "
             f"{sorted(DEVICE_RHS)}); set use_kernel_solver=False to solve "
             f"it with the plain PyTorch path")
-    return DEVICE_RHS[name]
+    return name
+
+
+def _device_rhs(f: Callable, dim: int):
+    """``(functor index, parameter width, instance name)`` of the compiled
+    instance of ``f``'s family for states of width ``dim``; ValueError
+    naming the compiled widths if there is none."""
+    widths = DEVICE_RHS[_rhs_family(f)]
+    if dim not in widths:
+        raise ValueError(
+            f"the batched-solve kernel's {f.device_rhs!r} functor is compiled "
+            f"for state widths {sorted(widths)}, not {dim}; set "
+            f"use_kernel_solver=False to solve it with the plain PyTorch "
+            f"path")
+    return widths[dim]
+
+
+def rhs_instance(f: Callable, dim: int) -> str:
+    """The name of the kernel instance that runs ``f`` at state width
+    ``dim`` (the two launchers count their launches by it)."""
+    return _device_rhs(f, dim)[2]
+
+
+def _rhs_consts(f: Callable, device, dim: int):
+    """``f``'s run-time constants as float32 on ``device`` (the tensor the
+    field itself uses there), or None; the kernel reads one per state
+    entry."""
+    consts = getattr(f, "rhs_consts", None)
+    if consts is None:
+        return None
+    consts = consts(device, torch.float32)
+    if consts.shape != (dim,):
+        raise ValueError(f"{getattr(f, '__name__', f)!r} carries "
+                         f"rhs_consts of shape {tuple(consts.shape)} for "
+                         f"states of width {dim}")
+    return consts
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,11 +149,38 @@ def _pendulum_vjp(y, p, kb, friction: bool):
     return torch.stack([ubar0, ubar1], dim=-1), pbar[..., None]
 
 
-# device_rhs name -> (y, p, kbar) -> (J_f(y)^T kbar, (df/dp)^T kbar): the
+def _vdp_vjp(y, p, kb):
+    x, v, mu = y[..., 0], y[..., 1], p[..., 0]
+    w = 1.0 - x * x
+    ubar0 = kb[..., 1] * (mu * (-2.0 * x) * v - 1.0)
+    ubar1 = kb[..., 0] + kb[..., 1] * (mu * w)
+    return (torch.stack([ubar0, ubar1], dim=-1),
+            (kb[..., 1] * (w * v))[..., None])
+
+
+def _kuramoto_vjp(y, p, kb):
+    """Any width N. With C_ij = cos(phi_j - phi_i): ubar_j = (K/N)
+    (sum_{i != j} kb_i C_ij - kb_j sum_{m != j} C_jm), d/domega = sum_i
+    kb_i, d/dK = (sum_i kb_i S_i) / N, S_i = sum_j sin(phi_j - phi_i)."""
+    n = y.shape[-1]
+    diff = y[..., None, :] - y[..., :, None]
+    off = 1.0 - torch.eye(n, dtype=y.dtype, device=y.device)
+    C = torch.cos(diff) * off
+    S = (torch.sin(diff) * off).sum(-1)
+    kn = p[..., 1:2] * (1.0 / n)
+    ubar = kn * ((kb[..., :, None] * C).sum(-2) - kb * C.sum(-1))
+    gw = kb.sum(-1)
+    gk = (kb * S).sum(-1) * (1.0 / n)
+    return ubar, torch.stack([gw, gk], dim=-1)
+
+
+# device_rhs family -> (y, p, kbar) -> (J_f(y)^T kbar, (df/dp)^T kbar): the
 # VJPs of the device functors, written by hand as the kernel has them.
 RHS_VJP = {
     "pendulum": lambda y, p, kb: _pendulum_vjp(y, p, kb, False),
     "pendulum_friction": lambda y, p, kb: _pendulum_vjp(y, p, kb, True),
+    "vdp": _vdp_vjp,
+    "kuramoto": _kuramoto_vjp,
 }
 
 
@@ -125,8 +198,7 @@ def solve_fixed_grid_batched_backward_reference(f: Callable,
     .. 0: ubar = J_f(Y_s)^T kbar_s, pbar += (df/dp)^T kbar_s, ybar += ubar,
     kbar_q += dt a_sq ubar; ``g[:, n]`` is added at each save point.
     Returns ``(du0 (B, dim), dp (B, pdim))``."""
-    _device_rhs(f)
-    vjp = RHS_VJP[f.device_rhs]
+    vjp = RHS_VJP[_rhs_family(f)]
     tab = solver.tableau
     S = n_solution_stages(tab)
     ys, ps, g, saveat = ys.detach(), ps.detach(), g.detach(), saveat.detach()
@@ -181,8 +253,7 @@ def solve_fixed_grid_batched_interval_maps_reference(
     Returns ``J (B, T-1, dim, dim)``, J[b, n, i, j] = d ys[b, n+1, i] /
     d ys[b, n, j], and ``r (B, T-1, dim, pdim)``, r[b, n, i, q] =
     d ys[b, n+1, i] / d ps[b, q]."""
-    _device_rhs(f)
-    vjp = RHS_VJP[f.device_rhs]
+    vjp = RHS_VJP[_rhs_family(f)]
     tab = solver.tableau
     S = n_solution_stages(tab)
     ys, ps, saveat = ys.detach(), ps.detach(), saveat.detach()
@@ -250,11 +321,11 @@ def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     (also for scripts/rk_levers.py, which builds it with other flags)."""
     if not getattr(lib, "_ldq_typed", False):
         lib.ldq_rk_fixed_grid.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid.restype = ctypes.c_int
         lib.ldq_rk_fixed_grid_bwd.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid_bwd.restype = ctypes.c_int
         lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
@@ -280,8 +351,10 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
     dim), success (B,))``, success true where every value of the row is
     finite. ``generic=True`` runs the instance that reads the tableau at
     run time even where a baked one exists (for the checks that hold the two
-    against each other)."""
-    kind, dim, pdim = _device_rhs(f)
+    against each other). Counts its launches by kernel instance
+    (``rhs_instance``) in ``launches``, a dict; their total is its sum."""
+    dim = u0s.shape[-1] if u0s.dim() else 0
+    kind, pdim, inst = _device_rhs(f, dim)
     for name, t in (("u0s", u0s), ("ps", ps), ("saveat", saveat)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"solve_fixed_grid_batched_cuda: {name} must "
@@ -297,6 +370,7 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
     u0s, ps, saveat = u0s.contiguous(), ps.contiguous(), saveat.contiguous()
     B, T = u0s.shape[0], saveat.shape[0]
     n_stages, a, b, c = tableau_f32(solver)
+    consts = _rhs_consts(f, u0s.device, dim)
     ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
     success = torch.empty(B, device=u0s.device, dtype=torch.bool)
     lib = _lib()
@@ -305,16 +379,17 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
         err = lib.ldq_rk_fixed_grid(
             kind, _instance(solver, generic), n_stages, a.data_ptr(),
             b.data_ptr(), c.data_ptr(), saveat.data_ptr(), u0s.data_ptr(),
-            ps.data_ptr(), ys.data_ptr(), success.data_ptr(), B, T, substeps,
-            stream)
+            ps.data_ptr(), None if consts is None else consts.data_ptr(),
+            ys.data_ptr(), success.data_ptr(), B, T, substeps, stream)
     if err != 0:
         raise RuntimeError(f"rk_fixed_grid kernel launch failed: CUDA error "
                            f"{err}")
-    solve_fixed_grid_batched_cuda.launches += 1
+    by = solve_fixed_grid_batched_cuda.launches
+    by[inst] = by.get(inst, 0) + 1
     return ys, success
 
 
-solve_fixed_grid_batched_cuda.launches = 0
+solve_fixed_grid_batched_cuda.launches = {}
 
 
 def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
@@ -327,8 +402,9 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
     pdim))``; with ``maps=True`` also the maps the kernel built, ``J`` (B,
     T-1, dim, dim) and ``r`` (B, T-1, dim, pdim), as
     ``solve_fixed_grid_batched_interval_maps_reference`` returns them.
-    ``generic`` as for the forward."""
-    kind, dim, pdim = _device_rhs(f)
+    ``generic`` and the counters as for the forward."""
+    dim = ys.shape[-1] if ys.dim() else 0
+    kind, pdim, inst = _device_rhs(f, dim)
     for name, t in (("saveat", saveat), ("ys", ys), ("ps", ps), ("g", g)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"solve_fixed_grid_batched_bwd_cuda: {name} "
@@ -344,6 +420,7 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
         raise ValueError("substeps must be >= 1")
     saveat, ys, ps, g = (t.detach().contiguous() for t in (saveat, ys, ps, g))
     n_stages, a, b, c = tableau_f32(solver)
+    consts = _rhs_consts(f, ys.device, dim)
     du0 = torch.empty(B, dim, device=ys.device, dtype=torch.float32)
     dp = torch.empty(B, pdim, device=ys.device, dtype=torch.float32)
     J = r = None
@@ -358,17 +435,19 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
         err = lib.ldq_rk_fixed_grid_bwd(
             kind, _instance(solver, generic), n_stages, a.data_ptr(),
             b.data_ptr(), c.data_ptr(), saveat.data_ptr(), ys.data_ptr(),
-            ps.data_ptr(), g.data_ptr(), du0.data_ptr(), dp.data_ptr(),
+            ps.data_ptr(), None if consts is None else consts.data_ptr(),
+            g.data_ptr(), du0.data_ptr(), dp.data_ptr(),
             J.data_ptr() if maps else None, r.data_ptr() if maps else None,
             B, T, substeps, stream)
     if err != 0:
         raise RuntimeError(f"rk_fixed_grid backward kernel launch failed: "
                            f"CUDA error {err}")
-    solve_fixed_grid_batched_bwd_cuda.launches += 1
+    by = solve_fixed_grid_batched_bwd_cuda.launches
+    by[inst] = by.get(inst, 0) + 1
     return (du0, dp, J, r) if maps else (du0, dp)
 
 
-solve_fixed_grid_batched_bwd_cuda.launches = 0
+solve_fixed_grid_batched_bwd_cuda.launches = {}
 
 
 def sincos_cuda(x, *, accurate: bool = False):
@@ -425,7 +504,7 @@ def solve_fixed_grid_batched(f: Callable, solver: AbstractSolver, u0s, ps,
     dim), success (B,), stats)`` with per-trajectory analytic counters
     (ode_pallas.py:175-183). On the card the forward kernel writes the
     success flags and the gradient is the backward kernel."""
-    _device_rhs(f)
+    _rhs_family(f)
     if u0s.device.type == "cpu":
         return solve_fixed_grid_batched_reference(f, solver, u0s, ps, saveat,
                                                   substeps=substeps)

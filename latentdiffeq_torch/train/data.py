@@ -1,13 +1,48 @@
-"""Data utilities (counterpart of latentdiffeq/train/data.py): the 90/10
-split, one shared random time window per minibatch, and a shuffled
-drop-partial minibatcher. Layout (samples, time, features)."""
+"""Data utilities (counterpart of latentdiffeq/train/data.py): min-max
+normalisation, the numpy window sampler, the 90/10 split, one shared random
+time window per minibatch, and a shuffled drop-partial minibatcher. Layout
+(samples, time, features)."""
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["splitobs", "sample_window", "DataLoader"]
+__all__ = ["normalize_to_unit_segment", "denormalize_unit_segment",
+           "rand_time", "time_loader", "splitobs", "sample_window",
+           "DataLoader"]
+
+
+def normalize_to_unit_segment(x):
+    """Min-max normalise to [0, 1]; returns (x_norm, min, max) (a tensor or
+    a numpy array alike)."""
+    lo = x.min()
+    hi = x.max()
+    return (x - lo) / (hi - lo), lo, hi
+
+
+def denormalize_unit_segment(x, lo, hi):
+    """Inverse of normalize_to_unit_segment."""
+    return x * (hi - lo) + lo
+
+
+def rand_time(rng: np.random.Generator, full_seq_len: int,
+              seq_len: int) -> int:
+    """Random window start from a numpy generator (the JAX package's draw):
+    uniform over [0, full_seq_len - seq_len - 1]; 0 when the window spans
+    the full sequence."""
+    if seq_len >= full_seq_len:
+        return 0
+    return int(rng.integers(0, full_seq_len - seq_len))
+
+
+def time_loader(x, full_seq_len: int, seq_len: int,
+                rng: np.random.Generator):
+    """One random contiguous window shared by the whole batch; ``x``
+    (batch, time, features)."""
+    s = rand_time(rng, full_seq_len, seq_len)
+    return x[:, s:s + seq_len, :]
 
 
 def splitobs(x, at: float = 0.9):

@@ -3,13 +3,18 @@ card:
 
     python3 scripts/rk_levers.py [--rounds 3]
 
-Builds csrc/rk_fixed_grid.cu four ways into build/rk_levers/ (one nvcc
-each, in parallel) and times each build's forward and backward kernels at
-the train shape (B 64, T 50) and the validation shape (B 45, T 100),
-pendulum, Tsit5, substeps 1, with each lever taken out in turn:
+Builds csrc/rk_fixed_grid.cu five ways into build/rk_levers/ (one nvcc
+each, in parallel) and times each build's forward and backward kernels,
+Tsit5, for the pendulum at the train shape (B 64, T 50) and the validation
+shape (B 45, T 100), substeps 1, and for Kuramoto-10 at its train shape
+(B 64, T 50, substeps 4, dt 0.1), with each lever taken out in turn:
   - ``design``: the library as the port builds it;
-  - ``sinf``: every sine and cosine by sinf/sincosf (LDQ_RK_LEVER_SINF), so
-    each stage holds sinf's slow-path branch;
+  - ``sinf``: every sine and cosine by sincosf (LDQ_RK_LEVER_SINF), called
+    out of line as the design calls it for the accurate rerun and for
+    Kuramoto, so each stage holds a call (Kuramoto is the design here);
+  - ``inline-sincos``: sincosf inlined at every call
+    (LDQ_RK_LEVER_INLINE_SINCOS; pendulum as the design, whose fast sine
+    needs sincosf only in the rerun);
   - ``no-dt-table``: the forward loads saveat and divides at the top of each
     step (LDQ_RK_LEVER_NO_DT_TABLE) instead of reading a table of step sizes;
   - ``fmad``: built with --fmad=true (the compiler may fuse a multiply and
@@ -28,6 +33,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,6 +42,7 @@ import sys
 VARIANTS = {
     "design": None,
     "sinf": ["-DLDQ_RK_LEVER_SINF"],
+    "inline-sincos": ["-DLDQ_RK_LEVER_INLINE_SINCOS"],
     "no-dt-table": ["-DLDQ_RK_LEVER_NO_DT_TABLE"],
     "fmad": "fmad",
 }
@@ -95,7 +102,7 @@ def main():
     shapes = {}
     for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
         shapes[label] = dict(
-            B=B, T=T,
+            B=B, T=T, rhs=0, sub=1, cst=None,
             u0s=torch.rand(B, 2, generator=g, device=dev) * 2 - 1,
             ps=1 + torch.rand(B, 1, generator=g, device=dev),
             saveat=torch.arange(T, dtype=torch.float32, device=dev) * 0.05,
@@ -104,24 +111,39 @@ def main():
             ok=torch.empty(B, dtype=torch.bool, device=dev),
             du0=torch.empty(B, 2, device=dev),
             dp=torch.empty(B, 1, device=dev))
+    B, T, N = 64, 50, 10  # Kuramoto-10, the examples' draws
+    kind, _, _ = ode_cuda.DEVICE_RHS["kuramoto"][N]
+    offsets = torch.zeros(N, device=dev)  # omega_spread 0
+    shapes["kuramoto10_train"] = dict(
+        B=B, T=T, rhs=kind, sub=4, cst=offsets.data_ptr(),
+        u0s=(torch.rand(B, N, generator=g, device=dev) * 2 - 1) * math.pi,
+        ps=torch.stack([1 + 2 * torch.rand(B, generator=g, device=dev),
+                        0.2 + 1.8 * torch.rand(B, generator=g, device=dev)],
+                       dim=1),
+        saveat=torch.arange(T, dtype=torch.float32, device=dev) * 0.1,
+        w=torch.randn(B, T, N, generator=g, device=dev),
+        ys=torch.empty(B, T, N, device=dev),
+        ok=torch.empty(B, dtype=torch.bool, device=dev),
+        du0=torch.empty(B, N, device=dev),
+        dp=torch.empty(B, 2, device=dev))
 
     configs = {name: (libs[name], baked) for name in VARIANTS}
     configs["generic"] = (libs["design"], 0)
 
     def fwd(lib, kind, x):
         err = lib.ldq_rk_fixed_grid(
-            0, kind, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            x["rhs"], kind, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
             x["saveat"].data_ptr(), x["u0s"].data_ptr(), x["ps"].data_ptr(),
-            x["ys"].data_ptr(), x["ok"].data_ptr(), x["B"], x["T"], 1,
-            stream)
+            x["cst"], x["ys"].data_ptr(), x["ok"].data_ptr(), x["B"],
+            x["T"], x["sub"], stream)
         assert err == 0, err
 
     def bwd(lib, kind, x):
         err = lib.ldq_rk_fixed_grid_bwd(
-            0, kind, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            x["rhs"], kind, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
             x["saveat"].data_ptr(), x["ys"].data_ptr(), x["ps"].data_ptr(),
-            x["w"].data_ptr(), x["du0"].data_ptr(), x["dp"].data_ptr(),
-            None, None, x["B"], x["T"], 1, stream)
+            x["cst"], x["w"].data_ptr(), x["du0"].data_ptr(),
+            x["dp"].data_ptr(), None, None, x["B"], x["T"], x["sub"], stream)
         assert err == 0, err
 
     def device_ms(fn, kernel, reps=50):
@@ -137,15 +159,18 @@ def main():
               and kernel in e.name]
         return sum(us) / 1e3 / len(us) if us else None
 
-    # each build's results against the design build's, at the train shape
-    x = shapes["train"]
+    # each build's results against the design build's, at the train shapes
     diffs = {}
     outs = {}
     for name, (lib, kind) in configs.items():
-        fwd(lib, kind, x)
-        bwd(lib, kind, x)
-        torch.cuda.synchronize()
-        outs[name] = [x["ys"].clone(), x["du0"].clone(), x["dp"].clone()]
+        outs[name] = []
+        for label in ("train", "kuramoto10_train"):
+            x = shapes[label]
+            fwd(lib, kind, x)
+            bwd(lib, kind, x)
+            torch.cuda.synchronize()
+            outs[name] += [x["ys"].clone(), x["du0"].clone(),
+                           x["dp"].clone()]
     for name, out in outs.items():
         diffs[name] = max(float((p - q).abs().max())
                           for p, q in zip(out, outs["design"]))

@@ -35,6 +35,7 @@ import copy
 import pytest
 import torch
 
+from latentdiffeq_torch import custom_dynamics as cdyn
 from latentdiffeq_torch import nn as tnn
 from latentdiffeq_torch.adjoint import SolveOptions
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
@@ -152,6 +153,13 @@ def heads_with(dev, act, D=32, H=16, L=2, seed=0):
 
 def rel_err(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def launches(fn):
+    """A kernel wrapper's launches so far (the RK launchers count theirs by
+    kernel instance)."""
+    n = fn.launches
+    return sum(n.values()) if isinstance(n, dict) else n
 
 
 @pytest.mark.cuda
@@ -499,8 +507,9 @@ def test_rk_library_refuses_a_tableau_not_its_baked_one_on_card(dev):
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.ldq_rk_fixed_grid(0, 1, n, a.data_ptr(), b.data_ptr(),
                                 c.data_ptr(), saveat.data_ptr(),
-                                u0s.data_ptr(), ps.data_ptr(), ys.data_ptr(),
-                                ok.data_ptr(), 4, 5, 1, stream)
+                                u0s.data_ptr(), ps.data_ptr(), None,
+                                ys.data_ptr(), ok.data_ptr(), 4, 5, 1,
+                                stream)
     torch.cuda.synchronize()
     assert err == 1 and not bool(ys.any()) and not bool(ok.any())
 
@@ -521,16 +530,167 @@ def test_goku_kernel_path_matches_plain_path_on_card(dev):
                 ode_cuda.solve_fixed_grid_batched_cuda,
                 recurrent_cuda.goku_heads_bwd_cuda,
                 ode_cuda.solve_fixed_grid_batched_bwd_cuda)
-    before = [fn.launches for fn in counters]
+    before = [launches(fn) for fn in counters]
     with torch.no_grad():
         xk = km(x, t)[0][0]
         xp = pm(x, t)[0][0]
-    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 0,
-                                                                   0]
+    assert [launches(fn) - n for fn, n in zip(counters, before)] == [1, 1, 0,
+                                                                     0]
     km(x, t)[0][0].square().sum().backward()
-    assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 2, 1,
-                                                                   1]
+    assert [launches(fn) - n for fn, n in zip(counters, before)] == [2, 2, 1,
+                                                                     1]
     assert xk.shape == (6, 10, 24) and bool(torch.isfinite(xk).all())
+    assert float((xk - xp).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The RK kernels with the Van der Pol and Kuramoto functors.
+
+CUSTOM_RHS = {
+    "vdp": lambda: cdyn.vdp_f,
+    "kuramoto4": lambda: cdyn.kuramoto_f(4),
+    "kuramoto10": lambda: cdyn.kuramoto_f(10),
+    "kuramoto10-spread": lambda: cdyn.Kuramoto(10, omega_spread=0.5).f,
+}
+
+
+def custom_inputs(dev, rhs, B, T, seed=0):
+    """The examples' draws: VdP u0 ~ U(-2, 2), mu ~ U(0.5, 4); Kuramoto
+    phases ~ U(-pi, pi), omega ~ U(1, 3), K ~ U(0.2, 2); dt 0.1."""
+    g = torch.Generator().manual_seed(seed)
+    if rhs == "vdp":
+        u0s = torch.rand(B, 2, generator=g) * 4 - 2
+        ps = 0.5 + 3.5 * torch.rand(B, 1, generator=g)
+    else:
+        n = 4 if rhs == "kuramoto4" else 10
+        u0s = (torch.rand(B, n, generator=g) * 2 - 1) * torch.pi
+        ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                          0.2 + 1.8 * torch.rand(B, generator=g)], dim=1)
+    saveat = torch.arange(T, dtype=torch.float32) * 0.1
+    w = torch.randn(B, T, u0s.shape[1], generator=g)
+    return u0s.to(dev), ps.to(dev), saveat.to(dev), w.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (37, 21)])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("rhs", sorted(CUSTOM_RHS))
+def test_rk_custom_rhs_kernel_matches_plain_on_card(dev, rhs, solver, B, T):
+    """The forward kernel with the Van der Pol and Kuramoto functors against
+    the plain version, 4 sub-steps (atol 1e-5); success flags as the plain
+    flags; a baked tableau instance equals the run-time one bit for bit."""
+    f = CUSTOM_RHS[rhs]()
+    u0s, ps, saveat, _ = custom_inputs(dev, rhs, B, T, seed=30)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=4)
+        assert float((got - ref).abs().max()) <= ATOL
+        assert torch.equal(ok, ok_p) and bool(ok.all())
+        if ode_cuda.tableau_instance(s) != 0:
+            gen = ode_cuda.solve_fixed_grid_batched_cuda(
+                f, s, u0s, ps, saveat, substeps=4, generic=True)
+            assert torch.equal(got.view(torch.int32),
+                               gen[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (16, 300)])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
+@pytest.mark.parametrize("rhs", sorted(CUSTOM_RHS))
+def test_rk_custom_rhs_bwd_kernel_matches_plain_on_card(dev, rhs, solver, B,
+                                                        T):
+    """The backward kernel with the new functors: its interval maps against
+    the plain maps over the same trajectory, its gradients against the
+    two-phase plain version, the plain reverse sweep and plain autograd,
+    each within 1e-5 of the tensor's size. T 300 (two chunks, and more
+    dynamic shared memory than a launch gets by default for Kuramoto-10):
+    1196 steps, over which the maps' products and the step-by-step sweep,
+    two float32 orders of the same sums, part by more than 1e-5 (for
+    Kuramoto, float32 interval maps, the kernel's and the plain ones alike,
+    end farther from float64 than the step-by-step sweep); there the kernel
+    is held to the two-phase plain version, its own order, and to a float64
+    sweep over the same trajectory, at most twice as far from it as the
+    two-phase plain version is."""
+    f = CUSTOM_RHS[rhs]()
+    u0s, ps, saveat, w = custom_inputs(dev, rhs, B, T, seed=31)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=4)
+    du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, s, saveat, ys, ps, w, substeps=4, maps=True)
+    J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+        f, s, saveat, ys, ps, substeps=4)
+    assert rel_err(J, J_p) <= ATOL and rel_err(r, r_p) <= ATOL
+    two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(J_p, r_p,
+                                                                   w)
+    sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        f, s, saveat, ys, ps, w, substeps=4)
+    if T > 100:
+        sweep64 = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat.double(), ys.double(), ps.double(), w.double(),
+            substeps=4)
+    for i, (a, b, c) in enumerate(zip((du0, dp), two, sweep)):
+        assert rel_err(a, b) <= ATOL
+        if T <= 100:
+            assert rel_err(a, c) <= ATOL
+        else:
+            ref = sweep64[i]
+            assert rel_err(a.double(), ref) <= 2 * rel_err(b.double(), ref)
+    if T <= 100:
+        u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+        y = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u, p, saveat, substeps=4)[0]
+        for a, d in zip((du0, dp), torch.autograd.grad(y, [u, p], w)):
+            assert rel_err(a, d) <= ATOL
+
+
+@pytest.mark.cuda
+def test_rk_kuramoto_width_not_compiled_raises_on_card(dev):
+    """Kuramoto's functor is compiled for 4 and 10 oscillators: another
+    width raises ValueError naming them on CUDA tensors, and nothing
+    launches; the plain version solves it on the CPU."""
+    f = cdyn.kuramoto_f(7)
+    u0s = torch.zeros(3, 7, device=dev)
+    ps = torch.ones(3, 2, device=dev)
+    saveat = torch.arange(5, dtype=torch.float32, device=dev) * 0.1
+    before = launches(ode_cuda.solve_fixed_grid_batched_cuda)
+    with pytest.raises(ValueError, match=r"\[4, 10\]"):
+        ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u0s, ps, saveat)
+    assert launches(ode_cuda.solve_fixed_grid_batched_cuda) == before
+    ys = ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u0s.cpu(),
+                                           ps.cpu(), saveat.cpu())[0]
+    assert ys.shape == (3, 5, 7) and bool(torch.isfinite(ys).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["vdp", "kuramoto10"])
+def test_goku_custom_kernel_path_matches_plain_path_on_card(dev, which):
+    """A small GOKU on Van der Pol or Kuramoto-10 with both kernel switches
+    on launches the RK kernels' instance for that RHS once per forward and
+    backward, and agrees with the same weights run plainly (1e-4)."""
+    opts = SolveOptions(adaptive=False, substeps=4)
+    diffeq = (cdyn.VanDerPol(options=opts) if which == "vdp"
+              else cdyn.Kuramoto(10, options=opts))
+    layers = goku_default_layers(24, diffeq, hidden_dim_resnet=16,
+                                 latent_to_diffeq_dim=16, device=dev)
+    km = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
+    pm = LatentDiffEqModel.build(GOKUBasic(), *layers)
+    x = torch.rand(6, 10, 24, device=dev)
+    t = torch.arange(10, dtype=torch.float32, device=dev) * 0.1
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    before = (fwd.get(which, 0), bwd.get(which, 0))
+    with torch.no_grad():
+        xk = km(x, t)[0][0]
+        xp = pm(x, t)[0][0]
+    km(x, t)[0][0].square().sum().backward()
+    assert (fwd[which] - before[0], bwd[which] - before[1]) == (2, 1)
+    assert bool(torch.isfinite(xk).all())
     assert float((xk - xp).abs().max()) <= 1e-4
 
 

@@ -4,6 +4,7 @@ the JAX package, on the CPU: the full-width GOKU forward with the committed
 outputs through a 200-wide resnet and a 20-step solve), the variational
 sample given the same noise, the masked path, NaN-fill, and both .npz
 formats."""
+import dataclasses
 import os
 import sys
 
@@ -176,18 +177,33 @@ def test_failed_solves_are_nan_filled():
     assert int(aux["stats"]["n_rhs_evals"]) == 3 * 7 * 6
 
 
-def test_kernel_solver_refuses_unported_interp_stride():
-    """interp_stride > 1 raises on both paths; it is never ignored."""
+def test_kernel_solver_refuses_unported_interp_stride(best):
+    """interp_stride > 1: the plain route solves strided and matches JAX's
+    plain route on the same weights (1e-4); the kernel route still raises,
+    for the kernel has no strided mode (JAX's kernel route ignores the
+    option, which would change results), and is never silently ignored."""
+    jm, tm = best
+    x, t = frames(B=3, T=11, seed=3)
+    jdiffeq = JPendulum(options=make_options(adaptive=False, interp_stride=2))
+    jm2 = dataclasses.replace(
+        jm, decoder=dataclasses.replace(jm.decoder, diffeq=jdiffeq))
     diffeq = Pendulum(options=SolveOptions(adaptive=False, interp_stride=2))
-    enc, dec = goku_default_layers(24, diffeq, hidden_dim_resnet=16,
-                                   latent_to_diffeq_dim=16, device="cpu")
-    x, t = torch.rand(2, 6, 24), torch.arange(6) * 0.05
     for use_kernels in (True, False):
-        m = LatentDiffEqModel.build(
-            GOKUBasic(use_kernel_encoder=use_kernels,
-                      use_kernel_solver=use_kernels), enc, dec)
-        with pytest.raises(NotImplementedError):
-            m(x, t)
+        tk = torch_model(use_kernels=use_kernels)
+        tk.load_state_dict(tm.state_dict())
+        tk.decoder.diffeq = diffeq
+        if use_kernels:
+            with pytest.raises(NotImplementedError):
+                tk(torch.from_numpy(x), torch.from_numpy(t))
+            continue
+        (xh_j, z_j, _), _, _, aux_j = jm2(jnp.asarray(x), jnp.asarray(t))
+        with torch.no_grad():
+            (xh, z, _), _, _, aux = tk(torch.from_numpy(x),
+                                       torch.from_numpy(t))
+        close(z, z_j, 1e-4)
+        close(xh, xh_j, 1e-4)
+        assert int(aux["stats"]["n_rhs_evals"]) == int(
+            aux_j["stats"]["n_rhs_evals"]) == 3 * (1 + 5 * 6)
 
 
 def test_v1_loader_reads_model_and_adam_state(best):

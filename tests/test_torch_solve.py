@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from latentdiffeq.adjoint.odeint import odeint as jodeint
 from latentdiffeq.ops.ode_pallas import pallas_solve_fixed_grid_batched
 from latentdiffeq.solve import adaptive as jad
 from latentdiffeq.solve import rk as jrk
@@ -314,6 +315,10 @@ def test_success_flags_and_nan():
 
 
 def test_odeint_unrolled_and_unported_options():
+    """odeint's fixed-grid Unrolled solve is solve_fixed_grid's; the options
+    the port once refused now run and match JAX: adaptive stepping (float64,
+    where both take the same steps: 1e-10), Unrolled(checkpoint=True) (the
+    unrolled values exactly) and interp_stride (atol 1e-5)."""
     u0s, ps, saveat = inputs()
     opts = tadj.SolveOptions(adaptive=False, substeps=2, unroll=7)
     ys, _, _ = tadj.odeint(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps),
@@ -323,14 +328,28 @@ def test_odeint_unrolled_and_unported_options():
     torch.testing.assert_close(ys, ref, rtol=0, atol=0)
     # RK4 has no error estimate: adaptive=True solves on the fixed grid
     tadj.odeint(pendulum_f, trk.RK4(), t_(u0s), t_(ps), t_(saveat))
-    with pytest.raises(NotImplementedError):
-        tadj.odeint(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps), t_(saveat))
-    with pytest.raises(NotImplementedError):
-        tadj.odeint(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps), t_(saveat),
-                    opts, tadj.Unrolled(checkpoint=True))
-    with pytest.raises(NotImplementedError):
-        tsolve(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps), t_(saveat),
-               interp_stride=2)
+    # adaptive stepping, per row, against the vmapped JAX odeint
+    u64, p64, s64 = (a.astype(np.float64) for a in (u0s, ps, saveat))
+    with jax.enable_x64(True):
+        ys_j = jax.vmap(lambda u, p: jodeint(
+            jpend, jrk.Tsit5(), u, p, jnp.asarray(s64))[0])(
+                jnp.asarray(u64), jnp.asarray(p64))
+        ys_j = np.asarray(ys_j)
+    ys_a = tadj.odeint(pendulum_f, trk.Tsit5(), t_(u64), t_(p64),
+                       t_(s64))[0]
+    np.testing.assert_allclose(ys_a.numpy(), ys_j, rtol=0, atol=1e-10)
+    # checkpointing changes no value
+    ys_c = tadj.odeint(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps), t_(saveat),
+                       opts, tadj.Unrolled(checkpoint=True))[0]
+    torch.testing.assert_close(ys_c, ref, rtol=0, atol=0)
+    # macro-stepping, against the JAX strided solve
+    ys_s = tsolve(pendulum_f, trk.Tsit5(), t_(u0s), t_(ps), t_(saveat),
+                  interp_stride=2)[0]
+    ys_js = jax.vmap(lambda u, p: jsolve(
+        jpend, jrk.Tsit5(), u, p, jnp.asarray(saveat),
+        interp_stride=2)[0])(jnp.asarray(u0s), jnp.asarray(ps))
+    np.testing.assert_allclose(ys_s.numpy(), np.asarray(ys_js), rtol=0,
+                               atol=ATOL)
 
 
 def test_kernel_solver_rejects_rhs_without_device_functor():
