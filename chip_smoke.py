@@ -16,7 +16,9 @@ Phases, each printing one line (any failure exits non-zero):
               (the accurate rerun), a 1100-point grid beside a float64
               solve, and its sine against float64, and with the Van der
               Pol and Kuramoto-10 functors (also with frequency offsets)
-              at their paths' shapes, each beside a float64 solve; the
+              at their paths' shapes, each beside a float64 solve, and
+              the Kuramoto kernels' copies of sinf and sincosf against
+              the library's bit for bit; the
               neural-field
               solve also with RK4 and sub-steps, at the 8-wide and the
               128-256-256-128 field and with tanh, each beside a float64
@@ -287,21 +289,42 @@ SIN_STEPS = 11
 RK_BWD_CHUNK = 256  # intervals a chunk of the RK backward kernel
 
 
+# The Kuramoto kernels (rk_kuramoto_kernel, rk_kuramoto_bwd_kernel) take a
+# trajectory or an interval on a group of N lanes. A lane's N-1 sines of a
+# stage are independent (the branch-free copy of sinf's fast path), so its
+# warp issues them one after another: SINF_ISSUE instructions each with the
+# shuffle that gathers the other phase, the difference and the add into the
+# sum (SINCOS_ISSUE with the cosine and its store, in the backward), and the
+# last one's latency, SINF_STEPS dependent steps (a multiply, two
+# conversions, the reduction's 3 FMAs, the square, 4 polynomial FMAs and a
+# select). SHFL_CYC: a shuffle's latency. Round figures, not measurements.
+SINF_ISSUE, SINCOS_ISSUE, SINF_STEPS, SHFL_CYC = 24, 34, 12, 8
+
+
+def kuramoto_stage_cycles(dim, issue=SINF_ISSUE):
+    """Cycles of one stage on a Kuramoto lane: its input (an unfused
+    multiply and add on the previous stage's slope), the shuffles and the
+    first difference, the dim - 1 sines issued one after another and the
+    last one's latency, then the sum's last add, the product and the
+    add."""
+    return ((3 + SINF_STEPS + 3) * FMA_CYC + SHFL_CYC
+            + (dim - 1) * issue)
+
+
 def rk_step_cycles(n_stages, which="pendulum", dim=2):
     """Cycles of one RK step on a trajectory's chain. The pendulum: stage
     s's angle needs only the sines of stages <= s - 2 (a stage's velocity
     enters the angle one stage later), so a step is two interleaved chains
     of ceil(n_stages / 2) sines; a link is the sine, the slope's product and
     two unfused multiply-adds (4 steps: into the next stage's velocity,
-    then into the angle after it). The others, per stage its input (an
-    unfused multiply and add on the previous stage's slope) and the RHS's
-    own chain: Van der Pol 5 dependent operations; Kuramoto a difference,
-    the sine (sincosf, out of line: ~30 steps with the call) and the sum
-    over N-1 terms, then the product and the add."""
+    then into the angle after it). Van der Pol, per stage its input (an
+    unfused multiply and add on the previous stage's slope) and its 5
+    dependent operations. Kuramoto, per stage `kuramoto_stage_cycles`."""
     if which == "pendulum":
         return math.ceil(n_stages / 2) * (SIN_STEPS + 5) * FMA_CYC
-    per = 2 + (5 if which == "vdp" else 1 + 30 + (dim - 1) + 2)
-    return n_stages * per * FMA_CYC
+    if which == "vdp":
+        return n_stages * (2 + 5) * FMA_CYC
+    return n_stages * kuramoto_stage_cycles(dim)
 
 
 def rk_latency_ms(T, substeps, n_stages, clock_mhz, which="pendulum", dim=2):
@@ -318,18 +341,33 @@ VJP_STEPS = {"pendulum": 3, "vdp": 4}
 def rk_bwd_latency_ms(T, substeps, n_stages, clock_mhz, which="pendulum",
                       dim=2):
     """Least time of the backward kernel's chain per trajectory: per chunk
-    of RK_BWD_CHUNK intervals, one interval's work (per sub-step the stages,
-    as in the forward; the VJP of the dim basis cotangents through the
-    stages in reverse, VJP_STEPS a stage (Kuramoto dim + 2), the cotangents
-    in parallel up to dim 4 and one after another above, where the kernel
-    keeps the loop rolled; the dim-term composition) and a barrier; then
-    the T - 1 links of the affine sweep, ybar' = J^T ybar + g (a dim-term
-    dot product and an add)."""
-    vjp = VJP_STEPS.get(which, dim + 2) * (dim if dim > 4 else 1)
-    interval = substeps * (rk_step_cycles(n_stages, which, dim)
-                           + (n_stages * vjp + dim) * FMA_CYC)
-    chunks = math.ceil((T - 1) / RK_BWD_CHUNK)
-    cyc = chunks * (interval + BAR_CYC) + (T - 1) * (dim + 1) * FMA_CYC
+    of intervals, one interval's work and a barrier; then the T - 1 links
+    of the affine sweep, ybar' = J^T ybar + g. The pendulum and Van der Pol
+    (RK_BWD_CHUNK intervals a chunk, a thread an interval): per sub-step
+    the stages, as in the forward, the VJP of the dim basis cotangents
+    through the stages in reverse, VJP_STEPS a stage, in parallel, and the
+    dim-term composition; a link is a dim-term dot product and an add.
+    Kuramoto (a group of dim lanes an interval, a row's intervals all at
+    once on a cluster of blocks): per sub-step the stages as in the
+    forward (with the cosines), then lane e's sweep of basis cotangent e,
+    all dim in parallel, per stage issued by one warp (the dim(dim-1)
+    products of the cosine sums with their loads, 3 dim(dim-1), and ~6 dim
+    more), and the composition (dim^2 products with their loads, 3 dim^2);
+    a link is the shuffles of ybar, a dim-term sum and an add."""
+    if which == "kuramoto":
+        chunks = 1
+        vjp = 3 * dim * (dim - 1) + 6 * dim
+        interval = substeps * (
+            n_stages * (kuramoto_stage_cycles(dim, SINCOS_ISSUE) + vjp)
+            + 3 * dim * dim)
+        link = SHFL_CYC + (dim + 1) * FMA_CYC
+    else:
+        chunks = math.ceil((T - 1) / RK_BWD_CHUNK)
+        interval = substeps * (rk_step_cycles(n_stages, which, dim)
+                               + (n_stages * VJP_STEPS[which] + dim)
+                               * FMA_CYC)
+        link = (dim + 1) * FMA_CYC
+    cyc = chunks * (interval + BAR_CYC) + (T - 1) * link
     return cyc / (clock_mhz * 1e3)
 
 
@@ -1044,8 +1082,11 @@ def rk_trig_check():
     """The RK kernels' branch-free sine and cosine, and sincosf, against
     float64 over |x| <= 105615: a uniform grid of 2^24 points, a dense grid
     on [-8, 8] and the floats nearest each multiple of pi/2 and their
-    neighbours (the reduction's hardest arguments). Returns the largest
-    error of the branch-free pair."""
+    neighbours (the reduction's hardest arguments); and the Kuramoto
+    kernels' branch-free copies of sinf's and sincosf's fast paths against
+    torch.sin (the plain version's sine) and sincosf, bit for bit, on the
+    same points below 105615 and on zeros, subnormals and NaN. Returns the
+    largest error of the branch-free pair."""
     from latentdiffeq_torch.ops import ode_cuda
     k = torch.arange(-67237, 67238, dtype=torch.float64, device="cuda")
     near = (k * (math.pi / 2)).float()
@@ -1067,6 +1108,23 @@ def rk_trig_check():
                    f"{errs[1][0]:.3e} / {errs[1][1]:.3e} (tol {TRIG_TOL:.1e})")
     if not max(max(e) for e in errs) <= TRIG_TOL:
         fail(f"rk_fixed_grid trig: {errs} > {TRIG_TOL}")
+    x = torch.cat([x[x.abs() < 105615.0], torch.tensor(
+        [0.0, -0.0, 1e-30, -1e-30, 1e-45, math.nan], device="cuda")])
+    s_acc, c_acc = ode_cuda.sincos_cuda(x, accurate=True)
+
+    def differ(a, b):  # bit patterns: a NaN equals a NaN of the same bits
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    s_cp, c_cp = ode_cuda.sincos_cuda(x, copy="sinf")
+    s_sc, c_sc = ode_cuda.sincos_cuda(x, copy="sincosf")
+    bad = {"sinf copy vs torch.sin": differ(s_cp, torch.sin(x)),
+           "sincosf copy vs sincosf": differ(s_sc, s_acc)
+           + differ(c_sc, c_acc) + differ(c_cp, c_acc)}
+    log("kernels", f"rk_kuramoto sine copies over {x.numel()} points of "
+                   f"|x| < 105615, values that differ in a bit: {bad} "
+                   f"(must be 0)")
+    if any(bad.values()):
+        fail(f"rk_kuramoto sine copies differ from the library's: {bad}")
     return max(errs[0])
 
 
@@ -1101,6 +1159,13 @@ def rk_name(kernel, f, dim):
     from latentdiffeq_torch.ops import ode_cuda
     inst = ode_cuda.rhs_instance(f, dim)
     return kernel if inst.startswith("pendulum") else f"{kernel}[{inst}]"
+
+
+def rk_kernel(family, bwd=False):
+    """The profiler's name of the CUDA kernel that runs a functor family in
+    csrc/rk_fixed_grid.cu: Kuramoto's lane-group pair, or the others'."""
+    name = "rk_kuramoto" if family == "kuramoto" else "rk_fixed_grid"
+    return f"{name}_bwd_kernel" if bwd else f"{name}_kernel"
 
 
 def rk_inputs(which, B, T, gen, dev="cuda"):
@@ -1202,6 +1267,11 @@ def rk_kernel_checks(gen):
                 line += (f"; vs float64: kernel {e_k:.3e}, plain {e_p:.3e} "
                          f"(gate 2 x plain + 1e-6)")
                 good = good and e_k <= 2 * e_p + 1e-6
+            if family == "kuramoto":  # the lane-group kernel: bit for bit
+                bits = torch.equal(got.view(torch.int32),
+                                   ref.view(torch.int32))
+                line += f"; bit for bit as plain: {bits}"
+                good = good and bits
             if label != "long":
                 worst[name] = max(worst.get(name, 0.0), e)
             if label == "large angles":
@@ -1366,7 +1436,7 @@ def rk_timing(gen, clock):
                     f, s, u0s, ps, saveat, substeps=sub),
                 lambda: ode_cuda.solve_fixed_grid_batched_reference(
                     f, s, u0s, ps, saveat, substeps=sub),
-                "rk_fixed_grid_kernel",
+                rk_kernel(family),
                 rk_work(B, T, n, pdim, sub, tab, n_st, family, n_cst),
                 rk_latency_ms(T, sub, n_st, clock, family, n)),
             bwd_name: (
@@ -1374,7 +1444,7 @@ def rk_timing(gen, clock):
                     f, s, saveat, ys, ps, w, substeps=sub),
                 lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
                     f, s, saveat, ys, ps, w, substeps=sub),
-                "rk_fixed_grid_bwd_kernel",
+                rk_kernel(family, bwd=True),
                 rk_bwd_work(B, T, n, pdim, sub, tab, n_st, family, n_cst),
                 rk_bwd_latency_ms(T, sub, n_st, clock, family, n))}
         with torch.no_grad():

@@ -18,7 +18,10 @@ reads it at run time. The gradient is the VJP the JAX ``custom_vjp`` takes
 by recomputing the plain solve: on the card one launch of
 ``rk_fixed_grid_bwd_kernel``, which builds every interval's map (J_n =
 d ys[n+1] / d ys[n], r_n = d ys[n+1] / d p) in parallel from the saved
-trajectory and then runs a short affine sweep over them. Its plain versions are
+trajectory and then runs a short affine sweep over them. Kuramoto runs its
+own pair, ``rk_kuramoto_kernel`` and ``rk_kuramoto_bwd_kernel``, with a
+group of lanes a trajectory or interval (one launch each all the same).
+Its plain versions are
 ``solve_fixed_grid_batched_interval_maps_reference`` and
 ``solve_fixed_grid_batched_affine_sweep_reference``;
 ``solve_fixed_grid_batched_backward_reference`` is the step-by-step reverse
@@ -48,8 +51,8 @@ __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_backward_reference",
            "solve_fixed_grid_batched_interval_maps_reference",
            "solve_fixed_grid_batched_affine_sweep_reference",
-           "tableau_instance", "sincos_cuda", "BAKED_TABLEAUS", "DEVICE_RHS",
-           "RHS_VJP", "rhs_instance"]
+           "tableau_instance", "sincos_cuda", "SINF_COPIES",
+           "BAKED_TABLEAUS", "DEVICE_RHS", "RHS_VJP", "rhs_instance"]
 
 # device_rhs family -> {state width: (functor index in csrc/rk_fixed_grid.cu,
 # parameter width, instance name)}: the widths each functor is compiled for.
@@ -450,21 +453,34 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
 solve_fixed_grid_batched_bwd_cuda.launches = {}
 
 
-def sincos_cuda(x, *, accurate: bool = False):
+# sincos_cuda's ``copy``: the branch-free copies of CUDA's sinf and sincosf
+# fast paths (|x| < 105615) that the Kuramoto kernels take, by mode of
+# ldq_rk_sincos: "sinf" the sine from sinf's copy and the cosine from
+# sincosf's, "sincosf" both from sincosf's.
+SINF_COPIES = {"sinf": 2, "sincosf": 3}
+
+
+def sincos_cuda(x, *, accurate: bool = False, copy: str | None = None):
     """The sine and cosine the RK kernels evaluate, on a float32 CUDA tensor
     ``x``: the branch-free ``sincos_fast`` (valid for |x| <= 105615), or
     with ``accurate=True`` CUDA's sincosf, which the kernels rerun a step
-    with when a stage angle passes that bound. Returns ``(sin, cos)``. For
-    the checks that hold the one against the other."""
+    with when a stage angle passes that bound; with ``copy`` (a key of
+    ``SINF_COPIES``) the Kuramoto kernels' copies of sinf's and sincosf's
+    fast paths (valid for |x| < 105615). Returns ``(sin, cos)``. For the
+    checks that hold the one against the other."""
     if not x.is_cuda or x.dtype != torch.float32:
         raise ValueError("sincos_cuda: x must be a float32 CUDA tensor")
+    if copy is not None and copy not in SINF_COPIES:
+        raise ValueError(f"sincos_cuda: copy must be one of "
+                         f"{sorted(SINF_COPIES)}, not {copy!r}")
+    mode = SINF_COPIES[copy] if copy is not None else int(accurate)
     x = x.contiguous()
     s, c = torch.empty_like(x), torch.empty_like(x)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.ldq_rk_sincos(x.data_ptr(), s.data_ptr(), c.data_ptr(),
-                                x.numel(), int(accurate), stream)
+                                x.numel(), mode, stream)
     if err != 0:
         raise RuntimeError(f"rk sincos kernel launch failed: CUDA error "
                            f"{err}")

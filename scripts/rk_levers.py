@@ -3,18 +3,25 @@ card:
 
     python3 scripts/rk_levers.py [--rounds 3]
 
-Builds csrc/rk_fixed_grid.cu five ways into build/rk_levers/ (one nvcc
+Builds csrc/rk_fixed_grid.cu seven ways into build/rk_levers/ (one nvcc
 each, in parallel) and times each build's forward and backward kernels,
 Tsit5, for the pendulum at the train shape (B 64, T 50) and the validation
 shape (B 45, T 100), substeps 1, and for Kuramoto-10 at its train shape
-(B 64, T 50, substeps 4, dt 0.1), with each lever taken out in turn:
+(B 64, T 50) and validation shape (B 26, T 100), substeps 4, dt 0.1, with
+each lever taken out in turn:
   - ``design``: the library as the port builds it;
-  - ``sinf``: every sine and cosine by sincosf (LDQ_RK_LEVER_SINF), called
-    out of line as the design calls it for the accurate rerun and for
-    Kuramoto, so each stage holds a call (Kuramoto is the design here);
-  - ``inline-sincos``: sincosf inlined at every call
-    (LDQ_RK_LEVER_INLINE_SINCOS; pendulum as the design, whose fast sine
-    needs sincosf only in the rerun);
+  - ``sinf``: every sine and cosine by a call of sincosf (Kuramoto's
+    forward: sinf) out of line (LDQ_RK_LEVER_SINF), as the design calls it
+    for the accurate rerun, so each stage holds a call; for Kuramoto instead
+    of the branch-free copy of sinf's fast path (its values are the same);
+  - ``inline-sincos``: the same calls inlined (LDQ_RK_LEVER_SINF and
+    LDQ_RK_LEVER_INLINE_SINCOS);
+  - ``one-thread``: Kuramoto through the one-thread-a-trajectory kernels,
+    the design before the lane groups (LDQ_RK_LEVER_KURAMOTO_ONE_THREAD;
+    pendulum as the design);
+  - ``one-cta``: the Kuramoto backward on one block a row, its intervals
+    in chunks, instead of a cluster of blocks a row
+    (LDQ_RK_LEVER_KURAMOTO_ONE_CTA; the rest as the design);
   - ``no-dt-table``: the forward loads saveat and divides at the top of each
     step (LDQ_RK_LEVER_NO_DT_TABLE) instead of reading a table of step sizes;
   - ``fmad``: built with --fmad=true (the compiler may fuse a multiply and
@@ -42,7 +49,9 @@ import sys
 VARIANTS = {
     "design": None,
     "sinf": ["-DLDQ_RK_LEVER_SINF"],
-    "inline-sincos": ["-DLDQ_RK_LEVER_INLINE_SINCOS"],
+    "inline-sincos": ["-DLDQ_RK_LEVER_SINF", "-DLDQ_RK_LEVER_INLINE_SINCOS"],
+    "one-thread": ["-DLDQ_RK_LEVER_KURAMOTO_ONE_THREAD"],
+    "one-cta": ["-DLDQ_RK_LEVER_KURAMOTO_ONE_CTA"],
     "no-dt-table": ["-DLDQ_RK_LEVER_NO_DT_TABLE"],
     "fmad": "fmad",
 }
@@ -111,21 +120,23 @@ def main():
             ok=torch.empty(B, dtype=torch.bool, device=dev),
             du0=torch.empty(B, 2, device=dev),
             dp=torch.empty(B, 1, device=dev))
-    B, T, N = 64, 50, 10  # Kuramoto-10, the examples' draws
+    N = 10  # Kuramoto-10, the examples' draws
     kind, _, _ = ode_cuda.DEVICE_RHS["kuramoto"][N]
     offsets = torch.zeros(N, device=dev)  # omega_spread 0
-    shapes["kuramoto10_train"] = dict(
-        B=B, T=T, rhs=kind, sub=4, cst=offsets.data_ptr(),
-        u0s=(torch.rand(B, N, generator=g, device=dev) * 2 - 1) * math.pi,
-        ps=torch.stack([1 + 2 * torch.rand(B, generator=g, device=dev),
-                        0.2 + 1.8 * torch.rand(B, generator=g, device=dev)],
-                       dim=1),
-        saveat=torch.arange(T, dtype=torch.float32, device=dev) * 0.1,
-        w=torch.randn(B, T, N, generator=g, device=dev),
-        ys=torch.empty(B, T, N, device=dev),
-        ok=torch.empty(B, dtype=torch.bool, device=dev),
-        du0=torch.empty(B, N, device=dev),
-        dp=torch.empty(B, 2, device=dev))
+    for label, (B, T) in (("train", (64, 50)), ("val", (26, 100))):
+        shapes[f"kuramoto10_{label}"] = dict(
+            B=B, T=T, rhs=kind, sub=4, cst=offsets.data_ptr(),
+            u0s=(torch.rand(B, N, generator=g, device=dev) * 2 - 1)
+            * math.pi,
+            ps=torch.stack([1 + 2 * torch.rand(B, generator=g, device=dev),
+                            0.2 + 1.8 * torch.rand(B, generator=g,
+                                                   device=dev)], dim=1),
+            saveat=torch.arange(T, dtype=torch.float32, device=dev) * 0.1,
+            w=torch.randn(B, T, N, generator=g, device=dev),
+            ys=torch.empty(B, T, N, device=dev),
+            ok=torch.empty(B, dtype=torch.bool, device=dev),
+            du0=torch.empty(B, N, device=dev),
+            dp=torch.empty(B, 2, device=dev))
 
     configs = {name: (libs[name], baked) for name in VARIANTS}
     configs["generic"] = (libs["design"], 0)
@@ -146,7 +157,7 @@ def main():
             x["dp"].data_ptr(), None, None, x["B"], x["T"], x["sub"], stream)
         assert err == 0, err
 
-    def device_ms(fn, kernel, reps=50):
+    def device_ms(fn, kernels, reps=50):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -156,7 +167,7 @@ def main():
             torch.cuda.synchronize()
         us = [getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
               for e in prof.events() if e.device_type.name == "CUDA"
-              and kernel in e.name]
+              and any(k in e.name for k in kernels)]
         return sum(us) / 1e3 / len(us) if us else None
 
     # each build's results against the design build's, at the train shapes
@@ -184,9 +195,11 @@ def main():
             for label, x in shapes.items():
                 fwd(lib, kind, x)   # the trajectory the backward reads
                 row[f"fwd_device_ms_{label}"] = device_ms(
-                    lambda: fwd(lib, kind, x), "rk_fixed_grid_kernel")
+                    lambda: fwd(lib, kind, x),
+                    ("rk_fixed_grid_kernel", "rk_kuramoto_kernel"))
                 row[f"bwd_device_ms_{label}"] = device_ms(
-                    lambda: bwd(lib, kind, x), "rk_fixed_grid_bwd_kernel")
+                    lambda: bwd(lib, kind, x),
+                    ("rk_fixed_grid_bwd_kernel", "rk_kuramoto_bwd_kernel"))
             for k, v in row.items():
                 times[name].setdefault(k, []).append(v)
             print(f"round {rnd} {name}: " + ", ".join(

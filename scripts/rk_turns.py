@@ -19,14 +19,31 @@ checkout's root and the card's name and power limit:
     ``rk_fixed_grid_bwd_kernel`` over the forward's trajectory;
   - ``rk_grad_ms``: forward + backward through ``solve_fixed_grid_batched``
     at the train shape, per call (with the success flags the solve returns;
-    the older design computes them in three more launches).
+    the older design computes them in three more launches);
+  - ``kuramoto10_*``: the same four times for Kuramoto-10 (no frequency
+    offsets) at its GOKU path's train shape (B 64, T 50) and validation
+    shape (B 26, T 100), Tsit5, 4 sub-steps, dt 0.1, the examples' draws,
+    and ``kuramoto10_grad_ms``; the device times of whichever kernels the
+    checkout launches for it (the lane-group ``rk_kuramoto_kernel`` and
+    ``rk_kuramoto_bwd_kernel``, or the one-thread kernels before them);
+  - ``kuramoto10_step_ms`` / ``kuramoto10_val_ms``: the median of 7
+    synchronised GOKU training steps and validation passes on Kuramoto-10
+    at the JAX example's width (goku_default_layers(64, ...,
+    hidden_dim_resnet=100, latent_to_diffeq_dim=100), weights from seed 0,
+    both kernel switches on, 4 sub-steps, dt 0.1), batch 64 x 50 frames
+    and validation 26 x 100 frames of 64 channels drawn uniformly from a
+    seed; ``kuramoto10_step_busy_ms``: the device time of one such step
+    (torch.profiler, every CUDA op summed), and ``kuramoto10_step_ops``
+    its device ops.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import time
 
 
 def main():
@@ -37,6 +54,7 @@ def main():
         sys.exit("needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
+    from latentdiffeq_torch import custom_dynamics as cdyn
     from latentdiffeq_torch.ops import ode_cuda
     from latentdiffeq_torch.pendulum import pendulum_f
     from latentdiffeq_torch.solve.rk import Tsit5
@@ -56,7 +74,7 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(z) / reps
 
-    def device_ms(fn, kernel, reps=50):
+    def device_ms(fn, kernels, reps=50):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -66,20 +84,36 @@ def main():
             torch.cuda.synchronize()
         us = [getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
               for e in prof.events() if e.device_type.name == "CUDA"
-              and kernel in e.name]
+              and any(k in e.name for k in kernels)]
         return sum(us) / 1e3 / len(us) if us else None
 
+    fwd_kernels = ("rk_fixed_grid_kernel", "rk_kuramoto_kernel")
+    bwd_kernels = ("rk_fixed_grid_bwd_kernel", "rk_kuramoto_bwd_kernel")
     g = torch.Generator(device=dev).manual_seed(0)
+    kuramoto = cdyn.kuramoto_f(10)
     res = {"tree": root}
-    for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
-        u0s = torch.rand(B, 2, generator=g, device=dev) * 2 - 1
-        ps = 1 + torch.rand(B, 1, generator=g, device=dev)
-        saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
-        w = torch.randn(B, T, 2, generator=g, device=dev)
+    cases = [("", pendulum_f, "train", 64, 50, 1),
+             ("", pendulum_f, "val", 45, 100, 1),
+             ("kuramoto10_", kuramoto, "train", 64, 50, 4),
+             ("kuramoto10_", kuramoto, "val", 26, 100, 4)]
+    for pre, f, label, B, T, sub in cases:
+        if f is pendulum_f:
+            u0s = torch.rand(B, 2, generator=g, device=dev) * 2 - 1
+            ps = 1 + torch.rand(B, 1, generator=g, device=dev)
+            dt = 0.05
+        else:  # phases ~ U(-pi, pi), omega ~ U(1, 3), K ~ U(0.2, 2)
+            u0s = (torch.rand(B, 10, generator=g, device=dev) * 2
+                   - 1) * math.pi
+            ps = torch.stack([1 + 2 * torch.rand(B, generator=g, device=dev),
+                              0.2 + 1.8 * torch.rand(B, generator=g,
+                                                     device=dev)], dim=1)
+            dt = 0.1
+        saveat = torch.arange(T, dtype=torch.float32, device=dev) * dt
+        w = torch.randn(B, T, u0s.shape[1], generator=g, device=dev)
 
         def fwd():
-            return ode_cuda.solve_fixed_grid_batched_cuda(pendulum_f, solver,
-                                                          u0s, ps, saveat)
+            return ode_cuda.solve_fixed_grid_batched_cuda(
+                f, solver, u0s, ps, saveat, substeps=sub)
 
         with torch.no_grad():
             out = fwd()
@@ -87,24 +121,64 @@ def main():
 
             def bwd():
                 return ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-                    pendulum_f, solver, saveat, ys, ps, w)
+                    f, solver, saveat, ys, ps, w, substeps=sub)
 
-            res[f"fwd_ms_{label}"] = event_ms(fwd)
-            res[f"fwd_device_ms_{label}"] = device_ms(fwd,
-                                                      "rk_fixed_grid_kernel")
-            res[f"bwd_ms_{label}"] = event_ms(bwd)
-            res[f"bwd_device_ms_{label}"] = device_ms(
-                bwd, "rk_fixed_grid_bwd_kernel")
+            res[f"{pre}fwd_ms_{label}"] = event_ms(fwd)
+            res[f"{pre}fwd_device_ms_{label}"] = device_ms(fwd, fwd_kernels)
+            res[f"{pre}bwd_ms_{label}"] = event_ms(bwd)
+            res[f"{pre}bwd_device_ms_{label}"] = device_ms(bwd, bwd_kernels)
         if label == "train":
             u = u0s.clone().requires_grad_()
             p = ps.clone().requires_grad_()
 
             def grad():
-                y = ode_cuda.solve_fixed_grid_batched(pendulum_f, solver, u,
-                                                      p, saveat)[0]
+                y = ode_cuda.solve_fixed_grid_batched(f, solver, u, p,
+                                                      saveat,
+                                                      substeps=sub)[0]
                 torch.autograd.grad(y, [u, p], w)
 
-            res["rk_grad_ms"] = event_ms(grad)
+            res[f"{pre or 'rk_'}grad_ms"] = event_ms(grad)
+
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.train import TrainConfig, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    diffeq = cdyn.Kuramoto(10, options=SolveOptions(adaptive=False,
+                                                    substeps=4))
+    enc, dec = goku_default_layers(
+        64, diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
+        generator=torch.Generator().manual_seed(0), device=dev)
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), enc, dec)
+    trainer = Trainer(model, TrainConfig(dt=0.1, save_best=False),
+                      device=dev)
+    data = torch.rand(64, 50, 64, generator=g, device=dev)
+    val = torch.rand(26, 100, 64, generator=g, device=dev)
+    step, vals = [], []
+    for i in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(data, 0.003)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.val_step(val, 0.003)
+        torch.cuda.synchronize()
+        if i >= 2:
+            step.append(1e3 * (t1 - t0))
+            vals.append(1e3 * (time.perf_counter() - t1))
+    res["kuramoto10_step_ms"] = sorted(step)[len(step) // 2]
+    res["kuramoto10_val_ms"] = sorted(vals)[len(vals) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(data, 0.003)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    res["kuramoto10_step_busy_ms"] = sum(
+        getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+        for e in evs) / 1e3
+    res["kuramoto10_step_ops"] = len(evs)
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

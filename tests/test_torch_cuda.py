@@ -495,6 +495,31 @@ def test_rk_branch_free_sine_matches_sincosf_on_card(dev):
 
 
 @pytest.mark.cuda
+def test_rk_kuramoto_sine_copies_equal_the_library_on_card(dev):
+    """The Kuramoto kernels' branch-free copies of the fast paths of sinf
+    and sincosf equal torch.sin (the plain version's sine) and sincosf bit
+    for bit below 105615, where the kernels use them: a uniform grid of
+    2^24 points, a dense grid on [-8, 8], the floats nearest to each
+    multiple of pi/2 and their neighbours, zeros, subnormals and NaN."""
+    k = torch.arange(-67237, 67238, dtype=torch.float64, device=dev)
+    near = (k * (torch.pi / 2)).float()
+    steps = torch.arange(-3, 4, device=dev, dtype=torch.int32)
+    near = (near.view(torch.int32)[:, None] + steps).view(torch.float32)
+    x = torch.cat([torch.linspace(-105615.0, 105615.0, 1 << 24, device=dev),
+                   torch.linspace(-8.0, 8.0, 1 << 22, device=dev),
+                   near.flatten(),
+                   torch.tensor([0.0, -0.0, 1e-30, -1e-30, 1e-45,
+                                 float("nan")], device=dev)])
+    x = x[~(x.abs() >= 105615.0)]
+    s_acc, c_acc = ode_cuda.sincos_cuda(x, accurate=True)
+    s, c = ode_cuda.sincos_cuda(x, copy="sinf")
+    s_sc, c_sc = ode_cuda.sincos_cuda(x, copy="sincosf")
+    for got, ref in ((s, torch.sin(x)), (c, c_acc), (s_sc, s_acc),
+                     (c_sc, c_acc)):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_rk_library_refuses_a_tableau_not_its_baked_one_on_card(dev):
     """The C interface runs a baked instance only for exactly its
     coefficients: RK4's tableau under Tsit5's index is refused with
@@ -572,13 +597,17 @@ def custom_inputs(dev, rhs, B, T, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (37, 21)])
+@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (37, 21), (1, 21),
+                                 (3, 21), (65, 21)])
 @pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
 @pytest.mark.parametrize("rhs", sorted(CUSTOM_RHS))
 def test_rk_custom_rhs_kernel_matches_plain_on_card(dev, rhs, solver, B, T):
     """The forward kernel with the Van der Pol and Kuramoto functors against
-    the plain version, 4 sub-steps (atol 1e-5); success flags as the plain
-    flags; a baked tableau instance equals the run-time one bit for bit."""
+    the plain version, 4 sub-steps (atol 1e-5; Kuramoto, whose kernels take
+    a trajectory on a group of lanes, bit for bit, also on batches that
+    leave a warp's last groups empty: 3 trajectories a warp at N 10, 8 at
+    N 4); success flags as the plain flags; a baked tableau instance equals
+    the run-time one bit for bit."""
     f = CUSTOM_RHS[rhs]()
     u0s, ps, saveat, _ = custom_inputs(dev, rhs, B, T, seed=30)
     s = getattr(trk, solver)()
@@ -588,6 +617,8 @@ def test_rk_custom_rhs_kernel_matches_plain_on_card(dev, rhs, solver, B, T):
         ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
             f, s, u0s, ps, saveat, substeps=4)
         assert float((got - ref).abs().max()) <= ATOL
+        if rhs.startswith("kuramoto"):
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
         assert torch.equal(ok, ok_p) and bool(ok.all())
         if ode_cuda.tableau_instance(s) != 0:
             gen = ode_cuda.solve_fixed_grid_batched_cuda(
@@ -597,7 +628,7 @@ def test_rk_custom_rhs_kernel_matches_plain_on_card(dev, rhs, solver, B, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (16, 300)])
+@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (16, 300), (3, 21)])
 @pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
 @pytest.mark.parametrize("rhs", sorted(CUSTOM_RHS))
 def test_rk_custom_rhs_bwd_kernel_matches_plain_on_card(dev, rhs, solver, B,
@@ -605,8 +636,10 @@ def test_rk_custom_rhs_bwd_kernel_matches_plain_on_card(dev, rhs, solver, B,
     """The backward kernel with the new functors: its interval maps against
     the plain maps over the same trajectory, its gradients against the
     two-phase plain version, the plain reverse sweep and plain autograd,
-    each within 1e-5 of the tensor's size. T 300 (two chunks, and more
-    dynamic shared memory than a launch gets by default for Kuramoto-10):
+    each within 1e-5 of the tensor's size. Kuramoto spreads a row's
+    intervals over a cluster of blocks (2 at B 64, 5 at B 26, 7 at B 3, 8
+    at B 16 on 132 SMs). T 300 (more dynamic shared memory than a launch
+    gets by default for Kuramoto-10):
     1196 steps, over which the maps' products and the step-by-step sweep,
     two float32 orders of the same sums, part by more than 1e-5 (for
     Kuramoto, float32 interval maps, the kernel's and the plain ones alike,
@@ -646,6 +679,68 @@ def test_rk_custom_rhs_bwd_kernel_matches_plain_on_card(dev, rhs, solver, B,
             f, s, u, p, saveat, substeps=4)[0]
         for a, d in zip((du0, dp), torch.autograd.grad(y, [u, p], w)):
             assert rel_err(a, d) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
+@pytest.mark.parametrize("rhs", ["kuramoto4", "kuramoto10",
+                                 "kuramoto10-spread"])
+def test_rk_kuramoto_bwd_one_block_a_row_equals_clusters_on_card(dev, rhs,
+                                                                 solver):
+    """With more rows than the card has SMs the Kuramoto backward runs one
+    block a row, its intervals in chunks, not a cluster of blocks a row;
+    the per-interval arithmetic and the sweep's order are the same, so the
+    maps and gradients of each row equal those of the same rows run alone
+    (as clusters) bit for bit. The wide batch is also held to the plain
+    maps and the two-phase plain version (1e-5 of each tensor's size)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, T = sms + 8, 100
+    f = CUSTOM_RHS[rhs]()
+    u0s, ps, saveat, w = custom_inputs(dev, rhs, B, T, seed=33)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=4)
+    wide = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, s, saveat, ys, ps, w, substeps=4, maps=True)
+    J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+        f, s, saveat, ys, ps, substeps=4)
+    assert rel_err(wide[2], J_p) <= ATOL and rel_err(wide[3], r_p) <= ATOL
+    two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(J_p, r_p,
+                                                                   w)
+    for a, b in zip(wide[:2], two):
+        assert rel_err(a, b) <= ATOL
+    for lo, hi in ((0, 26), (B - 3, B)):
+        part = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys[lo:hi], ps[lo:hi], w[lo:hi], substeps=4,
+            maps=True)
+        for a, b in zip(wide, part):
+            assert torch.equal(a[lo:hi].view(torch.int32),
+                               b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [3, 26])
+@pytest.mark.parametrize("rhs", ["kuramoto4", "kuramoto10",
+                                 "kuramoto10-spread"])
+def test_rk_kuramoto_non_finite_rows_keep_plain_flags_on_card(dev, rhs, B):
+    """Rows that start from a NaN or infinite phase, or carry a NaN
+    coupling, fail as in the plain version, and only they: a group's flag
+    is the AND over its lanes. The other rows equal the plain version bit
+    for bit."""
+    f = CUSTOM_RHS[rhs]()
+    u0s, ps, saveat, _ = custom_inputs(dev, rhs, B, 21, seed=32)
+    u0s[1, 0], u0s[2, -1] = float("nan"), float("inf")
+    ps[B - 1, 1] = float("nan")
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, trk.Tsit5(), u0s, ps, saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, trk.Tsit5(), u0s, ps, saveat, substeps=4)
+    assert torch.equal(ok, ok_p)
+    assert torch.equal(ok, torch.isfinite(got).all(dim=2).all(dim=1))
+    assert sorted((~ok).nonzero().flatten().tolist()) == sorted({1, 2, B - 1})
+    assert torch.equal(got[ok].view(torch.int32), ref[ok].view(torch.int32))
 
 
 @pytest.mark.cuda
