@@ -48,7 +48,15 @@ Phases, each printing one line (any failure exits non-zero):
               Van der Pol (mu_max 4) and on Kuramoto-10 data made on the
               card, the same checks with the RK kernels' instance for that
               RHS; then the solve API and both adjoints on CUDA tensors
-              against the same calls on CPU tensors (float64);
+              against the same calls on CPU tensors (float64), and the
+              adaptive SDE with its per-row step counts; then (4f)
+              full-width GOKU on the stochastic pendulum (SRA1 over the
+              threefry Brownian tree, plain PyTorch) through the
+              goku_heads kernels: 24 forward and 12 backward launches, no
+              RK kernel launch, the kernel route against the plain route
+              and the Brownian path card against CPU on the same key, the
+              ELBO of spendulum_pop4_winner.npz card against CPU, step and
+              validation times, and one adaptive-SDE forward's time;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -1614,6 +1622,38 @@ def reset_counts():
     ode_cuda.solve_fixed_grid_batched_reference.calls = 0
 
 
+def log_epochs(what, hist):
+    """One line an epoch of a fit; fails on a non-finite loss."""
+    for rec in hist:
+        log("train", f"{what} epoch {rec['epoch']}: train loss "
+                     f"{rec['train_loss']:.6f} val loss {rec['val_loss']:.6f}"
+                     f" beta {rec['beta']:.4f} {rec['epoch_s']:.4f} s")
+        if not (math.isfinite(rec["train_loss"])
+                and math.isfinite(rec["val_loss"])):
+            fail(f"{what}: non-finite loss in epoch {rec['epoch']}")
+
+
+def plain_copy(model, model_type):
+    """A copy of ``model`` (same weights) that runs ``model_type``: the
+    plain route when the type's kernel switches are off."""
+    plain = copy.deepcopy(model)
+    plain.model_type = plain.encoder.model_type = \
+        plain.decoder.model_type = model_type
+    return plain
+
+
+def step_report(what, trainer, data, val_set, beta, gpu):
+    """The step and validation times and the device ops of one step."""
+    step_ms, val_ms = step_times(trainer, data, val_set, beta)
+    n_ops, busy, span = step_device_ops(trainer, data, beta)
+    log("train", f"{what} step time (median of 5, synchronised): train "
+                 f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; one "
+                 f"train step under torch.profiler: {n_ops} device ops, "
+                 f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
+                 f"{100 * (1 - busy / span) if span else 0:.1f} %); card "
+                 f"{gpu}")
+
+
 def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
     """A GOKU main path: GOKUBasic with both kernel switches on, on
     ``layers`` (encoder, decoder) for ``diffeq``, Trainer.fit under ``cfg``
@@ -1651,13 +1691,7 @@ def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
     plain_calls = [recurrent_cuda.goku_heads_reference.calls,
                    ode_cuda.solve_fixed_grid_batched_reference.calls]
     steps = train_set.shape[0] // cfg.batch_size
-    for rec in hist:
-        log("train", f"{what} epoch {rec['epoch']}: train loss "
-                     f"{rec['train_loss']:.6f} val loss {rec['val_loss']:.6f}"
-                     f" beta {rec['beta']:.4f} {rec['epoch_s']:.4f} s")
-        if not (math.isfinite(rec["train_loss"])
-                and math.isfinite(rec["val_loss"])):
-            fail(f"{what}: non-finite loss in epoch {rec['epoch']}")
+    log_epochs(what, hist)
     # forward kernels: one per train step (writing the tape) and one per
     # validation pass; backward kernels: one per train step
     expected = {"goku_heads": 2 * steps * 2, "goku_heads_bwd": 2 * steps,
@@ -1674,9 +1708,7 @@ def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
         fail(f"the plain version ran during the {what} fit: {plain_calls}")
 
     # the kernel path against the plain path, same weights, on the card
-    plain = copy.deepcopy(model)
-    plain.model_type = plain.encoder.model_type = \
-        plain.decoder.model_type = GOKUBasic()
+    plain = plain_copy(model, GOKUBasic())
     t_val = torch.arange(val_set.shape[1], dtype=torch.float32,
                          device=dev) * cfg.dt
     with torch.no_grad():
@@ -1694,14 +1726,7 @@ def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
 
     data = train_set[:cfg.batch_size, :cfg.seq_len]
     beta = float(hist[-1]["beta"])
-    step_ms, val_ms = step_times(trainer, data, val_set, beta)
-    n_ops, busy, span = step_device_ops(trainer, data, beta)
-    log("train", f"{what} step time (median of 5, synchronised): train "
-                 f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; one "
-                 f"train step under torch.profiler: {n_ops} device ops, "
-                 f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
-                 f"{100 * (1 - busy / span) if span else 0:.1f} %); card "
-                 f"{gpu}")
+    step_report(what, trainer, data, val_set, beta, gpu)
     return launches, trainer, data, beta
 
 
@@ -1802,6 +1827,239 @@ def solve_api_card_checks(dev):
             fail(f"{name} card vs CPU: {e}")
     log("api", f"solve API and adjoints on the card in {card_s:.3f} s")
     return worst
+
+
+def sde_api_card_check(dev):
+    """The adaptive SDE through solve_ensemble on CUDA tensors against the
+    same call on CPU tensors (float64, B 8, T 20, depth_cap 4): ys within
+    API_TOL, and per row (solve_sde_adaptive on the ensemble's keys) the
+    same accepted and rejected steps and the same deepest level."""
+    import latentdiffeq_torch as ldt
+    from latentdiffeq_torch import random as jr
+    from latentdiffeq_torch.pendulum import pendulum_f, spendulum_g
+    from latentdiffeq_torch.solve.sde import solve_sde_adaptive
+
+    g = torch.Generator().manual_seed(4)
+    u0s = torch.rand(8, 2, generator=g, dtype=torch.float64) * 2 - 1
+    ps = 0.5 + 1.5 * torch.rand(8, 1, generator=g, dtype=torch.float64)
+    saveat = torch.arange(20, dtype=torch.float64) * 0.05
+    kw = dict(adaptive=True, rtol=1e-4, atol=1e-4, max_steps=256,
+              depth_cap=4)
+    cfg = ldt.SDEAdaptiveConfig(rtol=1e-4, atol=1e-4, max_steps=256,
+                                depth_cap=4)
+
+    def run(device):
+        u, p, s = (x.to(device) for x in (u0s, ps, saveat))
+        key = jr.PRNGKey(21, device=device)
+        prob = ldt.SDEProblem(f=pendulum_f, g=spendulum_g, u0=u[0],
+                              tspan=(0.0, 0.95), p=p[0])
+        sol = ldt.solve_ensemble(prob, ldt.SRA1(), u0s=u, ps=p, saveat=s,
+                                 key=key, **kw)
+        _, _, stats = solve_sde_adaptive(pendulum_f, spendulum_g, ldt.SRA1(),
+                                         u, p, s, jr.split(key, 8), cfg)
+        return sol, {k: v.cpu().tolist() for k, v in stats.items()}
+
+    (got, st), (ref, st_ref) = run(dev), run("cpu")
+    e = rel_err(got.ys.cpu(), ref.ys)
+    log("api", f"adaptive SDE solve_ensemble (SRA1, float64, B 8, T 20, "
+               f"depth_cap 4) on the card vs the CPU: max rel err {e:.3e} "
+               f"(tol {API_TOL:.0e}); per-row steps accepted "
+               f"{st['n_accepted']}, rejected {st['n_rejected']}, deepest "
+               f"level {st['max_depth']} (CPU: {st_ref['n_accepted']}, "
+               f"{st_ref['n_rejected']}, {st_ref['max_depth']})")
+    if not (e <= API_TOL and st == st_ref and bool(got.success.all())
+            and got.success.cpu().tolist() == ref.success.tolist()):
+        fail(f"adaptive SDE card vs CPU: {e}, {st} vs {st_ref}")
+
+
+def ulps(a, b) -> float:
+    """The largest |a - b| in units in the last place of b."""
+    m = b.abs()
+    ulp = torch.nextafter(m, torch.full_like(m, math.inf)) - m
+    return float(((a - b).abs() / ulp).max())
+
+
+SPENDULUM_CKPT = os.path.join("benchmarks", "artifacts",
+                              "spendulum_pop4_winner.npz")
+SDE_ULPS = 2        # threefry normals, card vs CPU: every operation of a
+#                     draw is correctly rounded, so 0 is expected
+
+
+def brownian_card_check(keys, t_val):
+    """The Brownian path of one forward, card against CPU: the interval
+    keys bit for bit, their normals within SDE_ULPS units in the last
+    place, and the increments' largest difference."""
+    from latentdiffeq_torch import random as jr
+    from latentdiffeq_torch.solve.brownian import bridge_increments
+
+    cells = torch.arange(t_val.shape[0] - 1, device=keys.device)
+    ik = jr.fold_in(keys[:, None, :], cells)
+    ik_cpu = jr.fold_in(keys.cpu()[:, None, :], cells.cpu())
+    z, z_cpu = jr.normal(ik, (2, 2)), jr.normal(ik_cpu, (2, 2))
+    w, i = bridge_increments(keys, t_val, 1, (2,))
+    w_cpu, i_cpu = bridge_increments(keys.cpu(), t_val.cpu(), 1, (2,))
+    e_z = ulps(z.cpu(), z_cpu)
+    e_w = max(max_err(w.cpu(), w_cpu), max_err(i.cpu(), i_cpu))
+    same = torch.equal(ik.cpu(), ik_cpu)
+    log("train", f"spendulum Brownian path of one forward ({tuple(ik.shape)}"
+                 f" interval keys, {z.numel()} normals): keys bit for bit "
+                 f"{same}; normals {e_z:.1f} ulp (tol {SDE_ULPS}); "
+                 f"increments max abs err {e_w:.3e}")
+    if not (same and e_z <= SDE_ULPS):
+        fail(f"Brownian path card vs CPU: keys equal {same}, {e_z} ulp")
+
+
+def spendulum_path(train_set, val_set, dev, gpu):
+    """Phase 4f: full-width GOKU on the stochastic pendulum (SPendulum:
+    SRA1 on the grid, one sub-step), both kernel switches on, Trainer.fit
+    for 2 epochs with validation after every step. Per train step one
+    goku_heads launch (writing the tape) and one goku_heads_bwd, per
+    validation pass one goku_heads; no RK kernel launch (SDE dynamics take
+    the SDE solvers) and no plain-version call. Then, on one variational
+    forward of the validation set with the same eps and Brownian key: the
+    kernel route against the plain route, and the Brownian path card
+    against CPU; the ELBO of spendulum_pop4_winner.npz card against CPU;
+    step, validation and device ops; and one forward of the adaptive
+    SPendulum at train_goku.py --adaptive's settings, timed (a record, not
+    a gate). Returns the goku_heads launches."""
+    from latentdiffeq_torch import random as jr
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    from latentdiffeq_torch.pendulum import SPendulum
+    from latentdiffeq_torch.train import (TrainConfig, Trainer,
+                                          load_checkpoint, loss_batch)
+
+    what = "spendulum"
+    cfg = TrainConfig(epochs=1500, save_best=False)
+    layers = goku_default_layers(
+        784, SPendulum(), generator=torch.Generator().manual_seed(333),
+        device=dev)
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
+    trainer = Trainer(model, cfg, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"goku_heads": recurrent_cuda.goku_heads_cuda.launches,
+                "goku_heads_bwd": recurrent_cuda.goku_heads_bwd_cuda.launches}
+    rk = (sum(ode_cuda.solve_fixed_grid_batched_cuda.launches.values()),
+          sum(ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches.values()))
+    plain_calls = [recurrent_cuda.goku_heads_reference.calls,
+                   ode_cuda.solve_fixed_grid_batched_reference.calls]
+    steps = train_set.shape[0] // cfg.batch_size
+    log_epochs(what, hist)
+    expected = {"goku_heads": 2 * steps * 2, "goku_heads_bwd": 2 * steps}
+    log("train", f"{what} fit 2 epochs x {steps} steps in {fit_s:.3f} s; "
+                 f"kernel launches {launches} (expected {expected}); RK "
+                 f"kernel launches (forward, backward) {rk} (expected (0, "
+                 f"0)); calls of the plain goku_heads / RK solve: "
+                 f"{plain_calls} (expected [0, 0])")
+    if launches != expected or rk != (0, 0) or plain_calls != [0, 0]:
+        fail(f"{what} path launched {launches}, RK {rk}, plain "
+             f"{plain_calls}; expected {expected}, (0, 0), [0, 0]")
+
+    # the kernel route against the plain route, same weights, same eps and
+    # Brownian key, on the card
+    plain = plain_copy(model, GOKUBasic())
+    t_val = torch.arange(val_set.shape[1], dtype=torch.float32,
+                         device=dev) * cfg.dt
+    g = torch.Generator(device=dev).manual_seed(7)
+    eps = tuple(torch.randn(val_set.shape[0], 16, generator=g, device=dev)
+                for _ in range(2))
+    key = jr.PRNGKey(7, device=dev)
+    with torch.no_grad():
+        (xk, zk, _), _, _, aux = model(val_set, t_val, variational=True,
+                                       eps=eps, key=key)
+        (xp, zp, _), _, _, _ = plain(val_set, t_val, variational=True,
+                                     eps=eps, key=key)
+    e = max(max_err(xk, xp), max_err(zk, zp))
+    log("train", f"trained {what} GOKU, kernel vs plain route on the val "
+                 f"set (same eps and Brownian key): x_hat {tuple(xk.shape)} "
+                 f"z_hat {tuple(zk.shape)} max abs err {e:.3e} (tol "
+                 f"{PATH_TOL:.0e}); all solves ok: "
+                 f"{bool(aux['success'].all())}; stats "
+                 f"{ {k: int(v) for k, v in aux['stats'].items()} }")
+    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())
+            and xk.shape == val_set.shape
+            and tuple(zk.shape) == (*val_set.shape[:2], 2)):
+        fail(f"{what} kernel route vs plain route: {e}")
+    brownian_card_check(jr.split(key, val_set.shape[0]), t_val)
+
+    # the ELBO of the committed stochastic-pendulum checkpoint
+    here = os.path.dirname(os.path.abspath(__file__))
+    winner = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+        *goku_default_layers(784, SPendulum(), device=dev))
+    load_checkpoint(os.path.join(here, SPENDULUM_CKPT), winner)
+    winner_cpu = plain_copy(winner, GOKUBasic()).cpu()
+    with torch.no_grad():
+        elbo = float(loss_batch(winner, val_set, t_val, 1.0, eps=eps,
+                                key=key)[0])
+        elbo_cpu = float(loss_batch(winner_cpu, val_set.cpu(), t_val.cpu(),
+                                   1.0, eps=tuple(x.cpu() for x in eps),
+                                   key=key.cpu())[0])
+    e = abs(elbo - elbo_cpu)
+    log("train", f"spendulum_pop4_winner.npz ELBO (beta 1) on the "
+                 f"{val_set.shape[0]} validation rows, same eps and key: "
+                 f"card {elbo:.6f} CPU {elbo_cpu:.6f} abs err {e:.3e} (tol "
+                 f"{PATH_TOL:.0e})")
+    if not (math.isfinite(elbo) and e <= PATH_TOL):
+        fail(f"{what} checkpoint ELBO card vs CPU: {elbo} vs {elbo_cpu}")
+
+    data = train_set[:cfg.batch_size, :cfg.seq_len]
+    beta = float(hist[-1]["beta"])
+    step_report(what, trainer, data, val_set, beta, gpu)
+    adaptive_forward_timing(model, data, dev, gpu)
+    return launches
+
+
+def adaptive_forward_timing(trained, data, dev, gpu):
+    """One forward of the adaptive SPendulum GOKU (the trained weights) at
+    train_goku.py --adaptive's settings, B 64, T 50, under no_grad: its
+    time (median of 3, synchronised) and its device ops (torch.profiler).
+    A record, not a gate: the masked loop draws the Brownian tree's keys
+    and normals for every level of every step."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from latentdiffeq_torch import random as jr
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.pendulum import SPendulum
+    from latentdiffeq_torch.solve.sde import SDEAdaptiveConfig
+
+    acfg = SDEAdaptiveConfig(max_steps=256, depth_cap=6,
+                             max_steps_per_interval=6)
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+        *goku_default_layers(784, SPendulum(adaptive=True, adaptive_cfg=acfg),
+                             device=dev))
+    model.load_state_dict(trained.state_dict())
+    t = torch.arange(data.shape[1], dtype=torch.float32, device=dev) * 0.05
+    key = jr.PRNGKey(3, device=dev)
+    runs = []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = model(data, t, key=key)[3]
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            model(data, t, key=key)
+            torch.cuda.synchronize()
+    n_ops = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    ms = sorted(runs[1:])[1]
+    log("train", f"adaptive spendulum forward (B {data.shape[0]}, T "
+                 f"{data.shape[1]}, max_steps 256, depth_cap 6, "
+                 f"max_steps_per_interval 6, no_grad): {ms:.3f} ms (median "
+                 f"of 3 after a warm-up), {n_ops} device ops; stats "
+                 f"{ {k: int(v) for k, v in aux['stats'].items()} }, all ok "
+                 f"{bool(aux['success'].all())}; card {gpu}")
 
 
 def step_device_ops(trainer, data, beta):
@@ -1953,6 +2211,11 @@ def main():
 
     # ---- 4e. the solve API and the adjoints on the card -------------------
     solve_api_card_checks(dev)
+    sde_api_card_check(dev)
+
+    # ---- 4f. GOKU on the stochastic pendulum (the goku_heads kernels; the
+    # SDE solve is plain PyTorch, as in the JAX package) -------------------
+    spendulum_path(train_set, val_set, dev, gpu)
 
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()

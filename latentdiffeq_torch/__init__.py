@@ -3,8 +3,10 @@
 A second package beside the JAX one (which stays the reference), laid out
 the same way so each module's counterpart is easy to find:
   nn/        Dense / resnet-MLP / RNN and LSTM cells, Flux init
-  solve/     RK tableaus, the fixed-grid and adaptive solves, problems and
-             the solve / solve_ensemble API
+  solve/     RK tableaus, the fixed-grid and adaptive solves, the SDE
+             solvers and their Brownian tree, problems and the solve /
+             solve_ensemble API
+  random.py  JAX's threefry PRNG keys (PRNGKey, fold_in, split, normal)
   adjoint/   SolveOptions and odeint (Unrolled gradients, the
              interpolating and backsolve adjoints)
   ops/       hand-written CUDA kernels for Hopper, each beside its plain
@@ -23,10 +25,12 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 __version__ = "0.1.0"
 
 from .core import Identity, resolve_device
-from . import nn, solve, adjoint, ops, models, train
+from . import nn, random, solve, adjoint, ops, models, train
 from .solve import (ODEProblem, SDEProblem, Solution, remake, Euler,
                     Midpoint, RK4, Tsit5, Dopri5, solve, solve_ensemble,
-                    make_options, autosize_max_steps, AdaptiveConfig)
+                    make_options, autosize_max_steps, AdaptiveConfig,
+                    EulerMaruyama, StochasticHeun, SRA1, SRIW1, SOSRI,
+                    SDEAdaptiveConfig)
 from .adjoint import (Unrolled, InterpolatingAdjoint, BacksolveAdjoint,
                       odeint, SolveOptions)
 from .train import (vector_mse, kl, vector_kl, frange_cycle_linear,
@@ -36,9 +40,11 @@ from .train import (vector_mse, kl, vector_kl, frange_cycle_linear,
 __all__ = ["resolve_device", "Identity", "nn", "ODEProblem", "SDEProblem",
            "Solution", "remake", "Euler", "Midpoint", "RK4", "Tsit5",
            "Dopri5", "solve", "solve_ensemble", "make_options",
-           "autosize_max_steps", "AdaptiveConfig", "Unrolled",
+           "autosize_max_steps", "AdaptiveConfig", "EulerMaruyama",
+           "StochasticHeun", "SRA1", "SRIW1", "SOSRI", "SDEAdaptiveConfig",
+           "Unrolled",
            "InterpolatingAdjoint", "BacksolveAdjoint", "odeint",
            "SolveOptions", "vector_mse", "kl", "vector_kl",
            "frange_cycle_linear", "normalize_to_unit_segment",
            "denormalize_unit_segment", "time_loader", "rand_time",
-           "adjoint", "ops", "models", "train"]
+           "adjoint", "ops", "models", "train", "random"]

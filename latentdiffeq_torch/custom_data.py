@@ -6,23 +6,26 @@ numpy ``default_rng(seed)`` draws, in the same order, as the JAX examples,
 so they are identical. The trajectories come from the port's
 ``solve_ensemble`` on ``device`` (the card unless the caller asks for the
 CPU), on the training grid: the options of the dynamics spec returned,
-``make_options(adaptive=False, substeps=4)``. (The examples' ``make_data``
-passes no options, so it solves adaptively at rtol 1e-3, atol 1e-6; in
-float32 that is no closer than ~0.5 to the true Van der Pol trajectories
-at mu 4, the relaxation jumps' timing, and two float32 implementations
-differ by as much. A caller who wants that recipe calls ``solve_ensemble``
-directly.) The observations are a fixed random linear + relu lift of the
-state (VdP) or of sin(phases) (Kuramoto), min-max normalised over the
-whole set.
+``make_options(adaptive=False, substeps=4)``. The stochastic Van der Pol
+(``stochastic_sigma > 0``) is solved as the example solves it: SOSRI on
+the grid with 4 sub-steps over the Brownian path of ``PRNGKey(seed)``.
+(The examples' ``make_data`` for the ODE passes no options, so it solves
+adaptively at rtol 1e-3, atol 1e-6; in float32 that is no closer than
+~0.5 to the true Van der Pol trajectories at mu 4, the relaxation jumps'
+timing, and two float32 implementations differ by as much. A caller who
+wants that recipe calls ``solve_ensemble`` directly.) The observations
+are a fixed random linear + relu lift of the state (VdP) or of
+sin(phases) (Kuramoto), min-max normalised over the whole set.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import random as jr
 from .core import resolve_device
-from .custom_dynamics import Kuramoto, VanDerPol
-from .solve import ODEProblem, make_options, solve_ensemble
+from .custom_dynamics import Kuramoto, StochasticVanDerPol, VanDerPol
+from .solve import ODEProblem, SDEProblem, make_options, solve_ensemble
 
 __all__ = ["make_vdp_data", "make_kuramoto_data"]
 
@@ -41,24 +44,31 @@ def make_vdp_data(n_traj: int = 256, T: int = 100, dt: float = 0.1,
     """Van der Pol trajectories with mu ~ U(0.5, mu_max), u0 ~ U(-2, 2),
     observed through a random relu lift to ``input_dim`` channels.
     Returns ``(x (n, T, input_dim), z (n, T, 2), mus (n, 1), vdp)``, the
-    tensors on ``device``."""
-    if stochastic_sigma > 0.0:
-        raise NotImplementedError(
-            "stochastic_sigma > 0 needs the SDE solvers, which come with "
-            "the SDE slice")
+    tensors on ``device``. ``stochastic_sigma > 0``: the trajectories of
+    the multiplicative-noise SDE du = f dt + sigma u dW
+    (train_vdp.py:41-51), and ``vdp`` is its SDE spec."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     u0s = rng.uniform(-2.0, 2.0, (n_traj, 2)).astype(np.float32)
     mus = rng.uniform(0.5, mu_max, (n_traj, 1)).astype(np.float32)
     saveat = torch.arange(T, dtype=torch.float32, device=device) * dt
-    vdp = VanDerPol(options=make_options(adaptive=False, substeps=4))
     u0s_t = torch.from_numpy(u0s).to(device)
     mus_t = torch.from_numpy(mus).to(device)
-    prob = ODEProblem(f=vdp.f, u0=u0s_t[0], tspan=(0.0, float(saveat[-1])),
-                      p=mus_t[0])
+    tspan = (0.0, float(saveat[-1]))
     with torch.no_grad():
-        z = solve_ensemble(prob, vdp.solver, u0s=u0s_t, ps=mus_t,
-                           saveat=saveat, options=vdp.options).ys
+        if stochastic_sigma > 0.0:
+            vdp = StochasticVanDerPol(sigma=stochastic_sigma)
+            prob = SDEProblem(f=vdp.f, g=vdp.g, u0=u0s_t[0], tspan=tspan,
+                              p=mus_t[0])
+            z = solve_ensemble(prob, vdp.solver, u0s=u0s_t, ps=mus_t,
+                               saveat=saveat, key=jr.PRNGKey(seed),
+                               substeps=4).ys
+        else:
+            vdp = VanDerPol(options=make_options(adaptive=False,
+                                                 substeps=4))
+            prob = ODEProblem(f=vdp.f, u0=u0s_t[0], tspan=tspan, p=mus_t[0])
+            z = solve_ensemble(prob, vdp.solver, u0s=u0s_t, ps=mus_t,
+                               saveat=saveat, options=vdp.options).ys
     W = rng.normal(0, 1, (2, input_dim)).astype(np.float32)
     b = rng.normal(0, 0.3, (input_dim,)).astype(np.float32)
     x, lo, hi = _lift(z, W, b)

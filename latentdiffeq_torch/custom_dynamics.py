@@ -1,5 +1,6 @@
 """User-defined mechanistic latent dynamics (counterpart of
-examples/custom_dynamics/custom.py:20-95): Van der Pol and Kuramoto.
+examples/custom_dynamics/custom.py:20-95): Van der Pol, the stochastic Van
+der Pol and Kuramoto.
 
 The vector fields act on the last axis, so one call evaluates a whole
 batch, and each keeps the JAX function's operation order. Each carries
@@ -8,17 +9,19 @@ csrc/rk_fixed_grid.cu (Kuramoto also ``rhs_consts(device, dtype)``, its
 frequency offsets there),
 so ``GOKUBasic(use_kernel_solver=True)`` solves it in the batched-solve
 kernel; the kernel's Kuramoto functor is compiled for 4 and 10 oscillators.
-The stochastic Van der Pol comes with the SDE solvers.
+The stochastic Van der Pol is an ``SDEDynamics``, solved by the SDE solvers.
 """
 from __future__ import annotations
 
 import torch
 
 from .adjoint import SolveOptions, Unrolled
-from .models.dynamics import ODEDynamics
+from .models.dynamics import ODEDynamics, SDEDynamics
 from .solve.rk import Tsit5
+from .solve.sde import SOSRI, SDEAdaptiveConfig
 
-__all__ = ["vdp_f", "kuramoto_f", "VanDerPol", "Kuramoto"]
+__all__ = ["vdp_f", "kuramoto_f", "VanDerPol", "StochasticVanDerPol",
+           "Kuramoto"]
 
 
 def vdp_f(u, p, t):
@@ -74,6 +77,22 @@ def VanDerPol(solver=Tsit5(), sensealg=Unrolled(),
     """Van der Pol with learned theta = [mu] (custom.py:26-29)."""
     return ODEDynamics(f=vdp_f, z_dim=2, theta_dim=1, solver=solver,
                        sensealg=sensealg, options=options)
+
+
+def StochasticVanDerPol(sigma: float = 0.05, adaptive: bool = True,
+                        substeps: int = 1, adaptive_cfg=None) -> SDEDynamics:
+    """Van der Pol with multiplicative (diagonal) noise du = f dt +
+    sigma u dW (custom.py:32-54), solved with SOSRI (the SRIW1 tableau) over
+    the virtual Brownian tree; adaptive by default."""
+    def g(u, p, t):
+        return sigma * u
+
+    if adaptive_cfg is None:
+        adaptive_cfg = SDEAdaptiveConfig(rtol=1e-2, atol=1e-2,
+                                         max_steps=256, depth_cap=8)
+    return SDEDynamics(f=vdp_f, g=g, z_dim=2, theta_dim=1, solver=SOSRI(),
+                       substeps=substeps, adaptive=adaptive,
+                       adaptive_cfg=adaptive_cfg)
 
 
 def Kuramoto(n_oscillators: int = 10, solver=Tsit5(), sensealg=Unrolled(),

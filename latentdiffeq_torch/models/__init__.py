@@ -1,12 +1,12 @@
 from .template import LatentDiffEqModel, Encoder, Decoder, ModelType
-from .dynamics import ODEDynamics, NeuralODEDynamics
+from .dynamics import ODEDynamics, SDEDynamics, NeuralODEDynamics
 from .goku import GOKU, GOKUBasic, goku_default_layers
 from .latent_ode import LatentODE, latent_ode_default_layers, NODE
 
 __all__ = ["LatentDiffEqModel", "Encoder", "Decoder", "ModelType",
-           "ODEDynamics", "NeuralODEDynamics", "GOKU", "GOKUBasic",
-           "goku_default_layers", "LatentODE", "latent_ode_default_layers",
-           "NODE", "default_layers"]
+           "ODEDynamics", "SDEDynamics", "NeuralODEDynamics", "GOKU",
+           "GOKUBasic", "goku_default_layers", "LatentODE",
+           "latent_ode_default_layers", "NODE", "default_layers"]
 
 
 def default_layers(model_type, input_dim, diffeq, **kwargs):

@@ -1,11 +1,13 @@
 """Dynamics specs for the diffeq slot (counterpart of
-latentdiffeq/models/dynamics.py:35-45, 73-93).
+latentdiffeq/models/dynamics.py).
 
-``ODEDynamics`` is static configuration with no parameters: a mechanistic
-vector field ``f(u, theta, t)`` whose parameters theta the GOKU encoder
-infers per sample. ``NeuralODEDynamics`` holds the trainable vector field
-of a Latent ODE, so it is a module whose child ``dudt`` registers its
-weights (``decoder/diffeq/dudt/layers/...`` in the checkpoint).
+``ODEDynamics`` and ``SDEDynamics`` are static configuration with no
+parameters: a mechanistic vector field ``f(u, theta, t)`` (and, for an
+SDE, a diagonal noise ``g(u, theta, t)``) whose parameters theta the GOKU
+encoder infers per sample. ``NeuralODEDynamics`` holds the trainable
+vector field of a Latent ODE, so it is a module whose child ``dudt``
+registers its weights (``decoder/diffeq/dudt/layers/...`` in the
+checkpoint).
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from torch import nn
 from ..adjoint.modes import AbstractSensealg, Unrolled
 from ..adjoint.odeint import SolveOptions
 from ..solve.rk import AbstractSolver, Tsit5
+from ..solve.sde import AbstractSDESolver, SDEAdaptiveConfig, SRA1
 
-__all__ = ["ODEDynamics", "NeuralODEDynamics"]
+__all__ = ["ODEDynamics", "SDEDynamics", "NeuralODEDynamics"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +32,25 @@ class ODEDynamics:
     solver: AbstractSolver = Tsit5()
     sensealg: AbstractSensealg = Unrolled()
     options: SolveOptions = SolveOptions()
+    transform: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SDEDynamics:
+    """Mechanistic SDE du = f dt + g dW (reference: SPendulum,
+    pendulum.jl:96-140). ``adaptive=False`` integrates on the save grid with
+    ``substeps`` steps per interval (solve_sde_fixed_grid);
+    ``adaptive=True`` steps each trajectory by dyadic bisection
+    (solve_sde_adaptive under ``adaptive_cfg``). Both consume the same
+    virtual Brownian tree."""
+    f: Callable = None
+    g: Callable = None
+    z_dim: int = 2
+    theta_dim: int = 1
+    solver: AbstractSDESolver = SRA1()
+    substeps: int = 1
+    adaptive: bool = False
+    adaptive_cfg: SDEAdaptiveConfig = SDEAdaptiveConfig()
     transform: Optional[Callable] = None
 
 

@@ -7,9 +7,11 @@ src/models/GOKU.jl).
 
 Two switches select the hand-written CUDA kernels: ``use_kernel_encoder``
 (the three recurrent heads in one kernel, ops/recurrent_cuda.py) and
-``use_kernel_solver`` (the whole batched fixed-grid solve in one kernel,
-ops/ode_cuda.py). With a switch on, a CUDA tensor runs the kernel and a
-CPU tensor runs the kernel's plain PyTorch version. The slice is float32
+``use_kernel_solver`` (the whole batched fixed-grid RK solve of an
+``ODEDynamics`` in one kernel, ops/ode_cuda.py). With a switch on, a CUDA
+tensor runs the kernel and a CPU tensor runs the kernel's plain PyTorch
+version. ``SDEDynamics`` always take the SDE solvers (solve/sde.py), as in
+the JAX package, whatever ``use_kernel_solver`` says. The slice is float32
 end to end; the JAX package's bf16 NN stages are not ported yet.
 """
 from __future__ import annotations
@@ -24,7 +26,9 @@ from ..adjoint.odeint import odeint, uses_fixed_grid
 from ..core import resolve_device
 from ..ops.ode_cuda import solve_fixed_grid_batched
 from ..ops.recurrent_cuda import goku_heads
-from .dynamics import ODEDynamics
+from .. import random as jr
+from ..solve.sde import solve_sde_adaptive, solve_sde_fixed_grid
+from .dynamics import ODEDynamics, SDEDynamics
 from .template import Decoder, Encoder, ModelType
 
 __all__ = ["GOKU", "GOKUBasic", "goku_default_layers"]
@@ -77,16 +81,34 @@ class GOKU(ModelType):
         lo_z0, lo_th = decoder.latent_out
         return lo_z0(z0_tilde), lo_th(th_tilde)
 
-    def diffeq_layer(self, decoder: Decoder, l_hat, t):
+    def diffeq_layer(self, decoder: Decoder, l_hat, t, key=None):
         """Batched solve from per-sample (z0_hat, theta_hat); failed
-        trajectories are NaN-filled (GOKU.jl:113-114, goku.py:142)."""
+        trajectories are NaN-filled (GOKU.jl:113-114, goku.py:142).
+        ``SDEDynamics`` need ``key``: row b integrates the Brownian path of
+        ``split(key, B)[b]``, adaptively or on the grid as ``de.adaptive``
+        says (goku.py:110-129). ``use_kernel_solver`` names the RK kernel
+        only, as ``use_pallas_solver`` does in JAX: the SDE branch comes
+        first and never runs it."""
         z0_hat, th_hat = l_hat
         de = decoder.diffeq
-        if not isinstance(de, ODEDynamics):
-            raise NotImplementedError(
-                f"diffeq {type(de).__name__} is not ported yet")
-        if self.use_kernel_solver and uses_fixed_grid(de.solver,
-                                                      de.options):
+        if isinstance(de, SDEDynamics):
+            if key is None:
+                raise ValueError("SDE dynamics require a PRNG `key` "
+                                 "(pass key= to the model call)")
+            keys = jr.split(jr.as_key(key, z0_hat.device), z0_hat.shape[0])
+            if de.adaptive:
+                ys, success, stats = solve_sde_adaptive(
+                    de.f, de.g, de.solver, z0_hat, th_hat, t, keys,
+                    cfg=de.adaptive_cfg)
+            else:
+                ys, success, stats = solve_sde_fixed_grid(
+                    de.f, de.g, de.solver, z0_hat, th_hat, t, keys,
+                    substeps=de.substeps)
+        elif not isinstance(de, ODEDynamics):
+            raise TypeError(f"GOKU's diffeq slot takes ODEDynamics or "
+                            f"SDEDynamics, got {type(de).__name__}")
+        elif self.use_kernel_solver and uses_fixed_grid(de.solver,
+                                                        de.options):
             if de.options.interp_stride != 1:
                 # the kernel has no strided mode; the JAX package's kernel
                 # route ignores the option (goku.py:130-135), which would

@@ -69,7 +69,7 @@ class LatentODE(ModelType):
         architecture; LatentODE.jl:54,149)."""
         return decoder.latent_out(l)
 
-    def diffeq_layer(self, decoder: Decoder, z0_hat, t):
+    def diffeq_layer(self, decoder: Decoder, z0_hat, t, key=None):
         """Integrate the trainable vector field from z0_hat, padded with
         zeros when augment_dim > 0 (LatentODE.jl:61-78); failed
         trajectories are NaN-filled."""

@@ -6,7 +6,9 @@ Six user-swappable slots (encoder = feature_extractor -> pattern_extractor
 behaviour dispatches on a model-type object with seven hooks
 (reference: src/models/LatentDiffEqModel.jl). Data layout is (batch, time,
 features). Randomness is explicit: a ``torch.Generator`` for the
-reparameterisation noise, or the noise itself (``eps``).
+reparameterisation noise, or the noise itself (``eps``), and for SDE
+dynamics a PRNG ``key`` (latentdiffeq_torch.random) for the Brownian
+path.
 """
 from __future__ import annotations
 
@@ -45,9 +47,10 @@ class ModelType:
     def apply_latent_out(self, decoder: "Decoder", l):
         raise NotImplementedError
 
-    def diffeq_layer(self, decoder: "Decoder", l_hat, t):
+    def diffeq_layer(self, decoder: "Decoder", l_hat, t, key=None):
         """Returns (z_traj, aux): z_traj (batch, time, z_dim); aux carries
-        per-sample ``success`` and summed solver ``stats``."""
+        per-sample ``success`` and summed solver ``stats``. ``key``: the
+        Brownian path of SDE dynamics."""
         raise NotImplementedError
 
     def apply_reconstructor(self, decoder: "Decoder", z):
@@ -82,16 +85,16 @@ class Decoder(nn.Module):
         self.reconstructor = _slot(reconstructor)
         self.model_type = model_type
 
-    def forward(self, l, t):
+    def forward(self, l, t, key=None):
         mt = self.model_type
         l_hat = mt.apply_latent_out(self, l)
-        z, aux = mt.diffeq_layer(self, l_hat, t)
+        z, aux = mt.diffeq_layer(self, l_hat, t, key=key)
         x_hat = mt.apply_reconstructor(self, z)
         return (x_hat, z, l_hat), aux
 
 
 class LatentDiffEqModel(nn.Module):
-    """``model(x, t, variational=..., generator=...)`` ->
+    """``model(x, t, variational=..., generator=..., key=...)`` ->
     ``((x_hat, z_hat, l_hat), mu, logvar, aux)``."""
 
     def __init__(self, encoder: Encoder, decoder: Decoder,
@@ -111,22 +114,24 @@ class LatentDiffEqModel(nn.Module):
 
     def forward(self, x, t, *, variational: bool = False,
                 generator: Optional[torch.Generator] = None,
-                eps: Any = None, cur_len=None):
+                eps: Any = None, cur_len=None, key=None):
         """``eps`` (optional): the reparameterisation noise itself, in the
         structure of ``mu``, in place of drawing it from ``generator``.
         ``cur_len``: masked-curriculum mode, encode only the first
-        ``cur_len`` frames (the loss masks the rest)."""
+        ``cur_len`` frames (the loss masks the rest). ``key``: the decoder's
+        PRNG key, the Brownian path of SDE dynamics (the JAX model's
+        ``dkey``: ``split(key)[1]`` when variational, else ``key``)."""
         mu, logvar = self.encoder(x, cur_len=cur_len)
         if variational:
             l = self.model_type.sample(mu, logvar, generator=generator,
                                        eps=eps)
         else:
             l = mu
-        out, aux = self.decoder(l, t)
+        out, aux = self.decoder(l, t, key=key)
         return out, mu, logvar, aux
 
-    def forecast(self, x_context, t):
+    def forecast(self, x_context, t, key=None):
         """Encode a context window, decode over any (longer) grid ``t``.
         Returns ``(x_hat, z_hat, l_hat)``."""
-        out, _, _, _ = self(x_context, t, variational=False)
+        out, _, _, _ = self(x_context, t, variational=False, key=key)
         return out

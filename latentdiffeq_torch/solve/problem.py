@@ -4,8 +4,8 @@ latentdiffeq/solve/problem.py:28-94).
 ``u0`` and ``p`` are the problem's data (``p`` may be a tensor or an
 ``nn.Module``), the RHS callables are static; ``remake`` is a record
 update, as DiffEq's ``remake(prob; u0=..., p=..., tspan=...)``.
-``SDEProblem`` is the container only: the SDE solvers come in a later
-slice, and ``solve``/``solve_ensemble`` refuse it.
+``solve``/``solve_ensemble`` send an ``SDEProblem`` to the SDE solvers
+(solve/sde.py).
 """
 from __future__ import annotations
 

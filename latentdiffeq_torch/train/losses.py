@@ -47,21 +47,22 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
                generator: Optional[torch.Generator] = None, eps=None,
                mask_failures: bool = False, free_bits: float = 0.0,
                cur_len=None, anchor=None, anchor_weight: float = 0.0,
-               anchor_frames=None):
+               anchor_frames=None, key=None):
     """reconstruction + beta * KL (model_train.jl:225-238). Returns
     ``(loss, metrics)``.
 
     ``mask_failures``: samples whose solve failed are left out of the
     reconstruction term. ``cur_len``: only the first ``cur_len`` frames are
     real (masked curriculum). ``generator``/``eps``: the reparameterisation
-    noise source (see LatentDiffEqModel.forward). The latent-chart
-    ``anchor`` terms are not ported yet and raise."""
+    noise source and ``key`` the Brownian path of SDE dynamics (see
+    LatentDiffEqModel.forward). The latent-chart ``anchor`` terms are not
+    ported yet and raise."""
     if anchor is not None or anchor_weight or anchor_frames is not None:
         raise NotImplementedError("loss_batch anchor terms are not ported "
                                   "yet")
     (x_hat, z_hat, l_hat), mu, logvar, aux = model(
         x, t, variational=variational, generator=generator, eps=eps,
-        cur_len=cur_len)
+        cur_len=cur_len, key=key)
     se = (x - x_hat) ** 2
     if cur_len is not None:
         tmask = torch.arange(x.shape[1], device=x.device) < cur_len

@@ -13,7 +13,9 @@ nor are the curriculum and adaptive-budget options.
 
 Randomness: a numpy generator (``seed``) permutes the training set each
 epoch, a CPU ``torch.Generator`` draws the window starts, and a generator
-on the training device draws the reparameterisation noise.
+on the training device draws the reparameterisation noise and, for SDE
+dynamics, the Brownian key of each train step and validation pass (two
+uint32 words, as the JAX trainer hands each a key, trainer.py:496-545).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import resolve_device
+from ..models.dynamics import SDEDynamics
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -84,32 +87,46 @@ class Trainer:
         self.window_gen = torch.Generator().manual_seed(cfg.seed)
         self.noise_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        decoder = getattr(model, "decoder", None)
+        self._sde = isinstance(getattr(decoder, "diffeq", None), SDEDynamics)
 
     def _grid(self, n: int):
         return torch.arange(n, dtype=torch.float32,
                             device=self.device) * self.cfg.dt
 
-    def train_step(self, x, beta: float, *, eps=None):
+    def _key_kw(self, key):
+        """``{"key": key}`` for SDE dynamics (a key drawn from the noise
+        generator when ``key`` is None), else no keyword: an ODE model's
+        loss takes none."""
+        if key is None and self._sde:
+            key = torch.randint(0, 2 ** 32, (2,), generator=self.noise_gen,
+                                device=self.device, dtype=torch.int64)
+        return {} if key is None else {"key": key}
+
+    def train_step(self, x, beta: float, *, eps=None, key=None):
         """One ELBO gradient step with ADAMW on the window ``x`` (batch,
-        seq_len, features). ``eps`` optionally fixes the reparameterisation
-        noise. Returns the step's metrics (tensors, not synchronised)."""
+        seq_len, features). ``eps`` and ``key`` optionally fix the
+        reparameterisation noise and the Brownian path. Returns the step's
+        metrics (tensors, not synchronised)."""
         cfg = self.cfg
         self.opt.zero_grad()
         loss, metrics = self.loss_fn(
             self.model, x, self._grid(x.shape[1]), beta,
             variational=cfg.variational, generator=self.noise_gen, eps=eps,
-            mask_failures=cfg.mask_failures, free_bits=cfg.free_bits)
+            mask_failures=cfg.mask_failures, free_bits=cfg.free_bits,
+            **self._key_kw(key))
         loss.backward()
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def val_step(self, val, beta: float):
-        """Deterministic loss on the full validation sequences."""
+    def val_step(self, val, beta: float, *, key=None):
+        """Loss on the full validation sequences at the posterior mean
+        (for SDE dynamics on one Brownian path, ``key`` or a drawn one)."""
         _, metrics = self.loss_fn(
             self.model, val, self._grid(val.shape[1]), beta,
             variational=False, mask_failures=self.cfg.mask_failures,
-            free_bits=self.cfg.free_bits)
+            free_bits=self.cfg.free_bits, **self._key_kw(key))
         return metrics
 
     def _window(self, x):

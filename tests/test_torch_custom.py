@@ -350,8 +350,10 @@ def test_make_kuramoto_data_matches_example(examples_on_training_grid):
 
 def test_data_makers_solve_on_the_training_grid():
     """The trajectories are the port's solve_ensemble on the returned
-    dynamics' own grid (fixed, 4 sub-steps), bit for bit; stochastic data
-    waits for the SDE solvers."""
+    dynamics' own grid (fixed, 4 sub-steps), bit for bit; the stochastic
+    data (SOSRI, 4 sub-steps, the Brownian path of PRNGKey(seed)) match the
+    example's make_data on the same seed (z 1e-4 over 116 float32 SRIW1
+    steps of multiplicative noise, x 2e-4)."""
     x, z, mus, vdp = custom_data.make_vdp_data(n_traj=4, T=30, device="cpu")
     saveat = torch.arange(30, dtype=torch.float32) * 0.1
     prob = ODEProblem(f=vdp.f, u0=z[0, 0], tspan=(0.0, float(saveat[-1])),
@@ -360,9 +362,15 @@ def test_data_makers_solve_on_the_training_grid():
                          saveat=saveat, adaptive=False, substeps=4).ys
     torch.testing.assert_close(z, ref, rtol=0, atol=0)
     assert bool(torch.isfinite(x).all())
-    with pytest.raises(NotImplementedError, match="SDE"):
-        custom_data.make_vdp_data(n_traj=4, stochastic_sigma=0.05,
-                                  device="cpu")
+    xs, zs, ms, svdp = custom_data.make_vdp_data(
+        n_traj=4, T=30, stochastic_sigma=0.05, device="cpu")
+    xj, zj, mj, svdp_j = train_vdp.make_data(n_traj=4, T=30,
+                                             stochastic_sigma=0.05)
+    np.testing.assert_array_equal(ms.numpy(), mj)
+    np.testing.assert_allclose(zs.numpy(), zj, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(xs.numpy(), xj, rtol=0, atol=2e-4)
+    assert svdp.adaptive == svdp_j.adaptive and svdp.g is not None
+    assert not np.allclose(zs.numpy(), z.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Parity of the port's solve API against the JAX package, on the CPU:
-ODEProblem / SDEProblem / remake / Solution, make_options (and its warning),
+ODEProblem / SDEProblem / remake / Solution (and SDE problems through
+solve and solve_ensemble on JAX's Brownian path: 1e-5, equal step counts),
+make_options (and its warning),
 autosize_max_steps, solve, solve_ensemble (NaN-fill, summed counters),
 macro-stepping (interp_stride with a remainder), checkpointed fixed-grid
 solves, odeint's adaptive stepping, and the data helpers the JAX root
@@ -26,7 +28,7 @@ from latentdiffeq.solve.adaptive import AdaptiveConfig as JAdaptiveConfig
 from latentdiffeq.solve.fixed import solve_fixed_grid as jsolve
 from latentdiffeq.train import data as jdata
 import latentdiffeq_torch as ldt
-from latentdiffeq_torch.pendulum import pendulum_f
+from latentdiffeq_torch.pendulum import pendulum_f, spendulum_g
 from latentdiffeq_torch.solve.fixed import solve_fixed_grid as tsolve
 from latentdiffeq_torch.train import data as tdata
 
@@ -76,8 +78,39 @@ def test_problems_remake_and_solution():
                  lambda: ldt.solve_ensemble(sde, u0s=torch.zeros(2, 2),
                                             ps=None,
                                             saveat=torch.arange(3.0))):
-        with pytest.raises(NotImplementedError, match="SDE slice"):
+        with pytest.raises(ValueError, match="PRNG `key`"):
             call()
+    # SDE problems solve on the JAX package's Brownian path for the key
+    u0 = np.array([0.3, 0.2], np.float32)
+    p = np.array([1.5], np.float32)
+    u0s = np.stack([u0, 0.5 * u0, -u0])
+    ps = np.stack([p, 2 * p, 0.7 * p])
+    saveat = (np.arange(16) * 0.05).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    jprob = ldq.SDEProblem(f=jpend, g=lambda u, p, t: jnp.full_like(u, 0.01),
+                           u0=jnp.asarray(u0), tspan=(0.0, 0.75),
+                           p=jnp.asarray(p))
+    tprob = ldt.SDEProblem(f=pendulum_f, g=spendulum_g, u0=t_(u0),
+                           tspan=(0.0, 0.75), p=t_(p))
+    for kw in (dict(substeps=2), dict(substeps=1, checkpoint=True),
+               dict(adaptive=True, rtol=1e-4, atol=1e-5, max_steps=128,
+                    depth_cap=5)):
+        js = ldq.solve(jprob, saveat=jnp.asarray(saveat), key=key, **kw)
+        ts = ldt.solve(tprob, saveat=t_(saveat), key=np.asarray(key), **kw)
+        close(ts.ys, js.ys, 1e-5)
+        je = ldq.solve_ensemble(jprob, ldq.SRA1(), u0s=jnp.asarray(u0s),
+                                ps=jnp.asarray(ps),
+                                saveat=jnp.asarray(saveat), key=key, **kw)
+        te = ldt.solve_ensemble(tprob, ldt.SRA1(), u0s=t_(u0s), ps=t_(ps),
+                                saveat=t_(saveat),
+                                key=ldt.random.PRNGKey(4), **kw)
+        close(te.ys, je.ys, 1e-5)
+        assert te.success.tolist() == np.asarray(je.success).tolist()
+        for name, v in je.stats.items():
+            assert int(te.stats[name]) == int(v), (kw, name)
+    with pytest.raises(TypeError, match="unsupported SDE"):
+        ldt.solve(tprob, saveat=t_(saveat), key=ldt.random.PRNGKey(0),
+                  dt0=0.1)
 
 
 OPTION_CASES = [dict(), dict(adaptive=False, substeps=4),
@@ -344,12 +377,10 @@ def test_data_helpers_match_jax():
 
 
 def test_root_exports_the_jax_roots_ported_names():
-    """The names of the JAX package root that the port has (the SDE
-    solvers and the pytree helpers come later), as ``latentdiffeq_torch``
+    """The names of the JAX package root that the port has (the pytree
+    helpers, parallel and utils come later), as ``latentdiffeq_torch``
     exports them."""
-    later = {"module", "static_field", "tree_size", "EulerMaruyama",
-             "StochasticHeun", "SRA1", "SRIW1", "SOSRI",
-             "SDEAdaptiveConfig", "parallel", "utils"}
+    later = {"module", "static_field", "tree_size", "parallel", "utils"}
     missing = set(ldq.__all__) - set(ldt.__all__) - later
     assert not missing, missing
     for name in set(ldq.__all__) - later:
