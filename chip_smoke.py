@@ -56,7 +56,23 @@ Phases, each printing one line (any failure exits non-zero):
               RK kernel launch, the kernel route against the plain route
               and the Brownian path card against CPU on the same key, the
               ELBO of spendulum_pop4_winner.npz card against CPU, step and
-              validation times, and one adaptive-SDE forward's time;
+              validation times, and one adaptive-SDE forward's time; then
+              (4g) full-width GOKU on the pendulum as a population of 8
+              seeds (333-340, MultiSeedTrainer, the sliced curriculum from
+              20 frames): one masked-curriculum epoch (the sliced
+              windows: a sliced epoch's launches and the first sliced
+              epoch's losses), then 2 epochs
+              that must launch each kernel as often as a solo Trainer of
+              seed 336 (one launch a call for all replicas) with no plain
+              call, replica 3 against that Trainer (rtol 2e-4), the
+              replica-axis heads kernels against the plain versions
+              vmapped over the weight sets (the solo rows' tolerances) and,
+              with the vmapped RK solve, against solo launches bit for
+              bit, kernel vs plain route, selection
+              by the pixel score, a replica checkpoint into a Trainer, the
+              population and solo step times and device ops, and the
+              adaptive SPendulum forward before and after the autosize
+              probe;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -66,7 +82,9 @@ Phases, each printing one line (any failure exits non-zero):
               route and by plain autograd, and of
               the heads by cuDNN (torch.nn.RNN + 2 torch.nn.LSTM forward,
               and forward + backward, goku_heads' yardstick; the port
-              never calls them); the neural-field kernels' launch plan,
+              never calls them); the replica-axis heads kernels at S 8
+              beside 8 solo launches and the vmapped plain version; the
+              neural-field kernels' launch plan,
               their time at 1 and 2 rows a block, and torch.mm per layer
               as node_field_dw's yardstick; with --profile, a
               torch.profiler breakdown of one training step plus
@@ -197,11 +215,12 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def heads_work(B, T, D, H, L):
+def heads_work(B, T, D, H, L, S=1):
     """(bytes, float32 operations) the heads function needs: xs, weights
     and outputs moved once; per step and row, the gate products (2 flops
     per multiply-add) and the cell updates (~10 operations per LSTM unit,
-    sigmoid/tanh counted as one each, 1 per RNN unit)."""
+    sigmoid/tanh counted as one each, 1 per RNN unit). ``S`` weight sets
+    of B rows each: S * B rows and S sets of weights."""
     n_w = 0
     flops_step = 0
     for s in range(3):
@@ -211,8 +230,8 @@ def heads_work(B, T, D, H, L):
             n_w += din * G + H * G + G + H + (H if s else 0)
             flops_step += 2 * (din + H) * G + G
             flops_step += 10 * H if s else H
-    nbytes = 4 * (B * T * D + n_w + B * 3 * H)
-    return nbytes, B * T * flops_step
+    nbytes = 4 * (S * B * T * D + S * n_w + S * B * 3 * H)
+    return nbytes, S * B * T * flops_step
 
 
 def rhs_ops(which, dim):
@@ -271,12 +290,13 @@ def heads_bwd_latency_ms(T, L, H, clock_mhz):
     return (T + L - 1) * cyc / (clock_mhz * 1e3)
 
 
-def heads_bwd_work(B, T, D, H, L):
+def heads_bwd_work(B, T, D, H, L, S=1):
     """(bytes, float32 operations) of the sweep: the tape, the cotangents
     and the recurrent and inter-layer weights in, dgates, dh0 and dc0 out;
     per row-step and cell the products dgates Wh^T (and dgates Wi^T above
     layer 0; 2 flops per multiply-add) and the cell's backward (~16
-    operations per LSTM unit, 2 per RNN unit)."""
+    operations per LSTM unit, 2 per RNN unit). ``S`` weight sets of B rows
+    each."""
     n_w = 0
     ops = 0
     for s in range(3):
@@ -285,7 +305,8 @@ def heads_bwd_work(B, T, D, H, L):
             prods = 2 if l else 1
             n_w += prods * H * G
             ops += 2 * prods * H * G + (16 * H if s else 2 * H)
-    nbytes = 4 * (B * T * 13 * H * L + B * 3 * H + n_w
+    B = S * B
+    nbytes = 4 * (B * T * 13 * H * L + B * 3 * H + S * n_w
                   + B * T * 9 * H * L + 2 * B * 3 * L * H)
     return nbytes, B * T * ops
 
@@ -1921,7 +1942,7 @@ def spendulum_path(train_set, val_set, dev, gpu):
     against CPU; the ELBO of spendulum_pop4_winner.npz card against CPU;
     step, validation and device ops; and one forward of the adaptive
     SPendulum at train_goku.py --adaptive's settings, timed (a record, not
-    a gate). Returns the goku_heads launches."""
+    a gate). Returns the trained model."""
     from latentdiffeq_torch import random as jr
     from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
                                            goku_default_layers)
@@ -2014,7 +2035,54 @@ def spendulum_path(train_set, val_set, dev, gpu):
     beta = float(hist[-1]["beta"])
     step_report(what, trainer, data, val_set, beta, gpu)
     adaptive_forward_timing(model, data, dev, gpu)
-    return launches
+    return model
+
+
+ADAPTIVE_SDE = dict(max_steps=256, depth_cap=6, max_steps_per_interval=6)
+
+
+def adaptive_spendulum(trained, dev):
+    """The adaptive SPendulum GOKU at train_goku.py --adaptive's settings
+    (ADAPTIVE_SDE), both kernel switches on, holding ``trained``'s
+    weights."""
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.pendulum import SPendulum
+    from latentdiffeq_torch.solve.sde import SDEAdaptiveConfig
+
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+        *goku_default_layers(784, SPendulum(
+            adaptive=True, adaptive_cfg=SDEAdaptiveConfig(**ADAPTIVE_SDE)),
+            device=dev))
+    model.load_state_dict(trained.state_dict())
+    return model
+
+
+def adaptive_forward(model, data, dev, key_seed=3):
+    """One no_grad forward of ``model`` on ``data`` (dt 0.05) with the
+    Brownian key PRNGKey(key_seed): (ms, the median of 3 synchronised runs
+    after a warm-up; device ops under torch.profiler; aux; x_hat)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from latentdiffeq_torch import random as jr
+
+    t = torch.arange(data.shape[1], dtype=torch.float32, device=dev) * 0.05
+    key = jr.PRNGKey(key_seed, device=dev)
+    runs = []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (x_hat, _, _), _, _, aux = model(data, t, key=key)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            model(data, t, key=key)
+            torch.cuda.synchronize()
+    n_ops = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    return sorted(runs[1:])[1], n_ops, aux, x_hat
 
 
 def adaptive_forward_timing(trained, data, dev, gpu):
@@ -2023,43 +2091,458 @@ def adaptive_forward_timing(trained, data, dev, gpu):
     time (median of 3, synchronised) and its device ops (torch.profiler).
     A record, not a gate: the masked loop draws the Brownian tree's keys
     and normals for every level of every step."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    from latentdiffeq_torch import random as jr
-    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
-                                           goku_default_layers)
-    from latentdiffeq_torch.pendulum import SPendulum
-    from latentdiffeq_torch.solve.sde import SDEAdaptiveConfig
-
-    acfg = SDEAdaptiveConfig(max_steps=256, depth_cap=6,
-                             max_steps_per_interval=6)
-    model = LatentDiffEqModel.build(
-        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
-        *goku_default_layers(784, SPendulum(adaptive=True, adaptive_cfg=acfg),
-                             device=dev))
-    model.load_state_dict(trained.state_dict())
-    t = torch.arange(data.shape[1], dtype=torch.float32, device=dev) * 0.05
-    key = jr.PRNGKey(3, device=dev)
-    runs = []
-    with torch.no_grad():
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            aux = model(data, t, key=key)[3]
-            torch.cuda.synchronize()
-            runs.append(1e3 * (time.perf_counter() - t0))
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            model(data, t, key=key)
-            torch.cuda.synchronize()
-    n_ops = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
-    ms = sorted(runs[1:])[1]
+    ms, n_ops, aux, _ = adaptive_forward(adaptive_spendulum(trained, dev),
+                                         data, dev)
     log("train", f"adaptive spendulum forward (B {data.shape[0]}, T "
                  f"{data.shape[1]}, max_steps 256, depth_cap 6, "
                  f"max_steps_per_interval 6, no_grad): {ms:.3f} ms (median "
                  f"of 3 after a warm-up), {n_ops} device ops; stats "
                  f"{ {k: int(v) for k, v in aux['stats'].items()} }, all ok "
                  f"{bool(aux['success'].all())}; card {gpu}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4g: the population (train_goku.py --seeds 8).
+
+POP_SEEDS = tuple(range(333, 341))
+POP_RTOL = 2e-4     # replica s against a solo Trainer of seed s: batched
+#                     products sum in another order (tests/test_multiseed.py)
+CKPT_TOL = 1e-6     # a replica checkpoint's validation loss after restore
+MASKED_RTOL = 1e-6  # the masked curriculum's epoch against the sliced one:
+#                     the same program on the same draws
+
+
+class _Heads(torch.nn.Module):
+    """The three GOKU heads as one module, so torch.func can run a plain
+    version ``ref(*heads, *args)`` over stacked weight sets."""
+
+    def __init__(self, heads, ref):
+        super().__init__()
+        self.h = torch.nn.ModuleList(heads)
+        self.ref = ref
+
+    def forward(self, *args):
+        return self.ref(*self.h, *args)
+
+
+def population_plain(heads, params, ref):
+    """``ref`` (a plain heads function) vmapped over the S weight sets
+    ``params`` (in the order of _heads_params): a function of the stacked
+    inputs, each with the leading S."""
+    from torch.func import functional_call, vmap
+    mod = _Heads(heads, ref)
+    stacked = dict(zip([n for n, _ in mod.named_parameters()], params))
+    return lambda *args: vmap(lambda p, *a: functional_call(mod, p, a))(
+        stacked, *args)
+
+
+def population_heads(ms):
+    """(the base model's heads, their tensors of every replica (S, ...) in
+    the order of _heads_params, the packed weights (S, n_w))."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    pe = ms.base.encoder.pattern_extractor
+    params = [ms.params[f"encoder.pattern_extractor.{n}"].detach()
+              for n, _ in pe.named_parameters()]
+    heads = tuple(pe)
+    return heads, params, rc.pack_goku_heads(*heads, params=params)
+
+
+def population_kernel_checks(ms, gen, dev):
+    """At the main path's train shape (B 64, T 20): goku_heads and
+    goku_heads_bwd on the S replicas' weights in one launch each against
+    the plain forward with its tape and the plain sweep on the same tape,
+    vmapped over the weight sets (the solo rows' tolerances), and against
+    S solo launches bit for bit; the RK kernels under torch.func.vmap over
+    S replicas (S * B rows, forward and backward) against S solo launches
+    of B rows bit for bit. Returns the heads kernels' largest absolute
+    errors against the plain versions {name: error}."""
+    from torch.func import vmap
+
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    from latentdiffeq_torch.pendulum import pendulum_f
+    from latentdiffeq_torch.solve.rk import Tsit5
+
+    S, B, T = ms.n_seeds, 64, 20
+    heads, params, wts = population_heads(ms)
+    xs = torch.randn(S, B, T, 32, generator=gen, device=dev)
+    gz = torch.randn(S, B, 16, generator=gen, device=dev)
+    gt = torch.randn(S, B, 32, generator=gen, device=dev)
+    with torch.no_grad():
+        z, th, tape = rc.goku_heads_cuda(*heads, xs, tape=True, wts=wts)
+        dg, dh0, dc0 = rc.goku_heads_bwd_cuda(*heads, tape, gz, gt, wts=wts)
+        # the plain versions over the same weight sets: the forward with
+        # its tape, and the sweep on the kernel's tape
+        zp, thp, tape_p = population_plain(
+            heads, params, rc.goku_heads_taped_reference)(xs)
+        sweep_p = population_plain(
+            heads, params, rc.goku_heads_sweep_reference)(tape, gz, gt)
+        ef = max(max_err(z, zp), max_err(th, thp))
+        e_tape = rel_err(tape, tape_p)
+        eb = max(max_err(a, b) for a, b in zip((dg, dh0, dc0), sweep_p))
+        e_sw = max(rel_err(a, b) for a, b in zip((dg, dh0, dc0), sweep_p))
+        same = True
+        for i in range(S):
+            hs = tuple(ms.seed_model(i).encoder.pattern_extractor)
+            zs, ths, tps = rc.goku_heads_cuda(*hs, xs[i], tape=True)
+            solo = rc.goku_heads_bwd_cuda(*hs, tps, gz[i], gt[i])
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                (z[i], th[i], tape[i], dg[i], dh0[i], dc0[i]),
+                (zs, ths, tps) + solo))
+    log("kernels", f"goku_heads / goku_heads_bwd at S={S} (B={B}, T={T}, "
+                   f"one launch each on a ({B}, {S}) grid) vs the plain "
+                   f"versions vmapped over the replicas' weights: outputs "
+                   f"max abs err {ef:.3e} (tol {TOL:.0e}), tape max rel err "
+                   f"{e_tape:.3e} (tol {TOL:.0e}); sweep on the same tape "
+                   f"dgates/dh0/dc0 max abs err {eb:.3e}, max rel err "
+                   f"{e_sw:.3e} (tol {GRAD_TOL:.0e}); vs {S} solo launches "
+                   f"on the replicas' weights bit for bit {same}")
+    if not (ef <= TOL and e_tape <= TOL and e_sw <= GRAD_TOL):
+        fail(f"goku_heads population launch vs plain: outputs {ef}, tape "
+             f"{e_tape}, sweep {e_sw}")
+    if not same:
+        fail("goku_heads population launch differs from solo launches")
+    errs = {"goku_heads[pop8]": ef, "goku_heads_bwd[pop8]": eb}
+
+    u0s = (torch.rand(S, B, 2, generator=gen, device=dev) * 2 - 1)
+    ps = 1 + torch.rand(S, B, 1, generator=gen, device=dev)
+    w = torch.randn(S, B, T, 2, generator=gen, device=dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
+    u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    n0 = (sum(fwd.values()), sum(bwd.values()))
+    ys, ok = vmap(lambda a, b: ode_cuda.solve_fixed_grid_batched(
+        pendulum_f, Tsit5(), a, b, saveat)[:2])(u, p)
+    (ys * w).sum().backward()
+    n1 = (sum(fwd.values()) - n0[0], sum(bwd.values()) - n0[1])
+    ef = eb = 0.0
+    same = n1 == (1, 1)
+    for i in range(S):
+        ui, pi = (u0s[i].clone().requires_grad_(),
+                  ps[i].clone().requires_grad_())
+        yi, oki, _ = ode_cuda.solve_fixed_grid_batched(pendulum_f, Tsit5(),
+                                                       ui, pi, saveat)
+        (yi * w[i]).sum().backward()
+        ef = max(ef, max_err(ys[i].detach(), yi.detach()))
+        eb = max(eb, max_err(u.grad[i], ui.grad), max_err(p.grad[i],
+                                                          pi.grad))
+        same = same and torch.equal(ys[i], yi) and torch.equal(ok[i], oki) \
+            and torch.equal(u.grad[i], ui.grad) \
+            and torch.equal(p.grad[i], pi.grad)
+    log("kernels", f"rk_fixed_grid / rk_fixed_grid_bwd under torch.func.vmap "
+                   f"over {S} replicas of B={B} rows, T={T}: launches "
+                   f"(forward, backward) {n1} (expected (1, 1)); vs {S} solo "
+                   f"launches: ys max abs err {ef:.3e}, gradients {eb:.3e}; "
+                   f"bit for bit {same}")
+    if not same:
+        fail(f"RK solve under vmap differs from solo launches: {n1}, {ef}, "
+             f"{eb}")
+    return errs
+
+
+def population_timing(ms, gen, clock, dev):
+    """The replica-axis heads kernels at the main path's train shape (S 8,
+    B 64, T 20): time per call and on the device beside the plain version
+    over the same weight sets (torch.func.vmap of goku_heads_reference and
+    of the plain sweep) and 8 solo launches, and the bound of S * B rows
+    with S weight sets. Returns {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}; no one PyTorch call runs 8 weight sets, so library_ms is
+    None."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+
+    S, B, T = ms.n_seeds, 64, 20
+    heads, params, wts = population_heads(ms)
+    L, H = len(heads[0].cells), heads[0].cells[0].hidden_dim
+    xs = torch.randn(S, B, T, 32, generator=gen, device=dev)
+    gz = torch.randn(S, B, H, generator=gen, device=dev)
+    gt = torch.randn(S, B, 2 * H, generator=gen, device=dev)
+    solo_heads = [tuple(ms.seed_model(i).encoder.pattern_extractor)
+                  for i in range(S)]
+    out = {}
+    with torch.no_grad():
+        _, _, tape = rc.goku_heads_cuda(*heads, xs, tape=True, wts=wts)
+        solo_tapes = [rc.goku_heads_cuda(*solo_heads[i], xs[i], tape=True)[2]
+                      for i in range(S)]
+        plain_fwd = population_plain(heads, params, rc.goku_heads_reference)
+        plain_sweep = population_plain(heads, params,
+                                       rc.goku_heads_sweep_reference)
+        calls = {
+            "goku_heads[pop8]": (
+                lambda: rc.goku_heads_cuda(*heads, xs, wts=wts),
+                lambda: plain_fwd(xs),
+                lambda: [rc.goku_heads_cuda(*solo_heads[i], xs[i])
+                         for i in range(S)],
+                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L, S)),
+            "goku_heads_bwd[pop8]": (
+                lambda: rc.goku_heads_bwd_cuda(*heads, tape, gz, gt,
+                                               wts=wts),
+                lambda: plain_sweep(tape, gz, gt),
+                lambda: [rc.goku_heads_bwd_cuda(*solo_heads[i],
+                                                solo_tapes[i], gz[i], gt[i])
+                         for i in range(S)],
+                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L, S)),
+        }
+        for name, (kernel, plain, solo, kname, work) in calls.items():
+            k_ms = time_ms(kernel)
+            d_ms = device_ms(kernel, kname)
+            s_ms = time_ms(solo)
+            p_ms = time_ms(plain, reps=3, warmup=1)
+            b_ms, b_by, t_b, t_o = bound_ms(*work)
+            lat = (heads_bwd_latency_ms(T, L, H, clock) if "bwd" in name
+                   else heads_latency_ms(T, L, 32, H, clock))
+            log("timing", f"{name} S={S} B={B} T={T}: kernel {k_ms:.4f} ms "
+                          f"per call ({fmt_ms(d_ms)} on the device), {S} "
+                          f"solo launches {s_ms:.4f} ms, plain (vmapped over "
+                          f"the weight sets) {p_ms:.4f} ms, bound "
+                          f"{b_ms:.6f} ms ({b_by}; bytes {t_b:.6f} ms, "
+                          f"operations {t_o:.6f} ms), latency model "
+                          f"{lat:.6f} ms at {clock:.0f} MHz; library: none, "
+                          f"no one PyTorch call runs {S} weight sets")
+            out[name] = (k_ms, p_ms, b_ms, b_by, None)
+    return out
+
+
+def autosize_check(trained, train_set, dev, gpu):
+    """One forward of the adaptive SPendulum GOKU (ADAPTIVE_SDE, the trained
+    weights; B 64, T 50) before and after Trainer.autosize_adaptive_budget
+    probes the training set: the sized budget and depth cap, each
+    forward's time and device ops, and, where no row of the forward
+    reaches the new caps (per-row depth and attempts from the same solve),
+    the two outputs must be equal."""
+    from latentdiffeq_torch import random as jr
+    from latentdiffeq_torch.solve.sde import solve_sde_adaptive
+    from latentdiffeq_torch.train import TrainConfig, Trainer
+
+    model = adaptive_spendulum(trained, dev)
+    data = train_set[:64, :50]
+    before = adaptive_forward(model, data, dev)
+    old = model.decoder.diffeq.adaptive_cfg
+    tr = Trainer(model, TrainConfig(save_best=False, mask_failures=True),
+                 device=dev)
+    t0 = time.perf_counter()
+    sized = tr.autosize_adaptive_budget(train_set)
+    probe_s = time.perf_counter() - t0
+    new = model.decoder.diffeq.adaptive_cfg
+    after = adaptive_forward(model, data, dev)
+    de = model.decoder.diffeq
+    t = torch.arange(50, dtype=torch.float32, device=dev) * 0.05
+    with torch.no_grad():
+        mu, _ = model.encoder(data)
+        z0, th = model.model_type.apply_latent_out(model.decoder, mu)
+        keys = jr.split(jr.PRNGKey(3, device=dev), 64)
+        _, _, st = solve_sde_adaptive(de.f, de.g, de.solver, z0, th, t, keys,
+                                      old)
+    attempts = st["n_accepted"] + st["n_rejected"]
+    reach = int(((st["max_depth"] >= new.depth_cap)
+                 | (attempts > new.max_steps)).sum())
+    e = max_err(before[3], after[3])
+    for tag, (ms_, n_ops, aux, _), cfg in (("before", before, old),
+                                          ("after", after, new)):
+        log("train", f"autosize: adaptive spendulum forward {tag} (B 64, T "
+                     f"50, max_steps {cfg.max_steps}, depth_cap "
+                     f"{cfg.depth_cap}, max_steps_per_interval "
+                     f"{cfg.max_steps_per_interval}, no_grad): {ms_:.3f} ms "
+                     f"(median of 3 after a warm-up), {n_ops} device ops; "
+                     f"stats {({k: int(v) for k, v in aux['stats'].items()})}"
+                     f", all ok {bool(aux['success'].all())}; card {gpu}")
+    log("train", f"autosize: probe of {train_set.shape[0]} training rows "
+                 f"(first 64, T 50) in {probe_s:.3f} s sized max_steps "
+                 f"{sized}, depth_cap {old.depth_cap} -> {new.depth_cap}; "
+                 f"forward's rows per-row max depth "
+                 f"{int(st['max_depth'].max())}, attempts "
+                 f"{int(attempts.max())}; rows reaching the new caps {reach}"
+                 f"; x_hat before vs after max abs err {e:.3e}")
+    if sized is None or (reach == 0 and e != 0.0):
+        fail(f"autosize: sized {sized}, rows at the cap {reach}, outputs "
+             f"differ by {e}")
+
+
+def population_path(train_set, val_set, sde_model, dev, gpu, gen):
+    """Phase 4g: full-width GOKU on the pendulum video as a population of
+    8 seeds (333-340), both kernel switches on, train_goku.py --seeds 8:
+    one masked-curriculum epoch (it trains the sliced windows: a sliced
+    epoch's launches, and the main path's first epoch), then the main path,
+    MultiSeedTrainer.fit for 2 epochs of the sliced curriculum (windows of
+    20 frames), which must launch each kernel as often as a solo Trainer
+    of seed 336 does (one launch a call for all 8 replicas) and call no
+    plain version; replica 3 against that solo Trainer (rtol 2e-4); the
+    replica-axis kernels against solo launches bit for bit; the kernel
+    route against the plain route on the trained population; select by
+    the pixel score; save_replica into a Trainer; the population and solo
+    step and validation times and device ops; the autosize probe on the
+    adaptive SPendulum. Returns (launches, errors, the trainer)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from latentdiffeq_torch import pixel_observable as px
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    from latentdiffeq_torch.pendulum import Pendulum
+    from latentdiffeq_torch.train import (MultiSeedTrainer, StackedModels,
+                                          TrainConfig, Trainer, selectors)
+
+    diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+
+    def init(seed):
+        return LatentDiffEqModel.build(
+            GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+            *goku_default_layers(784, diffeq, generator=torch.Generator()
+                                 .manual_seed(seed), device=dev))
+
+    cfg = TrainConfig(epochs=1500, save_best=False, progressive_training=True,
+                      start_seq_len=20, prog_training_duration=300)
+    steps = train_set.shape[0] // cfg.batch_size
+    heads_fwd = recurrent_cuda.goku_heads_cuda
+    heads_bwd = recurrent_cuda.goku_heads_bwd_cuda
+    rk_fwd = ode_cuda.solve_fixed_grid_batched_cuda
+    rk_bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda
+
+    def counts():
+        return {"goku_heads": heads_fwd.launches,
+                "goku_heads_bwd": heads_bwd.launches,
+                "rk_fixed_grid": sum(rk_fwd.launches.values()),
+                "rk_fixed_grid_bwd": sum(rk_bwd.launches.values()),
+                "plain": recurrent_cuda.goku_heads_reference.calls
+                + ode_cuda.solve_fixed_grid_batched_reference.calls}
+
+    # one masked-curriculum epoch: the sliced windows, as the main path's
+    # first epoch
+    masked = MultiSeedTrainer(init, dataclasses.replace(
+        cfg, masked_curriculum=True), POP_SEEDS, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = masked.fit(train_set, val_set, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    got = counts()
+    want = {"goku_heads": 2 * steps, "goku_heads_bwd": steps,
+            "rk_fixed_grid": 2 * steps, "rk_fixed_grid_bwd": steps,
+            "plain": 0}
+    masked_vals = hist[0]["val_loss"]
+    log("train", f"population masked curriculum: 1 epoch x {steps} steps of "
+                 f"{len(POP_SEEDS)} seeds (windows of {hist[0]['seq_len']} "
+                 f"frames) in {time.perf_counter() - t0:.3f} s; val loss per "
+                 f"seed {[round(float(v), 6) for v in masked_vals]}; launches "
+                 f"{got} (expected {want}: a sliced epoch's)")
+    if got != want or not np.isfinite(masked_vals).all():
+        fail(f"population masked epoch: {got}, expected {want}; "
+             f"{masked_vals}")
+    del masked
+
+    # the main path
+    ms = MultiSeedTrainer(init, cfg, POP_SEEDS, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = ms.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counts()
+    for rec in hist:
+        log("train", f"population epoch {rec['epoch']} (seq_len "
+                     f"{rec['seq_len']}): train loss per seed "
+                     f"{[round(float(v), 6) for v in rec['train_loss']]}, "
+                     f"val loss {[round(float(v), 6) for v in rec['val_loss']]}"
+                     f" {rec['epoch_s']:.4f} s")
+        if not (np.isfinite(rec["train_loss"]).all()
+                and np.isfinite(rec["val_loss"]).all()):
+            fail(f"population: non-finite loss in epoch {rec['epoch']}")
+
+    rel = float(np.abs(masked_vals - hist[0]["val_loss"]).max()
+                / np.abs(hist[0]["val_loss"]).max())
+    log("train", f"population masked epoch vs the main path's first epoch: "
+                 f"val losses max rel err {rel:.3e} (tol {MASKED_RTOL:.0e})")
+    if not rel <= MASKED_RTOL:
+        fail(f"population masked epoch vs sliced epoch 0: {rel}")
+
+    # replica 3 against a solo Trainer of seed 336
+    i = POP_SEEDS.index(336)
+    solo = Trainer(init(336), dataclasses.replace(cfg, seed=336), device=dev)
+    reset_counts()
+    t1 = time.perf_counter()
+    shist = solo.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t1
+    solo_launches = counts()
+    pop_v = np.array([float(r["val_loss"][i]) for r in hist])
+    solo_v = np.array([r["val_loss"] for r in shist])
+    rel = float(np.abs(pop_v - solo_v).max() / np.abs(solo_v).max())
+    log("train", f"population fit 2 epochs x {steps} steps of "
+                 f"{len(POP_SEEDS)} seeds in {fit_s:.3f} s, solo Trainer of "
+                 f"seed 336 in {solo_s:.3f} s; launches population "
+                 f"{launches}, solo {solo_launches} (must be equal; plain "
+                 f"calls 0); replica {i} (seed 336) val losses "
+                 f"{pop_v.tolist()} vs solo {solo_v.tolist()}: max rel err "
+                 f"{rel:.3e} (tol {POP_RTOL:.0e})")
+    if launches != solo_launches or launches["plain"] != 0:
+        fail(f"population launches {launches} != solo {solo_launches}")
+    if not rel <= POP_RTOL:
+        fail(f"population replica {i} vs solo Trainer: {rel}")
+
+    errs = population_kernel_checks(ms, gen, dev)
+
+    # the kernel route against the plain route on the trained population
+    plain = StackedModels(plain_copy(ms.base, GOKUBasic()), ms.params,
+                          ms.buffers)
+    t_val = torch.arange(val_set.shape[1], dtype=torch.float32,
+                         device=dev) * cfg.dt
+    reset_counts()
+    xk = selectors.population_decode(ms.stacked_models, val_set, t_val)
+    dec = counts()
+    xp = selectors.population_decode(plain, val_set, t_val)
+    e = max_err(xk, xp)
+    log("train", f"trained population, kernel vs plain route on the val set "
+                 f"(one vmapped forward each): x_hat {tuple(xk.shape)} max "
+                 f"abs err {e:.3e} (tol {PATH_TOL:.0e}); the kernel route's "
+                 f"launches {dec}")
+    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())
+            and dec["goku_heads"] == 1 and dec["rk_fixed_grid"] == 1):
+        fail(f"population kernel vs plain route: {e}, launches {dec}")
+
+    # selection by the pixel score, and a replica checkpoint into a Trainer
+    th_obs = px.pixel_angles(val_set)
+    t0 = time.perf_counter()
+    _, info = ms.select(lambda st: px.population_pixel_scores(
+        st, val_set, th_obs, cfg.dt))
+    sel_s = time.perf_counter() - t0
+    log("train", f"population select by population_pixel_scores in "
+                 f"{sel_s:.3f} s: winner seed {info['seed']} (index "
+                 f"{info['index']}, from_best {info['from_best']}) score "
+                 f"{info['score']:.6f}; live {info['scores_live']}, best "
+                 f"{info['scores_best']}")
+    if not math.isfinite(info["score"]):
+        fail(f"population select: no finite winner {info}")
+    j = info["index"]
+    beta = float(hist[-1]["beta"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "replica.npz")
+        ms.save_replica(path, j)
+        tr = Trainer(init(ms.seeds[j]), cfg, device=dev)
+        tr.restore(path)
+    with torch.no_grad():
+        v_restored = float(tr.val_step(val_set, beta)["loss"])
+        v_module = float(Trainer(ms.best_seed_model(j), cfg,
+                                 device=dev).val_step(val_set, beta)["loss"])
+    e = abs(v_restored - v_module)
+    log("train", f"save_replica(index {j}) -> Trainer.restore: val loss "
+                 f"{v_restored:.6f} vs the replica's best weights "
+                 f"{v_module:.6f} abs err {e:.3e} (tol {CKPT_TOL:.0e}); the "
+                 f"population's recorded best val {ms.per_seed_best_vals[j]:.6f}")
+    if not e <= CKPT_TOL:
+        fail(f"save_replica round trip: {v_restored} vs {v_module}")
+
+    # step and validation times at the full window (50 frames)
+    xs = train_set[:cfg.batch_size, :cfg.seq_len]
+    step_report("population (8 seeds)", ms,
+                xs.unsqueeze(0).expand(len(POP_SEEDS), -1, -1,
+                                       -1).contiguous(), val_set, beta, gpu)
+    step_report("population solo seed 336", solo, xs, val_set, beta, gpu)
+    autosize_check(sde_model, train_set, dev, gpu)
+    return {k: v for k, v in launches.items() if k != "plain"}, errs, ms
 
 
 def step_device_ops(trainer, data, beta):
@@ -2215,13 +2698,22 @@ def main():
 
     # ---- 4f. GOKU on the stochastic pendulum (the goku_heads kernels; the
     # SDE solve is plain PyTorch, as in the JAX package) -------------------
-    spendulum_path(train_set, val_set, dev, gpu)
+    sde_model = spendulum_path(train_set, val_set, dev, gpu)
+
+    # ---- 4g. GOKU on the pendulum as a population of 8 seeds (one launch of
+    # each kernel a call for all replicas), and the autosize probe ----------
+    pop_launches, pop_errs, pop_ms = population_path(
+        train_set, val_set, sde_model, dev, gpu, gen)
+    errs.update(pop_errs)
+    for k in ("goku_heads", "goku_heads_bwd"):
+        launches[f"{k}[pop8]"] = pop_launches[k]
 
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
     times = goku_timing(heads, gen, clock, dev)
     times.update(rk_timing(gen, clock))
     times.update(node_timing(clock))
+    times.update(population_timing(pop_ms, gen, clock, dev))
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
     node_src = "latentdiffeq_torch/csrc/node_field.cu"
@@ -2235,7 +2727,8 @@ def main():
     kernels = []
     for name in (list(origin) + [f"{k}[{inst}]" for inst in CUSTOM
                                  for k in ("rk_fixed_grid",
-                                           "rk_fixed_grid_bwd")]):
+                                           "rk_fixed_grid_bwd")]
+                 + ["goku_heads[pop8]", "goku_heads_bwd[pop8]"]):
         src, replaces = origin[name.split("[")[0]]
         k_ms, p_ms, b_ms, b_by, lib_ms = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,

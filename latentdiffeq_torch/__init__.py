@@ -12,9 +12,13 @@ the same way so each module's counterpart is easy to find:
   ops/       hand-written CUDA kernels for Hopper, each beside its plain
              PyTorch version (csrc/ holds the sources)
   models/    the six-slot template, GOKU, LatentODE
-  train/     ELBO losses, KL annealing, windows, Flux ADAMW, trainer,
+  train/     ELBO losses, KL annealing, windows, Flux ADAMW, trainer
+             (curricula, adaptive-budget autosize), population training
+             (multiseed.py), selection scores, the latent warm start,
              checkpoints and the JAX weight bridge
   pendulum.py, pendulum_data.py: the pendulum problem and its video data
+  pixel_observable.py: the pendulum's pixel-angle readout, its warm start
+             and population selection scores
   custom_dynamics.py, custom_data.py: Van der Pol and Kuramoto, and their
              lifted observations
 

@@ -23,7 +23,11 @@
 //   - layer l + 1 runs one step behind layer l (a wavefront): h_{l,t} passes
 //     from warp to warp through a two-slot ring in shared memory, one block
 //     barrier per step, so the chain is T + L - 1 layer-steps, not T * L;
-//   - the next x row is loaded into a register a step ahead.
+//   - the next x row is loaded into a register a step ahead;
+//   - a population of S weight sets (train/multiseed.py trains S seeds at
+//     once) is one launch on a (B, S) grid: blockIdx.y picks the replica's
+//     packed weights, and its rows follow those of replica y - 1 in xs, the
+//     outputs and the tape. A block's work is the single-replica block's.
 // No tensor cores: each product has one row (M = 1), and TF32 rounding would
 // move the float32 gates past the 1e-5 the port holds them to. Accurate
 // expf / tanhf, no fast math.
@@ -226,12 +230,15 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
                           float* __restrict__ z0_out,
                           float* __restrict__ th_out,
                           float* __restrict__ tape, int T, int Dx, int L,
-                          int act) {
+                          int act, int n_w) {
   __shared__ __align__(16) float vin[3 * kMaxLayers][2 * kSlot];
   const int warp = threadIdx.x >> 5;
   const int s = warp / L;
   const int l = warp % L;
-  const int row = blockIdx.x;
+  // grid (B, S): blockIdx.y is the replica, whose weights start at
+  // wts + y * n_w and whose rows follow the rows of replica y - 1
+  const int row = blockIdx.y * gridDim.x + blockIdx.x;
+  wts += (size_t)blockIdx.y * n_w;
   const int threads = blockDim.x;
   const int rec = 13 * kH * L;
   const float* xrow = xs + (size_t)row * T * Dx;
@@ -391,13 +398,16 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
                           const float* __restrict__ g_th,
                           float* __restrict__ dgates,
                           float* __restrict__ dh0, float* __restrict__ dc0,
-                          int T, int L, int act) {
+                          int T, int L, int act, int n_w) {
   __shared__ __align__(16) float dgs[3 * kMaxLayers][kDgSlot];
   __shared__ __align__(16) float ring[3 * kMaxLayers][2 * kH];
   const int warp = threadIdx.x >> 5;
   const int s = warp / L;
   const int l = warp % L;
-  const int row = blockIdx.x;
+  // grid (B, S): blockIdx.y is the replica, whose weights start at
+  // wts + y * n_w and whose rows follow the rows of replica y - 1
+  const int row = blockIdx.y * gridDim.x + blockIdx.x;
+  wts += (size_t)blockIdx.y * n_w;
   const int threads = blockDim.x;
   const int j = threadIdx.x & 15;
   const int rec = 13 * kH * L;
@@ -523,12 +533,15 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
                               float* __restrict__ z0_out,
                               float* __restrict__ th_out,
                               float* __restrict__ tape, int T, int D, int H,
-                              int L, int act) {
+                              int L, int act, int n_w) {
   extern __shared__ __align__(16) float dyn[];
   const int warp = threadIdx.x >> 5;
   const int s = warp / L;
   const int l = warp % L;
-  const int row = blockIdx.x;
+  // grid (B, S): blockIdx.y is the replica, whose weights start at
+  // wts + y * n_w and whose rows follow the rows of replica y - 1
+  const int row = blockIdx.y * gridDim.x + blockIdx.x;
+  wts += (size_t)blockIdx.y * n_w;
   const int per = any_fwd_floats(D, H);
   const int rec = 13 * H * L;
   float* my = dyn + warp * per;
@@ -621,12 +634,15 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
                               float* __restrict__ dgates,
                               float* __restrict__ dh0,
                               float* __restrict__ dc0, int T, int H, int L,
-                              int act) {
+                              int act, int n_w) {
   extern __shared__ __align__(16) float dyn[];
   const int warp = threadIdx.x >> 5;
   const int s = warp / L;
   const int l = warp % L;
-  const int row = blockIdx.x;
+  // grid (B, S): blockIdx.y is the replica, whose weights start at
+  // wts + y * n_w and whose rows follow the rows of replica y - 1
+  const int row = blockIdx.y * gridDim.x + blockIdx.x;
+  wts += (size_t)blockIdx.y * n_w;
   const int per = any_bwd_floats(H);
   const int rec = 13 * H * L;
   const int grec = 9 * H * L;
@@ -704,15 +720,18 @@ static cudaError_t allow_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// xs (B, T, Dx) float32; wts packed at (D, H): (kD, kH) with Dx <= kD runs
-// the compiled instance, any other (D, H) with Dx == D the any-width one;
-// tape null or (B, T, 13 H L). Returns a cudaError_t (0 on a successful
-// launch). Does not synchronise.
+// xs (S, B, T, Dx) float32: S replicas of B rows each; wts (S, n_w), each
+// replica's weights packed at (D, H): (kD, kH) with Dx <= kD runs the
+// compiled instance, any other (D, H) with Dx == D the any-width one; tape
+// null or (S, B, T, 13 H L); z0_out (S, B, H), th_out (S, B, 2 H). One
+// launch on a (B, S) grid; S = 1 is the single-replica launch. Returns a
+// cudaError_t (0 on a successful launch). Does not synchronise.
 extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
                               float* z0_out, float* th_out, float* tape,
-                              int B, int T, int Dx, int D, int H, int L,
-                              int act, void* stream) {
-  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 || Dx < 1 || H < 1)
+                              int S, int B, int T, int Dx, int D, int H,
+                              int L, int act, void* stream) {
+  if (L < 1 || L > kMaxLayers || S < 1 || S > 65535 || B < 1 || T < 1 ||
+      Dx < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const bool compiled = D == kD && H == kH;
   if (compiled ? Dx > kD : Dx != D) return (int)cudaErrorInvalidValue;
@@ -720,6 +739,7 @@ extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
   if (goku_heads_layout(D, H, L, &off) != n_w)
     return (int)cudaErrorInvalidValue;
   const int threads = 3 * L * 32;
+  const dim3 grid(B, S);
   if (!compiled) {
     const int smem = (int)sizeof(float) * 3 * L * any_fwd_floats(D, H);
     const void* k = tape != nullptr
@@ -729,48 +749,50 @@ extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
     if (e != cudaSuccess) return (int)e;
     if (tape != nullptr) {
       goku_heads_fwd_any_kernel<true>
-          <<<B, threads, smem, (cudaStream_t)stream>>>(
-              xs, wts, off, z0_out, th_out, tape, T, D, H, L, act);
+          <<<grid, threads, smem, (cudaStream_t)stream>>>(
+              xs, wts, off, z0_out, th_out, tape, T, D, H, L, act, n_w);
     } else {
       goku_heads_fwd_any_kernel<false>
-          <<<B, threads, smem, (cudaStream_t)stream>>>(
-              xs, wts, off, z0_out, th_out, nullptr, T, D, H, L, act);
+          <<<grid, threads, smem, (cudaStream_t)stream>>>(
+              xs, wts, off, z0_out, th_out, nullptr, T, D, H, L, act, n_w);
     }
   } else if (tape != nullptr) {
-    goku_heads_fwd_kernel<true><<<B, threads, 0, (cudaStream_t)stream>>>(
-        xs, wts, off, z0_out, th_out, tape, T, Dx, L, act);
+    goku_heads_fwd_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        xs, wts, off, z0_out, th_out, tape, T, Dx, L, act, n_w);
   } else {
-    goku_heads_fwd_kernel<false><<<B, threads, 0, (cudaStream_t)stream>>>(
-        xs, wts, off, z0_out, th_out, nullptr, T, Dx, L, act);
+    goku_heads_fwd_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        xs, wts, off, z0_out, th_out, nullptr, T, Dx, L, act, n_w);
   }
   return (int)cudaGetLastError();
 }
 
-// wts packed at (D, H) as for the forward; tape (B, T, 13 H L) from the
-// forward; g_z0 (B, H), g_th (B, 2 H); writes dgates (B, T, 9 H L), dh0 and
-// dc0 (B, 3, L, H; dc0 of the RNN is 0). Returns a cudaError_t. Does not
-// synchronise.
+// wts (S, n_w) packed at (D, H) as for the forward; tape (S, B, T, 13 H L)
+// from the forward; g_z0 (S, B, H), g_th (S, B, 2 H); writes dgates (S, B,
+// T, 9 H L), dh0 and dc0 (S, B, 3, L, H; dc0 of the RNN is 0). One launch
+// on a (B, S) grid. Returns a cudaError_t. Does not synchronise.
 extern "C" int ldq_goku_heads_bwd(const float* wts, int n_w,
                                   const float* tape, const float* g_z0,
                                   const float* g_th, float* dgates,
-                                  float* dh0, float* dc0, int B, int T,
-                                  int D, int H, int L, int act,
+                                  float* dh0, float* dc0, int S, int B,
+                                  int T, int D, int H, int L, int act,
                                   void* stream) {
-  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 || H < 1)
+  if (L < 1 || L > kMaxLayers || S < 1 || S > 65535 || B < 1 || T < 1 ||
+      H < 1)
     return (int)cudaErrorInvalidValue;
   Offsets off;
   if (goku_heads_layout(D, H, L, &off) != n_w)
     return (int)cudaErrorInvalidValue;
   const int threads = 3 * L * 32;
+  const dim3 grid(B, S);
   if (D == kD && H == kH) {
-    goku_heads_bwd_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, L, act);
+    goku_heads_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, L, act, n_w);
   } else {
     const int smem = (int)sizeof(float) * 3 * L * any_bwd_floats(H);
     cudaError_t e = allow_smem((const void*)goku_heads_bwd_any_kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    goku_heads_bwd_any_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, H, L, act);
+    goku_heads_bwd_any_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, H, L, act, n_w);
   }
   return (int)cudaGetLastError();
 }

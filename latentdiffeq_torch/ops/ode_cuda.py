@@ -488,15 +488,25 @@ def sincos_cuda(x, *, accurate: bool = False, copy: str | None = None):
 
 
 class _RKSolveFn(torch.autograd.Function):
+    """(ys, success) = the batched solve on the card; the gradient is the
+    backward kernel. Under ``torch.func.vmap`` over replicas
+    (train/multiseed.py) the ``vmap`` rule folds the replica axis into the
+    rows: S replicas of B rows are one launch on S * B rows (each row
+    carries its own u0 and parameters), unfolded after."""
+
     @staticmethod
-    def forward(ctx, f, solver, substeps, u0s, ps, saveat):
-        ys, success = solve_fixed_grid_batched_cuda(f, solver, u0s, ps,
-                                                    saveat, substeps=substeps)
+    def forward(f, solver, substeps, u0s, ps, saveat):
+        return solve_fixed_grid_batched_cuda(f, solver, u0s, ps, saveat,
+                                             substeps=substeps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        f, solver, substeps, _, ps, saveat = inputs
+        ys, success = output
         ctx.mark_non_differentiable(success)
         ctx.set_materialize_grads(False)  # no zero fill for success
         ctx.spec = (f, solver, substeps)
         ctx.save_for_backward(ps, saveat, ys)
-        return ys, success
 
     @staticmethod
     @once_differentiable
@@ -511,6 +521,23 @@ class _RKSolveFn(torch.autograd.Function):
         return (None, None, None, du0 if want[0] else None,
                 dp if want[1] else None, None)
 
+    @staticmethod
+    def vmap(info, in_dims, f, solver, substeps, u0s, ps, saveat):
+        if in_dims[5] is not None:
+            raise ValueError("solve_fixed_grid_batched: replicas share one "
+                             "saveat grid; got a grid per replica")
+        S = info.batch_size
+        u0s, ps = (x.movedim(d, 0) if d is not None
+                   else x.expand(S, *x.shape)
+                   for x, d in ((u0s, in_dims[3]), (ps, in_dims[4])))
+        B = u0s.shape[1]
+        ys, success = _RKSolveFn.apply(f, solver, substeps,
+                                       u0s.reshape(S * B, u0s.shape[-1]),
+                                       ps.reshape(S * B, ps.shape[-1]),
+                                       saveat)
+        return ((ys.reshape(S, B, *ys.shape[1:]), success.reshape(S, B)),
+                (0, 0))
+
 
 def solve_fixed_grid_batched(f: Callable, solver: AbstractSolver, u0s, ps,
                              saveat, *, substeps: int = 1):
@@ -519,7 +546,8 @@ def solve_fixed_grid_batched(f: Callable, solver: AbstractSolver, u0s, ps,
     (B, dim), ``ps`` (B, pdim), ``saveat`` (T,). Returns ``(ys (B, T,
     dim), success (B,), stats)`` with per-trajectory analytic counters
     (ode_pallas.py:175-183). On the card the forward kernel writes the
-    success flags and the gradient is the backward kernel."""
+    success flags and the gradient is the backward kernel; under
+    ``torch.func.vmap`` over replicas both launch once for all of them."""
     _rhs_family(f)
     if u0s.device.type == "cpu":
         return solve_fixed_grid_batched_reference(f, solver, u0s, ps, saveat,

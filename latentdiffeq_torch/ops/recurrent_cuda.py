@@ -25,10 +25,20 @@ time (``kernel_widths``). More than 4 layers, or heads too wide for a
 block's shared memory, raise ValueError. Shapes on the main path: xs (64,
 50, 32) in training, (45, 100, 32) in validation; H = 16; two layers per
 stack; tape (B, T, 416), dgates (B, T, 288).
+
+A population of S weight sets (train/multiseed.py, ``torch.func.vmap`` of
+the model over stacked weights) runs as one launch of each kernel: every
+tensor then has a leading replica axis, the packed weights are (S, n_w)
+and the kernels run on a (B, S) grid. ``_GokuHeadsFn``'s ``vmap`` rule
+takes that route, as JAX's vmap of a ``pallas_call`` adds a grid axis; the
+products run batched over the replicas. On the population path of
+chip_smoke.py phase 4g: S 8, xs (8, 64, 20, 32) in training, (8, 45, 100,
+32) in validation.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -124,34 +134,45 @@ def kernel_widths(D: int, H: int):
 
 
 def pack_goku_heads(pe_z0, pe_theta_fwd, pe_theta_bwd, D: int = 0,
-                    H: int = 0) -> torch.Tensor:
+                    H: int = 0, params=None) -> torch.Tensor:
     """One contiguous buffer of every head weight, in the layout
     csrc/goku_heads.cu documents (the order of ``_heads_params``). With
     widths ``D`` and ``H`` larger than the heads', each tensor is laid out
     at those widths with zeros in the missing input rows and unit columns
-    (of each gate)."""
+    (of each gate). ``params``: the tensors to pack in place of the heads'
+    own, in that order, each with the same leading replica dims (S, ...);
+    the buffer is then (S, ..., n_w)."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
-    params = _heads_params(*heads)
     D0 = pe_z0.cells[0].Wi.shape[0]
     H0 = pe_z0.cells[0].hidden_dim
-    D, H = D or D0, H or H0
+    return _pack(_heads_params(*heads) if params is None else params,
+                 len(pe_z0.cells), D0, H0, D or D0, H or H0)
+
+
+def _pack(params, L, D0, H0, D, H):
+    """``pack_goku_heads`` from the tensors alone (heads of L layers, input
+    width D0, hidden width H0, packed at D, H)."""
+    params = list(params)
+    lead = tuple(params[0].shape[:-2])       # Wi of the first cell is 2-D
     if (D, H) == (D0, H0):
-        return torch.cat([p.detach().reshape(-1) for p in params])
+        return torch.cat([p.detach().reshape(*lead, -1) for p in params],
+                         dim=-1)
     pieces = []
-    for s, head in enumerate(heads):
+    it = iter(params)
+    for s in range(3):
         G = 1 if s == 0 else 4
-        for l, cell in enumerate(head.cells):
+        for l in range(L):
             din, dinp = (D0, D) if l == 0 else (H0, H)
-            for name, rows, rows_p in (("Wi", din, dinp), ("Wh", H0, H),
-                                       ("b", 1, 1)):
-                w = getattr(cell, name).detach().reshape(rows, G, H0)
-                z = w.new_zeros(rows_p, G, H)
-                z[:rows, :, :H0] = w
-                pieces.append(z.reshape(-1))
-            for name in ("h0", "c0") if s else ("h0",):
-                w = getattr(cell, name).detach()
-                pieces.append(torch.cat([w, w.new_zeros(H - H0)]))
-    return torch.cat(pieces)
+            for rows, rows_p in ((din, dinp), (H0, H), (1, 1)):
+                w = next(it).detach().reshape(*lead, rows, G, H0)
+                z = w.new_zeros(*lead, rows_p, G, H)
+                z[..., :rows, :, :H0] = w
+                pieces.append(z.reshape(*lead, -1))
+            for _ in ("h0", "c0") if s else ("h0",):
+                w = next(it).detach()
+                pieces.append(torch.cat([w, w.new_zeros(*lead, H - H0)],
+                                        dim=-1))
+    return torch.cat(pieces, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +286,7 @@ def goku_heads_sweep_reference(pe_z0, pe_theta_fwd, pe_theta_bwd, tape,
 
 
 def goku_heads_param_grads(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
-                           dgates, dh0, dc0):
+                           dgates, dh0, dc0, params=None):
     """The gradients off the chain, from the tape and the sweep's output
     (laid out at hidden width ``tape.shape[-1] // (13 L)``, which may
     exceed the heads' H: the kernels' padded layout). Per cell, over all
@@ -274,22 +295,31 @@ def goku_heads_param_grads(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
     h0), db = sum dgates; dh0 and dc0 summed over rows (the initial states
     are expanded); dxs = dgates_fwd0 Wi^T + flip(dgates_z0 Wi^T) +
     flip(dgates_bwd0 Wi^T), summed in that order. PyTorch matrix products.
-    Returns ``(dxs (B, T, D), [gradient of each tensor of
-    _heads_params])``."""
+    With a population (xs (S, B, T, D) and the tape, dgates, dh0, dc0 with
+    the same leading S) the products are batched over the replicas and
+    ``params`` gives each replica's tensors (S, ...) in the order of
+    ``_heads_params``; without it the heads' own are used. Returns ``(dxs
+    (..., B, T, D), [gradient of each tensor of _heads_params])``."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
-    cells = _cells(heads)
-    L, H = len(cells[0]), cells[0][0].hidden_dim
-    B, T, D = xs.shape
+    return _param_grads(
+        _heads_params(*heads) if params is None else params,
+        len(pe_z0.cells), pe_z0.cells[0].hidden_dim, xs, tape, dgates, dh0,
+        dc0)
+
+
+def _param_grads(params, L, H, xs, tape, dgates, dh0, dc0):
+    """``goku_heads_param_grads`` from the tensors alone."""
+    *lead, B, T, D = xs.shape
     Hl = tape.shape[-1] // (13 * L)
     toff, _, goff, _ = heads_layout(Hl, L)
     xs = xs.detach()
-    xr = xs.flip(1)
+    xr = xs.flip(-2)
 
-    def field(s, l, k):                      # (B, T, H)
+    def field(s, l, k):                      # (..., B, T, H)
         o = toff[s][l] + k * Hl
         return tape[..., o:o + H]
 
-    def gates(s, l):                          # (B * T, G)
+    def gates(s, l):                          # (..., B * T, G)
         G = 1 if s == 0 else 4
         o = goff[s][l]
         if Hl == H:
@@ -297,26 +327,31 @@ def goku_heads_param_grads(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
         else:
             d = torch.cat([dgates[..., o + q * Hl:o + q * Hl + H]
                            for q in range(G)], dim=-1)
-        return d.reshape(B * T, G * H)
+        return d.reshape(*lead, B * T, G * H)
 
     grads, x_parts = [], []
+    it = iter(params)
     for s in range(3):
         hfield = 0 if s == 0 else 5
-        for l, cell in enumerate(cells[s]):
+        for l in range(L):
+            Wi, _, _, h0 = (next(it).detach() for _ in range(4))
+            if s:
+                next(it)
             d = gates(s, l)
             inp = (xs if s == 1 else xr) if l == 0 else field(s, l - 1,
                                                               hfield)
             hs = field(s, l, hfield)
-            hprev = torch.cat([cell.h0.detach().expand(B, 1, H),
-                               hs[:, :-1]], dim=1)
-            grads += [inp.reshape(B * T, -1).t() @ d,
-                      hprev.reshape(B * T, H).t() @ d, d.sum(dim=0),
-                      dh0[:, s, l, :H].sum(dim=0)]
+            hprev = torch.cat([h0[..., None, None, :].expand(*lead, B, 1, H),
+                               hs[..., :-1, :]], dim=-2)
+            grads += [inp.reshape(*lead, B * T, -1).transpose(-1, -2) @ d,
+                      hprev.reshape(*lead, B * T, H).transpose(-1, -2) @ d,
+                      d.sum(dim=-2), dh0[..., s, l, :H].sum(dim=-2)]
             if s:
-                grads.append(dc0[:, s, l, :H].sum(dim=0))
+                grads.append(dc0[..., s, l, :H].sum(dim=-2))
             if l == 0:
-                x_parts.append((d @ cell.Wi.detach().t()).reshape(B, T, D))
-    dxs = x_parts[1] + x_parts[0].flip(1) + x_parts[2].flip(1)
+                x_parts.append((d @ Wi.transpose(-1, -2)).reshape(*lead, B,
+                                                                  T, D))
+    dxs = x_parts[1] + x_parts[0].flip(-2) + x_parts[2].flip(-2)
     return dxs, grads
 
 
@@ -337,10 +372,10 @@ def _lib():
     lib = load_kernel("goku_heads")
     if not getattr(lib, "_ldq_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ldq_goku_heads.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 7 + [
+        lib.ldq_goku_heads.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 8 + [
             vp]
         lib.ldq_goku_heads.restype = ci
-        lib.ldq_goku_heads_bwd.argtypes = [vp, ci] + [vp] * 6 + [ci] * 6 + [
+        lib.ldq_goku_heads_bwd.argtypes = [vp, ci] + [vp] * 6 + [ci] * 7 + [
             vp]
         lib.ldq_goku_heads_bwd.restype = ci
         lib.ldq_goku_heads_n_weights.argtypes = [ci] * 3
@@ -358,10 +393,26 @@ def _lib():
     return lib
 
 
-def _check_kernel(heads, xs):
-    """What the kernels take on the card; returns (H, L, act, Dk, Hk) with
-    the widths the kernels run at."""
-    H, L, act = check_goku_heads(*heads, xs)
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """What the kernels need to know of the heads: L layers of input width
+    D and hidden width H, the RNN activation code, and the widths (Dk, Hk)
+    the kernels run at."""
+    L: int
+    D: int
+    H: int
+    act: int
+    Dk: int
+    Hk: int
+
+
+def _kernel_spec(heads, xs) -> _Spec:
+    """Check what the kernels take on the card (``xs`` (B, T, D), or (S, B,
+    T, D) for S replicas); returns the heads' ``_Spec``."""
+    if xs.dim() not in (3, 4):
+        raise ValueError(f"goku_heads: xs must be (B, T, D) or (S, B, T, "
+                         f"D), got {tuple(xs.shape)}")
+    H, L, act = check_goku_heads(*heads, xs[0] if xs.dim() == 4 else xs)
     if not xs.is_cuda or xs.dtype != torch.float32:
         raise ValueError("goku_heads_cuda takes a float32 CUDA tensor")
     if L > MAX_LAYERS:
@@ -374,98 +425,126 @@ def _check_kernel(heads, xs):
             raise ValueError(f"goku_heads kernel: heads of widths {Dk}, {Hk}"
                              f" with {L} layers need {need} bytes of shared "
                              f"memory a block, more than {MAX_SMEM}")
-    return H, L, act, Dk, Hk
+    return _Spec(L, _input_width(heads), H, act, Dk, Hk)
 
 
-def _packed(heads, device):
-    wts = pack_goku_heads(*heads, *kernel_widths(
-        heads[0].cells[0].Wi.shape[0], heads[0].cells[0].hidden_dim))
-    wts = wts.contiguous()
+def _input_width(heads) -> int:
+    return heads[0].cells[0].Wi.shape[0]
+
+
+def _packed(spec: _Spec, params, device):
+    """The packed weights of ``params`` (the order of ``_heads_params``, with
+    an optional leading replica axis): (n_w,) or (S, n_w), float32 on
+    ``device``."""
+    wts = _pack(params, spec.L, spec.D, spec.H, spec.Dk,
+                spec.Hk).contiguous()
     if wts.device != device or wts.dtype != torch.float32:
         raise ValueError("goku_heads_cuda: weights must be float32 on the "
                          "input's device")
     return wts
 
 
-def goku_heads_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, *,
-                    tape: bool = False, wts=None):
-    """Launch the forward kernel once (no autograd). ``xs``: (B, T, D)
-    float32 on the card. Returns (z0_out (B, H), theta_out (B, 2H)), and
-    with ``tape`` also the tape (B, T, 13 * Hk * L) (``heads_layout(Hk,
-    L)``, Hk from ``kernel_widths``). ``wts``: the packed weights, if the
-    caller has them."""
-    heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
-    H, L, act, Dk, Hk = _check_kernel(heads, xs)
-    if wts is None:
-        wts = _packed(heads, xs.device)
+def _replicas(x, lead: int):
+    """S for an input with a leading replica axis (``x.dim() == lead +
+    1``), else 1."""
+    return x.shape[0] if x.dim() == lead + 1 else 1
+
+
+def _fwd_launch(spec: _Spec, xs, wts, tape: bool):
+    """One launch of the forward kernel on (B, T, D) or (S, B, T, D) rows
+    with weights (n_w,) or (S, n_w); outputs at the kernel's widths."""
+    S = _replicas(xs, 3)
     xs = xs.contiguous()
-    B, T, D = xs.shape
+    B, T, D = xs.shape[-3:]
+    lead = xs.shape[:-3]
     lib = _lib()
-    n_w = lib.ldq_goku_heads_n_weights(Dk, Hk, L)
-    if n_w != wts.numel():
-        raise ValueError(f"goku_heads: packed {wts.numel()} weights, the "
-                         f"kernel's layout expects {n_w}")
-    z0 = torch.empty(B, Hk, device=xs.device, dtype=xs.dtype)
-    th = torch.empty(B, 2 * Hk, device=xs.device, dtype=xs.dtype)
-    tp = (torch.empty(B, T, heads_layout(Hk, L)[1], device=xs.device,
-                      dtype=xs.dtype) if tape else None)
+    n_w = lib.ldq_goku_heads_n_weights(spec.Dk, spec.Hk, spec.L)
+    if tuple(wts.shape) != (*lead, n_w):
+        raise ValueError(f"goku_heads: packed weights {tuple(wts.shape)}, "
+                         f"the kernel's layout expects {(*lead, n_w)}")
+    Hk = spec.Hk
+    z0 = torch.empty(*lead, B, Hk, device=xs.device, dtype=xs.dtype)
+    th = torch.empty(*lead, B, 2 * Hk, device=xs.device, dtype=xs.dtype)
+    tp = (torch.empty(*lead, B, T, heads_layout(Hk, spec.L)[1],
+                      device=xs.device, dtype=xs.dtype) if tape else None)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
         err = lib.ldq_goku_heads(xs.data_ptr(), wts.data_ptr(), n_w,
                                  z0.data_ptr(), th.data_ptr(),
-                                 None if tp is None else tp.data_ptr(), B, T,
-                                 D, Dk, Hk, L, act, stream)
+                                 None if tp is None else tp.data_ptr(), S, B,
+                                 T, D, spec.Dk, Hk, spec.L, spec.act, stream)
     if err != 0:
         raise RuntimeError(f"goku_heads kernel launch failed: CUDA error "
                            f"{err}")
     goku_heads_cuda.launches += 1
+    H = spec.H
     if H < Hk:
-        z0, th = z0[:, :H], torch.cat([th[:, :H], th[:, Hk:Hk + H]], dim=-1)
+        z0, th = z0[..., :H], torch.cat([th[..., :H], th[..., Hk:Hk + H]],
+                                        dim=-1)
+    return z0, th, tp
+
+
+def goku_heads_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, *,
+                    tape: bool = False, wts=None):
+    """Launch the forward kernel once (no autograd). ``xs``: (B, T, D)
+    float32 on the card, or (S, B, T, D) for S replicas with their packed
+    weights ``wts`` (S, n_w) (``pack_goku_heads(..., params=)``; one launch
+    for all of them). Returns (z0_out (..., B, H), theta_out (..., B, 2H)),
+    and with ``tape`` also the tape (..., B, T, 13 * Hk * L)
+    (``heads_layout(Hk, L)``, Hk from ``kernel_widths``). ``wts``: the
+    packed weights, if the caller has them."""
+    heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
+    spec = _kernel_spec(heads, xs)
+    if wts is None:
+        if xs.dim() == 4:
+            raise ValueError("goku_heads_cuda: S replicas need their packed "
+                             "weights (wts)")
+        wts = _packed(spec, _heads_params(*heads), xs.device)
+    z0, th, tp = _fwd_launch(spec, xs, wts, tape)
     return (z0, th, tp) if tape else (z0, th)
 
 
 goku_heads_cuda.launches = 0
 
 
-def goku_heads_bwd_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, tape, g_z0,
-                        g_th, *, wts=None):
-    """Launch the sweep kernel once over the forward kernel's ``tape``
-    with the cotangents ``g_z0`` (B, H) and ``g_th`` (B, 2H). Returns
-    ``(dgates (B, T, 9 * Hk * L), dh0 (B, 3, L, Hk), dc0 (B, 3, L, Hk))``
-    at the kernel's hidden width Hk (``kernel_widths``)."""
-    heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
-    L, H = len(pe_z0.cells), pe_z0.cells[0].hidden_dim
-    Dk, Hk = kernel_widths(pe_z0.cells[0].Wi.shape[0], H)
+def _bwd_launch(spec: _Spec, tape, g_z0, g_th, wts):
+    """One launch of the sweep kernel on (B, ...) or (S, B, ...) rows."""
+    L, H, Hk = spec.L, spec.H, spec.Hk
     for name, t in (("tape", tape), ("g_z0", g_z0), ("g_th", g_th)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"goku_heads_bwd_cuda: {name} must be a "
                              f"float32 CUDA tensor")
-    B, T = tape.shape[0], tape.shape[1]
+    S = _replicas(tape, 3)
+    lead = tape.shape[:-3]
+    B, T = tape.shape[-3], tape.shape[-2]
     _, rec, _, grec = heads_layout(Hk, L)
-    if (tape.shape != (B, T, rec) or g_z0.shape != (B, H)
-            or g_th.shape != (B, 2 * H)):
-        raise ValueError(f"goku_heads_bwd_cuda: expected tape {(B, T, rec)}"
-                         f", g_z0 {(B, H)}, g_th {(B, 2 * H)}; got "
-                         f"{tuple(tape.shape)}, {tuple(g_z0.shape)}, "
-                         f"{tuple(g_th.shape)}")
-    if wts is None:
-        wts = _packed(heads, tape.device)
-    if H < Hk:
-        pad = g_z0.new_zeros(B, Hk - H)
-        g_z0 = torch.cat([g_z0, pad], dim=-1)
-        g_th = torch.cat([g_th[:, :H], pad, g_th[:, H:], pad], dim=-1)
-    tape, g_z0, g_th = (t.detach().contiguous() for t in (tape, g_z0, g_th))
-    dgates = torch.empty(B, T, grec, device=tape.device, dtype=tape.dtype)
-    dh0 = torch.empty(B, 3, L, Hk, device=tape.device, dtype=tape.dtype)
-    dc0 = torch.empty_like(dh0)
-    act = _ACT_CODES[pe_z0.cells[0].activation]
+    if (tape.shape != (*lead, B, T, rec) or g_z0.shape != (*lead, B, H)
+            or g_th.shape != (*lead, B, 2 * H)):
+        raise ValueError(f"goku_heads_bwd_cuda: expected tape "
+                         f"{(*lead, B, T, rec)}, g_z0 {(*lead, B, H)}, g_th "
+                         f"{(*lead, B, 2 * H)}; got {tuple(tape.shape)}, "
+                         f"{tuple(g_z0.shape)}, {tuple(g_th.shape)}")
     lib = _lib()
+    n_w = lib.ldq_goku_heads_n_weights(spec.Dk, Hk, L)
+    if tuple(wts.shape) != (*lead, n_w):
+        raise ValueError(f"goku_heads_bwd_cuda: packed weights "
+                         f"{tuple(wts.shape)}, expected {(*lead, n_w)}")
+    if H < Hk:
+        pad = g_z0.new_zeros(*lead, B, Hk - H)
+        g_z0 = torch.cat([g_z0, pad], dim=-1)
+        g_th = torch.cat([g_th[..., :H], pad, g_th[..., H:], pad], dim=-1)
+    tape, g_z0, g_th = (t.detach().contiguous() for t in (tape, g_z0, g_th))
+    dgates = torch.empty(*lead, B, T, grec, device=tape.device,
+                         dtype=tape.dtype)
+    dh0 = torch.empty(*lead, B, 3, L, Hk, device=tape.device,
+                      dtype=tape.dtype)
+    dc0 = torch.empty_like(dh0)
     stream = torch.cuda.current_stream(tape.device).cuda_stream
     with torch.cuda.device(tape.device):
         err = lib.ldq_goku_heads_bwd(
-            wts.data_ptr(), wts.numel(), tape.data_ptr(), g_z0.data_ptr(),
+            wts.data_ptr(), n_w, tape.data_ptr(), g_z0.data_ptr(),
             g_th.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), B, T, Dk, Hk, L, act, stream)
+            dc0.data_ptr(), S, B, T, spec.Dk, Hk, L, spec.act, stream)
     if err != 0:
         raise RuntimeError(f"goku_heads backward kernel launch failed: CUDA "
                            f"error {err}")
@@ -473,44 +552,115 @@ def goku_heads_bwd_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, tape, g_z0,
     return dgates, dh0, dc0
 
 
+def goku_heads_bwd_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, tape, g_z0,
+                        g_th, *, wts=None):
+    """Launch the sweep kernel once over the forward kernel's ``tape``
+    with the cotangents ``g_z0`` (B, H) and ``g_th`` (B, 2H); with a
+    leading replica axis S on all three, the replicas' packed weights
+    ``wts`` (S, n_w) and one launch for all of them. Returns ``(dgates
+    (..., B, T, 9 * Hk * L), dh0 (..., B, 3, L, Hk), dc0 (..., B, 3, L,
+    Hk))`` at the kernel's hidden width Hk (``kernel_widths``)."""
+    heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
+    L, H = len(pe_z0.cells), pe_z0.cells[0].hidden_dim
+    act = pe_z0.cells[0].activation
+    if act not in _ACT_CODES:
+        raise ValueError("goku_heads kernel takes a relu, tanh or identity "
+                         "RNN activation")
+    spec = _Spec(L, _input_width(heads), H, _ACT_CODES[act],
+                 *kernel_widths(_input_width(heads), H))
+    if wts is None:
+        if tape.dim() == 4:
+            raise ValueError("goku_heads_bwd_cuda: S replicas need their "
+                             "packed weights (wts)")
+        wts = _packed(spec, _heads_params(*heads), tape.device)
+    return _bwd_launch(spec, tape, g_z0, g_th, wts)
+
+
 goku_heads_bwd_cuda.launches = 0
 
 
 def goku_heads_backward_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
-                             g_z0, g_th, *, wts=None):
+                             g_z0, g_th, *, wts=None, params=None):
     """The gradient on the card: the sweep kernel, then the products.
+    With a replica axis, ``wts`` and ``params`` are the replicas' (S, ...).
     Returns ``(dxs, [gradient of each tensor of _heads_params])``."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
     dgates, dh0, dc0 = goku_heads_bwd_cuda(*heads, tape, g_z0, g_th,
                                            wts=wts)
-    return goku_heads_param_grads(*heads, xs, tape, dgates, dh0, dc0)
+    return goku_heads_param_grads(*heads, xs, tape, dgates, dh0, dc0,
+                                  params=params)
 
 
 # ---------------------------------------------------------------------------
 # The differentiable entry point.
 
+def _stacked(x, dim, S):
+    """``x`` with its replica axis ``dim`` moved to the front (expanded
+    to S when the input has none)."""
+    return x.movedim(dim, 0) if dim is not None else x.expand(S, *x.shape)
+
+
 class _GokuHeadsFn(torch.autograd.Function):
-    """(z0, theta) = heads(xs; every head tensor), on the card. With
-    ``keep_tape`` (a gradient will be taken) the forward keeps the tape for
-    the sweep."""
+    """(z0, theta) = heads(xs; every head tensor), on the card, for one
+    weight set (xs (B, T, D), each tensor its own shape) or S of them
+    (every input with a leading replica axis). With ``keep_tape`` (a
+    gradient will be taken) the forward keeps the tape for the sweep; the
+    packed weights and the tape are extra outputs that take no gradient.
+
+    Under ``torch.func.vmap`` over weight sets (train/multiseed.py) the
+    ``vmap`` rule moves every replica axis to the front and applies the
+    function once to the whole population: one launch of each kernel for
+    all replicas, as JAX's vmap of a ``pallas_call`` adds a grid axis. The
+    tape is decided there, on the unbatched tensors (inside the transform
+    the batched ones report no ``requires_grad``)."""
 
     @staticmethod
-    def forward(ctx, heads, keep_tape, xs, *params):
-        wts = _packed(heads, xs.device)
-        out = goku_heads_cuda(*heads, xs, tape=keep_tape, wts=wts)
-        ctx.heads = heads
-        ctx.save_for_backward(xs, wts, out[2] if keep_tape else None)
-        return out[0], out[1]
+    def forward(spec, keep_tape, xs, *params):
+        wts = _packed(spec, params, xs.device)
+        z0, th, tp = _fwd_launch(spec, xs, wts, keep_tape)
+        if tp is None:
+            tp = xs.new_zeros(xs.shape[:-2] + (0,))
+        return z0, th, wts, tp
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        spec, _, xs, *params = inputs
+        _, _, wts, tape = output
+        ctx.spec = spec
+        ctx.mark_non_differentiable(wts, tape)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xs, wts, tape, *params)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g_z0, g_th):
-        xs, wts, tape = ctx.saved_tensors
+    def backward(ctx, g_z0, g_th, _g_wts, _g_tape):
+        xs, wts, tape, *params = ctx.saved_tensors
+        spec = ctx.spec
+        if tape.shape[-1] == 0:
+            raise RuntimeError("goku_heads: the forward kept no tape (it ran "
+                               "without gradients)")
+        lead = xs.shape[:-2]
+        if g_z0 is None:
+            g_z0 = xs.new_zeros(*lead, spec.H)
+        if g_th is None:
+            g_th = xs.new_zeros(*lead, 2 * spec.H)
+        dgates, dh0, dc0 = _bwd_launch(spec, tape, g_z0, g_th, wts)
+        dxs, dparams = _param_grads(params, spec.L, spec.H, xs, tape, dgates,
+                                    dh0, dc0)
         want = ctx.needs_input_grad[2:]
-        dxs, dparams = goku_heads_backward_cuda(*ctx.heads, xs, tape, g_z0,
-                                                g_th, wts=wts)
         return (None, None,
                 *[d if w else None for d, w in zip([dxs] + dparams, want)])
+
+    @staticmethod
+    def vmap(info, in_dims, spec, keep_tape, xs, *params):
+        S = info.batch_size
+        xs = _stacked(xs, in_dims[2], S)
+        if xs.dim() != 4:
+            raise ValueError("goku_heads: one replica axis is supported")
+        params = [_stacked(p, d, S) for p, d in zip(params, in_dims[3:])]
+        keep = torch.is_grad_enabled() and any(
+            t.requires_grad for t in [xs] + params)
+        return _GokuHeadsFn.apply(spec, keep, xs, *params), (0, 0, 0, 0)
 
 
 def goku_heads(pe_z0: Recurrent, pe_theta_fwd: Recurrent,
@@ -518,13 +668,17 @@ def goku_heads(pe_z0: Recurrent, pe_theta_fwd: Recurrent,
     """All three GOKU heads: the CUDA kernels for a CUDA ``xs``, the plain
     version with autograd for a CPU ``xs``. Differentiable in ``xs`` and
     every head weight: on the card the forward keeps its tape and the
-    gradient is the sweep kernel and the products over it. Returns
-    ``(z0_out, theta_out)``."""
+    gradient is the sweep kernel and the products over it. Under
+    ``torch.func.vmap`` over the heads' weights (a population of weight
+    sets) the kernels launch once for all replicas. Returns ``(z0_out,
+    theta_out)``."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
     check_goku_heads(*heads, xs)
     if xs.device.type == "cpu":
         return goku_heads_reference(*heads, xs)
     params = _heads_params(*heads)
+    spec = _kernel_spec(heads, xs)
     keep_tape = torch.is_grad_enabled() and any(
         t.requires_grad for t in [xs] + params)
-    return _GokuHeadsFn.apply(heads, keep_tape, xs, *params)
+    z0, th, _, _ = _GokuHeadsFn.apply(spec, keep_tape, xs, *params)
+    return z0, th

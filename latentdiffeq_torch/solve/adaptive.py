@@ -79,6 +79,17 @@ def _hairer_hinit(f, y0, p, t0, f0, span, order, rtol, atol):
     return torch.minimum(torch.minimum(100.0 * h0, h1), span)
 
 
+def all_inactive(active) -> bool:
+    """True when no row of ``active`` is left, so a masked step loop may
+    stop early. Under ``torch.func.vmap`` (a population of replicas,
+    train/multiseed.py) the flags are batched and cannot steer Python
+    control flow; the loop then runs its whole budget of masked no-op
+    steps, as the JAX package's bounded scan always does."""
+    if torch._C._functorch.is_batchedtensor(active):
+        return False
+    return not bool(active.any())
+
+
 def solve_adaptive(f: Callable, solver: AbstractSolver, u0, p, saveat,
                    cfg: AdaptiveConfig = AdaptiveConfig()):
     """Integrate over ``[saveat[0], saveat[-1]]`` adaptively and emit
@@ -135,7 +146,7 @@ def solve_adaptive(f: Callable, solver: AbstractSolver, u0, p, saveat,
 
     for _ in range(budget):
         active = ~(done | fail)
-        if not bool(active.any()):
+        if all_inactive(active):
             break   # every later step would be a masked no-op
         dt = torch.minimum(dt_cur, t_end - t)
         if cfg.step_to_saveat:

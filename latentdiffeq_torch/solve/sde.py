@@ -33,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from .adaptive import all_inactive
 from .brownian import bridge_increments, vbt_query
 from .fixed import _maybe_checkpoint
 
@@ -266,7 +267,7 @@ def solve_sde_adaptive(f: Callable, g: Callable, solver: AbstractSDESolver,
 
     for _ in range(budget):
         active = ~(done | fail)
-        if not bool(active.any()):
+        if all_inactive(active):
             break   # every later step would be a masked no-op
         ic = torch.clamp(i, max=n_int - 1)
         h_i = saveat[ic + 1] - saveat[ic]

@@ -7,6 +7,9 @@ from .optim import FluxAdam, adam, adamw
 from .checkpoint import (jax_param_paths, load_jax_params, save_checkpoint,
                          load_checkpoint)
 from .trainer import TrainConfig, Trainer
+from .multiseed import MultiSeedTrainer, StackedModels
+from .warm_start import latent_warm_start
+from . import selectors
 
 __all__ = [
     "kl", "vector_kl", "vector_mse", "reconstruction_loss", "loss_batch",
@@ -15,4 +18,5 @@ __all__ = [
     "sample_window", "DataLoader",
     "FluxAdam", "adam", "adamw", "jax_param_paths", "load_jax_params",
     "save_checkpoint", "load_checkpoint", "TrainConfig", "Trainer",
+    "MultiSeedTrainer", "StackedModels", "latent_warm_start", "selectors",
 ]

@@ -13,7 +13,10 @@ Both JAX ``.npz`` formats load:
       Files written by the JAX Trainer hold the tree {"key", "model",
       "opt_state"}: leaf_0 is the PRNG key, then the model's n leaves,
       then Adam's m (n), t (1) and v (n).
-The port writes v2.
+The port writes v2. A population (train/multiseed.py) is one v2 file of
+stacked arrays (``save_arrays``); each of its replicas can also be written
+as a Trainer checkpoint (``trainer_arrays``), which ``load_checkpoint``
+reads into a single model.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["jax_param_paths", "load_jax_params", "save_checkpoint",
-           "load_checkpoint", "FORMAT_VERSION"]
+           "load_checkpoint", "save_arrays", "load_arrays",
+           "trainer_arrays", "FORMAT_VERSION"]
 
 FORMAT_VERSION = 2
 _LEAF_PREFIX = "leaf::"
@@ -55,25 +59,27 @@ def load_jax_params(model: torch.nn.Module, arrays: Dict[str, np.ndarray]):
     return model
 
 
-def _opt_arrays(optimizer, paths):
-    """Adam's state in JAX flatten order: m, t, v."""
-    st = optimizer.state_dict()
-    out = {f"opt_state/m/{p}": t.detach().cpu().numpy()
-           for p, t in zip(paths, st["m"])}
-    out["opt_state/t"] = np.asarray(st["t"], np.int32)
-    out.update({f"opt_state/v/{p}": t.detach().cpu().numpy()
-                for p, t in zip(paths, st["v"])})
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else (
+        np.asarray(t))
+
+
+def trainer_arrays(paths, params, m=None, v=None, t=None):
+    """The arrays of a Trainer checkpoint: ``model/<path>`` for each of
+    ``params`` (in the order of ``paths``), and with Adam's moments ``m``,
+    ``v`` and step ``t`` its state in JAX flatten order (m, t, v)."""
+    out = {f"model/{p}": _np(a) for p, a in zip(paths, params)}
+    if m is not None:
+        out.update({f"opt_state/m/{p}": _np(a) for p, a in zip(paths, m)})
+        out["opt_state/t"] = np.asarray(t, np.int32)
+        out.update({f"opt_state/v/{p}": _np(a) for p, a in zip(paths, v)})
     return out
 
 
-def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
-                    meta: Optional[dict] = None):
-    """Write ``{"model", "opt_state"}`` as a format-v2 ``.npz``."""
-    paths = jax_param_paths(model)
-    arrays = {f"model/{p}": t.detach().cpu().numpy()
-              for p, t in zip(paths, model.parameters())}
-    if optimizer is not None:
-        arrays.update(_opt_arrays(optimizer, paths))
+def save_arrays(path: str, arrays: Dict[str, np.ndarray],
+                meta: Optional[dict] = None):
+    """Write named arrays and a JSON-able ``meta`` as a format-v2 ``.npz``
+    (atomically: a temporary file, then a rename)."""
     names = list(arrays)
     blob = {"format_version": FORMAT_VERSION, "meta": meta or {},
             "paths": names}
@@ -83,6 +89,27 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
     tmp = path + ".tmp.npz"
     np.savez(tmp, **out)
     os.replace(tmp, path)
+
+
+def load_arrays(path: str):
+    """The named arrays and the meta of a format-v2 ``.npz``."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"checkpoint not found: {path}")
+    with np.load(path) as data:
+        blob = json.loads(bytes(data["__meta__"]).decode())
+        if "format_version" not in blob:
+            raise ValueError(f"{path} is not a format-v2 checkpoint")
+        arrays = {k: data[_LEAF_PREFIX + k] for k in blob["paths"]}
+    return arrays, blob.get("meta", {})
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
+                    meta: Optional[dict] = None):
+    """Write ``{"model", "opt_state"}`` as a format-v2 ``.npz``."""
+    st = optimizer.state_dict() if optimizer is not None else {}
+    save_arrays(path, trainer_arrays(jax_param_paths(model),
+                                     list(model.parameters()), st.get("m"),
+                                     st.get("v"), st.get("t")), meta)
 
 
 def _split_v1(data, paths):

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["normalize_to_unit_segment", "denormalize_unit_segment",
-           "rand_time", "time_loader", "splitobs", "sample_window",
+           "rand_time", "time_loader", "splitobs", "window_start",
+           "sample_window",
            "DataLoader"]
 
 
@@ -51,16 +52,20 @@ def splitobs(x, at: float = 0.9):
     return x[:k], x[k:]
 
 
+def window_start(T: int, n: int,
+                 generator: Optional[torch.Generator] = None) -> int:
+    """A window's start, uniform over [0, T - n) (0 when n frames span the
+    sequence), drawn from ``generator``."""
+    return int(torch.randint(0, max(T - n, 1), (1,), generator=generator))
+
+
 def sample_window(x, seq_len: int,
                   generator: Optional[torch.Generator] = None,
                   start: Optional[int] = None):
     """One random contiguous window of ``seq_len`` frames shared by the
-    whole batch; the start is uniform over [0, full - seq_len) (0 when the
-    window spans the sequence), drawn from ``generator`` unless given."""
-    full = x.shape[1]
+    whole batch; the start is drawn by ``window_start`` unless given."""
     if start is None:
-        start = int(torch.randint(0, max(full - seq_len, 1), (1,),
-                                  generator=generator))
+        start = window_start(x.shape[1], seq_len, generator)
     return x[:, start:start + seq_len]
 
 

@@ -55,11 +55,15 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     reconstruction term. ``cur_len``: only the first ``cur_len`` frames are
     real (masked curriculum). ``generator``/``eps``: the reparameterisation
     noise source and ``key`` the Brownian path of SDE dynamics (see
-    LatentDiffEqModel.forward). The latent-chart ``anchor`` terms are not
-    ported yet and raise."""
-    if anchor is not None or anchor_weight or anchor_frames is not None:
-        raise NotImplementedError("loss_batch anchor terms are not ported "
-                                  "yet")
+    LatentDiffEqModel.forward).
+
+    ``anchor`` + ``anchor_weight`` (losses.py:81-104; for known observation
+    models): ``anchor(x) -> (batch, time, z_dim)`` reads the latent chart
+    off the observations frame by frame (the pendulum's pixel angle), and
+    the loss gains ``anchor_weight`` times its squared error against the
+    decoded latent trajectory, with the reconstruction term's frame and
+    failure masking. ``anchor_frames``: anchor only the first k frames
+    (normalised over those)."""
     (x_hat, z_hat, l_hat), mu, logvar, aux = model(
         x, t, variational=variational, generator=generator, eps=eps,
         cur_len=cur_len, key=key)
@@ -84,4 +88,23 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     metrics = {"loss": loss, "rec": rec, "kl": kld,
                "n_failed": torch.sum(~aux["success"]),
                "n_rhs_evals": aux["stats"]["n_rhs_evals"]}
+    if anchor is not None and anchor_weight:
+        a_se = (anchor(x) - z_hat) ** 2                 # (b, time, z_dim)
+        a_frames = n_frames
+        zero = torch.zeros_like(a_se)
+        if anchor_frames is not None:
+            amask = torch.arange(x.shape[1], device=x.device) < anchor_frames
+            a_se = torch.where(amask[None, :, None], a_se, zero)
+            a_frames = min(anchor_frames, n_frames)
+        if cur_len is not None:
+            a_se = torch.where(tmask[None, :, None], a_se, zero)
+        if mask_failures:
+            a_se = torch.where(aux["success"][:, None, None], a_se, zero)
+            anc = torch.sum(torch.sum(a_se, dim=(0, 1)) / (denom * a_frames))
+        else:
+            anc = torch.sum(torch.sum(a_se, dim=(0, 1))
+                            / (x.shape[0] * a_frames))
+        loss = loss + anchor_weight * anc
+        metrics["anchor"] = anc
+        metrics["loss"] = loss
     return loss, metrics

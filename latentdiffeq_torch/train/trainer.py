@@ -8,8 +8,23 @@ validation loss on the full sequences of the whole validation set
 (model_train.jl:204). The best validation loss is tracked NaN-safely (a NaN
 never counts as an improvement) together with the weights and optimizer
 state that produced it. The JAX epoch-fusion knobs (``jit_epoch``,
-``epochs_per_dispatch``, ``unroll``) only schedule work and are not ported;
-nor are the curriculum and adaptive-budget options.
+``epochs_per_dispatch``, ``unroll``) only schedule work and are not ported.
+
+Curricula (trainer.py:55-78, 163-173): ``progressive_training`` ramps the
+window length over the first ``prog_training_duration`` epochs
+(``_prog_seq_lengths``); each epoch trains on windows of its length.
+``masked_curriculum`` is taken for parity with the JAX option and trains the
+same sliced windows. JAX's masked mode keeps a ``seq_len`` buffer with the
+length carried as ``cur_len`` only so that its fused blocks compile once; it
+draws the same starts and averages the loss over the same frames, so its
+steps equal the sliced ones. The port runs per step and has no fused
+blocks, and the sliced windows keep the encoder on its kernel and solve only
+the epoch's frames. ``loss_batch(cur_len=)`` still takes the masked form.
+
+``autosize_adaptive`` (trainer.py:103-139, 176-276, 673-712) probes the
+adaptive solve once at the start of a fit and shrinks the dynamics' step
+budget (and, for SDEs, the Brownian tree's depth cap) to what the data
+needs; ``autosize_adaptive_budget`` runs the probe on demand.
 
 Randomness: a numpy generator (``seed``) permutes the training set each
 epoch, a CPU ``torch.Generator`` draws the window starts, and a generator
@@ -21,17 +36,21 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .. import random as jr
 from ..core import resolve_device
-from ..models.dynamics import SDEDynamics
+from ..models.dynamics import ODEDynamics, SDEDynamics
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import load_checkpoint, save_checkpoint
+from .data import sample_window
 from .losses import loss_batch
 
 __all__ = ["TrainConfig", "Trainer"]
@@ -56,6 +75,18 @@ class TrainConfig:
     n_cycle: int = 4
     ratio: float = 0.9
 
+    # progressive observation training (model_train.jl:53-56): window
+    # lengths ramp from start_seq_len to seq_len over the first
+    # prog_training_duration epochs, rounded up to multiples of
+    # prog_seq_len_step (None: one length per epoch, as the reference)
+    progressive_training: bool = False
+    prog_training_duration: int = 200
+    start_seq_len: int = 10
+    prog_seq_len_step: Optional[int] = 5
+    # parity with JAX's masked curriculum, which trains the same sliced
+    # windows (module docstring)
+    masked_curriculum: bool = False
+
     # the reference computes the full val loss every minibatch
     val_every_batch: bool = True
     mask_failures: bool = False
@@ -63,6 +94,126 @@ class TrainConfig:
 
     checkpoint_dir: str = "output"
     save_best: bool = True
+
+    # probe-size the adaptive step budget at the start of fit() (see
+    # _autosize_probe): max_steps = ceil(autosize_safety * the probe's
+    # attempts), at its autosize_quantile over the rows (< 1 needs
+    # mask_failures); an SDE's depth_cap shrinks to the probe's deepest
+    # refinement + autosize_depth_margin. No-op for fixed-grid dynamics.
+    autosize_adaptive: bool = False
+    autosize_safety: float = 1.5
+    autosize_quantile: float = 1.0
+    autosize_depth_margin: int = 2
+
+
+def _prog_seq_lengths(cfg: TrainConfig) -> np.ndarray:
+    """Progressive curriculum lengths (model_train.jl:142-147)."""
+    if not cfg.progressive_training:
+        return np.array([], dtype=int)
+    r = np.linspace(cfg.start_seq_len, cfg.seq_len,
+                    cfg.prog_training_duration)
+    lengths = np.round(r).astype(int)
+    if cfg.prog_seq_len_step:
+        s = cfg.prog_seq_len_step
+        lengths = np.minimum(-(-lengths // s) * s, cfg.seq_len)
+    return lengths
+
+
+def _epoch_length(cfg: TrainConfig, prog, epoch: int) -> int:
+    """An epoch's window length: the curriculum's, ``seq_len`` past the
+    ramp."""
+    return int(prog[epoch]) if epoch < len(prog) else cfg.seq_len
+
+
+def _autosize_probe(model, cfg: TrainConfig, train_set, seq_len=None,
+                    safety=None, floor: int = 16, verbose: bool = False):
+    """The probe behind ``autosize_adaptive_budget`` (trainer.py:176-276):
+    encode the first ``batch_size`` training rows with the current weights
+    (posterior means, no gradient), map them through latent_out, solve each
+    row adaptively once and size the budget from its attempts (accepted +
+    rejected steps): ``max(floor, ceil(safety * target))``, target the
+    largest attempts or their ``autosize_quantile``, never above the
+    configured effective budget. For SDE dynamics the rows take the keys
+    ``split(PRNGKey(0), B)`` (the JAX probe's) and ``depth_cap`` shrinks to
+    the deepest refinement + ``autosize_depth_margin``. Returns
+    ``(sized max_steps, new dynamics)``, or ``(None, None)`` for dynamics
+    that are not adaptive or when a probe row fails (no evidence that the
+    budget can shrink)."""
+    from ..solve.adaptive import solve_adaptive
+    from ..solve.sde import solve_sde_adaptive
+
+    seq_len = seq_len or cfg.seq_len
+    safety = cfg.autosize_safety if safety is None else safety
+    de = model.decoder.diffeq
+    is_ode = isinstance(de, ODEDynamics) and de.options.adaptive
+    is_sde = isinstance(de, SDEDynamics) and de.adaptive
+    if not (is_ode or is_sde):
+        return None, None
+    acfg = de.options.adaptive_cfg if is_ode else de.adaptive_cfg
+    dev = next(model.parameters()).device
+    x = torch.as_tensor(train_set[:cfg.batch_size, :seq_len],
+                        dtype=torch.float32).to(dev)
+    t = torch.arange(seq_len, dtype=torch.float32, device=dev) * cfg.dt
+    with torch.no_grad():
+        mu, _ = model.encoder(x)
+        z0, th = (a.detach().float() for a in
+                  model.model_type.apply_latent_out(model.decoder, mu))
+        if is_ode:
+            _, ok, st = solve_adaptive(de.f, de.solver, z0, th, t, acfg)
+            depths = None
+        else:
+            keys = jr.split(jr.PRNGKey(0, device=dev), z0.shape[0])
+            _, ok, st = solve_sde_adaptive(de.f, de.g, de.solver, z0, th, t,
+                                           keys, acfg)
+            depths = st["max_depth"].cpu().numpy()
+        attempts = (st["n_accepted"] + st["n_rejected"]).cpu().numpy()
+    if not bool(ok.all()):
+        return None, None   # capped probe: no evidence the budget shrinks
+    q = float(cfg.autosize_quantile)
+    if q < 1.0 and not cfg.mask_failures:
+        raise ValueError(
+            "autosize_quantile < 1 sizes the step budget below the probe's "
+            "worst trajectory, so tail trajectories are expected to NaN-"
+            "fill; without mask_failures=True those NaNs poison the whole "
+            "batch loss and gradients. Set TrainConfig(mask_failures=True) "
+            "(or autosize_quantile=1.0).")
+    if not cfg.mask_failures:
+        warnings.warn(
+            "autosize_adaptive with mask_failures=False: if training later "
+            "stiffens the dynamics past the probe-sized budget, solves "
+            "NaN-fill and the unmasked loss/gradients go NaN, corrupting "
+            "the run. Prefer TrainConfig(mask_failures=True).",
+            stacklevel=3)
+    target = (int(attempts.max()) if q >= 1.0
+              else int(math.ceil(float(np.quantile(attempts, q)))))
+    sized = max(floor, int(math.ceil(safety * target)))
+    # never above the configured effective budget (the user's ceiling,
+    # including a per-interval cap)
+    eff = acfg.max_steps
+    if is_sde and acfg.max_steps_per_interval:
+        eff = min(eff, acfg.max_steps_per_interval * max(seq_len - 1, 1))
+    sized = min(sized, eff)
+    new_acfg = dataclasses.replace(acfg, max_steps=sized,
+                                   **({"max_steps_per_interval": 0}
+                                      if is_sde else {}))
+    sized_depth = None
+    if is_sde:
+        sized_depth = min(int(acfg.depth_cap),
+                          int(depths.max()) + int(cfg.autosize_depth_margin))
+        new_acfg = dataclasses.replace(new_acfg, depth_cap=sized_depth)
+    if is_ode:
+        new_de = dataclasses.replace(
+            de, options=de.options.replace(adaptive_cfg=new_acfg))
+    else:
+        new_de = dataclasses.replace(de, adaptive_cfg=new_acfg)
+    if verbose:
+        depth_note = ("" if sized_depth is None else
+                      f", depth_cap {int(acfg.depth_cap)} -> {sized_depth} "
+                      f"(probe max depth {int(depths.max())})")
+        print(f"autosized adaptive budget: max attempts "
+              f"{int(attempts.max())} -> max_steps {sized} "
+              f"(was {eff}){depth_note}", flush=True)
+    return sized, new_de
 
 
 class Trainer:
@@ -129,11 +280,22 @@ class Trainer:
             free_bits=self.cfg.free_bits, **self._key_kw(key))
         return metrics
 
-    def _window(self, x):
-        seq_len = self.cfg.seq_len
-        start = int(torch.randint(0, max(x.shape[1] - seq_len, 1), (1,),
-                                  generator=self.window_gen))
-        return x[:, start:start + seq_len]
+    def autosize_adaptive_budget(self, train_set, *, seq_len=None,
+                                 safety: Optional[float] = None,
+                                 floor: int = 16,
+                                 verbose: bool = False) -> Optional[int]:
+        """Probe-size the adaptive step budget from the data (see
+        ``_autosize_probe`` and TrainConfig.autosize_adaptive) and swap the
+        model's dynamics for the sized ones. The parameters and the
+        optimizer state stay as they are (the dynamics hold none). Returns
+        the sized ``max_steps``, or None (fixed-grid or neural dynamics, or
+        a probe row that failed)."""
+        sized, new_de = _autosize_probe(self.model, self.cfg, train_set,
+                                        seq_len, safety, floor, verbose)
+        if sized is None:
+            return None
+        self.model.decoder.diffeq = new_de
+        return sized
 
     def _snapshot(self, epoch: int):
         return {"model": copy.deepcopy(self.model.state_dict()),
@@ -160,15 +322,21 @@ class Trainer:
             raise ValueError(f"batch_size={cfg.batch_size} exceeds the "
                              f"training set size n={n}")
 
+        if cfg.autosize_adaptive and self.epoch == 0:
+            self.autosize_adaptive_budget(train_set, verbose=verbose)
+        prog = _prog_seq_lengths(cfg)
+
         while self.epoch < epochs:
             ep = self.epoch
             beta = float(schedule[min(ep, len(schedule) - 1)])
+            seq_len = _epoch_length(cfg, prog, ep)
             t0 = time.perf_counter()
             perm = torch.as_tensor(self.np_rng.permutation(n))
             ms, vm = [], None
             for s in range(steps):
                 idx = perm[s * cfg.batch_size:(s + 1) * cfg.batch_size]
-                x = self._window(data[idx.to(self.device)])
+                x = sample_window(data[idx.to(self.device)], seq_len,
+                                  self.window_gen)
                 ms.append(self.train_step(x, beta))
                 if cfg.val_every_batch:
                     vm = self.val_step(val, beta)
@@ -180,7 +348,7 @@ class Trainer:
             wall = time.perf_counter() - t0
             rec = {"epoch": ep, "train_loss": train_loss,
                    "val_loss": val_loss, "beta": beta,
-                   "seq_len": cfg.seq_len, "epoch_s": wall,
+                   "seq_len": seq_len, "epoch_s": wall,
                    "rhs_evals_per_s": rhs / wall,
                    "kl": float(torch.stack([m["kl"] for m in ms]).mean()),
                    "n_failed": int(sum(int(m["n_failed"]) for m in ms))}

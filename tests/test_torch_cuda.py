@@ -1153,3 +1153,124 @@ def test_normal_stages_match_cpu_bit_for_bit_on_card(dev):
     ik = jr.fold_in(jr.split(jr.PRNGKey(7), 45)[:, None, :], torch.arange(99))
     assert torch.equal(jr.normal(ik.to(dev), (2, 2)).cpu(),
                        jr.normal(ik, (2, 2)))
+
+
+# -- a population of weight sets: one launch for every replica ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("width", ["compiled", "narrow", "wide"])
+def test_goku_heads_replica_axis_bit_for_bit_on_card(dev, S, width):
+    """goku_heads and goku_heads_bwd on S weight sets in one launch each,
+    (B, S) grid, against S solo launches on the replicas' weights: the
+    outputs, the tape and the sweep's dgates, dh0, dc0 bit for bit (the
+    narrow heads run zero-padded at the compiled widths, the wide ones in
+    the any-width pair)."""
+    D, H = {"compiled": (32, 16), "narrow": (10, 8), "wide": (64, 32)}[width]
+    heads = [heads_on(dev, D, H, seed=s) for s in range(S)]
+    wts = torch.stack([recurrent_cuda.pack_goku_heads(
+        *h, *recurrent_cuda.kernel_widths(D, H)) for h in heads])
+    g = torch.Generator().manual_seed(S)
+    B, T = 5, 13
+    xs = torch.randn(S, B, T, D, generator=g).to(dev)
+    gz = torch.randn(S, B, H, generator=g).to(dev)
+    gt = torch.randn(S, B, 2 * H, generator=g).to(dev)
+    n0 = (recurrent_cuda.goku_heads_cuda.launches,
+          recurrent_cuda.goku_heads_bwd_cuda.launches)
+    z, th, tape = recurrent_cuda.goku_heads_cuda(*heads[0], xs, tape=True,
+                                                 wts=wts)
+    dg, dh0, dc0 = recurrent_cuda.goku_heads_bwd_cuda(*heads[0], tape, gz,
+                                                      gt, wts=wts)
+    assert (recurrent_cuda.goku_heads_cuda.launches - n0[0],
+            recurrent_cuda.goku_heads_bwd_cuda.launches - n0[1]) == (1, 1)
+    for s in range(S):
+        zs, ths, tps = recurrent_cuda.goku_heads_cuda(*heads[s], xs[s],
+                                                      tape=True)
+        solo = recurrent_cuda.goku_heads_bwd_cuda(*heads[s], tps, gz[s],
+                                                  gt[s])
+        for a, b in zip((z[s], th[s], tape[s], dg[s], dh0[s], dc0[s]),
+                        (zs, ths, tps) + solo):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rk_solve_under_vmap_is_one_launch_on_card(dev):
+    """torch.func.vmap over replicas of the batched RK solve: one forward
+    and one backward launch on S * B rows, equal bit for bit to the solve
+    of those rows (ys, success and both gradients)."""
+    from torch.func import vmap
+
+    S, B, T = 4, 6, 20
+    g = torch.Generator().manual_seed(2)
+    u0s = (torch.rand(S, B, 2, generator=g) * 2 - 1).to(dev)
+    ps = (1 + torch.rand(S, B, 1, generator=g)).to(dev)
+    w = torch.randn(S, B, T, 2, generator=g).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.05
+    solver = trk.Tsit5()
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    n0 = (sum(fwd.values()), sum(bwd.values()))
+    u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+    ys, ok = vmap(lambda a, b: ode_cuda.solve_fixed_grid_batched(
+        pendulum_f, solver, a, b, saveat)[:2])(u, p)
+    (ys * w).sum().backward()
+    assert (sum(fwd.values()) - n0[0], sum(bwd.values()) - n0[1]) == (1, 1)
+    u2 = u0s.reshape(S * B, 2).clone().requires_grad_()
+    p2 = ps.reshape(S * B, 1).clone().requires_grad_()
+    ys2, ok2, _ = ode_cuda.solve_fixed_grid_batched(pendulum_f, solver, u2,
+                                                    p2, saveat)
+    (ys2 * w.reshape(S * B, T, 2)).sum().backward()
+    assert torch.equal(ys, ys2.reshape(S, B, T, 2).detach())
+    assert torch.equal(ok, ok2.reshape(S, B))
+    assert torch.equal(u.grad, u2.grad.reshape(S, B, 2))
+    assert torch.equal(p.grad, p2.grad.reshape(S, B, 1))
+
+
+@pytest.mark.cuda
+def test_population_step_kernel_route_matches_plain_route_on_card(dev):
+    """A 3-seed GOKU population step with both kernel switches on: one
+    launch of each kernel for all replicas (forward and backward) and no
+    plain-version call; losses and gradients against the same population
+    on the plain route (1e-4 of each gradient's size)."""
+    from latentdiffeq_torch.train import MultiSeedTrainer, TrainConfig
+
+    def build(kernels):
+        def init(seed):
+            diffeq = Pendulum(options=SolveOptions(adaptive=False))
+            return LatentDiffEqModel.build(
+                GOKUBasic(use_kernel_encoder=kernels,
+                          use_kernel_solver=kernels),
+                *goku_default_layers(
+                    64, diffeq, hidden_dim_resnet=32,
+                    latent_to_diffeq_dim=32,
+                    generator=torch.Generator().manual_seed(seed),
+                    device=dev))
+        return MultiSeedTrainer(init, TrainConfig(batch_size=8, seq_len=12,
+                                                  save_best=False),
+                                [3, 4, 5], device=dev)
+
+    g = torch.Generator().manual_seed(4)
+    xs = torch.rand(3, 8, 12, 64, generator=g).to(dev)
+    eps = tuple(torch.randn(3, 8, 16, generator=g).to(dev) for _ in range(2))
+    counters = (recurrent_cuda.goku_heads_cuda,
+                recurrent_cuda.goku_heads_bwd_cuda,
+                ode_cuda.solve_fixed_grid_batched_cuda,
+                ode_cuda.solve_fixed_grid_batched_bwd_cuda)
+    plain_calls = (recurrent_cuda.goku_heads_reference.calls,
+                   ode_cuda.solve_fixed_grid_batched_reference.calls)
+    out = []
+    for kernels in (True, False):
+        ms = build(kernels)
+        before = [launches(fn) for fn in counters]
+        m = ms.train_step(xs, 0.5, eps=eps)
+        if kernels:
+            assert [launches(fn) - n for fn, n in
+                    zip(counters, before)] == [1, 1, 1, 1]
+            assert (recurrent_cuda.goku_heads_reference.calls,
+                    ode_cuda.solve_fixed_grid_batched_reference.calls
+                    ) == plain_calls
+        out.append((m["loss"], [p.grad for p in ms.params.values()]))
+    (lk, gk), (lp, gp) = out
+    assert float((lk - lp).abs().max()) <= 1e-4
+    for a, b in zip(gk, gp):
+        assert rel_err(a, b) <= 1e-4

@@ -105,15 +105,6 @@ def test_loss_batch_matches_jax(mode):
     assert int(mt["n_rhs_evals"]) == int(mj["n_rhs_evals"])
 
 
-def test_loss_batch_anchor_not_ported():
-    _, tm = small_pair()
-    x, t = data()
-    with pytest.raises(NotImplementedError):
-        losses.loss_batch(tm, torch.from_numpy(x), torch.from_numpy(t), 1.0,
-                          variational=False, anchor=lambda a: a,
-                          anchor_weight=1.0)
-
-
 @pytest.mark.parametrize("args", [(1500, 0.0, 1.0, 4, 0.9), (37, 0.1, 0.8,
                                                             3, 0.5),
                                   (10, 0.0, 1.0, 4, 0.5)])
