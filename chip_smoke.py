@@ -9,7 +9,9 @@ Phases, each printing one line (any failure exits non-zero):
               card (TF32 off) at the training, validation and ragged batch
               shapes, and the tape-writing variants (goku_heads,
               node_field_fwd) against the plain tape; goku_heads also with
-              heads wider than its compiled widths; rk_fixed_grid also with
+              heads wider than its compiled widths, and its bf16 instances
+              (train, validation, ragged, wide, S 8) against the plain bf16
+              version, each beside a float32 evaluation (bf16_gate); rk_fixed_grid also with
               RK4, Dopri5, sub-steps and the damped RHS, its success flags
               (also on failing rows), its baked tableau instances against
               the generic one bit for bit, rows past its fast sine's bound
@@ -25,7 +27,8 @@ Phases, each printing one line (any failure exits non-zero):
               plain solve; fields the kernel does not take raise;
   3. grads    each backward kernel against its plain version on the same
               inputs: goku_heads_bwd against the plain sweep on the same
-              tape (relu and tanh RNN, and wide heads), rk_fixed_grid_bwd's
+              tape (relu and tanh RNN, and wide heads; its bf16 instances
+              as in phase 2, and the bf16 whole backward), rk_fixed_grid_bwd's
               interval maps against the plain maps and its gradients
               against the two-phase plain version and the plain reverse
               sweep over the same trajectory (also for Van der Pol and
@@ -72,7 +75,16 @@ Phases, each printing one line (any failure exits non-zero):
               by the pixel score, a replica checkpoint into a Trainer, the
               population and solo step times and device ops, and the
               adaptive SPendulum forward before and after the autosize
-              probe;
+              probe; then (4h) GOKU with bf16 NN stages around a float32
+              solve (goku_default_layers(..., dtype=torch.bfloat16), seed
+              333): the first step's ELBO and gradients, kernel route vs
+              the plain bf16 and float32 routes, a Trainer.fit of 2 epochs
+              that launches the heads kernels' bf16 instances 24 / 12
+              times and the float32 RK kernel 24 / 12 times with no plain
+              call, the ELBO of goku_bf16_gate.npz card vs CPU, the step
+              beside the float32 one; and the 4g population in bf16 (the
+              recipe of ttg_bf16_px_winner.npz), its bf16 replica-axis
+              launches and checks;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -82,15 +94,18 @@ Phases, each printing one line (any failure exits non-zero):
               route and by plain autograd, and of
               the heads by cuDNN (torch.nn.RNN + 2 torch.nn.LSTM forward,
               and forward + backward, goku_heads' yardstick; the port
-              never calls them); the replica-axis heads kernels at S 8
-              beside 8 solo launches and the vmapped plain version; the
+              never calls them); the same for the bf16 instances (cuDNN in
+              bf16, bytes at 2 an element); the replica-axis heads kernels
+              at S 8 beside 8 solo launches and the vmapped plain version,
+              in float32 and bf16; the
               neural-field kernels' launch plan,
               their time at 1 and 2 rows a block, and torch.mm per layer
               as node_field_dw's yardstick; with --profile, a
               torch.profiler breakdown of one training step plus
               validation of each model, written to
-              chiprun_out/profile_step.txt and
-              chiprun_out/profile_step_latent_ode.txt.
+              chiprun_out/profile_step.txt,
+              chiprun_out/profile_step_latent_ode.txt and
+              chiprun_out/profile_step_bf16.txt.
 It then prints the kernels JSON line, the card line and, last, the result
 line {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result.
@@ -215,12 +230,13 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def heads_work(B, T, D, H, L, S=1):
+def heads_work(B, T, D, H, L, S=1, elem=4):
     """(bytes, float32 operations) the heads function needs: xs, weights
-    and outputs moved once; per step and row, the gate products (2 flops
-    per multiply-add) and the cell updates (~10 operations per LSTM unit,
-    sigmoid/tanh counted as one each, 1 per RNN unit). ``S`` weight sets
-    of B rows each: S * B rows and S sets of weights."""
+    and outputs moved once, ``elem`` bytes an element (2 for bfloat16);
+    per step and row, the gate products (2 flops per multiply-add) and the
+    cell updates (~10 operations per LSTM unit, sigmoid/tanh counted as one
+    each, 1 per RNN unit). ``S`` weight sets of B rows each: S * B rows and
+    S sets of weights."""
     n_w = 0
     flops_step = 0
     for s in range(3):
@@ -230,7 +246,7 @@ def heads_work(B, T, D, H, L, S=1):
             n_w += din * G + H * G + G + H + (H if s else 0)
             flops_step += 2 * (din + H) * G + G
             flops_step += 10 * H if s else H
-    nbytes = 4 * (S * B * T * D + S * n_w + S * B * 3 * H)
+    nbytes = elem * (S * B * T * D + S * n_w + S * B * 3 * H)
     return nbytes, S * B * T * flops_step
 
 
@@ -290,13 +306,13 @@ def heads_bwd_latency_ms(T, L, H, clock_mhz):
     return (T + L - 1) * cyc / (clock_mhz * 1e3)
 
 
-def heads_bwd_work(B, T, D, H, L, S=1):
+def heads_bwd_work(B, T, D, H, L, S=1, elem=4):
     """(bytes, float32 operations) of the sweep: the tape, the cotangents
     and the recurrent and inter-layer weights in, dgates, dh0 and dc0 out;
     per row-step and cell the products dgates Wh^T (and dgates Wi^T above
     layer 0; 2 flops per multiply-add) and the cell's backward (~16
     operations per LSTM unit, 2 per RNN unit). ``S`` weight sets of B rows
-    each."""
+    each; ``elem`` bytes an element."""
     n_w = 0
     ops = 0
     for s in range(3):
@@ -306,8 +322,8 @@ def heads_bwd_work(B, T, D, H, L, S=1):
             n_w += prods * H * G
             ops += 2 * prods * H * G + (16 * H if s else 2 * H)
     B = S * B
-    nbytes = 4 * (B * T * 13 * H * L + B * 3 * H + S * n_w
-                  + B * T * 9 * H * L + 2 * B * 3 * L * H)
+    nbytes = elem * (B * T * 13 * H * L + B * 3 * H + S * n_w
+                     + B * T * 9 * H * L + 2 * B * 3 * L * H)
     return nbytes, B * T * ops
 
 
@@ -949,9 +965,10 @@ def node_timing(clock):
 
 def cudnn_heads(heads, dev):
     """The three GOKU heads as torch.nn.RNN (relu) and two torch.nn.LSTM
-    modules on the same weights: W_ih = Wi^T, W_hh = Wh^T, Flux's one bias
-    as b_ih with b_hh = 0, gates i, f, g, o in both. Returns
-    ``run(xs, xs_reversed)``, the three cuDNN calls, giving (z0, theta)."""
+    modules on the same weights, in the heads' dtype: W_ih = Wi^T, W_hh =
+    Wh^T, Flux's one bias as b_ih with b_hh = 0, gates i, f, g, o in both.
+    Returns ``run(xs, xs_reversed)``, the three cuDNN calls, giving (z0,
+    theta)."""
     rnn_h, lstm_f, lstm_b = heads
     D = rnn_h.cells[0].Wi.shape[0]
     H = rnn_h.cells[0].hidden_dim
@@ -960,7 +977,7 @@ def cudnn_heads(heads, dev):
                          batch_first=True),
             torch.nn.LSTM(D, H, num_layers=L, batch_first=True),
             torch.nn.LSTM(D, H, num_layers=L, batch_first=True))
-    mods = [mod.to(dev) for mod in mods]
+    mods = [mod.to(dev, rnn_h.cells[0].Wi.dtype) for mod in mods]
     with torch.no_grad():
         for mod, head in zip(mods, heads):
             for k, cell in enumerate(head.cells):
@@ -1505,18 +1522,24 @@ def goku_timing(heads, gen, clock, dev):
     and its latency model; the heads' products; forward + backward of the
     heads by the kernel route, plain autograd and cuDNN (torch.nn.RNN and
     two torch.nn.LSTM on the same weights, the yardstick; the port never
-    calls them). Returns {name: (ms, plain_ms, bound_ms, bound_by,
-    library_ms)} at the train shape."""
+    calls them). In the heads' dtype: bfloat16 heads time the bf16
+    instances against the plain bf16 versions and cuDNN in bf16, with the
+    bytes at 2 an element, under the names ``goku_heads[bf16]`` and
+    ``goku_heads_bwd[bf16]``. Returns {name: (ms, plain_ms, bound_ms,
+    bound_by, library_ms)} at the train shape."""
     from latentdiffeq_torch.ops import recurrent_cuda as rc
     L, H = len(heads[0].cells), heads[0].cells[0].hidden_dim
+    dtype = heads[0].cells[0].Wi.dtype
+    bf16 = dtype == torch.bfloat16
+    tag, elem = ("[bf16]", 2) if bf16 else ("", 4)
     params = rc._heads_params(*heads)
     mods, state, cudnn_run = cudnn_heads(heads, dev)
     mod_params = [p for m in mods for p in m.parameters()]
     out = {}
     for label, (B, T) in (("train", (64, 50)), ("val", (45, 100))):
-        xs = torch.randn(B, T, 32, generator=gen, device=dev)
-        gz = torch.randn(B, H, generator=gen, device=dev)
-        gt = torch.randn(B, 2 * H, generator=gen, device=dev)
+        xs = torch.randn(B, T, 32, generator=gen, device=dev).to(dtype)
+        gz = torch.randn(B, H, generator=gen, device=dev).to(dtype)
+        gt = torch.randn(B, 2 * H, generator=gen, device=dev).to(dtype)
         with torch.no_grad():
             _, _, tape = rc.goku_heads_cuda(*heads, xs, tape=True)
             dg, dh0, dc0 = rc.goku_heads_bwd_cuda(*heads, tape, gz, gt)
@@ -1531,8 +1554,13 @@ def goku_timing(heads, gen, clock, dev):
         with torch.no_grad():
             z_c, th_c = cudnn_run(xs, xr)
             z_p, th_p = rc.goku_heads_reference(*heads, xs)
-        e = max(max_err(z_c, z_p), max_err(th_c, th_p))
-        if not e <= 1e-4:
+        e = max(max_err(z_c.float(), z_p.float()),
+                max_err(th_c.float(), th_p.float()))
+        # bf16: cuDNN rounds at other places than the plain version; a
+        # check that the yardstick computes the same function
+        e_tol = (2 ** -6 * float(torch.cat([z_p, th_p], -1).float().abs()
+                                 .max()) if bf16 else 1e-4)
+        if not e <= e_tol:
             fail(f"cuDNN RNN/LSTM vs goku_heads' plain version: {e}")
         s_z = state(heads[0], "h0", B)
         s_f = (state(heads[1], "h0", B), state(heads[1], "c0", B))
@@ -1554,39 +1582,46 @@ def goku_timing(heads, gen, clock, dev):
         with torch.no_grad():
             lib_f = time_ms(three)
         lib_fb = time_ms(three_grad)
-        log("timing", f"goku_heads {label} yardstick: torch.nn.RNN (relu) + "
-                      f"2 torch.nn.LSTM, {L} layers each, cuDNN "
-                      f"{torch.backends.cudnn.version()}: forward "
+        log("timing", f"goku_heads{tag} {label} yardstick: torch.nn.RNN "
+                      f"(relu) + 2 torch.nn.LSTM, {L} layers each, {dtype}, "
+                      f"cuDNN {torch.backends.cudnn.version()}: forward "
                       f"{lib_f:.4f} ms, forward + backward {lib_fb:.4f} ms "
                       f"for the three (vs the plain version max abs err "
-                      f"{e:.3e}, tol 1e-4)")
+                      f"{e:.3e}, tol {e_tol:.1e})")
         k_route = time_ms(lambda: route(rc.goku_heads))
         p_route = time_ms(lambda: route(rc.goku_heads_reference), reps=3,
                           warmup=1)
-        log("timing", f"goku_heads {label} forward + backward, per call: "
+        log("timing", f"goku_heads{tag} {label} forward + backward, per call: "
                       f"kernel route (tape forward, goku_heads_bwd, "
                       f"products) {k_route:.4f} ms, plain autograd "
                       f"{p_route:.4f} ms, cuDNN {lib_fb:.4f} ms")
         with torch.no_grad():
             prod_ms = time_ms(lambda: rc.goku_heads_param_grads(
                 *heads, xs, tape, dg, dh0, dc0))
-        log("timing", f"goku_heads {label} products (dxs, dW, db, dh0, dc0; "
-                      f"PyTorch matrix products): {prod_ms:.4f} ms per call")
+        log("timing", f"goku_heads{tag} {label} products (dxs, dW, db, "
+                      f"dh0, dc0; PyTorch matrix products): {prod_ms:.4f} ms "
+                      f"per call")
+        # bf16: the plain forward is the kernel's own (rounding where it
+        # rounds); autograd's CPU route runs goku_heads_reference
+        plain_fwd = (rc.goku_heads_taped_reference if bf16
+                     else rc.goku_heads_reference)
         calls = {
-            "goku_heads": (
+            f"goku_heads{tag}": (
                 lambda: rc.goku_heads_cuda(*heads, xs),
-                lambda: rc.goku_heads_reference(*heads, xs),
-                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L),
+                lambda: plain_fwd(*heads, xs),
+                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L,
+                                                    elem=elem),
                 heads_latency_ms(T, L, 32, H, clock), lib_f),
-            "goku_heads (writing the tape)": (
+            f"goku_heads{tag} (writing the tape)": (
                 lambda: rc.goku_heads_cuda(*heads, xs, tape=True),
                 lambda: rc.goku_heads_taped_reference(*heads, xs),
                 "goku_heads_fwd_kernel", None,
                 heads_latency_ms(T, L, 32, H, clock), None),
-            "goku_heads_bwd": (
+            f"goku_heads_bwd{tag}": (
                 lambda: rc.goku_heads_bwd_cuda(*heads, tape, gz, gt),
                 lambda: rc.goku_heads_sweep_reference(*heads, tape, gz, gt),
-                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L),
+                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L,
+                                                        elem=elem),
                 heads_bwd_latency_ms(T, L, H, clock), None),
         }
         with torch.no_grad():
@@ -1607,20 +1642,20 @@ def goku_timing(heads, gen, clock, dev):
                     out[name] = (k_ms, p_ms, b_ms, b_by, lib)
     # heads wider than the compiled widths run in the any-width kernels (off
     # the main path, not tuned)
-    wh = wide_heads()
+    wh = tuple(h.to(dtype) for h in wide_heads())
     D, Hw, _ = WIDE_HEADS
-    xs = torch.randn(64, 50, D, generator=gen, device=dev)
-    gz = torch.randn(64, Hw, generator=gen, device=dev)
-    gt = torch.randn(64, 2 * Hw, generator=gen, device=dev)
+    xs = torch.randn(64, 50, D, generator=gen, device=dev).to(dtype)
+    gz = torch.randn(64, Hw, generator=gen, device=dev).to(dtype)
+    gt = torch.randn(64, 2 * Hw, generator=gen, device=dev).to(dtype)
     with torch.no_grad():
         _, _, tape = rc.goku_heads_cuda(*wh, xs, tape=True)
         f_ms = device_ms(lambda: rc.goku_heads_cuda(*wh, xs),
                          "goku_heads_fwd_any_kernel")
         b_ms = device_ms(lambda: rc.goku_heads_bwd_cuda(*wh, tape, gz, gt),
                          "goku_heads_bwd_any_kernel")
-    log("timing", f"goku_heads wide {WIDE_HEADS} B=64 T=50, the any-width "
-                  f"kernels: forward {fmt_ms(f_ms)}, sweep {fmt_ms(b_ms)} on "
-                  f"the device")
+    log("timing", f"goku_heads{tag} wide {WIDE_HEADS} B=64 T=50, the "
+                  f"any-width kernels: forward {fmt_ms(f_ms)}, sweep "
+                  f"{fmt_ms(b_ms)} on the device")
     return out
 
 
@@ -1637,6 +1672,8 @@ def reset_counts():
                node_cuda.neural_field_sweep_cuda,
                node_cuda.neural_field_dw_cuda):
         fn.launches = 0
+    recurrent_cuda.goku_heads_cuda.bf16_launches = 0
+    recurrent_cuda.goku_heads_bwd_cuda.bf16_launches = 0
     ode_cuda.solve_fixed_grid_batched_cuda.launches.clear()
     ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches.clear()
     recurrent_cuda.goku_heads_reference.calls = 0
@@ -1663,10 +1700,15 @@ def plain_copy(model, model_type):
     return plain
 
 
+STEP_REPORTS = {}
+
+
 def step_report(what, trainer, data, val_set, beta, gpu):
-    """The step and validation times and the device ops of one step."""
+    """The step and validation times and the device ops of one step (kept
+    in STEP_REPORTS[what] as (step ms, val ms, ops, busy ms, span ms))."""
     step_ms, val_ms = step_times(trainer, data, val_set, beta)
     n_ops, busy, span = step_device_ops(trainer, data, beta)
+    STEP_REPORTS[what] = (step_ms, val_ms, n_ops, busy, span)
     log("train", f"{what} step time (median of 5, synchronised): train "
                  f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; one "
                  f"train step under torch.profiler: {n_ops} device ops, "
@@ -2144,7 +2186,7 @@ def population_heads(ms):
     params = [ms.params[f"encoder.pattern_extractor.{n}"].detach()
               for n, _ in pe.named_parameters()]
     heads = tuple(pe)
-    return heads, params, rc.pack_goku_heads(*heads, params=params)
+    return heads, params, rc.pack_goku_heads(*heads, params=params).float()
 
 
 def population_kernel_checks(ms, gen, dev):
@@ -2155,7 +2197,10 @@ def population_kernel_checks(ms, gen, dev):
     S solo launches bit for bit; the RK kernels under torch.func.vmap over
     S replicas (S * B rows, forward and backward) against S solo launches
     of B rows bit for bit. Returns the heads kernels' largest absolute
-    errors against the plain versions {name: error}."""
+    errors against the plain versions {name: error}. A bf16 population
+    runs the bf16 instances, held by bf16_gate against the plain float32
+    versions vmapped over the upcast weight sets (the sweep on the kernel's
+    tape upcast); its RK solve is float32, checked by the float32 run."""
     from torch.func import vmap
 
     from latentdiffeq_torch.ops import ode_cuda
@@ -2165,6 +2210,10 @@ def population_kernel_checks(ms, gen, dev):
 
     S, B, T = ms.n_seeds, 64, 20
     heads, params, wts = population_heads(ms)
+    dtype = params[0].dtype
+    if dtype == torch.bfloat16:
+        return population_bf16_kernel_checks(ms, heads, params, wts, gen,
+                                             dev)
     xs = torch.randn(S, B, T, 32, generator=gen, device=dev)
     gz = torch.randn(S, B, 16, generator=gen, device=dev)
     gt = torch.randn(S, B, 32, generator=gen, device=dev)
@@ -2248,15 +2297,19 @@ def population_timing(ms, gen, clock, dev):
     of the plain sweep) and 8 solo launches, and the bound of S * B rows
     with S weight sets. Returns {name: (ms, plain_ms, bound_ms, bound_by,
     library_ms)}; no one PyTorch call runs 8 weight sets, so library_ms is
-    None."""
+    None. A bf16 population times the bf16 instances (``[pop8-bf16]``,
+    the plain version the kernel's own forward, 2 bytes an element)."""
     from latentdiffeq_torch.ops import recurrent_cuda as rc
 
     S, B, T = ms.n_seeds, 64, 20
     heads, params, wts = population_heads(ms)
     L, H = len(heads[0].cells), heads[0].cells[0].hidden_dim
-    xs = torch.randn(S, B, T, 32, generator=gen, device=dev)
-    gz = torch.randn(S, B, H, generator=gen, device=dev)
-    gt = torch.randn(S, B, 2 * H, generator=gen, device=dev)
+    dtype = params[0].dtype
+    bf16 = dtype == torch.bfloat16
+    tag, elem = ("-bf16", 2) if bf16 else ("", 4)
+    xs = torch.randn(S, B, T, 32, generator=gen, device=dev).to(dtype)
+    gz = torch.randn(S, B, H, generator=gen, device=dev).to(dtype)
+    gt = torch.randn(S, B, 2 * H, generator=gen, device=dev).to(dtype)
     solo_heads = [tuple(ms.seed_model(i).encoder.pattern_extractor)
                   for i in range(S)]
     out = {}
@@ -2264,24 +2317,28 @@ def population_timing(ms, gen, clock, dev):
         _, _, tape = rc.goku_heads_cuda(*heads, xs, tape=True, wts=wts)
         solo_tapes = [rc.goku_heads_cuda(*solo_heads[i], xs[i], tape=True)[2]
                       for i in range(S)]
-        plain_fwd = population_plain(heads, params, rc.goku_heads_reference)
+        plain_fwd = population_plain(heads, params, (
+            rc.goku_heads_taped_reference if bf16
+            else rc.goku_heads_reference))
         plain_sweep = population_plain(heads, params,
                                        rc.goku_heads_sweep_reference)
         calls = {
-            "goku_heads[pop8]": (
+            f"goku_heads[pop8{tag}]": (
                 lambda: rc.goku_heads_cuda(*heads, xs, wts=wts),
                 lambda: plain_fwd(xs),
                 lambda: [rc.goku_heads_cuda(*solo_heads[i], xs[i])
                          for i in range(S)],
-                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L, S)),
-            "goku_heads_bwd[pop8]": (
+                "goku_heads_fwd_kernel", heads_work(B, T, 32, H, L, S,
+                                                    elem=elem)),
+            f"goku_heads_bwd[pop8{tag}]": (
                 lambda: rc.goku_heads_bwd_cuda(*heads, tape, gz, gt,
                                                wts=wts),
                 lambda: plain_sweep(tape, gz, gt),
                 lambda: [rc.goku_heads_bwd_cuda(*solo_heads[i],
                                                 solo_tapes[i], gz[i], gt[i])
                          for i in range(S)],
-                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L, S)),
+                "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L, S,
+                                                        elem=elem)),
         }
         for name, (kernel, plain, solo, kname, work) in calls.items():
             k_ms = time_ms(kernel)
@@ -2358,7 +2415,8 @@ def autosize_check(trained, train_set, dev, gpu):
              f"differ by {e}")
 
 
-def population_path(train_set, val_set, sde_model, dev, gpu, gen):
+def population_path(train_set, val_set, sde_model, dev, gpu, gen,
+                    dtype=torch.float32):
     """Phase 4g: full-width GOKU on the pendulum video as a population of
     8 seeds (333-340), both kernel switches on, train_goku.py --seeds 8:
     one masked-curriculum epoch (it trains the sliced windows: a sliced
@@ -2371,7 +2429,12 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     route against the plain route on the trained population; select by
     the pixel score; save_replica into a Trainer; the population and solo
     step and validation times and device ops; the autosize probe on the
-    adaptive SPendulum. Returns (launches, errors, the trainer)."""
+    adaptive SPendulum. With ``dtype`` bfloat16 (phase 4h, the recipe of
+    ttg_bf16_px_winner.npz) the replicas are bf16 GOKUs and run the heads
+    kernels' bf16 instances: every heads launch must be a bf16 one, replica
+    3 is held to its solo Trainer at BF16_POP_RTOL, the kernel checks and
+    the kernel-vs-plain route by bf16_gate; no autosize probe. Returns
+    (launches, errors, the trainer)."""
     import dataclasses
     import tempfile
 
@@ -2388,11 +2451,15 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
 
     diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
 
+    bf16 = dtype == torch.bfloat16
+    what = "bf16 population" if bf16 else "population"
+
     def init(seed):
         return LatentDiffEqModel.build(
             GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
             *goku_default_layers(784, diffeq, generator=torch.Generator()
-                                 .manual_seed(seed), device=dev))
+                                 .manual_seed(seed), device=dev,
+                                 dtype=dtype))
 
     cfg = TrainConfig(epochs=1500, save_best=False, progressive_training=True,
                       start_seq_len=20, prog_training_duration=300)
@@ -2407,6 +2474,8 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
                 "goku_heads_bwd": heads_bwd.launches,
                 "rk_fixed_grid": sum(rk_fwd.launches.values()),
                 "rk_fixed_grid_bwd": sum(rk_bwd.launches.values()),
+                "bf16 heads": (heads_fwd.bf16_launches,
+                               heads_bwd.bf16_launches),
                 "plain": recurrent_cuda.goku_heads_reference.calls
                 + ode_cuda.solve_fixed_grid_batched_reference.calls}
 
@@ -2421,15 +2490,16 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     got = counts()
     want = {"goku_heads": 2 * steps, "goku_heads_bwd": steps,
             "rk_fixed_grid": 2 * steps, "rk_fixed_grid_bwd": steps,
+            "bf16 heads": (2 * steps, steps) if bf16 else (0, 0),
             "plain": 0}
     masked_vals = hist[0]["val_loss"]
-    log("train", f"population masked curriculum: 1 epoch x {steps} steps of "
+    log("train", f"{what} masked curriculum: 1 epoch x {steps} steps of "
                  f"{len(POP_SEEDS)} seeds (windows of {hist[0]['seq_len']} "
                  f"frames) in {time.perf_counter() - t0:.3f} s; val loss per "
                  f"seed {[round(float(v), 6) for v in masked_vals]}; launches "
                  f"{got} (expected {want}: a sliced epoch's)")
     if got != want or not np.isfinite(masked_vals).all():
-        fail(f"population masked epoch: {got}, expected {want}; "
+        fail(f"{what} masked epoch: {got}, expected {want}; "
              f"{masked_vals}")
     del masked
 
@@ -2443,21 +2513,21 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     fit_s = time.perf_counter() - t0
     launches = counts()
     for rec in hist:
-        log("train", f"population epoch {rec['epoch']} (seq_len "
+        log("train", f"{what} epoch {rec['epoch']} (seq_len "
                      f"{rec['seq_len']}): train loss per seed "
                      f"{[round(float(v), 6) for v in rec['train_loss']]}, "
                      f"val loss {[round(float(v), 6) for v in rec['val_loss']]}"
                      f" {rec['epoch_s']:.4f} s")
         if not (np.isfinite(rec["train_loss"]).all()
                 and np.isfinite(rec["val_loss"]).all()):
-            fail(f"population: non-finite loss in epoch {rec['epoch']}")
+            fail(f"{what}: non-finite loss in epoch {rec['epoch']}")
 
     rel = float(np.abs(masked_vals - hist[0]["val_loss"]).max()
                 / np.abs(hist[0]["val_loss"]).max())
-    log("train", f"population masked epoch vs the main path's first epoch: "
+    log("train", f"{what} masked epoch vs the main path's first epoch: "
                  f"val losses max rel err {rel:.3e} (tol {MASKED_RTOL:.0e})")
     if not rel <= MASKED_RTOL:
-        fail(f"population masked epoch vs sliced epoch 0: {rel}")
+        fail(f"{what} masked epoch vs sliced epoch 0: {rel}")
 
     # replica 3 against a solo Trainer of seed 336
     i = POP_SEEDS.index(336)
@@ -2471,17 +2541,18 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     pop_v = np.array([float(r["val_loss"][i]) for r in hist])
     solo_v = np.array([r["val_loss"] for r in shist])
     rel = float(np.abs(pop_v - solo_v).max() / np.abs(solo_v).max())
-    log("train", f"population fit 2 epochs x {steps} steps of "
+    rtol = BF16_POP_RTOL if bf16 else POP_RTOL
+    log("train", f"{what} fit 2 epochs x {steps} steps of "
                  f"{len(POP_SEEDS)} seeds in {fit_s:.3f} s, solo Trainer of "
                  f"seed 336 in {solo_s:.3f} s; launches population "
                  f"{launches}, solo {solo_launches} (must be equal; plain "
                  f"calls 0); replica {i} (seed 336) val losses "
                  f"{pop_v.tolist()} vs solo {solo_v.tolist()}: max rel err "
-                 f"{rel:.3e} (tol {POP_RTOL:.0e})")
+                 f"{rel:.3e} (tol {rtol:.1e})")
     if launches != solo_launches or launches["plain"] != 0:
-        fail(f"population launches {launches} != solo {solo_launches}")
-    if not rel <= POP_RTOL:
-        fail(f"population replica {i} vs solo Trainer: {rel}")
+        fail(f"{what} launches {launches} != solo {solo_launches}")
+    if not rel <= rtol:
+        fail(f"{what} replica {i} vs solo Trainer: {rel}")
 
     errs = population_kernel_checks(ms, gen, dev)
 
@@ -2494,14 +2565,23 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     xk = selectors.population_decode(ms.stacked_models, val_set, t_val)
     dec = counts()
     xp = selectors.population_decode(plain, val_set, t_val)
-    e = max_err(xk, xp)
-    log("train", f"trained population, kernel vs plain route on the val set "
+    e = max_err(xk.float(), xp.float())
+    ok, tol_note = e <= PATH_TOL, f"tol {PATH_TOL:.0e}"
+    if bf16:
+        plain32 = StackedModels(
+            plain_copy(ms.base, GOKUBasic()).float(),
+            {k: v.float() for k, v in ms.params.items()}, ms.buffers)
+        x32 = selectors.population_decode(plain32, val_set, t_val)
+        ok, d_k, d_p, allow = bf16_gate(xk, xp, x32)
+        tol_note = (f"bf16 gate: kernel route vs float32 {d_k:.3e}, plain "
+                    f"bf16 route vs float32 {d_p:.3e}, allowed {allow:.3e}")
+    log("train", f"trained {what}, kernel vs plain route on the val set "
                  f"(one vmapped forward each): x_hat {tuple(xk.shape)} max "
-                 f"abs err {e:.3e} (tol {PATH_TOL:.0e}); the kernel route's "
+                 f"abs err {e:.3e} ({tol_note}); the kernel route's "
                  f"launches {dec}")
-    if not (e <= PATH_TOL and bool(torch.isfinite(xk).all())
+    if not (ok and bool(torch.isfinite(xk).all())
             and dec["goku_heads"] == 1 and dec["rk_fixed_grid"] == 1):
-        fail(f"population kernel vs plain route: {e}, launches {dec}")
+        fail(f"{what} kernel vs plain route: {e}, launches {dec}")
 
     # selection by the pixel score, and a replica checkpoint into a Trainer
     th_obs = px.pixel_angles(val_set)
@@ -2509,13 +2589,13 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
     _, info = ms.select(lambda st: px.population_pixel_scores(
         st, val_set, th_obs, cfg.dt))
     sel_s = time.perf_counter() - t0
-    log("train", f"population select by population_pixel_scores in "
+    log("train", f"{what} select by population_pixel_scores in "
                  f"{sel_s:.3f} s: winner seed {info['seed']} (index "
                  f"{info['index']}, from_best {info['from_best']}) score "
                  f"{info['score']:.6f}; live {info['scores_live']}, best "
                  f"{info['scores_best']}")
     if not math.isfinite(info["score"]):
-        fail(f"population select: no finite winner {info}")
+        fail(f"{what} select: no finite winner {info}")
     j = info["index"]
     beta = float(hist[-1]["beta"])
     with tempfile.TemporaryDirectory() as tmp:
@@ -2537,12 +2617,384 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen):
 
     # step and validation times at the full window (50 frames)
     xs = train_set[:cfg.batch_size, :cfg.seq_len]
-    step_report("population (8 seeds)", ms,
+    step_report(f"{what} (8 seeds)", ms,
                 xs.unsqueeze(0).expand(len(POP_SEEDS), -1, -1,
                                        -1).contiguous(), val_set, beta, gpu)
-    step_report("population solo seed 336", solo, xs, val_set, beta, gpu)
-    autosize_check(sde_model, train_set, dev, gpu)
-    return {k: v for k, v in launches.items() if k != "plain"}, errs, ms
+    step_report(f"{what} solo seed 336", solo, xs, val_set, beta, gpu)
+    if not bf16:
+        autosize_check(sde_model, train_set, dev, gpu)
+    return {k: v for k, v in launches.items()
+            if k not in ("plain", "bf16 heads")}, errs, ms
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 NN stages (train_goku.py --dtype bf16): the heads kernels' bf16
+# instances, checked in phases 2 and 3, run on the main path in phase 4h.
+# bf16 rounds at other places in the kernel (float32 gates, h and c rounded
+# each step) and in PyTorch (its products, every operation of the plain
+# route), so each bf16 gate holds the kernel's result against a float32
+# evaluation of the same bf16 weights and inputs upcast (the plain float32
+# version): the kernel may be at most twice as far from it as the plain
+# bf16 version is, plus BF16_SLACK of its size (bf16_gate). Outputs, tape,
+# dgates and each gradient are gated so.
+
+BF = torch.bfloat16
+BF16_SLACK = 2.0 ** -8
+BF16_ELBO_RTOL = 1e-2      # goku_bf16_gate.npz's ELBO, card vs CPU
+BF16_POP_RTOL = 2.0 ** -7  # replica vs solo Trainer: one bf16 step
+BF16_CKPT = os.path.join("benchmarks", "artifacts", "goku_bf16_gate.npz")
+
+
+def bf16_gate(k, p, f):
+    """(ok, |k - f|, |p - f|, allowed) for the bf16 kernel's result ``k``,
+    the plain bf16 version's ``p`` and the float32 evaluation ``f``."""
+    f = f.float()
+    d_k, d_p = max_err(k.float(), f), max_err(p.float(), f)
+    allow = 2 * d_p + BF16_SLACK * float(f.abs().max())
+    return d_k <= allow, d_k, d_p, allow
+
+
+def as_dtype(heads, dtype):
+    """Copies of the heads in ``dtype``."""
+    return tuple(copy.deepcopy(h).to(dtype) for h in heads)
+
+
+def weight_sets(heads, S, gen):
+    """S weight sets of the heads' shapes and dtype: the heads' tensors plus
+    N(0, 0.05^2), each (S, ...) in the order of _heads_params."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    return [(p.detach().float() + 0.05 * torch.randn(
+        (S,) + tuple(p.shape), generator=gen, device=p.device)).to(p.dtype)
+        for p in rc._heads_params(*heads)]
+
+
+def goku_bf16_kernel_checks(heads, gen):
+    """Phase 2 for the bf16 instances: the forward kernel and its
+    tape-writing variant against the plain bf16 forward with its tape
+    (goku_heads_taped_reference, rounding where the kernel rounds), by
+    bf16_gate against the plain float32 forward on the upcast weights and
+    inputs, at the train, validation and a ragged shape, with wide heads
+    (the any-width kernel) and with S 8 weight sets in one launch. Returns
+    {name: largest absolute error of the outputs, kernel vs plain bf16}."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    hb = as_dtype(heads, BF)
+    errs = {"goku_heads[bf16]": 0.0}
+    with torch.no_grad():
+        for label, hs, (B, T), S in (
+                ("train", hb, (64, 50), 1), ("val", hb, (45, 100), 1),
+                ("ragged", hb, (37, 21), 1),
+                (f"wide {WIDE_HEADS}", as_dtype(wide_heads(), BF), (64, 50),
+                 1), ("S 8", hb, (64, 20), 8)):
+            D = hs[0].cells[0].Wi.shape[0]
+            h32 = as_dtype(hs, torch.float32)
+            lead = (S,) if S > 1 else ()
+            xs = torch.randn(lead + (B, T, D), generator=gen,
+                             device="cuda").to(BF)
+            if S == 1:
+                z, th = rc.goku_heads_cuda(*hs, xs)
+                zt, tht, tape = rc.goku_heads_cuda(*hs, xs, tape=True)
+                ref = rc.goku_heads_taped_reference(*hs, xs)
+                r32 = rc.goku_heads_taped_reference(*h32, xs.float())
+            else:
+                params = weight_sets(hs, S, gen)
+                wts = rc.pack_goku_heads(*hs, params=params).float()
+                z, th = rc.goku_heads_cuda(*hs, xs, wts=wts)
+                zt, tht, tape = rc.goku_heads_cuda(*hs, xs, tape=True,
+                                                   wts=wts)
+                ref = population_plain(hs, params,
+                                       rc.goku_heads_taped_reference)(xs)
+                r32 = population_plain(
+                    h32, [p.float() for p in params],
+                    rc.goku_heads_taped_reference)(xs.float())
+            same = torch.equal(z, zt) and torch.equal(th, tht)
+            gates = [bf16_gate(k, p, f) for k, p, f in zip((z, th, tape),
+                                                          ref, r32)]
+            e = max(max_err(z.float(), ref[0].float()),
+                    max_err(th.float(), ref[1].float()))
+            if S == 1:
+                errs["goku_heads[bf16]"] = max(errs["goku_heads[bf16]"], e)
+            log("kernels", f"goku_heads[bf16] {label} B={B} T={T}"
+                           f"{f' S={S}' if S > 1 else ''}: kernel vs plain "
+                           f"bf16 max abs err {e:.3e}; vs float32 (z0, "
+                           f"theta, tape): kernel "
+                           f"{[f'{g[1]:.3e}' for g in gates]}, plain bf16 "
+                           f"{[f'{g[2]:.3e}' for g in gates]}, allowed "
+                           f"{[f'{g[3]:.3e}' for g in gates]}; tape-writing "
+                           f"variant same outputs {same}; dtypes {z.dtype}, "
+                           f"{tape.dtype}")
+            if not (same and all(g[0] for g in gates)
+                    and z.dtype == tape.dtype == BF):
+                fail(f"goku_heads[bf16] {label}: {gates}, same {same}")
+    return errs
+
+
+def goku_bf16_grad_checks(heads, gen):
+    """Phase 3 for the bf16 instances: the sweep kernel against the plain
+    bf16 sweep on the same bf16 tape (dgates, dh0, dc0), by bf16_gate
+    against the plain float32 sweep on that tape upcast, at the train and
+    validation shapes, with wide heads and with S 8 weight sets; then the
+    whole backward at the train shape (goku_heads on the card: the tape
+    forward, the sweep, the bf16 products) against plain bf16 autograd
+    (goku_heads_reference) and float32 autograd on the upcast weights, each
+    gradient by bf16_gate. Returns {name: largest absolute error of the
+    sweep, kernel vs plain bf16}."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    hb = as_dtype(heads, BF)
+    errs = {"goku_heads_bwd[bf16]": 0.0}
+    for label, hs, (B, T), S in (
+            ("train", hb, (64, 50), 1), ("val", hb, (45, 100), 1),
+            (f"wide {WIDE_HEADS}", as_dtype(wide_heads(), BF), (64, 50), 1),
+            ("S 8", hb, (64, 20), 8)):
+        D = hs[0].cells[0].Wi.shape[0]
+        H = hs[0].cells[0].hidden_dim
+        h32 = as_dtype(hs, torch.float32)
+        lead = (S,) if S > 1 else ()
+        xs = torch.randn(lead + (B, T, D), generator=gen,
+                         device="cuda").to(BF)
+        gz = torch.randn(lead + (B, H), generator=gen, device="cuda").to(BF)
+        gt = torch.randn(lead + (B, 2 * H), generator=gen,
+                         device="cuda").to(BF)
+        with torch.no_grad():
+            if S == 1:
+                tape = rc.goku_heads_cuda(*hs, xs, tape=True)[2]
+                got = rc.goku_heads_bwd_cuda(*hs, tape, gz, gt)
+                ref = rc.goku_heads_sweep_reference(*hs, tape, gz, gt)
+                r32 = rc.goku_heads_sweep_reference(
+                    *h32, tape.float(), gz.float(), gt.float())
+            else:
+                params = weight_sets(hs, S, gen)
+                wts = rc.pack_goku_heads(*hs, params=params).float()
+                tape = rc.goku_heads_cuda(*hs, xs, tape=True, wts=wts)[2]
+                got = rc.goku_heads_bwd_cuda(*hs, tape, gz, gt, wts=wts)
+                ref = population_plain(hs, params,
+                                       rc.goku_heads_sweep_reference)(
+                    tape, gz, gt)
+                r32 = population_plain(
+                    h32, [p.float() for p in params],
+                    rc.goku_heads_sweep_reference)(tape.float(), gz.float(),
+                                                   gt.float())
+        gates = [bf16_gate(k, p, f) for k, p, f in zip(got, ref, r32)]
+        e = max(max_err(a.float(), b.float()) for a, b in zip(got, ref))
+        if S == 1:
+            errs["goku_heads_bwd[bf16]"] = max(errs["goku_heads_bwd[bf16]"],
+                                               e)
+        line = (f"goku_heads_bwd[bf16] {label} B={B} T={T}"
+                f"{f' S={S}' if S > 1 else ''}: sweep on the same bf16 tape"
+                f", kernel vs plain bf16 max abs err {e:.3e}; vs float32 "
+                f"(dgates, dh0, dc0): kernel "
+                f"{[f'{g[1]:.3e}' for g in gates]}, plain bf16 "
+                f"{[f'{g[2]:.3e}' for g in gates]}, allowed "
+                f"{[f'{g[3]:.3e}' for g in gates]}")
+        ok = all(g[0] for g in gates) and got[0].dtype == BF
+        if label == "train":
+            params = rc._heads_params(*hs)
+
+            def grads(fn, heads_, x, g):
+                x = x.clone().requires_grad_()
+                z, th = fn(*heads_, x)
+                return torch.autograd.grad(
+                    (z, th), [x] + rc._heads_params(*heads_), g)
+
+            k = grads(rc.goku_heads, hs, xs, (gz, gt))
+            p = grads(rc.goku_heads_reference, hs, xs, (gz, gt))
+            f = grads(rc.goku_heads_reference, h32, xs.float(),
+                      (gz.float(), gt.float()))
+            wg = [bf16_gate(a, b, c) for a, b, c in zip(k, p, f)]
+            worst = max(wg, key=lambda g: g[1] / max(g[3], 1e-30))
+            line += (f"; whole backward, {len(wg)} gradients in "
+                     f"{k[1].dtype}: by bf16_gate all ok "
+                     f"{all(g[0] for g in wg)}, the closest to its limit "
+                     f"kernel {worst[1]:.3e} plain bf16 {worst[2]:.3e} "
+                     f"allowed {worst[3]:.3e}")
+            ok = ok and all(g[0] for g in wg) and all(
+                a.dtype == b.dtype for a, b in zip(k[1:], params))
+        log("grads", line)
+        if not ok:
+            fail(f"goku_heads_bwd[bf16] {label}: {line}")
+    return errs
+
+
+def population_bf16_kernel_checks(ms, heads, params, wts, gen, dev):
+    """population_kernel_checks for a bf16 population: the replica-axis
+    bf16 forward with its tape and sweep against the plain bf16 versions
+    vmapped over the 8 weight sets, by bf16_gate against the plain float32
+    versions over the upcast sets, and against 8 solo launches bit for
+    bit."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    S, B, T = ms.n_seeds, 64, 20
+    h32 = as_dtype(heads, torch.float32)
+    p32 = [p.float() for p in params]
+    xs = torch.randn(S, B, T, 32, generator=gen, device=dev).to(BF)
+    gz = torch.randn(S, B, 16, generator=gen, device=dev).to(BF)
+    gt = torch.randn(S, B, 32, generator=gen, device=dev).to(BF)
+    with torch.no_grad():
+        z, th, tape = rc.goku_heads_cuda(*heads, xs, tape=True, wts=wts)
+        sw = rc.goku_heads_bwd_cuda(*heads, tape, gz, gt, wts=wts)
+        fwd_p = population_plain(heads, params,
+                                 rc.goku_heads_taped_reference)(xs)
+        fwd_f = population_plain(h32, p32, rc.goku_heads_taped_reference)(
+            xs.float())
+        sw_p = population_plain(heads, params, rc.goku_heads_sweep_reference)(
+            tape, gz, gt)
+        sw_f = population_plain(h32, p32, rc.goku_heads_sweep_reference)(
+            tape.float(), gz.float(), gt.float())
+        same = True
+        for i in range(S):
+            hs = tuple(ms.seed_model(i).encoder.pattern_extractor)
+            zs, ths, tps = rc.goku_heads_cuda(*hs, xs[i], tape=True)
+            solo = rc.goku_heads_bwd_cuda(*hs, tps, gz[i], gt[i])
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                (z[i], th[i], tape[i]) + tuple(a[i] for a in sw),
+                (zs, ths, tps) + solo))
+    gf = [bf16_gate(k, p, f) for k, p, f in zip((z, th, tape), fwd_p, fwd_f)]
+    gb = [bf16_gate(k, p, f) for k, p, f in zip(sw, sw_p, sw_f)]
+    ef = max(max_err(a.float(), b.float()) for a, b in zip((z, th),
+                                                           fwd_p[:2]))
+    eb = max(max_err(a.float(), b.float()) for a, b in zip(sw, sw_p))
+    log("kernels", f"goku_heads[bf16] / goku_heads_bwd[bf16] at S={S} "
+                   f"(B={B}, T={T}, one launch each) vs the plain bf16 "
+                   f"versions vmapped over the replicas' weights: outputs "
+                   f"max abs err {ef:.3e}, sweep {eb:.3e}; bf16 gate vs "
+                   f"float32 (z0, theta, tape; dgates, dh0, dc0): kernel "
+                   f"{[f'{g[1]:.3e}' for g in gf + gb]}, plain bf16 "
+                   f"{[f'{g[2]:.3e}' for g in gf + gb]}, allowed "
+                   f"{[f'{g[3]:.3e}' for g in gf + gb]}; vs {S} solo "
+                   f"launches bit for bit {same}")
+    if not all(g[0] for g in gf + gb):
+        fail(f"goku_heads[bf16] population launch: {gf} {gb}")
+    if not same:
+        fail("goku_heads[bf16] population launch differs from solo launches")
+    return {"goku_heads[pop8-bf16]": ef, "goku_heads_bwd[pop8-bf16]": eb}
+
+
+def bf16_solo_path(train_set, val_set, dev, gpu):
+    """Phase 4h, solo: full-width GOKU with bf16 NN stages
+    (goku_default_layers(..., dtype=torch.bfloat16), weights from seed 333)
+    and both kernel switches. First the first step's ELBO and every
+    gradient, kernel route against the plain bf16 route and the float32
+    route on the upcast weights, same bf16 eps, by bf16_gate; then
+    Trainer.fit for 2 epochs (6 steps each, validation after every step),
+    which must launch the bf16 heads instances 24 / 12 times and the
+    float32 RK kernel 24 / 12 times (through GOKU's casts), with no plain
+    call; the ELBO of goku_bf16_gate.npz on the validation set card vs CPU
+    (bf16 both, same eps) within BF16_ELBO_RTOL; step, validation and
+    device ops beside the float32 pendulum step of phase 4. Returns (the
+    launches, the trainer, its batch, beta)."""
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    from latentdiffeq_torch.pendulum import Pendulum
+    from latentdiffeq_torch.train import (TrainConfig, Trainer,
+                                          load_checkpoint, loss_batch)
+
+    what = "bf16 pendulum"
+    diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+    cfg = TrainConfig(epochs=1500, save_best=False)
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+        *goku_default_layers(784, diffeq, generator=torch.Generator()
+                             .manual_seed(333), device=dev, dtype=BF))
+    t50 = torch.arange(cfg.seq_len, dtype=torch.float32,
+                       device=dev) * cfg.dt
+    x = train_set[:cfg.batch_size, :cfg.seq_len]
+    g = torch.Generator(device=dev).manual_seed(5)
+    eps = tuple(torch.randn(cfg.batch_size, 16, generator=g, device=dev,
+                            dtype=BF) for _ in range(2))
+
+    def elbo_grads(m):
+        m.zero_grad()
+        loss = loss_batch(m, x, t50, 0.5, eps=tuple(
+            e.to(next(m.parameters()).dtype) for e in eps))[0]
+        loss.backward()
+        return loss.detach(), [p.grad.detach() for p in m.parameters()]
+
+    plain = plain_copy(model, GOKUBasic())
+    f32 = plain_copy(model, GOKUBasic()).float()
+    lk, gk = elbo_grads(model)
+    lp, gp = elbo_grads(plain)
+    lf, gf = elbo_grads(f32)
+    model.zero_grad()
+    lg = bf16_gate(lk.reshape(1), lp.reshape(1), lf.reshape(1))
+    wg = [bf16_gate(a, b, c) for a, b, c in zip(gk, gp, gf)]
+    worst = max(wg, key=lambda v: v[1] / max(v[3], 1e-30))
+    log("train", f"{what} first step (B 64, T 50, beta 0.5, same bf16 eps): "
+                 f"ELBO kernel route {float(lk):.6f}, plain bf16 route "
+                 f"{float(lp):.6f}, float32 route {float(lf):.6f} (bf16 "
+                 f"gate ok {lg[0]}); {len(wg)} gradients in "
+                 f"{gk[0].dtype}, by bf16_gate all ok "
+                 f"{all(v[0] for v in wg)}, the closest to its limit: "
+                 f"kernel {worst[1]:.3e} plain bf16 {worst[2]:.3e} allowed "
+                 f"{worst[3]:.3e}")
+    if not (lg[0] and all(v[0] for v in wg) and math.isfinite(float(lk))
+            and all(a.dtype == BF for a in gk)):
+        fail(f"{what} first step kernel vs plain route: {lg} {wg}")
+
+    trainer = Trainer(model, cfg, device=dev)
+    heads_f = recurrent_cuda.goku_heads_cuda
+    heads_b = recurrent_cuda.goku_heads_bwd_cuda
+    rk_f = ode_cuda.solve_fixed_grid_batched_cuda
+    rk_b = ode_cuda.solve_fixed_grid_batched_bwd_cuda
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = train_set.shape[0] // cfg.batch_size
+    launches = {"goku_heads[bf16]": heads_f.bf16_launches,
+                "goku_heads_bwd[bf16]": heads_b.bf16_launches,
+                "goku_heads (all dtypes)": heads_f.launches,
+                "goku_heads_bwd (all dtypes)": heads_b.launches,
+                "rk_fixed_grid": rk_f.launches.get(
+                    ode_cuda.rhs_instance(diffeq.f, diffeq.z_dim), 0),
+                "rk_fixed_grid_bwd": rk_b.launches.get(
+                    ode_cuda.rhs_instance(diffeq.f, diffeq.z_dim), 0)}
+    plain_calls = [recurrent_cuda.goku_heads_reference.calls,
+                   ode_cuda.solve_fixed_grid_batched_reference.calls]
+    expected = {k: (2 * steps if "bwd" in k else 4 * steps)
+                for k in launches}
+    log_epochs(what, hist)
+    log("train", f"{what} fit 2 epochs x {steps} steps in {fit_s:.3f} s; "
+                 f"kernel launches {launches} (expected {expected}); calls "
+                 f"of the plain goku_heads / RK solve: {plain_calls} "
+                 f"(expected [0, 0])")
+    if launches != expected or plain_calls != [0, 0]:
+        fail(f"{what} path launched {launches}, plain {plain_calls}")
+
+    # the ELBO of the committed bf16 checkpoint, card against CPU
+    here = os.path.dirname(os.path.abspath(__file__))
+    winner = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+        *goku_default_layers(784, diffeq, device=dev, dtype=BF))
+    load_checkpoint(os.path.join(here, BF16_CKPT), winner)
+    winner_cpu = plain_copy(winner, GOKUBasic()).cpu()
+    t_val = torch.arange(val_set.shape[1], dtype=torch.float32,
+                         device=dev) * cfg.dt
+    ev = tuple(torch.randn(val_set.shape[0], 16, generator=g, device=dev,
+                           dtype=BF) for _ in range(2))
+    with torch.no_grad():
+        elbo = float(loss_batch(winner, val_set, t_val, 1.0, eps=ev)[0])
+        elbo_cpu = float(loss_batch(winner_cpu, val_set.cpu(), t_val.cpu(),
+                                    1.0, eps=tuple(e.cpu() for e in ev))[0])
+    rel = abs(elbo - elbo_cpu) / abs(elbo_cpu)
+    log("train", f"goku_bf16_gate.npz ELBO (beta 1) on the "
+                 f"{val_set.shape[0]} validation rows, same bf16 eps: card "
+                 f"(kernels) {elbo:.6f} CPU (plain) {elbo_cpu:.6f} rel err "
+                 f"{rel:.3e} (tol {BF16_ELBO_RTOL:.0e})")
+    if not (math.isfinite(elbo) and rel <= BF16_ELBO_RTOL):
+        fail(f"{what} checkpoint ELBO card vs CPU: {elbo} vs {elbo_cpu}")
+
+    beta = float(hist[-1]["beta"])
+    step_report(what, trainer, x, val_set, beta, gpu)
+    b, f = STEP_REPORTS[what], STEP_REPORTS.get("pendulum")
+    if f is not None:
+        log("train", f"bf16 vs float32 pendulum step on this card: train "
+                     f"step {b[0]:.3f} vs {f[0]:.3f} ms, val pass "
+                     f"{b[1]:.3f} vs {f[1]:.3f} ms, device ops {b[2]} vs "
+                     f"{f[2]}, device busy {b[3]:.3f} vs {f[3]:.3f} ms")
+    return ({k: v for k, v in launches.items() if "[bf16]" in k}, trainer,
+            x, beta)
 
 
 def step_device_ops(trainer, data, beta):
@@ -2572,9 +3024,11 @@ def profile_step(trainer, data, val_set, beta, fname, what):
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
+    host = prof.key_averages().table(sort_by="self_cpu_time_total",
+                                     row_limit=25)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as f:
-        f.write(table)
+        f.write(table + "\nBy host time:\n" + host)
     evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_us = sum(getattr(e, "device_time", None)
                   or getattr(e, "cuda_time", 0) for e in evs)
@@ -2638,13 +3092,18 @@ def main():
         device=dev)
     heads = enc[1]
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the bf16 phases draw from their own generator, so every float32
+    # check sees the inputs it saw before they were added
+    gen_bf = torch.Generator(device=dev).manual_seed(16)
     errs = {"goku_heads": goku_kernel_checks(heads, gen)}
+    errs.update(goku_bf16_kernel_checks(heads, gen_bf))
     errs.update(rk_kernel_checks(gen))
     errs["node_field_fwd"] = node_kernel_checks()
     torch.cuda.synchronize()
 
     # ---- 3. gradients -----------------------------------------------------
     errs["goku_heads_bwd"] = goku_grad_checks(heads, gen)
+    errs.update(goku_bf16_grad_checks(heads, gen_bf))
     errs.update(rk_grad_checks(gen))
     errs["node_field_bwd"], errs["node_field_dw"] = node_grad_checks()
 
@@ -2708,12 +3167,25 @@ def main():
     for k in ("goku_heads", "goku_heads_bwd"):
         launches[f"{k}[pop8]"] = pop_launches[k]
 
+    # ---- 4h. bf16 NN stages around a float32 solve: solo, then the
+    # population of 8 (the bf16 instances of the heads kernels) ------------
+    bf16_launches, bf16_trainer, bf16_data, bf16_beta = bf16_solo_path(
+        train_set, val_set, dev, gpu)
+    launches.update(bf16_launches)
+    bpop_launches, bpop_errs, bpop_ms = population_path(
+        train_set, val_set, None, dev, gpu, gen_bf, dtype=BF)
+    errs.update(bpop_errs)
+    for k in ("goku_heads", "goku_heads_bwd"):
+        launches[f"{k}[pop8-bf16]"] = bpop_launches[k]
+
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
     times = goku_timing(heads, gen, clock, dev)
+    times.update(goku_timing(as_dtype(heads, BF), gen_bf, clock, dev))
     times.update(rk_timing(gen, clock))
     times.update(node_timing(clock))
     times.update(population_timing(pop_ms, gen, clock, dev))
+    times.update(population_timing(bpop_ms, gen_bf, clock, dev))
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
     node_src = "latentdiffeq_torch/csrc/node_field.cu"
@@ -2728,7 +3200,9 @@ def main():
     for name in (list(origin) + [f"{k}[{inst}]" for inst in CUSTOM
                                  for k in ("rk_fixed_grid",
                                            "rk_fixed_grid_bwd")]
-                 + ["goku_heads[pop8]", "goku_heads_bwd[pop8]"]):
+                 + ["goku_heads[pop8]", "goku_heads_bwd[pop8]",
+                    "goku_heads[bf16]", "goku_heads_bwd[bf16]",
+                    "goku_heads[pop8-bf16]", "goku_heads_bwd[pop8-bf16]"]):
         src, replaces = origin[name.split("[")[0]]
         k_ms, p_ms, b_ms, b_by, lib_ms = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2742,6 +3216,8 @@ def main():
         profile_step(trainer, data, val_set, beta, "profile_step.txt", "GOKU")
         profile_step(node_trainer, node_data, val_set, node_beta,
                      "profile_step_latent_ode.txt", "LatentODE")
+        profile_step(bf16_trainer, bf16_data, val_set, bf16_beta,
+                     "profile_step_bf16.txt", "GOKU, bf16 NN stages")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

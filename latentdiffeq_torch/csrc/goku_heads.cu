@@ -53,13 +53,33 @@
 // gradients are products of the tape and dgates over all rows and steps,
 // computed outside (ops/recurrent_cuda.py).
 //
+// Storage type Store (a template parameter of every kernel): float, or
+// __nv_bfloat16 for bfloat16 NN stages (JAX's `pallas_goku_heads` runs in
+// xs's dtype, recurrent_pallas.py:105, 121). xs, the outputs, the tape, the
+// cotangents, the dgates and dh0 / dc0 are Store in memory (bfloat16 halves
+// their bytes); the packed weights stay float32 (every bfloat16 value is
+// exact in float32, so the register layout and the wrapper's packing are
+// the float32 ones). Arithmetic is float32 in registers. The forward's
+// carried states h and c are rounded to Store at every step (`carry`, to
+// nearest even as PyTorch rounds), since JAX's bf16 scan carries bf16
+// arrays and a float32 carry would compute a more precise recurrence than
+// the reference's; the gates are rounded only where they are stored, on
+// the tape. The sweep reads the tape into float32, carries dh and dc in
+// float32 and rounds what it stores (dgates, dh0, dc0). The float32
+// instances are the float32 kernels as they were, bit for bit
+// (`carry<float>` is the identity). No pair (__nv_bfloat162) loads: a lane
+// owns one unit, so its loads and stores are single values either way.
+//
 // Packed weight layout (ops/recurrent_cuda.py::pack_goku_heads): for each
 // stack in (z0 RNN, forward LSTM, backward LSTM), for each layer l:
 //   Wi (din, G) row-major, Wh (H, G), b (G), h0 (H), and c0 (H) for LSTMs,
 // with din = D for l = 0 else H, and G = H (RNN) or 4H (LSTM, gate order
 // i, f, g, o).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -98,6 +118,31 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   }
 }
 
+// Loads and stores of the storage type, through the conversion
+// intrinsics; the arithmetic is float32.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// A carried state as Store holds it: bfloat16 rounds to nearest even.
+template <typename Store>
+__device__ __forceinline__ float carry(float v) {
+  if constexpr (std::is_same<Store, float>::value) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
+
 // One barrier for the block's 3 * L warps. Each warp reaches it from its own
 // code path (the warps are specialised by stack and layer), once per step.
 __device__ __forceinline__ void step_barrier(int threads) {
@@ -117,12 +162,12 @@ constexpr int kSlot = kD + kH;
 
 // ---------------------------------------------------------------------------
 // Forward: one warp advances one layer of one stack.
-template <int DIN, bool LSTM, bool TAPE>
+template <typename Store, int DIN, bool LSTM, bool TAPE>
 __device__ __forceinline__ void fwd_layer(
-    const float* __restrict__ xrow, int Dx, bool reverse,
+    const Store* __restrict__ xrow, int Dx, bool reverse,
     const float* __restrict__ wts, int wi, int wh, int bo, int h0o, int c0o,
-    float* my, float* up, float* __restrict__ tape_row, int toff, int rec,
-    float* __restrict__ out, int T, int L, int l, int act, int threads) {
+    float* my, float* up, Store* __restrict__ tape_row, int toff, int rec,
+    Store* __restrict__ out, int T, int L, int l, int act, int threads) {
   constexpr int H = kH;
   constexpr int G = LSTM ? 4 : 1;
   constexpr int GH = G * H;
@@ -154,7 +199,7 @@ __device__ __forceinline__ void fwd_layer(
   if (half == 0) my[DIN + j] = h;
   if (first) {
     const int tx = reverse ? T - 1 : 0;
-    my[lane] = lane < Dx ? xrow[(size_t)tx * Dx + lane] : 0.0f;
+    my[lane] = lane < Dx ? ld(xrow + (size_t)tx * Dx + lane) : 0.0f;
   }
   step_barrier(threads);
 
@@ -164,7 +209,7 @@ __device__ __forceinline__ void fwd_layer(
       float xn = 0.0f;
       if (first && t + 1 < T && lane < Dx) {
         const int tx = reverse ? T - 2 - t : t + 1;
-        xn = __ldg(xrow + (size_t)tx * Dx + lane);
+        xn = ldg(xrow + (size_t)tx * Dx + lane);
       }
       const float* v = my + (t & 1) * kSlot + half * K0;
       float acc[G][2];
@@ -194,25 +239,25 @@ __device__ __forceinline__ void fwd_layer(
         gf = sigmoidf_(z[1]);
         gg = tanhf(z[2]);
         go = sigmoidf_(z[3]);
-        c = gf * c + gi * gg;
-        h = go * tanhf(c);
+        c = carry<Store>(gf * c + gi * gg);
+        h = carry<Store>(go * tanhf(c));
       } else {
-        h = activate(z[0], act);
+        h = carry<Store>(activate(z[0], act));
       }
       if (half == 0) {
         my[((t + 1) & 1) * kSlot + DIN + j] = h;
         if (up != nullptr) up[(t & 1) * kSlot + j] = h;
         if constexpr (TAPE) {
-          float* r = tape_row + (size_t)t * rec + toff;
+          Store* r = tape_row + (size_t)t * rec + toff;
           if constexpr (LSTM) {
-            r[j] = gi;
-            r[H + j] = gf;
-            r[2 * H + j] = gg;
-            r[3 * H + j] = go;
-            r[4 * H + j] = c;
-            r[5 * H + j] = h;
+            st(r + j, gi);
+            st(r + H + j, gf);
+            st(r + 2 * H + j, gg);
+            st(r + 3 * H + j, go);
+            st(r + 4 * H + j, c);
+            st(r + 5 * H + j, h);
           } else {
-            r[j] = h;
+            st(r + j, h);
           }
         }
       }
@@ -220,16 +265,16 @@ __device__ __forceinline__ void fwd_layer(
     }
     step_barrier(threads);
   }
-  if (out != nullptr && half == 0) out[j] = h;
+  if (out != nullptr && half == 0) st(out + j, h);
 }
 
-template <bool TAPE>
+template <typename Store, bool TAPE>
 __global__ void __launch_bounds__(3 * kMaxLayers * 32)
-    goku_heads_fwd_kernel(const float* __restrict__ xs,
+    goku_heads_fwd_kernel(const Store* __restrict__ xs,
                           const float* __restrict__ wts, Offsets off,
-                          float* __restrict__ z0_out,
-                          float* __restrict__ th_out,
-                          float* __restrict__ tape, int T, int Dx, int L,
+                          Store* __restrict__ z0_out,
+                          Store* __restrict__ th_out,
+                          Store* __restrict__ tape, int T, int Dx, int L,
                           int act, int n_w) {
   __shared__ __align__(16) float vin[3 * kMaxLayers][2 * kSlot];
   const int warp = threadIdx.x >> 5;
@@ -241,22 +286,22 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
   wts += (size_t)blockIdx.y * n_w;
   const int threads = blockDim.x;
   const int rec = 13 * kH * L;
-  const float* xrow = xs + (size_t)row * T * Dx;
+  const Store* xrow = xs + (size_t)row * T * Dx;
   float* my = vin[warp];
   float* up = l + 1 < L ? vin[warp + 1] : nullptr;
-  float* tape_row = TAPE ? tape + (size_t)row * T * rec : nullptr;
+  Store* tape_row = TAPE ? tape + (size_t)row * T * rec : nullptr;
   const int toff = tape_off(s, l, L, kH);
-  float* out = nullptr;
+  Store* out = nullptr;
   if (l == L - 1) {
     out = s == 0 ? z0_out + (size_t)row * kH
                  : th_out + (size_t)row * 2 * kH + (s - 1) * kH;
   }
   const bool rev = s != 1;
 #define LDQ_FWD(DIN, LSTM)                                                   \
-  fwd_layer<DIN, LSTM, TAPE>(xrow, Dx, rev, wts, off.wi[s][l], off.wh[s][l], \
-                             off.b[s][l], off.h0[s][l], off.c0[s][l], my,    \
-                             up, tape_row, toff, rec, out, T, L, l, act,     \
-                             threads)
+  fwd_layer<Store, DIN, LSTM, TAPE>(                                         \
+      xrow, Dx, rev, wts, off.wi[s][l], off.wh[s][l], off.b[s][l],            \
+      off.h0[s][l], off.c0[s][l], my, up, tape_row, toff, rec, out, T, L, l,  \
+      act, threads)
   if (s == 0) {
     if (l == 0) LDQ_FWD(kD, false); else LDQ_FWD(kH, false);
   } else {
@@ -283,12 +328,12 @@ __device__ __forceinline__ int dg_pos(int m) {
 }
 constexpr int kDgSlot = 4 * kH + 4;
 
-template <bool LSTM, bool WI>
+template <typename Store, bool LSTM, bool WI>
 __device__ __forceinline__ void bwd_layer(
     const float* __restrict__ wts, int wi, int wh, int c0o,
-    const float* __restrict__ tape_row, int toff, int rec,
-    float* __restrict__ dg_row, int goff, int grec, float g_top,
-    float* dgs, float* ring_in, float* ring_down, float* dh0, float* dc0,
+    const Store* __restrict__ tape_row, int toff, int rec,
+    Store* __restrict__ dg_row, int goff, int grec, float g_top,
+    float* dgs, float* ring_in, float* ring_down, Store* dh0, Store* dc0,
     int T, int L, int l, int act, int threads) {
   constexpr int H = kH;
   constexpr int G = LSTM ? 4 : 1;
@@ -310,16 +355,16 @@ __device__ __forceinline__ void bwd_layer(
 
   // the tape of the current step, loaded one step ahead
   auto load = [&](int t, float* r) {
-    const float* p = tape_row + (size_t)t * rec + toff;
+    const Store* p = tape_row + (size_t)t * rec + toff;
     if constexpr (LSTM) {
-      r[0] = p[j];
-      r[1] = p[H + j];
-      r[2] = p[2 * H + j];
-      r[3] = p[3 * H + j];
-      r[4] = p[4 * H + j];
-      r[5] = t > 0 ? p[4 * H + j - rec] : c0;   // c_{t-1}
+      r[0] = ld(p + j);
+      r[1] = ld(p + H + j);
+      r[2] = ld(p + 2 * H + j);
+      r[3] = ld(p + 3 * H + j);
+      r[4] = ld(p + 4 * H + j);
+      r[5] = t > 0 ? ld(p + 4 * H + j - rec) : c0;   // c_{t-1}
     } else {
-      r[0] = p[j];
+      r[0] = ld(p + j);
     }
   };
   float cur[LSTM ? 6 : 1], nxt[LSTM ? 6 : 1];
@@ -344,11 +389,11 @@ __device__ __forceinline__ void bwd_layer(
         dz[0] = dh * act_grad(cur[0], act);
       }
       if (half == 0) {
-        float* o = dg_row + (size_t)t * grec + goff;
+        Store* o = dg_row + (size_t)t * grec + goff;
 #pragma unroll
         for (int q = 0; q < G; ++q) {
           dgs[dg_pos<G>(q * H + j)] = dz[q];
-          o[q * H + j] = dz[q];
+          st(o + q * H + j, dz[q]);
         }
       }
       __syncwarp();
@@ -386,18 +431,19 @@ __device__ __forceinline__ void bwd_layer(
     step_barrier(threads);
   }
   if (half == 0) {
-    dh0[j] = dh;
-    dc0[j] = dc;
+    st(dh0 + j, dh);
+    st(dc0 + j, dc);
   }
 }
 
+template <typename Store>
 __global__ void __launch_bounds__(3 * kMaxLayers * 32)
     goku_heads_bwd_kernel(const float* __restrict__ wts, Offsets off,
-                          const float* __restrict__ tape,
-                          const float* __restrict__ g_z0,
-                          const float* __restrict__ g_th,
-                          float* __restrict__ dgates,
-                          float* __restrict__ dh0, float* __restrict__ dc0,
+                          const Store* __restrict__ tape,
+                          const Store* __restrict__ g_z0,
+                          const Store* __restrict__ g_th,
+                          Store* __restrict__ dgates,
+                          Store* __restrict__ dh0, Store* __restrict__ dc0,
                           int T, int L, int act, int n_w) {
   __shared__ __align__(16) float dgs[3 * kMaxLayers][kDgSlot];
   __shared__ __align__(16) float ring[3 * kMaxLayers][2 * kH];
@@ -414,21 +460,21 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
   const int grec = 9 * kH * L;
   float g_top = 0.0f;
   if (l == L - 1) {
-    g_top = s == 0 ? g_z0[(size_t)row * kH + j]
-                   : g_th[(size_t)row * 2 * kH + (s - 1) * kH + j];
+    g_top = s == 0 ? ld(g_z0 + (size_t)row * kH + j)
+                   : ld(g_th + (size_t)row * 2 * kH + (s - 1) * kH + j);
   }
-  const float* tape_row = tape + (size_t)row * T * rec;
-  float* dg_row = dgates + (size_t)row * T * grec;
+  const Store* tape_row = tape + (size_t)row * T * rec;
+  Store* dg_row = dgates + (size_t)row * T * grec;
   float* ring_in = l + 1 < L ? ring[warp] : nullptr;
   float* ring_down = l > 0 ? ring[warp - 1] : nullptr;
-  const size_t st = (((size_t)row * 3 + s) * L + l) * kH;
+  const size_t so = (((size_t)row * 3 + s) * L + l) * kH;
   const int toff = tape_off(s, l, L, kH);
   const int goff = dg_off(s, l, L, kH);
 #define LDQ_BWD(LSTM, WI)                                                     \
-  bwd_layer<LSTM, WI>(wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],          \
-                      tape_row, toff, rec, dg_row, goff, grec, g_top,        \
-                      dgs[warp], ring_in, ring_down, dh0 + st, dc0 + st, T,  \
-                      L, l, act, threads)
+  bwd_layer<Store, LSTM, WI>(wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],   \
+                             tape_row, toff, rec, dg_row, goff, grec, g_top, \
+                             dgs[warp], ring_in, ring_down, dh0 + so,        \
+                             dc0 + so, T, L, l, act, threads)
   if (s == 0) {
     if (l == 0) LDQ_BWD(false, false); else LDQ_BWD(false, true);
   } else {
@@ -447,12 +493,12 @@ __host__ __device__ inline int any_fwd_floats(int D, int H) {
 }
 __host__ __device__ inline int any_bwd_floats(int H) { return 8 * H; }
 
-template <bool LSTM, bool TAPE>
+template <typename Store, bool LSTM, bool TAPE>
 __device__ __forceinline__ void fwd_layer_any(
-    const float* __restrict__ xrow, int D, int H, int din, bool reverse,
+    const Store* __restrict__ xrow, int D, int H, int din, bool reverse,
     const float* __restrict__ wts, int wi, int wh, int bo, int h0o, int c0o,
-    float* my, float* up, float* cst, float* __restrict__ tape_row,
-    int toff, int rec, float* __restrict__ out, int T, int L, int l,
+    float* my, float* up, float* cst, Store* __restrict__ tape_row,
+    int toff, int rec, Store* __restrict__ out, int T, int L, int l,
     int act, int threads) {
   constexpr int G = LSTM ? 4 : 1;
   const int GH = G * H;
@@ -464,7 +510,7 @@ __device__ __forceinline__ void fwd_layer_any(
   }
   if (l == 0) {
     const int tx = reverse ? T - 1 : 0;
-    for (int k = lane; k < D; k += 32) my[k] = xrow[(size_t)tx * D + k];
+    for (int k = lane; k < D; k += 32) my[k] = ld(xrow + (size_t)tx * D + k);
   }
   step_barrier(threads);
 
@@ -492,47 +538,51 @@ __device__ __forceinline__ void fwd_layer_any(
 #pragma unroll
         for (int q = 0; q < G; ++q) z[q] += __ldg(wts + bo + q * H + u);
         float h;
-        float* r = TAPE ? tape_row + (size_t)t * rec + toff : nullptr;
+        Store* r = TAPE ? tape_row + (size_t)t * rec + toff : nullptr;
         if constexpr (LSTM) {
           const float gi = sigmoidf_(z[0]), gf = sigmoidf_(z[1]);
           const float gg = tanhf(z[2]), go = sigmoidf_(z[3]);
-          const float c = gf * cst[u] + gi * gg;
+          const float c = carry<Store>(gf * cst[u] + gi * gg);
           cst[u] = c;
-          h = go * tanhf(c);
+          h = carry<Store>(go * tanhf(c));
           if constexpr (TAPE) {
-            r[u] = gi;
-            r[H + u] = gf;
-            r[2 * H + u] = gg;
-            r[3 * H + u] = go;
-            r[4 * H + u] = c;
-            r[5 * H + u] = h;
+            st(r + u, gi);
+            st(r + H + u, gf);
+            st(r + 2 * H + u, gg);
+            st(r + 3 * H + u, go);
+            st(r + 4 * H + u, c);
+            st(r + 5 * H + u, h);
           }
         } else {
-          h = activate(z[0], act);
-          if constexpr (TAPE) r[u] = h;
+          h = carry<Store>(activate(z[0], act));
+          if constexpr (TAPE) st(r + u, h);
         }
         nx[din + u] = h;
         if (up != nullptr) up[(t & 1) * S + u] = h;
       }
       if (l == 0 && t + 1 < T) {
         const int tx = reverse ? T - 2 - t : t + 1;
-        for (int k = lane; k < D; k += 32) nx[k] = xrow[(size_t)tx * D + k];
+        for (int k = lane; k < D; k += 32) {
+          nx[k] = ld(xrow + (size_t)tx * D + k);
+        }
       }
     }
     step_barrier(threads);
   }
   if (out != nullptr) {
-    for (int u = lane; u < H; u += 32) out[u] = my[(T & 1) * S + din + u];
+    for (int u = lane; u < H; u += 32) {
+      st(out + u, my[(T & 1) * S + din + u]);
+    }
   }
 }
 
-template <bool TAPE>
+template <typename Store, bool TAPE>
 __global__ void __launch_bounds__(3 * kMaxLayers * 32)
-    goku_heads_fwd_any_kernel(const float* __restrict__ xs,
+    goku_heads_fwd_any_kernel(const Store* __restrict__ xs,
                               const float* __restrict__ wts, Offsets off,
-                              float* __restrict__ z0_out,
-                              float* __restrict__ th_out,
-                              float* __restrict__ tape, int T, int D, int H,
+                              Store* __restrict__ z0_out,
+                              Store* __restrict__ th_out,
+                              Store* __restrict__ tape, int T, int D, int H,
                               int L, int act, int n_w) {
   extern __shared__ __align__(16) float dyn[];
   const int warp = threadIdx.x >> 5;
@@ -546,13 +596,13 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
   const int rec = 13 * H * L;
   float* my = dyn + warp * per;
   float* up = l + 1 < L ? dyn + (warp + 1) * per : nullptr;
-  float* out = nullptr;
+  Store* out = nullptr;
   if (l == L - 1) {
     out = s == 0 ? z0_out + (size_t)row * H
                  : th_out + (size_t)row * 2 * H + (s - 1) * H;
   }
 #define LDQ_FWD_ANY(LSTM)                                                     \
-  fwd_layer_any<LSTM, TAPE>(                                                  \
+  fwd_layer_any<Store, LSTM, TAPE>(                                           \
       xs + (size_t)row * T * D, D, H, l == 0 ? D : H, s != 1, wts,            \
       off.wi[s][l], off.wh[s][l], off.b[s][l], off.h0[s][l], off.c0[s][l],    \
       my, up, my + 2 * (D + H), TAPE ? tape + (size_t)row * T * rec : nullptr,\
@@ -561,35 +611,35 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
 #undef LDQ_FWD_ANY
 }
 
-template <bool LSTM>
+template <typename Store, bool LSTM>
 __device__ __forceinline__ void bwd_layer_any(
     const float* __restrict__ wts, int wi, int wh, int c0o,
-    const float* __restrict__ tape_row, int toff, int rec,
-    float* __restrict__ dg_row, int goff, int grec,
-    const float* __restrict__ g_top, float* dgs, float* dhc, float* dcc,
-    float* ring_in, float* ring_down, float* dh0, float* dc0, int T, int L,
+    const Store* __restrict__ tape_row, int toff, int rec,
+    Store* __restrict__ dg_row, int goff, int grec,
+    const Store* __restrict__ g_top, float* dgs, float* dhc, float* dcc,
+    float* ring_in, float* ring_down, Store* dh0, Store* dc0, int T, int L,
     int l, int H, int act, int threads) {
   constexpr int G = LSTM ? 4 : 1;
   const int GH = G * H;
   const int lane = threadIdx.x & 31;
   for (int u = lane; u < H; u += 32) {
-    dhc[u] = g_top != nullptr ? g_top[u] : 0.0f;
+    dhc[u] = g_top != nullptr ? ld(g_top + u) : 0.0f;
     dcc[u] = 0.0f;
   }
   for (int i = 0; i < T + L - 1; ++i) {
     const int t = T - 1 - (i - (L - 1 - l));
     if (t >= 0 && t < T) {
-      const float* p = tape_row + (size_t)t * rec + toff;
-      float* o = dg_row + (size_t)t * grec + goff;
+      const Store* p = tape_row + (size_t)t * rec + toff;
+      Store* o = dg_row + (size_t)t * grec + goff;
       for (int u = lane; u < H; u += 32) {
         float dh = dhc[u];
         if (ring_in != nullptr) dh += ring_in[(t & 1) * H + u];
         float dz[G];
         if constexpr (LSTM) {
-          const float gi = p[u], gf = p[H + u], gg = p[2 * H + u];
-          const float go = p[3 * H + u];
-          const float cp = t > 0 ? p[4 * H + u - rec] : wts[c0o + u];
-          const float tc = tanhf(p[4 * H + u]);
+          const float gi = ld(p + u), gf = ld(p + H + u);
+          const float gg = ld(p + 2 * H + u), go = ld(p + 3 * H + u);
+          const float cp = t > 0 ? ld(p + 4 * H + u - rec) : wts[c0o + u];
+          const float tc = tanhf(ld(p + 4 * H + u));
           const float dct = dcc[u] + dh * go * (1.0f - tc * tc);
           dz[0] = dct * gg * gi * (1.0f - gi);
           dz[1] = dct * cp * gf * (1.0f - gf);
@@ -597,12 +647,12 @@ __device__ __forceinline__ void bwd_layer_any(
           dz[3] = dh * tc * go * (1.0f - go);
           dcc[u] = dct * gf;
         } else {
-          dz[0] = dh * act_grad(p[u], act);
+          dz[0] = dh * act_grad(ld(p + u), act);
         }
 #pragma unroll
         for (int q = 0; q < G; ++q) {
           dgs[q * H + u] = dz[q];
-          o[q * H + u] = dz[q];
+          st(o + q * H + u, dz[q]);
         }
       }
       __syncwarp();
@@ -621,19 +671,20 @@ __device__ __forceinline__ void bwd_layer_any(
     step_barrier(threads);
   }
   for (int u = lane; u < H; u += 32) {
-    dh0[u] = dhc[u];
-    dc0[u] = dcc[u];
+    st(dh0 + u, dhc[u]);
+    st(dc0 + u, dcc[u]);
   }
 }
 
+template <typename Store>
 __global__ void __launch_bounds__(3 * kMaxLayers * 32)
     goku_heads_bwd_any_kernel(const float* __restrict__ wts, Offsets off,
-                              const float* __restrict__ tape,
-                              const float* __restrict__ g_z0,
-                              const float* __restrict__ g_th,
-                              float* __restrict__ dgates,
-                              float* __restrict__ dh0,
-                              float* __restrict__ dc0, int T, int H, int L,
+                              const Store* __restrict__ tape,
+                              const Store* __restrict__ g_z0,
+                              const Store* __restrict__ g_th,
+                              Store* __restrict__ dgates,
+                              Store* __restrict__ dh0,
+                              Store* __restrict__ dc0, int T, int H, int L,
                               int act, int n_w) {
   extern __shared__ __align__(16) float dyn[];
   const int warp = threadIdx.x >> 5;
@@ -647,21 +698,21 @@ __global__ void __launch_bounds__(3 * kMaxLayers * 32)
   const int rec = 13 * H * L;
   const int grec = 9 * H * L;
   float* base = dyn + warp * per;
-  const float* g_top = nullptr;
+  const Store* g_top = nullptr;
   if (l == L - 1) {
     g_top = s == 0 ? g_z0 + (size_t)row * H
                    : g_th + (size_t)row * 2 * H + (s - 1) * H;
   }
   float* ring_in = l + 1 < L ? base + 4 * H : nullptr;
   float* ring_down = l > 0 ? base - per + 4 * H : nullptr;
-  const size_t st = (((size_t)row * 3 + s) * L + l) * H;
+  const size_t so = (((size_t)row * 3 + s) * L + l) * H;
 #define LDQ_BWD_ANY(LSTM)                                                     \
-  bwd_layer_any<LSTM>(wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],          \
-                      tape + (size_t)row * T * rec, tape_off(s, l, L, H), rec,\
-                      dgates + (size_t)row * T * grec, dg_off(s, l, L, H),    \
-                      grec, g_top, base, base + 6 * H, base + 7 * H, ring_in, \
-                      ring_down, dh0 + st, dc0 + st, T, L, l, H, act,         \
-                      blockDim.x)
+  bwd_layer_any<Store, LSTM>(                                                 \
+      wts, off.wi[s][l], off.wh[s][l], off.c0[s][l],                          \
+      tape + (size_t)row * T * rec, tape_off(s, l, L, H), rec,                \
+      dgates + (size_t)row * T * grec, dg_off(s, l, L, H), grec, g_top, base, \
+      base + 6 * H, base + 7 * H, ring_in, ring_down, dh0 + so, dc0 + so, T,  \
+      L, l, H, act, blockDim.x)
   if (s == 0) LDQ_BWD_ANY(false); else LDQ_BWD_ANY(true);
 #undef LDQ_BWD_ANY
 }
@@ -720,16 +771,13 @@ static cudaError_t allow_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// xs (S, B, T, Dx) float32: S replicas of B rows each; wts (S, n_w), each
-// replica's weights packed at (D, H): (kD, kH) with Dx <= kD runs the
-// compiled instance, any other (D, H) with Dx == D the any-width one; tape
-// null or (S, B, T, 13 H L); z0_out (S, B, H), th_out (S, B, 2 H). One
-// launch on a (B, S) grid; S = 1 is the single-replica launch. Returns a
-// cudaError_t (0 on a successful launch). Does not synchronise.
-extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
-                              float* z0_out, float* th_out, float* tape,
-                              int S, int B, int T, int Dx, int D, int H,
-                              int L, int act, void* stream) {
+// One launch of the forward on S replicas of B rows (the C entry points
+// below, one per storage type).
+template <typename Store>
+static int launch_fwd(const Store* xs, const float* wts, int n_w,
+                      Store* z0_out, Store* th_out, Store* tape, int S, int B,
+                      int T, int Dx, int D, int H, int L, int act,
+                      void* stream) {
   if (L < 1 || L > kMaxLayers || S < 1 || S > 65535 || B < 1 || T < 1 ||
       Dx < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
@@ -740,30 +788,86 @@ extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
     return (int)cudaErrorInvalidValue;
   const int threads = 3 * L * 32;
   const dim3 grid(B, S);
+  const cudaStream_t st_ = (cudaStream_t)stream;
   if (!compiled) {
     const int smem = (int)sizeof(float) * 3 * L * any_fwd_floats(D, H);
-    const void* k = tape != nullptr
-                        ? (const void*)goku_heads_fwd_any_kernel<true>
-                        : (const void*)goku_heads_fwd_any_kernel<false>;
+    const void* k =
+        tape != nullptr
+            ? (const void*)goku_heads_fwd_any_kernel<Store, true>
+            : (const void*)goku_heads_fwd_any_kernel<Store, false>;
     cudaError_t e = allow_smem(k, smem);
     if (e != cudaSuccess) return (int)e;
     if (tape != nullptr) {
-      goku_heads_fwd_any_kernel<true>
-          <<<grid, threads, smem, (cudaStream_t)stream>>>(
-              xs, wts, off, z0_out, th_out, tape, T, D, H, L, act, n_w);
+      goku_heads_fwd_any_kernel<Store, true><<<grid, threads, smem, st_>>>(
+          xs, wts, off, z0_out, th_out, tape, T, D, H, L, act, n_w);
     } else {
-      goku_heads_fwd_any_kernel<false>
-          <<<grid, threads, smem, (cudaStream_t)stream>>>(
-              xs, wts, off, z0_out, th_out, nullptr, T, D, H, L, act, n_w);
+      goku_heads_fwd_any_kernel<Store, false><<<grid, threads, smem, st_>>>(
+          xs, wts, off, z0_out, th_out, nullptr, T, D, H, L, act, n_w);
     }
   } else if (tape != nullptr) {
-    goku_heads_fwd_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+    goku_heads_fwd_kernel<Store, true><<<grid, threads, 0, st_>>>(
         xs, wts, off, z0_out, th_out, tape, T, Dx, L, act, n_w);
   } else {
-    goku_heads_fwd_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+    goku_heads_fwd_kernel<Store, false><<<grid, threads, 0, st_>>>(
         xs, wts, off, z0_out, th_out, nullptr, T, Dx, L, act, n_w);
   }
   return (int)cudaGetLastError();
+}
+
+// One launch of the sweep on S replicas of B rows.
+template <typename Store>
+static int launch_bwd(const float* wts, int n_w, const Store* tape,
+                      const Store* g_z0, const Store* g_th, Store* dgates,
+                      Store* dh0, Store* dc0, int S, int B, int T, int D,
+                      int H, int L, int act, void* stream) {
+  if (L < 1 || L > kMaxLayers || S < 1 || S > 65535 || B < 1 || T < 1 ||
+      H < 1)
+    return (int)cudaErrorInvalidValue;
+  Offsets off;
+  if (goku_heads_layout(D, H, L, &off) != n_w)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 3 * L * 32;
+  const dim3 grid(B, S);
+  const cudaStream_t st_ = (cudaStream_t)stream;
+  if (D == kD && H == kH) {
+    goku_heads_bwd_kernel<Store><<<grid, threads, 0, st_>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, L, act, n_w);
+  } else {
+    const int smem = (int)sizeof(float) * 3 * L * any_bwd_floats(H);
+    cudaError_t e =
+        allow_smem((const void*)goku_heads_bwd_any_kernel<Store>, smem);
+    if (e != cudaSuccess) return (int)e;
+    goku_heads_bwd_any_kernel<Store><<<grid, threads, smem, st_>>>(
+        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, H, L, act, n_w);
+  }
+  return (int)cudaGetLastError();
+}
+
+// xs (S, B, T, Dx) float32: S replicas of B rows each; wts (S, n_w), each
+// replica's weights packed at (D, H): (kD, kH) with Dx <= kD runs the
+// compiled instance, any other (D, H) with Dx == D the any-width one; tape
+// null or (S, B, T, 13 H L); z0_out (S, B, H), th_out (S, B, 2 H). One
+// launch on a (B, S) grid; S = 1 is the single-replica launch. Returns a
+// cudaError_t (0 on a successful launch). Does not synchronise.
+extern "C" int ldq_goku_heads(const float* xs, const float* wts, int n_w,
+                              float* z0_out, float* th_out, float* tape,
+                              int S, int B, int T, int Dx, int D, int H,
+                              int L, int act, void* stream) {
+  return launch_fwd<float>(xs, wts, n_w, z0_out, th_out, tape, S, B, T, Dx,
+                           D, H, L, act, stream);
+}
+
+// The same with xs, z0_out, th_out and the tape in bfloat16 (the weights
+// float32, packed from the bfloat16 parameters).
+extern "C" int ldq_goku_heads_bf16(const void* xs, const float* wts, int n_w,
+                                   void* z0_out, void* th_out, void* tape,
+                                   int S, int B, int T, int Dx, int D, int H,
+                                   int L, int act, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_fwd<bf>(static_cast<const bf*>(xs), wts, n_w,
+                        static_cast<bf*>(z0_out), static_cast<bf*>(th_out),
+                        static_cast<bf*>(tape), S, B, T, Dx, D, H, L, act,
+                        stream);
 }
 
 // wts (S, n_w) packed at (D, H) as for the forward; tape (S, B, T, 13 H L)
@@ -776,23 +880,21 @@ extern "C" int ldq_goku_heads_bwd(const float* wts, int n_w,
                                   float* dh0, float* dc0, int S, int B,
                                   int T, int D, int H, int L, int act,
                                   void* stream) {
-  if (L < 1 || L > kMaxLayers || S < 1 || S > 65535 || B < 1 || T < 1 ||
-      H < 1)
-    return (int)cudaErrorInvalidValue;
-  Offsets off;
-  if (goku_heads_layout(D, H, L, &off) != n_w)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 3 * L * 32;
-  const dim3 grid(B, S);
-  if (D == kD && H == kH) {
-    goku_heads_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, L, act, n_w);
-  } else {
-    const int smem = (int)sizeof(float) * 3 * L * any_bwd_floats(H);
-    cudaError_t e = allow_smem((const void*)goku_heads_bwd_any_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    goku_heads_bwd_any_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        wts, off, tape, g_z0, g_th, dgates, dh0, dc0, T, H, L, act, n_w);
-  }
-  return (int)cudaGetLastError();
+  return launch_bwd<float>(wts, n_w, tape, g_z0, g_th, dgates, dh0, dc0, S,
+                           B, T, D, H, L, act, stream);
+}
+
+// The same with the tape, the cotangents, dgates, dh0 and dc0 in bfloat16.
+extern "C" int ldq_goku_heads_bwd_bf16(const float* wts, int n_w,
+                                       const void* tape, const void* g_z0,
+                                       const void* g_th, void* dgates,
+                                       void* dh0, void* dc0, int S, int B,
+                                       int T, int D, int H, int L, int act,
+                                       void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_bwd<bf>(wts, n_w, static_cast<const bf*>(tape),
+                        static_cast<const bf*>(g_z0),
+                        static_cast<const bf*>(g_th),
+                        static_cast<bf*>(dgates), static_cast<bf*>(dh0),
+                        static_cast<bf*>(dc0), S, B, T, D, H, L, act, stream);
 }

@@ -11,8 +11,13 @@ Two switches select the hand-written CUDA kernels: ``use_kernel_encoder``
 ``ODEDynamics`` in one kernel, ops/ode_cuda.py). With a switch on, a CUDA
 tensor runs the kernel and a CPU tensor runs the kernel's plain PyTorch
 version. ``SDEDynamics`` always take the SDE solvers (solve/sde.py), as in
-the JAX package, whatever ``use_kernel_solver`` says. The slice is float32
-end to end; the JAX package's bf16 NN stages are not ported yet.
+the JAX package, whatever ``use_kernel_solver`` says.
+
+Mixed precision (``goku_default_layers(..., dtype=torch.bfloat16)``): the
+NN stages compute in the parameters' dtype, and the solve always
+integrates in float32 (``diffeq_layer`` casts in and casts back), as in the
+JAX package. The heads kernel has bfloat16 instances; the RK kernel runs
+float32 behind the casts.
 """
 from __future__ import annotations
 
@@ -88,9 +93,15 @@ class GOKU(ModelType):
         ``split(key, B)[b]``, adaptively or on the grid as ``de.adaptive``
         says (goku.py:110-129). ``use_kernel_solver`` names the RK kernel
         only, as ``use_pallas_solver`` does in JAX: the SDE branch comes
-        first and never runs it."""
+        first and never runs it. NN stages below float32 (bfloat16): the
+        solve integrates in float32 and ``ys`` comes back in their dtype
+        (goku.py:102-108, 145). A float64 model keeps its precision (the
+        tests' float64 referees; they lift JAX's cast to match)."""
         z0_hat, th_hat = l_hat
         de = decoder.diffeq
+        in_dtype = z0_hat.dtype
+        solve_dtype = torch.promote_types(in_dtype, torch.float32)
+        z0_hat, th_hat = z0_hat.to(solve_dtype), th_hat.to(solve_dtype)
         if isinstance(de, SDEDynamics):
             if key is None:
                 raise ValueError("SDE dynamics require a PRNG `key` "
@@ -126,6 +137,7 @@ class GOKU(ModelType):
                          torch.full_like(ys, float("nan")))
         if de.transform is not None:
             ys = de.transform(ys)
+        ys = ys.to(in_dtype)
         aux = {"success": success,
                "stats": {k: v.sum() for k, v in stats.items()}}
         return ys, aux

@@ -34,6 +34,19 @@ takes that route, as JAX's vmap of a ``pallas_call`` adds a grid axis; the
 products run batched over the replicas. On the population path of
 chip_smoke.py phase 4g: S 8, xs (8, 64, 20, 32) in training, (8, 45, 100,
 32) in validation.
+
+The kernels run in float32 or bfloat16 (the heads of a bf16 GOKU,
+``goku_default_layers(..., dtype=torch.bfloat16)``), as JAX's kernel runs
+in xs's dtype: xs and the heads' weights must share that dtype. A bfloat16
+instance keeps xs, the outputs, the tape, the cotangents and the dgates in
+bfloat16, packs the weights in float32 (exact), computes in float32 and
+rounds the forward's carried h and c to bfloat16 at every step (the
+recurrence JAX's bf16 scan carries). The kernels' plain versions
+(``goku_heads_taped_reference``, ``goku_heads_sweep_reference``) round at
+the same places; the products of tape and dgates run in bfloat16, as JAX
+leaves them to XLA. ``goku_heads_reference``, autograd's route on CPU
+tensors, runs the cells in the parameters' dtype, rounding after every
+operation as JAX's scan (and its Pallas kernel in interpret mode) does.
 """
 from __future__ import annotations
 
@@ -52,10 +65,12 @@ __all__ = ["goku_heads", "goku_heads_cuda", "goku_heads_bwd_cuda",
            "goku_heads_taped_reference", "goku_heads_sweep_reference",
            "goku_heads_backward_reference", "goku_heads_param_grads",
            "pack_goku_heads", "check_goku_heads", "heads_layout",
-           "kernel_widths", "KERNEL_D", "KERNEL_H", "MAX_LAYERS"]
+           "kernel_widths", "KERNEL_D", "KERNEL_H", "MAX_LAYERS", "DTYPES"]
 
 # RNN activation codes understood by the kernels.
 _ACT_CODES = {identity: 0, relu: 1, tanh: 2}
+# The storage types the kernels have instances for.
+DTYPES = (torch.float32, torch.bfloat16)
 # The widths csrc/goku_heads.cu is compiled for, and its deepest stack.
 KERNEL_D, KERNEL_H, MAX_LAYERS = 32, 16, 4
 # The most dynamic shared memory a block may take on the H100.
@@ -182,44 +197,59 @@ def _cells(heads):
     return [list(h.cells) for h in heads]
 
 
+def _wide(w):
+    """A tensor in the arithmetic type: float32 for bfloat16 (as the
+    kernels compute), else its own (no copy)."""
+    return w.detach().to(torch.promote_types(w.dtype, torch.float32))
+
+
 @torch.no_grad()
 def goku_heads_taped_reference(pe_z0, pe_theta_fwd, pe_theta_bwd, xs):
     """The plain forward that also keeps the tape, as the forward kernel
     writes it when a gradient will be taken (``heads_layout`` at the heads'
     own H). Returns ``(z0_out (B, H), theta_out (B, 2H), tape (B, T,
-    13 H L))``; the outputs equal ``goku_heads_reference``'s."""
+    13 H L))`` in the heads' dtype; in float32 the outputs equal
+    ``goku_heads_reference``'s. In bfloat16 it computes as the kernel
+    does: float32 arithmetic, h and c rounded to bfloat16 at every step,
+    the gates where the tape stores them."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
     H, L, _ = check_goku_heads(*heads, xs)
     toff, rec, _, _ = heads_layout(H, L)
-    xs = xs.detach()
+    dtype = pe_z0.cells[0].Wi.dtype
+
+    def carry(v):                          # the carried state as stored
+        return _wide(v.to(dtype))
+
+    xs = xs.detach().to(dtype)
     B, T = xs.shape[0], xs.shape[1]
     tape = xs.new_zeros(B, T, rec)
     cells = _cells(heads)
-    hs = [[c.h0.detach().expand(B, H) for c in cs] for cs in cells]
-    cs_ = [[c.c0.detach().expand(B, H) if s else None
+    hs = [[_wide(c.h0).expand(B, H) for c in cs] for cs in cells]
+    cs_ = [[_wide(c.c0).expand(B, H) if s else None
             for c in cs] for s, cs in enumerate(cells)]
     for t in range(T):
         for s in range(3):
-            inp = xs[:, t] if s == 1 else xs[:, T - 1 - t]
+            inp = _wide(xs[:, t] if s == 1 else xs[:, T - 1 - t])
             for l, cell in enumerate(cells[s]):
-                z = (inp @ cell.Wi.detach() + hs[s][l] @ cell.Wh.detach()
-                     + cell.b.detach())
+                z = (inp @ _wide(cell.Wi) + hs[s][l] @ _wide(cell.Wh)
+                     + _wide(cell.b))
                 o = toff[s][l]
                 if s == 0:
-                    h = cell.activation(z)
+                    h = carry(cell.activation(z))
                     tape[:, t, o:o + H] = h
                 else:
                     i, f, g, og = torch.chunk(z, 4, dim=-1)
                     gates = (torch.sigmoid(i), torch.sigmoid(f),
                              torch.tanh(g), torch.sigmoid(og))
-                    c = gates[1] * cs_[s][l] + gates[0] * gates[2]
-                    h = gates[3] * torch.tanh(c)
+                    c = carry(gates[1] * cs_[s][l] + gates[0] * gates[2])
+                    h = carry(gates[3] * torch.tanh(c))
                     cs_[s][l] = c
                     for k, v in enumerate(gates + (c, h)):
                         tape[:, t, o + k * H:o + (k + 1) * H] = v
                 hs[s][l] = h
                 inp = h
-    return hs[0][-1], torch.cat([hs[1][-1], hs[2][-1]], dim=-1), tape
+    return (hs[0][-1].to(dtype),
+            torch.cat([hs[1][-1], hs[2][-1]], dim=-1).to(dtype), tape)
 
 
 def _act_grad(act, h):
@@ -243,14 +273,18 @@ def goku_heads_sweep_reference(pe_z0, pe_theta_fwd, pe_theta_bwd, tape,
     (dc g i(1-i), dc c_{t-1} f(1-f), dc i (1-g^2), dh tanh(c) o(1-o)),
     dc_carry = dc f; RNN dgates = dh act'(h); dh_carry = dgates Wh^T.
     Returns ``(dgates (B, T, 9 H L), dh0 (B, 3, L, H), dc0 (B, 3, L, H))``,
-    the carries left at t = -1 (dc0 of the RNN is 0)."""
+    the carries left at t = -1 (dc0 of the RNN is 0), in the tape's dtype.
+    A bfloat16 tape is read into float32, the carries stay float32 and
+    dgates, dh0 and dc0 are rounded where they are stored, as the sweep
+    kernel does."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
     cells = _cells(heads)
     L, H = len(cells[0]), cells[0][0].hidden_dim
     toff, _, goff, grec = heads_layout(H, L)
-    tape, g_z0, g_th = tape.detach(), g_z0.detach(), g_th.detach()
+    dgates = tape.new_zeros(tape.shape[0], tape.shape[1], grec)
+    dtype = tape.dtype
+    tape, g_z0, g_th = _wide(tape), _wide(g_z0), _wide(g_th)
     B, T = tape.shape[0], tape.shape[1]
-    dgates = tape.new_zeros(B, T, grec)
     tops = (g_z0, g_th[:, :H], g_th[:, H:])
     dh = [[tops[s] if l == L - 1 else torch.zeros_like(g_z0)
            for l in range(L)] for s in range(3)]
@@ -269,7 +303,7 @@ def goku_heads_sweep_reference(pe_z0, pe_theta_fwd, pe_theta_bwd, tape,
                     i, f, g, og, c = (tape[:, t, o + k * H:o + (k + 1) * H]
                                       for k in range(5))
                     cp = (tape[:, t - 1, o + 4 * H:o + 5 * H] if t > 0
-                          else cell.c0.detach().expand(B, H))
+                          else _wide(cell.c0).expand(B, H))
                     tc = torch.tanh(c)
                     dct = dc[s][l] + d * og * (1 - tc * tc)
                     dz = torch.cat([dct * g * i * (1 - i),
@@ -278,11 +312,11 @@ def goku_heads_sweep_reference(pe_z0, pe_theta_fwd, pe_theta_bwd, tape,
                                     d * tc * og * (1 - og)], dim=-1)
                     dc[s][l] = dct * f
                 dgates[:, t, goff[s][l]:goff[s][l] + dz.shape[-1]] = dz
-                dh[s][l] = dz @ cell.Wh.detach().t()
-                down = dz @ cell.Wi.detach().t() if l > 0 else None
+                dh[s][l] = dz @ _wide(cell.Wh).t()
+                down = dz @ _wide(cell.Wi).t() if l > 0 else None
     dh0 = torch.stack([torch.stack(r, dim=1) for r in dh], dim=1)
     dc0 = torch.stack([torch.stack(r, dim=1) for r in dc], dim=1)
-    return dgates, dh0, dc0
+    return dgates, dh0.to(dtype), dc0.to(dtype)
 
 
 def goku_heads_param_grads(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
@@ -372,12 +406,12 @@ def _lib():
     lib = load_kernel("goku_heads")
     if not getattr(lib, "_ldq_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ldq_goku_heads.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 8 + [
-            vp]
-        lib.ldq_goku_heads.restype = ci
-        lib.ldq_goku_heads_bwd.argtypes = [vp, ci] + [vp] * 6 + [ci] * 7 + [
-            vp]
-        lib.ldq_goku_heads_bwd.restype = ci
+        for fn in (lib.ldq_goku_heads, lib.ldq_goku_heads_bf16):
+            fn.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 8 + [vp]
+            fn.restype = ci
+        for fn in (lib.ldq_goku_heads_bwd, lib.ldq_goku_heads_bwd_bf16):
+            fn.argtypes = [vp, ci] + [vp] * 6 + [ci] * 7 + [vp]
+            fn.restype = ci
         lib.ldq_goku_heads_n_weights.argtypes = [ci] * 3
         lib.ldq_goku_heads_n_weights.restype = ci
         lib.ldq_goku_heads_smem.argtypes = [ci] * 3
@@ -413,8 +447,9 @@ def _kernel_spec(heads, xs) -> _Spec:
         raise ValueError(f"goku_heads: xs must be (B, T, D) or (S, B, T, "
                          f"D), got {tuple(xs.shape)}")
     H, L, act = check_goku_heads(*heads, xs[0] if xs.dim() == 4 else xs)
-    if not xs.is_cuda or xs.dtype != torch.float32:
-        raise ValueError("goku_heads_cuda takes a float32 CUDA tensor")
+    _check_dtype(xs.dtype, _heads_params(*heads))
+    if not xs.is_cuda:
+        raise ValueError("goku_heads_cuda takes a CUDA tensor")
     if L > MAX_LAYERS:
         raise ValueError(f"goku_heads kernel takes at most {MAX_LAYERS} "
                          f"layers; got {L}")
@@ -432,16 +467,38 @@ def _input_width(heads) -> int:
     return heads[0].cells[0].Wi.shape[0]
 
 
-def _packed(spec: _Spec, params, device):
+def _check_dtype(dtype, params):
+    """Raise ValueError unless the kernels have an instance for ``dtype``
+    and every head tensor in ``params`` has it too."""
+    if dtype not in DTYPES:
+        raise ValueError(f"goku_heads kernel takes float32 or bfloat16 "
+                         f"tensors, got {dtype}")
+    if any(p.dtype != dtype for p in params):
+        raise ValueError(f"goku_heads kernel: the heads' weights "
+                         f"({sorted({str(p.dtype) for p in params})}) and "
+                         f"the input ({dtype}) must share a dtype")
+
+
+def _packed(spec: _Spec, params, device, dtype):
     """The packed weights of ``params`` (the order of ``_heads_params``, with
-    an optional leading replica axis): (n_w,) or (S, n_w), float32 on
-    ``device``."""
+    an optional leading replica axis, all of ``dtype``): (n_w,) or (S,
+    n_w), float32 (exact for bfloat16) on ``device``."""
+    _check_dtype(dtype, params)
     wts = _pack(params, spec.L, spec.D, spec.H, spec.Dk,
-                spec.Hk).contiguous()
-    if wts.device != device or wts.dtype != torch.float32:
-        raise ValueError("goku_heads_cuda: weights must be float32 on the "
-                         "input's device")
+                spec.Hk).float().contiguous()
+    if wts.device != device:
+        raise ValueError("goku_heads_cuda: weights must be on the input's "
+                         "device")
     return wts
+
+
+def _kernel_weights(wts, dtype):
+    """Packed weights as the kernels read them: float32, from float32 or
+    from the input's ``dtype`` (``pack_goku_heads`` of its tensors)."""
+    if wts.dtype not in (torch.float32, dtype):
+        raise ValueError(f"goku_heads: packed weights of {wts.dtype} for "
+                         f"{dtype} inputs")
+    return wts.float().contiguous()
 
 
 def _replicas(x, lead: int):
@@ -455,6 +512,7 @@ def _fwd_launch(spec: _Spec, xs, wts, tape: bool):
     with weights (n_w,) or (S, n_w); outputs at the kernel's widths."""
     S = _replicas(xs, 3)
     xs = xs.contiguous()
+    wts = _kernel_weights(wts, xs.dtype)
     B, T, D = xs.shape[-3:]
     lead = xs.shape[:-3]
     lib = _lib()
@@ -468,15 +526,18 @@ def _fwd_launch(spec: _Spec, xs, wts, tape: bool):
     tp = (torch.empty(*lead, B, T, heads_layout(Hk, spec.L)[1],
                       device=xs.device, dtype=xs.dtype) if tape else None)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
+    launch = (lib.ldq_goku_heads if xs.dtype == torch.float32
+              else lib.ldq_goku_heads_bf16)
     with torch.cuda.device(xs.device):
-        err = lib.ldq_goku_heads(xs.data_ptr(), wts.data_ptr(), n_w,
-                                 z0.data_ptr(), th.data_ptr(),
-                                 None if tp is None else tp.data_ptr(), S, B,
-                                 T, D, spec.Dk, Hk, spec.L, spec.act, stream)
+        err = launch(xs.data_ptr(), wts.data_ptr(), n_w, z0.data_ptr(),
+                     th.data_ptr(), None if tp is None else tp.data_ptr(), S,
+                     B, T, D, spec.Dk, Hk, spec.L, spec.act, stream)
     if err != 0:
         raise RuntimeError(f"goku_heads kernel launch failed: CUDA error "
                            f"{err}")
     goku_heads_cuda.launches += 1
+    if xs.dtype == torch.bfloat16:
+        goku_heads_cuda.bf16_launches += 1
     H = spec.H
     if H < Hk:
         z0, th = z0[..., :H], torch.cat([th[..., :H], th[..., Hk:Hk + H]],
@@ -487,33 +548,39 @@ def _fwd_launch(spec: _Spec, xs, wts, tape: bool):
 def goku_heads_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, *,
                     tape: bool = False, wts=None):
     """Launch the forward kernel once (no autograd). ``xs``: (B, T, D)
-    float32 on the card, or (S, B, T, D) for S replicas with their packed
-    weights ``wts`` (S, n_w) (``pack_goku_heads(..., params=)``; one launch
-    for all of them). Returns (z0_out (..., B, H), theta_out (..., B, 2H)),
-    and with ``tape`` also the tape (..., B, T, 13 * Hk * L)
-    (``heads_layout(Hk, L)``, Hk from ``kernel_widths``). ``wts``: the
-    packed weights, if the caller has them."""
+    float32 or bfloat16 (the heads' dtype) on the card, or (S, B, T, D) for
+    S replicas with their packed weights ``wts`` (S, n_w)
+    (``pack_goku_heads(..., params=)``, float32 or the heads' dtype; one
+    launch for all of them). Returns (z0_out (..., B, H), theta_out (...,
+    B, 2H)) in xs's dtype, and with ``tape`` also the tape (..., B, T, 13 *
+    Hk * L) (``heads_layout(Hk, L)``, Hk from ``kernel_widths``). ``wts``:
+    the packed weights, if the caller has them."""
     heads = (pe_z0, pe_theta_fwd, pe_theta_bwd)
     spec = _kernel_spec(heads, xs)
     if wts is None:
         if xs.dim() == 4:
             raise ValueError("goku_heads_cuda: S replicas need their packed "
                              "weights (wts)")
-        wts = _packed(spec, _heads_params(*heads), xs.device)
+        wts = _packed(spec, _heads_params(*heads), xs.device, xs.dtype)
     z0, th, tp = _fwd_launch(spec, xs, wts, tape)
     return (z0, th, tp) if tape else (z0, th)
 
 
-goku_heads_cuda.launches = 0
+goku_heads_cuda.launches = 0        # every launch of the forward kernel
+goku_heads_cuda.bf16_launches = 0   # those of its bfloat16 instances
 
 
 def _bwd_launch(spec: _Spec, tape, g_z0, g_th, wts):
     """One launch of the sweep kernel on (B, ...) or (S, B, ...) rows."""
     L, H, Hk = spec.L, spec.H, spec.Hk
+    if tape.dtype not in DTYPES:
+        raise ValueError(f"goku_heads_bwd_cuda takes a float32 or bfloat16 "
+                         f"tape, got {tape.dtype}")
     for name, t in (("tape", tape), ("g_z0", g_z0), ("g_th", g_th)):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise ValueError(f"goku_heads_bwd_cuda: {name} must be a "
-                             f"float32 CUDA tensor")
+        if not t.is_cuda or t.dtype != tape.dtype:
+            raise ValueError(f"goku_heads_bwd_cuda: {name} must be a CUDA "
+                             f"tensor of the tape's dtype ({tape.dtype})")
+    wts = _kernel_weights(wts, tape.dtype)
     S = _replicas(tape, 3)
     lead = tape.shape[:-3]
     B, T = tape.shape[-3], tape.shape[-2]
@@ -540,8 +607,10 @@ def _bwd_launch(spec: _Spec, tape, g_z0, g_th, wts):
                       dtype=tape.dtype)
     dc0 = torch.empty_like(dh0)
     stream = torch.cuda.current_stream(tape.device).cuda_stream
+    launch = (lib.ldq_goku_heads_bwd if tape.dtype == torch.float32
+              else lib.ldq_goku_heads_bwd_bf16)
     with torch.cuda.device(tape.device):
-        err = lib.ldq_goku_heads_bwd(
+        err = launch(
             wts.data_ptr(), n_w, tape.data_ptr(), g_z0.data_ptr(),
             g_th.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
             dc0.data_ptr(), S, B, T, spec.Dk, Hk, L, spec.act, stream)
@@ -549,6 +618,8 @@ def _bwd_launch(spec: _Spec, tape, g_z0, g_th, wts):
         raise RuntimeError(f"goku_heads backward kernel launch failed: CUDA "
                            f"error {err}")
     goku_heads_bwd_cuda.launches += 1
+    if tape.dtype == torch.bfloat16:
+        goku_heads_bwd_cuda.bf16_launches += 1
     return dgates, dh0, dc0
 
 
@@ -572,11 +643,12 @@ def goku_heads_bwd_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, tape, g_z0,
         if tape.dim() == 4:
             raise ValueError("goku_heads_bwd_cuda: S replicas need their "
                              "packed weights (wts)")
-        wts = _packed(spec, _heads_params(*heads), tape.device)
+        wts = _packed(spec, _heads_params(*heads), tape.device, tape.dtype)
     return _bwd_launch(spec, tape, g_z0, g_th, wts)
 
 
 goku_heads_bwd_cuda.launches = 0
+goku_heads_bwd_cuda.bf16_launches = 0
 
 
 def goku_heads_backward_cuda(pe_z0, pe_theta_fwd, pe_theta_bwd, xs, tape,
@@ -616,7 +688,7 @@ class _GokuHeadsFn(torch.autograd.Function):
 
     @staticmethod
     def forward(spec, keep_tape, xs, *params):
-        wts = _packed(spec, params, xs.device)
+        wts = _packed(spec, params, xs.device, xs.dtype)
         z0, th, tp = _fwd_launch(spec, xs, wts, keep_tape)
         if tp is None:
             tp = xs.new_zeros(xs.shape[:-2] + (0,))

@@ -126,10 +126,12 @@ def warm_start_pendulum(model, train_x, dt: float, *, window: int = 50,
     Lt = L.repeat(len(offsets)).to(dev)
 
     def loss_fn(l_hat, mu, logvar):
+        # in float32 whatever the model's dtype (pixel_observable.py:129-131)
         z0_hat, th_hat = l_hat
-        l_z0 = torch.mean((z0_hat - z0t) ** 2)
-        l_L = torch.mean((th_hat[:, 0] - Lt) ** 2)
-        l_lv = sum(torch.mean((lv - logvar_target) ** 2) for lv in logvar)
+        l_z0 = torch.mean((z0_hat.float() - z0t) ** 2)
+        l_L = torch.mean((th_hat[:, 0].float() - Lt) ** 2)
+        l_lv = sum(torch.mean((lv.float() - logvar_target) ** 2)
+                   for lv in logvar)
         return l_z0 + l_L + logvar_weight * l_lv
 
     return latent_warm_start(model, xb, loss_fn, steps=steps, lr=lr,

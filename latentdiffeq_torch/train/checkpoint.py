@@ -60,8 +60,13 @@ def load_jax_params(model: torch.nn.Module, arrays: Dict[str, np.ndarray]):
 
 
 def _np(t):
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else (
-        np.asarray(t))
+    """An npz-safe array: bfloat16, which numpy has no type for, is stored
+    as float32, which holds every bfloat16 value exactly (JAX
+    checkpoint.py:69-76); loading casts back to the parameter's dtype."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def trainer_arrays(paths, params, m=None, v=None, t=None):

@@ -42,7 +42,7 @@ from ..core import resolve_device
 from ..models.dynamics import SDEDynamics
 from . import optim
 from .annealing import frange_cycle_linear
-from .checkpoint import (jax_param_paths, load_arrays, save_arrays,
+from .checkpoint import (_np, jax_param_paths, load_arrays, save_arrays,
                          trainer_arrays)
 from .data import window_start
 from .losses import loss_batch
@@ -124,6 +124,14 @@ def _noise_widths(model):
     return widths if len(widths) > 1 else widths[0]
 
 
+def _noise_dtype(model):
+    """The dtype ``model_type.sample`` draws the noise in: the logvar
+    heads' (bfloat16 for bf16 NN stages, as JAX draws it)."""
+    li = model.encoder.latent_in
+    head = list(li)[1] if isinstance(li, torch.nn.ModuleList) else li
+    return head.W.dtype
+
+
 class MultiSeedTrainer:
     """Train one architecture under ``seeds`` at once.
 
@@ -160,6 +168,7 @@ class MultiSeedTrainer:
         self.noise_gens = [torch.Generator(device=self.device).manual_seed(s)
                            for s in self.seeds]
         self._widths = _noise_widths(self.base)
+        self._noise_dtype = _noise_dtype(self.base)
         self.epoch = 0
         self._best = None
         self.history = []
@@ -196,7 +205,8 @@ class MultiSeedTrainer:
     def _eps(self, batch: int):
         widths = (self._widths if isinstance(self._widths, tuple)
                   else (self._widths,))
-        draws = [[torch.randn((batch, w), generator=g, device=self.device)
+        draws = [[torch.randn((batch, w), generator=g, device=self.device,
+                              dtype=self._noise_dtype)
                   for w in widths] for g in self.noise_gens]
         eps = tuple(torch.stack([d[j] for d in draws])
                     for j in range(len(widths)))
@@ -499,11 +509,11 @@ class MultiSeedTrainer:
         if eps is None:
             g = torch.Generator(device=self.device).manual_seed(0)
             w = self._widths
-            eps = (tuple(torch.randn((xv.shape[0], k), generator=g,
-                                     device=self.device) for k in w)
+            kw = dict(generator=g, device=self.device,
+                      dtype=self._noise_dtype)
+            eps = (tuple(torch.randn((xv.shape[0], k), **kw) for k in w)
                    if isinstance(w, tuple) else
-                   torch.randn((xv.shape[0], w), generator=g,
-                               device=self.device))
+                   torch.randn((xv.shape[0], w), **kw))
         kw = {}
         if self._sde:
             kw["key"] = (jr.split(jr.PRNGKey(0, device=self.device))[1]
@@ -553,7 +563,7 @@ class MultiSeedTrainer:
                                   ("best", b["params"], b["m"], b["v"])):
             arrays.update({f"{tag}/{k}": a for k, a in trainer_arrays(
                 self.paths, list(params.values()), m, v, st["t"]).items()})
-        arrays.update({f"buffers/{k}": v.cpu().numpy()
+        arrays.update({f"buffers/{k}": _np(v)
                        for k, v in self.buffers.items()})
         arrays["best_val"] = np.asarray(b["val"], np.float64)
         arrays["best_epoch"] = np.asarray(b["epoch"], np.int64)
@@ -575,15 +585,19 @@ class MultiSeedTrainer:
                              f"{meta['seeds']}, this trainer has "
                              f"{self.seeds}")
 
-        def dev(a):
-            return torch.from_numpy(np.array(a)).to(self.device)
+        def dev(a, like=None):
+            t = torch.from_numpy(np.array(a)).to(self.device)
+            # bfloat16 tensors are stored as float32 (checkpoint._np)
+            return t if like is None else t.to(like.dtype)
 
         def part(tag):
-            return ([dev(arrays[f"{tag}/model/{p}"]) for p in self.paths],
-                    [dev(arrays[f"{tag}/opt_state/m/{p}"])
-                     for p in self.paths],
-                    [dev(arrays[f"{tag}/opt_state/v/{p}"])
-                     for p in self.paths])
+            ps = list(self.params.values())
+            return ([dev(arrays[f"{tag}/model/{p}"], q)
+                     for p, q in zip(self.paths, ps)],
+                    [dev(arrays[f"{tag}/opt_state/m/{p}"], q)
+                     for p, q in zip(self.paths, ps)],
+                    [dev(arrays[f"{tag}/opt_state/v/{p}"], q)
+                     for p, q in zip(self.paths, ps)])
 
         live, best = part("live"), part("best")
         with torch.no_grad():

@@ -46,10 +46,15 @@ class FluxAdam:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
-            upd = self.lr * (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            # a parameter below float32 (bfloat16) keeps its moments in its
+            # dtype; the update is computed in float32 and rounded once into
+            # it, as JAX's float32 c1, c2 promote (optim.py:36-39, 69-72)
+            ct = torch.promote_types(p.dtype, torch.float32)
+            upd = self.lr * (m.to(ct) / c1) / (torch.sqrt(v.to(ct) / c2)
+                                               + self.eps)
             if self.wd:
                 upd = upd + self.wd * p
-            p.sub_(upd)
+            p.sub_(upd.to(p.dtype))
 
     def state_dict(self):
         return {"m": [t.clone() for t in self.m],

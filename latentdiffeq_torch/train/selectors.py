@@ -34,8 +34,9 @@ __all__ = ["temporal_agreement", "observation_forecast_scores",
 
 
 def _host(a) -> np.ndarray:
+    """Scores read in float64 (a bfloat16 model's outputs too)."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = a.detach().cpu().double().numpy()
     return np.asarray(a, np.float64)
 
 

@@ -1274,3 +1274,133 @@ def test_population_step_kernel_route_matches_plain_route_on_card(dev):
     assert float((lk - lp).abs().max()) <= 1e-4
     for a, b in zip(gk, gp):
         assert rel_err(a, b) <= 1e-4
+
+
+# -- the bf16 instances of the heads kernels ----------------------------------
+# Each bf16 result is held against a float32 evaluation of the same bf16
+# weights and inputs upcast (the plain float32 version): at most twice as far
+# from it as the plain bf16 version is, plus 2^-8 of its size (bf16 rounds at
+# other places in the kernel and in PyTorch; chip_smoke.py's bf16_gate).
+
+def bf16_close(k, p, f):
+    f = f.float()
+    d_k = float((k.float() - f).abs().max())
+    d_p = float((p.float() - f).abs().max())
+    return d_k <= 2 * d_p + float(f.abs().max()) / 256
+
+
+def bf16_heads(dev, D=32, H=16, seed=0):
+    hb = tuple(h.to(torch.bfloat16) for h in heads_on(dev, D, H, seed))
+    return hb, tuple(copy.deepcopy(h).float() for h in hb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(64, 50, 32, 16), (45, 100, 32, 16),
+                                     (37, 21, 32, 16), (64, 50, 64, 32),
+                                     (20, 30, 10, 8)])
+def test_goku_heads_bf16_forward_and_sweep_on_card(dev, B, T, D, H):
+    """The bf16 forward (outputs and tape) and sweep (dgates, dh0, dc0 on
+    the same bf16 tape) against the plain bf16 versions, which round where
+    the kernel rounds, by the bf16 rule; every result bf16."""
+    hb, h32 = bf16_heads(dev, D, H)
+    g = torch.Generator().manual_seed(B + T)
+    xs = torch.randn(B, T, D, generator=g).to(dev, torch.bfloat16)
+    gz = torch.randn(B, H, generator=g).to(dev, torch.bfloat16)
+    gt = torch.randn(B, 2 * H, generator=g).to(dev, torch.bfloat16)
+    rc = recurrent_cuda
+    with torch.no_grad():
+        z, th, tape = rc.goku_heads_cuda(*hb, xs, tape=True)
+        ref = rc.goku_heads_taped_reference(*hb, xs)
+        r32 = rc.goku_heads_taped_reference(*h32, xs.float())
+        sw = rc.goku_heads_bwd_cuda(*hb, tape, gz, gt)
+        sp = rc.goku_heads_sweep_reference(*hb, tape, gz, gt)
+        sf = rc.goku_heads_sweep_reference(*h32, tape.float(), gz.float(),
+                                           gt.float())
+    Hk = rc.kernel_widths(D, H)[1]
+    for k, p, f in zip((z, th), ref, r32):
+        assert k.dtype == torch.bfloat16 and bf16_close(k, p, f)
+    # the tape at the kernel's hidden width: compare where the heads' own
+    # layout lines up (the compiled widths pad narrower heads)
+    if Hk == H:
+        assert bf16_close(tape, ref[2], r32[2])
+        for k, p, f in zip(sw, sp, sf):
+            assert k.dtype == torch.bfloat16 and bf16_close(k, p, f)
+    else:
+        assert tape.dtype == sw[0].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8])
+def test_goku_heads_bf16_replica_axis_bit_for_bit_on_card(dev, S):
+    """S bf16 weight sets in one launch of each kernel equal S solo
+    launches bit for bit."""
+    rc = recurrent_cuda
+    hb, _ = bf16_heads(dev)
+    g = torch.Generator().manual_seed(S)
+    params = [(p.detach().float().cpu() + 0.05 * torch.randn(
+        (S,) + tuple(p.shape), generator=g)).to(dev, torch.bfloat16)
+        for p in rc._heads_params(*hb)]
+    wts = rc.pack_goku_heads(*hb, params=params)
+    xs = torch.randn(S, 16, 20, 32, generator=g).to(dev, torch.bfloat16)
+    gz = torch.randn(S, 16, 16, generator=g).to(dev, torch.bfloat16)
+    gt = torch.randn(S, 16, 32, generator=g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        z, th, tape = rc.goku_heads_cuda(*hb, xs, tape=True, wts=wts)
+        sw = rc.goku_heads_bwd_cuda(*hb, tape, gz, gt, wts=wts)
+        for i in range(S):
+            solo = copy.deepcopy(hb)
+            for p, q in zip(rc._heads_params(*solo), params):
+                p.copy_(q[i])
+            zs, ths, tps = rc.goku_heads_cuda(*solo, xs[i], tape=True)
+            ss = rc.goku_heads_bwd_cuda(*solo, tps, gz[i], gt[i])
+            for a, b in zip((z[i], th[i], tape[i]) + tuple(x[i] for x in sw),
+                            (zs, ths, tps) + ss):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_goku_step_runs_the_bf16_kernels_on_card(dev):
+    """A bf16 GOKU with both kernel switches: one step launches the heads'
+    bf16 instances (forward and sweep) and the float32 RK kernel, no plain
+    version; the loss and every gradient (bf16) against the plain bf16
+    route and the float32 route on the upcast weights, by the bf16 rule."""
+    from latentdiffeq_torch.train import loss_batch
+    diffeq = Pendulum(options=SolveOptions(adaptive=False))
+
+    def build(kernels, dtype=torch.bfloat16):
+        return LatentDiffEqModel.build(
+            GOKUBasic(use_kernel_encoder=kernels, use_kernel_solver=kernels),
+            *goku_default_layers(64, diffeq, hidden_dim_resnet=32,
+                                 latent_to_diffeq_dim=32, device=dev,
+                                 dtype=dtype))
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(16, 12, 64, generator=g).to(dev)
+    t = torch.arange(12, dtype=torch.float32, device=dev) * 0.05
+    eps = tuple(torch.randn(16, 16, generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+    km, pm = build(True), build(False)
+    fm = copy.deepcopy(pm).float()
+    n0 = (recurrent_cuda.goku_heads_cuda.bf16_launches,
+          recurrent_cuda.goku_heads_bwd_cuda.bf16_launches,
+          launches(ode_cuda.solve_fixed_grid_batched_cuda),
+          launches(ode_cuda.solve_fixed_grid_batched_bwd_cuda),
+          recurrent_cuda.goku_heads_reference.calls)
+    out = []
+    for m in (km, pm, fm):
+        e = tuple(a.to(next(m.parameters()).dtype) for a in eps)
+        loss = loss_batch(m, x, t, 0.5, eps=e)[0]
+        loss.backward()
+        out.append((loss.detach().reshape(1),
+                    [p.grad for p in m.parameters()]))
+        if m is km:
+            n1 = (recurrent_cuda.goku_heads_cuda.bf16_launches,
+                  recurrent_cuda.goku_heads_bwd_cuda.bf16_launches,
+                  launches(ode_cuda.solve_fixed_grid_batched_cuda),
+                  launches(ode_cuda.solve_fixed_grid_batched_bwd_cuda),
+                  recurrent_cuda.goku_heads_reference.calls)
+            assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1, 0]
+    (lk, gk), (lp, gp), (lf, gf) = out
+    assert bf16_close(lk, lp, lf)
+    for a, b, c in zip(gk, gp, gf):
+        assert a.dtype == torch.bfloat16 and bf16_close(a, b, c)
