@@ -34,7 +34,11 @@ Phases, each printing one line (any failure exits non-zero):
               sweep over the same trajectory (also for Van der Pol and
               Kuramoto-10, and at T 300 beside a float64 sweep), the
               neural-field sweep and weight-gradient kernels on the same
-              tape; then each whole backward against plain autograd (the
+              tape, the weight-gradient kernel also at the train, val,
+              ragged, 8-wide and wide-field shapes (two calls bit for bit)
+              and with 4 replicas in one launch (against the plain product
+              with the replica axis, and bit for bit against 4 solo
+              launches); then each whole backward against plain autograd (the
               neural field also against backward="autograd" and the plain
               recomputing sweep in float32 and float64); relu units that
               flip between the kernel's and the plain forward are counted;
@@ -84,7 +88,13 @@ Phases, each printing one line (any failure exits non-zero):
               call, the ELBO of goku_bf16_gate.npz card vs CPU, the step
               beside the float32 one; and the 4g population in bf16 (the
               recipe of ttg_bf16_px_winner.npz), its bf16 replica-axis
-              launches and checks;
+              launches and checks; then (4i) full-width LatentODE as a
+              population of 4 seeds (1-4, train_latent_ode.py
+              --pallas-solve --seeds 4) for 2 epochs: each step launches
+              node_field_fwd 2S times, node_field_bwd S times and
+              node_field_dw once, no plain version runs, replica 1 against
+              a solo Trainer of seed 2 (rtol 2e-4), the population's and
+              the solo step's times and device ops;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -99,8 +109,11 @@ Phases, each printing one line (any failure exits non-zero):
               at S 8 beside 8 solo launches and the vmapped plain version,
               in float32 and bf16; the
               neural-field kernels' launch plan,
-              their time at 1 and 2 rows a block, and torch.mm per layer
-              as node_field_dw's yardstick; with --profile, a
+              their time at 1 and 2 rows a block; node_field_dw at the
+              train, val and wide shapes and with 4 replicas beside
+              torch.mm per layer (torch.bmm with replicas), its plain
+              version, its bound on the tensor cores and the float32 SIMT
+              bound; with --profile, a
               torch.profiler breakdown of one training step plus
               validation of each model, written to
               chiprun_out/profile_step.txt,
@@ -126,6 +139,7 @@ import torch
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12   # the tensor cores, TF32, dense
 TOL = 1e-5          # kernel vs plain version, float32, both kernels
 GRAD_TOL = 1e-5     # gradients, of each tensor's size: the same VJP
 PATH_TOL = 1e-4     # model output, kernel path vs plain path
@@ -823,12 +837,291 @@ def latent_ode_path(train_set, val_set, dev, gpu):
     return launches, trainer, data, beta
 
 
+# ---------------------------------------------------------------------------
+# The weight-gradient kernel's own checks (phase 3) and its timing (phase 5):
+# node_field_dw on the tape and Delta of the forward and sweep kernels.
+
+DW_SHAPES = (("train", NODE_WIDTHS, 64, 50), ("val", NODE_WIDTHS, 45, 100),
+             ("ragged", NODE_WIDTHS, 37, 21), ("d8", (8, 200, 200, 8), 64, 50),
+             ("wide", WIDE_WIDTHS, 256, 50))
+DW_POP = 4          # replicas of the replica-axis checks and timing
+
+
+def dw_inputs(widths, B, T, seed, S=None):
+    """(field, tape, Delta) of a tanh field from the forward and sweep
+    kernels; with S, S replicas' tapes stacked (one field, S inputs)."""
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5
+    m = make_field(widths, "tanh", seed=seed)
+    tapes, deltas = [], []
+    for i in range(S or 1):
+        u0s, saveat, w = node_inputs(widths, B, T, seed=seed + 1 + i)
+        with torch.no_grad():
+            _, tape = node_cuda.solve_neural_field_cuda(m, Tsit5(), u0s,
+                                                        saveat, tape=True)
+        _, delta = node_cuda.neural_field_sweep_cuda(m, Tsit5(), saveat,
+                                                     tape, w)
+        tapes.append(tape)
+        deltas.append(delta)
+    if S is None:
+        return m, tapes[0], deltas[0]
+    return m, torch.stack(tapes), torch.stack(deltas)
+
+
+def dw_bounds(widths, B, T, S=1):
+    """((bound ms, what bounds it) on the tensor cores: the bytes over the
+    HBM rate against 3 x the operations (3xTF32) over the TF32 rate; the
+    float32 SIMT bound of node_work) for S replicas."""
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    tab = Tsit5().tableau
+    nbytes, ops = node_work(B, T, widths, 1, tab, n_solution_stages(tab),
+                            part="dw")
+    t_b = S * nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * S * ops / TF32_FLOPS_PER_S * 1e3
+    tc = (max(t_b, t_tc), "bytes" if t_b >= t_tc else "operations")
+    return tc, bound_ms(S * nbytes, S * ops)
+
+
+def node_dw_checks():
+    """Phase 3 for the weight-gradient kernel: against the plain product on
+    the same tape and Delta at the train, val, ragged (B not a multiple of
+    anything the kernel tiles), 8-wide and wide-field shapes (1e-5 of each
+    tensor's size), two calls bit for bit; at the train shape with DW_POP
+    replicas in one launch against the plain product with the replica axis
+    and bit for bit against DW_POP solo launches. Returns {name: largest
+    absolute error}."""
+    from latentdiffeq_torch.ops import node_cuda
+    worst = {"node_field_dw": 0.0, "node_field_dw[pop4]": 0.0}
+    for i, (label, widths, B, T) in enumerate(DW_SHAPES):
+        m, tape, delta = dw_inputs(widths, B, T, seed=60 + 3 * i)
+        R = B * (T - 1) * 6
+        plan = node_cuda.neural_field_dw_plan(widths, R)
+        n0 = node_cuda.neural_field_dw_cuda.launches
+        got = node_cuda.neural_field_dw_cuda(m, tape, delta)
+        one = node_cuda.neural_field_dw_cuda.launches - n0
+        again = node_cuda.neural_field_dw_cuda(m, tape, delta)
+        ref = node_cuda.neural_field_dw_reference(m, tape, delta)
+        pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
+        e = max(rel_err(a, b) for a, b in pairs)
+        worst["node_field_dw"] = max(worst["node_field_dw"],
+                                     max(max_err(a, b) for a, b in pairs))
+        same = all(torch.equal(a, b) for a, b in zip(got[0] + got[1],
+                                                     again[0] + again[1]))
+        log("grads", f"node_field_dw {label} {widths} B={B} T={T} ({R} "
+                     f"records; plan: {plan[0]} blocks, clusters of "
+                     f"{plan[1]}, {plan[2]} workspace floats) vs the plain "
+                     f"product on the same tape and Delta: max rel err "
+                     f"{e:.3e} (tol {NODE_GRAD_TOL:.0e}); launches {one}; "
+                     f"two calls bit for bit {same}")
+        if not (e <= NODE_GRAD_TOL and same and one == 1):
+            fail(f"node_field_dw {label}: {e}, bit for bit {same}, "
+                 f"launches {one}")
+    m, tape, delta = dw_inputs(NODE_WIDTHS, 64, 50, seed=90, S=DW_POP)
+    n0 = node_cuda.neural_field_dw_cuda.launches
+    got = node_cuda.neural_field_dw_cuda(m, tape, delta)
+    one = node_cuda.neural_field_dw_cuda.launches - n0
+    ref = node_cuda.neural_field_dw_reference(m, tape, delta)
+    e = max(rel_err(a[i], b[i]) for a, b in zip(got[0] + got[1],
+                                                ref[0] + ref[1])
+            for i in range(DW_POP))
+    worst["node_field_dw[pop4]"] = max(max_err(a, b) for a, b in
+                                       zip(got[0] + got[1], ref[0] + ref[1]))
+    same = True
+    for i in range(DW_POP):
+        solo = node_cuda.neural_field_dw_cuda(m, tape[i], delta[i])
+        same = same and all(torch.equal(a[i], b) for a, b in
+                            zip(got[0] + got[1], solo[0] + solo[1]))
+    log("grads", f"node_field_dw with a replica axis, S={DW_POP} at the train "
+                 f"shape in {one} launch: vs the plain product with the "
+                 f"replica axis max rel err {e:.3e} (tol {NODE_GRAD_TOL:.0e}, "
+                 f"each replica's tensors); vs {DW_POP} solo launches bit "
+                 f"for bit {same}")
+    if not (e <= NODE_GRAD_TOL and same and one == 1):
+        fail(f"node_field_dw replica axis: {e}, bit for bit {same}, "
+             f"launches {one}")
+    return worst
+
+
+def node_dw_timing():
+    """Phase 5 for the weight-gradient kernel at the train, val and wide
+    shapes and at the train shape with DW_POP replicas: per call (CUDA
+    events) and on the device (torch.profiler) beside torch.mm per layer
+    (torch.bmm with replicas) on contiguous copies of the same tape and
+    Delta, the plain version, the tensor-core bound and the float32 SIMT
+    bound. Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}
+    for the kernels line: node_field_dw (train) and node_field_dw[pop4]."""
+    from latentdiffeq_torch.ops import node_cuda
+    out = {}
+    cases = [(label, widths, B, T, None) for label, widths, B, T in
+             DW_SHAPES if label in ("train", "val", "wide")]
+    cases.append((f"train S={DW_POP}", NODE_WIDTHS, 64, 50, DW_POP))
+    for i, (label, widths, B, T, S) in enumerate(cases):
+        m, tape, delta = dw_inputs(widths, B, T, seed=120 + 5 * i, S=S)
+        hp, rec, dp, drec = node_cuda.tape_layout(widths)
+        lead = tuple(tape.shape[:-4])
+        H = tape.reshape(*lead, -1, rec)
+        D = delta.reshape(*lead, -1, drec)
+        ops = []
+        for o, a, q, b in zip(hp, widths[:-1], dp, widths[1:]):
+            h = torch.cat([H[..., o:o + a], torch.ones_like(H[..., :1])],
+                          dim=-1).contiguous()
+            ops.append((h.transpose(-1, -2), D[..., q:q + b].contiguous()))
+        lib = (lambda: [torch.bmm(a, b) for a, b in ops]) if S else (
+            lambda: [torch.mm(a, b) for a, b in ops])
+        reps = 20 if label != "wide" else 10
+        kernel = lambda: node_cuda.neural_field_dw_cuda(m, tape, delta)
+        k_ms = time_ms(kernel, reps=reps)
+        d_ms = device_ms(kernel, "node_field_dw_kernel", reps=reps)
+        l_ms = time_ms(lib, reps=reps)
+        p_ms = time_ms(lambda: node_cuda.neural_field_dw_reference(
+            m, tape, delta), reps=3, warmup=1)
+        (tc, tc_by), (simt, simt_by, _, _) = dw_bounds(widths, B, T, S or 1)
+        log("timing", f"node_field_dw {label} {widths} B={B} T={T}: kernel "
+                      f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
+                      f"device), library ({'torch.bmm' if S else 'torch.mm'}"
+                      f" per layer) {l_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                      f"on the tensor cores (3xTF32) {tc:.6f} ms ({tc_by}), "
+                      f"float32 SIMT bound {simt:.6f} ms ({simt_by})")
+        if label == "train":
+            out["node_field_dw"] = (k_ms, p_ms, tc, tc_by, l_ms)
+        elif S:
+            out["node_field_dw[pop4]"] = (k_ms, p_ms, tc, tc_by, l_ms)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: a LatentODE population (train_latent_ode.py --pallas-solve
+# --seeds 4): the forward and sweep kernels once a replica, the
+# weight-gradient kernel once for all replicas.
+
+NODE_POP_SEEDS = (1, 2, 3, 4)
+NODE_PLAIN = ("solve_neural_field_reference",
+              "solve_neural_field_taped_reference",
+              "neural_field_sweep_reference", "neural_field_dw_reference")
+
+
+class plain_node_calls:
+    """Counts the calls of the neural-field kernels' plain versions while
+    it is entered (the kernel route must make none on CUDA tensors)."""
+
+    def __enter__(self):
+        from latentdiffeq_torch.ops import node_cuda
+        self.n, self.saved = 0, {}
+        for name in NODE_PLAIN:
+            fn = getattr(node_cuda, name)
+            self.saved[name] = fn
+
+            def counted(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(node_cuda, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from latentdiffeq_torch.ops import node_cuda
+        for name, fn in self.saved.items():
+            setattr(node_cuda, name, fn)
+
+
+def latent_ode_population_path(train_set, val_set, dev, gpu):
+    """Phase 4i: a MultiSeedTrainer of full-width LatentODE with the kernel
+    solve (the defaults of examples/pendulum/train_latent_ode.py with
+    --pallas-solve --seeds 4: NODE(16), TrainConfig(decay=1e-4), seeds 1-4),
+    2 epochs on the pendulum video: finite losses; each step launches
+    node_field_fwd 2S times (the train step with its tape and the
+    validation pass), node_field_bwd S times and node_field_dw once, and no
+    plain version runs; replica 1 (seed 2) against a solo Trainer of seed
+    2 (rtol 2e-4); the population's step and validation times and device
+    ops beside the solo step's. Returns the launches."""
+    import numpy as np
+
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (LatentDiffEqModel, LatentODE,
+                                           NODE, default_layers)
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig,
+                                          Trainer)
+
+    def init(seed):
+        g = torch.Generator().manual_seed(seed)
+        mt = LatentODE(use_kernel_solve=True)
+        node = NODE(16, options=SolveOptions(adaptive=False, substeps=1),
+                    generator=g, device=dev)
+        return LatentDiffEqModel.build(mt, *default_layers(
+            mt, 784, node, generator=g, device=dev))
+
+    S = len(NODE_POP_SEEDS)
+    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False)
+    steps = 2 * (train_set.shape[0] // cfg.batch_size)
+    counters = {"node_field_fwd": node_cuda.solve_neural_field_cuda,
+                "node_field_bwd": node_cuda.neural_field_sweep_cuda,
+                "node_field_dw": node_cuda.neural_field_dw_cuda}
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    ms = MultiSeedTrainer(init, cfg, NODE_POP_SEEDS, device=dev)
+    reset_counts()
+    with plain_node_calls() as plain:
+        t0 = time.perf_counter()
+        hist = ms.fit(train_set, val_set, epochs=2, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches = counts()
+    want = {"node_field_fwd": 2 * S * steps, "node_field_bwd": S * steps,
+            "node_field_dw": steps}
+    for rec in hist:
+        log("train", f"LatentODE population epoch {rec['epoch']}: train "
+                     f"loss per seed "
+                     f"{[round(float(v), 6) for v in rec['train_loss']]}, "
+                     f"val loss {[round(float(v), 6) for v in rec['val_loss']]}"
+                     f" {rec['epoch_s']:.4f} s")
+        if not (np.isfinite(rec["train_loss"]).all()
+                and np.isfinite(rec["val_loss"]).all()):
+            fail(f"LatentODE population: non-finite loss in epoch "
+                 f"{rec['epoch']}")
+    i = NODE_POP_SEEDS.index(2)
+    solo = Trainer(init(2), TrainConfig(decay=1e-4, seed=2, epochs=1500,
+                                        save_best=False), device=dev)
+    reset_counts()
+    t1 = time.perf_counter()
+    shist = solo.fit(train_set, val_set, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t1
+    solo_launches = counts()
+    pop_v = np.array([float(r["val_loss"][i]) for r in hist])
+    solo_v = np.array([r["val_loss"] for r in shist])
+    rel = float(np.abs(pop_v - solo_v).max() / np.abs(solo_v).max())
+    log("train", f"LatentODE population fit 2 epochs x {steps // 2} steps of "
+                 f"{S} seeds {list(NODE_POP_SEEDS)} in {fit_s:.3f} s, solo "
+                 f"Trainer of seed 2 in {solo_s:.3f} s; launches population "
+                 f"{launches} (expected {want}: node_field_fwd 2S, "
+                 f"node_field_bwd S and node_field_dw 1 a step), plain calls "
+                 f"{plain.n}; solo {solo_launches}; replica {i} (seed 2) val "
+                 f"losses {pop_v.tolist()} vs solo {solo_v.tolist()}: max rel "
+                 f"err {rel:.3e} (tol {POP_RTOL:.1e})")
+    if launches != want or plain.n != 0:
+        fail(f"LatentODE population launches {launches}, expected {want}; "
+             f"plain calls {plain.n}")
+    if not rel <= POP_RTOL:
+        fail(f"LatentODE population replica {i} vs solo Trainer: {rel}")
+    beta = float(hist[-1]["beta"])
+    xs = train_set[:cfg.batch_size, :cfg.seq_len]
+    step_report(f"LatentODE population ({S} seeds)", ms,
+                xs.unsqueeze(0).expand(S, -1, -1, -1).contiguous(), val_set,
+                beta, gpu)
+    step_report("LatentODE population solo seed 2", solo, xs, val_set, beta,
+                gpu)
+    return launches
+
+
 def node_timing(clock):
-    """Phase 5 for the neural-field kernels: {name: (ms, plain_ms,
-    bound_ms, bound_by)} at the training shape for node_field_fwd (the
-    variant without a tape), node_field_bwd (the sweep) and node_field_dw;
-    the tape-writing forward, the validation shape, the wide field, the
-    launch plan and 1 against 2 rows a block are logged."""
+    """Phase 5 for the neural-field solve's kernels: {name: (ms, plain_ms,
+    bound_ms, bound_by, None)} at the training shape for node_field_fwd
+    (the variant without a tape) and node_field_bwd (the sweep); the
+    tape-writing forward, the validation shape, the wide field, the launch
+    plan and 1 against 2 rows a block are logged (node_field_dw:
+    node_dw_timing)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from latentdiffeq_torch.ops import node_cuda
@@ -856,11 +1149,6 @@ def node_timing(clock):
                                                          saveat, tape=True)
             _, delta = node_cuda.neural_field_sweep_cuda(m, solver, saveat,
                                                          tape, w)
-            hp, rec, dp, drec = node_cuda.tape_layout(widths)
-            dw_ops = [(tape.reshape(-1, rec)[:, o:o + a].contiguous(),
-                       delta.reshape(-1, drec)[:, q:q + b].contiguous())
-                      for o, a, q, b in zip(hp, widths[:-1], dp,
-                                            widths[1:])]
             calls = {
                 "node_field_fwd": (
                     lambda: node_cuda.solve_neural_field_cuda(
@@ -880,11 +1168,6 @@ def node_timing(clock):
                     lambda: node_cuda.neural_field_sweep_reference(
                         m, solver, saveat, tape, w),
                     "node_field_bwd_kernel", "sweep"),
-                "node_field_dw": (
-                    lambda: node_cuda.neural_field_dw_cuda(m, tape, delta),
-                    lambda: node_cuda.neural_field_dw_reference(m, tape,
-                                                                delta),
-                    "node_field_dw_kernel", "dw"),
             }
             for name, (kernel, plain, kname, part) in calls.items():
                 k_ms = time_ms(kernel, reps=reps)
@@ -897,22 +1180,13 @@ def node_timing(clock):
                 if part is not None:
                     bd, by, t_b, t_o = bound_ms(*node_work(
                         B, T, widths, 1, tab, n_st, part=part))
+                    lat = node_latency_ms(T, 1, n_st, widths, clock)
                     line += (f", bound {bd:.6f} ms ({by}; bytes "
-                             f"{t_b:.6f} ms, operations {t_o:.6f} ms)")
-                    if part != "dw":
-                        lat = node_latency_ms(T, 1, n_st, widths, clock)
-                        line += (f", latency model {lat:.6f} ms at "
-                                 f"{clock:.0f} MHz")
-                lib = None
-                if part == "dw":
-                    # the library yardstick: one torch.mm per layer on the
-                    # same tape and Delta (contiguous copies), summed
-                    lib = time_ms(lambda: [a.t() @ b for a, b in dw_ops],
-                                  reps=reps)
-                    line += (f", library (torch.mm per layer) {lib:.4f} "
-                             f"ms")
-                if part is not None and label == "train":
-                    out[name] = (k_ms, p_ms, bd, by, lib)
+                             f"{t_b:.6f} ms, operations {t_o:.6f} ms), "
+                             f"latency model {lat:.6f} ms at {clock:.0f} "
+                             f"MHz")
+                    if label == "train":
+                        out[name] = (k_ms, p_ms, bd, by, None)
                 log("timing", line)
         # plain backward: autograd through the plain solve's graph
         u = u0s.clone().requires_grad_()
@@ -935,22 +1209,31 @@ def node_timing(clock):
                     log("timing", f"node_field train, {rows} row(s) a "
                                   f"block ({-(-B // rows)} blocks): forward "
                                   f"{rf:.4f} ms, sweep {rb:.4f} ms per call")
-            # the kernel route calls no library matrix product (two
-            # rounds under the profiler: its tracing may miss the launch
-            # that opens the window)
+            # the kernel route calls no library matrix product (rounds
+            # under the profiler until it has recorded each kernel: its
+            # tracing can drop a launch, as device_ms notes; at most 3
+            # windows of 2 rounds)
             u = u0s.clone().requires_grad_()
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    ys_k = node_cuda.solve_neural_field(m, solver, u,
-                                                        saveat)[0]
-                    torch.autograd.grad(ys_k, [u] + list(m.parameters()), w)
-                torch.cuda.synchronize()
-            ops = sorted({e.name for e in prof.events()
-                          if e.device_type.name == "CPU"
-                          and e.name.startswith("aten::")})
-            devk = sorted({e.name[:60] for e in prof.events()
-                           if e.device_type.name == "CUDA"})
+            ops, devk = set(), set()
+            for _ in range(3):
+                with tprofile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    for _ in range(2):
+                        ys_k = node_cuda.solve_neural_field(m, solver, u,
+                                                            saveat)[0]
+                        torch.autograd.grad(ys_k,
+                                            [u] + list(m.parameters()), w)
+                    torch.cuda.synchronize()
+                ops |= {e.name for e in prof.events()
+                        if e.device_type.name == "CPU"
+                        and e.name.startswith("aten::")}
+                devk |= {e.name[:60] for e in prof.events()
+                         if e.device_type.name == "CUDA"}
+                if all(any(n in k for k in devk) for n in (
+                        "node_field_fwd_kernel", "node_field_bwd_kernel",
+                        "node_field_dw_kernel")):
+                    break
+            ops, devk = sorted(ops), sorted(devk)
             log("timing", f"solve_neural_field forward + backward, kernel "
                           f"route: aten ops {ops}")
             log("timing", f"  device kernels {devk}")
@@ -3106,6 +3389,9 @@ def main():
     errs.update(goku_bf16_grad_checks(heads, gen_bf))
     errs.update(rk_grad_checks(gen))
     errs["node_field_bwd"], errs["node_field_dw"] = node_grad_checks()
+    dw_errs = node_dw_checks()
+    errs["node_field_dw"] = max(errs["node_field_dw"], dw_errs["node_field_dw"])
+    errs["node_field_dw[pop4]"] = dw_errs["node_field_dw[pop4]"]
 
     # ---- 4. main path: GOKU training on pendulum video --------------------
     t0 = time.perf_counter()
@@ -3178,12 +3464,18 @@ def main():
     for k in ("goku_heads", "goku_heads_bwd"):
         launches[f"{k}[pop8-bf16]"] = bpop_launches[k]
 
+    # ---- 4i. LatentODE as a population of 4 seeds: the forward and sweep
+    # kernels once a replica, the weight gradients once for all -----------
+    launches["node_field_dw[pop4]"] = latent_ode_population_path(
+        train_set, val_set, dev, gpu)["node_field_dw"]
+
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
     times = goku_timing(heads, gen, clock, dev)
     times.update(goku_timing(as_dtype(heads, BF), gen_bf, clock, dev))
     times.update(rk_timing(gen, clock))
     times.update(node_timing(clock))
+    times.update(node_dw_timing())
     times.update(population_timing(pop_ms, gen, clock, dev))
     times.update(population_timing(bpop_ms, gen_bf, clock, dev))
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
@@ -3202,7 +3494,8 @@ def main():
                                            "rk_fixed_grid_bwd")]
                  + ["goku_heads[pop8]", "goku_heads_bwd[pop8]",
                     "goku_heads[bf16]", "goku_heads_bwd[bf16]",
-                    "goku_heads[pop8-bf16]", "goku_heads_bwd[pop8-bf16]"]):
+                    "goku_heads[pop8-bf16]", "goku_heads_bwd[pop8-bf16]",
+                    "node_field_dw[pop4]"]):
         src, replaces = origin[name.split("[")[0]]
         k_ms, p_ms, b_ms, b_by, lib_ms = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,

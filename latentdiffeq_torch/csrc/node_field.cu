@@ -53,17 +53,26 @@
 //     weights and the activation derivatives taken from the tape. The next
 //     step's tape slice and g row come into shared memory by cp.async while
 //     the current step computes; Delta is streamed out as it is produced;
-//   * the weight gradient is a tiled float32 product over all the SMs
-//     (64 x 64 output tiles, split over the records) into per-split
-//     partial buffers that the caller sums in order: no float atomics, the
-//     result does not depend on timing.
+//   * the weight gradient is a product over all the records (B x steps x
+//     stages: 18,816 at the train shape, whose tape and Delta, 32.5 + 31.3
+//     MB, exceed the 50 MB L2 together), so it is bound by their bytes:
+//     tiles shaped to the layers (a whole input width plus the bias row a
+//     tile), a cp.async ring, 3xTF32 on the tensor cores, split-K over the
+//     SMs with the splits added inside the kernel in a fixed order (thread
+//     block clusters, then an integer semaphore), and a replica axis (see
+//     node_field_dw_kernel).
 // The reverse recursion, for u_s = y + dt sum_q a_sq k_q, k_s = F(u_s),
 // y1 = y + dt sum_s b_s k_s: kbar_s = dt b_s lambda, ybar = lambda, and for
 // s = S-1..0: ubar_s = J_F(u_s)^T kbar_s, ybar += ubar_s, kbar_q += dt a_sq
 // ubar_s. Rows past the batch end carry zero state and zero cotangent and
 // are never stored.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,14 +85,13 @@ constexpr int kRegKS = 20;           // reduction values a slice holds in
 constexpr int kRegRows = 8 * kRegKS;
 constexpr int kRegMaxOut = 4 * 4 * (kRegThreads / 32);   // 208
 constexpr int kSmemLimit = 232448;   // bytes a block may use on sm_90
-constexpr int kDwTile = 64;          // weight-gradient output tile
-constexpr int kDwK = 16;             // records per weight-gradient pass
-constexpr int kDwThreads = 256;
 
 // Error codes of the C interface besides cudaError_t (which is positive).
 constexpr int kErrDepth = -1;   // more than kMaxLayers layers (or none)
 constexpr int kErrFit = -2;     // the tile does not fit in shared memory
 constexpr int kErrArgs = -3;    // any other invalid argument
+constexpr int kErrTiles = -4;   // the weight-gradient plan needs more tiles
+                                // than the kernel's table holds
 
 // Where a pass keeps its weights.
 enum Place { kReg = 0, kSmem = 1, kGlobal = 2 };
@@ -874,93 +882,515 @@ node_field_bwd_kernel(Tableau tab, Field f,
 }
 
 // ---------------------------------------------------------------------------
-// Weight gradients: for layer l, the (w[l] + 1) x w[l+1] product
-// [H_l, 1]^T Delta_l over the records [r0, r1) of this block's split, the
-// row w[l] being the bias. Block (tile, split) writes its 64 x 64 tile of
-// part[split] in the packed layout.
-__global__ void __launch_bounds__(kDwThreads)
-node_field_dw_kernel(Field f, const float* __restrict__ tape,
-                     const float* __restrict__ delta,
-                     float* __restrict__ part, int R, int per_split) {
-  __shared__ __align__(16) float As[kDwK][kDwTile];
-  __shared__ __align__(16) float Bs[kDwK][kDwTile];
-  int t = blockIdx.x, l = 0;
-  for (; l < f.L - 1; ++l) {
-    const int n = ((f.w[l] + 1 + kDwTile - 1) / kDwTile) *
-                  ((f.w[l + 1] + kDwTile - 1) / kDwTile);
-    if (t < n) break;
-    t -= n;
-  }
-  const int M = f.w[l], N = f.w[l + 1];        // rows M..M: the bias row
-  const int ntn = (N + kDwTile - 1) / kDwTile;
-  const int k0 = (t / ntn) * kDwTile, n0 = (t % ntn) * kDwTile;
-  const int r0 = blockIdx.y * per_split;
-  const int r1 = min(R, r0 + per_split);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;      // 4 x 4 outputs a thread
-  const int lr = tid >> 4, lc = (tid & 15) * 4;  // loader: record, column
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+// Weight gradients: for layer l, dW_l = [H_l, 1]^T Delta_l over the R
+// records of a replica (the row w[l] of the result being the bias), as a
+// product on the tensor cores in float32 accuracy (3xTF32). Replaces the
+// weight-gradient products of the TPU kernel's backward
+// (latentdiffeq/ops/node_pallas.py:215-218). At the train shape (R =
+// 18,816) it moves 62.6 MB for 1.76 GFLOP: bound by its bytes.
+//
+// The product runs in one of two orientations, whichever pads less at the
+// instruction's 16 x 8 granularity (mma.sync m16n8k8): its M side ("P") is
+// the layer's input plus the bias row and its N side ("Q") the outputs, or
+// the other way round ("swap"; layer 0 of the 16-200-200-16 field: 200 x 17
+// pads to 208 x 24, 17 x 200 to 32 x 200). A tile covers a whole P side of
+// up to kDwPT m16 tiles (256 rows: 201 for the train field's layers 1 and
+// 2, the bias row included) and a group of up to kDwNT n8 tiles of Q
+// (64 columns; a 200-wide Q side is four groups of 56, 48, 48, 48): each
+// record's Q slice is read once in all, its P slice once a tile, and the
+// tiles of one P side stream the same records at the same time, so the L2
+// serves the repeats. One block an SM: eight warps multiply, warp w owning
+// m16 tiles w and w + 8 and every n8 tile of the group (its loops over
+// them compiled for each count, dw_tile<MT, NT>; 64 sums a thread), and
+// eight more warps load.
+//
+// Both operands lie MN-major in memory (a record's features are
+// contiguous, the reduction runs over records). wgmma takes tf32 operands
+// K-major only and ldmatrix transposes 16-bit types only, so the records
+// come into shared memory as they lie ([record][feature], rows padded to 8
+// mod 32 floats) and each thread loads its mma.sync fragments with plain
+// 32-bit shared loads, which that padding makes free of bank conflicts. A
+// ring of kDwStages stages of kDwKC records is filled by cp.async from the
+// loading warps while the others multiply: on the H100 a warp issues a
+// 16-byte cp.async only about every 250 cycles, so warps that also
+// multiplied would stall on their loads. mbarriers pace the ring (a stage
+// is full when its copies are in, empty when every warp that multiplies is
+// done with it); records past a split's end are zero-filled. (TMA bulk
+// copies of each record's slices, 64 to 800 bytes, measured slower.)
+//
+// 3xTF32: each operand x is split into big (x with its mantissa cut to 10
+// bits) and small = x - big, and a k8 step adds small*big + big*small +
+// big*big into a fresh accumulator (the tensor cores' own accumulation
+// truncates, so it never runs over more than three products), which is
+// then added to the float32 sums with a round-to-nearest add.
+//
+// Split-K over the records fills the card: a tile's records are cut into
+// nsplit = C * ncl contiguous splits (C blocks a thread block cluster, ncl
+// clusters), as many clusters in all as the card runs at once, shared out
+// by each tile's cost a record, independent of the number of replicas.
+// The splits of a tile meet inside the kernel, in a fixed order: the
+// blocks of a cluster put their sums into shared memory and block r adds
+// slice r of the tile over the cluster's ranks 0..C-1 through distributed
+// shared memory; with ncl > 1 clusters each writes its slice to a
+// workspace and the last cluster to arrive at the slice (counted by an
+// integer semaphore, which it resets) adds the ncl partials in cluster
+// order. No float atomics: two launches are bit for bit equal, and a
+// replica's result does not depend on how many others share the launch
+// (grid z is the replica).
+// Levers of scripts/node_dw_levers.py (the defaults are the design).
+#ifndef LDQ_DW_STAGES
+#define LDQ_DW_STAGES 4
+#endif
+#ifndef LDQ_DW_MAX_CLUSTER
+#define LDQ_DW_MAX_CLUSTER 2
+#endif
+constexpr int kDwWarps = 8;                      // warps that multiply
+#ifndef LDQ_DW_LOADERS
+#define LDQ_DW_LOADERS 256
+#endif
+constexpr int kDwLoaders = LDQ_DW_LOADERS;       // threads that load: two
+                                                 // warps on each scheduler
+constexpr int kDwThreads = 32 * kDwWarps + kDwLoaders;
+constexpr int kDwMT = 2;                       // m16 tiles a warp
+constexpr int kDwPT = kDwWarps * kDwMT;        // m16 tiles a tile: 256 rows
+constexpr int kDwNT = 8;                       // n8 tiles a tile: 64 columns
+#ifndef LDQ_DW_KC
+#define LDQ_DW_KC 32
+#endif
+constexpr int kDwKC = LDQ_DW_KC;               // records a stage
+constexpr int kDwStages = LDQ_DW_STAGES;
+constexpr int kDwLDP = kDwPT * 16 + 8;         // 264 = 8 mod 32 floats
+constexpr int kDwLDQ = kDwNT * 8 + 8;          // 72 = 8 mod 32 floats
+constexpr int kDwStage = kDwKC * (kDwLDP + kDwLDQ);
+constexpr int kDwTileFloats = kDwPT * 16 * kDwNT * 8;   // a tile's sums
+constexpr size_t kDwSmem =
+    sizeof(float) * (kDwStages * kDwStage > kDwTileFloats
+                         ? kDwStages * kDwStage : kDwTileFloats);
+constexpr int kDwMaxTiles = 64;
+constexpr int kDwMaxCluster = LDQ_DW_MAX_CLUSTER;
+constexpr int kDwMinRecords = 4 * kDwKC;       // records a split at least
+// A record's cost to a block besides its products, in m16 x n8 products:
+// bringing it in and passing a stage barrier, whatever its width (the
+// light tiles of layers 0 and 2 would otherwise get too few splits).
+constexpr int kDwRecordCost = 128;
 
-  for (int rb = r0; rb < r1; rb += kDwK) {
-    const int rec = rb + lr;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (rec < r1) {
-      const float* hp = tape + (size_t)rec * f.sumw4 + f.hp_off[l];
-      const int k = k0 + lc;
-      if (k + 3 < M) {
-        av = *reinterpret_cast<const float4*>(hp + k);
-      } else {
-        float v[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          v[c] = k + c < M ? hp[k + c] : (k + c == M ? 1.f : 0.f);
-        av = make_float4(v[0], v[1], v[2], v[3]);
-      }
-      const float* dp = delta + (size_t)rec * f.dsum4 + f.dp_off[l];
-      const int n = n0 + lc;
-      if (n + 3 < N) {
-        bv = *reinterpret_cast<const float4*>(dp + n);
-      } else {
-        float v[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = n + c < N ? dp[n + c] : 0.f;
-        bv = make_float4(v[0], v[1], v[2], v[3]);
-      }
+// A tile of layer `layer`: P features [p0, p0 + np), Q features [q0, q0 +
+// nq) (the bias is feature w[l] of the input side), cut into nsplit splits
+// of the records; blocks [first, first + nsplit) of the grid's x; its
+// cluster partials at ws_off (ncl > 1) and its slices' semaphores at
+// sem_off.
+struct DwTile {
+  int layer, swap, p0, np, q0, nq, nsplit, first, ws_off, sem_off;
+};
+
+struct DwPlan {
+  int ntiles, cluster, blocks, ws, sems;
+  DwTile t[kDwMaxTiles];
+};
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// An arrive on `bar` once every cp.async this thread has issued is done.
+__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// x = big + small exactly, big = x with its mantissa cut to TF32's 10
+// bits (a mask: full-rate integer work, where cvt.rna runs at the
+// conversion units' quarter rate); the tensor cores read small's top 10
+// mantissa bits, so x is carried to about 2^-21 of its size.
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1, const float* c) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+#ifdef LDQ_DW_LEVER_STAMPS
+// scripts/node_dw_levers.py's timeline: each block's global timer at its
+// start, after its main loop, after the cluster's sums and at its end.
+__device__ unsigned long long g_dw_stamps[4096][4];
+// block 0's global timer before and after each stage's wait (the first
+// 256 stages)
+__device__ unsigned long long g_dw_chunks[256][2];
+__device__ __forceinline__ unsigned long long dw_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void dw_stamp(int k) {
+  if (threadIdx.x == 0 && blockIdx.x < 4096 && blockIdx.z == 0)
+    g_dw_stamps[blockIdx.x][k] = dw_now();
+}
+__device__ __forceinline__ void dw_chunk_stamp(int c, int k) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.z == 0 && c < 256)
+    g_dw_chunks[c][k] = dw_now();
+}
+#else
+__device__ __forceinline__ void dw_stamp(int) {}
+__device__ __forceinline__ void dw_chunk_stamp(int, int) {}
+#endif
+
+// What one block of the weight-gradient kernel works on: its replica's
+// P and Q slices (P features [p0, p0 + np) of each record of Pg, Q
+// features [q0, q0 + nq) of Qg), its records [r0, r1), and the local index
+// of the bias row (no swap) or column (swap) of ones.
+struct DwBlock {
+  const float* Pg;
+  const float* Qg;
+  int ldp, ldq, cp4, cq4, r0, r1, np, nq, one;
+  bool swap;
+};
+
+// Issues, from the loading threads, the cp.async copies of records [rb,
+// rb + kDwKC) of the block's P and Q slices into ring stage `buf`; records
+// past r1 are zero-filled.
+__device__ __forceinline__ void dw_load(const DwBlock& b, float* dsm,
+                                        int buf, int rb) {
+#ifdef LDQ_DW_LEVER_NO_LOAD
+  return;   // timing only: the products of whatever the ring holds
+#endif
+  float* Ps = dsm + buf * kDwStage;
+  float* Qs = Ps + kDwKC * kDwLDP;
+  const int c4 = b.cp4 + b.cq4;
+  const int tid = threadIdx.x - 32 * kDwWarps;   // among the loaders
+  int k = tid / c4, c = tid - k * c4;
+  const int dk = kDwLoaders / c4, dc = kDwLoaders - dk * c4;
+  for (; k < kDwKC; k += dk, c += dc) {
+    if (c >= c4) {
+      c -= c4;
+      if (++k >= kDwKC) break;
     }
-    *reinterpret_cast<float4*>(&As[lr][lc]) = av;
-    *reinterpret_cast<float4*>(&Bs[lr][lc]) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDwK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av4[4] = {a.x, a.y, a.z, a.w};
-      const float bv4[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av4[p], bv4[q], acc[p][q]);
-    }
-    __syncthreads();
+    const int rec = rb + k;
+    const bool ok = rec < b.r1;
+    const size_t row = ok ? (size_t)rec : (size_t)b.r0;
+    if (c < b.cp4)
+      cp_async16_zfill(Ps + k * kDwLDP + 4 * c, b.Pg + row * b.ldp + 4 * c,
+                       ok);
+    else
+      cp_async16_zfill(Qs + k * kDwLDQ + 4 * (c - b.cp4),
+                       b.Qg + row * b.ldq + 4 * (c - b.cp4), ok);
   }
-  float* out = part + (size_t)blockIdx.y * f.total;
+}
+
+// The loading warps: fill the ring stage by stage, each stage once every
+// warp that multiplies is done with it (its `empty` barrier); a stage's
+// `full` barrier completes when its copies are in. Loads issue slowly (on
+// the H100 a warp's 16-byte cp.async every ~250 cycles), so they get warps
+// of their own, two on each scheduler, and overlap the products.
+__device__ __noinline__ void dw_produce(const DwBlock& b, float* dsm,
+                                        unsigned long long* full,
+                                        unsigned long long* empty) {
+  const int nchunks = (b.r1 - b.r0 + kDwKC - 1) / kDwKC;
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c % kDwStages;
+    if (c >= kDwStages)
+      mbar_wait(empty + st, (unsigned)(c / kDwStages - 1) & 1u);
+    dw_load(b, dsm, st, b.r0 + c * kDwKC);
+#ifdef LDQ_DW_LEVER_NO_LOAD
+    mbar_arrive(full + st);
+#else
+    mbar_arrive_copies(full + st);
+#endif
+  }
+  __syncthreads();   // with the warps that multiply: the ring is free
+}
+
+// The main loop of a warp that multiplies, owning MT m16 tiles (warp,
+// warp + 8) and a tile group of NT n8 tiles (compile-time counts, so the
+// products of a stage are straight-line code the compiler interleaves):
+// each stage's 3xTF32 products, a k8 step's three into a fresh
+// accumulator added to the float32 sums; then the warp's sums into tsum
+// [np][nq]. A warp with MT = 0 still keeps the ring's pace.
+template <int MT, int NT>
+__device__ __noinline__ void dw_tile(const DwBlock& b, float* dsm,
+                                     unsigned long long* full,
+                                     unsigned long long* empty) {
+  constexpr int MA = MT > 0 ? MT : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  float acc[MA][NT][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int k = k0 + ty * 4 + p;
-    if (k > M) continue;
+  for (int i = 0; i < MA; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n >= N) continue;
-      out[k < M ? f.w_off[l] + (size_t)k * N + n : f.b_off[l] + n] =
-          acc[p][q];
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nchunks = (b.r1 - b.r0 + kDwKC - 1) / kDwKC;
+  for (int c = 0; c < nchunks; ++c) {
+    dw_chunk_stamp(c, 0);
+    mbar_wait(full + c % kDwStages, (unsigned)(c / kDwStages) & 1u);
+    dw_chunk_stamp(c, 1);
+#ifndef LDQ_DW_LEVER_NO_MMA
+    if constexpr (MT > 0) {
+      const float* Ps = dsm + (c % kDwStages) * kDwStage;
+      const float* Qs = Ps + kDwKC * kDwLDP;
+      const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < kDwKC / 8; ++ks) {
+        const float* Pk = Ps + ks * 8 * kDwLDP;
+        const float* Qk = Qs + ks * 8 * kDwLDQ;
+        unsigned ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int m = (warp + kDwWarps * i) * 16 + g;
+          float v[4] = {Pk[t4 * kDwLDP + m], Pk[t4 * kDwLDP + m + 8],
+                        Pk[(t4 + 4) * kDwLDP + m],
+                        Pk[(t4 + 4) * kDwLDP + m + 8]};
+          if (!b.swap) {
+            if (m == b.one) v[0] = v[2] = 1.f;
+            if (m + 8 == b.one) v[1] = v[3] = 1.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(v[e], ab[i][e], as[i][e]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = j * 8 + g;
+          float v0 = Qk[t4 * kDwLDQ + n], v1 = Qk[(t4 + 4) * kDwLDQ + n];
+          if (b.swap && n == b.one) v0 = v1 = 1.f;
+          unsigned bb0, bs0, bb1, bs1;
+          split_tf32(v0, bb0, bs0);
+          split_tf32(v1, bb1, bs1);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            float d[4];
+#ifdef LDQ_DW_LEVER_ONE_PASS
+            mma_tf32(d, ab[i], bb0, bb1, zero);   // timing only
+#else
+            mma_tf32(d, as[i], bb0, bb1, zero);
+            mma_tf32(d, ab[i], bs0, bs1, d);
+            mma_tf32(d, ab[i], bb0, bb1, d);
+#endif
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+          }
+        }
+      }
+    }
+#endif
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + c % kDwStages);
+  }
+  __syncthreads();   // the ring's memory is free: it takes the tile's sums
+  if constexpr (MT > 0) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = (warp + kDwWarps * i) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = m + (e >> 1) * 8, col = j * 8 + 2 * t4 + (e & 1);
+          if (row < b.np && col < b.nq) dsm[row * b.nq + col] = acc[i][j][e];
+        }
     }
   }
+}
+
+template <int MT>
+__device__ __forceinline__ void dw_tile_nt(const DwBlock& b, float* dsm,
+                                           unsigned long long* full,
+                                           unsigned long long* empty,
+                                           int nt) {
+  switch (nt) {
+    case 1: dw_tile<MT, 1>(b, dsm, full, empty); break;
+    case 2: dw_tile<MT, 2>(b, dsm, full, empty); break;
+    case 3: dw_tile<MT, 3>(b, dsm, full, empty); break;
+    case 4: dw_tile<MT, 4>(b, dsm, full, empty); break;
+    case 5: dw_tile<MT, 5>(b, dsm, full, empty); break;
+    case 6: dw_tile<MT, 6>(b, dsm, full, empty); break;
+    case 7: dw_tile<MT, 7>(b, dsm, full, empty); break;
+    default: dw_tile<MT, 8>(b, dsm, full, empty); break;
+  }
+}
+
+__global__ void __launch_bounds__(kDwThreads, 1)
+node_field_dw_kernel(const __grid_constant__ Field f,
+                     const __grid_constant__ DwPlan plan,
+                     const float* __restrict__ tape,
+                     const float* __restrict__ delta, float* __restrict__ out,
+                     float* __restrict__ ws, int* __restrict__ sem, int R) {
+  extern __shared__ __align__(16) float dsm[];
+  dw_stamp(0);
+  const int s = blockIdx.z;
+  int ti = 0;
+  while (ti + 1 < plan.ntiles && (int)blockIdx.x >= plan.t[ti + 1].first)
+    ++ti;
+  const DwTile& tl = plan.t[ti];
+  const int split = blockIdx.x - tl.first;
+  const int l = tl.layer, M = f.w[l], N = f.w[l + 1];
+  const bool swap = tl.swap != 0;
+  const int p0 = tl.p0, np = tl.np, q0 = tl.q0, nq = tl.nq;
+
+  DwBlock b;
+  const float* H = tape + (size_t)s * R * f.sumw4 + f.hp_off[l];
+  const float* D = delta + (size_t)s * R * f.dsum4 + f.dp_off[l];
+  b.Pg = (swap ? D : H) + p0;
+  b.Qg = (swap ? H : D) + q0;
+  b.ldp = swap ? f.dsum4 : f.sumw4;
+  b.ldq = swap ? f.sumw4 : f.dsum4;
+  // float4 columns of a record to copy: the features in memory (the bias
+  // is not), up to the piece's padding to 4 floats
+  b.cp4 = max(0, (min(p0 + np, swap ? N : M) - p0 + 3) / 4);
+  b.cq4 = max(0, (min(q0 + nq, swap ? M : N) - q0 + 3) / 4);
+  b.r0 = (int)((long long)split * R / tl.nsplit);
+  b.r1 = (int)((long long)(split + 1) * R / tl.nsplit);
+  b.np = np;
+  b.nq = nq;
+  b.one = swap ? M - q0 : M - p0;
+  b.swap = swap;
+
+  const int warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const int mtiles = (np + 15) / 16, ntiles = (nq + 7) / 8;
+  // the ring's barriers: a stage is full once its copies are in, empty
+  // once every warp that multiplies has read it
+  __shared__ unsigned long long full[kDwStages], empty[kDwStages];
+  if (tid == 0) {
+    for (int st = 0; st < kDwStages; ++st) {
+      mbar_init(full + st, kDwLoaders);
+      mbar_init(empty + st, kDwWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int mine = (warp + kDwWarps < mtiles) ? 2 : (warp < mtiles ? 1 : 0);
+  if (warp >= kDwWarps)
+    dw_produce(b, dsm, full, empty);
+  else if (mine == 2)
+    dw_tile_nt<2>(b, dsm, full, empty, ntiles);
+  else if (mine == 1)
+    dw_tile_nt<1>(b, dsm, full, empty, ntiles);
+  else
+    dw_tile_nt<0>(b, dsm, full, empty, ntiles);
+
+  dw_stamp(1);
+  float* tsum = dsm;   // [np][nq]
+  const int C = plan.cluster;
+  const int ncl = tl.nsplit / C;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  if (C > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int E = np * nq;
+  const int e0 = (int)((long long)rank * E / C);
+  const int e1 = (int)((long long)(rank + 1) * E / C);
+  float* o = out + (size_t)s * f.total;
+  auto store = [&](int e, float v) {
+    const int row = e / nq, col = e - row * nq;
+    const int hi = swap ? q0 + col : p0 + row;   // input feature (M: bias)
+    const int ni = swap ? p0 + row : q0 + col;   // output feature
+    o[hi < M ? f.w_off[l] + (size_t)hi * N + ni : f.b_off[l] + ni] = v;
+  };
+  float* part = ws + (size_t)s * plan.ws + tl.ws_off;
+  // the ranks' sums in rank order; every load of an element is issued
+  // before the first add (the adds wait on the loads' latency once)
+  const float* rs[kDwMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kDwMaxCluster; ++r)
+    rs[r] = r < C ? (C > 1 ? cluster.map_shared_rank(tsum, r) : tsum)
+                  : tsum;
+  for (int e = e0 + tid; e < e1; e += kDwThreads) {
+    float t[kDwMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kDwMaxCluster; ++r) t[r] = r < C ? rs[r][e] : 0.f;
+    float v = t[0];
+#pragma unroll
+    for (int r = 1; r < kDwMaxCluster; ++r)
+      if (r < C) v += t[r];
+    if (ncl == 1)
+      store(e, v);
+    else
+      part[(size_t)(split / C) * E + e] = v;
+  }
+  if (C > 1) cluster.sync();   // no block leaves while its sums are read
+  dw_stamp(2);
+  if (ncl == 1) {
+    dw_stamp(3);
+    return;
+  }
+
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  int* sm = sem + (size_t)s * plan.sems + tl.sem_off + rank;
+  if (tid == 0) last = atomicAdd(sm, 1) == ncl - 1;
+  __syncthreads();
+  if (!last) {
+    dw_stamp(3);
+    return;
+  }
+  __threadfence();
+  // the clusters' partials in cluster order, eight loads in flight
+  for (int e = e0 + tid; e < e1; e += kDwThreads) {
+    float v = __ldcg(part + e);
+    int c = 1;
+    for (; c + 8 <= ncl; c += 8) {
+      float t[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        t[k] = __ldcg(part + (size_t)(c + k) * E + e);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v += t[k];
+    }
+    for (; c < ncl; ++c) v += __ldcg(part + (size_t)c * E + e);
+    store(e, v);
+  }
+  if (tid == 0) *sm = 0;   // ready for the next launch
+  dw_stamp(3);
 }
 
 // ---------------------------------------------------------------------------
@@ -1137,12 +1567,143 @@ cudaError_t launch_bwd(const Tableau& tab, const Field& f,
   return cudaGetLastError();
 }
 
-int dw_tiles(const Field& f) {
+// Thread block clusters of C blocks (or, with C = 1, blocks) of the
+// weight-gradient kernel that the current device runs at once; 0 if it
+// cannot say.
+int dw_active(int C) {
+  static int cache[16][kDwMaxCluster + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int* hit = dev < 16 ? &cache[dev][C] : nullptr;
+  if (hit != nullptr && *hit > 0) return *hit;
+  if (set_smem(node_field_dw_kernel, kDwSmem) != cudaSuccess) return 0;
   int n = 0;
-  for (int l = 0; l < f.L; ++l)
-    n += ((f.w[l] + 1 + kDwTile - 1) / kDwTile) *
-         ((f.w[l + 1] + kDwTile - 1) / kDwTile);
+  if (C > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(kDwThreads);
+    cfg.dynamicSmemBytes = kDwSmem;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&n, node_field_dw_kernel, &cfg) !=
+        cudaSuccess)
+      n = 0;
+  } else {
+    int per = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, node_field_dw_kernel, kDwThreads, kDwSmem) == cudaSuccess)
+      n = per * sm_count();
+  }
+  (void)cudaGetLastError();
+  if (hit != nullptr) *hit = n;
   return n;
+}
+
+// The weight-gradient plan for R records a replica on the current device
+// (see node_field_dw_kernel): the tiles of every layer, each in the
+// orientation that pads less, and their splits: as many clusters in all as
+// the card runs at once, shared out in proportion to each tile's work (at
+// least one a tile). It does not depend on the number of replicas. Returns
+// 0, kErrTiles or kErrArgs.
+int dw_plan(const Field& f, int R, DwPlan* p) {
+  *p = DwPlan{};
+  if (R < 1) return kErrArgs;
+  long long work[kDwMaxTiles], total = 0;
+  int n = 0;
+  for (int l = 0; l < f.L; ++l) {
+    const int hin = f.w[l] + 1, nout = f.w[l + 1];
+    const long long keep = (long long)((hin + 15) / 16) * ((nout + 7) / 8);
+    const long long turn = (long long)((nout + 15) / 16) * ((hin + 7) / 8);
+    const int swap = turn < keep;
+    const int pn = swap ? nout : hin, qn = swap ? hin : nout;
+    const int mt = (pn + 15) / 16, nt = (qn + 7) / 8;
+    const int gp = (mt + kDwPT - 1) / kDwPT, gq = (nt + kDwNT - 1) / kDwNT;
+    for (int i = 0; i < gp; ++i)
+      for (int j = 0; j < gq; ++j) {
+        if (n == kDwMaxTiles) return kErrTiles;
+        const int ma = mt * i / gp, mb = mt * (i + 1) / gp;
+        const int na = nt * j / gq, nb = nt * (j + 1) / gq;
+        DwTile& t = p->t[n];
+        t.layer = l;
+        t.swap = swap;
+        t.p0 = 16 * ma;
+        t.np = std::min(16 * mb, pn) - t.p0;
+        t.q0 = 8 * na;
+        t.nq = std::min(8 * nb, qn) - t.q0;
+        work[n] = (long long)(mb - ma) * (nb - na) + kDwRecordCost;
+        total += work[n++];
+      }
+  }
+  const int C = std::min(kDwMaxCluster, std::max(1, R / kDwMinRecords));
+  const int active = dw_active(C);
+  if (active < 1) return kErrArgs;
+  const int most = std::max(1, R / (kDwMinRecords * C));
+  // clusters a tile: the whole share's floor, then one more to the largest
+  // remainders while the card has room
+  const long long K = std::max(active, n);
+  // the tiles of one layer and P group (its Q groups) read the same P
+  // slices: they get the same splits, so their blocks stream the same
+  // records at the same time and the L2 serves the repeats
+  long long fam[kDwMaxTiles];
+  for (int i = 0; i < n; ++i) {
+    int cnt = 0;
+    fam[i] = 0;
+    for (int j = 0; j < n; ++j)
+      if (p->t[j].layer == p->t[i].layer && p->t[j].p0 == p->t[i].p0) {
+        fam[i] += work[j];
+        ++cnt;
+      }
+    fam[i] /= cnt;
+  }
+  int ncl[kDwMaxTiles], given = 0;
+  double rest[kDwMaxTiles];
+  for (int i = 0; i < n; ++i) {
+    const double share = (double)K * fam[i] / (double)total;
+    ncl[i] = std::max(1, std::min((int)share, most));
+    rest[i] = share - (int)share;
+    given += ncl[i];
+  }
+  while (true) {   // one more to each tile of the family with the largest
+                   // remainder that still fits
+    int best = -1, cnt = 0;
+    for (int i = 0; i < n; ++i)
+      if (ncl[i] < most && (best < 0 || rest[i] > rest[best])) best = i;
+    if (best < 0) break;
+    for (int j = 0; j < n; ++j)
+      cnt += p->t[j].layer == p->t[best].layer && p->t[j].p0 == p->t[best].p0;
+    if (given + cnt > K) break;
+    for (int j = 0; j < n; ++j)
+      if (p->t[j].layer == p->t[best].layer && p->t[j].p0 == p->t[best].p0) {
+        ++ncl[j];
+        rest[j] -= 1.0;
+      }
+    given += cnt;
+  }
+  int first = 0, ws = 0, sems = 0;
+  for (int i = 0; i < n; ++i) {
+    DwTile& t = p->t[i];
+    t.nsplit = C * ncl[i];
+    t.first = first;
+    first += t.nsplit;
+    t.ws_off = t.sem_off = 0;
+    if (ncl[i] > 1) {
+      t.ws_off = ws;
+      ws += ncl[i] * t.np * t.nq;
+      t.sem_off = sems;
+      sems += C;
+    }
+  }
+  p->ntiles = n;
+  p->cluster = C;
+  p->blocks = first;
+  p->ws = ws;
+  p->sems = sems;
+  return 0;
 }
 
 }  // namespace
@@ -1282,41 +1843,77 @@ extern "C" int ldq_node_field_bwd(int n_layers, const int* widths,
   return (int)e;
 }
 
-// Splits of the weight-gradient product over R records: enough blocks for
-// two waves of the current device, at least 256 records a split.
-extern "C" int ldq_node_field_dw_splits(int n_layers, const int* widths,
-                                        int R) {
+// The weight-gradient plan for R = B * steps * stages records a replica:
+// blocks of a replica, the cluster size, workspace floats and semaphore
+// ints a replica (see dw_plan). Returns 0, kErrTiles or kErrArgs.
+extern "C" int ldq_node_field_dw_plan(int n_layers, const int* widths, int R,
+                                      int* blocks, int* cluster,
+                                      int* ws_floats, int* sem_ints) {
   Field f;
-  const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
-                             &f);
+  int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr, &f);
   if (rc != 0) return rc;
-  const int wave = sm_count();
-  if (R < 1 || wave < 1) return kErrArgs;
-  const int tiles = dw_tiles(f);
-  int splits = (2 * wave + tiles - 1) / tiles;
-  const int most = (R + 255) / 256;
-  if (splits > most) splits = most;
-  return splits < 1 ? 1 : splits;
+  if (blocks == nullptr || cluster == nullptr || ws_floats == nullptr ||
+      sem_ints == nullptr)
+    return kErrArgs;
+  DwPlan p;
+  rc = dw_plan(f, R, &p);
+  if (rc != 0) return rc;
+  *blocks = p.blocks;
+  *cluster = p.cluster;
+  *ws_floats = p.ws;
+  *sem_ints = p.sems;
+  return 0;
 }
 
-// Weight gradients from the tape and Delta over R = B * steps * stages
-// records: part (splits, packed size), every element of the packed layout
-// written by exactly one block of each split (the padding is not); the
-// caller sums over splits.
+// Weight gradients of S replicas in one launch, from the tape (S, R, tape
+// record) and Delta (S, R, Delta record): out (S, packed size), every
+// element of the packed layout written once (the padding is not). ws: S x
+// the plan's workspace floats (unused when it has none); sem: S x the
+// plan's semaphore ints, zero before the launch and left zero by it.
 extern "C" int ldq_node_field_dw(int n_layers, const int* widths,
                                  const float* tape, const float* delta,
-                                 float* part, int R, int splits,
-                                 void* stream) {
-  if (tape == nullptr || delta == nullptr || part == nullptr || R < 1 ||
-      splits < 1)
+                                 float* out, float* ws, int* sem, int R,
+                                 int S, void* stream) {
+  if (tape == nullptr || delta == nullptr || out == nullptr || R < 1 ||
+      S < 1 || S > 65535)
     return kErrArgs;
   Field f;
-  const int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr,
-                             &f);
+  int rc = build_field(n_layers, widths, nullptr, nullptr, nullptr, &f);
   if (rc != 0) return rc;
-  const int per_split = (R + splits - 1) / splits;
-  node_field_dw_kernel<<<dim3(dw_tiles(f), splits), kDwThreads, 0,
-                         (cudaStream_t)stream>>>(f, tape, delta, part, R,
-                                                 per_split);
+  DwPlan p;
+  rc = dw_plan(f, R, &p);
+  if (rc != 0) return rc;
+  if ((p.ws > 0 && ws == nullptr) || (p.sems > 0 && sem == nullptr))
+    return kErrArgs;
+  cudaError_t e = set_smem(node_field_dw_kernel, kDwSmem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks, 1, S);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = kDwSmem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = p.cluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, node_field_dw_kernel, f, p, tape, delta, out,
+                         ws, sem, R);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#ifdef LDQ_DW_LEVER_STAMPS
+// The timeline of the last launch's first 4096 blocks of replica 0:
+// (block, [start, main loop done, cluster sums done, end]) in ns.
+extern "C" int ldq_node_field_dw_stamps(unsigned long long* host,
+                                        unsigned long long* chunks) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(host, g_dw_stamps, sizeof(g_dw_stamps));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(chunks, g_dw_chunks, sizeof(g_dw_chunks));
+  return (int)e;
+}
+#endif

@@ -6,7 +6,9 @@ neural vector field integrated from the sampled initial state, optional
 state augmentation (reference: src/models/LatentODE.jl).
 
 ``use_kernel_solve`` runs the solve and its gradient as the hand-written
-CUDA kernels of ops/node_cuda.py (one launch each). It needs a fixed-grid
+CUDA kernels of ops/node_cuda.py (one launch each; in a population under
+``torch.func.vmap`` the forward and sweep once a replica, the weight
+gradients once for all). It needs a fixed-grid
 float32 solve and a Chain-of-Dense field and raises otherwise; with the
 switch on, a CUDA tensor runs the kernels and a CPU tensor their plain
 PyTorch versions. The model is float32 end to end.

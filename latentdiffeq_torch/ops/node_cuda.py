@@ -10,10 +10,14 @@ taken it also writes a tape of every layer output of every stage of every
 step. The gradient is one launch of ``node_field_bwd_kernel``, a reverse
 sweep over that tape that runs only the input-gradient products and
 streams out each layer's pre-activation cotangent (Delta), then one launch
-of ``node_field_dw_kernel``, the weight gradients as a tiled product of the
-tape and Delta over all rows, steps and stages (per-split partial sums,
-added here in order). Neither route calls a library matrix product. On CPU
-tensors the same functions run their plain PyTorch versions
+of ``node_field_dw_kernel``, the weight gradients as a product of the tape
+and Delta over all rows, steps and stages on the tensor cores (3xTF32),
+its split sums added inside the kernel in a fixed order. Neither route
+calls a library matrix product. Every function takes a leading replica
+axis too (a population of fields: u0s (S, B, dim), each W (S, in, out)):
+the forward and the sweep launch once a replica, the weight gradients
+once for all (``solve_neural_field`` gets it under ``torch.func.vmap``).
+On CPU tensors the same functions run their plain PyTorch versions
 (``solve_neural_field_taped_reference``,
 ``neural_field_sweep_reference``, ``neural_field_dw_reference``);
 ``solve_neural_field_backward_reference`` is the same recursion
@@ -30,6 +34,7 @@ substeps 1. Tape (64, 49, 6, 432) and Delta (64, 49, 6, 416) floats.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -40,9 +45,11 @@ from ..nn.layers import (Chain, Dense, identity, relu, sigmoid, softplus,
 from ..solve.fixed import fixed_grid_stats, solve_fixed_grid
 from ..solve.rk import AbstractSolver, n_solution_stages, tableau_f32
 from ._build import load_kernel
+from .recurrent_cuda import _stacked
 
 __all__ = ["solve_neural_field", "solve_neural_field_cuda",
            "neural_field_sweep_cuda", "neural_field_dw_cuda",
+           "neural_field_dw_plan",
            "solve_neural_field_backward_cuda",
            "solve_neural_field_reference",
            "solve_neural_field_taped_reference",
@@ -59,6 +66,7 @@ _ERRORS = {
     -2: "the field is too wide: one batch row's state does not fit in a "
         "block's shared memory",
     -3: "invalid argument",
+    -4: "the field is too wide for the weight-gradient kernel's tile table",
 }
 
 
@@ -136,14 +144,44 @@ def tape_layout(widths):
     return hp, off, dp, doff
 
 
+def _replica(field: _Field, s: int) -> _Field:
+    """Replica ``s`` of a field whose tensors carry a leading replica
+    axis."""
+    return field._replace(Ws=[W[s] for W in field.Ws],
+                          bs=[b[s] for b in field.bs])
+
+
+def _stack(outs):
+    """The outputs of several replicas (tensors, or tuples, lists and dicts
+    of them) stacked on a new leading axis."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs]) for k in first}
+    return type(first)(_stack(list(parts)) for parts in zip(*outs))
+
+
+def _over_replicas(fn, field: _Field, *xs):
+    """``fn(replica s of field, xs[0][s], xs[1][s], ...)`` for every
+    replica s, the outputs stacked: the plain versions' replica axis."""
+    return _stack([fn(_replica(field, s), *[x[s] for x in xs])
+                   for s in range(xs[0].shape[0])])
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions.
+# Plain PyTorch versions. Each takes a leading replica axis S too (u0s (S,
+# B, dim), g (S, B, T, dim), tape and Delta (S, B, steps, stages, record),
+# every W (S, in, out) and b (S, out)), replica by replica.
 
 def solve_neural_field_reference(mlp, solver: AbstractSolver, u0s, saveat,
                                  *, substeps: int = 1):
     """The plain forward: the batched `solve_fixed_grid` with the field as
     the parameter. Returns ``(ys (B, T, dim), success (B,), stats)``."""
     field = dense_stack(mlp)
+    if u0s.dim() == 3:
+        return _over_replicas(lambda fd, u: solve_neural_field_reference(
+            fd, solver, u, saveat, substeps=substeps), field, u0s)
 
     def f(u, p, t):
         return _apply_field(field, field.Ws, field.bs, u)
@@ -202,6 +240,9 @@ def solve_neural_field_taped_reference(mlp, solver: AbstractSolver, u0s,
     tape (B, (T-1) * substeps, stages, tape record))``; ys equal the plain
     solve's."""
     field = _detached(dense_stack(mlp))
+    if u0s.dim() == 3:
+        return _over_replicas(lambda fd, u: solve_neural_field_taped_reference(
+            fd, solver, u, saveat, substeps=substeps), field, u0s)
     tab = solver.tableau
     S = n_solution_stages(tab)
     hp, rec, _, _ = tape_layout(field.widths)
@@ -235,6 +276,9 @@ def neural_field_sweep_reference(mlp, solver: AbstractSolver, saveat, tape,
     come from the tape. Returns ``(du0 (B, dim), delta (B, steps, stages,
     Delta record))``."""
     field = _detached(dense_stack(mlp))
+    if g.dim() == 4:
+        return _over_replicas(lambda fd, tp, gg: neural_field_sweep_reference(
+            fd, solver, saveat, tp, gg, substeps=substeps), field, tape, g)
     tab = solver.tableau
     S = n_solution_stages(tab)
     L, w = len(field.Ws), field.widths
@@ -277,6 +321,8 @@ def neural_field_dw_reference(mlp, tape, delta):
     Delta_l and db_l = sum Delta_l over every row, step and stage, H_l
     being layer l's input. Returns ``([dW_l], [db_l])``."""
     field = dense_stack(mlp)
+    if tape.dim() == 5:
+        return _over_replicas(neural_field_dw_reference, field, tape, delta)
     w = field.widths
     hp, rec, dp, drec = tape_layout(w)
     H, D = tape.reshape(-1, rec), delta.reshape(-1, drec)
@@ -363,9 +409,10 @@ def _lib():
         lib.ldq_node_field_bwd.argtypes = (
             [ci, _INTS, _INTS, _PTRS, ci] + [vp] * 7 + [ci] * 4 + [vp])
         lib.ldq_node_field_bwd.restype = ci
-        lib.ldq_node_field_dw_splits.argtypes = [ci, _INTS, ci]
-        lib.ldq_node_field_dw_splits.restype = ci
-        lib.ldq_node_field_dw.argtypes = [ci, _INTS, vp, vp, vp, ci, ci, vp]
+        lib.ldq_node_field_dw_plan.argtypes = [ci, _INTS, ci] + [_INTS] * 4
+        lib.ldq_node_field_dw_plan.restype = ci
+        lib.ldq_node_field_dw.argtypes = ([ci, _INTS] + [vp] * 5
+                                          + [ci, ci, vp])
         lib.ldq_node_field_dw.restype = ci
         if lib.ldq_node_field_max_layers() != MAX_LAYERS:
             raise RuntimeError("csrc/node_field.cu and ops/node_cuda.py "
@@ -436,50 +483,71 @@ def _records(lib, widths):
     return rec.value, drec.value
 
 
-def _tape_shape(tape, B: int, nsteps: int, S: int, rec: int, what: str):
-    if tuple(tape.shape) != (B, nsteps, S, rec):
+def _replica_weights(field: _Field, lead: tuple):
+    """Raises unless the field's tensors carry the replica axis ``lead``
+    (S,) exactly when the data does."""
+    want = (len(lead) + 2, len(lead) + 1)
+    for W, b in zip(field.Ws, field.bs):
+        if (W.dim(), b.dim()) != want or tuple(W.shape[:len(lead)]) != lead \
+                or tuple(b.shape[:len(lead)]) != lead:
+            raise ValueError(f"solve_neural_field: the weights must carry the "
+                             f"data's replica axis {lead}; got W "
+                             f"{tuple(W.shape)}, b {tuple(b.shape)}")
+
+
+def _tape_shape(tape, shape: tuple, what: str):
+    if tuple(tape.shape) != shape:
         raise ValueError(f"solve_neural_field backward: {what} must be "
-                         f"{(B, nsteps, S, rec)}, got {tuple(tape.shape)}")
+                         f"{shape}, got {tuple(tape.shape)}")
 
 
 def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
                             substeps: int = 1, rows_per_block: int = 0,
                             tape: bool = False):
-    """Launch the forward kernel once (no autograd); returns ys (B, T,
-    dim), or ``(ys, tape)`` with ``tape`` (the variant that writes every
-    layer output of every stage: (B, (T-1) * substeps, stages, tape
-    record)). ``rows_per_block`` 0 lets the kernel's host side choose (see
-    `kernel_plan`)."""
+    """Launch the forward kernel (no autograd); returns ys (B, T, dim), or
+    ``(ys, tape)`` with ``tape`` (the variant that writes every layer
+    output of every stage: (B, (T-1) * substeps, stages, tape record)).
+    ``rows_per_block`` 0 lets the kernel's host side choose (see
+    `kernel_plan`). With a replica axis (u0s (S, B, dim), the field's
+    tensors (S, ...)) it launches once a replica, into one output."""
     field = dense_stack(mlp)
     dim = field.widths[0]
     u0s = _f32_cuda("u0s", u0s)
     saveat = _f32_cuda("saveat", saveat, u0s.device)
-    if u0s.dim() != 2 or u0s.shape[1] != dim or saveat.dim() != 1:
-        raise ValueError(f"solve_neural_field: expected u0s (B, {dim}) and "
-                         f"saveat (T,); got {tuple(u0s.shape)}, "
-                         f"{tuple(saveat.shape)}")
+    if (u0s.dim() not in (2, 3) or u0s.shape[-1] != dim
+            or saveat.dim() != 1):
+        raise ValueError(f"solve_neural_field: expected u0s (B, {dim}) or "
+                         f"(S, B, {dim}) and saveat (T,); got "
+                         f"{tuple(u0s.shape)}, {tuple(saveat.shape)}")
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
-    Ws, bs = _prepare(field, u0s.device)
-    B, T = u0s.shape[0], saveat.shape[0]
+    lead = tuple(u0s.shape[:-2])
+    _replica_weights(field, lead)
+    B, T = u0s.shape[-2], saveat.shape[0]
     n_stages, a, b, _ = tableau_f32(solver)
     lib = _lib()
-    ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
+    dev = u0s.device
+    ys = torch.empty(*lead, B, T, dim, device=dev, dtype=torch.float32)
     tp = None
     if tape:
         rec, _ = _records(lib, field.widths)
-        tp = torch.empty(B, (T - 1) * substeps, n_stages, rec,
-                         device=u0s.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(u0s.device).cuda_stream
-    with torch.cuda.device(u0s.device):
-        err = lib.ldq_node_field_fwd(
-            len(Ws), _ints(field.widths), _ints(field.codes), _ptrs(Ws),
-            _ptrs(bs), n_stages, a.data_ptr(), b.data_ptr(),
-            saveat.data_ptr(), u0s.data_ptr(), ys.data_ptr(),
-            None if tp is None else tp.data_ptr(), B, T, substeps,
-            rows_per_block, stream)
-    _check(err, "solve_neural_field (forward)")
-    solve_neural_field_cuda.launches += 1
+        tp = torch.empty(*lead, B, (T - 1) * substeps, n_stages, rec,
+                         device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for s in range(lead[0] if lead else 1):
+        fs, u, y, t = ((_replica(field, s), _f32_cuda("u0s", u0s[s]), ys[s],
+                        None if tp is None else tp[s]) if lead
+                       else (field, u0s, ys, tp))
+        Ws, bs = _prepare(fs, dev)
+        with torch.cuda.device(dev):
+            err = lib.ldq_node_field_fwd(
+                len(Ws), _ints(field.widths), _ints(field.codes), _ptrs(Ws),
+                _ptrs(bs), n_stages, a.data_ptr(), b.data_ptr(),
+                saveat.data_ptr(), u.data_ptr(), y.data_ptr(),
+                None if t is None else t.data_ptr(), B, T, substeps,
+                rows_per_block, stream)
+        _check(err, "solve_neural_field (forward)")
+        solve_neural_field_cuda.launches += 1
     return (ys, tp) if tape else ys
 
 
@@ -488,88 +556,141 @@ solve_neural_field_cuda.launches = 0
 
 def neural_field_sweep_cuda(mlp, solver: AbstractSolver, saveat, tape, g, *,
                             substeps: int = 1, rows_per_block: int = 0):
-    """Launch the sweep kernel once over the forward's ``tape`` with the
+    """Launch the sweep kernel over the forward's ``tape`` with the
     cotangent ``g`` (B, T, dim) of ys. Returns ``(du0 (B, dim), delta (B,
-    steps, stages, Delta record))``."""
+    steps, stages, Delta record))``. With a replica axis (g (S, B, T, dim),
+    the tape and the field's tensors with a leading S) it launches once a
+    replica, into one output."""
     field = dense_stack(mlp)
     dim = field.widths[0]
     g = _f32_cuda("g", g)
     dev = g.device
     tape = _f32_cuda("tape", tape, dev)
     saveat = _f32_cuda("saveat", saveat, dev)
-    if g.dim() != 3 or g.shape[2] != dim or saveat.shape != (g.shape[1],):
+    if (g.dim() not in (3, 4) or g.shape[-1] != dim
+            or saveat.shape != (g.shape[-2],)):
         raise ValueError(f"solve_neural_field backward: expected g (B, T, "
-                         f"{dim}) and saveat (T,); got {tuple(g.shape)}, "
-                         f"{tuple(saveat.shape)}")
+                         f"{dim}) or (S, B, T, {dim}) and saveat (T,); got "
+                         f"{tuple(g.shape)}, {tuple(saveat.shape)}")
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
-    B, T = g.shape[0], g.shape[1]
+    lead = tuple(g.shape[:-3])
+    _replica_weights(field, lead)
+    B, T = g.shape[-3], g.shape[-2]
     n_stages, a, b, _ = tableau_f32(solver)
     lib = _lib()
     rec, drec = _records(lib, field.widths)
     nsteps = (T - 1) * substeps
-    _tape_shape(tape, B, nsteps, n_stages, rec, "the tape")
-    Wts = [W.t().contiguous() for W in _prepare(field, dev)[0]]
-    du0 = torch.empty(B, dim, device=dev, dtype=torch.float32)
-    delta = torch.empty(B, nsteps, n_stages, drec, device=dev,
+    _tape_shape(tape, lead + (B, nsteps, n_stages, rec), "the tape")
+    du0 = torch.empty(*lead, B, dim, device=dev, dtype=torch.float32)
+    delta = torch.empty(*lead, B, nsteps, n_stages, drec, device=dev,
                         dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ldq_node_field_bwd(
-            len(Wts), _ints(field.widths), _ints(field.codes), _ptrs(Wts),
-            n_stages, a.data_ptr(), b.data_ptr(), saveat.data_ptr(),
-            tape.data_ptr(), g.data_ptr(), du0.data_ptr(), delta.data_ptr(),
-            B, T, substeps, rows_per_block, stream)
-    _check(err, "solve_neural_field (backward sweep)")
-    neural_field_sweep_cuda.launches += 1
+    for s in range(lead[0] if lead else 1):
+        fs, gs, ts, du, dl = ((_replica(field, s), _f32_cuda("g", g[s]),
+                               tape[s], du0[s], delta[s]) if lead
+                              else (field, g, tape, du0, delta))
+        Wts = [W.t().contiguous() for W in _prepare(fs, dev)[0]]
+        with torch.cuda.device(dev):
+            err = lib.ldq_node_field_bwd(
+                len(Wts), _ints(field.widths), _ints(field.codes),
+                _ptrs(Wts), n_stages, a.data_ptr(), b.data_ptr(),
+                saveat.data_ptr(), ts.data_ptr(), gs.data_ptr(),
+                du.data_ptr(), dl.data_ptr(), B, T, substeps,
+                rows_per_block, stream)
+        _check(err, "solve_neural_field (backward sweep)")
+        neural_field_sweep_cuda.launches += 1
     return du0, delta
 
 
 neural_field_sweep_cuda.launches = 0
 
+# Integer semaphores of the weight-gradient kernel by (device, stream):
+# zeroed once, left zero by every launch (csrc/node_field.cu,
+# node_field_dw_kernel), so each call allocates nothing it must clear.
+_DW_SEMS = {}
+
+
+def _dw_semaphores(dev, stream: int, n: int):
+    key = (dev, stream)
+    sem = _DW_SEMS.get(key)
+    if sem is None or sem.numel() < n:
+        sem = torch.zeros(max(n, 1024), device=dev, dtype=torch.int32)
+        _DW_SEMS[key] = sem
+    return sem
+
+
+def neural_field_dw_plan(widths, records: int):
+    """``(blocks a replica, cluster size, workspace floats a replica,
+    semaphores a replica)`` of the weight-gradient kernel for ``records``
+    = B x steps x stages on the current CUDA device. Raises ValueError for
+    a field it cannot take."""
+    return _dw_plan(tuple(widths), records, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=64)
+def _dw_plan(widths: tuple, records: int, device: int):
+    outs = [ctypes.c_int(0) for _ in range(4)]
+    _check(_lib().ldq_node_field_dw_plan(
+        len(widths) - 1, _ints(widths), records,
+        *[ctypes.byref(o) for o in outs]),
+        "solve_neural_field (weight gradients)")
+    return tuple(o.value for o in outs)
+
 
 def neural_field_dw_cuda(mlp, tape, delta):
     """Launch the weight-gradient kernel once: dW_l = H_l^T Delta_l, db_l =
     sum Delta_l over every row, step and stage of ``tape`` and ``delta``
-    (as the forward and the sweep wrote them). The kernel's per-split
-    partial sums are added here, in split order. Returns ``([dW_l],
-    [db_l])``."""
+    (as the forward and the sweep wrote them), the split sums added inside
+    the kernel in a fixed order. With a replica axis (tape and delta (S, B,
+    steps, stages, record)) one launch takes every replica, each as its own
+    launch would. Returns ``([dW_l], [db_l])``, each (S, ...) with the
+    replica axis."""
     field = dense_stack(mlp)
     dev = tape.device
     tape = _f32_cuda("tape", tape, dev)
     delta = _f32_cuda("delta", delta, dev)
     lib = _lib()
     rec, drec = _records(lib, field.widths)
-    B, nsteps, S = tape.shape[:3]
-    _tape_shape(tape, B, nsteps, S, rec, "the tape")
-    _tape_shape(delta, B, nsteps, S, drec, "delta")
+    if tape.dim() not in (4, 5):
+        raise ValueError(f"solve_neural_field backward: the tape must be "
+                         f"(B, steps, stages, {rec}) or (S, B, steps, "
+                         f"stages, {rec}), got {tuple(tape.shape)}")
+    lead = tuple(tape.shape[:-4])
+    B, nsteps, S = tape.shape[-4:-1]
+    _tape_shape(tape, lead + (B, nsteps, S, rec), "the tape")
+    _tape_shape(delta, lead + (B, nsteps, S, drec), "delta")
     widths = _ints(field.widths)
     L = len(field.Ws)
     total = lib.ldq_node_field_packed_size(L, widths)
+    n_rep = lead[0] if lead else 1
     R = B * nsteps * S
-    if R == 0:       # a single save point: no step, no gradient
-        flat = torch.zeros(total, device=dev, dtype=torch.float32)
+    if R == 0 or n_rep == 0:   # a single save point: no step, no gradient
+        flat = torch.zeros(n_rep, total, device=dev, dtype=torch.float32)
     else:
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            splits = lib.ldq_node_field_dw_splits(L, widths, R)
-            _check(min(splits, 0), "solve_neural_field (weight gradients)")
-            part = torch.empty(splits, total, device=dev,
-                               dtype=torch.float32)
+            _, _, ws_n, sem_n = neural_field_dw_plan(field.widths, R)
+            flat = torch.empty(n_rep, total, device=dev, dtype=torch.float32)
+            ws = (torch.empty(n_rep * ws_n, device=dev, dtype=torch.float32)
+                  if ws_n else None)
+            sem = _dw_semaphores(dev, stream, n_rep * sem_n) if sem_n else None
             err = lib.ldq_node_field_dw(
                 L, widths, tape.data_ptr(), delta.data_ptr(),
-                part.data_ptr(), R, splits,
-                torch.cuda.current_stream(dev).cuda_stream)
+                flat.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if sem is None else sem.data_ptr(), R, n_rep, stream)
         _check(err, "solve_neural_field (weight gradients)")
         neural_field_dw_cuda.launches += 1
-        flat = part.sum(dim=0)
     # the packed layout [W_0, b_0, W_1, b_1, ...], each piece padded to a
     # multiple of 4 floats
     dWs, dbs, off = [], [], 0
-    for W, bias in zip(field.Ws, field.bs):
-        dWs.append(flat[off:off + W.numel()].view(W.shape))
-        off += _pad4(W.numel())
-        dbs.append(flat[off:off + bias.numel()])
-        off += _pad4(bias.numel())
+    for W, bias in zip(field.widths[:-1], field.widths[1:]):
+        dW = flat[:, off:off + W * bias].view(n_rep, W, bias)
+        off += _pad4(W * bias)
+        db = flat[:, off:off + bias]
+        off += _pad4(bias)
+        dWs.append(dW if lead else dW[0])
+        dbs.append(db if lead else db[0])
     if off != total:
         raise RuntimeError(f"solve_neural_field backward: the kernel's "
                            f"packed layout holds {total} floats, the "
@@ -598,14 +719,24 @@ def solve_neural_field_backward_cuda(mlp, solver: AbstractSolver, saveat,
 # The differentiable entry point.
 
 class _NodeSolveFn(torch.autograd.Function):
-    """ys = solve(u0s; W_0, b_0, ...). The kernels for CUDA tensors, the
-    plain versions for CPU tensors; gradients come back in input order.
-    With ``keep_tape`` (a gradient will be taken) and the kernel backward,
-    the forward keeps the tape for the sweep."""
+    """(ys, tape) = solve(u0s; W_0, b_0, ...), for one field (u0s (B,
+    dim)) or S of them (u0s and every W, b with a leading replica axis).
+    The kernels for CUDA tensors, the plain versions for CPU tensors;
+    gradients come back in input order. With ``keep_tape`` (a gradient
+    will be taken) and the kernel backward, the forward keeps the tape for
+    the sweep; the tape is an output that takes no gradient. ``field``
+    carries the widths and activations, not the tensors.
+
+    Under ``torch.func.vmap`` over replicas (train/multiseed.py) the
+    ``vmap`` rule moves every replica axis to the front and applies the
+    function once to the whole population: the forward and the sweep
+    launch once a replica, the weight-gradient kernel once for all. The
+    tape is decided there, on the unbatched tensors (inside the transform
+    the batched ones report no ``requires_grad``)."""
 
     @staticmethod
-    def forward(ctx, field, solver, substeps, backward, keep_tape, u0s,
-                saveat, *wb):
+    def forward(field, solver, substeps, backward, keep_tape, u0s, saveat,
+                *wb):
         live = field._replace(Ws=list(wb[0::2]), bs=list(wb[1::2]))
         taped = keep_tape and backward == "kernel"
         tape = None
@@ -617,20 +748,31 @@ class _NodeSolveFn(torch.autograd.Function):
             ys, tape = solve_neural_field_taped_reference(
                 live, solver, u0s, saveat, substeps=substeps)
         else:
-            ys = solve_neural_field_reference(live, solver, u0s, saveat,
-                                              substeps=substeps)[0]
+            with torch.no_grad():
+                ys = solve_neural_field_reference(
+                    live, solver, u0s, saveat, substeps=substeps)[0]
+        if tape is None:
+            tape = u0s.new_zeros(u0s.shape[:-2] + (0,))
+        return ys, tape
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        field, solver, substeps, backward, _, u0s, saveat, *wb = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
         ctx.spec = (field, solver, substeps, backward)
-        ctx.save_for_backward(u0s, saveat, tape, *wb)
-        return ys
+        ctx.save_for_backward(u0s, saveat, output[1], *wb)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, g, _g_tape):
         field, solver, substeps, backward = ctx.spec
         u0s, saveat, tape, *wb = ctx.saved_tensors
         live = field._replace(Ws=list(wb[0::2]), bs=list(wb[1::2]))
+        if g is None:
+            return (None,) * (7 + len(wb))
         if backward == "kernel":
-            if tape is None:
+            if tape.shape[-1] == 0:
                 raise RuntimeError("solve_neural_field: the forward ran "
                                    "without a gradient and kept no tape")
             if tape.is_cuda:
@@ -641,20 +783,48 @@ class _NodeSolveFn(torch.autograd.Function):
                 du0, delta = neural_field_sweep_reference(
                     live, solver, saveat, tape, g, substeps=substeps)
                 dWs, dbs = neural_field_dw_reference(live, tape, delta)
+        elif u0s.dim() == 3:
+            du0, dWs, dbs = _over_replicas(
+                lambda fd, u, gg: _autograd_backward(fd, solver, u, saveat,
+                                                     gg, substeps),
+                live, u0s, g)
         else:
-            # recompute the plain solve and differentiate it with autograd
-            u0_ = u0s.detach().requires_grad_()
-            Ws = [W.detach().requires_grad_() for W in live.Ws]
-            bs = [b.detach().requires_grad_() for b in live.bs]
-            with torch.enable_grad():
-                ys_ = solve_neural_field_reference(
-                    live._replace(Ws=Ws, bs=bs), solver, u0_,
-                    saveat.detach(), substeps=substeps)[0]
-            grads = torch.autograd.grad(ys_, [u0_] + Ws + bs, g)
-            L = len(Ws)
-            du0, dWs, dbs = grads[0], grads[1:1 + L], grads[1 + L:]
+            du0, dWs, dbs = _autograd_backward(live, solver, u0s, saveat, g,
+                                               substeps)
         dwb = [d for pair in zip(dWs, dbs) for d in pair]
         return (None, None, None, None, None, du0, None, *dwb)
+
+    @staticmethod
+    def vmap(info, in_dims, field, solver, substeps, backward, keep_tape,
+             u0s, saveat, *wb):
+        if in_dims[6] is not None:
+            raise ValueError("solve_neural_field: replicas share one saveat "
+                             "grid; got a grid per replica")
+        S = info.batch_size
+        u0s = _stacked(u0s, in_dims[5], S)
+        if u0s.dim() != 3:
+            raise ValueError("solve_neural_field: one replica axis is "
+                             "supported")
+        wb = [_stacked(t, d, S) for t, d in zip(wb, in_dims[7:])]
+        keep = torch.is_grad_enabled() and any(
+            t.requires_grad for t in [u0s] + wb)
+        return (_NodeSolveFn.apply(field, solver, substeps, backward, keep,
+                                   u0s, saveat, *wb), (0, 0))
+
+
+def _autograd_backward(field: _Field, solver, u0s, saveat, g, substeps):
+    """``backward="autograd"``: recompute the plain solve and differentiate
+    it with autograd. Returns ``(du0, [dW_l], [db_l])``."""
+    u0_ = u0s.detach().requires_grad_()
+    Ws = [W.detach().requires_grad_() for W in field.Ws]
+    bs = [b.detach().requires_grad_() for b in field.bs]
+    with torch.enable_grad():
+        ys_ = solve_neural_field_reference(
+            field._replace(Ws=Ws, bs=bs), solver, u0_, saveat.detach(),
+            substeps=substeps)[0]
+    grads = torch.autograd.grad(ys_, [u0_] + Ws + bs, g)
+    L = len(Ws)
+    return grads[0], list(grads[1:1 + L]), list(grads[1 + L:])
 
 
 def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
@@ -667,7 +837,12 @@ def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
     ``backward``: "kernel" keeps the forward's tape and takes the gradient
     with the reverse sweep and the weight-gradient product over it (the
     kernels on the card, their plain versions on the CPU); "autograd"
-    recomputes the plain solve and differentiates it with autograd."""
+    recomputes the plain solve and differentiates it with autograd.
+
+    Under ``torch.func.vmap`` over the field's weights (a population of
+    fields, train/multiseed.py) the forward and the sweep launch once a
+    replica and the weight-gradient kernel once for all replicas; the
+    replicas share ``saveat``."""
     if backward not in ("kernel", "autograd"):
         raise ValueError(f"backward must be 'kernel' or 'autograd': "
                          f"{backward!r}")
@@ -675,8 +850,9 @@ def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
     wb = [t for pair in zip(field.Ws, field.bs) for t in pair]
     keep_tape = torch.is_grad_enabled() and any(
         t.requires_grad for t in [u0s] + wb)
-    ys = _NodeSolveFn.apply(field, solver, substeps, backward, keep_tape,
-                            u0s, saveat, *wb)
+    ys, _ = _NodeSolveFn.apply(field._replace(Ws=None, bs=None), solver,
+                               substeps, backward, keep_tape, u0s, saveat,
+                               *wb)
     success = torch.isfinite(ys).all(dim=2).all(dim=1)
     stats = fixed_grid_stats((u0s.shape[0],), saveat.shape[0] - 1, substeps,
                              tableau_f32(solver)[0], device=u0s.device)

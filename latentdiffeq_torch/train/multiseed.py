@@ -12,7 +12,8 @@ program does: the replicas' tensors are stacked on a leading axis
 the replica losses. Flux ADAMW is elementwise, so one optimizer updates the
 stacked tensors. Under the vmap each CUDA kernel of the step launches once
 for all replicas (ops/recurrent_cuda.py and ops/ode_cuda.py carry the vmap
-rules).
+rules), except the neural-field solve's forward and sweep, which launch
+once a replica (its weight gradients once for all; ops/node_cuda.py).
 
 Randomness is drawn per replica, outside the vmap, from the streams a solo
 ``Trainer(model_init_fn(s), replace(cfg, seed=s))`` would use: a numpy

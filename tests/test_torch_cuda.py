@@ -1068,6 +1068,139 @@ def test_latent_ode_kernel_path_matches_plain_path_on_card(dev):
         assert rel(a, b) <= 1e-4
 
 
+# The weight-gradient kernel (node_field_dw_kernel): 3xTF32 on the tensor
+# cores, split-K added inside the kernel in a fixed order, a replica axis.
+
+DW_CASES = [("train", (16, 200, 200, 16), 64, 50),
+            ("wide", (128, 256, 256, 128), 256, 50),
+            ("ragged", (16, 200, 200, 16), 37, 21)]
+
+
+def tape_and_delta(dev, widths, B, T, seed):
+    """A real tape and Delta at a shape: the forward and sweep kernels on
+    a tanh field."""
+    s = trk.Tsit5()
+    m = field_on(dev, widths, tnn.tanh, seed=seed)
+    u0s, saveat, w = field_inputs(dev, widths, B, T, seed=seed + 1)
+    with torch.no_grad():
+        _, tape = node_cuda.solve_neural_field_cuda(m, s, u0s, saveat,
+                                                    tape=True)
+    _, delta = node_cuda.neural_field_sweep_cuda(m, s, saveat, tape, w)
+    return m, tape, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,widths,B,T", DW_CASES,
+                         ids=[c[0] for c in DW_CASES])
+def test_node_field_dw_matches_plain_on_card(dev, label, widths, B, T):
+    """The weight gradients against the plain product on the same tape and
+    Delta, 1e-5 of each tensor's size; one launch; two calls bit for bit."""
+    m, tape, delta = tape_and_delta(dev, widths, B, T, seed=7)
+    n0 = node_cuda.neural_field_dw_cuda.launches
+    dWk, dbk = node_cuda.neural_field_dw_cuda(m, tape, delta)
+    assert node_cuda.neural_field_dw_cuda.launches == n0 + 1
+    dWr, dbr = node_cuda.neural_field_dw_reference(m, tape, delta)
+    for a, b in zip(dWk + dbk, dWr + dbr):
+        assert a.shape == b.shape
+        assert rel(a, b) <= 1e-5
+    again = node_cuda.neural_field_dw_cuda(m, tape, delta)
+    assert all(torch.equal(a, b) for a, b in zip(dWk + dbk,
+                                                 again[0] + again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,widths,B,T", DW_CASES[::2],
+                         ids=[c[0] for c in DW_CASES[::2]])
+def test_node_field_dw_replica_axis_bit_for_bit_on_card(dev, label, widths,
+                                                        B, T):
+    """Four replicas' tapes in one launch: each replica bit for bit its own
+    launch (the split plan does not depend on the replicas), and within
+    1e-5 of each tensor's size of the plain product with the replica
+    axis."""
+    parts = [tape_and_delta(dev, widths, B, T, seed=20 + 2 * i)
+             for i in range(4)]
+    tape = torch.stack([p[1] for p in parts])
+    delta = torch.stack([p[2] for p in parts])
+    n0 = node_cuda.neural_field_dw_cuda.launches
+    dWs, dbs = node_cuda.neural_field_dw_cuda(parts[0][0], tape, delta)
+    assert node_cuda.neural_field_dw_cuda.launches == n0 + 1
+    assert dWs[1].shape == (4, widths[1], widths[2])
+    for i, (m, tp, dl) in enumerate(parts):
+        solo = node_cuda.neural_field_dw_cuda(m, tp, dl)
+        assert all(torch.equal(a[i], b) for a, b in zip(dWs + dbs,
+                                                        solo[0] + solo[1]))
+    ref = node_cuda.neural_field_dw_reference(parts[0][0], tape, delta)
+    for a, b in zip(dWs + dbs, ref[0] + ref[1]):
+        for i in range(4):
+            assert rel(a[i], b[i]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_node_field_dw_refuses_a_field_too_wide_for_its_tiles_on_card(dev):
+    """A field whose tiles overflow the kernel's table raises ValueError and
+    launches nothing."""
+    widths = (4096, 4096, 4096)
+    m = tnn.mlp(widths, tnn.relu, tnn.identity).to(dev)
+    rec, drec = node_cuda.tape_layout(widths)[1::2]
+    tape = torch.zeros(1, 1, 1, rec, device=dev)
+    delta = torch.zeros(1, 1, 1, drec, device=dev)
+    n0 = node_cuda.neural_field_dw_cuda.launches
+    with pytest.raises(ValueError, match="too wide"):
+        node_cuda.neural_field_dw_cuda(m, tape, delta)
+    with pytest.raises(ValueError, match="too wide"):
+        node_cuda.neural_field_dw_plan(widths, 1)
+    assert node_cuda.neural_field_dw_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_latent_ode_population_launches_on_card(dev):
+    """A 3-seed LatentODE(use_kernel_solve=True) population: a train step
+    launches the forward and the sweep once a replica and the weight
+    gradients once for all; a validation pass the forward once a replica;
+    losses and gradients against the same population on the plain route
+    (1e-4 of each gradient's size)."""
+    from latentdiffeq_torch.train import MultiSeedTrainer, TrainConfig
+
+    def build(kernels):
+        def init(seed):
+            g = torch.Generator().manual_seed(seed)
+            node = NODE(4, hidden_dim=32, generator=g, device=dev,
+                        options=SolveOptions(adaptive=False, substeps=1))
+            mt = LatentODE(use_kernel_solve=kernels)
+            return LatentDiffEqModel.build(mt, *default_layers(
+                mt, 24, node, hidden_dim_resnet=16, rnn_input_dim=8,
+                rnn_output_dim=8, generator=g, device=dev))
+        return MultiSeedTrainer(init, TrainConfig(batch_size=6, seq_len=10,
+                                                  save_best=False),
+                                [1, 2, 3], device=dev)
+
+    g = torch.Generator().manual_seed(8)
+    xs = torch.rand(3, 6, 10, 24, generator=g).to(dev)
+    eps = torch.randn(3, 6, 4, generator=g).to(dev)
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda,
+                node_cuda.neural_field_dw_cuda)
+    out = []
+    for kernels in (True, False):
+        ms = build(kernels)
+        before = [fn.launches for fn in counters]
+        m = ms.train_step(xs, 0.5, eps=eps)
+        steps = [fn.launches - n for fn, n in zip(counters, before)]
+        with torch.no_grad():
+            ms.val_step(xs[0], 0.5)
+        vals = [fn.launches - n for fn, n in zip(counters, before)]
+        if kernels:
+            assert steps == [3, 3, 1] and vals == [6, 3, 1]
+        else:
+            assert steps == [0, 0, 0] and vals == [0, 0, 0]
+        out.append((m["loss"], [p.grad for p in ms.params.values()]))
+    (lk, gk), (lp, gp) = out
+    assert float((lk - lp).abs().max()) <= 1e-4 * max(
+        float(lp.abs().max()), 1.0)
+    for a, b in zip(gk, gp):
+        assert rel(a, b) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # GOKU on the stochastic pendulum: the goku_heads kernels, the SDE solve in
 # plain PyTorch.
