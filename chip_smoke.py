@@ -94,7 +94,18 @@ Phases, each printing one line (any failure exits non-zero):
               node_field_fwd 2S times, node_field_bwd S times and
               node_field_dw once, no plain version runs, replica 1 against
               a solo Trainer of seed 2 (rtol 2e-4), the population's and
-              the solo step's times and device ops;
+              the solo step's times and device ops; then (4j) the training
+              CLIs through their main(argv), the pendulum cache seeded
+              with this phase's video: train_goku.py --epochs 2 with its
+              figures, a 3-epoch run interrupted after 2 and resumed by
+              --resume against 3 epochs straight (weights within 1e-4,
+              and whether bit for bit), --seeds 2 --masked --select-by
+              pixel --warm-start --warm-steps 20, --dtype bf16,
+              train_latent_ode.py --pallas-solve, train_vdp.py,
+              train_kuramoto.py, forecast.py and train_original_data.py
+              on a small npz in chiprun_out/: each run's launches exactly
+              as expected, no plain call, finite losses, its steady epoch
+              seconds;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -103,8 +114,8 @@ Phases, each printing one line (any failure exits non-zero):
               RK solve (pendulum, Van der Pol, Kuramoto-10) by the kernel
               route and by plain autograd, and of
               the heads by cuDNN (torch.nn.RNN + 2 torch.nn.LSTM forward,
-              and forward + backward, goku_heads' yardstick; the port
-              never calls them); the same for the bf16 instances (cuDNN in
+              backward alone and forward + backward, goku_heads' and
+              goku_heads_bwd's yardsticks; the port never calls them); the same for the bf16 instances (cuDNN in
               bf16, bytes at 2 an element); the replica-axis heads kernels
               at S 8 beside 8 solo launches and the vmapped plain version,
               in float32 and bf16; the
@@ -1865,12 +1876,21 @@ def goku_timing(heads, gen, clock, dev):
         with torch.no_grad():
             lib_f = time_ms(three)
         lib_fb = time_ms(three_grad)
+        # cuDNN's backward alone (goku_heads_bwd's yardstick): the graph of
+        # one forward kept, autograd's backward through it timed
+        hz = mods[0](xrl, s_z)[1]
+        hf = mods[1](xl, s_f)[1][0]
+        hb = mods[2](xrl, s_b)[1][0]
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            (hz[-1], hf[-1], hb[-1]), [xl, xrl] + mod_params,
+            (gz, gt[:, :H], gt[:, H:]), retain_graph=True))
         log("timing", f"goku_heads{tag} {label} yardstick: torch.nn.RNN "
                       f"(relu) + 2 torch.nn.LSTM, {L} layers each, {dtype}, "
                       f"cuDNN {torch.backends.cudnn.version()}: forward "
-                      f"{lib_f:.4f} ms, forward + backward {lib_fb:.4f} ms "
-                      f"for the three (vs the plain version max abs err "
-                      f"{e:.3e}, tol {e_tol:.1e})")
+                      f"{lib_f:.4f} ms, backward alone {lib_b:.4f} ms, "
+                      f"forward + backward {lib_fb:.4f} ms for the three "
+                      f"(vs the plain version max abs err {e:.3e}, tol "
+                      f"{e_tol:.1e})")
         k_route = time_ms(lambda: route(rc.goku_heads))
         p_route = time_ms(lambda: route(rc.goku_heads_reference), reps=3,
                           warmup=1)
@@ -1905,7 +1925,7 @@ def goku_timing(heads, gen, clock, dev):
                 lambda: rc.goku_heads_sweep_reference(*heads, tape, gz, gt),
                 "goku_heads_bwd_kernel", heads_bwd_work(B, T, 32, H, L,
                                                         elem=elem),
-                heads_bwd_latency_ms(T, L, H, clock), None),
+                heads_bwd_latency_ms(T, L, H, clock), lib_b),
         }
         with torch.no_grad():
             for name, (kernel, plain, kname, work, lat, lib) in calls.items():
@@ -3280,6 +3300,240 @@ def bf16_solo_path(train_set, val_set, dev, gpu):
             x, beta)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4j: the training CLIs (latentdiffeq_torch/examples/), each script's
+# main(argv) called in this process so that the launch counters can be read;
+# outputs under build/cli_smoke/ (the pendulum cache seeded with phase 4's
+# video: it is not generated twice).
+
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "cli_smoke")
+
+
+def cli_counts():
+    """Every kernel counter and the plain versions' calls, the RK
+    launchers' as {instance family: launches}."""
+    from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
+    fam = {}
+    for key, fn in (("rk_fixed_grid", ode_cuda.solve_fixed_grid_batched_cuda),
+                    ("rk_fixed_grid_bwd",
+                     ode_cuda.solve_fixed_grid_batched_bwd_cuda)):
+        for inst, n in fn.launches.items():
+            f = ("pendulum" if inst.startswith("pendulum") else
+                 "kuramoto10" if inst.startswith("kuramoto") else inst)
+            fam[f"{key}[{f}]"] = fam.get(f"{key}[{f}]", 0) + n
+    fam.update({
+        "goku_heads": recurrent_cuda.goku_heads_cuda.launches,
+        "goku_heads_bwd": recurrent_cuda.goku_heads_bwd_cuda.launches,
+        "goku_heads[bf16]": recurrent_cuda.goku_heads_cuda.bf16_launches,
+        "goku_heads_bwd[bf16]":
+            recurrent_cuda.goku_heads_bwd_cuda.bf16_launches,
+        "node_field_fwd": node_cuda.solve_neural_field_cuda.launches,
+        "node_field_bwd": node_cuda.neural_field_sweep_cuda.launches,
+        "node_field_dw": node_cuda.neural_field_dw_cuda.launches})
+    return {k: v for k, v in fam.items() if v}
+
+
+def cli_run(what, mod, argv, want, gpu):
+    """``mod.main(argv)`` with every counter at 0: the launches must equal
+    ``want`` (kernel counts not named there 0), no plain version may run
+    and every loss must be finite. Returns (result, steady epoch s)."""
+    import numpy as np
+
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    reset_counts()
+    t0 = time.perf_counter()
+    with plain_node_calls() as plain:
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = cli_counts()
+    plain_calls = [recurrent_cuda.goku_heads_reference.calls,
+                   ode_cuda.solve_fixed_grid_batched_reference.calls,
+                   plain.n]
+    hist = getattr(res, "history", None) or []
+    for rec in hist:
+        if not (np.isfinite(rec["train_loss"]).all()
+                and np.isfinite(rec["val_loss"]).all()):
+            fail(f"{what}: non-finite loss in epoch {rec['epoch']}")
+    epoch_s = hist[-1]["epoch_s"] if hist else float("nan")
+    log("cli", f"{what}: {' '.join(argv)}; {len(hist)} epochs in {wall:.3f} "
+               f"s, steady epoch {epoch_s:.4f} s; last train loss "
+               f"{np.round(hist[-1]['train_loss'], 6) if hist else None} val "
+               f"{np.round(hist[-1]['val_loss'], 6) if hist else None}; "
+               f"launches {got} (expected {want}); plain calls {plain_calls} "
+               f"(expected [0, 0, 0]); card {gpu}")
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    if plain_calls != [0, 0, 0]:
+        fail(f"{what}: the plain version ran: {plain_calls}")
+    return res, epoch_s
+
+
+def cli_path(video, dev, gpu):
+    """Phase 4j: the port's training CLIs on the card through their
+    ``main(argv)``: train_goku.py (2 epochs with its figures; a run
+    interrupted after 2 of 3 epochs and resumed from its checkpoint by
+    --resume against the uninterrupted 3 epochs, within PATH_TOL; the
+    population recipe --seeds 2 --masked --select-by pixel --warm-start
+    --warm-steps 20; --dtype bf16), train_latent_ode.py --pallas-solve,
+    train_vdp.py, train_kuramoto.py, forecast.py on the checkpoint just
+    written and train_original_data.py on a small npz of the documented
+    shape. Each run's kernel launches exactly as expected, no plain
+    version, finite losses; its steady epoch seconds. Returns {run: steady
+    epoch s}."""
+    import shutil
+
+    import numpy as np
+
+    from latentdiffeq_torch.examples.custom_dynamics import (
+        train_kuramoto, train_vdp)
+    from latentdiffeq_torch.examples.pendulum import (
+        create_data, forecast, train_goku, train_latent_ode,
+        train_original_data)
+    from latentdiffeq_torch.train import Trainer, load_checkpoint
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    create_data.DATA_DIR = os.path.join(CLI_DIR, "data")
+    t0 = time.perf_counter()
+    create_data.write_cache(
+        os.path.join(create_data.DATA_DIR, create_data.DEFAULT_FILE), video,
+        create_data.cache_key(device=dev))
+
+    def no_generation(**kw):
+        fail("the CLI phase regenerated the pendulum video")
+
+    create_data.generate_dataset = no_generation
+    log("cli", f"pendulum cache seeded with phase 4's video in "
+               f"{time.perf_counter() - t0:.3f} s "
+               f"({create_data.DATA_DIR})")
+    steps = 405 // 64
+    times = {}
+
+    def out(mod, name):
+        mod.OUTPUT_DIR = os.path.join(CLI_DIR, name)
+        return mod.OUTPUT_DIR
+
+    def goku(fwd, bwd, rk_fwd, rk_bwd, bf16=False, rk="pendulum"):
+        w = {"goku_heads": fwd, "goku_heads_bwd": bwd,
+             f"rk_fixed_grid[{rk}]": rk_fwd,
+             f"rk_fixed_grid_bwd[{rk}]": rk_bwd}
+        if bf16:
+            w.update({"goku_heads[bf16]": fwd, "goku_heads_bwd[bf16]": bwd})
+        return w
+
+    # train_goku.py, 2 epochs with its figures (JAX's block ends: epoch 1):
+    # a step launches the heads and the RK solve forward and backward, a
+    # validation pass and the figure each forward
+    d = out(train_goku, "goku")
+    tr, times["train_goku"] = cli_run(
+        "train_goku", train_goku, ["--epochs", "2"],
+        goku(4 * steps + 1, 2 * steps, 4 * steps + 1, 2 * steps), gpu)
+    fig = os.path.join(d, "visualization", "fig_1.png")
+    ckpt = os.path.join(d, "best_model.npz")
+    if not (os.path.exists(fig) and os.path.exists(ckpt)):
+        fail(f"train_goku wrote no {fig} or {ckpt}")
+    log("cli", f"train_goku wrote {ckpt} and {fig} "
+               f"({os.path.getsize(fig)} bytes)")
+
+    # --resume: 3 epochs straight against a 3-epoch run interrupted after 2
+    # (the KL schedule spans --epochs) and resumed from its checkpoint
+    out(train_goku, "goku3")
+    full, _ = cli_run("train_goku 3 epochs", train_goku,
+                      ["--epochs", "3", "--no-viz"],
+                      goku(6 * steps, 3 * steps, 6 * steps, 3 * steps), gpu)
+
+    class Interrupted(Trainer):
+        def fit(self, *args, **kw):
+            return super().fit(*args, epochs=2, **kw)
+
+    d_int = out(train_goku, "goku_interrupted")
+    train_goku.Trainer = Interrupted
+    try:
+        cli_run("train_goku interrupted after 2 of 3 epochs", train_goku,
+                ["--epochs", "3", "--no-viz"],
+                goku(4 * steps, 2 * steps, 4 * steps, 2 * steps), gpu)
+    finally:
+        train_goku.Trainer = Trainer
+    mid = os.path.join(d_int, "best_model.npz")
+    e0 = int(load_checkpoint(mid, copy.deepcopy(full.model))["epoch"])
+    out(train_goku, "goku_resumed")
+    back, _ = cli_run(
+        "train_goku --resume", train_goku,
+        ["--epochs", "3", "--no-viz", "--resume", mid],
+        goku(2 * steps * (3 - e0), steps * (3 - e0),
+             2 * steps * (3 - e0), steps * (3 - e0)), gpu)
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(full.model.state_dict().values(),
+                   back.model.state_dict().values()))
+    log("cli", f"--resume from the checkpoint of epoch {e0} to epoch 3 "
+               f"against 3 epochs straight: weights max |difference| "
+               f"{diff:.3e} (gate {PATH_TOL:.0e}); "
+               f"{'bit for bit' if diff == 0 else 'not bit for bit'}")
+    if not diff <= PATH_TOL:
+        fail(f"--resume: weights {diff} from the uninterrupted run's")
+
+    # the recipe flags: a population of 2 (the heads and RK kernels once a
+    # call for both replicas): warm start 20 steps (the heads forward with
+    # its tape and backward), 2 epochs, the pixel selection's decodes of
+    # the live and best weights
+    out(train_goku, "goku_pop2")
+    ms, times["train_goku --seeds 2"] = cli_run(
+        "train_goku --seeds 2", train_goku,
+        ["--seeds", "2", "--masked", "--select-by", "pixel", "--warm-start",
+         "--warm-steps", "20", "--epochs", "2"],
+        goku(20 + 4 * steps + 2, 20 + 2 * steps, 4 * steps + 2, 2 * steps),
+        gpu)
+    d = out(train_goku, "goku_bf16")
+    _, times["train_goku --dtype bf16"] = cli_run(
+        "train_goku --dtype bf16", train_goku, ["--dtype", "bf16",
+                                                "--epochs", "2"],
+        goku(4 * steps + 1, 2 * steps, 4 * steps + 1, 2 * steps, bf16=True),
+        gpu)
+
+    out(train_latent_ode, "latent_ode")
+    _, times["train_latent_ode --pallas-solve"] = cli_run(
+        "train_latent_ode --pallas-solve", train_latent_ode,
+        ["--pallas-solve", "--epochs", "2"],
+        {"node_field_fwd": 4 * steps, "node_field_bwd": 2 * steps,
+         "node_field_dw": 2 * steps}, gpu)
+
+    c_steps = 230 // 64
+    for name, mod, rk in (("train_vdp", train_vdp, "vdp"),
+                          ("train_kuramoto", train_kuramoto, "kuramoto10")):
+        out(mod, name)
+        _, times[name] = cli_run(
+            name, mod, ["--epochs", "2"],
+            goku(4 * c_steps, 2 * c_steps, 4 * c_steps, 2 * c_steps, rk=rk),
+            gpu)
+
+    forecast.OUTPUT_DIR = os.path.join(CLI_DIR, "goku")
+    t1 = time.perf_counter()
+    reset_counts()
+    res = forecast.main([])
+    torch.cuda.synchronize()
+    got = cli_counts()
+    want = goku(1, 0, 1, 0)
+    del want["goku_heads_bwd"], want["rk_fixed_grid_bwd[pendulum]"]
+    log("cli", f"forecast.py on {ckpt}: inside {res['inside']:.6f} beyond "
+               f"{res['beyond']:.6f} in {time.perf_counter() - t1:.3f} s; "
+               f"launches {got} (expected {want})")
+    if got != want or not np.isfinite(res["err"]).all():
+        fail(f"forecast: launches {got}, errors {res['err'][:4]}")
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    orig = os.path.join("chiprun_out", "original_data_small.npz")
+    np.savez_compressed(orig, train_data=video[3][:72, :60].cpu().numpy())
+    out(train_original_data, "original")
+    o_steps = int(72 * 0.9) // 64
+    _, times["train_original_data"] = cli_run(
+        "train_original_data", train_original_data,
+        ["--data", orig, "--epochs", "2"],
+        goku(4 * o_steps, 2 * o_steps, 4 * o_steps, 2 * o_steps), gpu)
+    log("cli", f"steady epoch seconds {json.dumps(times)}; card {gpu}")
+    return times
+
+
 def step_device_ops(trainer, data, beta):
     """(device ops, device busy ms, span ms) of one train step under
     torch.profiler."""
@@ -3468,6 +3722,9 @@ def main():
     # kernels once a replica, the weight gradients once for all -----------
     launches["node_field_dw[pop4]"] = latent_ode_population_path(
         train_set, val_set, dev, gpu)["node_field_dw"]
+
+    # ---- 4j. the training CLIs through their main(argv) -------------------
+    cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
 
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()

@@ -13,10 +13,15 @@ Both JAX ``.npz`` formats load:
       Files written by the JAX Trainer hold the tree {"key", "model",
       "opt_state"}: leaf_0 is the PRNG key, then the model's n leaves,
       then Adam's m (n), t (1) and v (n).
-The port writes v2. A population (train/multiseed.py) is one v2 file of
-stacked arrays (``save_arrays``); each of its replicas can also be written
-as a Trainer checkpoint (``trainer_arrays``), which ``load_checkpoint``
-reads into a single model.
+The port writes v2. An optimizer's state lies under ``opt_state/`` by
+JAX's pytree paths (``train/optim.py``: ``m``, ``t``, ``v`` for ADAM(W),
+``m``, ``s`` for AdaBelief, ``<i>/...`` in a chain); a Trainer checkpoint
+also holds its random streams (``window_gen`` and ``noise_gen`` arrays,
+``np_rng`` in the meta, as JAX's Trainer stores its ``np_rng``). A
+population (train/multiseed.py) is one v2 file of stacked arrays
+(``save_arrays``); each of its replicas can also be written as a Trainer
+checkpoint (``trainer_arrays``), which ``load_checkpoint`` reads into a
+single model.
 """
 from __future__ import annotations
 
@@ -109,12 +114,19 @@ def load_arrays(path: str):
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
-                    meta: Optional[dict] = None):
-    """Write ``{"model", "opt_state"}`` as a format-v2 ``.npz``."""
-    st = optimizer.state_dict() if optimizer is not None else {}
-    save_arrays(path, trainer_arrays(jax_param_paths(model),
-                                     list(model.parameters()), st.get("m"),
-                                     st.get("v"), st.get("t")), meta)
+                    meta: Optional[dict] = None,
+                    arrays: Optional[Dict[str, np.ndarray]] = None):
+    """Write ``{"model", "opt_state"}`` as a format-v2 ``.npz``: the
+    optimizer's state under its JAX pytree paths
+    (``Optimizer.state_arrays``), and ``arrays``, more named arrays beside
+    them (the Trainer's random streams)."""
+    paths = jax_param_paths(model)
+    out = trainer_arrays(paths, list(model.parameters()))
+    if optimizer is not None:
+        out.update({f"opt_state/{k}": _np(a) for k, a in
+                    optimizer.state_arrays(paths).items()})
+    out.update(arrays or {})
+    save_arrays(path, out, meta)
 
 
 def _split_v1(data, paths):
@@ -122,32 +134,53 @@ def _split_v1(data, paths):
     stored = len([k for k in data.files if k != "__meta__"])
     leaf = lambda i: data[f"leaf_{i}"]  # noqa: E731
     if stored == n:                       # a bare model tree
-        return {p: leaf(i) for i, p in enumerate(paths)}, None
+        return {p: leaf(i) for i, p in enumerate(paths)}, {}
     if stored == 3 * n + 2:               # {"key", "model", "opt_state"}
         model = {p: leaf(1 + i) for i, p in enumerate(paths)}
-        opt = {"m": [leaf(1 + n + i) for i in range(n)],
-               "t": int(leaf(1 + 2 * n)),
-               "v": [leaf(2 + 2 * n + i) for i in range(n)]}
+        opt = {f"m/{p}": leaf(1 + n + i) for i, p in enumerate(paths)}
+        opt["t"] = leaf(1 + 2 * n)
+        opt.update({f"v/{p}": leaf(2 + 2 * n + i)
+                    for i, p in enumerate(paths)})
         return model, opt
     raise ValueError(f"legacy (v1) checkpoint has {stored} leaves; a model "
                      f"with {n} parameters expects {n} or {3 * n + 2}")
 
 
-def _split_v2(data, names, paths):
-    model = {k[len("model/"):]: data[_LEAF_PREFIX + k] for k in names
-             if k.startswith("model/")}
-    opt = None
-    if "opt_state/t" in names:
-        opt = {"m": [data[f"{_LEAF_PREFIX}opt_state/m/{p}"] for p in paths],
-               "t": int(data[_LEAF_PREFIX + "opt_state/t"]),
-               "v": [data[f"{_LEAF_PREFIX}opt_state/v/{p}"] for p in paths]}
-    return model, opt
+def _split_v2(data, names):
+    """The model's arrays, the optimizer's (names below ``opt_state/``) and
+    the rest (other than the JAX Trainer's ``key``)."""
+    parts = ({}, {}, {})
+    for k in names:
+        a = data[_LEAF_PREFIX + k]
+        if k.startswith("model/"):
+            parts[0][k[len("model/"):]] = a
+        elif k.startswith("opt_state/"):
+            parts[1][k[len("opt_state/"):]] = a
+        elif k != "key":
+            parts[2][k] = a
+    return parts
 
 
-def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None):
-    """Load a JAX or port ``.npz`` (v1 or v2) into ``model`` (and into
-    ``optimizer``'s Adam moments when given and present). Returns the
-    stored user meta dict."""
+def _load_optimizer(optimizer, opt, paths, path):
+    """Set ``optimizer``'s state from a checkpoint's ``opt_state`` arrays;
+    their names must be the optimizer's (JAX raises on the same
+    mismatch)."""
+    want = set(optimizer.state_arrays(paths))
+    if set(opt) != want:
+        raise ValueError(
+            f"{path}: its optimizer state does not fit "
+            f"{type(optimizer).__name__}: missing "
+            f"{sorted(want - set(opt))[:4]}, unexpected "
+            f"{sorted(set(opt) - want)[:4]}")
+    optimizer.load_state_arrays(opt, paths)
+
+
+def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None, *,
+                    arrays: Optional[dict] = None):
+    """Load a JAX or port ``.npz`` (v1 or v2) into ``model``, and into
+    ``optimizer`` when given and the file holds an optimizer state.
+    ``arrays``: a dict that receives the file's other named arrays (v2).
+    Returns the stored user meta dict."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     paths = jax_param_paths(model)
@@ -155,11 +188,13 @@ def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None):
         blob = json.loads(bytes(data["__meta__"]).decode())
         if "format_version" in blob:
             meta = blob.get("meta", {})
-            arrays, opt = _split_v2(data, blob["paths"], paths)
+            params, opt, rest = _split_v2(data, blob["paths"])
         else:
             meta = blob
-            arrays, opt = _split_v1(data, paths)
-    load_jax_params(model, arrays)
-    if optimizer is not None and opt is not None:
-        optimizer.load_state_dict(opt)
+            (params, opt), rest = _split_v1(data, paths), {}
+    load_jax_params(model, params)
+    if optimizer is not None and opt:
+        _load_optimizer(optimizer, opt, paths, path)
+    if arrays is not None:
+        arrays.update(rest)
     return meta

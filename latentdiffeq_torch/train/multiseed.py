@@ -32,6 +32,7 @@ import copy
 import dataclasses
 import os
 import time
+import warnings
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -575,11 +576,15 @@ class MultiSeedTrainer:
         save_arrays(path, arrays, {
             "epoch": self.epoch, "seeds": self.seeds,
             "has_best": self._best is not None,
-            "np_rng_states": [r.bit_generator.state for r in self.np_rngs]})
+            "np_rng_states": [r.bit_generator.state for r in self.np_rngs],
+            "noise_gen_device": self.device.type})
 
     def restore(self, path: str) -> "MultiSeedTrainer":
         """Continue a run from ``save_population``; the trainer must have
-        the same seeds and configuration. Returns self."""
+        the same seeds and configuration. Noise streams saved on another
+        device type (or by a file that does not say) are reseeded from
+        the seeds, with a warning, as ``Trainer.restore`` does. Returns
+        self."""
         arrays, meta = load_arrays(path)
         if list(meta["seeds"]) != self.seeds:
             raise ValueError(f"population checkpoint was trained with seeds "
@@ -616,8 +621,17 @@ class MultiSeedTrainer:
                           "epoch": np.asarray(arrays["best_epoch"])}
         for g, s in zip(self.window_gens, arrays["window_gens"]):
             g.set_state(torch.from_numpy(np.array(s)))
-        for g, s in zip(self.noise_gens, arrays["noise_gens"]):
-            g.set_state(torch.from_numpy(np.array(s)))
+        saved_on = meta.get("noise_gen_device")
+        if saved_on == self.device.type:
+            for g, s in zip(self.noise_gens, arrays["noise_gens"]):
+                g.set_state(torch.from_numpy(np.array(s)))
+        else:
+            for g, s in zip(self.noise_gens, self.seeds):
+                g.manual_seed(s)
+            warnings.warn(
+                f"{path}: its noise streams were saved on {saved_on}; this "
+                f"run's are on {self.device.type}, so they are reseeded "
+                "from the seeds (the other streams are restored)")
         for r, s in zip(self.np_rngs, meta["np_rng_states"]):
             r.bit_generator.state = s
         self.epoch = int(meta["epoch"])

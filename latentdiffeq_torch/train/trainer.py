@@ -31,6 +31,12 @@ epoch, a CPU ``torch.Generator`` draws the window starts, and a generator
 on the training device draws the reparameterisation noise and, for SDE
 dynamics, the Brownian key of each train step and validation pass (two
 uint32 words, as the JAX trainer hands each a key, trainer.py:496-545).
+``save`` stores the three streams with the weights and the optimizer's
+state, so a run restored from it goes on exactly as if it had not stopped
+(trainer.py:873-913 stores ``np_rng`` and the key). The noise generator's
+state is the device's own (Philox on the card, mt19937 on the CPU): a
+checkpoint restored on the other device type reseeds it from ``seed``,
+with a warning, and restores the other two.
 """
 from __future__ import annotations
 
@@ -217,8 +223,12 @@ def _autosize_probe(model, cfg: TrainConfig, train_set, seq_len=None,
 
 
 class Trainer:
+    """``optimizer``: a ``train.optim`` optimizer, bound to the model's
+    parameters or unbound (then bound here); default Flux ADAMW(cfg.lr,
+    (0.9, 0.999), cfg.decay)."""
+
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
-                 optimizer: Optional[optim.FluxAdam] = None,
+                 optimizer: Optional[optim.Optimizer] = None,
                  loss_fn: Callable = loss_batch, device=None):
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
@@ -227,8 +237,11 @@ class Trainer:
                                  f"trainer on {self.device}")
         self.model = model
         self.cfg = cfg
-        self.opt = optimizer if optimizer is not None else optim.adamw(
-            model.parameters(), cfg.lr, 0.9, 0.999, cfg.decay)
+        if optimizer is None:
+            optimizer = optim.adamw(None, cfg.lr, 0.9, 0.999, cfg.decay)
+        if optimizer.params is None:
+            optimizer.bind(model.parameters())
+        self.opt = optimizer
         self.loss_fn = loss_fn
         self.epoch = 0
         self.best_val_loss = float("inf")
@@ -255,8 +268,8 @@ class Trainer:
         return {} if key is None else {"key": key}
 
     def train_step(self, x, beta: float, *, eps=None, key=None):
-        """One ELBO gradient step with ADAMW on the window ``x`` (batch,
-        seq_len, features). ``eps`` and ``key`` optionally fix the
+        """One ELBO gradient step of the optimizer on the window ``x``
+        (batch, seq_len, features). ``eps`` and ``key`` optionally fix the
         reparameterisation noise and the Brownian path. Returns the step's
         metrics (tensors, not synchronised)."""
         cfg = self.cfg
@@ -299,8 +312,7 @@ class Trainer:
 
     def _snapshot(self, epoch: int):
         return {"model": copy.deepcopy(self.model.state_dict()),
-                "opt_state": self.opt.state_dict(), "epoch": epoch,
-                "val": self.best_val_loss}
+                "epoch": epoch, "val": self.best_val_loss}
 
     def fit(self, train_set, val_set, *, epochs: Optional[int] = None,
             callbacks=(), verbose: bool = True):
@@ -369,13 +381,54 @@ class Trainer:
                 cb(self, rec)
         return self.history
 
+    @property
+    def best_model(self) -> torch.nn.Module:
+        """The best-validation weights seen so far as a model (a copy with
+        the snapshot's weights), or the live model before the first
+        snapshot (trainer.py:882-888)."""
+        if self.best is None:
+            return self.model
+        m = copy.deepcopy(self.model)
+        m.load_state_dict(self.best["model"])
+        return m
+
     def save(self, path: str):
-        save_checkpoint(path, self.model, self.opt,
-                        meta={"epoch": self.epoch,
-                              "best_val_loss": self.best_val_loss})
+        """Write the weights, the optimizer's state and the epoch, with the
+        three random streams: ``np_rng``'s state in the meta under JAX's
+        name, ``window_gen`` and ``noise_gen``'s states as arrays. A run
+        restored from it goes on exactly as if it had not stopped."""
+        save_checkpoint(
+            path, self.model, self.opt,
+            meta={"epoch": self.epoch, "best_val_loss": self.best_val_loss,
+                  "np_rng": self.np_rng.bit_generator.state,
+                  "noise_gen_device": self.noise_gen.device.type},
+            arrays={"window_gen": self.window_gen.get_state().numpy(),
+                    "noise_gen": self.noise_gen.get_state().numpy()})
 
     def restore(self, path: str):
-        meta = load_checkpoint(path, self.model, self.opt)
+        """Load a checkpoint of ``save`` (or the JAX Trainer's, or a bare
+        model's). The random streams are restored when the file holds the
+        port's three; otherwise (a JAX file, a checkpoint written before
+        they were stored, a population replica) they stay as seeded from
+        ``cfg.seed``. A noise stream saved on another device type cannot
+        be set here: it is reseeded from ``cfg.seed``, with a warning."""
+        extra = {}
+        meta = load_checkpoint(path, self.model, self.opt, arrays=extra)
         self.epoch = int(meta.get("epoch", 0))
         self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
+        if "np_rng" in meta and {"window_gen", "noise_gen"} <= set(extra):
+            self.np_rng.bit_generator.state = meta["np_rng"]
+            self.window_gen.set_state(torch.from_numpy(
+                np.array(extra["window_gen"])))
+            saved_on = meta.get("noise_gen_device")
+            if saved_on == self.noise_gen.device.type:
+                self.noise_gen.set_state(torch.from_numpy(
+                    np.array(extra["noise_gen"])))
+            else:
+                self.noise_gen.manual_seed(self.cfg.seed)
+                warnings.warn(
+                    f"{path}: its noise stream was saved on {saved_on}; "
+                    f"this run's is on {self.noise_gen.device.type}, so it "
+                    f"is reseeded from seed {self.cfg.seed} (the "
+                    "permutation and window streams are restored)")
         return self

@@ -15,6 +15,7 @@ strided solves are compared in float32 at 1e-5, their gradients at 1e-5 of
 each gradient's size; checkpointing must change no value and no gradient.
 """
 import dataclasses
+import sys
 import warnings
 
 import jax
@@ -379,10 +380,35 @@ def test_data_helpers_match_jax():
 def test_root_exports_the_jax_roots_ported_names():
     """The names of the JAX package root that the port has (the pytree
     helpers, parallel and utils come later), as ``latentdiffeq_torch``
-    exports them."""
+    exports them; and every name in the ``__all__`` of the subpackages
+    train, nn, solve, models, adjoint and ops, less those with no port by
+    design (listed below with the reason)."""
     later = {"module", "static_field", "tree_size", "parallel", "utils"}
     missing = set(ldq.__all__) - set(ldt.__all__) - later
     assert not missing, missing
     for name in set(ldq.__all__) - later:
         assert hasattr(ldt, name), name
     assert ldt.AdaptiveConfig is not None and JAdaptiveConfig is not None
+    # the subpackages' __all__ (sys.modules: the roots rebind ``solve`` to
+    # the function), less the names that have no port by design
+    by_design = {
+        # JAX's fused epoch-block program: the port's Trainer steps one
+        # batch at a time (train/trainer.py module docstring)
+        "train": {"make_block_fn"},
+        # the Pallas TPU kernels themselves; their ports are the CUDA
+        # kernels' wrappers in ops/ (goku_heads, solve_fixed_grid_batched,
+        # solve_neural_field)
+        "ops": {"pallas_goku_heads", "pallas_solve_fixed_grid_batched",
+                "pallas_solve_neural_field"},
+    }
+    for sub in ("train", "nn", "solve", "models", "adjoint", "ops"):
+        jmod = sys.modules[f"latentdiffeq.{sub}"]
+        tmod = sys.modules[f"latentdiffeq_torch.{sub}"]
+        missing = (set(jmod.__all__) - set(getattr(tmod, "__all__", ()))
+                   - by_design.get(sub, set()))
+        assert not missing, (sub, missing)
+        for name in set(jmod.__all__) - by_design.get(sub, set()):
+            assert hasattr(tmod, name), (sub, name)
+    # parallel/ and utils/ come in later slices (ROADMAP.md Queue 1
+    # items 4-5)
+    assert "latentdiffeq_torch.parallel" not in sys.modules
