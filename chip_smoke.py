@@ -105,7 +105,26 @@ Phases, each printing one line (any failure exits non-zero):
               train_kuramoto.py, forecast.py and train_original_data.py
               on a small npz in chiprun_out/: each run's launches exactly
               as expected, no plain call, finite losses, its steady epoch
-              seconds;
+              seconds; then (4k, run after phase 5, so that its process
+              groups and profiler session follow every measurement)
+              train_goku.py --data-parallel 1 in this
+              process on NCCL (24 / 12 launches of each GOKU kernel, the
+              weights within 1e-6 of 4j's solo run, bit for bit or not),
+              then two ranks on the one card under torch.distributed.run
+              with gloo (this script's --dp-worker mode; each rank's exit
+              code and results checked): --data-parallel 2 (24 / 12
+              launches a rank at B 32, the ranks' weights bit for bit,
+              the first step's gradient against the solo step's, each
+              epoch's validation loss against the solo run's, the step
+              time beside the solo step's) and --seeds 8 --data-parallel
+              2 (4 replicas a
+              rank, one launch a call; the selected seed and its
+              validation loss against the unsharded population's);
+              trace_profile around one data-parallel step (its trace names
+              both GOKU forward kernels) and PhaseTimer against the step
+              time; create_data with renderer="native" against the torch
+              renderer; the tutorial for 2 epochs (the encoder kernel, its
+              section 14 decode card against CPU);
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -132,7 +151,8 @@ Phases, each printing one line (any failure exits non-zero):
               chiprun_out/profile_step_bf16.txt.
 It then prints the kernels JSON line, the card line and, last, the result
 line {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
-result.
+result. ``python3 chip_smoke.py --dp-worker DIR`` is one rank of phase 4k,
+started by the phase itself under torch.distributed.run.
 """
 from __future__ import annotations
 
@@ -3380,8 +3400,8 @@ def cli_path(video, dev, gpu):
     train_vdp.py, train_kuramoto.py, forecast.py on the checkpoint just
     written and train_original_data.py on a small npz of the documented
     shape. Each run's kernel launches exactly as expected, no plain
-    version, finite losses; its steady epoch seconds. Returns {run: steady
-    epoch s}."""
+    version, finite losses; its steady epoch seconds. Returns ({run: steady
+    epoch s}, the Trainer of train_goku.py --epochs 2)."""
     import shutil
 
     import numpy as np
@@ -3531,7 +3551,633 @@ def cli_path(video, dev, gpu):
         ["--data", orig, "--epochs", "2"],
         goku(4 * o_steps, 2 * o_steps, 4 * o_steps, 2 * o_steps), gpu)
     log("cli", f"steady epoch seconds {json.dumps(times)}; card {gpu}")
-    return times
+    return times, tr
+
+
+# ---------------------------------------------------------------------------
+# Phase 4k: train_goku.py --data-parallel (parallel/, Trainer(mesh=),
+# MultiSeedTrainer(mesh=)) on one rank in this process and on two ranks on
+# the one card (torch.distributed.run, gloo: NCCL refuses two ranks on one
+# device), the profiling utilities, the native renderer and the tutorial.
+
+DP_TOL = 1e-6       # one rank against the solo run: the same arithmetic
+# N ranks against one process (the data-parallel Trainer equals the solo
+# Trainer up to the order of its sums): after 2 epochs every weight within
+# DP_RTOL (atol 1e-6) and each epoch's validation loss within DP_RTOL of
+# that epoch's; the first step's loss within 1e-5 and its gradients, per
+# tensor (max |difference| over max |gradient|), within DP_GRAD_TOL. A relu
+# unit whose pre-activation lies within rounding of zero may be on in one
+# run's products and off in the other's, which moves the gradients of its
+# part of the model (e.g. decoder.reconstructor) by a finite step: the
+# units are counted, and the tensors of a part with a flipped unit get
+# RELU_GRAD_TOL.
+DP_RTOL = 2e-4
+DP_GRAD_TOL = 1e-5
+DP_TIMEOUT = 600
+DP_DIR = os.path.join(CLI_DIR, "dp")
+# each GOKU kernel's launches in 2 epochs of train_goku.py without figures
+# (405 training videos, 6 steps of 64 an epoch): forward in each step and
+# validation, backward in each step; on every rank of a data-parallel run
+DP_LAUNCHES = {"goku_heads": 24, "goku_heads_bwd": 12,
+               "rk_fixed_grid[pendulum]": 24,
+               "rk_fixed_grid_bwd[pendulum]": 12}
+RENDER_ATOL, RENDER_RTOL = 2e-6, 1e-7   # tests/test_native.py:27's assert
+
+
+def dp_argv(extra, device=None, small=False):
+    """train_goku.py's arguments of phase 4k's runs: 2 epochs without
+    figures (``small``: batch 8, windows of 8, for a small video)."""
+    return (["--epochs", "2", "--no-viz"]
+            + ([] if device is None else ["--device", device])
+            + (["--batch-size", "8", "--seq-len", "8"] if small else [])
+            + extra)
+
+
+def weights_of(model):
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def goku_333(dev, mesh=None, batch_size=64):
+    """train_goku.py's model (seed 333, both kernel switches) in a Trainer
+    of its configuration."""
+    from latentdiffeq_torch.examples.pendulum import train_goku
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.train import TrainConfig, Trainer
+    diffeq = train_goku.make_diffeq(train_goku.build_parser().parse_args([]))
+    layers = goku_default_layers(784, diffeq, device=dev,
+                                 generator=torch.Generator().manual_seed(333))
+    model = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
+    return Trainer(model, TrainConfig(epochs=1500, save_best=False,
+                                      batch_size=batch_size),
+                   device=dev, mesh=mesh)
+
+
+def dp_first_step(tr, x, rank=0, world=1):
+    """One train step of ``tr`` (goku_333's weights) on its rows of the
+    minibatch ``x``. Returns its loss, the gradients (averaged over the
+    ranks with a mesh) and, for every relu site, which units were on:
+    ``relu/<module>`` for each relu Dense's output and ``relu/<heads>``
+    for the encoder RNN's units in the heads kernel's tape (the plain
+    version's on the CPU), from the heads' input of the step."""
+    from latentdiffeq_torch.ops import recurrent_cuda as rc
+    b = tr.cfg.batch_size // world
+    model = tr.model
+    on, hooks = {}, []
+
+    def record(name):
+        def hook(mod, inp, y):
+            on[name] = (y > 0).cpu().numpy()
+        return hook
+
+    for name, m in model.named_modules():
+        if hasattr(m, "W") and getattr(m, "activation", None) is torch.relu:
+            hooks.append(m.register_forward_hook(record(name)))
+    fe = model.encoder.feature_extractor
+    hooks.append(fe.register_forward_hook(
+        lambda mod, inp, y: on.__setitem__("heads input", y.detach())))
+    try:
+        m = tr.train_step(x[rank * b:(rank + 1) * b], 1.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    hs = model.encoder.pattern_extractor
+    L, H = len(hs[0].cells), hs[0].cells[0].hidden_dim
+    xs = on.pop("heads input")
+    with torch.no_grad():
+        tape = (rc.goku_heads_cuda(*hs, xs, tape=True) if xs.is_cuda
+                else rc.goku_heads_taped_reference(*hs, xs))[2]
+    on["encoder.pattern_extractor.0"] = (tape[..., :L * H] > 0).cpu().numpy()
+    grads = {f"grad/{k}": p.grad.float().cpu().numpy()
+             for k, p in model.named_parameters()}
+    return float(m["loss"]), dict(grads, **{f"relu/{k}": v
+                                            for k, v in on.items()})
+
+
+def split_step(world):
+    """A Trainer.train_step computing in one process what ``world``
+    data-parallel ranks compute, without torch.distributed: the global
+    batch's noise, each rank's rows' loss and gradient, the gradients'
+    mean (each divided by ``world``, then summed in rank order), one
+    optimizer step. For losses without batch couplings (no
+    ``mask_failures``, no ``free_bits``: train_goku.py's pendulum)."""
+    def train_step(self, x, beta, *, eps=None, key=None):
+        cfg = self.cfg
+        eps, kw = self._shard_randomness(x.shape[0], eps, self._key_kw(key))
+        b = x.shape[0] // world
+        params = list(self.model.parameters())
+        total = [torch.zeros_like(p) for p in params]
+        ms = []
+        for r in range(world):
+            rows = slice(r * b, (r + 1) * b)
+            loss, m = self.loss_fn(
+                self.model, x[rows], self._grid(x.shape[1]), beta,
+                variational=cfg.variational, generator=self.noise_gen,
+                eps=(tuple(e[rows] for e in eps) if isinstance(eps, tuple)
+                     else eps[rows]),
+                mask_failures=cfg.mask_failures, free_bits=cfg.free_bits,
+                **kw)
+            for t, g in zip(total, torch.autograd.grad(loss, params)):
+                t.add_(g / world)
+            ms.append(m)
+        self.opt.zero_grad()
+        for p, t in zip(params, total):
+            p.grad = t
+        self.opt.step()
+        return {k: torch.stack([m[k].detach() for m in ms]).sum(0)
+                if k.startswith("n_") else
+                torch.stack([m[k].detach() for m in ms]).mean(0)
+                for k in ms[0]}
+    return train_step
+
+
+def dp_worker(argv):
+    """One rank of a data-parallel launch, ``chip_smoke.py --dp-worker OUT
+    [--device D] [--seeds S] [--small]`` under torch.distributed.run, on
+    OUT/data's pendulum cache. ``--device cuda``: rank r on cuda:r (NCCL);
+    ``cuda:0``: every rank on that card (gloo); ``cpu``: gloo. Runs
+    train_goku.py --data-parallel N twice, with every counter at 0 before
+    each (its launches, losses, weights and step times), with ``--seeds``
+    also --seeds S --data-parallel N, and one first step of goku_333 on
+    its rows; rank 0 then runs both in one process, and the run again with
+    split_step's emulation of N ranks. Writes OUT/rank<r>.json and .npz
+    (keys ``<run>/<tensor>``)."""
+    import argparse
+
+    import numpy as np
+
+    from latentdiffeq_torch.examples.pendulum import create_data, train_goku
+    from latentdiffeq_torch.ops import ode_cuda, recurrent_cuda
+    from latentdiffeq_torch.train import Trainer, splitobs
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seeds", type=int, default=0)
+    ap.add_argument("--small", action="store_true")
+    a = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    create_data.DATA_DIR = os.path.join(a.out, "data")
+
+    def no_generation(**kw):
+        raise RuntimeError("the data-parallel phase regenerated the video")
+
+    create_data.generate_dataset = no_generation
+    world = int(os.environ["WORLD_SIZE"])
+    # the group for every run below (train_goku.py leaves a group it did
+    # not start), its backend as train_goku.py picks it
+    mesh, dev, _ = train_goku.data_parallel_mesh(world, a.device)
+    rank = mesh.get_local_rank()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    res, arrays = {"rank": rank, "world": world, "device": str(dev),
+                   "backend": torch.distributed.get_backend()}, {}
+    x = None
+
+    def run(tag, extra, rows):
+        nonlocal x
+        train_goku.OUTPUT_DIR = os.path.join(a.out, tag)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = train_goku.main(dp_argv(extra, a.device, a.small))
+        sync()
+        r = res[tag] = {
+            "wall_s": time.perf_counter() - t0, "counts": cli_counts(),
+            "plain": [recurrent_cuda.goku_heads_reference.calls,
+                      ode_cuda.solve_fixed_grid_batched_reference.calls],
+            "val": [np.asarray(h["val_loss"]).tolist() for h in got.history],
+            "epoch_s": got.history[-1]["epoch_s"]}
+        if "--seeds" in extra:
+            r.update(best_seed=got.best_seed, best_val=got.best_val_loss,
+                     local_seeds=got.local_seeds)
+            return
+        arrays.update({f"{tag}/{k}": v
+                       for k, v in weights_of(got.model).items()})
+        if x is None:
+            frames = train_goku.load_data("pendulum", dev)[3]
+            x = splitobs(torch.as_tensor(frames.reshape(
+                *frames.shape[:2], -1), device=dev), 0.9)
+        if dev.type == "cuda" and tag in ("dp", "one"):
+            b = got.cfg.batch_size // (world if rows else 1)
+            start = rank * b if rows else 0
+            r["step_ms"] = step_times(
+                got, x[0][start:start + b, :got.cfg.seq_len], x[1],
+                float(got.history[-1]["beta"]))
+
+    dp = ["--data-parallel", str(world)]
+    run("dp", dp, True)
+    run("again", dp, True)
+    if a.seeds:
+        run("seeds", dp + ["--seeds", str(a.seeds)], True)
+    seq = 8 if a.small else 50
+    bs = 8 if a.small else 64
+    res["dp"]["first_loss"], g = dp_first_step(
+        goku_333(dev, mesh, bs), x[0][:, :seq], rank, world)
+    arrays.update({f"dp/{k}": v for k, v in g.items()})
+    torch.distributed.barrier()
+    if rank == 0:
+        run("one", [], False)
+        res["one"]["first_loss"], g = dp_first_step(goku_333(dev, None, bs),
+                                                    x[0][:, :seq])
+        arrays.update({f"one/{k}": v for k, v in g.items()})
+        plain_step = Trainer.train_step
+        Trainer.train_step = split_step(world)
+        try:
+            run("split", [], False)
+        finally:
+            Trainer.train_step = plain_step
+    np.savez(os.path.join(a.out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(a.out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def dp_launch(out, n, worker_args, video=None, cache=None):
+    """Start ``n`` ranks of ``dp_worker`` under torch.distributed.run on
+    a pendulum cache in OUT/data (``video`` written with ``cache``'s key,
+    or a copy of the directory ``cache``); fails unless the launch exits 0
+    within DP_TIMEOUT and every rank wrote its files. Returns [(info,
+    arrays)] by rank and the launch's seconds."""
+    import shutil
+
+    import numpy as np
+
+    from latentdiffeq_torch.examples.pendulum import create_data
+    shutil.rmtree(out, ignore_errors=True)
+    if video is None:
+        shutil.copytree(cache, os.path.join(out, "data"))
+    else:
+        create_data.write_cache(os.path.join(out, "data",
+                                             create_data.DEFAULT_FILE),
+                                video, cache)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), os.path.abspath(__file__),
+           "--dp-worker", out] + worker_args
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log_text, _ = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"the {n} ranks did not finish in {DP_TIMEOUT} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out",
+                           f"dp_ranks_{os.path.basename(out)}.log"), "w") as f:
+        f.write(log_text)
+    ranks = []
+    for r in range(n):
+        path = os.path.join(out, f"rank{r}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            fail(f"the {n}-rank launch exited {proc.returncode} (rank {r} "
+                 f"wrote {path}: {os.path.exists(path)}); its log ends: "
+                 f"{log_text[-3000:]}")
+        with open(path) as f:
+            info = json.load(f)
+        with np.load(os.path.join(out, f"rank{r}.npz")) as f:
+            ranks.append((info, dict(f)))
+    return ranks, time.perf_counter() - t0
+
+
+def rows_of(full, part, rank, world):
+    """``part``'s rows of ``full``: rank ``rank``'s block of the axis that
+    ``world`` ranks split."""
+    import numpy as np
+    for ax in range(full.ndim):
+        if part.shape[ax] * world == full.shape[ax] and all(
+                part.shape[i] == full.shape[i]
+                for i in range(full.ndim) if i != ax):
+            return np.split(full, world, axis=ax)[rank]
+    raise ValueError(f"{part.shape} is no rank's block of {full.shape}")
+
+
+def dp_check(ranks, what, want=None, gpu=""):
+    """The gates of N ranks against one process (the worker's arrays):
+    each rank's launches as the one-process run's (and ``want``, with no
+    plain call, on the card); both runs of each rank and all ranks bit for
+    bit; the first step's loss within 1e-5 and gradients within
+    DP_GRAD_TOL (RELU_GRAD_TOL for a part with a flipped relu unit); each
+    epoch's validation loss and every weight within DP_RTOL. Logs each,
+    fails on a miss; returns a summary."""
+    import numpy as np
+    world = len(ranks)
+    one, a0 = ranks[0][0]["one"], ranks[0][1]
+    summary = {"what": what, "ranks": world, "backend": ranks[0][0]["backend"],
+               "device": [info["device"] for info, _ in ranks]}
+    for r, (info, _) in enumerate(ranks):
+        for case in ("dp", "again") + (("seeds",) if "seeds" in info else ()):
+            c = info[case]
+            log("dp", f"{what}, rank {r} {case}: launches {c['counts']} "
+                      f"(one process {one['counts']}), plain calls "
+                      f"{c['plain']}; val losses {c['val']}; steady epoch "
+                      f"{c['epoch_s']:.4f} s; run {c['wall_s']:.3f} s; {gpu}")
+            if c["counts"] != one["counts"] or (
+                    want is not None and (c["counts"] != want
+                                          or c["plain"] != [0, 0])):
+                fail(f"{what} rank {r} {case}: launches {c['counts']}, plain"
+                     f" {c['plain']}, one process {one['counts']}, expected"
+                     f" {want}")
+            if not np.isfinite(c["val"]).all():
+                fail(f"{what} rank {r} {case}: non-finite validation loss")
+    keys = [k[3:] for k in a0 if k.startswith("dp/")]
+    again = all(np.array_equal(a[f"again/{k}"], a[f"dp/{k}"])
+                for _, a in ranks for k in keys if not k.startswith(
+                    ("grad/", "relu/")))
+    same = all(np.array_equal(a[f"dp/{k}"], a0[f"dp/{k}"])
+               for _, a in ranks[1:] for k in keys if not k.startswith(
+                   "relu/"))
+    log("dp", f"{what}: each rank's second run bit for bit with its first: "
+              f"{again}; the ranks' weights and first-step gradients bit "
+              f"for bit: {same}")
+    if not (again and same):
+        fail(f"{what}: a rank's runs differ ({again}) or the ranks differ "
+             f"({same})")
+    # the first step from the same weights
+    flips, units, parts = 0, 0, set()
+    for k in (k for k in keys if k.startswith("relu/")):
+        for r, (_, a) in enumerate(ranks):
+            mine = rows_of(a0[f"one/{k}"], a[f"dp/{k}"], r, world)
+            n = int((mine != a[f"dp/{k}"]).sum())
+            flips, units = flips + n, units + mine.size
+            if n:
+                parts.add(".".join(k[5:].split(".")[:2]))
+    loss_dp = float(np.mean([info["dp"]["first_loss"] for info, _ in ranks]))
+    worst = []
+    for k in (k for k in keys if k.startswith("grad/")):
+        g = a0[f"one/{k}"]
+        e = float(np.abs(a0[f"dp/{k}"] - g).max() / max(np.abs(g).max(),
+                                                        1e-30))
+        tol = (RELU_GRAD_TOL if ".".join(k[5:].split(".")[:2]) in parts
+               else DP_GRAD_TOL)
+        worst.append((e / tol, e, tol, k[5:]))
+    worst.sort(reverse=True)
+    log("dp", f"{what}, first step against one process: loss {loss_dp:.6f} "
+              f"(mean over the ranks) vs {one['first_loss']:.6f}; relu "
+              f"units on in one and off in the other {flips} of {units} "
+              f"(parts {sorted(parts)}); gradients max |difference| / max "
+              f"|gradient|, the worst against its tolerance: "
+              f"{[(k, f'{e:.3e}', t) for _, e, t, k in worst[:3]]}")
+    if worst[0][0] > 1 or not abs(loss_dp - one["first_loss"]) <= 1e-5 * abs(
+            one["first_loss"]):
+        fail(f"{what}: first step off one process's: {worst[:3]}, loss "
+             f"{loss_dp} vs {one['first_loss']}")
+    # 2 epochs. Against split_step's emulation of the ranks in one process
+    # (no torch.distributed): bit for bit on 2 ranks, whose sum of two
+    # halves is exact (on more the collective sums in an order of its own:
+    # printed). Against one process: each epoch's validation loss within
+    # DP_RTOL; the weights' spread is printed, not gated: B/N-row products
+    # round otherwise than B-row ones and 12 Adam steps spread that (the
+    # emulation, bit for bit with 2 ranks on an H100, is as far).
+    w_keys = [k for k in keys if not k.startswith(("grad/", "relu/"))]
+    n = sum(a0[f"one/{k}"].size for k in w_keys)
+
+    def spread(ref):
+        """(elements past DP_RTOL + atol 1e-6, max |difference|, the 3
+        tensors with most past) of the ranks' weights against ``ref``'s."""
+        past = {k: int((np.abs(a0[f"dp/{k}"] - a0[f"{ref}/{k}"])
+                        > DP_RTOL * np.abs(a0[f"{ref}/{k}"]) + 1e-6).sum())
+                for k in w_keys}
+        return (sum(past.values()),
+                max(float(np.abs(a0[f"dp/{k}"] - a0[f"{ref}/{k}"]).max())
+                    for k in w_keys),
+                sorted(past.items(), key=lambda kv: -kv[1])[:3])
+
+    v1, vd = np.array(one["val"]), np.array(ranks[0][0]["dp"]["val"])
+    rel = float((np.abs(vd - v1) / np.abs(v1)).max())
+    s_off, s_max, _ = spread("split")
+    off, w_max, top = spread("one")
+    split_ok = s_max == 0 or world > 2
+    log("dp", f"{what}, 2 epochs against split_step's emulation of {world} "
+              f"ranks in one process: weights max |difference| {s_max:.3e}"
+              f", {s_off} of {n} elements past rtol {DP_RTOL:.0e} + atol "
+              f"1e-6 (gate: {'bit for bit' if world == 2 else 'none'}"
+              f"); val losses {ranks[0][0]['split']['val']}")
+    log("dp", f"{what}, 2 epochs against one process: val losses "
+              f"{vd.tolist()} vs {v1.tolist()}, max rel err {rel:.3e} (tol "
+              f"{DP_RTOL:.0e}); weights max |difference| {w_max:.3e}, {off} "
+              f"of {n} elements past rtol {DP_RTOL:.0e} + atol 1e-6 (most "
+              f"in {top})")
+    if not (rel <= DP_RTOL and split_ok):
+        fail(f"{what}: 2 epochs: val {rel} off one process's, weights "
+             f"{s_max} ({s_off} past) off the emulation's")
+    summary.update(first_step={"loss": [loss_dp, one["first_loss"]],
+                               "relu_flips": [flips, units],
+                               "grad_worst": worst[:3]},
+                   val=[vd.tolist(), v1.tolist()], val_rel=rel,
+                   weights_max_diff=w_max, weights_off=[off, n],
+                   emulation_max_diff=s_max, emulation_off=s_off,
+                   launches_a_rank=ranks[0][0]["dp"]["counts"],
+                   step_ms_a_rank=[info["dp"].get("step_ms")
+                                   for info, _ in ranks],
+                   step_ms_one=one.get("step_ms"),
+                   epoch_s_a_rank=[info["dp"]["epoch_s"]
+                                   for info, _ in ranks],
+                   epoch_s_one=one["epoch_s"])
+    return summary
+
+
+def dp_path(solo, train_set, val_set, dev, gpu):
+    """Phase 4k. (a) train_goku.py --data-parallel 1 in this process, on
+    NCCL (its own one-rank group) and on gloo: every GOKU kernel launched
+    as often as the solo run's (24 / 12, no figure), no plain call, weights
+    within DP_TOL of the solo run of 4j (and whether bit for bit). (b), (c)
+    two ranks on the one card under torch.distributed.run, gloo, the
+    launch's exit code checked (dp_launch): dp_check's gates against the
+    one-process run in rank 0's process (each rank 24 / 12 launches at
+    B 32, runs and ranks bit for bit, the first step, the validation
+    losses and the weights), that run against 4j's, the step time beside
+    the solo step's; --seeds 8 (each rank's 4 replicas in one launch a
+    call: 24 / 12; the selected seed and its validation loss against the
+    unsharded population's, POP_RTOL).
+    (d) trace_profile around one step of a one-rank data-parallel Trainer
+    names both GOKU forward kernels; PhaseTimer with block_on against
+    step_times. (e) create_data with renderer="native", 3 trajectories,
+    against the torch renderer on the card. (f) the tutorial, 2 epochs on
+    the card: finite losses, the encoder kernel launched, section 14's
+    decode of goku_best_model.npz against the CPU's (PATH_TOL)."""
+    import shutil
+
+    import numpy as np
+
+    from latentdiffeq_torch.examples.pendulum import create_data, train_goku
+    from latentdiffeq_torch.examples.tutorial import tutorial
+    from latentdiffeq_torch.ops import recurrent_cuda
+    from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
+    from latentdiffeq_torch.pendulum_data import generate_dataset
+    from latentdiffeq_torch.train import TrainConfig, Trainer, splitobs
+    from latentdiffeq_torch.train.visualize import val_image_data
+    from latentdiffeq_torch.utils import PhaseTimer, trace_profile
+
+    want = DP_LAUNCHES
+    solo_w = weights_of(solo.model)
+
+    # (a) one rank, in this process: NCCL, then gloo (the all-reduce of
+    # (b)'s ranks, here of one rank's CUDA tensors)
+    for backend in ("nccl", "gloo"):
+        if backend == "gloo":
+            initialize_distributed(backend="gloo", device=dev)
+        train_goku.OUTPUT_DIR = os.path.join(CLI_DIR, f"goku_dp1_{backend}")
+        try:
+            dp1, _ = cli_run(f"train_goku --data-parallel 1 ({backend})",
+                             train_goku, dp_argv(["--data-parallel", "1"]),
+                             want, gpu)
+        finally:
+            if backend == "gloo":
+                torch.distributed.destroy_process_group()
+        if torch.distributed.is_initialized():
+            fail("train_goku --data-parallel 1 left its group behind")
+        diff = max(float(np.abs(a - solo_w[k]).max())
+                   for k, a in weights_of(dp1.model).items())
+        log("dp", f"--data-parallel 1 ({backend}, one rank) against the solo "
+                  f"run of 4j, seed 333: weights max |difference| {diff:.3e} "
+                  f"(gate {DP_TOL:.0e}); "
+                  f"{'bit for bit' if diff == 0 else 'not bit for bit'}")
+        if not diff <= DP_TOL:
+            fail(f"--data-parallel 1 ({backend}): weights {diff} off the "
+                 f"solo run")
+
+    # (b), (c) two ranks on the one card, under torch.distributed.run
+    ranks, launch_s = dp_launch(DP_DIR, 2, ["--device", "cuda:0", "--seeds",
+                                            "8"],
+                                cache=os.path.join(CLI_DIR, "data"))
+    backend = ranks[0][0]["backend"]
+    log("dp", f"two ranks on {[info['device'] for info, _ in ranks]} over "
+              f"{backend}: launch and all runs {launch_s:.3f} s; {gpu}")
+    if backend != "gloo":
+        fail(f"two ranks on one card ran {backend}, not gloo")
+    summ = dp_check(ranks, "2 ranks on cuda:0", want, gpu)
+    # the worker's one-process run against this process's (4j's)
+    a0 = ranks[0][1]
+    d_main = max(float(np.abs(a0[f"one/{k}"] - w).max())
+                 for k, w in solo_w.items())
+    log("dp", f"the one-process run in rank 0's process against 4j's in this "
+              f"process: weights max |difference| {d_main:.3e}; "
+              f"{'bit for bit' if d_main == 0 else 'not bit for bit'}")
+    solo_ms = step_times(solo, train_set[:64, :50], val_set,
+                         float(solo.history[-1]["beta"]))
+    dp_ms = summ["step_ms_a_rank"][0]
+    log("dp", f"step time (median of 5, synchronised): two ranks on one "
+              f"card {dp_ms[0]:.3f} ms a step (B 32 a rank), val "
+              f"{dp_ms[1]:.3f} ms; the solo Trainer {solo_ms[0]:.3f} ms "
+              f"(B 64), val {solo_ms[1]:.3f} ms; {gpu}")
+
+    train_goku.OUTPUT_DIR = os.path.join(CLI_DIR, "goku_pop8")
+    pop, _ = cli_run("train_goku --seeds 8 (unsharded)", train_goku,
+                     dp_argv(["--seeds", "8"]), want, gpu)
+    for r, (info, _) in enumerate(ranks):
+        c = info["seeds"]
+        rel = abs(c["best_val"] - pop.best_val_loss) / abs(pop.best_val_loss)
+        log("dp", f"--seeds 8 --data-parallel 2, rank {r} (seeds "
+                  f"{c['local_seeds']}): selected seed {c['best_seed']} val "
+                  f"{c['best_val']:.6f}; unsharded: seed {pop.best_seed} val "
+                  f"{pop.best_val_loss:.6f} (rel {rel:.2e}, tol "
+                  f"{POP_RTOL:.0e})")
+        if c["best_seed"] != pop.best_seed or not rel <= POP_RTOL:
+            fail(f"rank {r}: sharded population selected seed "
+                 f"{c['best_seed']} ({c['best_val']}), unsharded "
+                 f"{pop.best_seed} ({pop.best_val_loss})")
+
+    # (d) the profiling utilities around steps of a one-rank data-parallel
+    # Trainer (the step of (a))
+    initialize_distributed(device=dev)
+    try:
+        tr = Trainer(copy.deepcopy(solo.model),
+                     TrainConfig(epochs=1500, save_best=False), device=dev,
+                     mesh=make_mesh(1))
+        x, beta = train_set[:64, :50], float(solo.history[-1]["beta"])
+        step_ms, _ = step_times(tr, x, val_set, beta)
+        trace_dir = os.path.join("chiprun_out", "trace_4k")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with trace_profile(trace_dir):
+            tr.train_step(x, beta)
+            torch.cuda.synchronize()
+        (trace,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        found = {k: any(k in n for n in names)
+                 for k in ("goku_heads_fwd_kernel", "rk_fixed_grid_kernel")}
+        timer = PhaseTimer()
+        for _ in range(5):
+            with timer("step", block_on=x):     # x's card: the step's
+                tr.train_step(x, beta)
+    finally:
+        torch.distributed.destroy_process_group()
+    summ = timer.summary()
+    ratio = summ["step"]["mean_ms"] / step_ms
+    log("dp", f"trace_profile of one data-parallel step: {trace} "
+              f"({os.path.getsize(os.path.join(trace_dir, trace))} bytes), "
+              f"kernels named {found}; PhaseTimer(block_on=the batch) "
+              f"{summ}: {summ['step']['mean_ms']:.3f} ms a step "
+              f"against step_times' {step_ms:.3f} ms (ratio {ratio:.2f}, "
+              f"host noise 0.5-2); card {gpu}")
+    if not all(found.values()):
+        fail(f"trace_profile's trace lacks a kernel: {found}")
+    if not 0.5 <= ratio <= 2.0:
+        fail(f"PhaseTimer's blocked step {ratio:.2f} x step_times'")
+
+    # (e) the native renderer through the cache, against the torch renderer
+    real_gen = create_data.generate_dataset
+    create_data.generate_dataset = generate_dataset
+    try:
+        t0 = time.perf_counter()
+        nat = create_data.load_or_generate(
+            os.path.join(DP_DIR, "native.npz"), n_traj=3, device=dev,
+            renderer="native")
+        nat_s = time.perf_counter() - t0
+    finally:
+        create_data.generate_dataset = real_gen
+    ref = generate_dataset(n_traj=3, device=dev)
+    err = float(np.abs(nat[3] - ref[3].cpu().numpy()).max())
+    ok = np.allclose(nat[3], ref[3].cpu().numpy(), rtol=RENDER_RTOL,
+                     atol=RENDER_ATOL)
+    same_traj = all(np.array_equal(a, b.cpu().numpy())
+                    for a, b in zip(nat[:3], ref[:3]))
+    log("dp", f"create_data renderer='native', 3 x 100 frames in "
+              f"{nat_s:.3f} s: against the torch renderer on the card max "
+              f"|difference| {err:.3e} (atol {RENDER_ATOL:.0e} + rtol "
+              f"{RENDER_RTOL:.0e}: {ok}); trajectories equal: {same_traj};"
+              f" card {gpu}")
+    if not (ok and same_traj):
+        fail(f"native frames {err} from the torch renderer's")
+
+    # (f) the tutorial on the card
+    tutorial.OUTPUT_DIR = os.path.join(CLI_DIR, "tutorial")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tutorial.main(["--epochs", "2"])
+    torch.cuda.synchronize()
+    tut_s = time.perf_counter() - t0
+    enc = recurrent_cuda.goku_heads_cuda.launches
+    hist = res["trainer"].history
+    d = res["decoded"]
+    if d is None:
+        fail("the tutorial found no goku_best_model.npz")
+    latent, _, ps, _ = create_data.load_or_generate(device=dev)
+    dc = val_image_data(copy.deepcopy(res["trainer"].model).cpu(),
+                        val_set.cpu(), splitobs(latent, 0.9)[1],
+                        splitobs(ps, 0.9)[1], vis_len=60, dt=0.05,
+                        rng=np.random.default_rng(4))
+    e = max(float(np.abs(d["x_hat"] - dc["x_hat"]).max()),
+            float(np.abs(d["z"] - dc["z"]).max()),
+            abs(d["theta_hat"] - dc["theta_hat"]))
+    log("dp", f"tutorial --epochs 2 on the card in {tut_s:.3f} s: losses "
+              f"{[(round(h['train_loss'], 4), round(h['val_loss'], 4)) for h in hist]}"
+              f"; goku_heads launches {enc}; section 14 decode of "
+              f"goku_best_model.npz (sample {d['j']}, start {d['s']}) card "
+              f"against CPU: max |difference| {e:.3e} (tol {PATH_TOL:.0e}); "
+              f"figures {len(res['figures'])}; card {gpu}")
+    if not all(math.isfinite(h["train_loss"]) and math.isfinite(
+            h["val_loss"]) for h in hist) or len(hist) != 2:
+        fail("the tutorial's losses are not finite")
+    if enc == 0:
+        fail("the tutorial's training did not launch the encoder kernel")
+    if (d["j"], d["s"]) != (dc["j"], dc["s"]) or not e <= PATH_TOL:
+        fail(f"the tutorial's decode card against CPU: {e}")
 
 
 def step_device_ops(trainer, data, beta):
@@ -3588,6 +4234,8 @@ def bound_ms(nbytes, flops):
 
 
 def main():
+    if "--dp-worker" in sys.argv[1:]:
+        return dp_worker(sys.argv[sys.argv.index("--dp-worker") + 1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA GPU", file=sys.stderr)
@@ -3724,7 +4372,7 @@ def main():
         train_set, val_set, dev, gpu)["node_field_dw"]
 
     # ---- 4j. the training CLIs through their main(argv) -------------------
-    cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
+    _, cli_goku = cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
 
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
@@ -3735,6 +4383,15 @@ def main():
     times.update(node_dw_timing())
     times.update(population_timing(pop_ms, gen, clock, dev))
     times.update(population_timing(bpop_ms, gen_bf, clock, dev))
+
+    # ---- 4k. data parallelism, the profiling utilities, the native
+    # renderer and the tutorial: after phase 5, whose check that
+    # solve_neural_field runs no library product reads the node kernels'
+    # launches from torch.profiler, which drops some (device_ms): run after
+    # 4k, it saw no node_field_fwd_kernel in any of its windows in both
+    # runs that tried (PERF.md, open questions) ---------------------------
+    dp_path(cli_goku, train_set, val_set, dev, gpu)
+
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
     node_src = "latentdiffeq_torch/csrc/node_field.cu"

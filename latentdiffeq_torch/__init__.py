@@ -21,6 +21,10 @@ the same way so each module's counterpart is easy to find:
              and population selection scores
   custom_dynamics.py, custom_data.py: Van der Pol and Kuramoto, and their
              lifted observations
+  parallel/  data parallelism over torch.distributed ranks (the batch of
+             a Trainer, the seeds of a population)
+  utils/     phase timers, torch.profiler traces, the NaN debug mode, the
+             native (C++) frame rasterizer
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``.
@@ -28,8 +32,8 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 
 __version__ = "0.1.0"
 
-from .core import Identity, resolve_device
-from . import nn, random, solve, adjoint, ops, models, train
+from .core import Identity, resolve_device, tree_size
+from . import nn, random, solve, adjoint, ops, models, train, parallel, utils
 from .solve import (ODEProblem, SDEProblem, Solution, remake, Euler,
                     Midpoint, RK4, Tsit5, Dopri5, solve, solve_ensemble,
                     make_options, autosize_max_steps, AdaptiveConfig,
@@ -41,7 +45,7 @@ from .train import (vector_mse, kl, vector_kl, frange_cycle_linear,
                     normalize_to_unit_segment, denormalize_unit_segment,
                     time_loader, rand_time)
 
-__all__ = ["resolve_device", "Identity", "nn", "ODEProblem", "SDEProblem",
+__all__ = ["resolve_device", "Identity", "tree_size", "nn", "ODEProblem", "SDEProblem",
            "Solution", "remake", "Euler", "Midpoint", "RK4", "Tsit5",
            "Dopri5", "solve", "solve_ensemble", "make_options",
            "autosize_max_steps", "AdaptiveConfig", "EulerMaruyama",
@@ -51,4 +55,5 @@ __all__ = ["resolve_device", "Identity", "nn", "ODEProblem", "SDEProblem",
            "SolveOptions", "vector_mse", "kl", "vector_kl",
            "frange_cycle_linear", "normalize_to_unit_segment",
            "denormalize_unit_segment", "time_loader", "rand_time",
-           "adjoint", "ops", "models", "train", "random"]
+           "adjoint", "ops", "models", "train", "random", "parallel",
+           "utils"]

@@ -11,7 +11,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "DeviceLike", "Identity"]
+__all__ = ["resolve_device", "DeviceLike", "Identity", "tree_size"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -38,3 +38,19 @@ class Identity(torch.nn.Module):
 
     def forward(self, x):
         return x
+
+
+def tree_size(tree) -> int:
+    """Total number of scalars in a module's parameters and buffers, or in
+    the tensors of a (nested) list, tuple or dict (JAX's ``tree_size``
+    counts a pytree's array leaves)."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(t.numel() for t in list(tree.parameters())
+                   + list(tree.buffers()))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, dict):
+        return sum(tree_size(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_size(v) for v in tree)
+    return 0

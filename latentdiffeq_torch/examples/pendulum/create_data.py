@@ -11,8 +11,10 @@ ignores the arguments; this one stores the generator's arguments and the
 device type with the arrays (the card and the CPU differ in the last
 bits) and returns a file only when they equal the call's. A file whose key
 differs is regenerated and overwritten, never returned. The frames are
-rendered with torch (JAX's ``renderer="native"``, its C++ host rasterizer,
-is not ported yet).
+rendered with torch on the device, or with ``renderer="native"`` by the C++
+host rasterizer (``latentdiffeq_torch.utils.native``); the renderer is part
+of the key, so a torch-rendered cache is never returned for a native
+request.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ _NAMES = ("latent", "u0s", "ps", "frames")
 
 
 def cache_key(*, diffeq=None, n_traj: int = N_TRAJ, seed: int = SEED,
-              tspan=TSPAN, dt: float = DT, device=None) -> dict:
+              tspan=TSPAN, dt: float = DT, device=None,
+              renderer: str = "torch") -> dict:
     """The generator's arguments, defaults filled in, and the device type:
     what a cached file must have been made with to be returned. The
     dynamics count by their vector field's qualified name (the generator
@@ -45,7 +48,7 @@ def cache_key(*, diffeq=None, n_traj: int = N_TRAJ, seed: int = SEED,
             else f"{f.__module__}.{f.__qualname__}")
     return {"diffeq": name, "n_traj": int(n_traj), "seed": int(seed),
             "tspan": [float(tspan[0]), float(tspan[1])], "dt": float(dt),
-            "device": resolve_device(device).type}
+            "device": resolve_device(device).type, "renderer": renderer}
 
 
 def _stored_key(path: str):
@@ -75,8 +78,8 @@ def load_or_generate(path: str = None, **kwargs):
     T, 28, 28))`` as float32 numpy arrays, from the cache at ``path``
     (default ``DATA_DIR/pendulum_data.npz``) when its key equals
     ``cache_key(**kwargs)``, else generated (``generate_dataset(**kwargs)``:
-    ``diffeq``, ``n_traj``, ``seed``, ``tspan``, ``dt``, ``device``) and
-    cached."""
+    ``diffeq``, ``n_traj``, ``seed``, ``tspan``, ``dt``, ``device``,
+    ``renderer``) and cached."""
     if path is None:
         path = os.path.join(DATA_DIR, DEFAULT_FILE)
     key = cache_key(**kwargs)

@@ -3,6 +3,8 @@ examples/pendulum/train_goku.py:28-290).
 
     python -m latentdiffeq_torch.examples.pendulum.train_goku --epochs 2
     python -m latentdiffeq_torch.examples.pendulum.train_goku --device cpu
+    python -m torch.distributed.run --nproc-per-node N \
+        -m latentdiffeq_torch.examples.pendulum.train_goku --data-parallel N
 
 Cached data generation (create_data.py), the 90/10 split, GOKU's default
 layers, Flux ADAMW ELBO training with cyclical KL annealing on random
@@ -11,10 +13,20 @@ layers, Flux ADAMW ELBO training with cyclical KL annealing on random
 with ``--seeds`` a population (MultiSeedTrainer) and its winner.
 
 The JAX script's flags and defaults, so that its command lines run here,
-except two: ``--unroll`` only schedules the JAX solver's scan, and
-``--data-parallel`` waits for the port's ``parallel/``. Added:
+except ``--unroll``, which only schedules the JAX solver's scan. Added:
 ``--device`` (default ``cuda``; ``cpu`` runs every kernel's plain PyTorch
 version, the counterpart of ``LDQ_PLATFORM=cpu``).
+
+``--data-parallel N`` trains on N ranks (``parallel/``): the batch sharded
+over them (``Trainer(mesh=)``), or with ``--seeds`` the seeds
+(``MultiSeedTrainer(mesh=)``). Start N ranks with ``python -m
+torch.distributed.run --nproc-per-node N``; with N = 1 and no launcher the
+script sets up its one-rank group itself, and a launcher's ``WORLD_SIZE``
+other than N raises. Each rank trains on ``cuda:LOCAL_RANK`` (a
+``--device`` with an index pins every rank to that card) or on the CPU
+with ``--device cpu``; the group uses NCCL on the card and gloo on the
+CPU or where ranks share a card (NCCL refuses two ranks on one device).
+Rank 0 prints, draws the figures and writes the checkpoints.
 
 Differences from the JAX script, each on purpose:
 - the model runs the hand-written kernels (``GOKUBasic(use_kernel_encoder=
@@ -36,12 +48,14 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from latentdiffeq_torch.core import resolve_device
 from latentdiffeq_torch.examples.pendulum import create_data
 from latentdiffeq_torch.examples.pendulum.create_data import load_or_generate
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
                                        goku_default_layers)
+from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
 from latentdiffeq_torch.pendulum import Pendulum, PendulumFriction, SPendulum
 from latentdiffeq_torch.solve import SDEAdaptiveConfig, make_options
 from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig, Trainer,
@@ -50,7 +64,7 @@ from latentdiffeq_torch.train.trainer import _epoch_length, _prog_seq_lengths
 from latentdiffeq_torch.train.visualize import visualize_val_image
 
 __all__ = ["OUTPUT_DIR", "EPOCHS_PER_DISPATCH", "build_parser",
-           "figure_epochs", "main"]
+           "figure_epochs", "data_parallel_mesh", "main"]
 
 OUTPUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "output")
@@ -133,9 +147,40 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warm-steps", type=int, default=300)
     ap.add_argument("--no-viz", action="store_true")
     ap.add_argument("--resume", type=str, default=None)
+    ap.add_argument("--data-parallel", type=int, default=0, metavar="N",
+                    help="train data-parallel on N ranks, started by "
+                         "python -m torch.distributed.run --nproc-per-node "
+                         "N (0 = one process; N must divide the batch "
+                         "size, or with --seeds the seed count)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: where the model trains")
     return ap
+
+
+def data_parallel_mesh(n: int, device):
+    """The mesh of ``--data-parallel n``: joins the launcher's group (or
+    sets up a one-rank group when n is 1 and no launcher ran), on
+    ``cuda:LOCAL_RANK`` for ``device`` ``cuda``; a card index in
+    ``device`` pins every rank to that card, and ranks that share it
+    reduce with gloo. Returns ``(mesh, device, whether this call started
+    the group)``."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise ValueError(
+            f"--data-parallel {n} needs {n} ranks and {world} were started; "
+            f"launch with python -m torch.distributed.run --nproc-per-node "
+            f"{n}")
+    dev = torch.device(device)
+    shared = (dev.type == "cuda" and dev.index is not None
+              and int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    dev = resolve_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    started = not dist.is_initialized()
+    initialize_distributed(backend="gloo" if shared else None, device=dev)
+    return make_mesh(n), dev, started
 
 
 def load_data(diffeq_name: str, device):
@@ -170,8 +215,20 @@ def main(argv=None):
         ap.error("--seeds is incompatible with --resume (population "
                  "training starts fresh; restore the winner checkpoint "
                  "into a plain Trainer instead)")
-    dev = resolve_device(args.device)
+    if not args.data_parallel:
+        return train(args, resolve_device(args.device), None)
+    mesh, dev, started = data_parallel_mesh(args.data_parallel, args.device)
+    try:
+        return train(args, dev, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def train(args, dev, mesh):
+    """The run of ``main``'s arguments on ``dev`` (``mesh``: data
+    parallel)."""
+    rank0 = mesh is None or mesh.get_local_rank() == 0
     latent, u0s, ps, frames = load_data(args.diffeq, dev)
     x = frames.reshape(frames.shape[0], frames.shape[1], -1)
     train_set, val_set = splitobs(x, 0.9)
@@ -214,16 +271,16 @@ def main(argv=None):
 
     if args.seeds:
         return train_population(args, init_fn, cfg, train_set, val_set,
-                                warm, dev)
+                                warm, dev, mesh)
 
-    trainer = Trainer(init_fn(args.seed), cfg, device=dev)
+    trainer = Trainer(init_fn(args.seed), cfg, device=dev, mesh=mesh)
     if args.resume:
         trainer.restore(args.resume)
     elif warm is not None:
         warm(trainer.model)
 
     callbacks = []
-    if not args.no_viz:
+    if not args.no_viz and rank0:
         fig_rng = np.random.default_rng(args.seed)
         fig_at = set(figure_epochs(cfg, trainer.epoch))
 
@@ -243,11 +300,14 @@ def main(argv=None):
     return trainer
 
 
-def train_population(args, init_fn, cfg, train_set, val_set, warm, dev):
-    """``--seeds S``: train the population, prune, pick and save the winner
-    (train_goku.py:189-257)."""
+def train_population(args, init_fn, cfg, train_set, val_set, warm, dev,
+                     mesh=None):
+    """``--seeds S``: train the population (its seeds sharded over
+    ``mesh``), prune, pick and save the winner (train_goku.py:189-257)."""
     seeds = list(range(args.seed, args.seed + args.seeds))
-    ms = MultiSeedTrainer(init_fn, cfg, seeds, device=dev)
+    ms = MultiSeedTrainer(init_fn, cfg, seeds, device=dev, mesh=mesh)
+    say = (print if mesh is None or mesh.get_local_rank() == 0
+           else (lambda *a, **k: None))
     if warm is not None:
         ms.warm_start(warm)
     if args.prune_at and args.prune_at < args.epochs:
@@ -260,8 +320,8 @@ def train_population(args, init_fn, cfg, train_set, val_set, warm, dev):
         keep = list(np.argsort(vals)[:args.prune_keep])
         dropped = [s for i, s in enumerate(ms.seeds) if i not in keep]
         ms.prune(sorted(keep))
-        print(f"epoch {args.prune_at}: pruned to seeds {ms.seeds} "
-              f"(dropped {dropped})")
+        say(f"epoch {args.prune_at}: pruned to seeds {ms.seeds} "
+            f"(dropped {dropped})")
     ms.fit(train_set, val_set)
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     ckpt = os.path.join(cfg.checkpoint_dir, "best_model.npz")
@@ -282,14 +342,14 @@ def train_population(args, init_fn, cfg, train_set, val_set, warm, dev):
         label = ("pixel-composite score"
                  if args.select_by == "pixel-composite"
                  else "pixel-angle corr")
-        print(f"winner: seed {info['seed']} ({label} "
-              f"{info['score']:.4f}, "
-              f"{'best-carry' if info['from_best'] else 'live'} "
-              f"weights) -> {ckpt}")
+        say(f"winner: seed {info['seed']} ({label} "
+            f"{info['score']:.4f}, "
+            f"{'best-carry' if info['from_best'] else 'live'} "
+            f"weights) -> {ckpt}")
     else:
         ms.save_best(ckpt)
-        print(f"winner: seed {ms.best_seed} "
-              f"(val {ms.best_val_loss:.4f}) -> {ckpt}")
+        say(f"winner: seed {ms.best_seed} "
+            f"(val {ms.best_val_loss:.4f}) -> {ckpt}")
     return ms
 
 

@@ -90,7 +90,8 @@ class GOKU(ModelType):
         """Batched solve from per-sample (z0_hat, theta_hat); failed
         trajectories are NaN-filled (GOKU.jl:113-114, goku.py:142).
         ``SDEDynamics`` need ``key``: row b integrates the Brownian path of
-        ``split(key, B)[b]``, adaptively or on the grid as ``de.adaptive``
+        ``split(key, B)[b]`` (``key[b]`` for keys (B, 2)), adaptively or
+        on the grid as ``de.adaptive``
         says (goku.py:110-129). ``use_kernel_solver`` names the RK kernel
         only, as ``use_pallas_solver`` does in JAX: the SDE branch comes
         first and never runs it. NN stages below float32 (bfloat16): the
@@ -106,7 +107,9 @@ class GOKU(ModelType):
             if key is None:
                 raise ValueError("SDE dynamics require a PRNG `key` "
                                  "(pass key= to the model call)")
-            keys = jr.split(jr.as_key(key, z0_hat.device), z0_hat.shape[0])
+            key = jr.as_key(key, z0_hat.device)
+            # keys (B, 2): a rank's rows of a data-parallel batch
+            keys = key if key.dim() == 2 else jr.split(key, z0_hat.shape[0])
             if de.adaptive:
                 ys, success, stats = solve_sde_adaptive(
                     de.f, de.g, de.solver, z0_hat, th_hat, t, keys,

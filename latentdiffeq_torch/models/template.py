@@ -28,6 +28,25 @@ def _slot(layer):
     return layer
 
 
+def _noise_widths(model):
+    """The widths of the reparameterisation noise in the order
+    ``model_type.sample`` draws it: the output widths of the logvar heads,
+    every second layer of ``latent_in`` (GOKU: z0 and theta; LatentODE:
+    one). A tuple for several groups, else an int."""
+    li = model.encoder.latent_in
+    heads = list(li) if isinstance(li, torch.nn.ModuleList) else [li]
+    widths = tuple(h.out_dim for h in heads[1::2])
+    return widths if len(widths) > 1 else widths[0]
+
+
+def _noise_dtype(model):
+    """The dtype ``model_type.sample`` draws the noise in: the logvar
+    heads' (bfloat16 for bf16 NN stages, as JAX draws it)."""
+    li = model.encoder.latent_in
+    head = list(li)[1] if isinstance(li, torch.nn.ModuleList) else li
+    return head.W.dtype
+
+
 class ModelType:
     """Base for model-type tags; subclasses implement the hooks."""
 

@@ -92,8 +92,9 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, bool]:
         procs = {}
         for n in stale:
             src, lib, _, _ = _paths(n)
+            # one file a process: the ranks of a launch may build at once
             procs[n] = subprocess.Popen(
-                [nvcc, *_flags(n), src, "-o", lib + ".tmp"],
+                [nvcc, *_flags(n), src, "-o", f"{lib}.{os.getpid()}.tmp"],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         failed = []
         for n, proc in procs.items():
@@ -105,7 +106,7 @@ def build_kernels(names: Optional[Iterable[str]] = None) -> Dict[str, bool]:
                 failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n"
                               f"{out}")
                 continue
-            os.replace(lib + ".tmp", lib)
+            os.replace(f"{lib}.{os.getpid()}.tmp", lib)
             with open(stamp, "w") as f:
                 f.write(_digest(n))
         if failed:

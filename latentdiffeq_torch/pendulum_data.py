@@ -100,12 +100,18 @@ def render_frames(angles, *, pendulum_length: float = HIGH_DIM_ARGS[0],
 
 def generate_dataset(*, n_traj: int = N_TRAJ, seed: int = SEED,
                      tspan=TSPAN, dt: float = DT, diffeq=None,
-                     device=None):
+                     device=None, renderer: str = "torch"):
     """The pendulum video dataset on ``device`` (default: the card).
 
     Returns ``(latent (n, T, 2), u0s (n, 2), ps (n, 1), frames (n, T, H,
     W))`` float32 tensors, frames in [0, 1]. Raises unless every
-    trajectory's solve succeeds."""
+    trajectory's solve succeeds. ``renderer``: ``"torch"`` draws the frames
+    with ``render_frames`` on ``device``, ``"native"`` with the C++ host
+    rasterizer (``utils.native``; the same geometry, the card left free,
+    create_data.py:128-132)."""
+    if renderer not in ("torch", "native"):
+        raise ValueError(f"renderer must be 'torch' or 'native', got "
+                         f"{renderer!r}")
     device = resolve_device(device)
     if diffeq is None:
         diffeq = Pendulum()
@@ -120,5 +126,10 @@ def generate_dataset(*, n_traj: int = N_TRAJ, seed: int = SEED,
                                        AdaptiveConfig())
         if not bool(ok.all()):
             raise RuntimeError("data-generation solves must succeed")
-        frames = render_frames(latent[..., 0])
+        if renderer == "native":
+            from .utils.native import native_render_trajectories
+            frames = torch.from_numpy(native_render_trajectories(
+                latent[..., 0].cpu().numpy())).to(device)
+        else:
+            frames = render_frames(latent[..., 0])
     return latent, u0s, ps, frames

@@ -25,6 +25,9 @@ keys and runs on the keys' device.
   operation of a draw is correctly rounded (its log1p is built from such
   operations, its sqrt is :func:`sqrt_rn`), so a draw has the same bits on
   the CPU and on the card.
+- ``randint(key, shape, minval, maxval)``: JAX's int32 draw, two words of
+  32 bits from ``split(key)`` and a remainder by the span, with JAX's
+  multiplier for the upper word.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "as_key", "fold_in", "split", "normal",
+__all__ = ["PRNGKey", "as_key", "fold_in", "split", "normal", "randint",
            "threefry2x32", "sqrt_rn"]
 
 _M32 = 0xFFFFFFFF
@@ -262,3 +265,48 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     u = torch.maximum(lo, (one_two - 1.0) * (hi - lo) + lo)
     z = sqrt2 * erfinv_xla(u)
     return z.reshape(key.shape[:-1] + shape)
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _mul32(a, b):
+    """a * b mod 2^32 for uint32 words in int64, in 16-bit halves so that
+    no product passes 2^63."""
+    lo = (a & 0xFFFF) * b
+    hi = ((a >> 16) * b) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _rem(a, span):
+    """XLA's unsigned remainder: by 0 it leaves ``a``."""
+    return torch.where(span == 0, a, a % torch.clamp(span, min=1))
+
+
+def randint(key: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` in its default
+    int32 for a key (2,): int64 values in [minval, maxval) on the key's
+    device (``minval`` alone when ``maxval <= minval``), the same integers
+    as JAX's (random.py ``_randint``)."""
+    shape = tuple(shape)
+    dev = key.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    out_of_range = hi > _I32_MAX
+    lo, hi = lo.clamp(_I32_MIN, _I32_MAX), hi.clamp(_I32_MIN, _I32_MAX)
+    k1, k2 = split(key)
+    n = math.prod(shape)
+    words = []
+    for k in (k1, k2):
+        b1, b2 = _bits(k, n)
+        words.append((b1 ^ b2).reshape(shape))
+    higher, lower = words
+    span = (hi - lo) & _M32
+    span = torch.where(hi <= lo, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (hi > lo), (span + 1) & _M32, span)
+    mult = _rem(torch.full_like(span, 2 ** 16), span)
+    mult = _rem(_mul32(mult, mult), span)
+    offset = (_mul32(_rem(higher, span), mult) + _rem(lower, span)) & _M32
+    offset = _rem(offset, span)
+    # minval + offset wraps in int32, as the JAX sum does
+    return ((lo + offset + 2 ** 31) & _M32) - 2 ** 31

@@ -20,19 +20,29 @@ def kl(mu, logvar):
     return (torch.exp(logvar) + mu ** 2 - logvar - 1) / 2
 
 
-def _kl_group(mu, logvar, free_bits: float = 0.0):
+def _kl_group(mu, logvar, free_bits: float = 0.0, shards=None):
     per_dim = torch.mean(kl(mu, logvar), dim=0)
     if free_bits > 0.0:
-        per_dim = torch.clamp(per_dim, min=free_bits)
+        if shards is None:
+            per_dim = torch.clamp(per_dim, min=free_bits)
+        else:
+            # the floor applies to the global batch's mean: this rank's
+            # mean where the global one passes it, else the floor, so the
+            # ranks' mean is the global term and its gradient clamp's
+            glob = shards.sum(per_dim) / shards.world
+            per_dim = torch.where(glob >= free_bits, per_dim,
+                                  torch.full_like(per_dim, free_bits))
     return torch.sum(per_dim)
 
 
-def vector_kl(mu, logvar, free_bits: float = 0.0):
+def vector_kl(mu, logvar, free_bits: float = 0.0, shards=None):
     """KL of a (batch, latent) tensor or a tuple of them; ``free_bits``
-    floors each latent dim's batch-mean KL (0 = reference semantics)."""
+    floors each latent dim's batch-mean KL (0 = reference semantics).
+    ``shards``: see ``loss_batch``."""
     if isinstance(mu, (tuple, list)):
-        return sum(_kl_group(m, lv, free_bits) for m, lv in zip(mu, logvar))
-    return _kl_group(mu, logvar, free_bits)
+        return sum(_kl_group(m, lv, free_bits, shards)
+                   for m, lv in zip(mu, logvar))
+    return _kl_group(mu, logvar, free_bits, shards)
 
 
 def vector_mse(x, x_hat):
@@ -47,7 +57,7 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
                generator: Optional[torch.Generator] = None, eps=None,
                mask_failures: bool = False, free_bits: float = 0.0,
                cur_len=None, anchor=None, anchor_weight: float = 0.0,
-               anchor_frames=None, key=None):
+               anchor_frames=None, key=None, shards=None):
     """reconstruction + beta * KL (model_train.jl:225-238). Returns
     ``(loss, metrics)``.
 
@@ -63,7 +73,14 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     the loss gains ``anchor_weight`` times its squared error against the
     decoded latent trajectory, with the reconstruction term's frame and
     failure masking. ``anchor_frames``: anchor only the first k frames
-    (normalised over those)."""
+    (normalised over those).
+
+    ``shards`` (``parallel.BatchShards``): ``x`` is this rank's equal shard
+    of a minibatch spread over ``shards.world`` ranks. The terms that
+    couple the batch then use the global batch, the count of successful
+    rows under ``mask_failures`` and the batch-mean KL under ``free_bits``,
+    so that the mean over the ranks of the loss (and of its gradient) is
+    the global batch's, as JAX's GSPMD step computes it."""
     (x_hat, z_hat, l_hat), mu, logvar, aux = model(
         x, t, variational=variational, generator=generator, eps=eps,
         cur_len=cur_len, key=key)
@@ -77,13 +94,17 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     if mask_failures:
         ok = aux["success"]
         se = torch.where(ok[:, None, None], se, torch.zeros_like(se))
-        denom = torch.clamp(ok.sum(), min=1)
+        n_ok = ok.sum() if shards is None else shards.sum(ok.sum())
+        denom = torch.clamp(n_ok, min=1)
+        if shards is not None:
+            # each rank's share of the global term: the ranks' mean is it
+            denom = denom / shards.world
         rec = torch.sum(torch.sum(se, dim=(0, 1)) / (denom * n_frames))
     elif cur_len is not None:
         rec = torch.sum(torch.sum(se, dim=(0, 1)) / (x.shape[0] * n_frames))
     else:
         rec = reconstruction_loss(x, x_hat)
-    kld = vector_kl(mu, logvar, free_bits)
+    kld = vector_kl(mu, logvar, free_bits, shards)
     loss = rec + beta * kld
     metrics = {"loss": loss, "rec": rec, "kl": kld,
                "n_failed": torch.sum(~aux["success"]),

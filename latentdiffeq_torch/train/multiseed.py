@@ -1,5 +1,5 @@
 """Population training: S seeds of one architecture trained at once
-(counterpart of latentdiffeq/train/multiseed.py:57-566, without ``mesh``).
+(counterpart of latentdiffeq/train/multiseed.py:57-566).
 
 Whether a GOKU run converges to the identifiable solution or collapses
 depends on its random tape, so the quality records train several seeds and
@@ -25,6 +25,17 @@ Replica s therefore trains like that Trainer, equal up to float32 rounding
 Each replica keeps its own NaN-safe best (weights, Adam moments, epoch):
 a NaN validation loss never replaces a finite best, and a replica that
 never recorded one loses every selection.
+
+Population parallelism (``mesh``, JAX's ``mesh=``, multiseed.py:82-132):
+the seed axis is sharded over the mesh's ranks. Rank r trains the r-th
+block of S / ranks seeds with their own streams, and nothing is collective
+while they train. ``seeds``, the indices of ``prune``, ``select``,
+``seed_model`` and ``save_replica``, ``per_seed_best_vals`` and the
+history stay those of the whole population: the selection gathers the
+ranks' numbers (every rank then agrees on the winner), a replica's weights
+come from the rank that trains it, and rank 0 writes the checkpoints.
+``params``, ``stacked_models`` and ``warm_start`` are this rank's
+replicas'.
 """
 from __future__ import annotations
 
@@ -42,6 +53,8 @@ from torch.func import functional_call, stack_module_state, vmap
 from .. import random as jr
 from ..core import resolve_device
 from ..models.dynamics import SDEDynamics
+from ..models.template import _noise_dtype, _noise_widths
+from ..parallel.mesh import mesh_rank, mesh_size
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import (_np, jax_param_paths, load_arrays, save_arrays,
@@ -115,25 +128,6 @@ class StackedModels:
         return m
 
 
-def _noise_widths(model):
-    """The widths of the reparameterisation noise in the order
-    ``model_type.sample`` draws it: the output widths of the logvar heads,
-    every second layer of ``latent_in`` (GOKU: z0 and theta; LatentODE:
-    one). A tuple for several groups, else an int."""
-    li = model.encoder.latent_in
-    heads = list(li) if isinstance(li, torch.nn.ModuleList) else [li]
-    widths = tuple(h.out_dim for h in heads[1::2])
-    return widths if len(widths) > 1 else widths[0]
-
-
-def _noise_dtype(model):
-    """The dtype ``model_type.sample`` draws the noise in: the logvar
-    heads' (bfloat16 for bf16 NN stages, as JAX draws it)."""
-    li = model.encoder.latent_in
-    head = list(li)[1] if isinstance(li, torch.nn.ModuleList) else li
-    return head.W.dtype
-
-
 class MultiSeedTrainer:
     """Train one architecture under ``seeds`` at once.
 
@@ -143,17 +137,25 @@ class MultiSeedTrainer:
     .manual_seed(seed)))``). Seed s trains like ``Trainer(
     model_init_fn(s), replace(cfg, seed=s))``, curricula and autosize
     included. The replicas' tensors are ``self.params`` / ``self.buffers``
-    ({name: (S, ...)}); ``self.base`` holds the shared structure."""
+    ({name: (S, ...)}); ``self.base`` holds the shared structure. ``mesh``:
+    shard the seeds over its ranks (module docstring); their number must
+    divide over them."""
 
     def __init__(self, model_init_fn: Callable, cfg: TrainConfig,
                  seeds: Sequence[int], *, loss_fn: Callable = loss_batch,
-                 device=None):
+                 device=None, mesh=None):
         if len(seeds) < 1:
             raise ValueError("need at least one seed")
+        self.mesh = mesh
+        self.rank, self.world = mesh_rank(mesh), mesh_size(mesh)
+        if len(seeds) % self.world:
+            raise ValueError(
+                f"population parallelism shards the SEED axis: {len(seeds)}"
+                f" seeds not divisible by mesh size {self.world}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.seeds = [int(s) for s in seeds]
-        models = [model_init_fn(s) for s in self.seeds]
+        models = [model_init_fn(s) for s in self.local_seeds]
         for name, p in models[0].named_parameters():
             if p.device != self.device:
                 raise ValueError(f"parameter {name} is on {p.device}, the "
@@ -164,11 +166,11 @@ class MultiSeedTrainer:
         self.opt = optim.adamw(list(self.params.values()), cfg.lr, 0.9,
                                0.999, cfg.decay)
         self.loss_fn = loss_fn
-        self.np_rngs = [np.random.default_rng(s) for s in self.seeds]
+        self.np_rngs = [np.random.default_rng(s) for s in self.local_seeds]
         self.window_gens = [torch.Generator().manual_seed(s)
-                            for s in self.seeds]
+                            for s in self.local_seeds]
         self.noise_gens = [torch.Generator(device=self.device).manual_seed(s)
-                           for s in self.seeds]
+                           for s in self.local_seeds]
         self._widths = _noise_widths(self.base)
         self._noise_dtype = _noise_dtype(self.base)
         self.epoch = 0
@@ -178,6 +180,40 @@ class MultiSeedTrainer:
     @property
     def n_seeds(self) -> int:
         return len(self.seeds)
+
+    @property
+    def local_seeds(self):
+        """The seeds this rank trains (all of them without a mesh)."""
+        k = len(self.seeds) // self.world
+        return self.seeds[self.rank * k:(self.rank + 1) * k]
+
+    # ------------------------------------------------------------------
+    # the population over the mesh's ranks (no-ops without a mesh)
+    # ------------------------------------------------------------------
+    def _gather(self, *arrays):
+        """Every rank's arrays of per-replica values, concatenated in rank
+        order (the whole population's)."""
+        if self.mesh is None:
+            return arrays if len(arrays) > 1 else arrays[0]
+        got = [None] * self.world
+        torch.distributed.all_gather_object(got, arrays,
+                                            group=self.mesh.get_group())
+        out = tuple(np.concatenate([g[i] for g in got])
+                    for i in range(len(arrays)))
+        return out if len(out) > 1 else out[0]
+
+    def _from_owner(self, i: int, make: Callable):
+        """``make(j)`` evaluated on the rank that trains replica ``i`` (its
+        ``j``-th), handed to every rank."""
+        owner, j = divmod(i, len(self.local_seeds))
+        if self.mesh is None:
+            return make(j)
+        box = [make(j) if self.rank == owner else None]
+        group = self.mesh.get_group()
+        torch.distributed.broadcast_object_list(
+            box, src=torch.distributed.get_global_rank(group, owner),
+            group=group)
+        return box[0]
 
     @property
     def _sde(self) -> bool:
@@ -272,7 +308,7 @@ class MultiSeedTrainer:
 
     # ------------------------------------------------------------------
     def _init_best(self):
-        S = self.n_seeds
+        S = len(self.local_seeds)
         st = self.opt.state_dict()
         return {"params": {k: v.detach().clone()
                            for k, v in self.params.items()},
@@ -346,20 +382,25 @@ class MultiSeedTrainer:
             val_loss = vm["loss"].double().cpu().numpy()   # synchronises
             train_loss = torch.stack([m["loss"] for m in ms]).mean(
                 dim=0).double().cpu().numpy()
+            n_failed = torch.stack([m["n_failed"] for m in ms]).sum(
+                dim=0).cpu().numpy()
+            self._track_best(val_loss, ep)
             wall = time.perf_counter() - t0
+            train_loss, val_loss, n_failed = self._gather(
+                train_loss, val_loss, n_failed)
             rec = {"epoch": ep, "train_loss": train_loss,
                    "val_loss": val_loss, "beta": beta,
                    "seq_len": seq_len, "epoch_s": wall,
-                   "n_failed": torch.stack([m["n_failed"] for m in ms]).sum(
-                       dim=0).cpu().numpy()}
+                   "n_failed": n_failed}
             self.history.append(rec)
             self.epoch += 1
-            self._track_best(val_loss, ep)
             if verbose:
-                j = self.best_seed_index
-                print(f"epoch {ep:4d}  [{self.n_seeds} seeds]  best val "
-                      f"{self._best['val'][j]:10.4f} (seed {self.seeds[j]})"
-                      f"  {wall:7.3f}s", flush=True)
+                vals = self.per_seed_best_vals
+                j = _argmin_finite(vals)
+                if self.rank == 0:
+                    print(f"epoch {ep:4d}  [{self.n_seeds} seeds]  best val "
+                          f"{vals[j]:10.4f} (seed {self.seeds[j]})"
+                          f"  {wall:7.3f}s", flush=True)
             if cfg.save_best:
                 self.save_best(os.path.join(cfg.checkpoint_dir,
                                             "best_model.npz"))
@@ -386,32 +427,24 @@ class MultiSeedTrainer:
         """Keep the replicas at indices ``keep`` (into the current
         population). Their tensors, moments, best carries and random
         streams go on untouched, so training them on equals never having
-        trained the others. Returns self."""
+        trained the others. With a mesh the survivors must still divide
+        over it (JAX's prune refuses the same, multiseed.py:308-311); they
+        are dealt out to the ranks afresh. Returns self."""
         keep = sorted(int(i) for i in keep)
         if not keep:
             raise ValueError("must keep at least one replica")
         if any(i < 0 or i >= self.n_seeds for i in keep):
             raise ValueError(f"keep indices {keep} out of range for "
                              f"{self.n_seeds} seeds")
-        ix = torch.tensor(keep, device=self.device)
-        st = self.opt.state_dict()
-        self.params = {k: v.detach()[ix].clone().requires_grad_()
-                       for k, v in self.params.items()}
-        self.buffers = {k: v[ix].clone() for k, v in self.buffers.items()}
-        opt = optim.adamw(list(self.params.values()), self.cfg.lr, 0.9,
-                          0.999, self.cfg.decay)
-        opt.load_state_dict({"m": [a[ix] for a in st["m"]],
-                             "v": [a[ix] for a in st["v"]], "t": st["t"]})
-        self.opt = opt
-        if self._best is not None:
-            b = self._best
-            self._best = {"params": {k: v[ix] for k, v in
-                                     b["params"].items()},
-                          "m": [a[ix] for a in b["m"]],
-                          "v": [a[ix] for a in b["v"]],
-                          "val": b["val"][keep], "epoch": b["epoch"][keep]}
-        for name in ("seeds", "np_rngs", "window_gens", "noise_gens"):
-            setattr(self, name, [getattr(self, name)[i] for i in keep])
+        if len(keep) % self.world:
+            raise ValueError(f"{len(keep)} surviving seeds not divisible by "
+                             f"mesh size {self.world}")
+        arrays, meta = self._population_state()
+        arrays = {k: a[keep] if _per_replica(k) else a
+                  for k, a in arrays.items()}
+        meta = dict(meta, seeds=[meta["seeds"][i] for i in keep],
+                    np_rng_states=[meta["np_rng_states"][i] for i in keep])
+        self._set_state(arrays, meta)
         return self
 
     def autosize_adaptive_budget(self, train_set, *, seq_len=None,
@@ -433,9 +466,7 @@ class MultiSeedTrainer:
     # ------------------------------------------------------------------
     @property
     def best_seed_index(self) -> int:
-        vals = (self._best["val"] if self._best is not None
-                else np.full(self.n_seeds, np.inf))
-        return int(np.argmin(np.where(np.isfinite(vals), vals, np.inf)))
+        return _argmin_finite(self.per_seed_best_vals)
 
     @property
     def best_seed(self) -> int:
@@ -446,7 +477,7 @@ class MultiSeedTrainer:
         """Per-replica best validation losses (+inf for a replica that never
         recorded a finite one)."""
         best = self._best if self._best is not None else self._init_best()
-        return [float(v) for v in best["val"]]
+        return [float(v) for v in self._gather(np.asarray(best["val"]))]
 
     @property
     def best_val_loss(self) -> float:
@@ -459,38 +490,57 @@ class MultiSeedTrainer:
         best = self._best if self._best is not None else self._init_best()
         return StackedModels(self.base, best["params"], self.buffers)
 
+    def _replica(self, i: int, from_best: bool) -> torch.nn.Module:
+        def weights(j):
+            stacked = (self.stacked_best_models if from_best
+                       else self.stacked_models)
+            m = stacked.replica(j)
+            return m if self.mesh is None else {
+                k: v.cpu() for k, v in m.state_dict().items()}
+
+        got = self._from_owner(i, weights)
+        if self.mesh is None:
+            return got
+        m = copy.deepcopy(self.base)
+        m.load_state_dict(got)
+        return m
+
     def seed_model(self, i: int) -> torch.nn.Module:
         """Live weights of replica ``i`` as a module."""
-        return self.stacked_models.replica(i)
+        return self._replica(i, from_best=False)
 
     def best_seed_model(self, i: int) -> torch.nn.Module:
         """Best-so-far weights of replica ``i`` as a module."""
-        return self.stacked_best_models.replica(i)
+        return self._replica(i, from_best=True)
 
     @property
     def best_model(self) -> torch.nn.Module:
         """The argmin-validation replica's best weights."""
         return self.best_seed_model(self.best_seed_index)
 
+    def _scores(self, score_fn, stacked):
+        sc = np.asarray(score_fn(stacked), np.float64)
+        if sc.shape != (len(stacked),):
+            raise ValueError(f"score_fn returned shape {sc.shape}, "
+                             f"expected ({len(stacked)},)")
+        return np.where(np.isfinite(sc), sc, -np.inf)
+
     def select(self, score_fn: Callable, *, include_best: bool = True):
         """The population winner by ``score_fn(stacked) -> (S,)`` (higher is
         better; non-finite scores lose), over the live weights and (with
-        ``include_best``) the best carries: one call each. Returns ``(model,
-        info)``: the argmax replica's weights as a module and
-        ``index/seed/score/from_best`` with both score vectors."""
-        sl = np.asarray(score_fn(self.stacked_models), np.float64)
-        if sl.shape != (self.n_seeds,):
-            raise ValueError(f"score_fn returned shape {sl.shape}, "
-                             f"expected ({self.n_seeds},)")
-        sl = np.where(np.isfinite(sl), sl, -np.inf)
+        ``include_best``) the best carries: one call each (with a mesh, on
+        each rank's replicas). Returns ``(model, info)``: the argmax
+        replica's weights as a module and ``index/seed/score/from_best``
+        with both score vectors."""
+        sl = self._gather(self._scores(score_fn, self.stacked_models))
         sb = None
         if include_best:
-            sb = np.asarray(score_fn(self.stacked_best_models), np.float64)
-            sb = np.where(np.isfinite(sb), sb, -np.inf)
+            sb = self._gather(self._scores(score_fn,
+                                           self.stacked_best_models))
         overall = sl if sb is None else np.maximum(sl, sb)
         i = int(np.argmax(overall))
         from_best = bool(sb is not None and sb[i] >= sl[i])
-        model = self.best_seed_model(i) if from_best else self.seed_model(i)
+        model = self._replica(i, from_best)
         info = {"index": i, "seed": self.seeds[i],
                 "score": float(overall[i]), "from_best": from_best,
                 "scores_live": sl.tolist(),
@@ -525,7 +575,8 @@ class MultiSeedTrainer:
             return loss_fn(m, xv, t, beta, variational=True, eps=eps,
                            **kw)[0]
 
-        return [float(v) for v in self.stacked_models.map(one)]
+        return [float(v) for v in self._gather(
+            self.stacked_models.map(one).double().cpu().numpy())]
 
     # ------------------------------------------------------------------
     # persistence
@@ -543,21 +594,24 @@ class MultiSeedTrainer:
     def save_replica(self, path: str, i: int, *, from_best: bool = True):
         """Write replica ``i`` (its best carry, or its live weights) as a
         Trainer checkpoint: ``Trainer.restore`` continues that replica."""
-        best = self._best if self._best is not None else self._init_best()
-        epoch = int(best["epoch"][i]) + 1 if from_best else self.epoch
-        save_arrays(path, self._replica_arrays(i, from_best),
-                    {"epoch": epoch, "best_val_loss": float(best["val"][i]),
+        def payload(j):
+            best = self._best if self._best is not None else self._init_best()
+            epoch = int(best["epoch"][j]) + 1 if from_best else self.epoch
+            return (self._replica_arrays(j, from_best),
+                    {"epoch": epoch, "best_val_loss": float(best["val"][j]),
                      "seed": self.seeds[i], "from_best": from_best})
+
+        self._write(path, *self._from_owner(i, payload))
 
     def save_best(self, path: str):
         """Write the argmin-validation replica's best (weights, moments) as
         a Trainer checkpoint."""
         self.save_replica(path, self.best_seed_index, from_best=True)
 
-    def save_population(self, path: str):
-        """Write everything ``restore`` needs to continue the run as if it
-        had not stopped: every replica's live and best tensors and moments,
-        the best losses and epochs, and each replica's random streams."""
+    def _population_state(self):
+        """``(arrays, meta)`` of the whole population: every replica's live
+        and best tensors and moments, the best losses and epochs, and each
+        replica's random streams (gathered over the ranks)."""
         b = self._best if self._best is not None else self._init_best()
         st = self.opt.state_dict()
         arrays = {}
@@ -573,66 +627,114 @@ class MultiSeedTrainer:
                                           for g in self.window_gens])
         arrays["noise_gens"] = np.stack([g.get_state().numpy()
                                          for g in self.noise_gens])
-        save_arrays(path, arrays, {
-            "epoch": self.epoch, "seeds": self.seeds,
-            "has_best": self._best is not None,
-            "np_rng_states": [r.bit_generator.state for r in self.np_rngs],
-            "noise_gen_device": self.device.type})
+        rngs = [r.bit_generator.state for r in self.np_rngs]
+        if self.mesh is not None:
+            got = [None] * self.world
+            torch.distributed.all_gather_object(
+                got, (arrays, rngs), group=self.mesh.get_group())
+            arrays = {k: np.concatenate([g[0][k] for g in got])
+                      if _per_replica(k) else a for k, a in arrays.items()}
+            rngs = [r for g in got for r in g[1]]
+        return arrays, {"epoch": self.epoch, "seeds": self.seeds,
+                        "has_best": self._best is not None,
+                        "np_rng_states": rngs,
+                        "noise_gen_device": self.device.type}
 
-    def restore(self, path: str) -> "MultiSeedTrainer":
-        """Continue a run from ``save_population``; the trainer must have
-        the same seeds and configuration. Noise streams saved on another
-        device type (or by a file that does not say) are reseeded from
-        the seeds, with a warning, as ``Trainer.restore`` does. Returns
-        self."""
-        arrays, meta = load_arrays(path)
-        if list(meta["seeds"]) != self.seeds:
-            raise ValueError(f"population checkpoint was trained with seeds "
-                             f"{meta['seeds']}, this trainer has "
-                             f"{self.seeds}")
+    def save_population(self, path: str):
+        """Write everything ``restore`` needs to continue the run as if it
+        had not stopped (``_population_state``)."""
+        self._write(path, *self._population_state())
 
-        def dev(a, like=None):
-            t = torch.from_numpy(np.array(a)).to(self.device)
+    def _write(self, path: str, arrays, meta):
+        """Rank 0 writes; with a mesh the others wait until it has."""
+        if self.rank == 0:
+            save_arrays(path, arrays, meta)
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.get_group())
+
+    def _set_state(self, arrays, meta, path: str = "the population state"):
+        """Take the population ``(arrays, meta)`` of ``_population_state``
+        (this rank's block of its replicas): new tensors, moments, best
+        carries and streams. Noise streams saved on another device type
+        (or by a file that does not say) are reseeded from the seeds, with
+        a warning."""
+        self.seeds = [int(s) for s in meta["seeds"]]
+        k = len(self.seeds) // self.world
+        rows = slice(self.rank * k, (self.rank + 1) * k)
+
+        def dev(name, like):
+            a = arrays[name][rows] if _per_replica(name) else arrays[name]
             # bfloat16 tensors are stored as float32 (checkpoint._np)
-            return t if like is None else t.to(like.dtype)
+            return torch.from_numpy(np.array(a)).to(self.device, like.dtype)
 
         def part(tag):
             ps = list(self.params.values())
-            return ([dev(arrays[f"{tag}/model/{p}"], q)
+            return ([dev(f"{tag}/model/{p}", q)
                      for p, q in zip(self.paths, ps)],
-                    [dev(arrays[f"{tag}/opt_state/m/{p}"], q)
+                    [dev(f"{tag}/opt_state/m/{p}", q)
                      for p, q in zip(self.paths, ps)],
-                    [dev(arrays[f"{tag}/opt_state/v/{p}"], q)
+                    [dev(f"{tag}/opt_state/v/{p}", q)
                      for p, q in zip(self.paths, ps)])
 
         live, best = part("live"), part("best")
-        with torch.no_grad():
-            for p, a in zip(self.params.values(), live[0]):
-                p.copy_(a)
-            for k, b in self.buffers.items():
-                b.copy_(dev(arrays[f"buffers/{k}"]))
+        self.buffers = {n: dev(f"buffers/{n}", b)
+                        for n, b in self.buffers.items()}
+        self.params = {n: a.requires_grad_()
+                       for n, a in zip(self.params, live[0])}
+        self.opt = optim.adamw(list(self.params.values()), self.cfg.lr, 0.9,
+                               0.999, self.cfg.decay)
         self.opt.load_state_dict({"m": live[1], "v": live[2],
                                   "t": int(arrays["live/opt_state/t"])})
         self._best = None
         if meta["has_best"]:
             self._best = {"params": dict(zip(self.params, best[0])),
                           "m": best[1], "v": best[2],
-                          "val": np.asarray(arrays["best_val"]),
-                          "epoch": np.asarray(arrays["best_epoch"])}
-        for g, s in zip(self.window_gens, arrays["window_gens"]):
-            g.set_state(torch.from_numpy(np.array(s)))
+                          "val": np.asarray(arrays["best_val"][rows]),
+                          "epoch": np.asarray(arrays["best_epoch"][rows])}
+        seeds = self.local_seeds
+        self.np_rngs = []
+        for st in meta["np_rng_states"][rows]:
+            r = np.random.default_rng()
+            r.bit_generator.state = st
+            self.np_rngs.append(r)
+        self.window_gens = [torch.Generator().set_state(torch.from_numpy(
+            np.array(st))) for st in arrays["window_gens"][rows]]
+        self.noise_gens = [torch.Generator(device=self.device)
+                           for _ in seeds]
         saved_on = meta.get("noise_gen_device")
         if saved_on == self.device.type:
-            for g, s in zip(self.noise_gens, arrays["noise_gens"]):
-                g.set_state(torch.from_numpy(np.array(s)))
+            for g, st in zip(self.noise_gens, arrays["noise_gens"][rows]):
+                g.set_state(torch.from_numpy(np.array(st)))
         else:
-            for g, s in zip(self.noise_gens, self.seeds):
-                g.manual_seed(s)
+            for g, sd in zip(self.noise_gens, seeds):
+                g.manual_seed(sd)
             warnings.warn(
                 f"{path}: its noise streams were saved on {saved_on}; this "
                 f"run's are on {self.device.type}, so they are reseeded "
                 "from the seeds (the other streams are restored)")
-        for r, s in zip(self.np_rngs, meta["np_rng_states"]):
-            r.bit_generator.state = s
         self.epoch = int(meta["epoch"])
+
+    def restore(self, path: str) -> "MultiSeedTrainer":
+        """Continue a run from ``save_population``; the trainer must have
+        the same seeds and configuration (with a mesh, every rank reads the
+        file and takes its replicas). Noise streams saved on another
+        device type are reseeded from the seeds, with a warning, as
+        ``Trainer.restore`` does. Returns self."""
+        arrays, meta = load_arrays(path)
+        if list(meta["seeds"]) != self.seeds:
+            raise ValueError(f"population checkpoint was trained with seeds "
+                             f"{meta['seeds']}, this trainer has "
+                             f"{self.seeds}")
+        self._set_state(arrays, meta, path)
         return self
+
+
+def _per_replica(name: str) -> bool:
+    """Whether a population array has the replica axis first: all but the
+    optimizers' step counts."""
+    return not name.endswith("opt_state/t")
+
+
+def _argmin_finite(vals) -> int:
+    vals = np.asarray(vals, np.float64)
+    return int(np.argmin(np.where(np.isfinite(vals), vals, np.inf)))

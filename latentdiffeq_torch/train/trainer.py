@@ -37,6 +37,18 @@ state, so a run restored from it goes on exactly as if it had not stopped
 state is the device's own (Philox on the card, mt19937 on the CPU): a
 checkpoint restored on the other device type reseeds it from ``seed``,
 with a warning, and restores the other two.
+
+Data parallelism (``mesh``, a 1-D mesh of ``parallel.make_mesh``; JAX's
+GSPMD ``Trainer(mesh=)``, trainer.py:425-486): every rank runs this
+Trainer on the whole dataset with the same seed, so it draws the same
+permutations, window starts and noise as the solo Trainer, and trains on
+its rows of each minibatch. The model is replicated from rank 0 and
+wrapped in ``DistributedDataParallel``, which averages the gradients over
+the ranks; each rank cuts the global batch's noise (and SDE keys) to its
+rows, and the loss's batch couplings are made global (``loss_batch(
+shards=)``), so the run equals the solo Trainer's up to the order of the
+reductions. Validation stays whole on every rank; rank 0 alone prints and
+writes checkpoints, and ``restore`` leaves every rank with the same state.
 """
 from __future__ import annotations
 
@@ -50,9 +62,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from torch.nn.parallel import DistributedDataParallel
+
 from .. import random as jr
 from ..core import resolve_device
 from ..models.dynamics import ODEDynamics, SDEDynamics
+from ..models.template import _noise_dtype, _noise_widths
+from ..parallel.data_parallel import BatchShards, reduce_metrics
+from ..parallel.mesh import mesh_rank, mesh_size
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -225,11 +242,13 @@ def _autosize_probe(model, cfg: TrainConfig, train_set, seq_len=None,
 class Trainer:
     """``optimizer``: a ``train.optim`` optimizer, bound to the model's
     parameters or unbound (then bound here); default Flux ADAMW(cfg.lr,
-    (0.9, 0.999), cfg.decay)."""
+    (0.9, 0.999), cfg.decay). ``mesh``: train data-parallel over its ranks
+    (module docstring); ``cfg.batch_size`` must divide over them, and a
+    ``loss_fn`` must take ``shards=`` as ``loss_batch`` does."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
                  optimizer: Optional[optim.Optimizer] = None,
-                 loss_fn: Callable = loss_batch, device=None):
+                 loss_fn: Callable = loss_batch, device=None, mesh=None):
         self.device = resolve_device(device)
         for name, p in model.named_parameters():
             if p.device != self.device:
@@ -253,6 +272,21 @@ class Trainer:
             cfg.seed)
         decoder = getattr(model, "decoder", None)
         self._sde = isinstance(getattr(decoder, "diffeq", None), SDEDynamics)
+        self.mesh = mesh
+        self.rank, self.world = mesh_rank(mesh), mesh_size(mesh)
+        self._net, self._shards = model, None
+        if mesh is not None:
+            if cfg.batch_size % self.world:
+                raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                                 f"by mesh size {self.world}")
+            group = mesh.get_group()
+            self._shards = BatchShards(group, self.world)
+            # replicates rank 0's parameters and buffers; the gradients are
+            # averaged in its backward hooks
+            self._net = DistributedDataParallel(
+                model, process_group=group,
+                device_ids=([self.device.index]
+                            if self.device.type == "cuda" else None))
 
     def _grid(self, n: int):
         return torch.arange(n, dtype=torch.float32,
@@ -267,18 +301,40 @@ class Trainer:
                                 device=self.device, dtype=torch.int64)
         return {} if key is None else {"key": key}
 
+    def _shard_randomness(self, b: int, eps, kw):
+        """A rank's noise and SDE keys: the global batch's, drawn from the
+        noise generator as the solo Trainer draws them (the key first, then
+        each group's noise), cut to this rank's ``b`` rows."""
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        n = b * self.world
+        if "key" in kw:
+            kw["key"] = jr.split(jr.as_key(kw["key"], self.device), n)[rows]
+        if eps is None and self.cfg.variational:
+            widths = _noise_widths(self.model)
+            draw = dict(generator=self.noise_gen, device=self.device,
+                        dtype=_noise_dtype(self.model))
+            eps = (tuple(torch.randn((n, w), **draw)[rows] for w in widths)
+                   if isinstance(widths, tuple)
+                   else torch.randn((n, widths), **draw)[rows])
+        return eps, dict(kw, shards=self._shards)
+
     def train_step(self, x, beta: float, *, eps=None, key=None):
         """One ELBO gradient step of the optimizer on the window ``x``
         (batch, seq_len, features). ``eps`` and ``key`` optionally fix the
         reparameterisation noise and the Brownian path. Returns the step's
-        metrics (tensors, not synchronised)."""
+        metrics (tensors, not synchronised). With a mesh, ``x`` (and a
+        given ``eps``) are this rank's rows of the global minibatch and the
+        metrics its share: their mean over the ranks (the sum for ``n_*``)
+        is the global batch's."""
         cfg = self.cfg
+        kw = self._key_kw(key)
+        if self.mesh is not None:
+            eps, kw = self._shard_randomness(x.shape[0], eps, kw)
         self.opt.zero_grad()
         loss, metrics = self.loss_fn(
-            self.model, x, self._grid(x.shape[1]), beta,
+            self._net, x, self._grid(x.shape[1]), beta,
             variational=cfg.variational, generator=self.noise_gen, eps=eps,
-            mask_failures=cfg.mask_failures, free_bits=cfg.free_bits,
-            **self._key_kw(key))
+            mask_failures=cfg.mask_failures, free_bits=cfg.free_bits, **kw)
         loss.backward()
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
@@ -337,6 +393,7 @@ class Trainer:
         if cfg.autosize_adaptive and self.epoch == 0:
             self.autosize_adaptive_budget(train_set, verbose=verbose)
         prog = _prog_seq_lengths(cfg)
+        b = cfg.batch_size // self.world          # this rank's rows
 
         while self.epoch < epochs:
             ep = self.epoch
@@ -347,6 +404,7 @@ class Trainer:
             ms, vm = [], None
             for s in range(steps):
                 idx = perm[s * cfg.batch_size:(s + 1) * cfg.batch_size]
+                idx = idx[self.rank * b:(self.rank + 1) * b]
                 x = sample_window(data[idx.to(self.device)], seq_len,
                                   self.window_gen)
                 ms.append(self.train_step(x, beta))
@@ -354,18 +412,20 @@ class Trainer:
                     vm = self.val_step(val, beta)
             if vm is None:
                 vm = self.val_step(val, beta)
+            st = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+            if self.mesh is not None:             # the global batches'
+                st = reduce_metrics(st, self.mesh.get_group(), self.world)
             val_loss = float(vm["loss"])          # synchronises
-            train_loss = float(torch.stack([m["loss"] for m in ms]).mean())
-            rhs = int(sum(int(m["n_rhs_evals"]) for m in ms))
+            train_loss = float(st["loss"].mean())
             wall = time.perf_counter() - t0
             rec = {"epoch": ep, "train_loss": train_loss,
                    "val_loss": val_loss, "beta": beta,
                    "seq_len": seq_len, "epoch_s": wall,
-                   "rhs_evals_per_s": rhs / wall,
-                   "kl": float(torch.stack([m["kl"] for m in ms]).mean()),
-                   "n_failed": int(sum(int(m["n_failed"]) for m in ms))}
+                   "rhs_evals_per_s": int(st["n_rhs_evals"].sum()) / wall,
+                   "kl": float(st["kl"].mean()),
+                   "n_failed": int(st["n_failed"].sum())}
             self.history.append(rec)
-            if verbose:
+            if verbose and self.rank == 0:
                 print(f"epoch {ep:4d}  loss {train_loss:10.4f}  "
                       f"val {val_loss:10.4f}  beta {beta:.3f}  "
                       f"{wall:7.3f}s", flush=True)
@@ -396,14 +456,20 @@ class Trainer:
         """Write the weights, the optimizer's state and the epoch, with the
         three random streams: ``np_rng``'s state in the meta under JAX's
         name, ``window_gen`` and ``noise_gen``'s states as arrays. A run
-        restored from it goes on exactly as if it had not stopped."""
-        save_checkpoint(
-            path, self.model, self.opt,
-            meta={"epoch": self.epoch, "best_val_loss": self.best_val_loss,
-                  "np_rng": self.np_rng.bit_generator.state,
-                  "noise_gen_device": self.noise_gen.device.type},
-            arrays={"window_gen": self.window_gen.get_state().numpy(),
-                    "noise_gen": self.noise_gen.get_state().numpy()})
+        restored from it goes on exactly as if it had not stopped. With a
+        mesh every rank calls it: rank 0 writes (every rank holds the same
+        state) and the others wait until the file is there."""
+        if self.rank == 0:
+            save_checkpoint(
+                path, self.model, self.opt,
+                meta={"epoch": self.epoch,
+                      "best_val_loss": self.best_val_loss,
+                      "np_rng": self.np_rng.bit_generator.state,
+                      "noise_gen_device": self.noise_gen.device.type},
+                arrays={"window_gen": self.window_gen.get_state().numpy(),
+                        "noise_gen": self.noise_gen.get_state().numpy()})
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.get_group())
 
     def restore(self, path: str):
         """Load a checkpoint of ``save`` (or the JAX Trainer's, or a bare

@@ -28,6 +28,17 @@ from latentdiffeq_torch.models import NODE
 from latentdiffeq_torch.pendulum import pendulum_f
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jpend(u, p, t):
     return jnp.stack([u[1], -10.0 / p[0] * jnp.sin(u[0])])
 

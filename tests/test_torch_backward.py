@@ -34,6 +34,17 @@ REL64 = 1e-12
 ACTS = {"relu": (jnn.relu, tnn.relu), "tanh": (jnn.tanh, tnn.tanh)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close_rel(got, ref, rel):
     got = np.asarray(got.detach() if torch.is_tensor(got) else got)
     ref = np.asarray(ref)

@@ -68,6 +68,17 @@ BF16_CKPTS = ["goku_bf16_gate.npz", "goku_bf16_winner.npz"]
 BF = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def f32(a) -> np.ndarray:
     """Any tensor or array as float32 numpy."""
     if isinstance(a, torch.Tensor):

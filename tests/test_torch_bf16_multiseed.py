@@ -63,6 +63,17 @@ BETA = 0.4
 BF = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def f32(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().numpy()

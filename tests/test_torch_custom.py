@@ -57,6 +57,17 @@ VDP_WINNER = os.path.join(ROOT, "benchmarks", "artifacts",
                           "vdp_mu4_winner.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fields(name):
     """(JAX f, port f, state width) of each RHS under test."""
     if name == "vdp":

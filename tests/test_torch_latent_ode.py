@@ -56,6 +56,17 @@ ACTS = {"relu": (jnn.relu, tnn.relu), "tanh": (jnn.tanh, tnn.tanh),
 CASES = [("Tsit5", 1), ("RK4", 2)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def field_pair(dims=(8, 16, 16, 8), act="relu", seed=0, scale=0.3):
     """The same Chain-of-Dense field in both packages: every W and b drawn
     from N(0, scale^2) with numpy."""

@@ -61,6 +61,17 @@ CKPTS = ["goku_best_model.npz", "goku_pop8_winner.npz", "ttg_px_winner.npz"]
 BETA = 0.4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def full(i, kernels=False, sde=False):
     """Full-width GOKU holding checkpoint ``i`` (of CKPTS, or with ``sde``
     the two stochastic-pendulum winners on the fixed-grid SPendulum)."""

@@ -26,6 +26,17 @@ from latentdiffeq_torch.solve import sde as ts
 SOLVERS = ["EulerMaruyama", "StochasticHeun", "SRA1", "SRIW1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tk(key):
     """A JAX key array as the port's int64 key words."""
     return torch.from_numpy(np.asarray(key).astype(np.int64))

@@ -66,6 +66,17 @@ CKPT = {"fixed": ("spendulum_pop4_winner.npz", {}),
                            dict(ADAPTIVE, rtol=1e-3, atol=1e-3))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def dynamics(which):
     _, cfg = CKPT[which]
     if which == "fixed":

@@ -53,6 +53,17 @@ DT = 0.05
 CTX = 40
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_model(path=None, width=784, seed=0):
     kw = {} if width == 784 else dict(hidden_dim_resnet=16,
                                       latent_to_diffeq_dim=16)

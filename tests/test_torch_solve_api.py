@@ -34,6 +34,17 @@ from latentdiffeq_torch.solve.fixed import solve_fixed_grid as tsolve
 from latentdiffeq_torch.train import data as tdata
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: with the suite's
+    parallel workers, torch's default of one thread a core oversubscribes
+    the CPU and its synchronising threads slow small ops by up to ~70x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jpend(u, p, t):
     return jnp.stack([u[1], -10.0 / p[0] * jnp.sin(u[0])])
 
@@ -378,15 +389,17 @@ def test_data_helpers_match_jax():
 
 
 def test_root_exports_the_jax_roots_ported_names():
-    """The names of the JAX package root that the port has (the pytree
-    helpers, parallel and utils come later), as ``latentdiffeq_torch``
-    exports them; and every name in the ``__all__`` of the subpackages
-    train, nn, solve, models, adjoint and ops, less those with no port by
-    design (listed below with the reason)."""
-    later = {"module", "static_field", "tree_size", "parallel", "utils"}
-    missing = set(ldq.__all__) - set(ldt.__all__) - later
+    """The names of the JAX package root, as ``latentdiffeq_torch`` exports
+    them, and every name in the ``__all__`` of the subpackages train, nn,
+    solve, models, adjoint, ops, parallel and utils, less those with no
+    port by design (listed below with the reason); ``tree_size`` counts
+    what JAX's counts."""
+    # JAX's pytree registration (a frozen dataclass as a pytree): the
+    # port's layers are torch.nn.Modules
+    pytree_only = {"module", "static_field"}
+    missing = set(ldq.__all__) - set(ldt.__all__) - pytree_only
     assert not missing, missing
-    for name in set(ldq.__all__) - later:
+    for name in set(ldq.__all__) - pytree_only:
         assert hasattr(ldt, name), name
     assert ldt.AdaptiveConfig is not None and JAdaptiveConfig is not None
     # the subpackages' __all__ (sys.modules: the roots rebind ``solve`` to
@@ -400,8 +413,12 @@ def test_root_exports_the_jax_roots_ported_names():
         # solve_neural_field)
         "ops": {"pallas_goku_heads", "pallas_solve_fixed_grid_batched",
                 "pallas_solve_neural_field"},
+        # JAX's names for the layout of one global array over a JAX mesh;
+        # the port's ranks each hold their own tensors (parallel/mesh.py)
+        "parallel": {"P", "NamedSharding"},
     }
-    for sub in ("train", "nn", "solve", "models", "adjoint", "ops"):
+    for sub in ("train", "nn", "solve", "models", "adjoint", "ops",
+                "parallel", "utils"):
         jmod = sys.modules[f"latentdiffeq.{sub}"]
         tmod = sys.modules[f"latentdiffeq_torch.{sub}"]
         missing = (set(jmod.__all__) - set(getattr(tmod, "__all__", ()))
@@ -409,6 +426,11 @@ def test_root_exports_the_jax_roots_ported_names():
         assert not missing, (sub, missing)
         for name in set(jmod.__all__) - by_design.get(sub, set()):
             assert hasattr(tmod, name), (sub, name)
-    # parallel/ and utils/ come in later slices (ROADMAP.md Queue 1
-    # items 4-5)
-    assert "latentdiffeq_torch.parallel" not in sys.modules
+    from latentdiffeq.models import GOKUBasic, default_layers
+    from latentdiffeq_torch.models import goku_default_layers
+    from latentdiffeq_torch.pendulum import Pendulum
+    small = dict(hidden_dim_resnet=16, latent_to_diffeq_dim=16)
+    layers = goku_default_layers(32, Pendulum(), device="cpu", **small)
+    jlayers = default_layers(jax.random.PRNGKey(0), GOKUBasic(), 32,
+                             ldq.models.ODEDynamics(), **small)
+    assert ldt.tree_size(layers) == ldq.tree_size(jlayers) > 0
