@@ -91,8 +91,9 @@ Phases, each printing one line (any failure exits non-zero):
               launches and checks; then (4i) full-width LatentODE as a
               population of 4 seeds (1-4, train_latent_ode.py
               --pallas-solve --seeds 4) for 2 epochs: each step launches
-              node_field_fwd 2S times, node_field_bwd S times and
-              node_field_dw once, no plain version runs, replica 1 against
+              node_field_fwd twice (the taped train forward and the
+              validation pass), node_field_bwd and node_field_dw once,
+              for all S replicas, no plain version runs, replica 1 against
               a solo Trainer of seed 2 (rtol 2e-4), the population's and
               the solo step's times and device ops; then (4j) the training
               CLIs through their main(argv), the pendulum cache seeded
@@ -139,7 +140,11 @@ Phases, each printing one line (any failure exits non-zero):
               at S 8 beside 8 solo launches and the vmapped plain version,
               in float32 and bf16; the
               neural-field kernels' launch plan,
-              their time at 1 and 2 rows a block; node_field_dw at the
+              their time at 1 and 2 rows a block; the forward and sweep
+              with a replica axis (S 4 and 8, train and validation
+              shapes, 1 and 2 rows a block) against S solo launches bit
+              for bit, their times, and at S 4 beside S solo launches,
+              the plain version, bound and latency model; node_field_dw at the
               train, val and wide shapes and with 4 replicas beside
               torch.mm per layer (torch.bmm with replicas), its plain
               version, its bound on the tensor cores and the float32 SIMT
@@ -1021,9 +1026,193 @@ def node_dw_timing():
 
 
 # ---------------------------------------------------------------------------
+# The forward and sweep kernels with a replica axis (phase 5): one launch for
+# a population of fields, each replica as its own launch computes it.
+
+NODE_POP_SHAPES = (("train", 64, 50), ("val", 45, 100))
+NODE_POP_SIZES = (4, 8)
+
+
+def node_population(widths, S, B, T, seed):
+    """(S relu fields, their weights stacked on a replica axis as one
+    _Field, u0s (S, B, dim), saveat, the cotangent (S, B, T, dim))."""
+    from latentdiffeq_torch.ops import node_cuda
+    ms = [make_field(widths, seed=seed + i) for i in range(S)]
+    ins = [node_inputs(widths, B, T, seed=seed + 100 + i) for i in range(S)]
+    f = node_cuda.dense_stack(ms[0])
+    pop = f._replace(
+        Ws=[torch.stack([m.layers[l].W.detach() for m in ms])
+            for l in range(len(ms[0].layers))],
+        bs=[torch.stack([m.layers[l].b.detach() for m in ms])
+            for l in range(len(ms[0].layers))])
+    return (ms, pop, torch.stack([i[0] for i in ins]), ins[0][1],
+            torch.stack([i[2] for i in ins]))
+
+
+def node_population_timing(clock):
+    """Phase 5 for node_field_fwd and node_field_bwd with a replica axis,
+    at S 4 and 8, B 64 T 50 (train) and B 45 T 100 (validation): the
+    launch plan; at one and at two rows a block, one launch against S solo
+    launches at the same rows a block, bit for bit (ys with and without
+    the tape, the tape, du0, Delta), and its time per call (CUDA events);
+    the default launch against S solo launches at their own default
+    (largest difference logged) and its time on the device. At S 4,
+    train (the population's shape): time per call and on the device
+    beside S solo launches, the plain version with the replica axis, the
+    kernel against it (ys NODE_TOL absolute; du0 and Delta NODE_GRAD_TOL
+    of each tensor's size), the bound of S weight sets and S * B rows,
+    the latency model. Returns
+    ({name: (ms, plain_ms, bound_ms, bound_by, None)}, {name: max abs
+    err}) for the [pop4] rows."""
+    from latentdiffeq_torch.ops import node_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    solver = Tsit5()
+    tab = solver.tableau
+    n_st = n_solution_stages(tab)
+    fwd, sweep = node_cuda.solve_neural_field_cuda, \
+        node_cuda.neural_field_sweep_cuda
+    times, errs = {}, {}
+    for S in NODE_POP_SIZES:
+        for label, B, T in NODE_POP_SHAPES:
+            ms, pop, u0s, saveat, w = node_population(NODE_WIDTHS, S, B, T,
+                                                      seed=300 + S + T)
+            for bwd in (False, True):
+                rows, place, reg, threads, nbytes = node_cuda.kernel_plan(
+                    NODE_WIDTHS, n_st, B, backward=bwd, replicas=S)
+                log("timing", f"node_field {label} S={S} B={B} "
+                              f"{'sweep' if bwd else 'forward'} plan: "
+                              f"{rows} row(s) a block, {S} x "
+                              f"{-(-B // rows)} blocks of {threads} threads, "
+                              f"weights in {place} (register layer {reg}), "
+                              f"{nbytes} B of shared memory")
+
+            def runs(rows, solo):
+                """(ys, tape, ys without the tape, du0, delta): one launch
+                with the replica axis, or S solo launches stacked."""
+                with torch.no_grad():
+                    if not solo:
+                        ys, tape = fwd(pop, solver, u0s, saveat, tape=True,
+                                       rows_per_block=rows)
+                        ys0 = fwd(pop, solver, u0s, saveat,
+                                  rows_per_block=rows)
+                        return (ys, tape, ys0) + sweep(
+                            pop, solver, saveat, tape, w,
+                            rows_per_block=rows)
+                    outs = []
+                    for i, m in enumerate(ms):
+                        ys, tape = fwd(m, solver, u0s[i], saveat, tape=True,
+                                       rows_per_block=rows)
+                        ys0 = fwd(m, solver, u0s[i], saveat,
+                                  rows_per_block=rows)
+                        outs.append((ys, tape, ys0) + sweep(
+                            m, solver, saveat, tape, w[i],
+                            rows_per_block=rows))
+                    return [torch.stack(t) for t in zip(*outs)]
+
+            for rows in (1, 2):
+                got, want = runs(rows, False), runs(rows, True)
+                same = [torch.equal(a, b) for a, b in zip(got, want)]
+                tape = got[1]
+                k_f = time_ms(lambda: fwd(pop, solver, u0s, saveat,
+                                          rows_per_block=rows))
+                k_b = time_ms(lambda: sweep(pop, solver, saveat, tape, w,
+                                            rows_per_block=rows))
+                log("timing", f"node_field {label} S={S} B={B} T={T}, "
+                              f"{rows} row(s) a block ({S} x {-(-B // rows)} "
+                              f"blocks): forward {k_f:.4f} ms, sweep "
+                              f"{k_b:.4f} ms per call; against {S} solo "
+                              f"launches at {rows} row(s) a block bit for "
+                              f"bit (ys, tape, ys without tape, du0, Delta) "
+                              f"{same}")
+                if not all(same):
+                    fail(f"node_field replica axis {label} S={S} rows "
+                         f"{rows}: not bit for bit with solo launches "
+                         f"{same}")
+            got, want = runs(0, False), runs(0, True)
+            diff = max(max_err(a, b) for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            r_pop, r_solo = (node_cuda.kernel_plan(
+                NODE_WIDTHS, n_st, B, backward=False, replicas=n)[0]
+                for n in (S, 1))
+            tape = got[1]
+            d_f = device_ms(lambda: fwd(pop, solver, u0s, saveat),
+                            "node_field_fwd_kernel")
+            d_b = device_ms(lambda: sweep(pop, solver, saveat, tape, w),
+                            "node_field_bwd_kernel")
+            log("timing", f"node_field {label} S={S}: default launch "
+                          f"({r_pop} row(s) a block; forward "
+                          f"{fmt_ms(d_f)}, sweep {fmt_ms(d_b)} on the "
+                          f"device) against {S} solo launches at theirs "
+                          f"({r_solo}): bit for bit {same}, largest "
+                          f"difference {diff:.3e}")
+            if S != 4 or label != "train":
+                continue
+            ys, tape, _, du0, delta = got
+            with torch.no_grad():
+                ys_p = node_cuda.solve_neural_field_reference(
+                    pop, solver, u0s, saveat)[0]
+            du0_p, delta_p = node_cuda.neural_field_sweep_reference(
+                pop, solver, saveat, tape, w)
+            dp = node_cuda.tape_layout(NODE_WIDTHS)[2]
+            pieces = [(du0[i], du0_p[i]) for i in range(S)] + [
+                (delta[i, ..., o:o + n], delta_p[i, ..., o:o + n])
+                for i in range(S) for o, n in zip(dp, NODE_WIDTHS[1:])]
+            e_f = max_err(ys, ys_p)
+            e_b = max(rel_err(a, b) for a, b in pieces)
+            errs["node_field_fwd[pop4]"] = e_f
+            errs["node_field_bwd[pop4]"] = max(max_err(a, b)
+                                               for a, b in pieces)
+            log("grads", f"node_field {label} S={S} B={B} T={T} in one "
+                         f"launch vs the plain versions with the replica "
+                         f"axis: ys max abs err {e_f:.3e} (tol "
+                         f"{NODE_TOL:.0e}), sweep max rel err {e_b:.3e} "
+                         f"(tol {NODE_GRAD_TOL:.0e}, each replica's du0 and "
+                         f"Delta pieces)")
+            if not (e_f <= NODE_TOL and e_b <= NODE_GRAD_TOL):
+                fail(f"node_field replica axis vs plain: {e_f}, {e_b}")
+            calls = {
+                "node_field_fwd[pop4]": (
+                    lambda: fwd(pop, solver, u0s, saveat),
+                    lambda: [fwd(m, solver, u0s[i], saveat)
+                             for i, m in enumerate(ms)],
+                    lambda: node_cuda.solve_neural_field_reference(
+                        pop, solver, u0s, saveat),
+                    "node_field_fwd_kernel", "fwd"),
+                "node_field_bwd[pop4]": (
+                    lambda: sweep(pop, solver, saveat, tape, w),
+                    lambda: [sweep(m, solver, saveat, tape[i], w[i])
+                             for i, m in enumerate(ms)],
+                    lambda: node_cuda.neural_field_sweep_reference(
+                        pop, solver, saveat, tape, w),
+                    "node_field_bwd_kernel", "sweep"),
+            }
+            for name, (kernel, solo, plain, kname, part) in calls.items():
+                with torch.no_grad():
+                    k_ms = time_ms(kernel)
+                    d_ms = device_ms(kernel, kname)
+                    s_ms = time_ms(solo)
+                    p_ms = time_ms(plain, reps=2, warmup=1)
+                nb, ops = node_work(B, T, NODE_WIDTHS, 1, tab, n_st,
+                                    part=part)
+                bd, by, t_b, t_o = bound_ms(S * nb, S * ops)
+                lat = node_latency_ms(T, 1, n_st, NODE_WIDTHS, clock)
+                log("timing", f"{name} S={S} B={B} T={T}: kernel "
+                              f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on "
+                              f"the device), {S} solo launches {s_ms:.4f} "
+                              f"ms, plain (replica by replica) {p_ms:.4f} "
+                              f"ms, bound {bd:.6f} ms ({by}; bytes "
+                              f"{t_b:.6f} ms, operations {t_o:.6f} ms), "
+                              f"latency model {lat:.6f} ms at {clock:.0f} "
+                              f"MHz; library: none, no one PyTorch call "
+                              f"runs {S} fields")
+                times[name] = (k_ms, p_ms, bd, by, None)
+    return times, errs
+
+
+# ---------------------------------------------------------------------------
 # Phase 4i: a LatentODE population (train_latent_ode.py --pallas-solve
-# --seeds 4): the forward and sweep kernels once a replica, the
-# weight-gradient kernel once for all replicas.
+# --seeds 4): the forward, sweep and weight-gradient kernels each once for
+# all replicas.
 
 NODE_POP_SEEDS = (1, 2, 3, 4)
 NODE_PLAIN = ("solve_neural_field_reference",
@@ -1059,11 +1248,11 @@ def latent_ode_population_path(train_set, val_set, dev, gpu):
     solve (the defaults of examples/pendulum/train_latent_ode.py with
     --pallas-solve --seeds 4: NODE(16), TrainConfig(decay=1e-4), seeds 1-4),
     2 epochs on the pendulum video: finite losses; each step launches
-    node_field_fwd 2S times (the train step with its tape and the
-    validation pass), node_field_bwd S times and node_field_dw once, and no
-    plain version runs; replica 1 (seed 2) against a solo Trainer of seed
-    2 (rtol 2e-4); the population's step and validation times and device
-    ops beside the solo step's. Returns the launches."""
+    node_field_fwd twice (the train step with its tape and the validation
+    pass), node_field_bwd and node_field_dw once, each for all S replicas,
+    and no plain version runs; replica 1 (seed 2) against a solo Trainer
+    of seed 2 (rtol 2e-4); the population's step and validation times and
+    device ops beside the solo step's. Returns the launches."""
     import numpy as np
 
     from latentdiffeq_torch.adjoint import SolveOptions
@@ -1099,7 +1288,7 @@ def latent_ode_population_path(train_set, val_set, dev, gpu):
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
     launches = counts()
-    want = {"node_field_fwd": 2 * S * steps, "node_field_bwd": S * steps,
+    want = {"node_field_fwd": 2 * steps, "node_field_bwd": steps,
             "node_field_dw": steps}
     for rec in hist:
         log("train", f"LatentODE population epoch {rec['epoch']}: train "
@@ -1126,8 +1315,9 @@ def latent_ode_population_path(train_set, val_set, dev, gpu):
     log("train", f"LatentODE population fit 2 epochs x {steps // 2} steps of "
                  f"{S} seeds {list(NODE_POP_SEEDS)} in {fit_s:.3f} s, solo "
                  f"Trainer of seed 2 in {solo_s:.3f} s; launches population "
-                 f"{launches} (expected {want}: node_field_fwd 2S, "
-                 f"node_field_bwd S and node_field_dw 1 a step), plain calls "
+                 f"{launches} (expected {want}: node_field_fwd 2, "
+                 f"node_field_bwd 1 and node_field_dw 1 a step for all {S} "
+                 f"seeds), plain calls "
                  f"{plain.n}; solo {solo_launches}; replica {i} (seed 2) val "
                  f"losses {pop_v.tolist()} vs solo {solo_v.tolist()}: max rel "
                  f"err {rel:.3e} (tol {POP_RTOL:.1e})")
@@ -4366,10 +4556,11 @@ def main():
     for k in ("goku_heads", "goku_heads_bwd"):
         launches[f"{k}[pop8-bf16]"] = bpop_launches[k]
 
-    # ---- 4i. LatentODE as a population of 4 seeds: the forward and sweep
-    # kernels once a replica, the weight gradients once for all -----------
-    launches["node_field_dw[pop4]"] = latent_ode_population_path(
-        train_set, val_set, dev, gpu)["node_field_dw"]
+    # ---- 4i. LatentODE as a population of 4 seeds: the forward, sweep and
+    # weight-gradient kernels each once for all replicas -------------------
+    node_pop = latent_ode_population_path(train_set, val_set, dev, gpu)
+    for k in ("node_field_fwd", "node_field_bwd", "node_field_dw"):
+        launches[f"{k}[pop4]"] = node_pop[k]
 
     # ---- 4j. the training CLIs through their main(argv) -------------------
     _, cli_goku = cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
@@ -4381,6 +4572,9 @@ def main():
     times.update(rk_timing(gen, clock))
     times.update(node_timing(clock))
     times.update(node_dw_timing())
+    node_pop_times, node_pop_errs = node_population_timing(clock)
+    times.update(node_pop_times)
+    errs.update(node_pop_errs)
     times.update(population_timing(pop_ms, gen, clock, dev))
     times.update(population_timing(bpop_ms, gen_bf, clock, dev))
 
@@ -4409,6 +4603,7 @@ def main():
                  + ["goku_heads[pop8]", "goku_heads_bwd[pop8]",
                     "goku_heads[bf16]", "goku_heads_bwd[bf16]",
                     "goku_heads[pop8-bf16]", "goku_heads_bwd[pop8-bf16]",
+                    "node_field_fwd[pop4]", "node_field_bwd[pop4]",
                     "node_field_dw[pop4]"]):
         src, replaces = origin[name.split("[")[0]]
         k_ms, p_ms, b_ms, b_by, lib_ms = times[name]

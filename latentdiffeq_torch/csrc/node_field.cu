@@ -24,10 +24,15 @@
 // solve and the sweep are bound by the latency of one link of that chain.
 // Design:
 //   * one block per tile of TB = 1 or 2 batch rows (as few as still put
-//     the batch on the card in one wave): the chain is serial within a
+//     the rows on the card in one wave): the chain is serial within a
 //     tile, so spreading rows over SMs is what shortens it. State, slopes,
 //     activations and cotangents of the tile stay in shared memory,
 //     feature-major ([feature][row]);
+//   * a population of S fields (a vmapped population's replicas) is one
+//     launch: grid (tiles of B rows, 1, S), z the replica, each block
+//     reading its replica's weights and rows. TB counts the S * B rows
+//     against the SMs, and a tile never spans two replicas, so a replica
+//     is computed as its own launch at the same TB computes it;
 //   * the largest layer with at most 208 outputs, a multiple of 4, keeps
 //     rows 0..159 of its weights in registers for the whole solve: 416
 //     threads = 52 groups of 4 columns x 8 slices of the reduction, 80
@@ -132,6 +137,17 @@ struct Field {
   const float* W[kMaxLayers];    // forward: W_l; sweep: W_l transposed
   const float* b[kMaxLayers];
 };
+
+// The weights of the block's replica (grid z): the replicas' W_l, and
+// their b_l, lie one after another, w[l] * w[l + 1] (w[l + 1]) floats
+// apart; the sweep's transposed W_l have the same size.
+__device__ __forceinline__ const float* replica_w(const Field& f, int l) {
+  return f.W[l] + (size_t)blockIdx.z * f.w[l] * f.w[l + 1];
+}
+
+__device__ __forceinline__ const float* replica_b(const Field& f, int l) {
+  return f.b[l] + (size_t)blockIdx.z * f.w[l + 1];
+}
 
 // Activation codes: 0 identity, 1 relu, 2 tanh, 3 sigmoid, 4 softplus.
 __device__ __forceinline__ float act_fn(int code, float v) {
@@ -468,8 +484,8 @@ __device__ __forceinline__ void layer(const Field& f, int l,
     dense<TB, false, 1>(in, wsm + f.sw_off[l], in_dim, out_dim, out, epi,
                         code, aux, arow, post);
   } else if constexpr (PL == kGlobal) {
-    dense<TB, true, 4>(in, f.W[l], in_dim, out_dim, out, epi, code, aux,
-                       arow, post);
+    dense<TB, true, 4>(in, replica_w(f, l), in_dim, out_dim, out, epi, code,
+                       aux, arow, post);
   } else {
     dense<TB, false, 4>(in, wsm + f.sw_off[l], in_dim, out_dim, out, epi,
                         code, aux, arow, post);
@@ -499,10 +515,10 @@ __device__ __forceinline__ void stage_weights(const Field& f, float* wsm,
     const int nw = in * out - skip;
     if (f.sw_off[l] >= 0)
       for (int e = threadIdx.x; e < nw; e += blockDim.x)
-        wsm[f.sw_off[l] + e] = f.W[l][skip + e];
+        wsm[f.sw_off[l] + e] = replica_w(f, l)[skip + e];
     if (biases && f.sb_off[l] >= 0)
       for (int e = threadIdx.x; e < f.w[l + 1]; e += blockDim.x)
-        wsm[f.sb_off[l] + e] = f.b[l][e];
+        wsm[f.sb_off[l] + e] = replica_b(f, l)[e];
   }
 }
 
@@ -579,6 +595,11 @@ node_field_fwd_kernel(Tableau tab, Field f,
   const int ns = tab.ns;
   const int nsteps = (T - 1) * substeps;
   const size_t rstride = (size_t)nsteps * ns * f.sumw4;
+  // the block's replica (grid z): its B rows of u0s, ys and the tape
+  const size_t rep = blockIdx.z;
+  u0s += rep * B * dim;
+  ys += rep * B * T * dim;
+  if (tape != nullptr) tape += rep * B * rstride;
   float* tabsm = smem;                            // kMaxStages * 8
   float* yacc = tabsm + kMaxStages * (kMaxStages + 1);
   float* uacc = yacc + pad4(tile);                // ns stage inputs
@@ -588,7 +609,7 @@ node_field_fwd_kernel(Tableau tab, Field f,
 
   float wr[4 * kRegKS];
   if constexpr (PL == kReg)
-    load_reg_weights(f.W[f.reg], f.w[f.reg], f.w[f.reg + 1], wr);
+    load_reg_weights(replica_w(f, f.reg), f.w[f.reg], f.w[f.reg + 1], wr);
   stage_tableau(tab, tabsm);
   if (PL != kGlobal) stage_weights(f, wsm, false);
   float* tape0 = tape == nullptr ? nullptr : tape + (size_t)row0 * rstride;
@@ -619,7 +640,8 @@ node_field_fwd_kernel(Tableau tab, Field f,
           const bool last = (l == L - 1);
           float* out = (l & 1) ? h1 : h0;
           const float* in = l == 0 ? uacc + s * tile : ((l & 1) ? h0 : h1);
-          const float* bias = PL == kGlobal ? f.b[l] : wsm + f.sb_off[l];
+          const float* bias =
+              PL == kGlobal ? replica_b(f, l) : wsm + f.sb_off[l];
           const FwdPost<TB> post{
               rec, rstride, f.hp_off[l + 1], nvalid, last, uacc, yacc,
               tabsm, s, ns, tile, dt, at + 1 < (size_t)nsteps * ns,
@@ -757,10 +779,16 @@ node_field_bwd_kernel(Tableau tab, Field f,
   const int nsteps = (T - 1) * substeps;
   const size_t rstride = (size_t)nsteps * ns * rec4;
   const size_t drstride = (size_t)nsteps * ns * f.dsum4;
+  // the block's replica (grid z): its B rows of the tape, g, du0 and Delta
+  const size_t rep = blockIdx.z;
+  tape += rep * B * rstride;
+  g += rep * B * T * dim;
+  du0 += rep * B * dim;
+  delta += rep * B * drstride;
 
   float wr[4 * kRegKS];
   if constexpr (PL == kReg)
-    load_reg_weights(f.W[f.reg], f.w[f.reg + 1], f.w[f.reg], wr);
+    load_reg_weights(replica_w(f, f.reg), f.w[f.reg + 1], f.w[f.reg], wr);
   stage_tableau(tab, tabsm);
   if (PL != kGlobal) stage_weights(f, wsm, true);
   for (int e = tid; e < 2 * ns * TB * rec4; e += nt) tbuf[e] = 0.f;
@@ -1491,20 +1519,22 @@ int sm_count() {
 }
 
 // Picks the rows per block (1 or 2; *rows == 0 asks for the default: 1
-// when the batch fits one wave of blocks on the current device, else 2) and
-// where the pass keeps its weights (*place: the first that fits of one
-// layer in registers and the rest in shared memory, all in shared memory,
-// all read through the read-only cache). Fills f's placement fields.
-int plan(Field* f, int ns, bool backward, int B, int* rows, int* place,
-         int* threads, size_t* bytes) {
-  if (ns < 1 || ns > kMaxStages || B < 1) return kErrArgs;
+// when the S replicas' S * B rows fit one wave of blocks on the current
+// device, else 2) and where the pass keeps its weights (*place: the first
+// that fits of one layer in registers and the rest in shared memory, all
+// in shared memory, all read through the read-only cache). Fills f's
+// placement fields.
+int plan(Field* f, int ns, bool backward, int B, int S, int* rows,
+         int* place, int* threads, size_t* bytes) {
+  if (ns < 1 || ns > kMaxStages || B < 1 || S < 1 || S > 65535)
+    return kErrArgs;
   const int asked = *rows;
   if (asked != 0 && asked != 1 && asked != 2) return kErrArgs;
   int tb = asked;
   if (tb == 0) {
     const int wave = sm_count();
     if (wave < 1) return kErrArgs;
-    tb = B > wave ? 2 : 1;
+    tb = (long long)S * B > wave ? 2 : 1;
   }
   const int reg = reg_layer(*f, backward);
   for (int pl = kReg; pl <= kGlobal; ++pl) {
@@ -1542,15 +1572,17 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The grid: x the tiles of one replica's B rows, z the S replicas.
 template <int TB, int PL>
 cudaError_t launch_fwd(const Tableau& tab, const Field& f,
                        const float* saveat, const float* u0s, float* ys,
-                       float* tape, int B, int T, int substeps, int nt,
-                       size_t bytes, cudaStream_t st) {
+                       float* tape, int B, int S, int T, int substeps,
+                       int nt, size_t bytes, cudaStream_t st) {
   cudaError_t e = set_smem(node_field_fwd_kernel<TB, PL>, bytes);
   if (e != cudaSuccess) return e;
-  node_field_fwd_kernel<TB, PL><<<(B + TB - 1) / TB, nt, bytes, st>>>(
-      tab, f, saveat, u0s, ys, tape, B, T, substeps);
+  node_field_fwd_kernel<TB, PL>
+      <<<dim3((B + TB - 1) / TB, 1, S), nt, bytes, st>>>(
+          tab, f, saveat, u0s, ys, tape, B, T, substeps);
   return cudaGetLastError();
 }
 
@@ -1558,12 +1590,13 @@ template <int TB, int PL>
 cudaError_t launch_bwd(const Tableau& tab, const Field& f,
                        const float* saveat, const float* tape,
                        const float* g, float* du0, float* delta, int B,
-                       int T, int substeps, int nt, size_t bytes,
+                       int S, int T, int substeps, int nt, size_t bytes,
                        cudaStream_t st) {
   cudaError_t e = set_smem(node_field_bwd_kernel<TB, PL>, bytes);
   if (e != cudaSuccess) return e;
-  node_field_bwd_kernel<TB, PL><<<(B + TB - 1) / TB, nt, bytes, st>>>(
-      tab, f, saveat, tape, g, du0, delta, B, T, substeps);
+  node_field_bwd_kernel<TB, PL>
+      <<<dim3((B + TB - 1) / TB, 1, S), nt, bytes, st>>>(
+          tab, f, saveat, tape, g, du0, delta, B, T, substeps);
   return cudaGetLastError();
 }
 
@@ -1731,14 +1764,14 @@ extern "C" int ldq_node_field_records(int n_layers, const int* widths,
   return 0;
 }
 
-// The launch configuration of a pass (backward: the sweep) for a batch of
-// B rows on the current device: rows per block (*rows in: 0 = the default,
-// else 1 or 2; out: the choice), where the weights live (*place out: 0 one
-// layer in registers, 1 shared memory, 2 global), that layer (-1: none),
-// threads per block and dynamic shared memory. Returns 0, or kErrDepth /
-// kErrFit / kErrArgs.
+// The launch configuration of a pass (backward: the sweep) for S replicas
+// of a batch of B rows on the current device: rows per block (*rows in: 0
+// = the default, else 1 or 2; out: the choice), where the weights live
+// (*place out: 0 one layer in registers, 1 shared memory, 2 global), that
+// layer (-1: none), threads per block and dynamic shared memory. Returns
+// 0, or kErrDepth / kErrFit / kErrArgs.
 extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
-                                   int n_stages, int backward, int B,
+                                   int n_stages, int backward, int B, int S,
                                    int* rows, int* place, int* reg,
                                    int* threads, int* smem_bytes) {
   Field f;
@@ -1747,7 +1780,7 @@ extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
   if (rows == nullptr || place == nullptr) return kErrArgs;
   int nt = 0;
   size_t bytes = 0;
-  rc = plan(&f, n_stages, backward != 0, B, rows, place, &nt, &bytes);
+  rc = plan(&f, n_stages, backward != 0, B, S, rows, place, &nt, &bytes);
   if (rc != 0) return rc;
   if (reg) *reg = f.reg;
   if (threads) *threads = nt;
@@ -1755,12 +1788,14 @@ extern "C" int ldq_node_field_plan(int n_layers, const int* widths,
   return 0;
 }
 
-// Forward solve. widths: n_layers + 1 ints; acts: n_layers activation
-// codes; Ws / bs: n_layers device pointers (float32, W_l row-major
-// (widths[l], widths[l+1])); a: n_stages x n_stages row-major, b: n_stages,
-// both float32 on the host; saveat (T,), u0s (B, dim), ys (B, T, dim) on
-// the device; tape (B, (T-1) * substeps, n_stages, tape record) or null.
-// rows: 0 = default (see ldq_node_field_plan).
+// Forward solve of S replicas in one launch. widths: n_layers + 1 ints;
+// acts: n_layers activation codes; Ws / bs: n_layers device pointers
+// (float32, W_l (S, widths[l], widths[l+1]) and b_l (S, widths[l+1]),
+// contiguous); a: n_stages x n_stages row-major, b: n_stages, both float32
+// on the host; saveat (T,), u0s (S, B, dim), ys (S, B, T, dim) on the
+// device; tape (S, B, (T-1) * substeps, n_stages, tape record) or null.
+// rows: 0 = default (see ldq_node_field_plan). A replica's rows are
+// computed as its own launch at the same rows a block would compute them.
 // Returns 0 on a successful launch, a cudaError_t (> 0) or a negative code
 // above. Does not synchronise.
 extern "C" int ldq_node_field_fwd(int n_layers, const int* widths,
@@ -1768,10 +1803,12 @@ extern "C" int ldq_node_field_fwd(int n_layers, const int* widths,
                                   const void* const* bs, int n_stages,
                                   const float* a, const float* b,
                                   const float* saveat, const float* u0s,
-                                  float* ys, float* tape, int B, int T,
-                                  int substeps, int rows, void* stream) {
-  if (B < 1 || T < 1 || substeps < 1 || acts == nullptr || Ws == nullptr ||
-      bs == nullptr || saveat == nullptr || u0s == nullptr || ys == nullptr)
+                                  float* ys, float* tape, int B, int S,
+                                  int T, int substeps, int rows,
+                                  void* stream) {
+  if (B < 1 || S < 1 || T < 1 || substeps < 1 || acts == nullptr ||
+      Ws == nullptr || bs == nullptr || saveat == nullptr ||
+      u0s == nullptr || ys == nullptr)
     return kErrArgs;
   Field f;
   int rc = build_field(n_layers, widths, acts, Ws, bs, &f);
@@ -1781,13 +1818,13 @@ extern "C" int ldq_node_field_fwd(int n_layers, const int* widths,
   if (rc != 0) return rc;
   int pl = 0, nt = 0;
   size_t bytes = 0;
-  rc = plan(&f, n_stages, false, B, &rows, &pl, &nt, &bytes);
+  rc = plan(&f, n_stages, false, B, S, &rows, &pl, &nt, &bytes);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaErrorInvalidValue;
 #define LDQ_FWD(TB, PL)                                                    \
-  e = launch_fwd<TB, PL>(tab, f, saveat, u0s, ys, tape, B, T, substeps, nt, \
-                         bytes, st)
+  e = launch_fwd<TB, PL>(tab, f, saveat, u0s, ys, tape, B, S, T, substeps, \
+                         nt, bytes, st)
   if (rows == 1) {
     if (pl == kReg) LDQ_FWD(1, kReg);
     else if (pl == kSmem) LDQ_FWD(1, kSmem);
@@ -1801,19 +1838,21 @@ extern "C" int ldq_node_field_fwd(int n_layers, const int* widths,
   return (int)e;
 }
 
-// Reverse sweep. Wts: W_l transposed (widths[l+1], widths[l]) row-major.
-// tape: as the forward wrote it; g (B, T, dim); du0 (B, dim); delta (B,
-// (T-1) * substeps, n_stages, Delta record). rows: as the forward's.
+// Reverse sweep of S replicas in one launch. Wts: W_l transposed (S,
+// widths[l+1], widths[l]), contiguous. tape: as the forward wrote it; g
+// (S, B, T, dim); du0 (S, B, dim); delta (S, B, (T-1) * substeps,
+// n_stages, Delta record). rows: as the forward's.
 extern "C" int ldq_node_field_bwd(int n_layers, const int* widths,
                                   const int* acts, const void* const* Wts,
                                   int n_stages, const float* a,
                                   const float* b, const float* saveat,
                                   const float* tape, const float* g,
-                                  float* du0, float* delta, int B, int T,
-                                  int substeps, int rows, void* stream) {
-  if (B < 1 || T < 1 || substeps < 1 || acts == nullptr || Wts == nullptr ||
-      saveat == nullptr || tape == nullptr || g == nullptr ||
-      du0 == nullptr || delta == nullptr)
+                                  float* du0, float* delta, int B, int S,
+                                  int T, int substeps, int rows,
+                                  void* stream) {
+  if (B < 1 || S < 1 || T < 1 || substeps < 1 || acts == nullptr ||
+      Wts == nullptr || saveat == nullptr || tape == nullptr ||
+      g == nullptr || du0 == nullptr || delta == nullptr)
     return kErrArgs;
   Field f;
   int rc = build_field(n_layers, widths, acts, Wts, nullptr, &f);
@@ -1823,12 +1862,12 @@ extern "C" int ldq_node_field_bwd(int n_layers, const int* widths,
   if (rc != 0) return rc;
   int pl = 0, nt = 0;
   size_t bytes = 0;
-  rc = plan(&f, n_stages, true, B, &rows, &pl, &nt, &bytes);
+  rc = plan(&f, n_stages, true, B, S, &rows, &pl, &nt, &bytes);
   if (rc != 0) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaErrorInvalidValue;
 #define LDQ_BWD(TB, PL)                                                  \
-  e = launch_bwd<TB, PL>(tab, f, saveat, tape, g, du0, delta, B, T,      \
+  e = launch_bwd<TB, PL>(tab, f, saveat, tape, g, du0, delta, B, S, T,   \
                          substeps, nt, bytes, st)
   if (rows == 1) {
     if (pl == kReg) LDQ_BWD(1, kReg);

@@ -14,9 +14,10 @@ of ``node_field_dw_kernel``, the weight gradients as a product of the tape
 and Delta over all rows, steps and stages on the tensor cores (3xTF32),
 its split sums added inside the kernel in a fixed order. Neither route
 calls a library matrix product. Every function takes a leading replica
-axis too (a population of fields: u0s (S, B, dim), each W (S, in, out)):
-the forward and the sweep launch once a replica, the weight gradients
-once for all (``solve_neural_field`` gets it under ``torch.func.vmap``).
+axis too (a population of fields: u0s (S, B, dim), each W (S, in, out)),
+and each kernel launches once for all replicas, a replica computed as
+its own launch would compute it (``solve_neural_field`` gets the axis
+under ``torch.func.vmap``).
 On CPU tensors the same functions run their plain PyTorch versions
 (``solve_neural_field_taped_reference``,
 ``neural_field_sweep_reference``, ``neural_field_dw_reference``);
@@ -400,14 +401,15 @@ def _lib():
         lib.ldq_node_field_packed_size.restype = ci
         lib.ldq_node_field_records.argtypes = [ci, _INTS, _INTS, _INTS]
         lib.ldq_node_field_records.restype = ci
-        lib.ldq_node_field_plan.argtypes = [ci, _INTS, ci, ci, ci] + [_INTS] * 5
+        lib.ldq_node_field_plan.argtypes = ([ci, _INTS, ci, ci, ci, ci]
+                                            + [_INTS] * 5)
         lib.ldq_node_field_plan.restype = ci
         lib.ldq_node_field_fwd.argtypes = (
-            [ci, _INTS, _INTS, _PTRS, _PTRS, ci] + [vp] * 6 + [ci] * 4
+            [ci, _INTS, _INTS, _PTRS, _PTRS, ci] + [vp] * 6 + [ci] * 5
             + [vp])
         lib.ldq_node_field_fwd.restype = ci
         lib.ldq_node_field_bwd.argtypes = (
-            [ci, _INTS, _INTS, _PTRS, ci] + [vp] * 7 + [ci] * 4 + [vp])
+            [ci, _INTS, _INTS, _PTRS, ci] + [vp] * 7 + [ci] * 5 + [vp])
         lib.ldq_node_field_bwd.restype = ci
         lib.ldq_node_field_dw_plan.argtypes = [ci, _INTS, ci] + [_INTS] * 4
         lib.ldq_node_field_dw_plan.restype = ci
@@ -437,20 +439,22 @@ def _ptrs(tensors):
 
 
 def kernel_plan(widths, n_stages: int, batch: int, *, backward: bool,
-                rows_per_block: int = 0):
+                rows_per_block: int = 0, replicas: int = 1):
     """``(rows per block, where the weights live, the register layer or
     -1, threads per block, shared-memory bytes)`` that the forward (or,
-    with ``backward``, the sweep) would launch with for a batch of
-    ``batch`` rows on the current CUDA device; the weights live in
-    "registers" (one layer, its rows past 160 and the other layers in
-    shared memory), "shared" memory or "global" memory, the first of these
-    that fits. Raises ValueError for a field the kernels cannot take."""
+    with ``backward``, the sweep) would launch with for ``replicas``
+    replicas of a batch of ``batch`` rows on the current CUDA device (the
+    default rows a block counts all ``replicas * batch`` rows against the
+    SMs); the weights live in "registers" (one layer, its rows past 160
+    and the other layers in shared memory), "shared" memory or "global"
+    memory, the first of these that fits. Raises ValueError for a field
+    the kernels cannot take."""
     lib = _lib()
     outs = [ctypes.c_int(0) for _ in range(5)]
     outs[0].value = rows_per_block
     _check(lib.ldq_node_field_plan(
         len(widths) - 1, _ints(widths), n_stages, int(backward), batch,
-        *[ctypes.byref(o) for o in outs]), "solve_neural_field")
+        replicas, *[ctypes.byref(o) for o in outs]), "solve_neural_field")
     rows, place, reg, threads, nbytes = (o.value for o in outs)
     return rows, PLACES[place], reg, threads, nbytes
 
@@ -504,12 +508,13 @@ def _tape_shape(tape, shape: tuple, what: str):
 def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
                             substeps: int = 1, rows_per_block: int = 0,
                             tape: bool = False):
-    """Launch the forward kernel (no autograd); returns ys (B, T, dim), or
-    ``(ys, tape)`` with ``tape`` (the variant that writes every layer
-    output of every stage: (B, (T-1) * substeps, stages, tape record)).
-    ``rows_per_block`` 0 lets the kernel's host side choose (see
+    """Launch the forward kernel once (no autograd); returns ys (B, T,
+    dim), or ``(ys, tape)`` with ``tape`` (the variant that writes every
+    layer output of every stage: (B, (T-1) * substeps, stages, tape
+    record)). ``rows_per_block`` 0 lets the kernel's host side choose (see
     `kernel_plan`). With a replica axis (u0s (S, B, dim), the field's
-    tensors (S, ...)) it launches once a replica, into one output."""
+    tensors (S, ...)) the one launch takes every replica (grid z), each
+    computed as its own launch at the same rows a block computes it."""
     field = dense_stack(mlp)
     dim = field.widths[0]
     u0s = _f32_cuda("u0s", u0s)
@@ -524,6 +529,7 @@ def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
     lead = tuple(u0s.shape[:-2])
     _replica_weights(field, lead)
     B, T = u0s.shape[-2], saveat.shape[0]
+    S = lead[0] if lead else 1
     n_stages, a, b, _ = tableau_f32(solver)
     lib = _lib()
     dev = u0s.device
@@ -533,18 +539,15 @@ def solve_neural_field_cuda(mlp, solver: AbstractSolver, u0s, saveat, *,
         rec, _ = _records(lib, field.widths)
         tp = torch.empty(*lead, B, (T - 1) * substeps, n_stages, rec,
                          device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for s in range(lead[0] if lead else 1):
-        fs, u, y, t = ((_replica(field, s), _f32_cuda("u0s", u0s[s]), ys[s],
-                        None if tp is None else tp[s]) if lead
-                       else (field, u0s, ys, tp))
-        Ws, bs = _prepare(fs, dev)
+    Ws, bs = _prepare(field, dev)
+    if S:   # an empty population launches nothing
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = lib.ldq_node_field_fwd(
                 len(Ws), _ints(field.widths), _ints(field.codes), _ptrs(Ws),
                 _ptrs(bs), n_stages, a.data_ptr(), b.data_ptr(),
-                saveat.data_ptr(), u.data_ptr(), y.data_ptr(),
-                None if t is None else t.data_ptr(), B, T, substeps,
+                saveat.data_ptr(), u0s.data_ptr(), ys.data_ptr(),
+                None if tp is None else tp.data_ptr(), B, S, T, substeps,
                 rows_per_block, stream)
         _check(err, "solve_neural_field (forward)")
         solve_neural_field_cuda.launches += 1
@@ -556,11 +559,12 @@ solve_neural_field_cuda.launches = 0
 
 def neural_field_sweep_cuda(mlp, solver: AbstractSolver, saveat, tape, g, *,
                             substeps: int = 1, rows_per_block: int = 0):
-    """Launch the sweep kernel over the forward's ``tape`` with the
+    """Launch the sweep kernel once over the forward's ``tape`` with the
     cotangent ``g`` (B, T, dim) of ys. Returns ``(du0 (B, dim), delta (B,
     steps, stages, Delta record))``. With a replica axis (g (S, B, T, dim),
-    the tape and the field's tensors with a leading S) it launches once a
-    replica, into one output."""
+    the tape and the field's tensors with a leading S) the one launch takes
+    every replica, each computed as its own launch at the same rows a
+    block computes it; the stacked weights are transposed in one copy."""
     field = dense_stack(mlp)
     dim = field.widths[0]
     g = _f32_cuda("g", g)
@@ -577,6 +581,7 @@ def neural_field_sweep_cuda(mlp, solver: AbstractSolver, saveat, tape, g, *,
     lead = tuple(g.shape[:-3])
     _replica_weights(field, lead)
     B, T = g.shape[-3], g.shape[-2]
+    S = lead[0] if lead else 1
     n_stages, a, b, _ = tableau_f32(solver)
     lib = _lib()
     rec, drec = _records(lib, field.widths)
@@ -585,18 +590,16 @@ def neural_field_sweep_cuda(mlp, solver: AbstractSolver, saveat, tape, g, *,
     du0 = torch.empty(*lead, B, dim, device=dev, dtype=torch.float32)
     delta = torch.empty(*lead, B, nsteps, n_stages, drec, device=dev,
                         dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for s in range(lead[0] if lead else 1):
-        fs, gs, ts, du, dl = ((_replica(field, s), _f32_cuda("g", g[s]),
-                               tape[s], du0[s], delta[s]) if lead
-                              else (field, g, tape, du0, delta))
-        Wts = [W.t().contiguous() for W in _prepare(fs, dev)[0]]
+    Wts = [W.transpose(-1, -2).contiguous()
+           for W in _prepare(field, dev)[0]]
+    if S:   # an empty population launches nothing
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = lib.ldq_node_field_bwd(
                 len(Wts), _ints(field.widths), _ints(field.codes),
                 _ptrs(Wts), n_stages, a.data_ptr(), b.data_ptr(),
-                saveat.data_ptr(), ts.data_ptr(), gs.data_ptr(),
-                du.data_ptr(), dl.data_ptr(), B, T, substeps,
+                saveat.data_ptr(), tape.data_ptr(), g.data_ptr(),
+                du0.data_ptr(), delta.data_ptr(), B, S, T, substeps,
                 rows_per_block, stream)
         _check(err, "solve_neural_field (backward sweep)")
         neural_field_sweep_cuda.launches += 1
@@ -729,10 +732,10 @@ class _NodeSolveFn(torch.autograd.Function):
 
     Under ``torch.func.vmap`` over replicas (train/multiseed.py) the
     ``vmap`` rule moves every replica axis to the front and applies the
-    function once to the whole population: the forward and the sweep
-    launch once a replica, the weight-gradient kernel once for all. The
-    tape is decided there, on the unbatched tensors (inside the transform
-    the batched ones report no ``requires_grad``)."""
+    function once to the whole population: the forward, the sweep and the
+    weight-gradient kernel each launch once for all replicas. The tape is
+    decided there, on the unbatched tensors (inside the transform the
+    batched ones report no ``requires_grad``)."""
 
     @staticmethod
     def forward(field, solver, substeps, backward, keep_tape, u0s, saveat,
@@ -840,9 +843,9 @@ def solve_neural_field(mlp, solver: AbstractSolver, u0s, saveat, *,
     recomputes the plain solve and differentiates it with autograd.
 
     Under ``torch.func.vmap`` over the field's weights (a population of
-    fields, train/multiseed.py) the forward and the sweep launch once a
-    replica and the weight-gradient kernel once for all replicas; the
-    replicas share ``saveat``."""
+    fields, train/multiseed.py) the forward, the sweep and the
+    weight-gradient kernel each launch once for all replicas; the replicas
+    share ``saveat``."""
     if backward not in ("kernel", "autograd"):
         raise ValueError(f"backward must be 'kernel' or 'autograd': "
                          f"{backward!r}")

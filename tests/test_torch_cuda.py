@@ -1035,6 +1035,24 @@ def test_neural_field_plan_keeps_the_hidden_layer_in_registers_on_card(dev):
 
 
 @pytest.mark.cuda
+def test_neural_field_plan_counts_every_replicas_rows_on_card(dev):
+    """The default rows a block counts S * B rows against the card's SMs
+    (132 on an H100 SXM): one row while they fit one wave, two past it;
+    the main path's sweep still keeps its 200 x 200 layer in registers at
+    two rows."""
+    w = (16, 200, 200, 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for S, B in ((1, 64), (2, 64), (3, 64), (4, 45), (1, 133), (8, 64)):
+        want = 1 if S * B <= sms else 2
+        for backward in (False, True):
+            rows, place, reg, threads, _ = node_cuda.kernel_plan(
+                w, 6, B, backward=backward, replicas=S)
+            assert (rows, place, reg, threads) == (want, "registers", 1, 416)
+    with pytest.raises(ValueError, match="invalid"):
+        node_cuda.kernel_plan(w, 6, 64, backward=False, replicas=0)
+
+
+@pytest.mark.cuda
 def test_latent_ode_kernel_path_matches_plain_path_on_card(dev):
     """A small LatentODE with the kernel solve launches the forward kernel
     once per forward and the sweep and weight-gradient kernels once per
@@ -1152,13 +1170,95 @@ def test_node_field_dw_refuses_a_field_too_wide_for_its_tiles_on_card(dev):
     assert node_cuda.neural_field_dw_cuda.launches == n0
 
 
+def field_population(dev, widths, S, act=tnn.relu, seed=0):
+    """S fields and the _Field of their weights stacked on a replica
+    axis."""
+    ms = [field_on(dev, widths, act, seed=seed + i) for i in range(S)]
+    f = node_cuda.dense_stack(ms[0])
+    return ms, f._replace(
+        Ws=[torch.stack([m.layers[l].W.detach() for m in ms])
+            for l in range(len(ms[0].layers))],
+        bs=[torch.stack([m.layers[l].b.detach() for m in ms])
+            for l in range(len(ms[0].layers))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 1, 2])
+@pytest.mark.parametrize("B", [5, 45, 64])
+@pytest.mark.parametrize("S", [1, 3, 5])
+def test_neural_field_replica_axis_bit_for_bit_on_card(dev, S, B, rows):
+    """The forward (with and without its tape) and the sweep on S fields in
+    one launch each (grid z the replica) against S solo launches at the
+    same rows a block: ys, the tape, du0 and Delta bit for bit. B 5 puts a
+    ragged tile at each replica's batch end at two rows a block. With the
+    default plan (rows 0) the launch may take two rows a block where each
+    solo launch takes one (S * B > 132): a row's arithmetic does not
+    depend on the rows a block, so that is bit for bit too."""
+    s = trk.Tsit5()
+    widths = (16, 200, 200, 16)
+    T = 100 if B == 45 else 50
+    ms, pop = field_population(dev, widths, S, seed=30 + S)
+    ins = [field_inputs(dev, widths, B, T, seed=50 + i) for i in range(S)]
+    u0s = torch.stack([i[0] for i in ins])
+    saveat = ins[0][1]
+    w = torch.stack([i[2] for i in ins])
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda)
+    before = [fn.launches for fn in counters]
+    with torch.no_grad():
+        ys, tape = node_cuda.solve_neural_field_cuda(
+            pop, s, u0s, saveat, tape=True, rows_per_block=rows)
+        ys0 = node_cuda.solve_neural_field_cuda(pop, s, u0s, saveat,
+                                                rows_per_block=rows)
+    du0, delta = node_cuda.neural_field_sweep_cuda(pop, s, saveat, tape, w,
+                                                   rows_per_block=rows)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 1]
+    assert ys.shape == (S, B, T, 16) and du0.shape == (S, B, 16)
+    for i, m in enumerate(ms):
+        with torch.no_grad():
+            ys_i, tape_i = node_cuda.solve_neural_field_cuda(
+                m, s, u0s[i], saveat, tape=True, rows_per_block=rows)
+        du0_i, delta_i = node_cuda.neural_field_sweep_cuda(
+            m, s, saveat, tape_i, w[i], rows_per_block=rows)
+        assert torch.equal(ys[i], ys_i) and torch.equal(ys0[i], ys_i)
+        assert torch.equal(tape[i], tape_i)
+        assert torch.equal(du0[i], du0_i) and torch.equal(delta[i], delta_i)
+
+
+@pytest.mark.cuda
+def test_neural_field_replica_axis_checks_on_card(dev):
+    """Weights without the data's replica axis, or with another count of
+    replicas, raise and launch nothing."""
+    s = trk.Tsit5()
+    widths = (8, 16, 16, 8)
+    ms, pop = field_population(dev, widths, 3)
+    u0s, saveat, w = field_inputs(dev, widths, 4, 6)
+    counters = (node_cuda.solve_neural_field_cuda,
+                node_cuda.neural_field_sweep_cuda)
+    before = [fn.launches for fn in counters]
+    with pytest.raises(ValueError, match="replica axis"):
+        node_cuda.solve_neural_field_cuda(ms[0], s, u0s.expand(3, -1, -1),
+                                          saveat)
+    with pytest.raises(ValueError, match="replica axis"):
+        node_cuda.solve_neural_field_cuda(pop, s, u0s.expand(2, -1, -1),
+                                          saveat)
+    with pytest.raises(ValueError, match="replica axis"):
+        node_cuda.solve_neural_field_cuda(pop, s, u0s, saveat)
+    rec = node_cuda.tape_layout(widths)[1]
+    tape = torch.zeros(2, 4, 5, 6, rec, device=dev)
+    with pytest.raises(ValueError, match="replica axis"):
+        node_cuda.neural_field_sweep_cuda(pop, s, saveat, tape,
+                                          w.expand(2, -1, -1, -1))
+    assert before == [fn.launches for fn in counters]
+
+
 @pytest.mark.cuda
 def test_latent_ode_population_launches_on_card(dev):
     """A 3-seed LatentODE(use_kernel_solve=True) population: a train step
-    launches the forward and the sweep once a replica and the weight
-    gradients once for all; a validation pass the forward once a replica;
-    losses and gradients against the same population on the plain route
-    (1e-4 of each gradient's size)."""
+    launches the forward, the sweep and the weight gradients once each for
+    all replicas; a validation pass the forward once; losses and gradients
+    against the same population on the plain route (1e-4 of each
+    gradient's size)."""
     from latentdiffeq_torch.train import MultiSeedTrainer, TrainConfig
 
     def build(kernels):
@@ -1190,7 +1290,7 @@ def test_latent_ode_population_launches_on_card(dev):
             ms.val_step(xs[0], 0.5)
         vals = [fn.launches - n for fn, n in zip(counters, before)]
         if kernels:
-            assert steps == [3, 3, 1] and vals == [6, 3, 1]
+            assert steps == [1, 1, 1] and vals == [2, 1, 1]
         else:
             assert steps == [0, 0, 0] and vals == [0, 0, 0]
         out.append((m["loss"], [p.grad for p in ms.params.values()]))
