@@ -125,7 +125,26 @@ Phases, each printing one line (any failure exits non-zero):
               both GOKU forward kernels) and PhaseTimer against the step
               time; create_data with renderer="native" against the torch
               renderer; the tutorial for 2 epochs (the encoder kernel, its
-              section 14 decode card against CPU);
+              section 14 decode card against CPU); then (4l, after 4k)
+              user-written fields on the batched RK kernel: phase 1
+              builds, beside the port's sources, a device functor
+              generated from each field's trace (the tutorial's
+              pendulum_f, untagged copies of pendulum_f and vdp_f, a
+              forced damped oscillator that reads t, pdim 3) and the
+              lane-group Kuramoto kernels at 7 oscillators; the
+              tutorial's main for 2 epochs on the card with its own field
+              on the kernel route (its generated instance's launches, no
+              plain solve); each instance, forward and backward, against
+              the plain versions at its train and validation shapes with
+              the gates of phase 2 and 3 (float32 1e-5, float64 distance,
+              gradients 1e-5 of each size, interval maps, the whole
+              backward against plain autograd); the untagged pendulum
+              and Van der Pol against their hand-written functors (bit
+              for bit or the largest gap); full-width GOKU on the video
+              with the tutorial's field (launches, no plain solve, the
+              kernel against the plain path, its losses within 1e-4 of
+              the tagged pendulum run's); GOKU on Kuramoto-7 data made
+              by custom_data (4l's instances are timed in phase 5);
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (torch.profiler) beside its plain
               version's time on the same inputs, its bytes/operations
@@ -148,7 +167,12 @@ Phases, each printing one line (any failure exits non-zero):
               train, val and wide shapes and with 4 replicas beside
               torch.mm per layer (torch.bmm with replicas), its plain
               version, its bound on the tensor cores and the float32 SIMT
-              bound; with --profile, a
+              bound; 4l's instances (the generated functors and
+              Kuramoto-7) at their train and validation shapes, each
+              beside its plain version, its bound from the traced
+              program's operations and a latency model from its critical
+              path, the untagged pendulum's and Van der Pol's beside
+              their hand-written twins; with --profile, a
               torch.profiler breakdown of one training step plus
               validation of each model, written to
               chiprun_out/profile_step.txt,
@@ -207,8 +231,17 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def log_phase(name: str):
+    """The script's elapsed time as a phase starts (to keep the run well
+    inside its time limit)."""
+    log("time", f"{name} starts at {time.perf_counter() - T_START:.1f} s")
 
 
 def gpu_line() -> str:
@@ -316,13 +349,14 @@ def rhs_ops(which, dim):
 
 
 def rk_work(B, T, dim, pdim, substeps, tab, n_stages, which="pendulum",
-            n_cst=0):
+            n_cst=0, ops=None):
     """(bytes, float32 operations) of the batched RK solve: u0s, ps,
     saveat and the functor's n_cst run-time constants in and ys out once;
     per step, the stage combinations (a multiply and an add per state entry
     per nonzero coefficient, plus the dt * a product), the stage times, and
-    the RHS (rhs_ops)."""
-    ev = rhs_ops(which, dim)[0]
+    the RHS (rhs_ops, or ``ops`` = (evaluation, VJP) counts of a generated
+    functor, gen_ops)."""
+    ev = (ops or rhs_ops(which, dim))[0]
     ops = 0
     for s in range(n_stages):
         nz = sum(1 for a in tab.a[s] if a != 0.0)
@@ -476,15 +510,16 @@ def rk_sweep_latency_ms(T, substeps, n_stages, clock_mhz):
 
 
 def rk_bwd_work(B, T, dim, pdim, substeps, tab, n_stages, which="pendulum",
-                n_cst=0):
+                n_cst=0, ops=None):
     """(bytes, float32 operations) of the RK reverse sweep: saveat, ys, ps,
     g and the run-time constants in, du0 and dp out; per step the forward
     stages again and, per stage, the VJP (rhs_ops) and the cotangent
     updates (as the stage combinations)."""
     nbytes = 4 * (T + 2 * B * T * dim + 2 * B * pdim + B * dim + n_cst)
-    fwd_ops = rk_work(B, T, dim, pdim, substeps, tab, n_stages, which)[1]
-    return (nbytes, 2 * fwd_ops
-            + B * (T - 1) * substeps * n_stages * rhs_ops(which, dim)[1])
+    fwd_ops = rk_work(B, T, dim, pdim, substeps, tab, n_stages, which,
+                      ops=ops)[1]
+    return (nbytes, 2 * fwd_ops + B * (T - 1) * substeps * n_stages
+            * (ops or rhs_ops(which, dim))[1])
 
 
 def max_sm_clock_mhz() -> float:
@@ -1343,10 +1378,9 @@ def node_timing(clock):
     tape-writing forward, the validation shape, the wide field, the launch
     plan and 1 against 2 rows a block are logged (node_field_dw:
     node_dw_timing)."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     from latentdiffeq_torch.ops import node_cuda
     from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    from latentdiffeq_torch.utils import device_profile
     solver = Tsit5()
     tab = solver.tableau
     n_st = n_solution_stages(tab)
@@ -1431,14 +1465,14 @@ def node_timing(clock):
                                   f"block ({-(-B // rows)} blocks): forward "
                                   f"{rf:.4f} ms, sweep {rb:.4f} ms per call")
             # the kernel route calls no library matrix product (rounds
-            # under the profiler until it has recorded each kernel: its
-            # tracing can drop a launch, as device_ms notes; at most 3
-            # windows of 2 rounds)
+            # under the profiler until it has recorded each kernel, at
+            # most 3 windows of 2 rounds; each window armed by
+            # device_profile, as a plain window opened late in this
+            # process loses the records of its first launches, 4k (d))
             u = u0s.clone().requires_grad_()
             ops, devk = set(), set()
-            for _ in range(3):
-                with tprofile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
+            for window in range(3):
+                with device_profile() as prof:
                     for _ in range(2):
                         ys_k = node_cuda.solve_neural_field(m, solver, u,
                                                             saveat)[0]
@@ -1456,7 +1490,8 @@ def node_timing(clock):
                     break
             ops, devk = sorted(ops), sorted(devk)
             log("timing", f"solve_neural_field forward + backward, kernel "
-                          f"route: aten ops {ops}")
+                          f"route ({window + 1} profiler windows): aten ops "
+                          f"{ops}")
             log("timing", f"  device kernels {devk}")
             banned = [o for o in ops if any(
                 k in o for k in ("mm", "matmul", "linear", "bmm", "einsum"))]
@@ -1702,12 +1737,12 @@ def rk_rhs(which):
     return cdyn.Kuramoto(10, omega_spread=spread).f, 10, 2, "kuramoto"
 
 
-def rk_name(kernel, f, dim):
+def rk_name(kernel, f, dim, pdim=None):
     """The kernels line's name of an RK kernel for ``f``: the pendulum's
     instances under the kernel's own name, the others with their
-    instance, as rk_fixed_grid[vdp]."""
+    instance, as rk_fixed_grid[vdp] or rk_fixed_grid[gen_<hash8>]."""
     from latentdiffeq_torch.ops import ode_cuda
-    inst = ode_cuda.rhs_instance(f, dim)
+    inst = ode_cuda.rhs_instance(f, dim, pdim)
     return kernel if inst.startswith("pendulum") else f"{kernel}[{inst}]"
 
 
@@ -2249,9 +2284,10 @@ def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
     trainer = Trainer(model, cfg, device=dev)
     fwd = ode_cuda.solve_fixed_grid_batched_cuda
     bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda
-    inst = ode_cuda.rhs_instance(diffeq.f, diffeq.z_dim)
-    names = (rk_name("rk_fixed_grid", diffeq.f, diffeq.z_dim),
-             rk_name("rk_fixed_grid_bwd", diffeq.f, diffeq.z_dim))
+    dims = (diffeq.z_dim, diffeq.theta_dim)
+    inst = ode_cuda.rhs_instance(diffeq.f, *dims)
+    names = (rk_name("rk_fixed_grid", diffeq.f, *dims),
+             rk_name("rk_fixed_grid_bwd", diffeq.f, *dims))
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2307,7 +2343,8 @@ def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
 
 
 def custom_dataset(which, dev):
-    """The Van der Pol (mu_max 4) or Kuramoto-10 GOKU path's data and
+    """The Van der Pol (mu_max 4) or Kuramoto-N ("kuramoto10",
+    "kuramoto7") GOKU path's data and
     config, as the JAX examples have them: 256 trajectories x 100 frames of
     64 channels made on the card (230 / 26 split), batch 64, seq 50, dt
     0.1; Van der Pol with TrainConfig(seed=7), Kuramoto-10 with the KL
@@ -2323,7 +2360,8 @@ def custom_dataset(which, dev):
         cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
                           epochs=300, save_best=False)
     else:
-        x, _, _, diffeq = make_kuramoto_data(device=dev)
+        x, _, _, diffeq = make_kuramoto_data(
+            n_osc=int(which[len("kuramoto"):]), device=dev)
         cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
                           epochs=300, start_beta=0.0, end_beta=0.01,
                           n_cycle=1, save_best=False)
@@ -4185,7 +4223,9 @@ def dp_path(solo, train_set, val_set, dev, gpu):
     call: 24 / 12; the selected seed and its validation loss against the
     unsharded population's, POP_RTOL).
     (d) trace_profile around one step of a one-rank data-parallel Trainer
-    names both GOKU forward kernels; PhaseTimer with block_on against
+    names both GOKU forward kernels; the launches without a kernel record
+    in its trace and in a plain profiler window's around the same step
+    (lost_kernel_records, logged); PhaseTimer with block_on against
     step_times. (e) create_data with renderer="native", 3 trajectories,
     against the torch renderer on the card. (f) the tutorial, 2 epochs on
     the card: finite losses, the encoder kernel launched, section 14's
@@ -4193,6 +4233,7 @@ def dp_path(solo, train_set, val_set, dev, gpu):
     import shutil
 
     import numpy as np
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from latentdiffeq_torch.examples.pendulum import create_data, train_goku
     from latentdiffeq_torch.examples.tutorial import tutorial
@@ -4201,7 +4242,8 @@ def dp_path(solo, train_set, val_set, dev, gpu):
     from latentdiffeq_torch.pendulum_data import generate_dataset
     from latentdiffeq_torch.train import TrainConfig, Trainer, splitobs
     from latentdiffeq_torch.train.visualize import val_image_data
-    from latentdiffeq_torch.utils import PhaseTimer, trace_profile
+    from latentdiffeq_torch.utils import (PhaseTimer, lost_kernel_records,
+                                          trace_profile)
 
     want = DP_LAUNCHES
     solo_w = weights_of(solo.model)
@@ -4283,10 +4325,22 @@ def dp_path(solo, train_set, val_set, dev, gpu):
         step_ms, _ = step_times(tr, x, val_set, beta)
         trace_dir = os.path.join("chiprun_out", "trace_4k")
         shutil.rmtree(trace_dir, ignore_errors=True)
+        # the control: a plain torch.profiler window around the same step,
+        # which late in this process loses the kernel records of the
+        # step's first launches (trace_profile arms its window)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            tr.train_step(x, beta)
+            torch.cuda.synchronize()
+        plain_trace = os.path.join("chiprun_out", "trace_4k_plain.json")
+        prof.export_chrome_trace(plain_trace)
         with trace_profile(trace_dir):
             tr.train_step(x, beta)
             torch.cuda.synchronize()
         (trace,) = os.listdir(trace_dir)
+        lost = {"plain window": lost_kernel_records(plain_trace),
+                "trace_profile": lost_kernel_records(
+                    os.path.join(trace_dir, trace))}
         with open(os.path.join(trace_dir, trace)) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         found = {k: any(k in n for n in names)
@@ -4305,6 +4359,8 @@ def dp_path(solo, train_set, val_set, dev, gpu):
               f"{summ}: {summ['step']['mean_ms']:.3f} ms a step "
               f"against step_times' {step_ms:.3f} ms (ratio {ratio:.2f}, "
               f"host noise 0.5-2); card {gpu}")
+    log("dp", f"launches without a kernel record in one traced step: "
+              f"{lost}; card {gpu}")
     if not all(found.values()):
         fail(f"trace_profile's trace lacks a kernel: {found}")
     if not 0.5 <= ratio <= 2.0:
@@ -4368,6 +4424,506 @@ def dp_path(solo, train_set, val_set, dev, gpu):
         fail("the tutorial's training did not launch the encoder kernel")
     if (d["j"], d["s"]) != (dc["j"], dc["s"]) or not e <= PATH_TOL:
         fail(f"the tutorial's decode card against CPU: {e}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: user-written fields on the batched RK kernel. A field without a
+# hand-written functor runs on one generated from its trace
+# (ops/rhs_trace.py, ops/rhs_codegen.py), Kuramoto at a width without a
+# compiled instance on the lane-group kernels instantiated for it, and the
+# tutorial trains its own pendulum_f on the kernel route. The fields below
+# are module-level so that their instances are cached once.
+
+def tutorial_field_copy(u, p, t):
+    """A verbatim copy of the tutorial's pendulum_f (tutorial.main, section
+    1): the same trace, so the same generated source and library, which
+    phase 1 builds with the others; 4l checks the tutorial's own field
+    names that instance."""
+    return torch.stack([u[..., 1], -10.0 / p[..., 0] * torch.sin(u[..., 0])],
+                       dim=-1)
+
+
+tutorial_field_copy.__name__ = "pendulum_f"
+
+
+def pendulum_untagged(u, p, t):
+    """pendulum.py's pendulum_f without its device_rhs tag."""
+    from latentdiffeq_torch.pendulum import pendulum_f
+    return pendulum_f(u, p, t)
+
+
+def vdp_untagged(u, p, t):
+    """custom_dynamics.py's vdp_f without its device_rhs tag."""
+    from latentdiffeq_torch.custom_dynamics import vdp_f
+    return vdp_f(u, p, t)
+
+
+def forced_oscillator(u, p, t):
+    """A forced damped oscillator, x'' = -k x - c x' + a cos(2 t), p = (k,
+    c, a): non-autonomous, pdim 3."""
+    x, v = u[..., 0], u[..., 1]
+    k, c, a = p[..., 0], p[..., 1], p[..., 2]
+    return torch.stack([v, -k * x - c * v + a * torch.cos(2.0 * t)], dim=-1)
+
+
+KURAMOTO_N = 7  # a width without a compiled instance
+
+
+def gen_fields():
+    """label -> (f, dim, pdim, substeps, dt, tagged twin or None) of the
+    phase's fields: the tutorial's (by its copy; the pendulum path's
+    shapes), the untagged pendulum and Van der Pol (beside their tagged
+    functors), the forced oscillator and Kuramoto-7 with offsets (the
+    custom dynamics' shapes)."""
+    from latentdiffeq_torch import custom_dynamics as cdyn
+    from latentdiffeq_torch.pendulum import pendulum_f
+    kur = gen_fields.kuramoto = getattr(gen_fields, "kuramoto", None) or \
+        cdyn.Kuramoto(KURAMOTO_N, omega_spread=0.5).f
+    return {"tutorial": (tutorial_field_copy, 2, 1, 1, 0.05, None),
+            "pendulum-untagged": (pendulum_untagged, 2, 1, 1, 0.05,
+                                  pendulum_f),
+            "vdp-untagged": (vdp_untagged, 2, 1, CUSTOM_SUBSTEPS, CUSTOM_DT,
+                             cdyn.vdp_f),
+            "forced": (forced_oscillator, 2, 3, CUSTOM_SUBSTEPS, CUSTOM_DT,
+                       None),
+            f"kuramoto{KURAMOTO_N}": (kur, KURAMOTO_N, 2, CUSTOM_SUBSTEPS,
+                                      CUSTOM_DT, None)}
+
+
+def gen_specs():
+    """(f, dim, pdim) of every 4l instance, for phase 1's build."""
+    return [(f, d, p) for f, d, p, *_ in gen_fields().values()]
+
+
+def gen_shapes(label):
+    """(shape label, B, T): the pendulum path's for the pendulum fields,
+    the custom dynamics' for the others."""
+    if label in ("tutorial", "pendulum-untagged"):
+        return (("train", 64, 50), ("val", 45, 100))
+    return CUSTOM_SHAPES
+
+
+def gen_inputs(label, B, T, gen):
+    """(u0s, ps, saveat): pendulum states and L as rk_inputs draws them;
+    Van der Pol's too; the oscillator x, v ~ U(-1, 1), k ~ U(1, 4), c ~
+    U(0.1, 0.5), a ~ U(0.5, 2); Kuramoto's phases, omega and K as
+    rk_inputs."""
+    f, dim, pdim, sub, dt, _ = gen_fields()[label]
+    if label in ("tutorial", "pendulum-untagged"):
+        u0s, ps, saveat = rk_inputs("pendulum", B, T, gen)
+    elif label == "vdp-untagged":
+        u0s, ps, saveat = rk_inputs("vdp", B, T, gen)
+    elif label == "forced":
+        u0s = torch.rand(B, 2, generator=gen, device="cuda") * 2 - 1
+        lo = torch.tensor([1.0, 0.1, 0.5], device="cuda")
+        hi = torch.tensor([4.0, 0.5, 2.0], device="cuda")
+        ps = lo + (hi - lo) * torch.rand(B, 3, generator=gen, device="cuda")
+        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * dt
+    else:
+        u0s = (torch.rand(B, dim, generator=gen, device="cuda") * 2 - 1) \
+            * math.pi
+        ps = torch.stack([1 + 2 * torch.rand(B, generator=gen, device="cuda"),
+                          0.2 + 1.8 * torch.rand(B, generator=gen,
+                                                 device="cuda")], dim=1)
+        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * dt
+    return u0s, ps, saveat
+
+
+def gen_kernel_checks(gen, fields):
+    """4l (a) and (c): each field's instance, forward and backward, against
+    the plain versions at its train and validation shapes, Tsit5, with
+    PERF.md section 2's gates: forward within TOL of the plain solve (and
+    the same success flags, all rows ok) and at most twice as far from a
+    float64 plain solve as the plain float32 solve (+1e-6); the backward
+    kernel's interval maps against the plain maps, its gradients against
+    the two-phase plain version and the step-by-step reverse sweep on the
+    same trajectory (both taking torch.func.vjp of the field), and the
+    whole backward against plain autograd, each within GRAD_TOL of its
+    size. (b): the untagged pendulum and Van der Pol against their tagged,
+    hand-written functors on the same inputs: bit for bit or the largest
+    gap. Returns {kernels-line name: largest absolute error against the
+    plain version}."""
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5
+    s = Tsit5()
+    worst = {}
+    for label, (f, dim, pdim, sub, _, twin) in fields.items():
+        fn = rk_name("rk_fixed_grid", f, dim, pdim)
+        bn = rk_name("rk_fixed_grid_bwd", f, dim, pdim)
+        for shape, B, T in gen_shapes(label):
+            u0s, ps, saveat = gen_inputs(label, B, T, gen)
+            w = torch.randn(B, T, dim, generator=gen, device="cuda")
+            with torch.no_grad():
+                got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+                    f, s, u0s, ps, saveat, substeps=sub)
+                ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+                    f, s, u0s, ps, saveat, substeps=sub)
+                ref64 = ode_cuda.solve_fixed_grid_batched_reference(
+                    f, s, u0s.double(), ps.double(), saveat.double(),
+                    substeps=sub)[0]
+            e = max_err(got, ref)
+            e_k, e_p = max_err(got.double(), ref64), max_err(ref.double(),
+                                                             ref64)
+            bits = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            flags = torch.equal(ok, ok_p) and bool(ok.all())
+            line = (f"{fn} {label} {shape} B={B} T={T} Tsit5 substeps={sub}:"
+                    f" max abs err {e:.3e} (tol {TOL:.0e}), bit for bit as "
+                    f"plain: {bits}; vs float64: kernel {e_k:.3e}, plain "
+                    f"{e_p:.3e} (gate 2 x plain + 1e-6); success flags as "
+                    f"plain, all rows: {flags}")
+            log("4l", line)
+            if not (e <= TOL and e_k <= 2 * e_p + 1e-6 and flags):
+                fail(f"4l forward {label} {shape}: {line}")
+            worst[fn] = max(worst.get(fn, 0.0), e)
+
+            du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+                f, s, saveat, got, ps, w, substeps=sub, maps=True)
+            J_p, r_p = \
+                ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+                    f, s, saveat, got, ps, substeps=sub)
+            two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(
+                J_p, r_p, w)
+            sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+                f, s, saveat, got, ps, w, substeps=sub)
+            e_maps = max(rel_err(J, J_p), rel_err(r, r_p))
+            e_two = max(rel_err(a, b) for a, b in zip((du0, dp), two))
+
+            def grads(solve, dtype=torch.float32):
+                u = u0s.to(dtype).requires_grad_()
+                p = ps.to(dtype).requires_grad_()
+                y = solve(f, s, u, p, saveat.to(dtype), substeps=sub)[0]
+                return torch.autograd.grad(y, [u, p], w.to(dtype))
+
+            auto = grads(ode_cuda.solve_fixed_grid_batched_reference)
+            worst[bn] = max(worst.get(bn, 0.0),
+                            max(max_err(a, b) for a, b in zip((du0, dp),
+                                                               sweep)),
+                            max(max_err(a, b) for a, b in zip((du0, dp),
+                                                               two)))
+            line = (f"{bn} {label} {shape} B={B} T={T}: interval maps vs "
+                    f"plain maps max rel err {e_maps:.3e}; gradients vs "
+                    f"two-phase plain {e_two:.3e} (tol {GRAD_TOL:.0e})")
+            good = max(e_maps, e_two) <= GRAD_TOL
+            # the step-by-step sweep and autograd through the plain
+            # forward sum in other float32 orders: past GRAD_TOL the kernel
+            # is held to a float64 referee, at most twice as far from it as
+            # the two-phase plain version, its own algorithm (as the long
+            # grids of phase 3 are)
+            refs = {"plain reverse sweep": (sweep, lambda: ode_cuda
+                    .solve_fixed_grid_batched_backward_reference(
+                        f, s, saveat.double(), got.double(), ps.double(),
+                        w.double(), substeps=sub)),
+                    "plain autograd": (auto, lambda: grads(
+                        ode_cuda.solve_fixed_grid_batched_reference,
+                        torch.float64))}
+            for what, (plain32, referee) in refs.items():
+                e = max(rel_err(a, b) for a, b in zip((du0, dp), plain32))
+                line += f", vs {what} {e:.3e}"
+                if e > GRAD_TOL:
+                    r64 = referee()
+                    e_k = max(rel_err(a.double(), b) for a, b in zip(
+                        (du0, dp), r64))
+                    e_p = max(rel_err(a.double(), b) for a, b in zip(
+                        two, r64))
+                    line += (f" (past the tol: vs float64 kernel {e_k:.3e},"
+                             f" two-phase plain {e_p:.3e}, gate 2 x)")
+                    good = good and e_k <= 2 * e_p
+            log("4l", line)
+            if not good:
+                fail(f"4l backward {label} {shape}: {line}")
+
+            if twin is not None:  # (b) generated against hand-written
+                with torch.no_grad():
+                    hw, _ = ode_cuda.solve_fixed_grid_batched_cuda(
+                        twin, s, u0s, ps, saveat, substeps=sub)
+                hdu0, hdp = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+                    twin, s, saveat, hw, ps, w, substeps=sub)
+                same = torch.equal(got.view(torch.int32),
+                                   hw.view(torch.int32))
+                gap = max_err(got, hw)
+                gap_b = max(rel_err(a, b) for a, b in zip((du0, dp),
+                                                           (hdu0, hdp)))
+                log("4l", f"{label} {shape}: generated "
+                          f"{ode_cuda.rhs_instance(f, dim, pdim)} against the "
+                          f"hand-written {ode_cuda.rhs_instance(twin, dim)}: "
+                          f"forward bit for bit {same}, largest gap "
+                          f"{gap:.3e}; gradients (each on its own "
+                          f"trajectory) largest relative gap {gap_b:.3e}")
+                if gap > TOL or gap_b > GRAD_TOL:
+                    fail(f"4l {label}: generated vs hand-written {gap}, "
+                         f"{gap_b}")
+    return worst
+
+
+def tutorial_on_card(f_copy):
+    """4l (e): the tutorial's main on the card, 2 epochs: its own
+    pendulum_f runs on the generated instance (the one its verbatim copy
+    names), the RK backward launches once a train step, no plain solve.
+    Returns (its field, its trainer's history)."""
+    from latentdiffeq_torch.examples.tutorial import tutorial
+    from latentdiffeq_torch.ops import ode_cuda
+    tutorial.OUTPUT_DIR = os.path.join(CLI_DIR, "tutorial_4l")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = tutorial.main(["--epochs", "2"])
+    torch.cuda.synchronize()
+    tut_s = time.perf_counter() - t0
+    trainer = res["trainer"]
+    f = trainer.model.decoder.diffeq.f
+    inst = ode_cuda.rhs_instance(f, 2, 1)
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    steps = 2 * (405 // trainer.cfg.batch_size)
+    plain = ode_cuda.solve_fixed_grid_batched_reference.calls
+    hist = trainer.history
+    log("4l", f"tutorial --epochs 2 on the card in {tut_s:.3f} s: its field "
+              f"{f.__name__!r} (device_rhs {getattr(f, 'device_rhs', None)})"
+              f" on instance {inst} (its copy's: "
+              f"{ode_cuda.rhs_instance(f_copy, 2, 1)}); RK launches forward "
+              f"{dict(fwd)}, backward {dict(bwd)} (backward expected "
+              f"{steps}); plain solve calls {plain}; losses "
+              f"{[(round(h['train_loss'], 4), round(h['val_loss'], 4)) for h in hist]}")
+    if (inst != ode_cuda.rhs_instance(f_copy, 2, 1) or not inst.startswith(
+            "gen_") or set(fwd) != {inst} or bwd != {inst: steps}
+            or fwd[inst] < 2 * steps or plain != 0 or len(hist) != 2
+            or not all(math.isfinite(h["train_loss"]) for h in hist)):
+        fail("4l: the tutorial did not train on the generated RK instance")
+    return f, hist
+
+
+def gen_path(train_set, val_set, tagged_hist, dev, gpu):
+    """4l: the tutorial on the card (e), the fields against the plain
+    versions and the hand-written functors (a)-(c), GOKU at full width on
+    the full video with the tutorial's field (d), and GOKU on Kuramoto-7
+    data (f). Returns ({kernels-line name: launches}, {name: max abs
+    err})."""
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import ODEDynamics, goku_default_layers
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5
+    from latentdiffeq_torch.train import TrainConfig
+
+    fields = gen_fields()
+    for label, (f, dim, pdim, *_) in fields.items():
+        lib = ode_cuda.rhs_kernel(f, dim, pdim).library
+        spills = spill_lines(lib)
+        log("4l", f"{label}: instance {ode_cuda.rhs_instance(f, dim, pdim)}"
+                  f", library {lib}; kernels that spill (ptxas -v): "
+                  f"{len(spills)}" + "".join(f"; {fn}: {ln}"
+                                             for fn, ln in spills))
+    f_tut, _ = tutorial_on_card(fields["tutorial"][0])
+    fields["tutorial"] = (f_tut,) + fields["tutorial"][1:]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    errs = gen_kernel_checks(gen, fields)
+
+    # (d) GOKU at full width on the full video, the tutorial's field
+    diffeq = ODEDynamics(f=f_tut, z_dim=2, theta_dim=1, solver=Tsit5(),
+                         options=SolveOptions(adaptive=False, substeps=1))
+    layers = goku_default_layers(
+        784, diffeq, generator=torch.Generator().manual_seed(333),
+        device=dev)
+    launches, trainer, _, _ = goku_path(
+        "pendulum, the tutorial's field", train_set, val_set, diffeq,
+        layers, TrainConfig(epochs=1500, save_best=False), dev, gpu)
+    gaps = [max(abs(a["train_loss"] - b["train_loss"]),
+                abs(a["val_loss"] - b["val_loss"]))
+            for a, b in zip(trainer.history, tagged_hist)]
+    log("4l", f"GOKU on the tutorial's field against the tagged pendulum "
+              f"run (phase 4, same seed and batches): loss gaps by epoch "
+              f"{[f'{g:.3e}' for g in gaps]} (tol {PATH_TOL:.0e})")
+    if len(gaps) != 2 or max(gaps) > PATH_TOL:
+        fail(f"4l: tutorial-field GOKU losses {gaps} from the tagged run's")
+
+    # (f) GOKU on Kuramoto-7 data, at the JAX examples' width
+    c_train, c_val, c_diffeq, c_cfg = custom_dataset(
+        f"kuramoto{KURAMOTO_N}", dev)
+    c_layers = goku_default_layers(
+        64, c_diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
+        generator=torch.Generator().manual_seed(0), device=dev)
+    k_launches = goku_path(f"kuramoto{KURAMOTO_N}", c_train, c_val, c_diffeq,
+                           c_layers, c_cfg, dev, gpu)[0]
+    launches.update(k_launches)
+    return ({k: v for k, v in launches.items()
+             if k.startswith("rk_fixed_grid")}, errs)
+
+
+def program_cycles(prog, outputs, ready):
+    """Cycles until every value of ``outputs`` is ready, given the ready
+    times of the program's inputs (``ready``, by scalar id; per-row values
+    are ready at 0): FMA_CYC an arithmetic op, SFU_CYC a division,
+    reciprocal or square root, SIN_STEPS FMA steps a sinf, cosf, expf,
+    logf, tanhf or powf. Returns the ready times of ``outputs``."""
+    slow = {"sin", "cos", "exp", "log", "tanh", "pow"}
+    sfu = {"div", "divs", "recip", "sqrt", "rsqrt"}
+    at = dict(ready)
+    for ins in prog.needed(outputs):
+        if ins.out in prog.per_row:
+            at[ins.out] = 0
+            continue
+        t = max([at.get(a, 0) for a in ins.args if isinstance(a, int)],
+                default=0)
+        at[ins.out] = t + (SIN_STEPS * FMA_CYC if ins.op in slow else
+                           SFU_CYC if ins.op in sfu else FMA_CYC)
+    return [at.get(r, 0) if isinstance(r, int) else 0 for r in outputs]
+
+
+def gen_step_cycles(prog, tab, n_stages):
+    """The critical path of one RK step of a generated functor, from the
+    step's state to the next: stage s's input is y + sum_q (dt a_sq) k_q,
+    added in order (the product of each term in parallel, the adds one
+    after another), its slope the forward program; then the update."""
+    dim = prog.dim
+    k = []
+    for s in range(n_stages):
+        Y = [0] * dim
+        for q, a in enumerate(tab.a[s]):
+            if a != 0.0:
+                Y = [max(Y[d], k[q][d] + FMA_CYC) + FMA_CYC
+                     for d in range(dim)]
+        ready = dict(zip(prog.u_ids, Y))
+        ready[prog.t_id] = 0
+        k.append(program_cycles(prog, prog.dy, ready))
+    y = [0] * dim
+    for s, b in enumerate(tab.b[:n_stages]):
+        if b != 0.0:
+            y = [max(y[d], k[s][d] + FMA_CYC) + FMA_CYC for d in range(dim)]
+    return max(y)
+
+
+def gen_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
+    """Least time of a trajectory's chain in the forward kernel: (T - 1) *
+    substeps steps of `gen_step_cycles`."""
+    return ((T - 1) * substeps * gen_step_cycles(prog, tab, n_stages)
+            / (clock_mhz * 1e3))
+
+
+def gen_bwd_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
+    """The backward kernel's chain for a generated functor, as
+    rk_bwd_latency_ms has the one-thread kernel's: per chunk of intervals
+    one interval (per sub-step the step's stages, then the VJP program of
+    each stage in reverse, the basis cotangents in parallel, its
+    cotangent updates 2 FMA steps, and the dim-term composition) and a
+    barrier; then T - 1 links of a dim-term dot product and an add."""
+    dim = prog.dim
+    ready = {i: 0 for i in prog.u_ids + prog.kb_ids + [prog.t_id]}
+    vjp = max(program_cycles(prog, prog.ubar + prog.pbar, ready))
+    interval = substeps * (gen_step_cycles(prog, tab, n_stages)
+                           + n_stages * (vjp + 2 * FMA_CYC)
+                           + dim * 2 * FMA_CYC)
+    chunks = math.ceil((T - 1) / RK_BWD_CHUNK)
+    cyc = chunks * (interval + BAR_CYC) + (T - 1) * (dim + 1) * FMA_CYC
+    return cyc / (clock_mhz * 1e3)
+
+
+def gen_ops(prog):
+    """(operations of one evaluation, of one VJP) of a generated functor:
+    its scalar operations that run a stage (the per-row ones run once a
+    row and are left out)."""
+    return tuple(sum(1 for i in prog.needed(out) if i.out not in
+                     prog.per_row) for out in (prog.dy, prog.ubar + prog.pbar))
+
+
+def gen_timing(gen, clock, fields):
+    """Item 8: each new instance at its train and validation shapes,
+    Tsit5: the kernel's time per call and on the device beside its plain
+    version on the same inputs (a backward's: the plain reverse sweep),
+    its bound from the program's operation count and bytes and its
+    latency model; the hand-written twin (pendulum, Van der Pol) timed
+    beside the generated one in the same loop. Returns {kernels-line name:
+    (ms, plain_ms, bound_ms, bound_by, library_ms)} at the train shape."""
+    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
+    s = Tsit5()
+    tab = s.tableau
+    n_st = n_solution_stages(tab)
+    out = {}
+    for label, (f, dim, pdim, sub, _, twin) in fields.items():
+        rk = ode_cuda.rhs_kernel(f, dim, pdim)
+        lanes = rk.name.startswith("kuramoto")
+        for shape, B, T in gen_shapes(label):
+            u0s, ps, saveat = gen_inputs(label, B, T, gen)
+            w = torch.randn(B, T, dim, generator=gen, device="cuda")
+            with torch.no_grad():
+                ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
+                    f, s, u0s, ps, saveat, substeps=sub)
+            if lanes:
+                family = "kuramoto"
+                fw = rk_work(B, T, dim, pdim, sub, tab, n_st, family, dim)
+                bw = rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, family,
+                                 dim)
+                lat = (rk_latency_ms(T, sub, n_st, clock, family, dim),
+                       rk_bwd_latency_ms(T, sub, n_st, clock, family, dim))
+            else:
+                family = "generated"
+                ops = gen_ops(rk.program)
+                fw = rk_work(B, T, dim, pdim, sub, tab, n_st, ops=ops)
+                bw = rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, ops=ops)
+                lat = (gen_latency_ms(rk.program, T, sub, tab, n_st, clock),
+                       gen_bwd_latency_ms(rk.program, T, sub, tab, n_st,
+                                          clock))
+            calls = [(rk_name("rk_fixed_grid", f, dim, pdim), f,
+                      rk_kernel(family), fw, lat[0], False),
+                     (rk_name("rk_fixed_grid_bwd", f, dim, pdim), f,
+                      rk_kernel(family, bwd=True), bw, lat[1], True)]
+            if twin is not None:
+                calls += [(f"{rk_name(k, twin, dim)} (hand-written twin)",
+                           twin, rk_kernel("pendulum", bwd), None, None, bwd)
+                          for k, bwd in (("rk_fixed_grid", False),
+                                         ("rk_fixed_grid_bwd", True))]
+            with torch.no_grad():
+                for name, fn, kname, work, lat_ms, is_bwd in calls:
+                    if is_bwd:
+                        kernel = (lambda fn=fn: ode_cuda
+                                  .solve_fixed_grid_batched_bwd_cuda(
+                                      fn, s, saveat, ys, ps, w,
+                                      substeps=sub))
+                        plain = (lambda fn=fn: ode_cuda
+                                 .solve_fixed_grid_batched_backward_reference(
+                                     fn, s, saveat, ys, ps, w, substeps=sub))
+                    else:
+                        kernel = (lambda fn=fn: ode_cuda
+                                  .solve_fixed_grid_batched_cuda(
+                                      fn, s, u0s, ps, saveat, substeps=sub))
+                        plain = (lambda fn=fn: ode_cuda
+                                 .solve_fixed_grid_batched_reference(
+                                     fn, s, u0s, ps, saveat, substeps=sub))
+                    k_ms = time_ms(kernel)
+                    d_ms = device_ms(kernel, kname)
+                    if work is None:
+                        log("timing", f"{name} {label} {shape} B={B} T={T} "
+                                      f"substeps={sub}: kernel {k_ms:.4f} ms"
+                                      f" per call ({fmt_ms(d_ms)} on the "
+                                      f"device)")
+                        continue
+                    # one call: the plain versions take 10-1000 ms
+                    p_ms = time_ms(plain, reps=1, warmup=0)
+                    b_ms, b_by, t_b, t_o = bound_ms(*work)
+                    log("timing", f"{name} {label} {shape} B={B} T={T} "
+                                  f"substeps={sub}: kernel {k_ms:.4f} ms per "
+                                  f"call ({fmt_ms(d_ms)} on the device), "
+                                  f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+                                  f"({b_by}; bytes {t_b:.6f} ms, operations "
+                                  f"{t_o:.6f} ms), latency model "
+                                  f"{lat_ms:.6f} ms at {clock:.0f} MHz; "
+                                  f"library: none")
+                    if shape == "train":
+                        out[name] = (k_ms, p_ms, b_ms, b_by, None)
+    return out
+
+
+def spill_lines(name):
+    """(kernel, its stack and spill line) of each kernel of a library's
+    build log that spills (ptxas -v)."""
+    import re
+    from latentdiffeq_torch.ops import _build
+    out, fn = [], None
+    for line in _build.build_log(name).splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)) > 0 and fn is not None:
+            out.append((fn, line.strip()))
+    return out
 
 
 def step_device_ops(trainer, data, beta):
@@ -4435,7 +4991,7 @@ def main():
 
     from latentdiffeq_torch.adjoint import SolveOptions
     from latentdiffeq_torch.models import goku_default_layers
-    from latentdiffeq_torch.ops import _build
+    from latentdiffeq_torch.ops import _build, ode_cuda
     from latentdiffeq_torch.pendulum import Pendulum
     from latentdiffeq_torch.pendulum_data import (draw_initial_conditions,
                                                   generate_dataset)
@@ -4449,17 +5005,19 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_kernels()
+    # the port's sources and phase 4l's generated instances, all at once
+    built = ode_cuda.build_instances(gen_specs())
     log("build", f"{sorted(built)} in {time.perf_counter() - t0:.2f} s "
                  f"(compiled now: {sorted(n for n, b in built.items() if b)})"
                  f"; card: {gpu}; torch {torch.__version__} cuda "
                  f"{torch.version.cuda}")
-    for name in built:
+    for name in _build.KERNEL_SOURCES:
         lines = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         for line in dict.fromkeys(lines):
             log("build", f"{name}: {line}")
 
+    log_phase("phase 2")
     # ---- 2. kernels vs plain ----------------------------------------------
     diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
     enc, dec = goku_default_layers(
@@ -4476,6 +5034,7 @@ def main():
     errs["node_field_fwd"] = node_kernel_checks()
     torch.cuda.synchronize()
 
+    log_phase("phase 3")
     # ---- 3. gradients -----------------------------------------------------
     errs["goku_heads_bwd"] = goku_grad_checks(heads, gen)
     errs.update(goku_bf16_grad_checks(heads, gen_bf))
@@ -4485,6 +5044,7 @@ def main():
     errs["node_field_dw"] = max(errs["node_field_dw"], dw_errs["node_field_dw"])
     errs["node_field_dw[pop4]"] = dw_errs["node_field_dw[pop4]"]
 
+    log_phase("phase 4")
     # ---- 4. main path: GOKU training on pendulum video --------------------
     t0 = time.perf_counter()
     latent, u0s_d, ps_d, frames = generate_dataset(device=dev)
@@ -4510,11 +5070,13 @@ def main():
         "pendulum", train_set, val_set, diffeq, layers,
         TrainConfig(epochs=1500, save_best=False), dev, gpu)
 
+    log_phase("phase 4b")
     # ---- 4b. second main path: LatentODE training on the same video ------
     node_launches, node_trainer, node_data, node_beta = latent_ode_path(
         train_set, val_set, dev, gpu)
     launches.update(node_launches)
 
+    log_phase("phase 4c")
     # ---- 4c, 4d. GOKU on Van der Pol and on Kuramoto-10 at the JAX
     # examples' width: goku_default_layers(64, diffeq, hidden_dim_resnet=100,
     # latent_to_diffeq_dim=100), RNN/LSTM 32->16->16, latent 16 (the kernels
@@ -4529,14 +5091,17 @@ def main():
         launches.update({k: v for k, v in path_launches.items()
                          if k.startswith("rk_fixed_grid")})
 
+    log_phase("phase 4e")
     # ---- 4e. the solve API and the adjoints on the card -------------------
     solve_api_card_checks(dev)
     sde_api_card_check(dev)
 
+    log_phase("phase 4f")
     # ---- 4f. GOKU on the stochastic pendulum (the goku_heads kernels; the
     # SDE solve is plain PyTorch, as in the JAX package) -------------------
     sde_model = spendulum_path(train_set, val_set, dev, gpu)
 
+    log_phase("phase 4g")
     # ---- 4g. GOKU on the pendulum as a population of 8 seeds (one launch of
     # each kernel a call for all replicas), and the autosize probe ----------
     pop_launches, pop_errs, pop_ms = population_path(
@@ -4545,6 +5110,7 @@ def main():
     for k in ("goku_heads", "goku_heads_bwd"):
         launches[f"{k}[pop8]"] = pop_launches[k]
 
+    log_phase("phase 4h")
     # ---- 4h. bf16 NN stages around a float32 solve: solo, then the
     # population of 8 (the bf16 instances of the heads kernels) ------------
     bf16_launches, bf16_trainer, bf16_data, bf16_beta = bf16_solo_path(
@@ -4556,15 +5122,18 @@ def main():
     for k in ("goku_heads", "goku_heads_bwd"):
         launches[f"{k}[pop8-bf16]"] = bpop_launches[k]
 
+    log_phase("phase 4i")
     # ---- 4i. LatentODE as a population of 4 seeds: the forward, sweep and
     # weight-gradient kernels each once for all replicas -------------------
     node_pop = latent_ode_population_path(train_set, val_set, dev, gpu)
     for k in ("node_field_fwd", "node_field_bwd", "node_field_dw"):
         launches[f"{k}[pop4]"] = node_pop[k]
 
+    log_phase("phase 4j")
     # ---- 4j. the training CLIs through their main(argv) -------------------
     _, cli_goku = cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
 
+    log_phase("phase 5")
     # ---- 5. kernel timing -------------------------------------------------
     clock = max_sm_clock_mhz()
     times = goku_timing(heads, gen, clock, dev)
@@ -4577,7 +5146,12 @@ def main():
     errs.update(node_pop_errs)
     times.update(population_timing(pop_ms, gen, clock, dev))
     times.update(population_timing(bpop_ms, gen_bf, clock, dev))
+    # phase 4l's instances (the tutorial's by its copy, the same library):
+    # timed here, before 4k, after which torch.profiler drops launches
+    times.update(gen_timing(torch.Generator(device=dev).manual_seed(16),
+                            clock, gen_fields()))
 
+    log_phase("phase 4k")
     # ---- 4k. data parallelism, the profiling utilities, the native
     # renderer and the tutorial: after phase 5, whose check that
     # solve_neural_field runs no library product reads the node kernels'
@@ -4585,6 +5159,15 @@ def main():
     # 4k, it saw no node_field_fwd_kernel in any of its windows in both
     # runs that tried (PERF.md, open questions) ---------------------------
     dp_path(cli_goku, train_set, val_set, dev, gpu)
+
+    log_phase("phase 4l")
+    # ---- 4l. user-written fields on the RK kernel: generated functors,
+    # Kuramoto-7 on the lane-group kernels, GOKU and the tutorial on the
+    # tutorial's own field; then the new instances' times --------------
+    gen_launches, gen_errs = gen_path(
+        train_set, val_set, trainer.history, dev, gpu)
+    launches.update(gen_launches)
+    errs.update(gen_errs)
 
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"
@@ -4604,8 +5187,10 @@ def main():
                     "goku_heads[bf16]", "goku_heads_bwd[bf16]",
                     "goku_heads[pop8-bf16]", "goku_heads_bwd[pop8-bf16]",
                     "node_field_fwd[pop4]", "node_field_bwd[pop4]",
-                    "node_field_dw[pop4]"]):
+                    "node_field_dw[pop4]"] + sorted(gen_launches)):
         src, replaces = origin[name.split("[")[0]]
+        if name in gen_launches:  # generated sources on the header's kernels
+            src = "latentdiffeq_torch/csrc/rk_fixed_grid.cuh"
         k_ms, p_ms, b_ms, b_by, lib_ms = times[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"latentdiffeq/ops/{replaces}",
@@ -4621,6 +5206,7 @@ def main():
         profile_step(bf16_trainer, bf16_data, val_set, bf16_beta,
                      "profile_step_bf16.txt", "GOKU, bf16 NN stages")
 
+    log_phase("the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ batch, and each keeps the JAX function's operation order. Each carries
 csrc/rk_fixed_grid.cu (Kuramoto also ``rhs_consts(device, dtype)``, its
 frequency offsets there),
 so ``GOKUBasic(use_kernel_solver=True)`` solves it in the batched-solve
-kernel; the kernel's Kuramoto functor is compiled for 4 and 10 oscillators.
+kernel; Kuramoto's lane-group kernels are compiled for 4 and 10 oscillators
+and built at first use for another width (2 to 31).
 The stochastic Van der Pol is an ``SDEDynamics``, solved by the SDE solvers.
 """
 from __future__ import annotations

@@ -334,10 +334,14 @@ def main(argv=None):
     #     benchmarks/quality_goku.py — angle corr 0.997, L error 0.026).
     # ---------------------------------------------------------------------
     # on the card the encoder's three recurrences run as one hand-written
-    # kernel: use_kernel_encoder, JAX's use_pallas_encoder, the same field
+    # kernel (use_kernel_encoder, JAX's use_pallas_encoder) and the solve of
+    # the pendulum_f above as another (use_kernel_solver, JAX's
+    # use_pallas_solver): the field is traced and its device functor
+    # generated and built at first use
+    on_card = dev.type == "cuda"
     model = LatentDiffEqModel.build(
-        GOKUBasic(use_kernel_encoder=dev.type == "cuda"), encoder_layers,
-        decoder_layers)
+        GOKUBasic(use_kernel_encoder=on_card, use_kernel_solver=on_card),
+        encoder_layers, decoder_layers)
     cfg = TrainConfig(epochs=1500, seed=333, save_best=False)
     trainer = Trainer(model, cfg, device=dev)
     trainer.fit(train_set, val_set, epochs=args.epochs)

@@ -8,9 +8,14 @@ src/models/GOKU.jl).
 Two switches select the hand-written CUDA kernels: ``use_kernel_encoder``
 (the three recurrent heads in one kernel, ops/recurrent_cuda.py) and
 ``use_kernel_solver`` (the whole batched fixed-grid RK solve of an
-``ODEDynamics`` in one kernel, ops/ode_cuda.py). With a switch on, a CUDA
-tensor runs the kernel and a CPU tensor runs the kernel's plain PyTorch
-version. ``SDEDynamics`` always take the SDE solvers (solve/sde.py), as in
+``ODEDynamics`` in one kernel, ops/ode_cuda.py). As JAX's
+``use_pallas_solver`` traces any field into its Pallas solve, the RK
+kernel takes any field with a fixed-grid solver: a hand-written functor
+where the field names one, else a functor generated from the field's trace
+(ops/rhs_trace.py, ops/rhs_codegen.py); a field the kernel cannot run
+raises ValueError naming the graph node, on either device, at the first
+solve. With a switch on, a CUDA tensor runs the kernel and a CPU tensor
+runs the kernel's plain PyTorch version. ``SDEDynamics`` always take the SDE solvers (solve/sde.py), as in
 the JAX package, whatever ``use_kernel_solver`` says.
 
 Mixed precision (``goku_default_layers(..., dtype=torch.bfloat16)``): the

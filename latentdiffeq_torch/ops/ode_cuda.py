@@ -3,30 +3,41 @@
 latentdiffeq/ops/ode_pallas.py::pallas_solve_fixed_grid_batched and its
 ``custom_vjp``).
 
-``solve_fixed_grid_batched`` runs the kernels (csrc/rk_fixed_grid.cu) on
-CUDA tensors and the plain PyTorch version on CPU tensors. The RHS must
-name a device functor family (its ``device_rhs`` attribute, see pendulum.py
-and custom_dynamics.py); one without raises ValueError on either device
-rather than dropping to the plain solve. A family is compiled for the state
-widths in ``DEVICE_RHS`` (Kuramoto for 4 and 10 oscillators); on CUDA
-tensors another width raises ValueError, while the plain versions take any.
-An RHS with run-time constants (Kuramoto's frequency offsets) carries
-``rhs_consts(device, dtype)``, which gives them on a device. The forward kernel also writes the per-row success
-flag. Tsit5 and RK4 run an instance with their float32 coefficients
-compiled in (``tableau_instance``); any other tableau the instance that
-reads it at run time. The gradient is the VJP the JAX ``custom_vjp`` takes
-by recomputing the plain solve: on the card one launch of
-``rk_fixed_grid_bwd_kernel``, which builds every interval's map (J_n =
+``solve_fixed_grid_batched`` runs the kernels on CUDA tensors and the plain
+PyTorch version on CPU tensors. As JAX's Pallas solve traces any ``f(u, p,
+t)`` into its kernel, the kernels run any field, through one of three kinds
+of instance (``rhs_kernel``; ``rhs_instance`` names it, and the two
+launchers count their launches by that name):
+- a field tagged ``device_rhs`` at a width in ``DEVICE_RHS`` keeps its
+  hand-written functor in csrc/rk_fixed_grid.cu (pendulum, damped pendulum,
+  Van der Pol; Kuramoto at 4 and 10 oscillators on the lane-group kernels);
+- Kuramoto at another width N (2 to ``rhs_codegen.KURAMOTO_MAX_N``) gets
+  the lane-group kernels instantiated for N, ``kuramotoN``, from a one-line
+  source that includes csrc/rk_fixed_grid.cuh;
+- any other field is traced on one row with its VJP (ops/rhs_trace.py) and
+  runs on a device functor generated from the trace (ops/rhs_codegen.py),
+  ``gen_<hash8>`` (the hash of the generated source), cached by the field
+  object and (dim, pdim).
+Generated sources build at first use into build/kernels/, named by their
+hash (ops/_build.py). A field the kernel cannot run raises ValueError
+naming the graph node while it is traced, before the device is looked at,
+on either device: it is never solved with the plain path instead. Run-time
+constants (Kuramoto's frequency offsets, a field's ``rhs_consts(device,
+dtype)``) reach the kernel as the ``cst`` vector. The forward kernel also
+writes the per-row success flag. Tsit5 and RK4 run an instance with their
+float32 coefficients compiled in (``tableau_instance``); any other tableau
+the instance that reads it at run time. The gradient is the VJP the JAX
+``custom_vjp`` takes by recomputing the plain solve: on the card one launch
+of ``rk_fixed_grid_bwd_kernel``, which builds every interval's map (J_n =
 d ys[n+1] / d ys[n], r_n = d ys[n+1] / d p) in parallel from the saved
-trajectory and then runs a short affine sweep over them. Kuramoto runs its
-own pair, ``rk_kuramoto_kernel`` and ``rk_kuramoto_bwd_kernel``, with a
-group of lanes a trajectory or interval (one launch each all the same).
-Its plain versions are
+trajectory and then runs a short affine sweep over them (the lane-group
+pair for Kuramoto). Its plain versions are
 ``solve_fixed_grid_batched_interval_maps_reference`` and
 ``solve_fixed_grid_batched_affine_sweep_reference``;
 ``solve_fixed_grid_batched_backward_reference`` is the step-by-step reverse
-sweep over the same trajectory. All three use the RHS's VJP written by hand
-(``RHS_VJP``). ``saveat`` gets no gradient. Shapes on the main paths: the
+sweep over the same trajectory. They take the RHS's VJP written by hand
+(``RHS_VJP``) where it has one, else ``torch.func.vjp`` of the field
+(``field_vjp``). ``saveat`` gets no gradient. Shapes on the main paths: the
 pendulum u0s (64, 2), ps (64, 1), 50 save points in training; (45, 2),
 (45, 1), 100 points in validation; Tsit5 (6 stages), substeps 1; Van der
 Pol and Kuramoto-10 (64, 2 or 10) and (26, 2 or 10), substeps 4.
@@ -34,8 +45,9 @@ Pol and Kuramoto-10 (64, 2 or 10) and (26, 2 or 10), substeps 4.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,7 +55,9 @@ from torch.autograd.function import once_differentiable
 from ..solve.fixed import fixed_grid_stats, solve_fixed_grid
 from ..solve.rk import (RK4, AbstractSolver, Tsit5, n_solution_stages,
                         tableau_f32)
-from ._build import load_kernel
+from . import rhs_codegen, rhs_trace
+from ._build import (KERNEL_SOURCES, build_kernels, load_kernel,
+                     register_generated)
 
 __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_bwd_cuda",
@@ -52,10 +66,12 @@ __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_interval_maps_reference",
            "solve_fixed_grid_batched_affine_sweep_reference",
            "tableau_instance", "sincos_cuda", "SINF_COPIES",
-           "BAKED_TABLEAUS", "DEVICE_RHS", "RHS_VJP", "rhs_instance"]
+           "BAKED_TABLEAUS", "DEVICE_RHS", "RHS_VJP", "RhsKernel",
+           "rhs_kernel", "rhs_instance", "field_vjp", "build_instances"]
 
 # device_rhs family -> {state width: (functor index in csrc/rk_fixed_grid.cu,
-# parameter width, instance name)}: the widths each functor is compiled for.
+# parameter width, instance name)}: the widths each hand-written functor is
+# compiled for.
 DEVICE_RHS = {
     "pendulum": {2: (0, 1, "pendulum")},
     "pendulum_friction": {2: (1, 1, "pendulum_friction")},
@@ -64,56 +80,113 @@ DEVICE_RHS = {
 }
 
 # Kernel instance index -> the solver whose float32 tableau
-# csrc/rk_fixed_grid.cu compiles in (Tsit5Tab, Rk4Tab). The library refuses
+# csrc/rk_fixed_grid.cuh compiles in (Tsit5Tab, Rk4Tab). The library refuses
 # an index whose tableau is not exactly the one it was handed.
 BAKED_TABLEAUS = {1: Tsit5(), 2: RK4()}
 
 
-def _rhs_family(f: Callable) -> str:
-    """The device functor family ``f`` names; ValueError if none."""
-    name = getattr(f, "device_rhs", None)
-    if name not in DEVICE_RHS:
+@dataclasses.dataclass(frozen=True)
+class RhsKernel:
+    """The kernel instance that runs a field: its launch-counter ``name``,
+    the library (``_build`` name) and its ``rhs_kind`` argument, the
+    parameter width it takes, how many run-time constants it reads (None:
+    none) and, for a generated functor, the traced program."""
+    name: str
+    library: str
+    kind: int
+    pdim: int
+    ncst: Optional[int]
+    program: Optional[rhs_trace.FieldProgram] = None
+
+
+_GENERATED = {}  # (field, dim, pdim) -> RhsKernel
+
+
+def _generated(f: Callable, dim: int, pdim: int) -> RhsKernel:
+    try:
+        key = (f, dim, pdim)
+        hit = _GENERATED.get(key)
+    except TypeError:  # an unhashable callable: by identity
+        key = (id(f), dim, pdim)
+        hit = _GENERATED.get(key)
+    if hit is None:
+        prog = rhs_trace.trace_field(f, dim, pdim)
+        rhs_codegen.check_width(prog.name, dim, pdim)
+        text = rhs_codegen.kernel_source(prog)
+        lib = register_generated("rk_gen", text)
+        hit = _GENERATED[key] = RhsKernel(
+            f"gen_{lib.rsplit('_', 1)[1][:8]}", lib, 0, pdim,
+            prog.ncst or None, prog)
+    return hit
+
+
+@functools.lru_cache(maxsize=None)
+def _kuramoto(dim: int) -> RhsKernel:
+    """The lane-group kernels at ``dim`` oscillators, from a one-line
+    source (cached: a launch looks its instance up)."""
+    if not 2 <= dim <= rhs_codegen.KURAMOTO_MAX_N:
         raise ValueError(
-            f"the batched-solve kernel has no device implementation of "
-            f"{getattr(f, '__name__', f)!r} (device_rhs={name!r}; known: "
-            f"{sorted(DEVICE_RHS)}); set use_kernel_solver=False to solve "
-            f"it with the plain PyTorch path")
-    return name
+            f"Kuramoto's lane-group kernels put an oscillator on a lane of "
+            f"a warp: 2 to {rhs_codegen.KURAMOTO_MAX_N} oscillators, not "
+            f"{dim}; set use_kernel_solver=False to solve it with the plain "
+            f"PyTorch path")
+    lib = register_generated("rk_kuramoto", rhs_codegen.kuramoto_source(dim))
+    return RhsKernel(f"kuramoto{dim}", lib, 0, 2, dim)
 
 
-def _device_rhs(f: Callable, dim: int):
-    """``(functor index, parameter width, instance name)`` of the compiled
-    instance of ``f``'s family for states of width ``dim``; ValueError
-    naming the compiled widths if there is none."""
-    widths = DEVICE_RHS[_rhs_family(f)]
-    if dim not in widths:
-        raise ValueError(
-            f"the batched-solve kernel's {f.device_rhs!r} functor is compiled "
-            f"for state widths {sorted(widths)}, not {dim}; set "
-            f"use_kernel_solver=False to solve it with the plain PyTorch "
-            f"path")
-    return widths[dim]
+def rhs_kernel(f: Callable, dim: int, pdim: Optional[int] = None
+               ) -> RhsKernel:
+    """The kernel instance for ``f`` at state width ``dim`` (module
+    docstring). A generated functor needs ``pdim``; tracing it raises
+    ValueError, naming the node, for a field the kernel cannot run."""
+    family = getattr(f, "device_rhs", None)
+    widths = DEVICE_RHS.get(family, {})
+    if dim in widths:
+        kind, pd, name = widths[dim]
+        return RhsKernel(name, "rk_fixed_grid", kind, pd,
+                         dim if family == "kuramoto" else None)
+    if family == "kuramoto":
+        return _kuramoto(dim)
+    if pdim is None:
+        raise ValueError(f"{rhs_trace.field_name(f)!r} has no hand-written "
+                         f"functor: its generated one needs the parameter "
+                         f"width")
+    return _generated(f, dim, pdim)
 
 
-def rhs_instance(f: Callable, dim: int) -> str:
+def rhs_instance(f: Callable, dim: int, pdim: Optional[int] = None) -> str:
     """The name of the kernel instance that runs ``f`` at state width
     ``dim`` (the two launchers count their launches by it)."""
-    return _device_rhs(f, dim)[2]
+    return rhs_kernel(f, dim, pdim).name
 
 
-def _rhs_consts(f: Callable, device, dim: int):
+def build_instances(specs):
+    """Build the libraries of the instances of ``specs``, (f, dim, pdim)
+    triples, with the port's own kernels, every stale one at once (one
+    ``nvcc`` each). Returns ``_build.build_kernels``' dict."""
+    libs = list(KERNEL_SOURCES)
+    for f, dim, pdim in specs:
+        lib = rhs_kernel(f, dim, pdim).library
+        if lib not in libs:
+            libs.append(lib)
+    return build_kernels(libs)
+
+
+def _rhs_consts(f: Callable, device, n: Optional[int]):
     """``f``'s run-time constants as float32 on ``device`` (the tensor the
-    field itself uses there), or None; the kernel reads one per state
-    entry."""
-    consts = getattr(f, "rhs_consts", None)
-    if consts is None:
+    field itself uses there), or None when the instance reads none."""
+    if n is None:
         return None
-    consts = consts(device, torch.float32)
-    if consts.shape != (dim,):
-        raise ValueError(f"{getattr(f, '__name__', f)!r} carries "
-                         f"rhs_consts of shape {tuple(consts.shape)} for "
-                         f"states of width {dim}")
-    return consts
+    if getattr(f, "rhs_consts", None) is None:
+        raise ValueError(f"{rhs_trace.field_name(f)!r}: its kernel instance "
+                         f"reads {n} run-time constants, and the field has "
+                         f"no rhs_consts")
+    consts = f.rhs_consts(device, torch.float32)
+    if consts.shape != (n,):
+        raise ValueError(f"{rhs_trace.field_name(f)!r} carries rhs_consts "
+                         f"of shape {tuple(consts.shape)}; its kernel "
+                         f"instance reads {n}")
+    return consts.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,6 +260,20 @@ RHS_VJP = {
 }
 
 
+def field_vjp(f: Callable):
+    """``(y, p, t, kbar) -> (J_f(y)^T kbar, (df/dp)^T kbar)`` for the plain
+    references: the hand-written VJP of ``f``'s family (``RHS_VJP``), else
+    ``torch.func.vjp`` of ``f`` at ``t``."""
+    hand = RHS_VJP.get(getattr(f, "device_rhs", None))
+    if hand is not None:
+        return lambda y, p, t, kb: hand(y, p, kb)
+
+    def vjp(y, p, t, kb):
+        _, pull = torch.func.vjp(lambda y_, p_: f(y_, p_, t), y, p)
+        return pull(kb)
+    return vjp
+
+
 @torch.no_grad()
 def solve_fixed_grid_batched_backward_reference(f: Callable,
                                                 solver: AbstractSolver,
@@ -201,7 +288,7 @@ def solve_fixed_grid_batched_backward_reference(f: Callable,
     .. 0: ubar = J_f(Y_s)^T kbar_s, pbar += (df/dp)^T kbar_s, ybar += ubar,
     kbar_q += dt a_sq ubar; ``g[:, n]`` is added at each save point.
     Returns ``(du0 (B, dim), dp (B, pdim))``."""
-    vjp = RHS_VJP[_rhs_family(f)]
+    vjp = field_vjp(f)
     tab = solver.tableau
     S = n_solution_stages(tab)
     ys, ps, g, saveat = ys.detach(), ps.detach(), g.detach(), saveat.detach()
@@ -230,10 +317,11 @@ def solve_fixed_grid_batched_backward_reference(f: Callable,
                 for b, ks in zip(tab.b, k):
                     if b != 0.0:
                         y = y + (dt * b) * ks
-            Y, _ = stages(y, ta + j * dt, dt)
+            tj = ta + j * dt
+            Y, _ = stages(y, tj, dt)
             kbar = [(dt * b) * ybar for b in tab.b[:S]]
             for s in range(S - 1, -1, -1):
-                ubar, pb = vjp(Y[s], ps, kbar[s])
+                ubar, pb = vjp(Y[s], ps, tj + tab.c[s] * dt, kbar[s])
                 pbar = pbar + pb
                 ybar = ybar + ubar
                 for q, a in enumerate(tab.a[s]):
@@ -255,17 +343,30 @@ def solve_fixed_grid_batched_interval_maps_reference(
     cotangent, and the sub-steps compose as J = Js J, r = Js r + Rs.
     Returns ``J (B, T-1, dim, dim)``, J[b, n, i, j] = d ys[b, n+1, i] /
     d ys[b, n, j], and ``r (B, T-1, dim, pdim)``, r[b, n, i, q] =
-    d ys[b, n+1, i] / d ps[b, q]."""
-    vjp = RHS_VJP[_rhs_family(f)]
+    d ys[b, n+1, i] / d ps[b, q]. A field without a hand-written VJP runs
+    under ``torch.func.vmap`` over the intervals, so that it sees ``t`` as
+    a number, as the solve calls it."""
     tab = solver.tableau
-    S = n_solution_stages(tab)
     ys, ps, saveat = ys.detach(), ps.detach(), saveat.detach()
     B, T, D = ys.shape
-    y = ys[:, :-1]
-    p = ps[:, None, :].expand(B, T - 1, ps.shape[-1])
-    ta = saveat[:-1][None, :, None]
-    dt = ((saveat[1:] - saveat[:-1]) / substeps)[None, :, None]
-    eye = torch.eye(D, dtype=ys.dtype, device=ys.device)
+    dts = (saveat[1:] - saveat[:-1]) / substeps
+    if getattr(f, "device_rhs", None) in RHS_VJP:
+        p = ps[:, None, :].expand(B, T - 1, ps.shape[-1])
+        return _interval_maps(f, tab, ys[:, :-1], p,
+                              saveat[:-1][None, :, None],
+                              dts[None, :, None], substeps)
+    return torch.func.vmap(
+        lambda y, ta, dt: _interval_maps(f, tab, y, ps, ta, dt, substeps),
+        in_dims=(1, 0, 0), out_dims=1)(ys[:, :-1], saveat[:-1], dts)
+
+
+def _interval_maps(f, tab, y, p, ta, dt, substeps):
+    """(J, r) of the intervals that start at ``y`` (..., dim) at time
+    ``ta`` with sub-step ``dt`` (broadcast against the batch axes)."""
+    vjp = field_vjp(f)
+    S = n_solution_stages(tab)
+    D = y.shape[-1]
+    eye = torch.eye(D, dtype=y.dtype, device=y.device)
     J = r = None
     for j in range(substeps):
         t = ta + j * dt
@@ -283,7 +384,7 @@ def solve_fixed_grid_batched_interval_maps_reference(
             pbar = torch.zeros_like(p)
             kbar = [(dt * b) * ybar for b in tab.b[:S]]
             for s in range(S - 1, -1, -1):
-                ubar, pb = vjp(Y[s], p, kbar[s])
+                ubar, pb = vjp(Y[s], p, t + tab.c[s] * dt, kbar[s])
                 pbar = pbar + pb
                 ybar = ybar + ubar
                 for q, a in enumerate(tab.a[s]):
@@ -321,7 +422,8 @@ def solve_fixed_grid_batched_affine_sweep_reference(J, r, g):
 
 def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a loaded csrc/rk_fixed_grid.cu library
-    (also for scripts/rk_levers.py, which builds it with other flags)."""
+    or a generated one (also for scripts/rk_levers.py, which builds it with
+    other flags); ``ldq_rk_sincos`` only the first has."""
     if not getattr(lib, "_ldq_typed", False):
         lib.ldq_rk_fixed_grid.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
@@ -331,16 +433,17 @@ def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid_bwd.restype = ctypes.c_int
-        lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
-                                      + [ctypes.c_int] * 2
-                                      + [ctypes.c_void_p])
-        lib.ldq_rk_sincos.restype = ctypes.c_int
+        if hasattr(lib, "ldq_rk_sincos"):
+            lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
+                                          + [ctypes.c_int] * 2
+                                          + [ctypes.c_void_p])
+            lib.ldq_rk_sincos.restype = ctypes.c_int
         lib._ldq_typed = True
     return lib
 
 
-def _lib():
-    return typed_library(load_kernel("rk_fixed_grid"))
+def _lib(name: str = "rk_fixed_grid"):
+    return typed_library(load_kernel(name))
 
 
 def _instance(solver: AbstractSolver, generic: bool) -> int:
@@ -357,7 +460,8 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
     against each other). Counts its launches by kernel instance
     (``rhs_instance``) in ``launches``, a dict; their total is its sum."""
     dim = u0s.shape[-1] if u0s.dim() else 0
-    kind, pdim, inst = _device_rhs(f, dim)
+    rk = rhs_kernel(f, dim, ps.shape[-1] if ps.dim() == 2 else None)
+    kind, pdim, inst = rk.kind, rk.pdim, rk.name
     for name, t in (("u0s", u0s), ("ps", ps), ("saveat", saveat)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"solve_fixed_grid_batched_cuda: {name} must "
@@ -373,10 +477,10 @@ def solve_fixed_grid_batched_cuda(f: Callable, solver: AbstractSolver, u0s,
     u0s, ps, saveat = u0s.contiguous(), ps.contiguous(), saveat.contiguous()
     B, T = u0s.shape[0], saveat.shape[0]
     n_stages, a, b, c = tableau_f32(solver)
-    consts = _rhs_consts(f, u0s.device, dim)
+    consts = _rhs_consts(f, u0s.device, rk.ncst)
     ys = torch.empty(B, T, dim, device=u0s.device, dtype=torch.float32)
     success = torch.empty(B, device=u0s.device, dtype=torch.bool)
-    lib = _lib()
+    lib = _lib(rk.library)
     stream = torch.cuda.current_stream(u0s.device).cuda_stream
     with torch.cuda.device(u0s.device):
         err = lib.ldq_rk_fixed_grid(
@@ -407,7 +511,8 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
     ``solve_fixed_grid_batched_interval_maps_reference`` returns them.
     ``generic`` and the counters as for the forward."""
     dim = ys.shape[-1] if ys.dim() else 0
-    kind, pdim, inst = _device_rhs(f, dim)
+    rk = rhs_kernel(f, dim, ps.shape[-1] if ps.dim() == 2 else None)
+    kind, pdim, inst = rk.kind, rk.pdim, rk.name
     for name, t in (("saveat", saveat), ("ys", ys), ("ps", ps), ("g", g)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"solve_fixed_grid_batched_bwd_cuda: {name} "
@@ -423,7 +528,7 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
         raise ValueError("substeps must be >= 1")
     saveat, ys, ps, g = (t.detach().contiguous() for t in (saveat, ys, ps, g))
     n_stages, a, b, c = tableau_f32(solver)
-    consts = _rhs_consts(f, ys.device, dim)
+    consts = _rhs_consts(f, ys.device, rk.ncst)
     du0 = torch.empty(B, dim, device=ys.device, dtype=torch.float32)
     dp = torch.empty(B, pdim, device=ys.device, dtype=torch.float32)
     J = r = None
@@ -432,7 +537,7 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
                         dtype=torch.float32)
         r = torch.empty(B, T - 1, dim, pdim, device=ys.device,
                         dtype=torch.float32)
-    lib = _lib()
+    lib = _lib(rk.library)
     stream = torch.cuda.current_stream(ys.device).cuda_stream
     with torch.cuda.device(ys.device):
         err = lib.ldq_rk_fixed_grid_bwd(
@@ -547,8 +652,10 @@ def solve_fixed_grid_batched(f: Callable, solver: AbstractSolver, u0s, ps,
     dim), success (B,), stats)`` with per-trajectory analytic counters
     (ode_pallas.py:175-183). On the card the forward kernel writes the
     success flags and the gradient is the backward kernel; under
-    ``torch.func.vmap`` over replicas both launch once for all of them."""
-    _rhs_family(f)
+    ``torch.func.vmap`` over replicas both launch once for all of them.
+    Either device first finds the kernel instance (``rhs_kernel``), so a
+    field the kernel cannot run raises ValueError on the CPU too."""
+    rhs_kernel(f, u0s.shape[-1], ps.shape[-1])
     if u0s.device.type == "cpu":
         return solve_fixed_grid_batched_reference(f, solver, u0s, ps, saveat,
                                                   substeps=substeps)

@@ -3,8 +3,9 @@ the frictionless, damped and stochastic pendulums.
 
 The vector fields act on the last axis, so one call evaluates a whole
 batch: ``u`` (..., 2) = (angle, angular velocity), ``p`` (..., 1) = (L,).
-Each carries ``device_rhs``, the name of its CUDA functor in
-csrc/rk_fixed_grid.cu; the batched-solve kernel accepts only such RHSs.
+Each carries ``device_rhs``, the name of its hand-written CUDA functor in
+csrc/rk_fixed_grid.cu; the batched-solve kernel runs an untagged field on a
+functor generated from its trace (ops/ode_cuda.py).
 """
 from __future__ import annotations
 

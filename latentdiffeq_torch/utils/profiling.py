@@ -2,7 +2,9 @@
 (counterpart of latentdiffeq/utils/profiling.py).
 
 Wall-clock phase timers that synchronise with the card when asked, a
-context manager around ``torch.profiler`` that writes a Chrome trace, and a
+context manager around ``torch.profiler`` with device tracing armed before
+its region, one that writes its Chrome trace, a count of the kernel
+records such a trace lost, and a
 NaN debug switch that raises where a NaN is produced instead of letting the
 NaN-fill convention flow into the loss (the counterpart of
 ``jax_debug_nans``).
@@ -10,6 +12,7 @@ NaN-fill convention flow into the loss (the counterpart of
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import defaultdict
@@ -18,7 +21,8 @@ from typing import Dict, Iterator, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["PhaseTimer", "trace_profile", "enable_debug_nans"]
+__all__ = ["PhaseTimer", "device_profile", "trace_profile",
+           "lost_kernel_records", "enable_debug_nans"]
 
 
 def _cuda_devices(tree, out):
@@ -79,21 +83,77 @@ class PhaseTimer:
         self.counts.clear()
 
 
+# device_profile's warm-up step: rounds of one launch, a wait for it and a
+# host pause, ~25 ms in all, about ten times the ~2 ms of launches a window
+# was seen to lose.
+_ARM_ROUNDS = 20
+_ARM_PAUSE_S = 1e-3
+
+
+@contextlib.contextmanager
+def device_profile(**kwargs) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler.profile`` over the enclosed region (host and, when
+    the process has a card, CUDA activity; ``kwargs`` go to the profiler),
+    with device tracing armed before the region opens.
+
+    A window entered right before its launches can lose the kernel
+    records of the first of them: on an H100, late in a long process, the
+    first 16-18 launches of a traced training step (its first ~2 ms) had
+    launch records and no kernel records (``lost_kernel_records`` counts
+    them). So the profile starts in a warm-up step, which launches a few
+    kernels and waits for them (their records fall before the window and
+    are dropped), and records from the next step on."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    kwargs.setdefault("activities", acts)
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(schedule=sched, **kwargs) as prof:
+        if cuda:
+            x = torch.zeros(1, device=torch.cuda.current_device())
+            for _ in range(_ARM_ROUNDS):
+                x.add_(1.0)
+                torch.cuda.synchronize()
+                time.sleep(_ARM_PAUSE_S)
+        prof.step()
+        yield prof
+
+
 @contextlib.contextmanager
 def trace_profile(logdir: str):
-    """Profile the enclosed region with ``torch.profiler`` (host and, when
+    """Profile the enclosed region with ``device_profile`` (host and, when
     the process has a card, CUDA activity) and write it as a Chrome trace,
     ``logdir/trace_<time>_<pid>.json`` (Perfetto or chrome://tracing).
     Yields the profiler, whose ``key_averages()`` tabulate the region."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profile() as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}"
                 ".json"))
+
+
+def lost_kernel_records(path: str) -> dict:
+    """Kernel launches in a Chrome trace from ``torch.profiler`` whose
+    launch record has no kernel record with its correlation id: their
+    count (``lost``), the launches' count, whether the lost ones are the
+    window's first launches, and the host time (us) from the first launch
+    to the last lost one."""
+    with open(path) as f:
+        ev = json.load(f)["traceEvents"]
+    launches = sorted((e for e in ev
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "Launch" in e.get("name", "")),
+                      key=lambda e: e["ts"])
+    kernels = {e.get("args", {}).get("correlation") for e in ev
+               if e.get("cat") == "kernel"}
+    lost = [i for i, e in enumerate(launches)
+            if e.get("args", {}).get("correlation") not in kernels]
+    return {"launches": len(launches), "lost": len(lost),
+            "lost_are_a_prefix": lost == list(range(len(lost))),
+            "lost_span_us": (launches[lost[-1]]["ts"] - launches[0]["ts"]
+                             if lost else 0.0)}
 
 
 # Operations that make tensors without computing them: a NaN they hold is

@@ -39,8 +39,8 @@ from latentdiffeq_torch import custom_dynamics as cdyn
 from latentdiffeq_torch import nn as tnn
 from latentdiffeq_torch.adjoint import SolveOptions
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
-                                       LatentODE, NODE, default_layers,
-                                       goku_default_layers)
+                                       LatentODE, NODE, ODEDynamics,
+                                       default_layers, goku_default_layers)
 from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
 from latentdiffeq_torch.pendulum import (Pendulum, pendulum_f,
                                          pendulum_friction_f)
@@ -787,20 +787,264 @@ def test_rk_kuramoto_non_finite_rows_keep_plain_flags_on_card(dev, rhs, B):
 
 @pytest.mark.cuda
 def test_rk_kuramoto_width_not_compiled_raises_on_card(dev):
-    """Kuramoto's functor is compiled for 4 and 10 oscillators: another
-    width raises ValueError naming them on CUDA tensors, and nothing
-    launches; the plain version solves it on the CPU."""
+    """Kuramoto at a width without a compiled instance (7 oscillators) runs
+    on the lane-group kernels built for it at first use: one launch each
+    way, counted as ``kuramoto7``, the forward equal to the plain version
+    bit for bit (as at 4 and 10), the gradients within 1e-5 of their size
+    of the plain reverse sweep; a width past the lane groups' limit raises
+    ValueError naming it, and nothing launches."""
     f = cdyn.kuramoto_f(7)
-    u0s = torch.zeros(3, 7, device=dev)
-    ps = torch.ones(3, 2, device=dev)
-    saveat = torch.arange(5, dtype=torch.float32, device=dev) * 0.1
-    before = launches(ode_cuda.solve_fixed_grid_batched_cuda)
-    with pytest.raises(ValueError, match=r"\[4, 10\]"):
-        ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u0s, ps, saveat)
-    assert launches(ode_cuda.solve_fixed_grid_batched_cuda) == before
-    ys = ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u0s.cpu(),
-                                           ps.cpu(), saveat.cpu())[0]
-    assert ys.shape == (3, 5, 7) and bool(torch.isfinite(ys).all())
+    g = torch.Generator().manual_seed(33)
+    u0s = ((torch.rand(9, 7, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(9, generator=g),
+                      0.2 + 1.8 * torch.rand(9, generator=g)], 1).to(dev)
+    saveat = torch.arange(21, dtype=torch.float32, device=dev) * 0.1
+    w = torch.randn(9, 21, 7, generator=g).to(dev)
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    before = (fwd.get("kuramoto7", 0), bwd.get("kuramoto7", 0))
+    u, p = u0s.clone().requires_grad_(), ps.clone().requires_grad_()
+    ys = ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u, p, saveat,
+                                           substeps=4)[0]
+    du0, dp = torch.autograd.grad(ys, [u, p], w)
+    assert (fwd["kuramoto7"] - before[0], bwd["kuramoto7"] - before[1]) \
+        == (1, 1)
+    with torch.no_grad():
+        ref = ode_cuda.solve_fixed_grid_batched_reference(
+            f, trk.Tsit5(), u0s, ps, saveat, substeps=4)[0]
+    assert torch.equal(ys.detach().view(torch.int32), ref.view(torch.int32))
+    sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        f, trk.Tsit5(), saveat, ys.detach(), ps, w, substeps=4)
+    assert rel_err(du0, sweep[0]) <= ATOL and rel_err(dp, sweep[1]) <= ATOL
+    n = launches(ode_cuda.solve_fixed_grid_batched_cuda)
+    with pytest.raises(ValueError, match="2 to 31 oscillators"):
+        ode_cuda.solve_fixed_grid_batched(
+            cdyn.kuramoto_f(32), trk.Tsit5(), torch.zeros(3, 32, device=dev),
+            torch.ones(3, 2, device=dev), saveat)
+    assert launches(ode_cuda.solve_fixed_grid_batched_cuda) == n
+
+
+# Fields without a hand-written functor: the RK kernels run them on a device
+# functor generated from their trace (ops/rhs_codegen.py), one library each,
+# built at first use (the fixture builds them all at once).
+def pendulum_untagged(u, p, t):
+    return pendulum_f(u, p, t)
+
+
+def vdp_untagged(u, p, t):
+    return cdyn.vdp_f(u, p, t)
+
+
+def forced_oscillator(u, p, t):
+    x, v = u[..., 0], u[..., 1]
+    k, c, a = p[..., 0], p[..., 1], p[..., 2]
+    return torch.stack([v, -k * x - c * v + a * torch.cos(2.0 * t)], dim=-1)
+
+
+def lotka_volterra(u, p, t):
+    x, y = u[..., 0], u[..., 1]
+    a, b, c, d = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    return torch.stack([a * x - b * x * y, d * x * y - c * y], dim=-1)
+
+
+# name -> (field, pdim, substeps)
+GEN_RHS = {"pendulum-untagged": (pendulum_untagged, 1, 1),
+           "vdp-untagged": (vdp_untagged, 1, 4),
+           "forced": (forced_oscillator, 3, 4),
+           "lotka-volterra": (lotka_volterra, 4, 2)}
+
+
+@pytest.fixture(scope="module")
+def gen_built():
+    """Every generated instance of these tests, built in parallel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    ode_cuda.build_instances([(f, 2, pdim) for f, pdim, _ in
+                              GEN_RHS.values()] + [(cdyn.kuramoto_f(7), 7,
+                                                    2)])
+
+
+def gen_inputs(dev, name, B, T, seed):
+    """States ~ U(-1, 1) (Lotka-Volterra's populations ~ U(0.5, 1.5)),
+    parameters ~ U(0.5, 2), dt 0.05."""
+    g = torch.Generator().manual_seed(seed)
+    _, pdim, _ = GEN_RHS[name]
+    u0s = torch.rand(B, 2, generator=g) * 2 - 1
+    if name == "lotka-volterra":
+        u0s = u0s * 0.5 + 1.0
+    ps = 0.5 + 1.5 * torch.rand(B, pdim, generator=g)
+    saveat = torch.arange(T, dtype=torch.float32) * 0.05
+    w = torch.randn(B, T, 2, generator=g)
+    return u0s.to(dev), ps.to(dev), saveat.to(dev), w.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (45, 100), (37, 21)])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("name", sorted(GEN_RHS))
+def test_rk_generated_functor_matches_plain_on_card(dev, gen_built, name,
+                                                    solver, B, T):
+    """The forward kernel on a generated functor against the plain version
+    (atol 1e-5), launched and counted under its gen_<hash8> instance; the
+    success flags as the plain flags; a baked tableau instance equal to the
+    run-time one bit for bit."""
+    f, pdim, sub = GEN_RHS[name]
+    inst = ode_cuda.rhs_instance(f, 2, pdim)
+    assert inst.startswith("gen_")
+    u0s, ps, saveat, _ = gen_inputs(dev, name, B, T, seed=40)
+    s = getattr(trk, solver)()
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    before = fwd.get(inst, 0)
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=sub)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=sub)
+    assert fwd[inst] == before + 1
+    assert float((got - ref).abs().max()) <= ATOL
+    assert torch.equal(ok, ok_p) and bool(ok.all())
+    if ode_cuda.tableau_instance(s) != 0:
+        gen = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=sub, generic=True)
+        assert torch.equal(got.view(torch.int32), gen[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (45, 100), (3, 21)])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
+@pytest.mark.parametrize("name", sorted(GEN_RHS))
+def test_rk_generated_functor_bwd_matches_plain_on_card(dev, gen_built,
+                                                        name, solver, B, T):
+    """The backward kernel on a generated functor (its VJP traced from
+    torch.func.vjp of the field): the interval maps against the plain maps
+    on the same trajectory and the gradients against the two-phase plain
+    version, its own order, within 1e-5 of each tensor's size; against the
+    plain reverse sweep and plain autograd, other float32 orders, within
+    1e-5 or else at most twice as far from a float64 referee as the
+    two-phase plain version (the reverse sweep in float64 on the same
+    trajectory; autograd through the float64 plain solve): the interval
+    maps' float32 order can stand farther from float64 than the reverse
+    sweep's (PERF.md, open questions)."""
+    f, pdim, sub = GEN_RHS[name]
+    u0s, ps, saveat, w = gen_inputs(dev, name, B, T, seed=41)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=sub)
+    du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, s, saveat, ys, ps, w, substeps=sub, maps=True)
+    J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+        f, s, saveat, ys, ps, substeps=sub)
+    assert rel_err(J, J_p) <= ATOL and rel_err(r, r_p) <= ATOL
+    two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(J_p, r_p,
+                                                                   w)
+    for a, b in zip((du0, dp), two):
+        assert rel_err(a, b) <= ATOL
+    sweep_gate(f, s, sub, u0s, ps, saveat, ys, w, (du0, dp), two)
+
+
+def sweep_gate(f, s, sub, u0s, ps, saveat, ys, w, got, two):
+    """The backward kernel's gradients ``got`` against the plain reverse
+    sweep over ``ys`` and plain autograd, other float32 orders: within
+    1e-5 of each size, or else, as the long grids are held, at most twice
+    as far from that version in float64 as ``two``, the two-phase plain
+    version (the kernel's own algorithm: interval maps, then the affine
+    sweep), is."""
+    def auto(dtype):
+        u = u0s.to(dtype).requires_grad_()
+        p = ps.to(dtype).requires_grad_()
+        y = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u, p, saveat.to(dtype), substeps=sub)[0]
+        return torch.autograd.grad(y, [u, p], w.to(dtype))
+
+    def sweep(dtype):
+        return ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat.to(dtype), ys.to(dtype), ps.to(dtype), w.to(dtype),
+            substeps=sub)
+
+    for version in (sweep, auto):
+        plain = version(torch.float32)
+        if max(rel_err(a, b) for a, b in zip(got, plain)) > ATOL:
+            ref = version(torch.float64)
+            for a, b, c in zip(got, two, ref):
+                assert rel_err(a.double(), c) <= 2 * rel_err(b.double(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (37, 21), (3, 21)])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+def test_rk_kuramoto7_lane_groups_match_plain_on_card(dev, gen_built, solver,
+                                                      B, T):
+    """Kuramoto-7, the lane-group kernels built for 7 oscillators (4
+    groups a warp, lanes 28-31 idle), with frequency offsets, 4 sub-steps:
+    the forward equal to the plain version bit for bit and with its flags
+    (as at 4 and 10), a baked tableau instance equal to the run-time one;
+    the backward's interval maps and gradients as the generated functors'
+    are held (two-phase plain within 1e-5; reverse sweep and autograd
+    within 1e-5 or through float64)."""
+    f = cdyn.Kuramoto(7, omega_spread=0.5).f
+    g = torch.Generator().manual_seed(42)
+    u0s = ((torch.rand(B, 7, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.1
+    w = torch.randn(B, T, 7, generator=g).to(dev)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                         saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=4)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(ok, ok_p) and bool(ok.all())
+    if ode_cuda.tableau_instance(s) != 0:
+        gen = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=4, generic=True)
+        assert torch.equal(got.view(torch.int32), gen[0].view(torch.int32))
+    if solver == "Dopri5":
+        return
+    du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, s, saveat, got, ps, w, substeps=4, maps=True)
+    J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+        f, s, saveat, got, ps, substeps=4)
+    assert rel_err(J, J_p) <= ATOL and rel_err(r, r_p) <= ATOL
+    two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(J_p, r_p,
+                                                                   w)
+    for a, b in zip((du0, dp), two):
+        assert rel_err(a, b) <= ATOL
+    sweep_gate(f, s, 4, u0s, ps, saveat, got, w, (du0, dp), two)
+
+
+@pytest.mark.cuda
+def test_goku_user_field_kernel_path_on_card(dev, gen_built):
+    """A small GOKU on the forced oscillator (no device_rhs tag, reads t)
+    with both kernel switches on: the generated instance launches once per
+    forward and backward, the plain solve never runs, and the output agrees
+    with the same weights run plainly (1e-4)."""
+    opts = SolveOptions(adaptive=False, substeps=4)
+    diffeq = ODEDynamics(f=forced_oscillator, z_dim=2, theta_dim=3,
+                         solver=trk.Tsit5(), options=opts)
+    layers = goku_default_layers(24, diffeq, hidden_dim_resnet=16,
+                                 latent_to_diffeq_dim=16, device=dev)
+    km = LatentDiffEqModel.build(
+        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
+    pm = LatentDiffEqModel.build(GOKUBasic(), *layers)
+    x = torch.rand(6, 10, 24, device=dev)
+    t = torch.arange(10, dtype=torch.float32, device=dev) * 0.1
+    inst = ode_cuda.rhs_instance(forced_oscillator, 2, 3)
+    fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+    before = (fwd.get(inst, 0), bwd.get(inst, 0))
+    calls = ode_cuda.solve_fixed_grid_batched_reference.calls
+    with torch.no_grad():
+        xk = km(x, t)[0][0]
+    km(x, t)[0][0].square().sum().backward()
+    assert (fwd[inst] - before[0], bwd[inst] - before[1]) == (2, 1)
+    assert ode_cuda.solve_fixed_grid_batched_reference.calls == calls
+    with torch.no_grad():
+        xp = pm(x, t)[0][0]
+    assert bool(torch.isfinite(xk).all())
+    assert float((xk - xp).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -46,7 +46,7 @@ from latentdiffeq_torch import (ODEProblem, make_options,  # noqa: E402
 from latentdiffeq_torch import nn as tnn  # noqa: E402
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,  # noqa: E402
                                        goku_default_layers)
-from latentdiffeq_torch.ops import ode_cuda  # noqa: E402
+from latentdiffeq_torch.ops import _build, ode_cuda, rhs_codegen  # noqa: E402
 from latentdiffeq_torch.solve import rk as trk  # noqa: E402
 from latentdiffeq_torch.train import losses, optim  # noqa: E402
 from latentdiffeq_torch.train.checkpoint import (jax_param_paths,  # noqa: E402
@@ -181,18 +181,30 @@ def test_custom_backward_references_match_pallas_vjp(name, solver,
 
 
 def test_kuramoto_widths_of_the_kernel():
-    """Kuramoto's device functor is compiled for 4 and 10 oscillators: any
-    other width raises ValueError naming them on the kernel route (before
-    it looks at the device), while the plain route solves any width."""
+    """Kuramoto runs on the lane-group kernels at any width from 2 to
+    KURAMOTO_MAX_N oscillators: 4 and 10 in csrc/rk_fixed_grid.cu, any
+    other N as the instance ``kuramotoN``, built at first use from a
+    one-line source that includes the header; a wider field raises
+    ValueError naming the limit (before it looks at the device), and the
+    plain route solves any width, on the CPU as before."""
     f = cdyn.kuramoto_f(7)
+    assert ode_cuda.rhs_instance(f, 7) == "kuramoto7"
+    rk = ode_cuda.rhs_kernel(f, 7)
+    assert (rk.kind, rk.pdim, rk.ncst) == (0, 2, 7)
+    assert "KuramotoLanes<7>" in _build._GENERATED[rk.library]
+    wide = rhs_codegen.KURAMOTO_MAX_N + 1
+    with pytest.raises(ValueError, match=f"2 to {wide - 1} oscillators"):
+        ode_cuda.rhs_instance(cdyn.kuramoto_f(wide), wide)
     u0s, ps = torch.zeros(3, 7), torch.ones(3, 2)
     saveat = torch.arange(5) * 0.1
-    with pytest.raises(ValueError, match=r"\[4, 10\]"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ode_cuda.solve_fixed_grid_batched_cuda(f, trk.Tsit5(), u0s, ps,
                                                saveat)
     ys = ode_cuda.solve_fixed_grid_batched(f, trk.Tsit5(), u0s, ps,
                                            saveat)[0]
     assert ys.shape == (3, 5, 7) and bool(torch.isfinite(ys).all())
+    assert torch.equal(ys, ode_cuda.solve_fixed_grid_batched_reference(
+        f, trk.Tsit5(), u0s, ps, saveat)[0])
     assert ode_cuda.rhs_instance(cdyn.kuramoto_f(10), 10) == "kuramoto10"
     assert ode_cuda.rhs_instance(cdyn.vdp_f, 2) == "vdp"
 

@@ -353,13 +353,28 @@ def test_odeint_unrolled_and_unported_options():
 
 
 def test_kernel_solver_rejects_rhs_without_device_functor():
+    """A field without a hand-written functor is no longer refused: it is
+    traced and runs on a generated one (on CPU tensors the plain version,
+    equal to the tagged field's solve); the kernel still refuses a field it
+    cannot lower (here a branch on data) with ValueError on either device,
+    and a CPU tensor never reaches the kernel."""
     u0s, ps, saveat = inputs()
 
     def no_functor(u, p, t):
         return pendulum_f(u, p, t)
 
-    with pytest.raises(ValueError):
-        ode_cuda.solve_fixed_grid_batched(no_functor, trk.Tsit5(), t_(u0s),
+    ys = ode_cuda.solve_fixed_grid_batched(no_functor, trk.Tsit5(), t_(u0s),
+                                           t_(ps), t_(saveat))[0]
+    ref = ode_cuda.solve_fixed_grid_batched(pendulum_f, trk.Tsit5(),
+                                            t_(u0s), t_(ps), t_(saveat))[0]
+    assert torch.equal(ys, ref)
+    assert ode_cuda.rhs_instance(no_functor, 2, 1).startswith("gen_")
+
+    def branches(u, p, t):
+        return pendulum_f(u, p, t) if u[0] > 0 else -u
+
+    with pytest.raises(ValueError, match="node 'gt'"):
+        ode_cuda.solve_fixed_grid_batched(branches, trk.Tsit5(), t_(u0s),
                                           t_(ps), t_(saveat))
     with pytest.raises(ValueError):    # a CPU tensor never reaches it
         ode_cuda.solve_fixed_grid_batched_cuda(pendulum_f, trk.Tsit5(),

@@ -4,6 +4,8 @@ package's, on the CPU.
 - ``PhaseTimer``: the same phases give ``summary()``s of the same keys,
   value types and rounding as JAX's; ``block_on`` accepts nested results;
 - ``trace_profile`` writes a Chrome trace naming the region's operations;
+  ``device_profile`` records its region from the step after its warm-up;
+  ``lost_kernel_records`` counts launches that have no kernel record;
 - ``enable_debug_nans``: the same inputs through both packages, a NaN made
   in the forward (the KL of an infinite log-variance, a log of a negative
   number) raises ``FloatingPointError`` in both, clean inputs in neither,
@@ -72,6 +74,49 @@ def test_trace_profile_writes_a_chrome_trace(tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names
     assert any(e.key == "aten::mm" for e in prof.key_averages())
+
+
+def test_device_profile_records_the_region_after_its_warm_up():
+    with utils.device_profile() as prof:
+        torch.randn(64, 64) @ torch.randn(64, 64)
+    assert prof.step_num == 1
+    assert any(e.key == "aten::mm" for e in prof.key_averages())
+
+
+def _launch(corr, ts):
+    return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+            "dur": 2.0, "args": {"correlation": corr}}
+
+
+def _kernel(corr, ts):
+    return {"cat": "kernel", "name": "k", "ts": ts, "dur": 1.0,
+            "args": {"correlation": corr}}
+
+
+LOSS_CASES = {
+    # the first two launches of the window have no kernel record
+    "a prefix": ([1, 2], {"launches": 5, "lost": 2,
+                          "lost_are_a_prefix": True, "lost_span_us": 10.0}),
+    "one inside": ([3], {"launches": 5, "lost": 1,
+                         "lost_are_a_prefix": False, "lost_span_us": 20.0}),
+    "none": ([], {"launches": 5, "lost": 0, "lost_are_a_prefix": True,
+                  "lost_span_us": 0.0}),
+}
+
+
+@pytest.mark.parametrize("case", list(LOSS_CASES))
+def test_lost_kernel_records(tmp_path, case):
+    lost, want = LOSS_CASES[case]
+    ev = [{"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 50.0,
+           "args": {}}, {"cat": "cuda_driver", "name": "cuGetProcAddress",
+                         "ts": 1.0, "dur": 1.0, "args": {}}]
+    for c in range(1, 6):
+        ev.append(_launch(c, 10.0 * c))
+        if c not in lost:
+            ev.append(_kernel(c, 10.0 * c + 5.0))
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev[::-1]}))
+    assert utils.lost_kernel_records(str(path)) == want
 
 
 DEBUG_CASES = {
