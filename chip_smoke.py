@@ -134,19 +134,26 @@ Phases, each printing one line (any failure exits non-zero):
               lane-group Kuramoto kernels at 7 oscillators; the
               tutorial's main for 2 epochs on the card with its own field
               on the kernel route (its generated instance's launches, no
-              plain solve); each instance, forward and backward, against
-              the plain versions at its train and validation shapes with
-              the gates of phase 2 and 3 (float32 1e-5, float64 distance,
-              gradients 1e-5 of each size, interval maps, the whole
-              backward against plain autograd); the untagged pendulum
-              and Van der Pol against their hand-written functors (bit
-              for bit or the largest gap); full-width GOKU on the video
-              with the tutorial's field (launches, no plain solve, the
-              kernel against the plain path, its losses within 1e-4 of
-              the tagged pendulum run's); GOKU on Kuramoto-7 data made
-              by custom_data (4l's instances are timed in phase 5);
+              plain solve); full-width GOKU on the video with the
+              tutorial's field (launches, no plain solve, the kernel
+              against the plain path, its losses within 1e-4 of the
+              tagged pendulum run's); GOKU on Kuramoto-7 data made by
+              custom_data (4l's instances are checked against their
+              plain versions and timed in phase 5); then (4m) every field
+              JAX's Pallas solve runs: Lorenz-96 at 40 sites with its
+              forcing in p, written with torch.roll (a generated forward
+              and, its interval maps past MAX_MAP_FLOATS, the
+              reverse-sweep backward), and Kuramoto at 64 oscillators
+              (the block kernels): GOKU at the custom dynamics' width on
+              each for 2 epochs (launches, no plain solve, the kernel
+              against the plain path), and the kernel and plain routes
+              from the same seed for one step and a validation pass
+              (losses within 1e-4 of their size; 4m's instances too are
+              checked and timed in phase 5);
   5. timing   each kernel's time per call (CUDA events, wrapper included)
-              and on the device alone (torch.profiler) beside its plain
+              and on the device alone (a torch.profiler window armed by
+              utils.device_profile, its lost_kernel_records beside each
+              time, as beside every profiler count) beside its plain
               version's time on the same inputs, its bytes/operations
               bound and a latency model of its serial chain; the GOKU
               heads' products; forward + backward of the heads and of the
@@ -167,12 +174,21 @@ Phases, each printing one line (any failure exits non-zero):
               train, val and wide shapes and with 4 replicas beside
               torch.mm per layer (torch.bmm with replicas), its plain
               version, its bound on the tensor cores and the float32 SIMT
-              bound; 4l's instances (the generated functors and
-              Kuramoto-7) at their train and validation shapes, each
-              beside its plain version, its bound from the traced
-              program's operations and a latency model from its critical
-              path, the untagged pendulum's and Van der Pol's beside
-              their hand-written twins; with --profile, a
+              bound; 4l's and 4m's instances (the generated functors,
+              Kuramoto-7 on the lane groups, Lorenz-96-40 on the reverse
+              sweep, Kuramoto-64 on the block kernels), forward and
+              backward, against the plain versions at their train and
+              validation shapes with the gates of phase 2 and 3 (float32
+              1e-5 and bit for bit where the order is the plain
+              version's, float64 distance, gradients 1e-5 of each size,
+              interval maps or the plain reverse sweep, the whole
+              backward against plain autograd), the untagged pendulum
+              and Van der Pol against their hand-written functors (bit
+              for bit or the largest gap), each beside its plain
+              version's time, its bound from the traced program's
+              operations and a latency model from its critical path, the
+              hand-written twins timed beside them; with
+              --profile, a
               torch.profiler breakdown of one training step plus
               validation of each model, written to
               chiprun_out/profile_step.txt,
@@ -267,23 +283,91 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_timed(fn):
+    """(fn's result, a plain version's time per call on the card, ms): the
+    call itself, synchronised (they take 10-10,000 ms, where one call's
+    noise is small beside the time), or three more after it when that call
+    took under 50 ms."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    return out, ms if ms >= 50 else time_ms(fn, reps=3, warmup=0)
+
+
+def plain_ms(fn):
+    """A plain version's time per call on the card (plain_timed)."""
+    return plain_timed(fn)[1]
+
+
+class DeviceMs(float):
+    """A device time (ms) from a profiler window, with the window's
+    ``lost_kernel_records`` (``lost``), which fmt_ms prints beside it."""
+    lost: dict
+
+
+PROFILE_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "profile_window.json")
+
+
+def profiler_window(fn):
+    """Run ``fn`` (and a synchronize) in a torch.profiler window opened
+    with utils.device_profile, which arms device tracing before the region
+    (a plain window opened late in a run loses the kernel records of its
+    first launches, PERF.md section 7). Returns (the profiler, its
+    lost_kernel_records: the launches of the window with no kernel
+    record)."""
+    from latentdiffeq_torch.utils import device_profile, lost_kernel_records
+    with device_profile() as prof:
+        fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(PROFILE_TRACE), exist_ok=True)
+    prof.export_chrome_trace(PROFILE_TRACE)
+    lost = lost_kernel_records(PROFILE_TRACE)
+    os.remove(PROFILE_TRACE)
+    return prof, lost
+
+
+def device_events(prof):
+    """The device's operations in a profiler window: its CUDA events less
+    the step annotation device_profile's schedule records over the whole
+    window (ProfilerStep#N, a GPU user annotation, not an operation)."""
+    return [e for e in prof.events() if e.device_type.name == "CUDA"
+            and not e.name.startswith("ProfilerStep")]
+
+
+def lost_str(lost) -> str:
+    return (f"lost_kernel_records {lost['lost']} of {lost['launches']} "
+            f"launches")
+
+
 def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time per launch of the CUDA kernels whose name holds
     ``kernel``, from torch.profiler (the kernel alone, without the host
-    work of its wrapper), over the launches the profiler recorded (it can
-    drop some); None if it saw no such kernel."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    work of its wrapper), over the launches the window recorded: a
+    DeviceMs carrying the window's lost_kernel_records; None (and a
+    [profile] line with them) if it saw no such kernel."""
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+    prof, lost = profiler_window(run)
     us = [getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
           for e in prof.events()
           if e.device_type.name == "CUDA" and kernel in e.name]
-    return sum(us) / 1e3 / len(us) if us else None
+    if not us:
+        log("profile", f"device_ms: no {kernel} record in the window; "
+                       f"{lost_str(lost)}")
+        return None
+    out = DeviceMs(sum(us) / 1e3 / len(us))
+    out.lost = lost
+    return out
 
 
 def step_times(trainer, data, val_set, beta, reps: int = 5):
@@ -306,7 +390,10 @@ def step_times(trainer, data, val_set, beta, reps: int = 5):
 
 
 def fmt_ms(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+    if ms is None:
+        return "not measured"
+    lost = getattr(ms, "lost", None)
+    return f"{ms:.4f} ms" + (f" [{lost_str(lost)}]" if lost else "")
 
 
 def max_err(a, b) -> float:
@@ -1044,13 +1131,13 @@ def node_dw_timing():
         k_ms = time_ms(kernel, reps=reps)
         d_ms = device_ms(kernel, "node_field_dw_kernel", reps=reps)
         l_ms = time_ms(lib, reps=reps)
-        p_ms = time_ms(lambda: node_cuda.neural_field_dw_reference(
-            m, tape, delta), reps=3, warmup=1)
+        p_ms = plain_ms(lambda: node_cuda.neural_field_dw_reference(
+            m, tape, delta))
         (tc, tc_by), (simt, simt_by, _, _) = dw_bounds(widths, B, T, S or 1)
         log("timing", f"node_field_dw {label} {widths} B={B} T={T}: kernel "
                       f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
                       f"device), library ({'torch.bmm' if S else 'torch.mm'}"
-                      f" per layer) {l_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+                      f" per layer) {l_ms:.4f} ms, plain {fmt_ms(p_ms)}; bound "
                       f"on the tensor cores (3xTF32) {tc:.6f} ms ({tc_by}), "
                       f"float32 SIMT bound {simt:.6f} ms ({simt_by})")
         if label == "train":
@@ -1226,7 +1313,7 @@ def node_population_timing(clock):
                     k_ms = time_ms(kernel)
                     d_ms = device_ms(kernel, kname)
                     s_ms = time_ms(solo)
-                    p_ms = time_ms(plain, reps=2, warmup=1)
+                    p_ms = plain_ms(plain)
                 nb, ops = node_work(B, T, NODE_WIDTHS, 1, tab, n_st,
                                     part=part)
                 bd, by, t_b, t_o = bound_ms(S * nb, S * ops)
@@ -1427,11 +1514,10 @@ def node_timing(clock):
             for name, (kernel, plain, kname, part) in calls.items():
                 k_ms = time_ms(kernel, reps=reps)
                 d_ms = device_ms(kernel, kname, reps=reps)
-                p_ms = time_ms(plain, reps=2 if label != "train" else 3,
-                               warmup=1)
+                p_ms = plain_ms(plain)
                 line = (f"{name} {label} {widths} B={B} T={T}: kernel "
                         f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
-                        f"device), plain {p_ms:.4f} ms")
+                        f"device), plain {fmt_ms(p_ms)}")
                 if part is not None:
                     bd, by, t_b, t_o = bound_ms(*node_work(
                         B, T, widths, 1, tab, n_st, part=part))
@@ -2010,11 +2096,11 @@ def rk_timing(gen, clock):
             torch.autograd.grad(y, [u, p], w)
 
         k_r = time_ms(lambda: route(ode_cuda.solve_fixed_grid_batched))
-        p_r = time_ms(lambda: route(
-            ode_cuda.solve_fixed_grid_batched_reference), reps=3, warmup=1)
+        p_r = plain_ms(lambda: route(
+            ode_cuda.solve_fixed_grid_batched_reference))
         log("timing", f"{fwd_name} {label} forward + backward, per call: "
                       f"kernel route (rk_fixed_grid, rk_fixed_grid_bwd) "
-                      f"{k_r:.4f} ms, plain autograd {p_r:.4f} ms")
+                      f"{k_r:.4f} ms, plain autograd {fmt_ms(p_r)}")
         calls = {
             fwd_name: (
                 lambda: ode_cuda.solve_fixed_grid_batched_cuda(
@@ -2036,11 +2122,11 @@ def rk_timing(gen, clock):
             for name, (kernel, plain, kname, work, lat) in calls.items():
                 k_ms = time_ms(kernel)
                 d_ms = device_ms(kernel, kname)
-                p_ms = time_ms(plain, reps=3, warmup=1)
+                p_ms = plain_ms(plain)
                 b_ms, b_by, t_b, t_o = bound_ms(*work)
                 line = (f"{name} {label} B={B} T={T} substeps={sub}: kernel "
                         f"{k_ms:.4f} ms per call ({fmt_ms(d_ms)} on the "
-                        f"device), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+                        f"device), plain {fmt_ms(p_ms)}, bound {b_ms:.6f} ms "
                         f"({b_by}; bytes {t_b:.6f} ms, operations "
                         f"{t_o:.6f} ms), latency model {lat:.6f} ms at "
                         f"{clock:.0f} MHz; library: none")
@@ -2137,12 +2223,11 @@ def goku_timing(heads, gen, clock, dev):
                       f"(vs the plain version max abs err {e:.3e}, tol "
                       f"{e_tol:.1e})")
         k_route = time_ms(lambda: route(rc.goku_heads))
-        p_route = time_ms(lambda: route(rc.goku_heads_reference), reps=3,
-                          warmup=1)
+        p_route = plain_ms(lambda: route(rc.goku_heads_reference))
         log("timing", f"goku_heads{tag} {label} forward + backward, per call: "
                       f"kernel route (tape forward, goku_heads_bwd, "
                       f"products) {k_route:.4f} ms, plain autograd "
-                      f"{p_route:.4f} ms, cuDNN {lib_fb:.4f} ms")
+                      f"{fmt_ms(p_route)}, cuDNN {lib_fb:.4f} ms")
         with torch.no_grad():
             prod_ms = time_ms(lambda: rc.goku_heads_param_grads(
                 *heads, xs, tape, dg, dh0, dc0))
@@ -2176,10 +2261,10 @@ def goku_timing(heads, gen, clock, dev):
             for name, (kernel, plain, kname, work, lat, lib) in calls.items():
                 k_ms = time_ms(kernel)
                 d_ms = device_ms(kernel, kname)
-                p_ms = time_ms(plain, reps=3, warmup=1)
+                p_ms = plain_ms(plain)
                 line = (f"{name} {label} B={B} T={T}: kernel {k_ms:.4f} ms "
                         f"per call ({fmt_ms(d_ms)} on the device), plain "
-                        f"{p_ms:.4f} ms")
+                        f"{fmt_ms(p_ms)}")
                 if work is not None:
                     b_ms, b_by, t_b, t_o = bound_ms(*work)
                     line += (f", bound {b_ms:.6f} ms ({b_by}; bytes "
@@ -2255,14 +2340,14 @@ def step_report(what, trainer, data, val_set, beta, gpu):
     """The step and validation times and the device ops of one step (kept
     in STEP_REPORTS[what] as (step ms, val ms, ops, busy ms, span ms))."""
     step_ms, val_ms = step_times(trainer, data, val_set, beta)
-    n_ops, busy, span = step_device_ops(trainer, data, beta)
+    n_ops, busy, span, lost = step_device_ops(trainer, data, beta)
     STEP_REPORTS[what] = (step_ms, val_ms, n_ops, busy, span)
     log("train", f"{what} step time (median of 5, synchronised): train "
                  f"step {step_ms:.3f} ms, val pass {val_ms:.3f} ms; one "
                  f"train step under torch.profiler: {n_ops} device ops, "
                  f"device busy {busy:.3f} ms of a {span:.3f} ms span (idle "
-                 f"{100 * (1 - busy / span) if span else 0:.1f} %); card "
-                 f"{gpu}")
+                 f"{100 * (1 - busy / span) if span else 0:.1f} %; "
+                 f"{lost_str(lost)}); card {gpu}")
 
 
 def goku_path(what, train_set, val_set, diffeq, layers, cfg, dev, gpu):
@@ -2655,9 +2740,8 @@ def adaptive_spendulum(trained, dev):
 def adaptive_forward(model, data, dev, key_seed=3):
     """One no_grad forward of ``model`` on ``data`` (dt 0.05) with the
     Brownian key PRNGKey(key_seed): (ms, the median of 3 synchronised runs
-    after a warm-up; device ops under torch.profiler; aux; x_hat)."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+    after a warm-up; device ops in a profiler window (profiler_window), with
+    its lost_kernel_records; aux; x_hat)."""
     from latentdiffeq_torch import random as jr
 
     t = torch.arange(data.shape[1], dtype=torch.float32, device=dev) * 0.05
@@ -2670,12 +2754,9 @@ def adaptive_forward(model, data, dev, key_seed=3):
             (x_hat, _, _), _, _, aux = model(data, t, key=key)
             torch.cuda.synchronize()
             runs.append(1e3 * (time.perf_counter() - t0))
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            model(data, t, key=key)
-            torch.cuda.synchronize()
-    n_ops = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
-    return sorted(runs[1:])[1], n_ops, aux, x_hat
+        prof, lost = profiler_window(lambda: model(data, t, key=key))
+    n_ops = len(device_events(prof))
+    return sorted(runs[1:])[1], (n_ops, lost), aux, x_hat
 
 
 def adaptive_forward_timing(trained, data, dev, gpu):
@@ -2684,12 +2765,13 @@ def adaptive_forward_timing(trained, data, dev, gpu):
     time (median of 3, synchronised) and its device ops (torch.profiler).
     A record, not a gate: the masked loop draws the Brownian tree's keys
     and normals for every level of every step."""
-    ms, n_ops, aux, _ = adaptive_forward(adaptive_spendulum(trained, dev),
-                                         data, dev)
+    ms, (n_ops, lost), aux, _ = adaptive_forward(
+        adaptive_spendulum(trained, dev), data, dev)
     log("train", f"adaptive spendulum forward (B {data.shape[0]}, T "
                  f"{data.shape[1]}, max_steps 256, depth_cap 6, "
                  f"max_steps_per_interval 6, no_grad): {ms:.3f} ms (median "
-                 f"of 3 after a warm-up), {n_ops} device ops; stats "
+                 f"of 3 after a warm-up), {n_ops} device ops "
+                 f"({lost_str(lost)}); stats "
                  f"{ {k: int(v) for k, v in aux['stats'].items()} }, all ok "
                  f"{bool(aux['success'].all())}; card {gpu}")
 
@@ -2895,7 +2977,7 @@ def population_timing(ms, gen, clock, dev):
             k_ms = time_ms(kernel)
             d_ms = device_ms(kernel, kname)
             s_ms = time_ms(solo)
-            p_ms = time_ms(plain, reps=3, warmup=1)
+            p_ms = plain_ms(plain)
             b_ms, b_by, t_b, t_o = bound_ms(*work)
             lat = (heads_bwd_latency_ms(T, L, H, clock) if "bwd" in name
                    else heads_latency_ms(T, L, 32, H, clock))
@@ -2945,13 +3027,14 @@ def autosize_check(trained, train_set, dev, gpu):
     reach = int(((st["max_depth"] >= new.depth_cap)
                  | (attempts > new.max_steps)).sum())
     e = max_err(before[3], after[3])
-    for tag, (ms_, n_ops, aux, _), cfg in (("before", before, old),
-                                          ("after", after, new)):
+    for tag, (ms_, (n_ops, lost), aux, _), cfg in (("before", before, old),
+                                                  ("after", after, new)):
         log("train", f"autosize: adaptive spendulum forward {tag} (B 64, T "
                      f"50, max_steps {cfg.max_steps}, depth_cap "
                      f"{cfg.depth_cap}, max_steps_per_interval "
                      f"{cfg.max_steps_per_interval}, no_grad): {ms_:.3f} ms "
-                     f"(median of 3 after a warm-up), {n_ops} device ops; "
+                     f"(median of 3 after a warm-up), {n_ops} device ops "
+                     f"({lost_str(lost)}); "
                      f"stats {({k: int(v) for k, v in aux['stats'].items()})}"
                      f", all ok {bool(aux['success'].all())}; card {gpu}")
     log("train", f"autosize: probe of {train_set.shape[0]} training rows "
@@ -4467,31 +4550,48 @@ def forced_oscillator(u, p, t):
 
 
 KURAMOTO_N = 7  # a width without a compiled instance
+# 4m's fields: Lorenz-96 at 40 sites, written with torch.roll (its interval
+# maps, 40 * 40 + 40 * 1 floats, past MAX_MAP_FLOATS: the reverse-sweep
+# backward), and Kuramoto at 64 oscillators, past a warp's lanes (the block
+# kernels)
+L96_N = 40
+KURAMOTO_WIDE_N = 64
+WIDE = (f"lorenz96-{L96_N}", f"kuramoto{KURAMOTO_WIDE_N}")
+
+
+def lorenz96(u, p, t):
+    """Lorenz-96 on N sites, dx_i = (x_{i+1} - x_{i-2}) x_{i-1} - x_i + F,
+    F = p[0], as a user writes it (no device_rhs tag)."""
+    return ((torch.roll(u, -1, -1) - torch.roll(u, 2, -1))
+            * torch.roll(u, 1, -1) - u + p[..., 0:1])
 
 
 def gen_fields():
     """label -> (f, dim, pdim, substeps, dt, tagged twin or None) of the
-    phase's fields: the tutorial's (by its copy; the pendulum path's
-    shapes), the untagged pendulum and Van der Pol (beside their tagged
-    functors), the forced oscillator and Kuramoto-7 with offsets (the
-    custom dynamics' shapes)."""
+    user-written fields: 4l's, the tutorial's (by its copy; the pendulum
+    path's shapes), the untagged pendulum and Van der Pol (beside their
+    tagged functors), the forced oscillator and Kuramoto-7 with offsets
+    (the custom dynamics' shapes); 4m's, Lorenz-96 at 40 and Kuramoto at
+    64 (the examples' Kuramoto, no offsets), the custom dynamics' shapes."""
     from latentdiffeq_torch import custom_dynamics as cdyn
     from latentdiffeq_torch.pendulum import pendulum_f
-    kur = gen_fields.kuramoto = getattr(gen_fields, "kuramoto", None) or \
-        cdyn.Kuramoto(KURAMOTO_N, omega_spread=0.5).f
+    custom = (CUSTOM_SUBSTEPS, CUSTOM_DT, None)
     return {"tutorial": (tutorial_field_copy, 2, 1, 1, 0.05, None),
             "pendulum-untagged": (pendulum_untagged, 2, 1, 1, 0.05,
                                   pendulum_f),
             "vdp-untagged": (vdp_untagged, 2, 1, CUSTOM_SUBSTEPS, CUSTOM_DT,
                              cdyn.vdp_f),
-            "forced": (forced_oscillator, 2, 3, CUSTOM_SUBSTEPS, CUSTOM_DT,
-                       None),
-            f"kuramoto{KURAMOTO_N}": (kur, KURAMOTO_N, 2, CUSTOM_SUBSTEPS,
-                                      CUSTOM_DT, None)}
+            "forced": (forced_oscillator, 2, 3) + custom,
+            f"kuramoto{KURAMOTO_N}": (
+                cdyn.Kuramoto(KURAMOTO_N, omega_spread=0.5).f, KURAMOTO_N,
+                2) + custom,
+            WIDE[0]: (lorenz96, L96_N, 1) + custom,
+            WIDE[1]: (cdyn.Kuramoto(KURAMOTO_WIDE_N).f, KURAMOTO_WIDE_N,
+                      2) + custom}
 
 
 def gen_specs():
-    """(f, dim, pdim) of every 4l instance, for phase 1's build."""
+    """(f, dim, pdim) of every 4l and 4m instance, for phase 1's build."""
     return [(f, d, p) for f, d, p, *_ in gen_fields().values()]
 
 
@@ -4506,116 +4606,223 @@ def gen_shapes(label):
 def gen_inputs(label, B, T, gen):
     """(u0s, ps, saveat): pendulum states and L as rk_inputs draws them;
     Van der Pol's too; the oscillator x, v ~ U(-1, 1), k ~ U(1, 4), c ~
-    U(0.1, 0.5), a ~ U(0.5, 2); Kuramoto's phases, omega and K as
-    rk_inputs."""
+    U(0.1, 0.5), a ~ U(0.5, 2); Lorenz-96 states ~ U(-2, 2), F ~ U(4, 8);
+    Kuramoto's phases, omega and K as rk_inputs."""
     f, dim, pdim, sub, dt, _ = gen_fields()[label]
     if label in ("tutorial", "pendulum-untagged"):
-        u0s, ps, saveat = rk_inputs("pendulum", B, T, gen)
-    elif label == "vdp-untagged":
-        u0s, ps, saveat = rk_inputs("vdp", B, T, gen)
-    elif label == "forced":
+        return rk_inputs("pendulum", B, T, gen)
+    if label == "vdp-untagged":
+        return rk_inputs("vdp", B, T, gen)
+    saveat = torch.arange(T, dtype=torch.float32, device="cuda") * dt
+    if label == "forced":
         u0s = torch.rand(B, 2, generator=gen, device="cuda") * 2 - 1
         lo = torch.tensor([1.0, 0.1, 0.5], device="cuda")
         hi = torch.tensor([4.0, 0.5, 2.0], device="cuda")
         ps = lo + (hi - lo) * torch.rand(B, 3, generator=gen, device="cuda")
-        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * dt
+    elif label == WIDE[0]:
+        u0s = torch.rand(B, dim, generator=gen, device="cuda") * 4 - 2
+        ps = 4 + 4 * torch.rand(B, 1, generator=gen, device="cuda")
     else:
         u0s = (torch.rand(B, dim, generator=gen, device="cuda") * 2 - 1) \
             * math.pi
         ps = torch.stack([1 + 2 * torch.rand(B, generator=gen, device="cuda"),
                           0.2 + 1.8 * torch.rand(B, generator=gen,
                                                  device="cuda")], dim=1)
-        saveat = torch.arange(T, dtype=torch.float32, device="cuda") * dt
     return u0s, ps, saveat
 
 
-def gen_kernel_checks(gen, fields):
-    """4l (a) and (c): each field's instance, forward and backward, against
-    the plain versions at its train and validation shapes, Tsit5, with
-    PERF.md section 2's gates: forward within TOL of the plain solve (and
-    the same success flags, all rows ok) and at most twice as far from a
-    float64 plain solve as the plain float32 solve (+1e-6); the backward
-    kernel's interval maps against the plain maps, its gradients against
-    the two-phase plain version and the step-by-step reverse sweep on the
-    same trajectory (both taking torch.func.vjp of the field), and the
-    whole backward against plain autograd, each within GRAD_TOL of its
-    size. (b): the untagged pendulum and Van der Pol against their tagged,
-    hand-written functors on the same inputs: bit for bit or the largest
-    gap. Returns {kernels-line name: largest absolute error against the
-    plain version}."""
+def route_kernels(rk):
+    """The profiler's names of the CUDA kernels (forward, backward) that an
+    instance's route launches."""
+    return {"lanes": ("rk_kuramoto_kernel", "rk_kuramoto_bwd_kernel"),
+            "block": ("rk_kuramoto_block_kernel",
+                      "rk_kuramoto_block_bwd_kernel"),
+            "sweep": ("rk_fixed_grid_kernel",
+                      "rk_fixed_grid_sweep_bwd_kernel"),
+            "maps": ("rk_fixed_grid_kernel",
+                     "rk_fixed_grid_bwd_kernel")}[rk.backward]
+
+
+def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock):
+    """((bytes, operations) of the forward, of the backward, (forward,
+    backward) latency model ms) of an instance on its route: Kuramoto's by
+    rhs_ops, a generated functor's from its program's operation count."""
+    if rk.program is None:  # Kuramoto: the lane groups or the block
+        work = (rk_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto", dim),
+                rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto",
+                            dim))
+        if rk.backward == "lanes":
+            return work + ((rk_latency_ms(T, sub, n_st, clock, "kuramoto",
+                                          dim),
+                            rk_bwd_latency_ms(T, sub, n_st, clock,
+                                              "kuramoto", dim)),)
+        return work + ((block_latency_ms(T, sub, n_st, dim, clock),
+                        block_latency_ms(T, sub, n_st, dim, clock,
+                                         bwd=True)),)
+    ops = gen_ops(rk.program)
+    bwd_lat = (sweep_latency_ms if rk.backward == "sweep"
+               else gen_bwd_latency_ms)
+    return (rk_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
+            rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
+            (gen_latency_ms(rk.program, T, sub, tab, n_st, clock),
+             bwd_lat(rk.program, T, sub, tab, n_st, clock)))
+
+
+def exact_forward(rk):
+    """Whether an instance's forward fixes every order its plain version
+    fixes, so that it is held bit for bit: Kuramoto's (its sums in j order,
+    as the plain field's), a generated program without a reduction past
+    rhs_trace.EXACT_TERMS terms or a matrix product among what the slope
+    needs."""
+    if rk.program is None:
+        return True
+    nodes = {i.node for i in rk.program.needed(rk.program.dy)}
+    return not any(n.split(":")[0] in nodes for n in rk.program.inexact)
+
+
+def gen_kernel_checks(gen, clock, fields):
+    """4l (a)-(c) and 4m (a), with the instances' times: each field's
+    instance, forward and backward, against the plain versions at its
+    train and validation shapes, Tsit5, with PERF.md section 2's gates.
+    The forward within TOL of the plain solve, bit for bit where it fixes
+    the plain version's order (exact_forward), with the same success flags
+    (all rows ok), and at most twice as far from a float64 plain solve as
+    the plain float32 solve (+1e-6). The backward on its route: the
+    two-phase kernel's interval maps against the plain maps and its
+    gradients against the two-phase plain version (maps, lanes); the
+    reverse-sweep kernels' gradients against the plain reverse sweep on
+    the same trajectory (sweep, block), one launch, within GRAD_TOL of
+    each size; the two-phase kernel's also against the step-by-step
+    reverse sweep, and every route's against plain autograd (the
+    reverse-sweep routes at the train shape), within GRAD_TOL or else at
+    most twice as far from the float64 version as the kernel's own
+    algorithm in float32. (b): the untagged pendulum and Van der Pol
+    against their tagged, hand-written functors on the same inputs, bit
+    for bit or the largest gap. Each kernel's time per call and on the
+    device beside its plain version's (the plain call that gave the
+    reference: the plain reverse sweep for a backward), its bound (bytes,
+    and operations: the program's count, Kuramoto's rhs_ops) and its
+    latency model (route_work); the hand-written twins timed beside the
+    generated ones. Returns ({kernels-line name: largest absolute error
+    against the plain version}, {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)} at the train shape)."""
     from latentdiffeq_torch.ops import ode_cuda
-    from latentdiffeq_torch.solve.rk import Tsit5
+    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
     s = Tsit5()
-    worst = {}
+    tab = s.tableau
+    n_st = n_solution_stages(tab)
+    bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda
+    worst, times = {}, {}
     for label, (f, dim, pdim, sub, _, twin) in fields.items():
+        rk = ode_cuda.rhs_kernel(f, dim, pdim)
         fn = rk_name("rk_fixed_grid", f, dim, pdim)
         bn = rk_name("rk_fixed_grid_bwd", f, dim, pdim)
+        kf, kb = route_kernels(rk)
+        maps = rk.backward in ("maps", "lanes")
         for shape, B, T in gen_shapes(label):
             u0s, ps, saveat = gen_inputs(label, B, T, gen)
             w = torch.randn(B, T, dim, generator=gen, device="cuda")
+            fw, bw, lat = route_work(rk, B, T, dim, pdim, sub, tab, n_st,
+                                     clock)
+            at = f"{label} {shape} B={B} T={T} substeps={sub}"
+
+            def timing(name, kname, kernel, p_ms, work, lat_ms):
+                k_ms = time_ms(kernel)
+                d_ms = device_ms(kernel, kname)
+                b_ms, b_by, t_b, t_o = bound_ms(*work)
+                log("timing", f"{name} {at} ({kname}): kernel {k_ms:.4f} "
+                              f"ms per call ({fmt_ms(d_ms)} on the device), "
+                              f"plain {fmt_ms(p_ms)}, bound {b_ms:.6f} ms "
+                              f"({b_by}; bytes {t_b:.6f} ms, operations "
+                              f"{t_o:.6f} ms), latency model {lat_ms:.6f} ms"
+                              f" at {clock:.0f} MHz; library: none")
+                if shape == "train":
+                    times[name] = (k_ms, p_ms, b_ms, b_by, None)
+
             with torch.no_grad():
                 got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
                     f, s, u0s, ps, saveat, substeps=sub)
-                ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
-                    f, s, u0s, ps, saveat, substeps=sub)
-                ref64 = ode_cuda.solve_fixed_grid_batched_reference(
-                    f, s, u0s.double(), ps.double(), saveat.double(),
-                    substeps=sub)[0]
+                (ref, ok_p, _), p_ms = plain_timed(
+                    lambda: ode_cuda.solve_fixed_grid_batched_reference(
+                        f, s, u0s, ps, saveat, substeps=sub))
             e = max_err(got, ref)
-            e_k, e_p = max_err(got.double(), ref64), max_err(ref.double(),
-                                                             ref64)
             bits = torch.equal(got.view(torch.int32), ref.view(torch.int32))
             flags = torch.equal(ok, ok_p) and bool(ok.all())
-            line = (f"{fn} {label} {shape} B={B} T={T} Tsit5 substeps={sub}:"
-                    f" max abs err {e:.3e} (tol {TOL:.0e}), bit for bit as "
-                    f"plain: {bits}; vs float64: kernel {e_k:.3e}, plain "
-                    f"{e_p:.3e} (gate 2 x plain + 1e-6); success flags as "
+            line = (f"{fn} ({rk.backward} route) {at} Tsit5: max abs err "
+                    f"{e:.3e} (tol {TOL:.0e}), bit for bit as plain: {bits}"
+                    f" (required: {exact_forward(rk)}); success flags as "
                     f"plain, all rows: {flags}")
-            log("4l", line)
-            if not (e <= TOL and e_k <= 2 * e_p + 1e-6 and flags):
-                fail(f"4l forward {label} {shape}: {line}")
+            good = e <= TOL and flags and (bits or not exact_forward(rk))
+            if not bits:  # bit for bit, it is as far from float64 as plain
+                with torch.no_grad():
+                    ref64 = ode_cuda.solve_fixed_grid_batched_reference(
+                        f, s, u0s.double(), ps.double(), saveat.double(),
+                        substeps=sub)[0]
+                e_k = max_err(got.double(), ref64)
+                e_p = max_err(ref.double(), ref64)
+                line += (f"; vs float64: kernel {e_k:.3e}, plain {e_p:.3e} "
+                         f"(gate 2 x plain + 1e-6)")
+                good = good and e_k <= 2 * e_p + 1e-6
+            log("kernels", line)
+            if not good:
+                fail(f"forward {label} {shape}: {line}")
             worst[fn] = max(worst.get(fn, 0.0), e)
+            with torch.no_grad():
+                timing(fn, kf, lambda: ode_cuda.solve_fixed_grid_batched_cuda(
+                    f, s, u0s, ps, saveat, substeps=sub), p_ms, fw, lat[0])
 
-            du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-                f, s, saveat, got, ps, w, substeps=sub, maps=True)
-            J_p, r_p = \
-                ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
-                    f, s, saveat, got, ps, substeps=sub)
-            two = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(
-                J_p, r_p, w)
-            sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
-                f, s, saveat, got, ps, w, substeps=sub)
-            e_maps = max(rel_err(J, J_p), rel_err(r, r_p))
-            e_two = max(rel_err(a, b) for a, b in zip((du0, dp), two))
+            before = bwd.launches.get(rk.name, 0)
+            out = bwd(f, s, saveat, got, ps, w, substeps=sub, maps=maps)
+            one = bwd.launches[rk.name] == before + 1
+            du0, dp = out[:2]
+            sweep, p_ms = plain_timed(
+                lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
+                    f, s, saveat, got, ps, w, substeps=sub))
+            e_sw = max(max_err(a, b) for a, b in zip((du0, dp), sweep))
+            line = f"{bn} ({rk.backward} route, one launch: {one}) {at}: "
+            if maps:
+                J_p, r_p = ode_cuda \
+                    .solve_fixed_grid_batched_interval_maps_reference(
+                        f, s, saveat, got, ps, substeps=sub)
+                own = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(
+                    J_p, r_p, w)
+                e_maps = max(rel_err(out[2], J_p), rel_err(out[3], r_p))
+                e_own = max(rel_err(a, b) for a, b in zip((du0, dp), own))
+                line += (f"interval maps vs plain maps max rel err "
+                         f"{e_maps:.3e}; gradients vs two-phase plain "
+                         f"{e_own:.3e} (tol {GRAD_TOL:.0e})")
+                good = max(e_maps, e_own) <= GRAD_TOL
+                e_sw = max(e_sw, max(max_err(a, b)
+                                     for a, b in zip((du0, dp), own)))
+            else:
+                own = sweep
+                e_own = max(rel_err(a, b) for a, b in zip((du0, dp), own))
+                line += (f"gradients vs the plain reverse sweep {e_own:.3e} "
+                         f"(tol {GRAD_TOL:.0e})")
+                good = e_own <= GRAD_TOL
+            good = good and one
+            worst[bn] = max(worst.get(bn, 0.0), e_sw)
 
-            def grads(solve, dtype=torch.float32):
+            def grads(dtype):
                 u = u0s.to(dtype).requires_grad_()
                 p = ps.to(dtype).requires_grad_()
-                y = solve(f, s, u, p, saveat.to(dtype), substeps=sub)[0]
+                y = ode_cuda.solve_fixed_grid_batched_reference(
+                    f, s, u, p, saveat.to(dtype), substeps=sub)[0]
                 return torch.autograd.grad(y, [u, p], w.to(dtype))
 
-            auto = grads(ode_cuda.solve_fixed_grid_batched_reference)
-            worst[bn] = max(worst.get(bn, 0.0),
-                            max(max_err(a, b) for a, b in zip((du0, dp),
-                                                               sweep)),
-                            max(max_err(a, b) for a, b in zip((du0, dp),
-                                                               two)))
-            line = (f"{bn} {label} {shape} B={B} T={T}: interval maps vs "
-                    f"plain maps max rel err {e_maps:.3e}; gradients vs "
-                    f"two-phase plain {e_two:.3e} (tol {GRAD_TOL:.0e})")
-            good = max(e_maps, e_two) <= GRAD_TOL
-            # the step-by-step sweep and autograd through the plain
-            # forward sum in other float32 orders: past GRAD_TOL the kernel
-            # is held to a float64 referee, at most twice as far from it as
-            # the two-phase plain version, its own algorithm (as the long
-            # grids of phase 3 are)
-            refs = {"plain reverse sweep": (sweep, lambda: ode_cuda
+            # the step-by-step sweep and autograd through the plain forward
+            # sum in other float32 orders: past GRAD_TOL the kernel is held
+            # to a float64 referee, at most twice as far from it as its own
+            # algorithm in float32 (as the long grids of phase 3 are)
+            refs = {}
+            if maps:
+                refs["plain reverse sweep"] = (sweep, lambda: ode_cuda
                     .solve_fixed_grid_batched_backward_reference(
                         f, s, saveat.double(), got.double(), ps.double(),
-                        w.double(), substeps=sub)),
-                    "plain autograd": (auto, lambda: grads(
-                        ode_cuda.solve_fixed_grid_batched_reference,
-                        torch.float64))}
+                        w.double(), substeps=sub))
+            if maps or shape == "train":
+                refs["plain autograd"] = (grads(torch.float32),
+                                          lambda: grads(torch.float64))
             for what, (plain32, referee) in refs.items():
                 e = max(rel_err(a, b) for a, b in zip((du0, dp), plain32))
                 line += f", vs {what} {e:.3e}"
@@ -4624,35 +4831,52 @@ def gen_kernel_checks(gen, fields):
                     e_k = max(rel_err(a.double(), b) for a, b in zip(
                         (du0, dp), r64))
                     e_p = max(rel_err(a.double(), b) for a, b in zip(
-                        two, r64))
+                        own, r64))
                     line += (f" (past the tol: vs float64 kernel {e_k:.3e},"
-                             f" two-phase plain {e_p:.3e}, gate 2 x)")
+                             f" its algorithm in plain float32 {e_p:.3e}, "
+                             f"gate 2 x)")
                     good = good and e_k <= 2 * e_p
-            log("4l", line)
+            log("kernels", line)
             if not good:
-                fail(f"4l backward {label} {shape}: {line}")
+                fail(f"backward {label} {shape}: {line}")
+            with torch.no_grad():
+                timing(bn, kb, lambda: bwd(f, s, saveat, got, ps, w,
+                                           substeps=sub), p_ms, bw, lat[1])
 
             if twin is not None:  # (b) generated against hand-written
                 with torch.no_grad():
                     hw, _ = ode_cuda.solve_fixed_grid_batched_cuda(
                         twin, s, u0s, ps, saveat, substeps=sub)
-                hdu0, hdp = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-                    twin, s, saveat, hw, ps, w, substeps=sub)
+                hdu0, hdp = bwd(twin, s, saveat, hw, ps, w, substeps=sub)
                 same = torch.equal(got.view(torch.int32),
                                    hw.view(torch.int32))
                 gap = max_err(got, hw)
                 gap_b = max(rel_err(a, b) for a, b in zip((du0, dp),
                                                            (hdu0, hdp)))
-                log("4l", f"{label} {shape}: generated "
-                          f"{ode_cuda.rhs_instance(f, dim, pdim)} against the "
-                          f"hand-written {ode_cuda.rhs_instance(twin, dim)}: "
-                          f"forward bit for bit {same}, largest gap "
-                          f"{gap:.3e}; gradients (each on its own "
-                          f"trajectory) largest relative gap {gap_b:.3e}")
+                log("kernels", f"{label} {shape}: generated {rk.name} "
+                               f"against the hand-written "
+                               f"{ode_cuda.rhs_instance(twin, dim)}: forward"
+                               f" bit for bit {same}, largest gap "
+                               f"{gap:.3e}; gradients (each on its own "
+                               f"trajectory) largest relative gap "
+                               f"{gap_b:.3e}")
                 if gap > TOL or gap_b > GRAD_TOL:
-                    fail(f"4l {label}: generated vs hand-written {gap}, "
+                    fail(f"{label}: generated vs hand-written {gap}, "
                          f"{gap_b}")
-    return worst
+                with torch.no_grad():
+                    for k, kname, kernel in (
+                            ("rk_fixed_grid", rk_kernel("pendulum"),
+                             lambda: ode_cuda.solve_fixed_grid_batched_cuda(
+                                 twin, s, u0s, ps, saveat, substeps=sub)),
+                            ("rk_fixed_grid_bwd", rk_kernel("pendulum", True),
+                             lambda: bwd(twin, s, saveat, hw, ps, w,
+                                         substeps=sub))):
+                        log("timing", f"{rk_name(k, twin, dim)} (hand-written"
+                                      f" twin) {at}: kernel "
+                                      f"{time_ms(kernel):.4f} ms per call "
+                                      f"({fmt_ms(device_ms(kernel, kname))} "
+                                      f"on the device)")
+    return worst, times
 
 
 def tutorial_on_card(f_copy):
@@ -4692,11 +4916,11 @@ def tutorial_on_card(f_copy):
 
 
 def gen_path(train_set, val_set, tagged_hist, dev, gpu):
-    """4l: the tutorial on the card (e), the fields against the plain
-    versions and the hand-written functors (a)-(c), GOKU at full width on
-    the full video with the tutorial's field (d), and GOKU on Kuramoto-7
-    data (f). Returns ({kernels-line name: launches}, {name: max abs
-    err})."""
+    """4l: each instance's spills, the tutorial on the card (e), GOKU at
+    full width on the full video with the tutorial's field (d), and GOKU
+    on Kuramoto-7 data (f); (a)-(c), the instances against the plain
+    versions and the hand-written functors, ran in phase 5
+    (gen_kernel_checks). Returns {kernels-line name: launches}."""
     from latentdiffeq_torch.adjoint import SolveOptions
     from latentdiffeq_torch.models import ODEDynamics, goku_default_layers
     from latentdiffeq_torch.ops import ode_cuda
@@ -4705,16 +4929,13 @@ def gen_path(train_set, val_set, tagged_hist, dev, gpu):
 
     fields = gen_fields()
     for label, (f, dim, pdim, *_) in fields.items():
-        lib = ode_cuda.rhs_kernel(f, dim, pdim).library
-        spills = spill_lines(lib)
-        log("4l", f"{label}: instance {ode_cuda.rhs_instance(f, dim, pdim)}"
-                  f", library {lib}; kernels that spill (ptxas -v): "
-                  f"{len(spills)}" + "".join(f"; {fn}: {ln}"
-                                             for fn, ln in spills))
+        rk = ode_cuda.rhs_kernel(f, dim, pdim)
+        spills = spill_lines(rk.library)
+        log("4l", f"{label}: instance {rk.name}, backward route "
+                  f"{rk.backward}, library {rk.library}; kernels that spill "
+                  f"(ptxas -v): {len(spills)}" + "".join(
+                      f"; {fn}: {ln}" for fn, ln in spills))
     f_tut, _ = tutorial_on_card(fields["tutorial"][0])
-    fields["tutorial"] = (f_tut,) + fields["tutorial"][1:]
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    errs = gen_kernel_checks(gen, fields)
 
     # (d) GOKU at full width on the full video, the tutorial's field
     diffeq = ODEDynamics(f=f_tut, z_dim=2, theta_dim=1, solver=Tsit5(),
@@ -4743,8 +4964,8 @@ def gen_path(train_set, val_set, tagged_hist, dev, gpu):
     k_launches = goku_path(f"kuramoto{KURAMOTO_N}", c_train, c_val, c_diffeq,
                            c_layers, c_cfg, dev, gpu)[0]
     launches.update(k_launches)
-    return ({k: v for k, v in launches.items()
-             if k.startswith("rk_fixed_grid")}, errs)
+    return {k: v for k, v in launches.items()
+            if k.startswith("rk_fixed_grid")}
 
 
 def program_cycles(prog, outputs, ready):
@@ -4823,92 +5044,142 @@ def gen_ops(prog):
                      prog.per_row) for out in (prog.dy, prog.ubar + prog.pbar))
 
 
-def gen_timing(gen, clock, fields):
-    """Item 8: each new instance at its train and validation shapes,
-    Tsit5: the kernel's time per call and on the device beside its plain
-    version on the same inputs (a backward's: the plain reverse sweep),
-    its bound from the program's operation count and bytes and its
-    latency model; the hand-written twin (pendulum, Van der Pol) timed
-    beside the generated one in the same loop. Returns {kernels-line name:
-    (ms, plain_ms, bound_ms, bound_by, library_ms)} at the train shape."""
+# ---------------------------------------------------------------------------
+# Phase 4m: every field JAX's Pallas solve runs goes through the RK kernel:
+# GOKU on Lorenz-96 at 40 (a generated forward, the reverse-sweep backward
+# rk_fixed_grid_sweep_bwd_kernel) and on Kuramoto at 64 (the block kernels
+# rk_kuramoto_block_kernel, rk_kuramoto_block_bwd_kernel); the kernels
+# against their plain versions in phase 5 (gen_kernel_checks).
+
+LOSS_TOL = 1e-4  # kernel route against the plain route, of each loss's size
+
+
+def lorenz96_dataset(dev):
+    """Lorenz-96 data in the custom dynamics' recipe: 256 trajectories x
+    100 frames, dt 0.1, 4 sub-steps of Tsit5 (the plain solve), x0 ~
+    U(-2, 2), F ~ U(4, 8), observed through a seeded random relu lift to
+    64 channels scaled to [0, 1] (custom_data's observation); 230 / 26,
+    batch 64, seq 50. Returns (train set, val set, dynamics, config)."""
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import ODEDynamics
     from latentdiffeq_torch.ops import ode_cuda
-    from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
-    s = Tsit5()
-    tab = s.tableau
-    n_st = n_solution_stages(tab)
-    out = {}
-    for label, (f, dim, pdim, sub, _, twin) in fields.items():
-        rk = ode_cuda.rhs_kernel(f, dim, pdim)
-        lanes = rk.name.startswith("kuramoto")
-        for shape, B, T in gen_shapes(label):
-            u0s, ps, saveat = gen_inputs(label, B, T, gen)
-            w = torch.randn(B, T, dim, generator=gen, device="cuda")
-            with torch.no_grad():
-                ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
-                    f, s, u0s, ps, saveat, substeps=sub)
-            if lanes:
-                family = "kuramoto"
-                fw = rk_work(B, T, dim, pdim, sub, tab, n_st, family, dim)
-                bw = rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, family,
-                                 dim)
-                lat = (rk_latency_ms(T, sub, n_st, clock, family, dim),
-                       rk_bwd_latency_ms(T, sub, n_st, clock, family, dim))
-            else:
-                family = "generated"
-                ops = gen_ops(rk.program)
-                fw = rk_work(B, T, dim, pdim, sub, tab, n_st, ops=ops)
-                bw = rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, ops=ops)
-                lat = (gen_latency_ms(rk.program, T, sub, tab, n_st, clock),
-                       gen_bwd_latency_ms(rk.program, T, sub, tab, n_st,
-                                          clock))
-            calls = [(rk_name("rk_fixed_grid", f, dim, pdim), f,
-                      rk_kernel(family), fw, lat[0], False),
-                     (rk_name("rk_fixed_grid_bwd", f, dim, pdim), f,
-                      rk_kernel(family, bwd=True), bw, lat[1], True)]
-            if twin is not None:
-                calls += [(f"{rk_name(k, twin, dim)} (hand-written twin)",
-                           twin, rk_kernel("pendulum", bwd), None, None, bwd)
-                          for k, bwd in (("rk_fixed_grid", False),
-                                         ("rk_fixed_grid_bwd", True))]
-            with torch.no_grad():
-                for name, fn, kname, work, lat_ms, is_bwd in calls:
-                    if is_bwd:
-                        kernel = (lambda fn=fn: ode_cuda
-                                  .solve_fixed_grid_batched_bwd_cuda(
-                                      fn, s, saveat, ys, ps, w,
-                                      substeps=sub))
-                        plain = (lambda fn=fn: ode_cuda
-                                 .solve_fixed_grid_batched_backward_reference(
-                                     fn, s, saveat, ys, ps, w, substeps=sub))
-                    else:
-                        kernel = (lambda fn=fn: ode_cuda
-                                  .solve_fixed_grid_batched_cuda(
-                                      fn, s, u0s, ps, saveat, substeps=sub))
-                        plain = (lambda fn=fn: ode_cuda
-                                 .solve_fixed_grid_batched_reference(
-                                     fn, s, u0s, ps, saveat, substeps=sub))
-                    k_ms = time_ms(kernel)
-                    d_ms = device_ms(kernel, kname)
-                    if work is None:
-                        log("timing", f"{name} {label} {shape} B={B} T={T} "
-                                      f"substeps={sub}: kernel {k_ms:.4f} ms"
-                                      f" per call ({fmt_ms(d_ms)} on the "
-                                      f"device)")
-                        continue
-                    # one call: the plain versions take 10-1000 ms
-                    p_ms = time_ms(plain, reps=1, warmup=0)
-                    b_ms, b_by, t_b, t_o = bound_ms(*work)
-                    log("timing", f"{name} {label} {shape} B={B} T={T} "
-                                  f"substeps={sub}: kernel {k_ms:.4f} ms per "
-                                  f"call ({fmt_ms(d_ms)} on the device), "
-                                  f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-                                  f"({b_by}; bytes {t_b:.6f} ms, operations "
-                                  f"{t_o:.6f} ms), latency model "
-                                  f"{lat_ms:.6f} ms at {clock:.0f} MHz; "
-                                  f"library: none")
-                    if shape == "train":
-                        out[name] = (k_ms, p_ms, b_ms, b_by, None)
-    return out
+    from latentdiffeq_torch.solve.rk import Tsit5
+    from latentdiffeq_torch.train import TrainConfig, splitobs
+    g = torch.Generator(device=dev).manual_seed(40)
+    u0s = torch.rand(256, L96_N, generator=g, device=dev) * 4 - 2
+    ps = 4 + 4 * torch.rand(256, 1, generator=g, device=dev)
+    saveat = torch.arange(100, dtype=torch.float32, device=dev) * CUSTOM_DT
+    with torch.no_grad():
+        z, ok, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            lorenz96, Tsit5(), u0s, ps, saveat, substeps=CUSTOM_SUBSTEPS)
+        W = torch.randn(L96_N, 64, generator=g, device=dev) / L96_N ** 0.5
+        b = torch.randn(64, generator=g, device=dev)
+        x = torch.relu(z @ W + b)
+        x = (x - x.min()) / (x.max() - x.min())
+    if not bool(ok.all()):
+        fail("Lorenz-96 data: a trajectory failed")
+    diffeq = ODEDynamics(f=lorenz96, z_dim=L96_N, theta_dim=1,
+                         solver=Tsit5(), options=SolveOptions(
+                             adaptive=False, substeps=CUSTOM_SUBSTEPS))
+    cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+                      epochs=300, save_best=False)
+    train_set, val_set = splitobs(x, 0.9)
+    return train_set, val_set, diffeq, cfg
+
+
+def wide_path(dev, gpu):
+    """4m: GOKU at the custom dynamics' width
+    (goku_default_layers(64, ..., 100, 100), input 64 as train_kuramoto.py)
+    on each field, both kernel switches on, 2 epochs (goku_path: a forward
+    launch a train step and a validation pass, a backward launch a train
+    step, no plain solve; the kernel path against the plain path on the
+    trained weights); then the kernel route and the plain route from the
+    same seed for one epoch on the first batch and 8 validation rows (one
+    train step and a validation pass: the plain Kuramoto-64 route takes
+    ~8 s a step), losses within LOSS_TOL of each loss's size. Returns
+    {kernels-line name: launches}."""
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           goku_default_layers)
+    from latentdiffeq_torch.train import Trainer
+
+    launches = {}
+    for label in WIDE:
+        if label == WIDE[0]:
+            train_set, val_set, diffeq, cfg = lorenz96_dataset(dev)
+        else:
+            train_set, val_set, diffeq, cfg = custom_dataset(label, dev)
+
+        def layers():
+            return goku_default_layers(
+                64, diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
+                generator=torch.Generator().manual_seed(0), device=dev)
+        got = goku_path(label, train_set, val_set, diffeq, layers(), cfg,
+                        dev, gpu)[0]
+        launches.update({k: v for k, v in got.items()
+                         if k.startswith("rk_fixed_grid")})
+        first, few = train_set[:cfg.batch_size], val_set[:8]
+        hists = []
+        t0 = time.perf_counter()
+        for kind in (GOKUBasic(use_kernel_encoder=True,
+                               use_kernel_solver=True), GOKUBasic()):
+            tr = Trainer(LatentDiffEqModel.build(kind, *layers()), cfg,
+                         device=dev)
+            hists.append(tr.fit(first, few, epochs=1, verbose=False))
+        torch.cuda.synchronize()
+        gaps = [abs(hists[0][0][k] - hists[1][0][k]) / abs(hists[1][0][k])
+                for k in ("train_loss", "val_loss")]
+        log("4m", f"GOKU on {label}, kernel route against the plain route "
+                  f"(same seed and weights, one epoch on the first batch "
+                  f"and 8 validation rows, both routes in "
+                  f"{time.perf_counter() - t0:.3f} s): train, val losses "
+                  f"{hists[0][0]['train_loss']:.6f}, "
+                  f"{hists[0][0]['val_loss']:.6f} against "
+                  f"{hists[1][0]['train_loss']:.6f}, "
+                  f"{hists[1][0]['val_loss']:.6f}, relative gaps "
+                  f"{[f'{g:.3e}' for g in gaps]} (tol {LOSS_TOL:.0e}); card "
+                  f"{gpu}")
+        if max(gaps) > LOSS_TOL:
+            fail(f"4m: {label} kernel-route losses {gaps} from the plain "
+                 f"route's")
+    return launches
+
+
+def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
+    """The reverse-sweep kernel's chain for a generated functor, one thread
+    a trajectory: per interval and sub-step j (the last first), the
+    sub-steps before it again and its own stages (j + 1 steps of
+    `gen_step_cycles`), then the VJP program of each stage in reverse and
+    its cotangent updates (2 FMA steps)."""
+    ready = {i: 0 for i in prog.u_ids + prog.kb_ids + [prog.t_id]}
+    vjp = max(program_cycles(prog, prog.ubar + prog.pbar, ready))
+    step = gen_step_cycles(prog, tab, n_stages)
+    per = (substeps * (substeps + 1) // 2 * step
+           + substeps * n_stages * (vjp + 2 * FMA_CYC))
+    return (T - 1) * per / (clock_mhz * 1e3)
+
+
+def block_threads(dim):
+    """Threads a block and oscillators a lane of the Kuramoto block kernels
+    (csrc/rk_fixed_grid.cuh: kKurBlockThreads, kKurBlockOsc)."""
+    th = min((dim + 31) // 32 * 32, 512)
+    return th, -(-dim // th)
+
+
+def block_latency_ms(T, substeps, n_stages, dim, clock_mhz, bwd=False):
+    """The Kuramoto block kernels' chain for a trajectory: per stage a
+    barrier and each of a lane's oscillators' N sines issued one after
+    another (`kuramoto_stage_cycles` with the diagonal's); the backward,
+    per interval and sub-step j, j + 1 sub-steps of those stages, then per
+    stage in reverse a barrier and the lane's N sines and cosines with the
+    three sums (SINCOS_ISSUE each) and its cotangent updates."""
+    osc = block_threads(dim)[1]
+    stage = osc * kuramoto_stage_cycles(dim + 1) + BAR_CYC
+    if not bwd:
+        return ((T - 1) * substeps * n_stages * stage) / (clock_mhz * 1e3)
+    rev = BAR_CYC + osc * (dim * SINCOS_ISSUE + 4 * FMA_CYC)
+    per = (substeps * (substeps + 1) // 2 * n_stages * stage
+           + substeps * n_stages * rev)
+    return (T - 1) * per / (clock_mhz * 1e3)
 
 
 def spill_lines(name):
@@ -4927,30 +5198,22 @@ def spill_lines(name):
 
 
 def step_device_ops(trainer, data, beta):
-    """(device ops, device busy ms, span ms) of one train step under
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(data, beta)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    """(device ops, device busy ms, span ms, lost_kernel_records) of one
+    train step in a profiler window (profiler_window)."""
+    prof, lost = profiler_window(lambda: trainer.train_step(data, beta))
+    evs = device_events(prof)
     busy_us = sum(getattr(e, "device_time", None)
                   or getattr(e, "cuda_time", 0) for e in evs)
     span_us = (max(e.time_range.end for e in evs)
                - min(e.time_range.start for e in evs)) if evs else 0
-    return len(evs), busy_us / 1e3, span_us / 1e3
+    return len(evs), busy_us / 1e3, span_us / 1e3, lost
 
 
 def profile_step(trainer, data, val_set, beta, fname, what):
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    def run():
         trainer.train_step(data, beta)
         trainer.val_step(val_set, beta)
-        torch.cuda.synchronize()
+    prof, lost = profiler_window(run)
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
     host = prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -4958,15 +5221,15 @@ def profile_step(trainer, data, val_set, beta, fname, what):
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as f:
         f.write(table + "\nBy host time:\n" + host)
-    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    evs = device_events(prof)
     busy_us = sum(getattr(e, "device_time", None)
                   or getattr(e, "cuda_time", 0) for e in evs)
     span_us = (max(e.time_range.end for e in evs)
                - min(e.time_range.start for e in evs)) if evs else 0
     log("profile", f"{what}, one train step + val pass: {len(evs)} device "
                    f"ops, device busy {busy_us / 1e3:.3f} ms of a "
-                   f"{span_us / 1e3:.3f} ms span; table in "
-                   f"chiprun_out/{fname}")
+                   f"{span_us / 1e3:.3f} ms span ({lost_str(lost)}); table "
+                   f"in chiprun_out/{fname}")
     for line in table.splitlines()[:14]:
         log("profile", line)
 
@@ -5005,7 +5268,7 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    # the port's sources and phase 4l's generated instances, all at once
+    # the port's sources and phase 4l's and 4m's instances, all at once
     built = ode_cuda.build_instances(gen_specs())
     log("build", f"{sorted(built)} in {time.perf_counter() - t0:.2f} s "
                  f"(compiled now: {sorted(n for n, b in built.items() if b)})"
@@ -5146,10 +5409,13 @@ def main():
     errs.update(node_pop_errs)
     times.update(population_timing(pop_ms, gen, clock, dev))
     times.update(population_timing(bpop_ms, gen_bf, clock, dev))
-    # phase 4l's instances (the tutorial's by its copy, the same library):
-    # timed here, before 4k, after which torch.profiler drops launches
-    times.update(gen_timing(torch.Generator(device=dev).manual_seed(16),
-                            clock, gen_fields()))
+    # phase 4l's and 4m's instances (the tutorial's by its copy, the same
+    # library) against their plain versions and timed here, before 4k,
+    # after which torch.profiler drops launches
+    gen_errs, gen_times = gen_kernel_checks(
+        torch.Generator(device=dev).manual_seed(16), clock, gen_fields())
+    errs.update(gen_errs)
+    times.update(gen_times)
 
     log_phase("phase 4k")
     # ---- 4k. data parallelism, the profiling utilities, the native
@@ -5163,11 +5429,16 @@ def main():
     log_phase("phase 4l")
     # ---- 4l. user-written fields on the RK kernel: generated functors,
     # Kuramoto-7 on the lane-group kernels, GOKU and the tutorial on the
-    # tutorial's own field; then the new instances' times --------------
-    gen_launches, gen_errs = gen_path(
-        train_set, val_set, trainer.history, dev, gpu)
+    # tutorial's own field (the instances' checks and times ran in phase
+    # 5) ---------------------------------------------------------------
+    gen_launches = gen_path(train_set, val_set, trainer.history, dev, gpu)
+
+    log_phase("phase 4m")
+    # ---- 4m. every field JAX's Pallas solve runs: GOKU on Lorenz-96 at 40
+    # (a generated forward, the reverse-sweep backward) and on Kuramoto at
+    # 64 (the block kernels), kernel route against plain route ------------
+    gen_launches.update(wide_path(dev, gpu))
     launches.update(gen_launches)
-    errs.update(gen_errs)
 
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"

@@ -11,13 +11,20 @@ launchers count their launches by that name):
 - a field tagged ``device_rhs`` at a width in ``DEVICE_RHS`` keeps its
   hand-written functor in csrc/rk_fixed_grid.cu (pendulum, damped pendulum,
   Van der Pol; Kuramoto at 4 and 10 oscillators on the lane-group kernels);
-- Kuramoto at another width N (2 to ``rhs_codegen.KURAMOTO_MAX_N``) gets
-  the lane-group kernels instantiated for N, ``kuramotoN``, from a one-line
-  source that includes csrc/rk_fixed_grid.cuh;
+- Kuramoto at another width N gets the kernels instantiated for N,
+  ``kuramotoN``, from a one-line source that includes
+  csrc/rk_fixed_grid.cuh: the lane-group kernels from 2 to
+  ``rhs_codegen.KURAMOTO_LANES_MAX_N`` oscillators, the block kernels (a
+  block a trajectory, a reverse-sweep backward) past it, up to
+  ``rhs_codegen.KURAMOTO_MAX_N`` (their shared memory);
 - any other field is traced on one row with its VJP (ops/rhs_trace.py) and
   runs on a device functor generated from the trace (ops/rhs_codegen.py),
   ``gen_<hash8>`` (the hash of the generated source), cached by the field
-  object and (dim, pdim).
+  object and (dim, pdim), at any width: its backward is the two-phase
+  kernel while the interval maps fit ``rhs_codegen.MAX_MAP_FLOATS``
+  floats, the reverse-sweep kernel past that.
+``RhsKernel.backward`` names the backward's route: "maps" (the two-phase
+kernel), "sweep", "lanes" or "block".
 Generated sources build at first use into build/kernels/, named by their
 hash (ops/_build.py). A field the kernel cannot run raises ValueError
 naming the graph node while it is traced, before the device is looked at,
@@ -35,7 +42,11 @@ pair for Kuramoto). Its plain versions are
 ``solve_fixed_grid_batched_interval_maps_reference`` and
 ``solve_fixed_grid_batched_affine_sweep_reference``;
 ``solve_fixed_grid_batched_backward_reference`` is the step-by-step reverse
-sweep over the same trajectory. They take the RHS's VJP written by hand
+sweep over the same trajectory, and the plain version of the kernels that
+take it on the card: ``rk_fixed_grid_sweep_bwd_kernel`` for a generated
+functor whose maps pass ``rhs_codegen.MAX_MAP_FLOATS`` floats, and
+``rk_kuramoto_block_bwd_kernel`` for Kuramoto past the lane groups (which
+``rk_kuramoto_block_kernel`` solves forward, a block a trajectory). They take the RHS's VJP written by hand
 (``RHS_VJP``) where it has one, else ``torch.func.vjp`` of the field
 (``field_vjp``). ``saveat`` gets no gradient. Shapes on the main paths: the
 pendulum u0s (64, 2), ps (64, 1), 50 save points in training; (45, 2),
@@ -90,13 +101,18 @@ class RhsKernel:
     """The kernel instance that runs a field: its launch-counter ``name``,
     the library (``_build`` name) and its ``rhs_kind`` argument, the
     parameter width it takes, how many run-time constants it reads (None:
-    none) and, for a generated functor, the traced program."""
+    none), for a generated functor the traced program, and the backward's
+    route: "maps" (the two-phase kernel: interval maps, then the affine
+    sweep), "sweep" (the reverse sweep of a functor whose maps pass
+    ``rhs_codegen.MAX_MAP_FLOATS``), "lanes" or "block" (Kuramoto's lane
+    groups, or a block a trajectory)."""
     name: str
     library: str
     kind: int
     pdim: int
     ncst: Optional[int]
     program: Optional[rhs_trace.FieldProgram] = None
+    backward: str = "maps"
 
 
 _GENERATED = {}  # (field, dim, pdim) -> RhsKernel
@@ -111,27 +127,28 @@ def _generated(f: Callable, dim: int, pdim: int) -> RhsKernel:
         hit = _GENERATED.get(key)
     if hit is None:
         prog = rhs_trace.trace_field(f, dim, pdim)
-        rhs_codegen.check_width(prog.name, dim, pdim)
         text = rhs_codegen.kernel_source(prog)
         lib = register_generated("rk_gen", text)
         hit = _GENERATED[key] = RhsKernel(
             f"gen_{lib.rsplit('_', 1)[1][:8]}", lib, 0, pdim,
-            prog.ncst or None, prog)
+            prog.ncst or None, prog,
+            "maps" if rhs_codegen.maps_fit(dim, pdim) else "sweep")
     return hit
 
 
 @functools.lru_cache(maxsize=None)
 def _kuramoto(dim: int) -> RhsKernel:
-    """The lane-group kernels at ``dim`` oscillators, from a one-line
-    source (cached: a launch looks its instance up)."""
-    if not 2 <= dim <= rhs_codegen.KURAMOTO_MAX_N:
+    """The Kuramoto kernels at ``dim`` oscillators, from a one-line source
+    (cached: a launch looks its instance up)."""
+    if not 1 <= dim <= rhs_codegen.KURAMOTO_MAX_N:
         raise ValueError(
-            f"Kuramoto's lane-group kernels put an oscillator on a lane of "
-            f"a warp: 2 to {rhs_codegen.KURAMOTO_MAX_N} oscillators, not "
-            f"{dim}; set use_kernel_solver=False to solve it with the plain "
-            f"PyTorch path")
+            f"Kuramoto's block kernels keep a row's stage inputs in shared "
+            f"memory: 1 to {rhs_codegen.KURAMOTO_MAX_N} oscillators, not "
+            f"{dim}")
     lib = register_generated("rk_kuramoto", rhs_codegen.kuramoto_source(dim))
-    return RhsKernel(f"kuramoto{dim}", lib, 0, 2, dim)
+    lanes = 2 <= dim <= rhs_codegen.KURAMOTO_LANES_MAX_N
+    return RhsKernel(f"kuramoto{dim}", lib, 0, 2, dim,
+                     backward="lanes" if lanes else "block")
 
 
 def rhs_kernel(f: Callable, dim: int, pdim: Optional[int] = None
@@ -143,8 +160,10 @@ def rhs_kernel(f: Callable, dim: int, pdim: Optional[int] = None
     widths = DEVICE_RHS.get(family, {})
     if dim in widths:
         kind, pd, name = widths[dim]
+        kur = family == "kuramoto"
         return RhsKernel(name, "rk_fixed_grid", kind, pd,
-                         dim if family == "kuramoto" else None)
+                         dim if kur else None,
+                         backward="lanes" if kur else "maps")
     if family == "kuramoto":
         return _kuramoto(dim)
     if pdim is None:
@@ -508,11 +527,17 @@ def solve_fixed_grid_batched_bwd_cuda(f: Callable, solver: AbstractSolver,
     with the cotangent ``g`` of ys. Returns ``(du0 (B, dim), dp (B,
     pdim))``; with ``maps=True`` also the maps the kernel built, ``J`` (B,
     T-1, dim, dim) and ``r`` (B, T-1, dim, pdim), as
-    ``solve_fixed_grid_batched_interval_maps_reference`` returns them.
-    ``generic`` and the counters as for the forward."""
+    ``solve_fixed_grid_batched_interval_maps_reference`` returns them
+    (only on the routes that form them, ``RhsKernel.backward`` "maps" or
+    "lanes"). ``generic`` and the counters as for the forward."""
     dim = ys.shape[-1] if ys.dim() else 0
     rk = rhs_kernel(f, dim, ps.shape[-1] if ps.dim() == 2 else None)
     kind, pdim, inst = rk.kind, rk.pdim, rk.name
+    if maps and rk.backward not in ("maps", "lanes"):
+        raise ValueError(f"solve_fixed_grid_batched_bwd_cuda: the {inst} "
+                         f"instance's backward is the reverse sweep "
+                         f"({rk.backward!r}), which forms no interval maps; "
+                         f"maps=True needs the two-phase kernel")
     for name, t in (("saveat", saveat), ("ys", ys), ("ps", ps), ("g", g)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise ValueError(f"solve_fixed_grid_batched_bwd_cuda: {name} "

@@ -19,12 +19,14 @@ the product with its float32 reciprocal, constants as hexadecimal float32
 literals, and the library is built with ``--fmad=false`` so no product and
 sum fuse (``_build.GEN_FLAGS``).
 
-The backward kernel gives each interval to one thread, which holds the
-interval's maps J (dim x dim) and r (dim x pdim) in registers; a field
-whose maps pass ``MAX_MAP_FLOATS`` floats is refused (``check_width``).
-Kuramoto, whose hand-written lane-group kernels take any width up to
-``KURAMOTO_MAX_N`` oscillators, gets a one-line source instead
-(``kuramoto_source``).
+The forward is one thread a trajectory at any width (past 255 registers
+its arrays spill to local memory). The backward is the two-phase kernel,
+one thread an interval holding the interval's maps J (dim x dim) and r
+(dim x pdim) in registers, while the maps fit ``MAX_MAP_FLOATS`` floats
+(``maps_fit``), and the reverse-sweep kernel past that; the functor's
+``SWEEP`` member, printed from ``maps_fit``, tells the header which. Kuramoto gets a one-line source instead
+(``kuramoto_source``): the hand-written lane-group kernels up to
+``KURAMOTO_LANES_MAX_N`` oscillators, the block kernels past that.
 
 ``host_source`` wraps the same functor text for a host compiler (``g++``),
 so the CPU tests can call it through ``ctypes``.
@@ -38,28 +40,29 @@ import numpy as np
 
 from .rhs_trace import Const, FieldProgram, Instr
 
-__all__ = ["MAX_MAP_FLOATS", "KURAMOTO_MAX_N", "check_width",
-           "functor_source", "kernel_source", "kuramoto_source",
+__all__ = ["MAX_MAP_FLOATS", "KURAMOTO_LANES_MAX_N", "KURAMOTO_MAX_N",
+           "maps_fit", "functor_source", "kernel_source", "kuramoto_source",
            "host_source"]
 
-# The one-thread backward keeps J and r of an interval in registers (and
-# the step's Js, Rs beside them): at dim*dim + dim*pdim <= 128 floats they
-# take at most half of a thread's 255 registers (Kuramoto-10's 120 fit).
+# The two-phase backward keeps an interval's maps J and r in a thread's
+# registers (and the step's Js, Rs beside them): at dim*dim + dim*pdim <= 128
+# floats they take at most half of a thread's 255 registers (Kuramoto-10's
+# 120 fit). A generated functor past it takes the reverse-sweep backward,
+# which forms no maps (its ``SWEEP`` member, which the header reads: the
+# route is decided here alone).
 MAX_MAP_FLOATS = 128
 # The lane-group Kuramoto kernels put one oscillator on a lane of a warp
-# and mask the group with (1 << N) - 1.
-KURAMOTO_MAX_N = 31
+# and mask the group with (1 << N) - 1; wider fields (and one oscillator)
+# take the block kernels, whose backward keeps a row's stage inputs and
+# two rows of cotangents in shared memory: (7 + 2) N floats at 7 stages fit
+# the card's 227 KB a block up to N 6,144.
+KURAMOTO_LANES_MAX_N = 31
+KURAMOTO_MAX_N = 6144
 
 
-def check_width(name: str, dim: int, pdim: int):
-    """ValueError when the one-thread backward cannot hold the maps."""
-    if dim * dim + dim * pdim > MAX_MAP_FLOATS:
-        raise ValueError(
-            f"the field {name!r} has dim {dim}, pdim {pdim}: the batched-solve "
-            f"kernel's backward holds each interval's maps J (dim x dim) and "
-            f"r (dim x pdim) in a thread's registers, dim*dim + dim*pdim <= "
-            f"{MAX_MAP_FLOATS} floats, here {dim * dim + dim * pdim}; set "
-            f"use_kernel_solver=False to solve it with the plain PyTorch path")
+def maps_fit(dim: int, pdim: int) -> bool:
+    """Whether a functor's interval maps fit the two-phase backward."""
+    return dim * dim + dim * pdim <= MAX_MAP_FLOATS
 
 
 def _lit(v: float) -> str:
@@ -79,7 +82,65 @@ _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", "lt": "<",
           "and": "&&", "or": "||"}
 _CALL = {"sin": "sinf", "cos": "cosf", "exp": "expf", "log": "logf",
          "tanh": "tanhf", "sqrt": "sqrtf", "rsqrt": "rsqrtf",
-         "abs": "fabsf", "pow": "powf"}
+         "abs": "fabsf", "pow": "powf", "erf": "erff", "expm1": "expm1f",
+         "log1p": "log1pf", "sinh": "sinhf", "cosh": "coshf",
+         "atan2": "atan2f", "gelu": "ldq_gelu", "gelut": "ldq_gelu_tanh",
+         "gelub": "ldq_gelu_bwd", "gelubt": "ldq_gelu_tanh_bwd",
+         "softplus": "ldq_softplus", "softplusb": "ldq_softplus_bwd"}
+
+
+def _f32lit(v: float) -> str:
+    return _lit(float(np.float32(v)))
+
+
+# PyTorch's CUDA kernels' constants (ActivationGeluKernel.cu), each a
+# constexpr float rounded once from its double expression.
+_SQRT1_2 = _f32lit(0.70710678118654752440)
+_GELU_TANH_BETA = _f32lit(1.41421356237309504880 * 1.12837916709551257390
+                          * 0.5)
+_GELU_KAPPA = _f32lit(0.044715)
+_GELU_3KAPPA = _f32lit(np.float32(3.0) * np.float32(0.044715))
+_GELU_PDF_BETA = _f32lit(1.12837916709551257390 * 0.70710678118654752440
+                         * 0.5)
+
+# The functions that print as a helper (defined once in a source that uses
+# them): PyTorch's CUDA formula of each, in its operation order, with fmaf
+# where nvcc contracted a multiply and add in PyTorch's build (its default
+# --fmad=true; the library is built without contraction). Which ones it
+# contracted was read off the card: tests/test_torch_cuda.py holds the
+# generated forwards that use them to the plain ones bit for bit.
+_HELPERS = {
+    "gelu": f"""LDQ_GEN_FN float ldq_gelu(float x) {{
+  return x * 0.5f * (1.0f + erff(x * {_SQRT1_2}));
+}}""",
+    "gelut": f"""LDQ_GEN_FN float ldq_gelu_tanh(float x) {{
+  const float inner = {_GELU_TANH_BETA} * fmaf({_GELU_KAPPA}, x * x * x, x);
+  return 0.5f * x * (1.0f + tanhf(inner));
+}}""",
+    "gelub": f"""LDQ_GEN_FN float ldq_gelu_bwd(float g, float x) {{
+  const float cdf = 0.5f * (1.0f + erff(x * {_SQRT1_2}));
+  const float pdf = expf(-0.5f * x * x) * {_GELU_PDF_BETA};
+  return g * (cdf + x * pdf);
+}}""",
+    "gelubt": f"""LDQ_GEN_FN float ldq_gelu_tanh_bwd(float g, float x) {{
+  const float x_sq = x * x;
+  const float inner = {_GELU_TANH_BETA} * fmaf({_GELU_KAPPA}, x_sq * x, x);
+  const float t = tanhf(inner);
+  const float left = 0.5f * x;
+  const float left_d = 0.5f * (1.0f + t);
+  const float tanh_d = fmaf(-t, t, 1.0f);
+  const float inner_d = {_GELU_TANH_BETA} * fmaf({_GELU_3KAPPA}, x_sq, 1.0f);
+  return g * (left_d + left * tanh_d * inner_d);
+}}""",
+    "softplus": """LDQ_GEN_FN float ldq_softplus(float x, float beta, float thr) {
+  return (x * beta) > thr ? x : log1pf(expf(x * beta)) / beta;
+}""",
+    "softplusb": """LDQ_GEN_FN float ldq_softplus_bwd(float g, float x, float beta,
+                                 float thr) {
+  const float z = expf(x * beta);
+  return (x * beta) > thr ? g : g * z / (z + 1.0f);
+}""",
+}
 
 
 def _expr(ins: Instr, a: List[str]) -> str:
@@ -102,6 +163,26 @@ def _expr(ins: Instr, a: List[str]) -> str:
         return f"!{a[0]}"
     if op == "where":
         return f"{a[0]} ? {a[1]} : {a[2]}"
+    if op == "sigmoid":  # one / (one + exp(-a))
+        return f"1.0f / (1.0f + expf(-{a[0]}))"
+    if op == "sigmoidb":  # a * (one - b) * b
+        return f"{a[0]} * (1.0f - {a[1]}) * {a[1]}"
+    # the selects return a NaN operand, as PyTorch's kernels do (fmaxf and
+    # fminf alone would return the other one)
+    if op in ("max2", "min2"):
+        fn = "fmaxf" if op == "max2" else "fminf"
+        return (f"{a[0]} != {a[0]} ? {a[0]} : ({a[1]} != {a[1]} ? {a[1]} : "
+                f"{fn}({a[0]}, {a[1]}))")
+    if op in ("clampmin", "clampmax"):
+        fn = "fmaxf" if op == "clampmin" else "fminf"
+        return f"{a[0]} != {a[0]} ? {a[0]} : {fn}({a[0]}, {a[1]})"
+    if op == "clamp":
+        return (f"{a[0]} != {a[0]} ? {a[0]} : fminf(fmaxf({a[0]}, {a[1]}), "
+                f"{a[2]})")
+    if op == "clamp3":
+        return (f"{a[0]} != {a[0]} ? {a[0]} : ({a[1]} != {a[1]} ? {a[1]} : "
+                f"({a[2]} != {a[2]} ? {a[2]} : fminf(fmaxf({a[0]}, {a[1]}), "
+                f"{a[2]})))")
     if op == "tofloat":
         return f"({a[0]} ? 1.0f : 0.0f)"
     if op == "tobool":
@@ -176,14 +257,19 @@ def functor_source(prog: FieldProgram, name: str = "GenRhs") -> str:
            for q, r in enumerate(prog.pbar)]
     notes = "".join(f"//   {c}\n" for c in prog.card_rounding)
     members = "".join(f" {pr.ctype(f)} v{f};" for f in fields)
+    used = {i.op for i in prog.instrs}
+    helpers = "".join(text + "\n" for op, text in _HELPERS.items()
+                      if op in used)
+    sweep = "false" if maps_fit(prog.dim, prog.pdim) else "true"
     return f"""// The field {prog.name!r} (dim {prog.dim}, pdim {prog.pdim}, {prog.ncst} run-time
 // constants), lowered by latentdiffeq_torch/ops/rhs_trace.py: {len(prog.instrs)} scalar
 // operations, {len(fields)} of them kept a row.
-{notes}struct {name} {{
+{notes}{helpers}struct {name} {{
   static constexpr int DIM = {prog.dim};
   static constexpr int PDIM = {prog.pdim};
   static constexpr int NTRIG = 0;
   static constexpr bool FAST_TRIG = false;
+  static constexpr bool SWEEP = {sweep};
   struct Row {{{members} }};
   LDQ_GEN_FN static Row row(const float* p, const float* cst) {{
     Row r;
@@ -229,10 +315,13 @@ LDQ_RK_ENTRY_POINTS(GenRhs, {"true" if prog.ncst else "false"})
 
 
 def kuramoto_source(n: int) -> str:
-    """The one-line source of the lane-group Kuramoto kernels at N
-    oscillators (the offsets their run-time constants)."""
+    """The one-line source of the Kuramoto kernels at N oscillators (the
+    offsets their run-time constants): the lane groups up to
+    ``KURAMOTO_LANES_MAX_N``, a block a trajectory past it (and at 1)."""
+    tag = "KuramotoLanes" if 2 <= n <= KURAMOTO_LANES_MAX_N \
+        else "KuramotoBlock"
     return (f'#include "rk_fixed_grid.cuh"\n'
-            f"LDQ_RK_ENTRY_POINTS(KuramotoLanes<{n}>, true)\n")
+            f"LDQ_RK_ENTRY_POINTS({tag}<{n}>, true)\n")
 
 
 def host_source(prog: FieldProgram) -> str:

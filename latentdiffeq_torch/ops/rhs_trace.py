@@ -8,17 +8,18 @@ its gradient from ``jax.vjp`` of the plain solve of the same ``f``
 (:156-170). The port does the same in two steps: this module traces ``f``
 on one row with ``make_fx`` (``u`` (dim,), ``p`` (pdim,), ``t`` a 0-d
 tensor) and ``torch.func.vjp(f, u, p)`` applied to a cotangent ``kb`` into
-two aten graphs, and lowers both into one straight-line program of float32
-scalar operations; ``rhs_codegen`` prints that program as a device functor
-for csrc/rk_fixed_grid.cuh.
+two aten graphs (functionalized: an in-place op is its functional form,
+a write through a view a scatter into its base), and lowers both into one
+straight-line program of float32 scalar operations; ``rhs_codegen`` prints
+that program as a device functor for csrc/rk_fixed_grid.cuh.
 
 Lowering. Every tensor of a graph is a small array of scalar references
 (numpy object arrays): an elementwise aten op becomes one scalar operation
 per element, in graph order; views (select, slice, unsqueeze, expand,
 view, permute, ...) only rearrange references; ``stack`` and ``cat`` join
-them; ``sum`` over a static axis adds in index order (torch's CPU sum does
-too up to 4 terms; longer sums take several accumulators on either device,
-so they agree to rounding). Identical operations on identical operands are
+them; ``sum`` over a static axis adds in index order (longer than two
+terms, torch's sums take other orders on either device, so they agree to
+rounding). Identical operations on identical operands are
 one value (the VJP graph recomputes the forward), and a value that depends
 on ``p`` and the field's run-time constants alone is a per-row value: the
 kernel computes it once a row (the functor's ``Row``), with the same
@@ -31,7 +32,20 @@ program keeps the division (op ``divs``), records it in
 ``FieldProgram.card_rounding``, and the functor multiplies by the
 reciprocal. ``pow`` by a scalar takes PyTorch's special cases (0.5 sqrt,
 -0.5 rsqrt, -1 reciprocal, 2 and 3 products, -2 the reciprocal of the
-square, 0 and 1 constants), the rest ``powf``.
+square, 0 and 1 constants), the rest ``powf``. The functions
+(``sigmoid``, ``softplus``, ``erf``, ``gelu``, ``expm1``, ``log1p``,
+``sinh``, ``cosh``, ``atan2``) and their backward ops are one scalar
+operation each, which ``rhs_codegen`` prints as the formula of PyTorch's
+CUDA kernel; the selects keep PyTorch's NaN rule (``relu``, ``clamp``,
+``maximum`` and ``minimum`` return a NaN operand) and the gradients'
+own tie rules (``maximum``'s and ``amax``'s are in their VJP graphs as
+``where`` and ``masked_fill``). ``roll`` and ``flip`` only rearrange
+references; ``mean`` is a sum divided by the count (on the card: times its
+float32 reciprocal), ``prod``, ``cumsum``, ``cumprod``, the 2-norm and the
+matrix products (``dot``, ``mv``, ``mm``, ``bmm``, ``addmv``, ``addmm``)
+are sums and products in index order. A reduction or scan of more than
+``EXACT_TERMS`` terms, and any matrix product, agrees with either device's
+plain version to rounding only (``FieldProgram.inexact`` names each).
 
 Refusals, each a ``ValueError`` naming the graph node, raised while
 tracing, before any device is looked at (the caller never solves with the
@@ -44,8 +58,10 @@ plain path instead):
 
 ``interpret`` runs a program op by op in float32 on the CPU, each scalar
 operation as the torch op it came from over all rows at once: on the same
-rows it equals ``f`` and ``torch.func.vjp`` bit for bit (the tests hold it
-so).
+rows it equals ``f`` and ``torch.func.vjp`` bit for bit where the program
+has no ``inexact`` reduction and the CPU's vectorised and scalar loops of
+its functions agree (the tests hold it so, and the rest to a few units in
+the last place).
 """
 from __future__ import annotations
 
@@ -72,18 +88,43 @@ LOWERABLE = frozenset({
     "add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sin", "cos",
     "exp", "log", "tanh", "sqrt", "rsqrt", "abs", "sgn", "sign", "pow",
     "tanh_backward",
-    # where and comparisons
+    # functions and their backward ops
+    "sigmoid", "sigmoid_backward", "softplus", "softplus_backward", "erf",
+    "gelu", "gelu_backward", "expm1", "log1p", "sinh", "cosh", "atan2",
+    # selects: where, comparisons, clamps and extrema
     "where", "gt", "lt", "ge", "le", "eq", "ne", "logical_not",
     "logical_and", "logical_or", "bitwise_not", "bitwise_and", "bitwise_or",
+    "masked_fill", "relu", "threshold_backward", "clamp", "clamp_min",
+    "clamp_max", "maximum", "minimum",
     # views and indexing
     "select", "slice", "unsqueeze", "squeeze", "expand", "view",
     "_unsafe_view", "reshape", "permute", "transpose", "t", "clone", "alias",
     "detach", "_to_copy", "unbind", "split", "split_with_sizes",
     "select_backward", "slice_backward", "select_scatter", "slice_scatter",
-    # joins, reductions, constants
-    "stack", "cat", "sum", "scalar_tensor", "full", "full_like", "zeros",
+    "as_strided", "as_strided_scatter", "copy", "new_empty_strided",
+    "roll", "flip",
+    # joins, reductions, products, constants
+    "stack", "cat", "sum", "mean", "prod", "cumsum", "cumprod", "amax",
+    "amin", "linalg_vector_norm", "dot", "mv", "mm", "bmm", "addmv", "addmm",
+    "scalar_tensor", "full", "full_like", "zeros",
     "zeros_like", "ones", "ones_like", "new_zeros", "new_ones", "new_full",
 })
+
+# The graphs are traced functionalized: an in-place op (the field's own,
+# ``x[1:].add_(y)`` included, or ``masked_fill_``, ``logical_and_``,
+# ``squeeze_``, ... of the VJP graphs) is its functional form there, and a
+# write through a view is a ``slice_scatter`` / ``select_scatter`` /
+# ``as_strided_scatter`` into its base, so every later read of the base or
+# of a view taken before the write sees the written value.
+
+# Reductions longer than this run in index order here and in other orders
+# on the plain versions (the card's reduction kernel splits a row over its
+# threads and joins them by a shuffle tree, its order set by the launch's
+# shape: sums of 3 and 4 terms came out of index order on the H100; the
+# CPU takes several partial sums past 4; matrix products at any length:
+# BLAS and cuBLAS fix no order), so the two agree to rounding, not bit for
+# bit (``FieldProgram.inexact``). Two terms are one commutative operation.
+EXACT_TERMS = 2
 
 
 def field_name(f: Callable) -> str:
@@ -121,7 +162,9 @@ class FieldProgram:
     J_f^T kb and ``pbar`` (pdim,) = (df/dp)^T kb. ``per_row`` holds the ids
     that depend on ``p`` and the constants alone. ``card_rounding`` lists
     the divisions by a number that the card computes as products with the
-    reciprocal. ``uses_t``: whether an output depends on ``t``."""
+    reciprocal. ``uses_t``: whether an output depends on ``t``.
+    ``inexact`` names the reductions, scans and matrix products whose plain
+    versions take another order of the same sums (``EXACT_TERMS``)."""
     name: str
     dim: int
     pdim: int
@@ -139,6 +182,7 @@ class FieldProgram:
     pbar: list
     card_rounding: List[str]
     uses_t: bool
+    inexact: List[str] = dataclasses.field(default_factory=list)
 
     def needed(self, outputs: Sequence) -> List[Instr]:
         """The instructions ``outputs`` reach, in id order."""
@@ -179,6 +223,11 @@ class _ScalarSSA:
         self.cse: Dict[tuple, int] = {}
         self.n = 0
         self.card_rounding: List[str] = []
+        self.inexact: List[str] = []
+
+    def note_inexact(self, note: str):
+        if note not in self.inexact:
+            self.inexact.append(note)
 
     def new_input(self, dep: str) -> int:
         i = self.n
@@ -317,20 +366,21 @@ class _Lowering:
             if "rounding_mode" in kwargs or ov == "Tensor_mode":
                 _refuse(self.fname, nm, "aten.div with a rounding mode")
             if not isinstance(args[1], np.ndarray):
-                c = _f32(args[1])
-                note = (f"{nm}: x / {args[1]!r} runs as x * "
-                        f"{_f32(np.float32(1) / np.float32(c))!r} (the card's "
-                        f"product by the reciprocal)")
-                if note not in b.card_rounding:
-                    b.card_rounding.append(note)
-                return ew("divs", args[0], c)
+                x = self.operand(args[0])
+                return _map(x.shape, lambda i: self.divs(x[i], args[1], nm))
             return ew("div", args[0], args[1])
         unary = {"neg": "neg", "reciprocal": "recip", "sin": "sin",
                  "cos": "cos", "exp": "exp", "log": "log", "tanh": "tanh",
                  "sqrt": "sqrt", "rsqrt": "rsqrt", "abs": "abs",
-                 "sgn": "sgn", "sign": "sgn"}
+                 "sgn": "sgn", "sign": "sgn", "sigmoid": "sigmoid",
+                 "erf": "erf", "expm1": "expm1", "log1p": "log1p",
+                 "sinh": "sinh", "cosh": "cosh"}
         if name in unary:
             return ew(unary[name], args[0])
+        binary = {"atan2": "atan2", "sigmoid_backward": "sigmoidb",
+                  "maximum": "max2", "minimum": "min2"}
+        if name in binary:
+            return ew(binary[name], args[0], args[1])
         if name == "pow":
             if ov != "Tensor_Scalar":
                 _refuse(self.fname, nm, f"aten.pow.{ov} (only a tensor to a "
@@ -352,12 +402,79 @@ class _Lowering:
             op = "and" if name.endswith("and") else "or"
             return self.elementwise(op, (args[0], args[1]), nm, "b")
         if name == "where":
-            arrs = np.broadcast_arrays(*[self.operand(a) for a in args[:3]])
-            return _map(arrs[0].shape, lambda i: b.emit(
-                "where", (b.as_bool(arrs[0][i], nm),
-                          b.as_float(arrs[1][i], nm),
-                          b.as_float(arrs[2][i], nm)), nm))
+            return self.where(args[0], args[1], args[2], nm)
+        if name in ("softplus", "softplus_backward"):
+            lead = 1 if name == "softplus" else 2
+            beta = args[lead] if len(args) > lead else kwargs.get("beta", 1)
+            thr = (args[lead + 1] if len(args) > lead + 1
+                   else kwargs.get("threshold", 20))
+            x = [self.operand(a) for a in args[:lead]]
+            if isinstance(beta, np.ndarray) or isinstance(thr, np.ndarray):
+                _refuse(self.fname, nm, f"aten.{name} with a tensor beta or "
+                        f"threshold")
+            return self.with_numbers("softplus" if lead == 1 else "softplusb",
+                                     x, (_f32(beta), _f32(thr)), nm)
+        if name in ("gelu", "gelu_backward"):
+            approx = kwargs.get("approximate", args[-1] if isinstance(
+                args[-1], str) else "none")
+            if approx not in ("none", "tanh"):
+                _refuse(self.fname, nm, f"aten.{name} approximate={approx!r}")
+            op = {"gelu": "gelu", "gelu_backward": "gelub"}[name]
+            op += "t" if approx == "tanh" else ""
+            return ew(op, *(args[:1] if name == "gelu" else args[:2]))
+        if name == "relu":
+            return self.with_numbers("clampmin", [self.operand(args[0])],
+                                     (0.0,), nm)
+        if name == "threshold_backward":
+            # PyTorch's threshold: self <= threshold ? 0 : grad (a NaN self
+            # passes the gradient)
+            le = self.elementwise("le", (args[1], args[2]), nm)
+            return self.where(le, 0.0, args[0], nm)
+        if name == "masked_fill":
+            return self.where(args[1], args[2], args[0], nm)
+        if name in ("clamp", "clamp_min", "clamp_max"):
+            return self.clamp(name, args, kwargs, nm)
         return self.lower_structural(name, ov, args, kwargs, node)
+
+    def where(self, cond, a, b_, nm):
+        b = self.b
+        arrs = np.broadcast_arrays(*[self.operand(x) for x in (cond, a, b_)])
+        return _map(arrs[0].shape, lambda i: b.emit(
+            "where", (b.as_bool(arrs[0][i], nm), b.as_float(arrs[1][i], nm),
+                      b.as_float(arrs[2][i], nm)), nm))
+
+    def with_numbers(self, op, tensors, numbers, nm):
+        """One scalar ``op`` per element of the broadcast ``tensors``, with
+        Python numbers (a float32 value each) as its last arguments."""
+        b = self.b
+        arrs = np.broadcast_arrays(*tensors)
+        return _map(arrs[0].shape, lambda i: b.emit(
+            op, tuple(b.as_float(a[i], nm) for a in arrs) + tuple(numbers),
+            nm))
+
+    def clamp(self, name, args, kwargs, nm):
+        """PyTorch's clamps: scalar bounds as one op that returns a NaN x
+        (its CUDA kernel's ``isnan(v) ? v : min(max(v, lo), hi)``); tensor
+        bounds as ``maximum`` / ``minimum``, or the three-tensor clamp, as
+        PyTorch routes them."""
+        x = args[0]
+        if name == "clamp":
+            lo = args[1] if len(args) > 1 else kwargs.get("min")
+            hi = args[2] if len(args) > 2 else kwargs.get("max")
+        elif name == "clamp_min":
+            lo, hi = args[1], None
+        else:
+            lo, hi = None, args[1]
+        tensor = isinstance(lo, np.ndarray) or isinstance(hi, np.ndarray)
+        ew = lambda op, *xs: self.elementwise(op, xs, nm)  # noqa: E731
+        if not tensor:
+            bounds = tuple(_f32(v) for v in (lo, hi) if v is not None)
+            op = ("clamp" if lo is not None and hi is not None
+                  else "clampmin" if lo is not None else "clampmax")
+            return self.with_numbers(op, [self.operand(x)], bounds, nm)
+        if lo is not None and hi is not None:
+            return ew("clamp3", x, lo, hi)
+        return ew("max2", x, lo) if lo is not None else ew("min2", x, hi)
 
     def kind_of(self, a) -> str:
         a = self.operand(a)
@@ -482,6 +599,16 @@ class _Lowering:
             end = args[4] if len(args) > 4 else None
             step = args[5] if len(args) > 5 else 1
             return self.scatter(x, src, d, start, end, step)
+        if name in ("as_strided", "as_strided_scatter"):
+            return self.strided(name, args, kwargs, node)
+        if name == "copy":
+            # (the functionalized form of ``x.copy_(src)``)
+            conv = self.b.as_bool if kind == "b" else self.b.as_float
+            src = np.broadcast_to(self.operand(args[1]), shape)
+            return _map(shape, lambda i: conv(src[i], nm))
+        if name == "new_empty_strided":
+            # uninitialized: the functionalized graph copies into it first
+            return _const_array(tuple(args[1]), 0.0)
         if name == "stack":
             xs, d = args[0], args[1] if len(args) > 1 else 0
             return np.stack(xs, axis=_dim(d, xs[0].ndim + 1))
@@ -489,8 +616,24 @@ class _Lowering:
             xs = [x for x in args[0] if not (x.ndim == 1 and x.shape[0] == 0)]
             d = args[1] if len(args) > 1 else 0
             return np.concatenate(xs, axis=_dim(d, xs[0].ndim))
-        if name == "sum":
-            return self.sum(args, kwargs, nm)
+        if name in ("sum", "mean", "prod", "amax", "amin",
+                    "linalg_vector_norm"):
+            return self.reduce(name, ov, args, kwargs, nm)
+        if name in ("cumsum", "cumprod"):
+            return self.scan(name, args, kwargs, nm)
+        if name == "roll":
+            x, shifts = args[0], args[1]
+            dims = args[2] if len(args) > 2 else kwargs.get("dims", [])
+            if not dims:  # over the flattened tensor
+                return np.reshape(np.roll(np.reshape(x, -1), shifts),
+                                  x.shape)
+            return np.roll(x, tuple(shifts), tuple(_dim(d, x.ndim)
+                                                   for d in dims))
+        if name == "flip":
+            x = args[0]
+            return np.flip(x, tuple(_dim(d, x.ndim) for d in args[1]))
+        if name in ("dot", "mv", "mm", "bmm", "addmv", "addmm"):
+            return self.matmul(name, args, kwargs, nm)
         if name in ("scalar_tensor", "full", "full_like", "zeros",
                     "zeros_like", "ones", "ones_like", "new_zeros",
                     "new_ones", "new_full"):
@@ -502,6 +645,35 @@ class _Lowering:
                          1.0 if "ones" in name else 0.0))()
             return _const_array(shape, value, kind)
         _refuse(self.fname, nm, f"aten.{name}.{ov} is not lowerable")
+
+    def strided(self, name, args, kwargs, node):
+        """as_strided (a view of the base's memory) and as_strided_scatter
+        (src written into it), over a base laid out contiguously from its
+        first element, as the functionalized writes through a view leave
+        it; else refused."""
+        nm = node.name
+        x = args[0]
+        rest = list(args[1 if name == "as_strided" else 2:])
+        size, stride = tuple(rest[0]), tuple(rest[1])
+        offset = rest[2] if len(rest) > 2 else kwargs.get("storage_offset")
+        offset = offset or 0
+        base = node.args[0].meta.get("val")
+        if not (isinstance(base, torch.Tensor) and base.is_contiguous()
+                and base.storage_offset() == 0):
+            _refuse(self.fname, nm, f"aten.{name} over a base that is not "
+                    f"contiguous from its first element")
+        flat = np.reshape(x, -1)
+        at = _map(size, lambda i: offset + sum(
+            k * st for k, st in zip(i, stride)))
+        if any(j >= flat.shape[0] for j in at.flat):
+            _refuse(self.fname, nm, f"aten.{name} past its base")
+        if name == "as_strided":
+            return _map(size, lambda i: flat[at[i]])
+        out = np.array(flat, dtype=object, copy=True)
+        src = np.broadcast_to(self.operand(args[1]), size)
+        for i in np.ndindex(*size):
+            out[at[i]] = src[i]
+        return np.reshape(out, x.shape)
 
     def scatter(self, base, src, d, start, end, step):
         out = np.array(base, dtype=object, copy=True)
@@ -518,12 +690,33 @@ class _Lowering:
             view[idx] = src[idx]
         return out
 
-    def sum(self, args, kwargs, nm):
+    def chain(self, op, terms, nm):
+        """``op`` over ``terms`` in index order (a sum, product, maximum or
+        minimum)."""
+        acc = terms[0]
+        for v in terms[1:]:
+            acc = self.b.emit(op, (acc, v), nm)
+        return acc
+
+    def reduce(self, name, ov, args, kwargs, nm):
+        """sum, mean (the sum divided by the count), prod, amax, amin and
+        the 2-norm (the root of the sum of squares) over static axes, each
+        in index order."""
         x = args[0]
         if kwargs.get("dtype") not in (None, torch.float32):
-            _refuse(self.fname, nm, "a sum in another dtype")
-        dims = args[1] if len(args) > 1 else kwargs.get("dim")
-        keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+            _refuse(self.fname, nm, f"a {name} in another dtype")
+        if name == "linalg_vector_norm":
+            order = args[1] if len(args) > 1 else kwargs.get("ord", 2)
+            if order != 2:
+                _refuse(self.fname, nm, f"aten.linalg_vector_norm of ord "
+                        f"{order} (only the 2-norm is lowered)")
+            dims = args[2] if len(args) > 2 else kwargs.get("dim")
+            keep = args[3] if len(args) > 3 else kwargs.get("keepdim", False)
+        elif name == "prod" and ov == "default":
+            dims, keep = None, False
+        else:
+            dims = args[1] if len(args) > 1 else kwargs.get("dim")
+            keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
         if dims is None or (isinstance(dims, (list, tuple)) and not dims):
             dims = list(range(x.ndim))
         dims = sorted({_dim(d, x.ndim) for d in (
@@ -533,19 +726,100 @@ class _Lowering:
         red = int(np.prod([x.shape[d] for d in dims]))
         xt = np.reshape(xt, tuple(x.shape[i] for i in rest) + (red,))
         b = self.b
+        if (red > EXACT_TERMS and name in ("sum", "mean", "prod")) or (
+                name == "linalg_vector_norm" and red > 1):
+            # (the 2-norm's plain versions fuse or widen its squares' sum)
+            b.note_inexact(f"{nm}: aten.{name} of {red} terms")
+        op = {"sum": "add", "mean": "add", "prod": "mul", "amax": "max2",
+              "amin": "min2", "linalg_vector_norm": "add"}[name]
 
         def one(idx):
             terms = [b.as_float(v, nm) for v in xt[idx]]
             if not terms:
-                return Const(0.0)
-            acc = terms[0]
-            for v in terms[1:]:
-                acc = b.emit("add", (acc, v), nm)
+                if name in ("amax", "amin"):
+                    _refuse(self.fname, nm, f"aten.{name} of no terms")
+                return Const(1.0 if name == "prod" else 0.0)
+            if name == "linalg_vector_norm":
+                terms = [b.emit("mul", (v, v), nm) for v in terms]
+            acc = self.chain(op, terms, nm)
+            if name == "mean":
+                return self.divs(acc, red, nm)
+            if name == "linalg_vector_norm":
+                return b.emit("sqrt", (acc,), nm)
             return acc
         out = _map(xt.shape[:-1], one)
         if keep:
             for d in dims:
                 out = np.expand_dims(out, d)
+        return out
+
+    def divs(self, x, c, nm):
+        """x / c for a Python number c, as aten.div by a scalar lowers it:
+        the division on the CPU, the product with its float32 reciprocal
+        on the card (recorded in ``card_rounding``)."""
+        b = self.b
+        note = (f"{nm}: x / {c!r} runs as x * "
+                f"{_f32(np.float32(1) / np.float32(_f32(c)))!r} (the card's "
+                f"product by the reciprocal)")
+        c = _f32(c)
+        if note not in b.card_rounding:
+            b.card_rounding.append(note)
+        return b.emit("divs", (b.as_float(x, nm), Const(c)), nm)
+
+    def scan(self, name, args, kwargs, nm):
+        x = args[0]
+        d = _dim(args[1] if len(args) > 1 else kwargs["dim"], x.ndim)
+        if kwargs.get("dtype") not in (None, torch.float32):
+            _refuse(self.fname, nm, f"a {name} in another dtype")
+        if x.shape[d] > 2:  # the CPU's scan accumulates in double
+            self.b.note_inexact(f"{nm}: aten.{name} of {x.shape[d]} terms")
+        op = "add" if name == "cumsum" else "mul"
+        b = self.b
+        out = np.empty(x.shape, dtype=object)
+        for idx in np.ndindex(*(x.shape[:d] + x.shape[d + 1:])):
+            acc = None
+            for k in range(x.shape[d]):
+                at = idx[:d] + (k,) + idx[d:]
+                v = b.as_float(x[at], nm)
+                acc = v if acc is None else b.emit(op, (acc, v), nm)
+                out[at] = acc
+        return out
+
+    def matmul(self, name, args, kwargs, nm):
+        """dot, mv, mm, bmm and the addmv / addmm with beta and alpha 1 as
+        sums of products in index order, the bias added last."""
+        if kwargs.get("beta", 1) != 1 or kwargs.get("alpha", 1) != 1:
+            _refuse(self.fname, nm, f"aten.{name} with beta or alpha != 1")
+        bias = None
+        if name in ("addmv", "addmm"):
+            bias, args = args[0], args[1:]
+        a, c = args[0], args[1]
+        if name in ("dot", "mv", "addmv"):  # a vector operand as a column
+            c = c[:, None]
+            a = a[None, :] if name == "dot" else a
+        if name != "bmm":
+            a, c = a[None], c[None]
+        b = self.b
+        K = a.shape[-1]
+        self.b.note_inexact(f"{nm}: aten.{name}, {K} terms a sum (BLAS and "
+                            f"cuBLAS fix no order)")
+
+        def one(idx):
+            i, r, k = idx
+            terms = [b.emit("mul", (b.as_float(a[i, r, m], nm),
+                                    b.as_float(c[i, m, k], nm)), nm)
+                     for m in range(K)]
+            return self.chain("add", terms, nm) if terms else Const(0.0)
+        out = _map((a.shape[0], a.shape[1], c.shape[2]), one)
+        if name != "bmm":
+            out = out[0]
+        if name == "dot":
+            out = out[0, 0]
+            out = _arr(out)
+        elif name in ("mv", "addmv"):
+            out = out[:, 0]
+        if bias is not None:
+            out = self.elementwise("add", (bias, out), nm)
         return out
 
     def run(self, gm, inputs: Sequence[np.ndarray]):
@@ -581,7 +855,11 @@ class _Lowering:
                 val = node.meta.get("val")
                 for v in tree_leaves(val):
                     if isinstance(v, torch.Tensor) and v.dtype not in (
-                            torch.float32, torch.bool):
+                            torch.float32, torch.bool) and not (
+                            name == "sum" and v.dtype == torch.int64
+                            and self.kind_of(env[node.args[0]]) == "b"):
+                        # (a count of bools, as amax's VJP divides by, is
+                        # exact in float32)
                         _refuse(self.fname, node.name,
                                 f"a {v.dtype} value (the kernel computes "
                                 f"in float32)")
@@ -640,13 +918,14 @@ class _Recorder(TorchDispatchMode):
 
 
 def _trace(fn, fname, example):
-    """make_fx of ``fn`` on ``example``; ValueError naming the node whose
-    value the field reads as a Python value (data-dependent control
-    flow)."""
+    """make_fx of ``fn``, functionalized, on ``example``; ValueError naming
+    the node whose value the field reads as a Python value (data-dependent
+    control flow)."""
     from torch._functorch.pyfunctorch import temporarily_clear_interpreter_stack
     with temporarily_clear_interpreter_stack():
         try:
-            return make_fx(fn)(*example)
+            return make_fx(torch.func.functionalize(
+                fn, remove="mutations"))(*example)
         except RuntimeError as e:
             if "_local_scalar_dense" not in str(e) and \
                     "data-dependent" not in str(e):
@@ -727,7 +1006,8 @@ def trace_field(f: Callable, dim: int, pdim: int) -> FieldProgram:
         name=fname, dim=dim, pdim=pdim, ncst=ncst, u_ids=u_ids, p_ids=p_ids,
         t_id=t_id, kb_ids=kb_ids, cst_ids=cst_ids, instrs=b.instrs,
         kinds=b.kinds, per_row=per_row, dy=outs[0], ubar=outs[1],
-        pbar=outs[2], card_rounding=b.card_rounding, uses_t=False)
+        pbar=outs[2], card_rounding=b.card_rounding, uses_t=False,
+        inexact=b.inexact)
     prog.uses_t = any("t" in b.deps[r] for o in outs for r in o
                       if isinstance(r, int))
     return prog
@@ -747,6 +1027,17 @@ _TORCH_OPS = {
     "or": torch.logical_or, "where": torch.where,
     "tofloat": lambda a: a.to(torch.float32), "tobool": lambda a: a != 0,
     "tanhb": aten.tanh_backward,
+    "sigmoid": torch.sigmoid, "sigmoidb": aten.sigmoid_backward,
+    "softplus": aten.softplus, "softplusb": aten.softplus_backward,
+    "erf": torch.erf, "gelu": aten.gelu,
+    "gelut": lambda x: aten.gelu(x, approximate="tanh"),
+    "gelub": aten.gelu_backward,
+    "gelubt": lambda g, x: aten.gelu_backward(g, x, approximate="tanh"),
+    "expm1": torch.expm1, "log1p": torch.log1p, "sinh": torch.sinh,
+    "cosh": torch.cosh, "atan2": torch.atan2,
+    "clampmin": torch.clamp_min, "clampmax": torch.clamp_max,
+    "clamp": torch.clamp, "clamp3": torch.clamp, "max2": torch.maximum,
+    "min2": torch.minimum,
 }
 
 
@@ -788,8 +1079,10 @@ def interpret(prog: FieldProgram, u, p, t, kb=None, cst=None):
                         else _TORCH_OPS[ins.op](*args))
 
     def col(refs):
-        return torch.stack([env[r] if isinstance(r, int) else torch.full(
-            (R,), r.value, dtype=torch.float32) for r in refs], dim=-1)
+        return torch.stack([env[r].expand(R) if isinstance(r, int)
+                            else torch.full((R,), r.value,
+                                            dtype=torch.float32)
+                            for r in refs], dim=-1)
     if kb is None:
         return col(prog.dy)
     return col(prog.ubar), col(prog.pbar)

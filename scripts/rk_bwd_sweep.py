@@ -21,6 +21,23 @@ whether the kernel or float32 itself is off.
 
 Writes chiprun_out/rk_bwd_sweep.json and prints one line per seed above
 half the gate, a summary line, then the card's name and power limit.
+
+    python3 scripts/rk_bwd_sweep.py --case kuramotoN [--seeds N] [--T 300]
+        [--seed-list 8,20,28]
+
+The long-grid Kuramoto case of tests/test_torch_cuda.py's
+test_rk_custom_rhs_bwd_kernel_matches_plain_on_card (B 16, T 300, RK4, 4
+sub-steps, dt 0.1, phases ~ U(-pi, pi), omega ~ U(1, 3), K ~ U(0.2, 2),
+cotangent ~ N(0, 1)), inputs from a generator seeded 0..N-1 (or the seeds
+of --seed-list): per seed the
+distance (max |difference| over the referee's max |value|) of the
+kernel's gradients from the float64 plain reverse sweep over the same
+trajectory, beside that of the kernel's own algorithm in plain float32
+(the two-phase plain version for the lane groups, N <= 31; the plain
+reverse sweep for the block kernels, N >= 32), and their ratio, which the
+card test gates at 2, and each distance for du0 and dp apart. Writes
+chiprun_out/rk_bwd_sweep_kuramotoN.json (_seeds.json with --seed-list) and
+prints a line a seed and a summary line.
 """
 from __future__ import annotations
 
@@ -103,13 +120,86 @@ def one_seed(seed):
     return rec
 
 
+def kuramoto_seed(n, seed, T):
+    """One seed of the long-grid Kuramoto case (module docstring)."""
+    from latentdiffeq_torch import custom_dynamics as cdyn
+    from latentdiffeq_torch.solve.rk import RK4
+    f, solver, sub, B = cdyn.kuramoto_f(n), RK4(), 4, 16
+    g = torch.Generator().manual_seed(seed)
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).cuda()
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).cuda()
+    saveat = torch.arange(T, dtype=torch.float32).cuda() * 0.1
+    w = torch.randn(B, T, n, generator=g).cuda()
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, solver, u0s, ps, saveat, substeps=sub)
+    got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, solver, saveat, ys, ps, w, substeps=sub)
+    route = ode_cuda.rhs_kernel(f, n).backward
+    if route == "lanes":
+        J, r = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
+            f, solver, saveat, ys, ps, substeps=sub)
+        own = ode_cuda.solve_fixed_grid_batched_affine_sweep_reference(J, r,
+                                                                       w)
+    else:
+        own = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, solver, saveat, ys, ps, w, substeps=sub)
+    ref = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        f, solver, saveat.double(), ys.double(), ps.double(), w.double(),
+        substeps=sub)
+    e_k = [rel(a, b) for a, b in zip(got, ref)]
+    e_o = [rel(a, b) for a, b in zip(own, ref)]
+    return {"seed": seed, "route": route, "kernel_vs_float64": max(e_k),
+            "own_plain_vs_float64": max(e_o), "ratio": max(e_k) / max(e_o),
+            "kernel_vs_own_plain": max(rel(a, b) for a, b in zip(got, own)),
+            "du0": {"kernel": e_k[0], "own_plain": e_o[0]},
+            "dp": {"kernel": e_k[1], "own_plain": e_o[1]}}
+
+
+def kuramoto_main(args):
+    n = int(args.case[len("kuramoto"):])
+    recs = []
+    seeds = ([int(x) for x in args.seed_list.split(",")] if args.seed_list
+             else range(args.seeds))
+    for seed in seeds:
+        rec = kuramoto_seed(n, seed, args.T)
+        recs.append(rec)
+        print(json.dumps(rec), flush=True)
+    ratios = sorted(r["ratio"] for r in recs)
+    print(json.dumps({
+        "case": f"{args.case} ({recs[0]['route']} backward) B 16 T {args.T} "
+                f"RK4 substeps 4", "seeds": list(seeds),
+        "ratio_median": ratios[len(ratios) // 2], "ratio_max": ratios[-1],
+        "ratio_min": ratios[0],
+        "seeds_over_2": [r["seed"] for r in recs if r["ratio"] > 2],
+        "seeds_kernel_closer": sum(r["ratio"] < 1 for r in recs)}),
+        flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"rk_bwd_sweep_{args.case}"
+                           f"{'_seeds' if args.seed_list else ''}.json"),
+              "w") as fh:
+        json.dump(recs, fh, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=64)
+    ap.add_argument("--case", default="vdp")
+    ap.add_argument("--T", type=int, default=300)
+    ap.add_argument("--seed-list", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("rk_bwd_sweep: needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.case.startswith("kuramoto"):
+        kuramoto_main(args)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+        return
     recs = [one_seed(s) for s in range(args.seeds)]
     torch.cuda.synchronize()
     for rec in recs:

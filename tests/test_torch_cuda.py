@@ -46,6 +46,8 @@ from latentdiffeq_torch.pendulum import (Pendulum, pendulum_f,
                                          pendulum_friction_f)
 from latentdiffeq_torch.solve import rk as trk
 
+import rhs_zoo  # tests/rhs_zoo.py: user fields for the generated functors
+
 ATOL = 1e-5
 SOLVERS = ["Euler", "Midpoint", "RK4", "Tsit5", "Dopri5"]
 
@@ -791,8 +793,8 @@ def test_rk_kuramoto_width_not_compiled_raises_on_card(dev):
     on the lane-group kernels built for it at first use: one launch each
     way, counted as ``kuramoto7``, the forward equal to the plain version
     bit for bit (as at 4 and 10), the gradients within 1e-5 of their size
-    of the plain reverse sweep; a width past the lane groups' limit raises
-    ValueError naming it, and nothing launches."""
+    of the plain reverse sweep; a width past the lane groups' 31 runs on the
+    block kernels built for it (``kuramoto32``) with the same checks."""
     f = cdyn.kuramoto_f(7)
     g = torch.Generator().manual_seed(33)
     u0s = ((torch.rand(9, 7, generator=g) * 2 - 1) * torch.pi).to(dev)
@@ -816,12 +818,25 @@ def test_rk_kuramoto_width_not_compiled_raises_on_card(dev):
     sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
         f, trk.Tsit5(), saveat, ys.detach(), ps, w, substeps=4)
     assert rel_err(du0, sweep[0]) <= ATOL and rel_err(dp, sweep[1]) <= ATOL
-    n = launches(ode_cuda.solve_fixed_grid_batched_cuda)
-    with pytest.raises(ValueError, match="2 to 31 oscillators"):
-        ode_cuda.solve_fixed_grid_batched(
-            cdyn.kuramoto_f(32), trk.Tsit5(), torch.zeros(3, 32, device=dev),
-            torch.ones(3, 2, device=dev), saveat)
-    assert launches(ode_cuda.solve_fixed_grid_batched_cuda) == n
+    wide = cdyn.kuramoto_f(32)
+    u0w = ((torch.rand(3, 32, generator=g) * 2 - 1) * torch.pi).to(dev)
+    pw = ps[:3].clone().requires_grad_()
+    uw = u0w.clone().requires_grad_()
+    before = (fwd.get("kuramoto32", 0), bwd.get("kuramoto32", 0))
+    ysw = ode_cuda.solve_fixed_grid_batched(wide, trk.Tsit5(), uw, pw, saveat,
+                                            substeps=4)[0]
+    wb = torch.randn(3, 21, 32, generator=g).to(dev)
+    du0w, dpw = torch.autograd.grad(ysw, [uw, pw], wb)
+    assert (fwd["kuramoto32"] - before[0], bwd["kuramoto32"] - before[1]) \
+        == (1, 1)
+    assert ode_cuda.rhs_kernel(wide, 32).backward == "block"
+    with torch.no_grad():
+        refw = ode_cuda.solve_fixed_grid_batched_reference(
+            wide, trk.Tsit5(), u0w, ps[:3], saveat, substeps=4)[0]
+    assert torch.equal(ysw.detach().view(torch.int32), refw.view(torch.int32))
+    sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        wide, trk.Tsit5(), saveat, ysw.detach(), ps[:3], wb, substeps=4)
+    assert rel_err(du0w, sweep[0]) <= ATOL and rel_err(dpw, sweep[1]) <= ATOL
 
 
 # Fields without a hand-written functor: the RK kernels run them on a device
@@ -854,55 +869,115 @@ GEN_RHS = {"pendulum-untagged": (pendulum_untagged, 1, 1),
            "lotka-volterra": (lotka_volterra, 4, 2)}
 
 
+def lorenz96_40(u, p, t):
+    return rhs_zoo.lorenz96(u, p, t)
+
+
+# The zoo of tests/rhs_zoo.py (the ops the tracer lowers beyond elementwise
+# arithmetic, writes through views, fields wide enough for the
+# reverse-sweep backward rk_fixed_grid_sweep_bwd_kernel) and Lorenz-96 at
+# its standard 40: name -> (field, dim, pdim, the zoo field its draws
+# follow)
+ZOO_RHS = {**{name: (f, dim, pdim, name)
+              for name, (f, dim, pdim, _) in rhs_zoo.ZOO.items()},
+           "lorenz96-40": (lorenz96_40, 40, 1, "lorenz96-12")}
+# Kuramoto past the lane groups: the block kernels at 32 and 33 (one warp,
+# and a second warp with one lane busy), 64 and 1100 (past the block's 512
+# threads: a lane takes up to three oscillators).
+KURAMOTO_BLOCK_N = (32, 33, 64, 1100)
+
+
 @pytest.fixture(scope="module")
 def gen_built():
-    """Every generated instance of these tests, built in parallel."""
+    """Every generated instance of these tests and the Kuramoto ones,
+    built in parallel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
-    ode_cuda.build_instances([(f, 2, pdim) for f, pdim, _ in
-                              GEN_RHS.values()] + [(cdyn.kuramoto_f(7), 7,
-                                                    2)])
+    ode_cuda.build_instances(
+        [(f, 2, pdim) for f, pdim, _ in GEN_RHS.values()]
+        + [(f, dim, pdim) for f, dim, pdim, _ in ZOO_RHS.values()]
+        + [(cdyn.kuramoto_f(n), n, 2) for n in (7,) + KURAMOTO_BLOCK_N])
 
 
 def gen_inputs(dev, name, B, T, seed):
-    """States ~ U(-1, 1) (Lotka-Volterra's populations ~ U(0.5, 1.5)),
-    parameters ~ U(0.5, 2), dt 0.05."""
-    g = torch.Generator().manual_seed(seed)
-    _, pdim, _ = GEN_RHS[name]
-    u0s = torch.rand(B, 2, generator=g) * 2 - 1
-    if name == "lotka-volterra":
-        u0s = u0s * 0.5 + 1.0
-    ps = 0.5 + 1.5 * torch.rand(B, pdim, generator=g)
+    """(f, dim, pdim, substeps, u0s, ps, saveat, w). GEN_RHS: states ~
+    U(-1, 1) (Lotka-Volterra's populations ~ U(0.5, 1.5)), parameters ~
+    U(0.5, 2), dt 0.05, its substeps; the zoo: rhs_zoo.draws (Lorenz-96 at
+    40: states ~ U(-2, 2)), dt 0.05, 2 sub-steps."""
+    if name in ZOO_RHS:
+        f, dim, pdim, like = ZOO_RHS[name]
+        u0s, ps = (torch.from_numpy(x) for x in rhs_zoo.draws(like, B, seed))
+        if dim != u0s.shape[1]:  # Lorenz-96 at 40: the draws of 12, widened
+            u0s = torch.rand(B, dim,
+                             generator=torch.Generator().manual_seed(seed)) \
+                * 4 - 2
+        g = torch.Generator().manual_seed(seed + 1)
+        sub = 2
+    else:
+        g = torch.Generator().manual_seed(seed)
+        f, pdim, sub = GEN_RHS[name]
+        dim = 2
+        u0s = torch.rand(B, 2, generator=g) * 2 - 1
+        if name == "lotka-volterra":
+            u0s = u0s * 0.5 + 1.0
+        ps = 0.5 + 1.5 * torch.rand(B, pdim, generator=g)
     saveat = torch.arange(T, dtype=torch.float32) * 0.05
-    w = torch.randn(B, T, 2, generator=g)
-    return u0s.to(dev), ps.to(dev), saveat.to(dev), w.to(dev)
+    w = torch.randn(B, T, dim, generator=g)
+    return (f, dim, pdim, sub, u0s.to(dev), ps.to(dev), saveat.to(dev),
+            w.to(dev))
+
+
+def forward_exact(prog):
+    """Whether the forward's program fixes every order its plain version
+    on the card fixes: no reduction past rhs_trace.EXACT_TERMS terms and no
+    matrix product among the instructions the slope needs."""
+    nodes = {i.node for i in prog.needed(prog.dy)}
+    return not any(n.split(":")[0] in nodes for n in prog.inexact)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [(64, 50), (45, 100), (37, 21)])
 @pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
-@pytest.mark.parametrize("name", sorted(GEN_RHS))
+@pytest.mark.parametrize("name", sorted(GEN_RHS) + sorted(ZOO_RHS))
 def test_rk_generated_functor_matches_plain_on_card(dev, gen_built, name,
                                                     solver, B, T):
-    """The forward kernel on a generated functor against the plain version
-    (atol 1e-5), launched and counted under its gen_<hash8> instance; the
-    success flags as the plain flags; a baked tableau instance equal to the
+    """The forward kernel on a generated functor against the plain version,
+    launched and counted under its gen_<hash8> instance: within atol 1e-5,
+    and bit for bit where the plain version fixes the order (each op
+    printed as PyTorch's CUDA kernel computes it: the selects with their
+    NaN rule, sigmoid, softplus, erf, gelu, expm1, log1p, sinh, cosh,
+    atan2, rolls, flips, extrema, sums of two terms, a mean as the sum
+    times the count's reciprocal, writes through views); a zoo field whose
+    long sums and matrix products take another order than cuBLAS and the
+    reduction kernels within atol 1e-5 or else at most twice as far from a
+    float64 plain solve as the plain float32 solve (+1e-6); the success
+    flags as the plain flags; a baked tableau instance equal to the
     run-time one bit for bit."""
-    f, pdim, sub = GEN_RHS[name]
-    inst = ode_cuda.rhs_instance(f, 2, pdim)
-    assert inst.startswith("gen_")
-    u0s, ps, saveat, _ = gen_inputs(dev, name, B, T, seed=40)
+    f, dim, pdim, sub, u0s, ps, saveat, _ = gen_inputs(dev, name, B, T,
+                                                        seed=40)
+    rk = ode_cuda.rhs_kernel(f, dim, pdim)
+    assert rk.name.startswith("gen_")
     s = getattr(trk, solver)()
     fwd = ode_cuda.solve_fixed_grid_batched_cuda.launches
-    before = fwd.get(inst, 0)
+    before = fwd.get(rk.name, 0)
     with torch.no_grad():
         got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
             f, s, u0s, ps, saveat, substeps=sub)
         ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
             f, s, u0s, ps, saveat, substeps=sub)
-    assert fwd[inst] == before + 1
-    assert float((got - ref).abs().max()) <= ATOL
+    assert fwd[rk.name] == before + 1
     assert torch.equal(ok, ok_p) and bool(ok.all())
+    if forward_exact(rk.program):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    elif float((got - ref).abs().max()) > ATOL:
+        assert name in ZOO_RHS
+        with torch.no_grad():
+            ref64 = ode_cuda.solve_fixed_grid_batched_reference(
+                f, s, u0s.double(), ps.double(), saveat.double(),
+                substeps=sub)[0]
+        e_k = float((got.double() - ref64).abs().max())
+        e_p = float((ref.double() - ref64).abs().max())
+        assert e_k <= 2 * e_p + 1e-6
     if ode_cuda.tableau_instance(s) != 0:
         gen = ode_cuda.solve_fixed_grid_batched_cuda(
             f, s, u0s, ps, saveat, substeps=sub, generic=True)
@@ -911,26 +986,46 @@ def test_rk_generated_functor_matches_plain_on_card(dev, gen_built, name,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [(64, 50), (45, 100), (3, 21)])
-@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
-@pytest.mark.parametrize("name", sorted(GEN_RHS))
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("name", sorted(GEN_RHS) + sorted(ZOO_RHS))
 def test_rk_generated_functor_bwd_matches_plain_on_card(dev, gen_built,
                                                         name, solver, B, T):
     """The backward kernel on a generated functor (its VJP traced from
-    torch.func.vjp of the field): the interval maps against the plain maps
-    on the same trajectory and the gradients against the two-phase plain
-    version, its own order, within 1e-5 of each tensor's size; against the
-    plain reverse sweep and plain autograd, other float32 orders, within
-    1e-5 or else at most twice as far from a float64 referee as the
-    two-phase plain version (the reverse sweep in float64 on the same
-    trajectory; autograd through the float64 plain solve): the interval
-    maps' float32 order can stand farther from float64 than the reverse
-    sweep's (PERF.md, open questions)."""
-    f, pdim, sub = GEN_RHS[name]
-    u0s, ps, saveat, w = gen_inputs(dev, name, B, T, seed=41)
+    torch.func.vjp of the field), Tsit5 and RK4 baked and Dopri5 on the
+    run-time tableau. A field whose interval maps fit MAX_MAP_FLOATS runs
+    the two-phase kernel: the interval maps against the plain maps on the
+    same trajectory and the gradients against the two-phase plain version,
+    its own order, within 1e-5 of each tensor's size; against the plain
+    reverse sweep and plain autograd, other float32 orders, within 1e-5 or
+    else at most twice as far from a float64 referee as the two-phase plain
+    version (the reverse sweep in float64 on the same trajectory; autograd
+    through the float64 plain solve): the interval maps' float32 order can
+    stand farther from float64 than the reverse sweep's (PERF.md, open
+    questions). A wider field runs rk_fixed_grid_sweep_bwd_kernel, one
+    launch, held to its plain version, the plain reverse sweep over the
+    same trajectory, within 1e-5 of each gradient's size, and forms no
+    maps."""
+    f, dim, pdim, sub, u0s, ps, saveat, w = gen_inputs(dev, name, B, T,
+                                                       seed=41)
+    rk = ode_cuda.rhs_kernel(f, dim, pdim)
     s = getattr(trk, solver)()
     with torch.no_grad():
         ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
                                                        substeps=sub)
+    if rk.backward == "sweep":
+        bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
+        before = bwd.get(rk.name, 0)
+        got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, ys, ps, w, substeps=sub)
+        assert bwd[rk.name] == before + 1
+        sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat, ys, ps, w, substeps=sub)
+        for a, b in zip(got, sweep):
+            assert rel_err(a, b) <= ATOL
+        with pytest.raises(ValueError, match="no interval maps"):
+            ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+                f, s, saveat, ys, ps, w, substeps=sub, maps=True)
+        return
     du0, dp, J, r = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
         f, s, saveat, ys, ps, w, substeps=sub, maps=True)
     J_p, r_p = ode_cuda.solve_fixed_grid_batched_interval_maps_reference(
@@ -1045,6 +1140,107 @@ def test_goku_user_field_kernel_path_on_card(dev, gen_built):
         xp = pm(x, t)[0][0]
     assert bool(torch.isfinite(xk).all())
     assert float((xk - xp).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("n", KURAMOTO_BLOCK_N)
+def test_rk_kuramoto_block_kernels_match_plain_on_card(dev, gen_built, n,
+                                                       solver):
+    """Kuramoto at N >= 32 with frequency offsets, 4 sub-steps, B 26 / T 21
+    (B 2 / T 4 at 1100): rk_kuramoto_block_kernel equal to the plain
+    version bit for bit with its flags, a baked tableau instance equal to
+    the run-time one; rk_kuramoto_block_bwd_kernel within 1e-5 of each
+    gradient's size of the plain reverse sweep over the same trajectory,
+    its plain version (the baked tableaus and the run-time one), and no
+    maps."""
+    f = cdyn.Kuramoto(n, omega_spread=0.5).f
+    B, T = (2, 4) if n > 512 else (26, 21)
+    g = torch.Generator().manual_seed(60 + n)
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.1
+    w = torch.randn(B, T, n, generator=g).to(dev)
+    s = getattr(trk, solver)()
+    assert ode_cuda.rhs_kernel(f, n).backward == "block"
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                         saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=4)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(ok, ok_p) and bool(ok.all())
+    if ode_cuda.tableau_instance(s) != 0:
+        gen = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=4, generic=True)
+        assert torch.equal(got.view(torch.int32), gen[0].view(torch.int32))
+    du0, dp = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+        f, s, saveat, got, ps, w, substeps=4)
+    sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        f, s, saveat, got, ps, w, substeps=4)
+    assert rel_err(du0, sweep[0]) <= ATOL and rel_err(dp, sweep[1]) <= ATOL
+    with pytest.raises(ValueError, match="no interval maps"):
+        ode_cuda.solve_fixed_grid_batched_bwd_cuda(
+            f, s, saveat, got, ps, w, substeps=4, maps=True)
+
+
+@pytest.mark.cuda
+def test_rk_kuramoto_block_bwd_long_grid_on_card(dev, gen_built):
+    """The block backward over a long grid, Kuramoto-64, B 16, T 300, RK4,
+    4 sub-steps (scripts/rk_bwd_sweep.py's case): within 1e-5 of each
+    gradient's size of the plain reverse sweep, its plain version, or else
+    at most twice as far from the float64 reverse sweep on the same
+    trajectory as the plain float32 sweep is (the long grids' gate)."""
+    n, B, T = 64, 16, 300
+    f = cdyn.kuramoto_f(n)
+    s = trk.RK4()
+    g = torch.Generator().manual_seed(60 + n)
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.1
+    w = torch.randn(B, T, n, generator=g).to(dev)
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=4)
+    got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(f, s, saveat, ys, ps, w,
+                                                     substeps=4)
+    plain = ode_cuda.solve_fixed_grid_batched_backward_reference(
+        f, s, saveat, ys, ps, w, substeps=4)
+    if max(rel_err(a, b) for a, b in zip(got, plain)) > ATOL:
+        ref = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat.double(), ys.double(), ps.double(), w.double(),
+            substeps=4)
+        for a, b, c in zip(got, plain, ref):
+            assert rel_err(a.double(), c) <= 2 * rel_err(b.double(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 64])
+def test_rk_kuramoto_block_non_finite_rows_keep_plain_flags_on_card(
+        dev, gen_built, n):
+    """Rows that start from a NaN or infinite phase, or carry a NaN
+    coupling, fail as in the plain version, and only they (a block's AND
+    over its oscillators); the other rows equal the plain version bit for
+    bit."""
+    f = cdyn.kuramoto_f(n)
+    g = torch.Generator().manual_seed(70)
+    B = 5
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    u0s[1, 0], u0s[2, -1] = float("nan"), float("inf")
+    ps[B - 1, 1] = float("nan")
+    saveat = torch.arange(11, dtype=torch.float32, device=dev) * 0.1
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, trk.Tsit5(), u0s, ps, saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, trk.Tsit5(), u0s, ps, saveat, substeps=4)
+    assert torch.equal(ok, ok_p)
+    assert sorted((~ok).nonzero().flatten().tolist()) == [1, 2, B - 1]
+    assert torch.equal(got[ok].view(torch.int32), ref[ok].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -182,19 +182,24 @@ def test_custom_backward_references_match_pallas_vjp(name, solver,
 
 def test_kuramoto_widths_of_the_kernel():
     """Kuramoto runs on the lane-group kernels at any width from 2 to
-    KURAMOTO_MAX_N oscillators: 4 and 10 in csrc/rk_fixed_grid.cu, any
-    other N as the instance ``kuramotoN``, built at first use from a
-    one-line source that includes the header; a wider field raises
-    ValueError naming the limit (before it looks at the device), and the
-    plain route solves any width, on the CPU as before."""
+    KURAMOTO_LANES_MAX_N oscillators: 4 and 10 in csrc/rk_fixed_grid.cu,
+    any other N as the instance ``kuramotoN``, built at first use from a
+    one-line source that includes the header; a wider field runs on the
+    block kernels instantiated the same way, up to KURAMOTO_MAX_N, past
+    which it raises ValueError naming the limit (before it looks at the
+    device); the plain route solves any width, on the CPU as before."""
     f = cdyn.kuramoto_f(7)
     assert ode_cuda.rhs_instance(f, 7) == "kuramoto7"
     rk = ode_cuda.rhs_kernel(f, 7)
-    assert (rk.kind, rk.pdim, rk.ncst) == (0, 2, 7)
+    assert (rk.kind, rk.pdim, rk.ncst, rk.backward) == (0, 2, 7, "lanes")
     assert "KuramotoLanes<7>" in _build._GENERATED[rk.library]
-    wide = rhs_codegen.KURAMOTO_MAX_N + 1
-    with pytest.raises(ValueError, match=f"2 to {wide - 1} oscillators"):
-        ode_cuda.rhs_instance(cdyn.kuramoto_f(wide), wide)
+    wide = rhs_codegen.KURAMOTO_LANES_MAX_N + 1
+    rk = ode_cuda.rhs_kernel(cdyn.kuramoto_f(wide), wide)
+    assert (rk.name, rk.backward) == (f"kuramoto{wide}", "block")
+    assert f"KuramotoBlock<{wide}>" in _build._GENERATED[rk.library]
+    big = rhs_codegen.KURAMOTO_MAX_N + 1
+    with pytest.raises(ValueError, match=f"1 to {big - 1} oscillators"):
+        ode_cuda.rhs_instance(cdyn.kuramoto_f(big), big)
     u0s, ps = torch.zeros(3, 7), torch.ones(3, 2)
     saveat = torch.arange(5) * 0.1
     with pytest.raises(ValueError, match="CUDA tensor"):

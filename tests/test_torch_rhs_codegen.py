@@ -206,13 +206,13 @@ def f_branch(u, p, t):
 
 
 def f_unlisted(u, p, t):
-    return torch.erf(u) * p
+    return torch.lgamma(u) * p
 
 
 @pytest.mark.parametrize("f,node,why", [
     (f_captured, "_tensor_constant0", "a tensor the field captures"),
     (f_branch, "gt", "control flow that depends on data"),
-    (f_unlisted, "erf", "aten.erf is not lowerable")],
+    (f_unlisted, "lgamma", "aten.lgamma is not lowerable")],
     ids=["captured-tensor", "data-branch", "unlisted-op"])
 def test_tracer_refusals_name_the_node(f, node, why):
     """A captured tensor, a branch on data and an op outside the list each
@@ -257,9 +257,10 @@ def test_field_with_rhs_consts_reads_them_as_the_cst_vector():
 def test_instances_cache_hash_and_width_limit():
     """The generated instance is cached by the field object and (dim,
     pdim), named by the hash of its source (an identical field elsewhere
-    gets the same library); a field past the backward's register maps
-    raises naming the limit; the generated builds keep --fmad=false; the
-    library's digest covers the header its source includes."""
+    gets the same library); a field past the two-phase backward's register
+    maps takes the reverse-sweep route, a field within them the two-phase
+    one; the generated builds keep --fmad=false; the library's digest
+    covers the header its source includes."""
     a = ode_cuda.rhs_kernel(lotka_volterra, 2, 4)
     assert ode_cuda.rhs_kernel(lotka_volterra, 2, 4) is a
 
@@ -272,8 +273,10 @@ def test_instances_cache_hash_and_width_limit():
 
     def wide(u, p, t):
         return u * p[..., 0:1]
-    with pytest.raises(ValueError, match=str(rhs_codegen.MAX_MAP_FLOATS)):
-        ode_cuda.rhs_kernel(wide, 11, 8)
+    assert 11 * 11 + 11 * 8 > rhs_codegen.MAX_MAP_FLOATS
+    assert ode_cuda.rhs_kernel(wide, 11, 8).backward == "sweep"
+    assert ode_cuda.rhs_kernel(wide, 8, 8).backward == "maps"
+    assert a.backward == "maps"
     assert "--fmad=false" in _build.GEN_FLAGS
     with open(os.path.join(_build.CSRC_DIR, "rk_fixed_grid.cu")) as fh:
         assert _build._headers(fh.read()) == ["rk_fixed_grid.cuh"]
