@@ -175,9 +175,12 @@ Phases, each printing one line (any failure exits non-zero):
               torch.mm per layer (torch.bmm with replicas), its plain
               version, its bound on the tensor cores and the float32 SIMT
               bound; 4l's and 4m's instances (the generated functors,
-              Kuramoto-7 on the lane groups, Lorenz-96-40 on the reverse
-              sweep, Kuramoto-64 on the block kernels), forward and
-              backward, against the plain versions at their train and
+              Kuramoto-7 on the lane groups, Lorenz-96-40 on the sliced
+              reverse sweep, Kuramoto-64 on the block kernels; the two
+              reverse-sweep backwards' plans, what each keeps in shared
+              memory and the sweep's slices, and where they change),
+              forward and backward, against the plain versions at their
+              train and
               validation shapes with the gates of phase 2 and 3 (float32
               1e-5 and bit for bit where the order is the plain
               version's, float64 distance, gradients 1e-5 of each size,
@@ -4643,10 +4646,11 @@ def route_kernels(rk):
                      "rk_fixed_grid_bwd_kernel")}[rk.backward]
 
 
-def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock):
+def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock, plan=None):
     """((bytes, operations) of the forward, of the backward, (forward,
     backward) latency model ms) of an instance on its route: Kuramoto's by
-    rhs_ops, a generated functor's from its program's operation count."""
+    rhs_ops, a generated functor's from its program's operation count; the
+    reverse-sweep routes' models by their ``plan`` (ode_cuda.bwd_plan)."""
     if rk.program is None:  # Kuramoto: the lane groups or the block
         work = (rk_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto", dim),
                 rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto",
@@ -4657,15 +4661,18 @@ def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock):
                             rk_bwd_latency_ms(T, sub, n_st, clock,
                                               "kuramoto", dim)),)
         return work + ((block_latency_ms(T, sub, n_st, dim, clock),
-                        block_latency_ms(T, sub, n_st, dim, clock,
-                                         bwd=True)),)
+                        block_latency_ms(T, sub, n_st, dim, clock, bwd=True,
+                                         keep=plan["keep"],
+                                         spread=plan["spread"])),)
     ops = gen_ops(rk.program)
-    bwd_lat = (sweep_latency_ms if rk.backward == "sweep"
-               else gen_bwd_latency_ms)
+    if rk.backward == "sweep":
+        bwd_lat = sweep_latency_ms(rk.program, T, sub, tab, n_st, clock,
+                                   keep=plan["keep"])
+    else:
+        bwd_lat = gen_bwd_latency_ms(rk.program, T, sub, tab, n_st, clock)
     return (rk_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
             rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
-            (gen_latency_ms(rk.program, T, sub, tab, n_st, clock),
-             bwd_lat(rk.program, T, sub, tab, n_st, clock)))
+            (gen_latency_ms(rk.program, T, sub, tab, n_st, clock), bwd_lat))
 
 
 def exact_forward(rk):
@@ -4722,9 +4729,22 @@ def gen_kernel_checks(gen, clock, fields):
         for shape, B, T in gen_shapes(label):
             u0s, ps, saveat = gen_inputs(label, B, T, gen)
             w = torch.randn(B, T, dim, generator=gen, device="cuda")
-            fw, bw, lat = route_work(rk, B, T, dim, pdim, sub, tab, n_st,
-                                     clock)
+            plan = None
             at = f"{label} {shape} B={B} T={T} substeps={sub}"
+            if rk.backward in ("sweep", "block"):
+                plan = ode_cuda.bwd_plan(f, s, dim, B, sub, pdim)
+                over = ("width" if rk.backward == "block"
+                        else "sub-step count")
+                runs = ode_cuda.bwd_switches(rk.backward, dim, n_st, sub)
+                log("kernels", f"{bn} ({rk.backward} route) {at} Tsit5: "
+                               f"plan {plan} (keeps "
+                               f"{ode_cuda.BWD_KEEP[plan['keep']]}"
+                               + (f"; {rhs_slices(rk.program)}"
+                                  if rk.program is not None else "")
+                               + f"); where it changes at 227 KB (last "
+                               f"{over}, keeps, spread): {runs}")
+            fw, bw, lat = route_work(rk, B, T, dim, pdim, sub, tab, n_st,
+                                     clock, plan)
 
             def timing(name, kname, kernel, p_ms, work, lat_ms):
                 k_ms = time_ms(kernel)
@@ -5036,6 +5056,15 @@ def gen_bwd_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
     return cyc / (clock_mhz * 1e3)
 
 
+def rhs_slices(prog):
+    """A sweep functor's slices as its generated source states them."""
+    from latentdiffeq_torch.ops import rhs_codegen
+    plan = rhs_codegen.plan_slices(prog)
+    return (f"{plan.count} slices, statements a stage: eval "
+            f"{list(plan.eval_cost)} (whole {plan.whole[0]}), vjp "
+            f"{list(plan.vjp_cost)} (whole {plan.whole[1]})")
+
+
 def gen_ops(prog):
     """(operations of one evaluation, of one VJP) of a generated functor:
     its scalar operations that run a stage (the per-row ones run once a
@@ -5144,40 +5173,110 @@ def wide_path(dev, gpu):
     return launches
 
 
-def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
-    """The reverse-sweep kernel's chain for a generated functor, one thread
-    a trajectory: per interval and sub-step j (the last first), the
-    sub-steps before it again and its own stages (j + 1 steps of
-    `gen_step_cycles`), then the VJP program of each stage in reverse and
-    its cotangent updates (2 FMA steps)."""
-    ready = {i: 0 for i in prog.u_ids + prog.kb_ids + [prog.t_id]}
-    vjp = max(program_cycles(prog, prog.ubar + prog.pbar, ready))
-    step = gen_step_cycles(prog, tab, n_stages)
-    per = (substeps * (substeps + 1) // 2 * step
-           + substeps * n_stages * (vjp + 2 * FMA_CYC))
+# A shared-memory load's latency, cycles (round figure, not a measurement).
+LDS_CYC = 30
+# Sub-steps of stages run again an interval by what a reverse-sweep backward
+# keeps (ode_cuda.BWD_KEEP): every stage input, the sub-step starts, nothing.
+RECOMPUTED = {2: lambda u: u, 1: lambda u: 2 * u - 1,
+              0: lambda u: u * (u + 1) // 2}
+
+
+def slice_cycles(prog, outputs):
+    """(latency, issue) cycles of one slice of a generated program a stage:
+    its critical path with the stage inputs and cotangents ready after a
+    shared-memory load (program_cycles), and its instructions (its
+    statements, a load for each input it reads, a store or add for each
+    output)."""
+    inputs = set(prog.u_ids + prog.kb_ids)
+    ready = {i: LDS_CYC for i in inputs}
+    ready[prog.t_id] = 0
+    lat = max(program_cycles(prog, outputs, ready), default=0)
+    needed = [i for i in prog.needed(outputs) if i.out not in prog.per_row]
+    read = {a for i in needed for a in i.args if a in inputs}
+    read |= {r for r in outputs if r in inputs}
+    return lat, len(needed) + len(read) + len(outputs)
+
+
+def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz, keep=2):
+    """The reverse-sweep kernel's chain for a generated functor, counting
+    issue as well as latency. The sliced kernel (keep 2, 1, 0: its
+    ``ode_cuda.bwd_plan``): G = SLICES warps a row, ceil(G / 4) of them on
+    each of the SM's 4 schedulers; a slice's stage takes the longer of its
+    critical path and its scheduler's issue (the warps sharing it, each
+    its slice's instructions: slice_cycles), the longest slice a stage.
+    Per interval the recomputed sub-steps (RECOMPUTED[keep]: per stage the
+    stage input of its own entries, a term a nonzero a_sq, each a
+    shared-memory load of the slope and a multiply and an add one after
+    another (the loop is rolled), a barrier, the eval slices) and, per
+    swept sub-step, per stage a barrier, the vjp slices and the cotangent
+    updates (a load, a multiply and an add a term), then a barrier. The
+    one-thread kernel (keep -1): per interval and sub-step j, j + 1 steps
+    of `gen_step_cycles`, then the whole VJP program of each stage in
+    reverse and its updates."""
+    from latentdiffeq_torch.ops import rhs_codegen
+    if keep == -1:
+        ready = {i: 0 for i in prog.u_ids + prog.kb_ids + [prog.t_id]}
+        vjp = max(program_cycles(prog, prog.ubar + prog.pbar, ready))
+        step = gen_step_cycles(prog, tab, n_stages)
+        per = (substeps * (substeps + 1) // 2 * step
+               + substeps * n_stages * (vjp + 2 * FMA_CYC))
+        return (T - 1) * per / (clock_mhz * 1e3)
+    plan = rhs_codegen.plan_slices(prog)
+    share = math.ceil(plan.count / 4)
+
+    def stage(parts):
+        cyc = [slice_cycles(prog, outs) for outs in parts]
+        return max(max(c[0] for c in cyc), share * max(c[1] for c in cyc))
+    ev = stage([[prog.dy[i] for i in part] for part in plan.eval_parts])
+    vj = stage([[prog.ubar[i] for i in u] + [prog.pbar[q] for q in pq]
+                for u, pq in zip(plan.vjp_ubar, plan.vjp_pbar)])
+    terms = [sum(1 for a in tab.a[s][:s] if a != 0.0) * (LDS_CYC
+                                                         + 2 * FMA_CYC)
+             for s in range(n_stages)]
+    fwd = sum(t + BAR_CYC + ev for t in terms)
+    bwd = sum(BAR_CYC + vj + FMA_CYC + t for t in terms) + BAR_CYC
+    per = RECOMPUTED[keep](substeps) * fwd + substeps * bwd
     return (T - 1) * per / (clock_mhz * 1e3)
 
 
 def block_threads(dim):
-    """Threads a block and oscillators a lane of the Kuramoto block kernels
-    (csrc/rk_fixed_grid.cuh: kKurBlockThreads, kKurBlockOsc)."""
+    """Threads a block and oscillators a lane of the Kuramoto block forward
+    (csrc/rk_fixed_grid.cuh: kKurBlockThreads, kKurBlockOsc), and the
+    backward's lanes an oscillator (kKurBlockBwdLanes)."""
     th = min((dim + 31) // 32 * 32, 512)
-    return th, -(-dim // th)
+    lanes = next(g for g in (8, 4, 2, 1) if th * g <= 512)
+    return th, -(-dim // th), lanes
 
 
-def block_latency_ms(T, substeps, n_stages, dim, clock_mhz, bwd=False):
-    """The Kuramoto block kernels' chain for a trajectory: per stage a
-    barrier and each of a lane's oscillators' N sines issued one after
-    another (`kuramoto_stage_cycles` with the diagonal's); the backward,
-    per interval and sub-step j, j + 1 sub-steps of those stages, then per
-    stage in reverse a barrier and the lane's N sines and cosines with the
-    three sums (SINCOS_ISSUE each) and its cotangent updates."""
-    osc = block_threads(dim)[1]
-    stage = osc * kuramoto_stage_cycles(dim + 1) + BAR_CYC
+def block_latency_ms(T, substeps, n_stages, dim, clock_mhz, bwd=False,
+                     keep=2, spread=False):
+    """The Kuramoto block kernels' chain for a trajectory. The forward, per
+    stage a barrier and each of a lane's oscillators' N sines issued one
+    after another (`kuramoto_stage_cycles` with the diagonal's). The
+    backward (its ``ode_cuda.bwd_plan``: keep, spread), per interval the
+    recomputed sub-steps (RECOMPUTED[keep]) of stages as the forward's or,
+    spread, per stage a barrier, the N^2 pairs' sines over the block's
+    warps (ceil(warps / 4) a scheduler, each issuing its lanes' share), a
+    barrier and lane i's N dependent adds; then per swept sub-step and
+    stage three barriers (the cotangent row, the block sum), each lane's
+    ceil(N / G) sines and cosines with the three sums (SINCOS_ISSUE each,
+    ceil(warps / 4) warps a scheduler), the group's xor tree and the block
+    sum's shuffles (SHFL_CYC + FMA_CYC a level) and its cotangent
+    updates."""
+    th, osc, lanes = block_threads(dim)
+    fwd_stage = osc * kuramoto_stage_cycles(dim + 1) + BAR_CYC
     if not bwd:
-        return ((T - 1) * substeps * n_stages * stage) / (clock_mhz * 1e3)
-    rev = BAR_CYC + osc * (dim * SINCOS_ISSUE + 4 * FMA_CYC)
-    per = (substeps * (substeps + 1) // 2 * n_stages * stage
+        return ((T - 1) * substeps * n_stages * fwd_stage) / (clock_mhz * 1e3)
+    share = math.ceil(th * lanes // 32 / 4)
+    if spread:
+        rec = (2 * BAR_CYC + 3 * FMA_CYC
+               + share * math.ceil(dim * dim / (th * lanes)) * SINF_ISSUE
+               + SINF_STEPS * FMA_CYC + LDS_CYC + dim * FMA_CYC)
+    else:
+        rec = fwd_stage
+    rev = (3 * BAR_CYC + share * osc * math.ceil(dim / lanes) * SINCOS_ISSUE
+           + (int(math.log2(lanes)) + 5) * (SHFL_CYC + FMA_CYC) + 4 * FMA_CYC)
+    per = (RECOMPUTED[keep](substeps) * n_stages * rec
            + substeps * n_stages * rev)
     return (T - 1) * per / (clock_mhz * 1e3)
 

@@ -24,7 +24,9 @@ launchers count their launches by that name):
   kernel while the interval maps fit ``rhs_codegen.MAX_MAP_FLOATS``
   floats, the reverse-sweep kernel past that.
 ``RhsKernel.backward`` names the backward's route: "maps" (the two-phase
-kernel), "sweep", "lanes" or "block".
+kernel), "sweep", "lanes" or "block". The two reverse-sweep routes keep
+what they can of an interval in shared memory, decided at each launch
+(``bwd_plan`` asks the library; ``bwd_switches`` says where it changes).
 Generated sources build at first use into build/kernels/, named by their
 hash (ops/_build.py). A field the kernel cannot run raises ValueError
 naming the graph node while it is traced, before the device is looked at,
@@ -78,7 +80,9 @@ __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "solve_fixed_grid_batched_affine_sweep_reference",
            "tableau_instance", "sincos_cuda", "SINF_COPIES",
            "BAKED_TABLEAUS", "DEVICE_RHS", "RHS_VJP", "RhsKernel",
-           "rhs_kernel", "rhs_instance", "field_vjp", "build_instances"]
+           "rhs_kernel", "rhs_instance", "field_vjp", "build_instances",
+           "BWD_KEEP", "SMEM_OPTIN", "bwd_floats", "bwd_switches",
+           "bwd_keep", "bwd_plan"]
 
 # device_rhs family -> {state width: (functor index in csrc/rk_fixed_grid.cu,
 # parameter width, instance name)}: the widths each hand-written functor is
@@ -189,6 +193,99 @@ def build_instances(specs):
         if lib not in libs:
             libs.append(lib)
     return build_kernels(libs)
+
+
+# What a reverse-sweep backward keeps of an interval in shared memory (the
+# kernel's ``keep``, csrc/rk_fixed_grid.cuh's BwdPlan): every sub-step's
+# stage inputs, the sub-step starts, or nothing (sub-steps 0 .. j-1 run
+# again for sub-step j); -1 the one-thread sweep kernel (a row past the
+# sliced kernel's shared memory); -2 a two-phase route, which has no plan.
+BWD_KEEP = {2: "stages", 1: "starts", 0: "nothing", -1: "one-thread",
+            -2: "two-phase"}
+SMEM_OPTIN = 232448  # the shared memory an H100 block opts into (227 KB)
+
+
+def bwd_floats(route: str, keep: int, dim: int, n_stages: int,
+               substeps: int, spread: bool = False) -> int:
+    """The header's shared-memory floats of the Kuramoto block backward
+    (``kur_block_bwd_floats``, route "block"; ``spread``: with a stage's
+    pairs) or of the sliced sweep with one row (route "sweep": the tableau,
+    ``sweep_coef``, and a row, ``sweep_row_floats``) keeping ``keep``."""
+    stages = (substeps if keep == 2 else 1) * n_stages * dim
+    starts = substeps * dim if keep == 1 else 0
+    if route == "block":
+        pairs = dim * (dim + 1) if spread else 0
+        return stages + starts + 2 * dim + 512 // 16 + pairs
+    return (n_stages * (n_stages + 2)
+            + ((stages + starts + 2 * n_stages * dim) | 1))
+
+
+def bwd_keep(route: str, dim: int, n_stages: int, substeps: int,
+             smem: int = SMEM_OPTIN):
+    """(keep, spread) as the header's kur_block_bwd_plan and
+    sweep_bwd_plan choose them at ``smem`` bytes a block ((None, False)
+    where nothing fits)."""
+    cap = smem // 4
+    if route == "block":
+        lanes = -(-dim // 32) * 32 * 2 <= 512  # kKurBlockBwdLanes > 1
+        for keep in (2, 1, 0):
+            for spread in ((True, False) if lanes else (False,)):
+                if bwd_floats(route, keep, dim, n_stages, substeps,
+                              spread) <= cap:
+                    return keep, spread
+        return None, False
+    if n_stages * (n_stages + 2) + (3 * n_stages * dim | 1) > cap:
+        return -1, False
+    for keep in (2, 1, 0):
+        if bwd_floats(route, keep, dim, n_stages, substeps) <= cap:
+            return keep, False
+    return None, False
+
+
+def bwd_switches(route: str, dim: int, n_stages: int, substeps: int,
+                 smem: int = SMEM_OPTIN) -> list:
+    """Where a reverse-sweep backward changes what it keeps, at ``smem``
+    bytes a block: [(last, keep name, spread), ...] in order, ``last`` the
+    largest value of the run. Route "block": over the Kuramoto width, at
+    ``n_stages`` and ``substeps``, up to what fits at all; route "sweep":
+    over the sub-step count, for a row of width ``dim``, up to the first
+    count that keeps nothing (kept at every count past it), or one run of
+    the one-thread kernel."""
+    runs = []
+    x = 1
+    while True:
+        keep, spread = (bwd_keep(route, x, n_stages, substeps, smem)
+                        if route == "block" else
+                        bwd_keep(route, dim, n_stages, x, smem))
+        if keep is None:
+            break
+        plan = (BWD_KEEP[keep], spread)
+        if runs and runs[-1][1:] == plan:
+            runs[-1] = (x,) + plan
+        else:
+            runs.append((x,) + plan)
+        if route == "sweep" and keep in (0, -1):
+            break
+        x += 1
+    return runs
+
+
+def bwd_plan(f: Callable, solver: AbstractSolver, dim: int, B: int,
+             substeps: int, pdim: Optional[int] = None) -> dict:
+    """The backward kernel's plan for ``f`` at ``B`` rows and ``substeps``
+    on this card (the library's ``ldq_rk_bwd_plan``): ``keep`` (a key of
+    ``BWD_KEEP``), threads and rows a block, dynamic shared memory bytes,
+    whether the Kuramoto block backward spreads its recompute. Generated
+    and one-line Kuramoto libraries only."""
+    rk = rhs_kernel(f, dim, pdim)
+    lib = _lib(rk.library)
+    out = (ctypes.c_int * 5)()
+    err = lib.ldq_rk_bwd_plan(n_solution_stages(solver.tableau), B, substeps,
+                              out)
+    if err != 0:
+        raise RuntimeError(f"ldq_rk_bwd_plan failed: CUDA error {err}")
+    return dict(keep=out[0], threads=out[1], rows=out[2], smem=out[3],
+                spread=bool(out[4]))
 
 
 def _rhs_consts(f: Callable, device, n: Optional[int]):
@@ -442,7 +539,8 @@ def solve_fixed_grid_batched_affine_sweep_reference(J, r, g):
 def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a loaded csrc/rk_fixed_grid.cu library
     or a generated one (also for scripts/rk_levers.py, which builds it with
-    other flags); ``ldq_rk_sincos`` only the first has."""
+    other flags); ``ldq_rk_sincos`` only the first has, ``ldq_rk_bwd_plan``
+    only the others."""
     if not getattr(lib, "_ldq_typed", False):
         lib.ldq_rk_fixed_grid.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
@@ -452,6 +550,10 @@ def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.ldq_rk_fixed_grid_bwd.restype = ctypes.c_int
+        if hasattr(lib, "ldq_rk_bwd_plan"):
+            lib.ldq_rk_bwd_plan.argtypes = ([ctypes.c_int] * 3
+                                            + [ctypes.c_void_p])
+            lib.ldq_rk_bwd_plan.restype = ctypes.c_int
         if hasattr(lib, "ldq_rk_sincos"):
             lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 2

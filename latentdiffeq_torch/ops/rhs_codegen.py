@@ -24,15 +24,22 @@ its arrays spill to local memory). The backward is the two-phase kernel,
 one thread an interval holding the interval's maps J (dim x dim) and r
 (dim x pdim) in registers, while the maps fit ``MAX_MAP_FLOATS`` floats
 (``maps_fit``), and the reverse-sweep kernel past that; the functor's
-``SWEEP`` member, printed from ``maps_fit``, tells the header which. Kuramoto gets a one-line source instead
+``SWEEP`` member, printed from ``maps_fit``, tells the header which. A
+sweep functor also carries its programs cut into ``SLICES`` slices
+(``plan_slices``): slice g computes the outputs it owns (``dy`` entries of
+``eval``; ``ubar`` and ``pbar`` entries of ``vjp``) with the statements the
+whole program computes them with, each output in exactly one slice, so the
+sweep kernel runs slice g on warp g and every value stays the whole
+program's bit for bit. Kuramoto gets a one-line source instead
 (``kuramoto_source``): the hand-written lane-group kernels up to
 ``KURAMOTO_LANES_MAX_N`` oscillators, the block kernels past that.
 
 ``host_source`` wraps the same functor text for a host compiler (``g++``),
-so the CPU tests can call it through ``ctypes``.
+so the CPU tests can call it, and its slices, through ``ctypes``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List
 
@@ -41,8 +48,9 @@ import numpy as np
 from .rhs_trace import Const, FieldProgram, Instr
 
 __all__ = ["MAX_MAP_FLOATS", "KURAMOTO_LANES_MAX_N", "KURAMOTO_MAX_N",
-           "maps_fit", "functor_source", "kernel_source", "kuramoto_source",
-           "host_source"]
+           "SLICE_COUNTS", "SLICE_SLACK", "SlicePlan", "maps_fit",
+           "plan_slices", "functor_source", "kernel_source",
+           "kuramoto_source", "host_source"]
 
 # The two-phase backward keeps an interval's maps J and r in a thread's
 # registers (and the step's Js, Rs beside them): at dim*dim + dim*pdim <= 128
@@ -63,6 +71,96 @@ KURAMOTO_MAX_N = 6144
 def maps_fit(dim: int, pdim: int) -> bool:
     """Whether a functor's interval maps fit the two-phase backward."""
     return dim * dim + dim * pdim <= MAX_MAP_FLOATS
+
+
+# The slice counts a sweep functor may take (warps a block of the sweep
+# kernel, at most 512 threads), and how much dearer than the cheapest
+# count's a smaller count's cost may be and still be taken (fewer warps,
+# fewer statements repeated).
+SLICE_COUNTS = (1, 2, 4, 8, 16)
+SLICE_SLACK = 1.1
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicePlan:
+    """A sweep functor's slices: ``count`` of them; ``eval_parts[g]`` the
+    ``dy`` indices slice g owns, ``vjp_ubar[g]`` / ``vjp_pbar[g]`` its
+    ``ubar`` and ``pbar`` indices; ``eval_cost[g]`` / ``vjp_cost[g]`` the
+    statements it runs a stage (those it repeats included; per-row values
+    are computed once a row and not counted); ``whole`` the (eval, vjp)
+    statements of the whole programs."""
+    count: int
+    eval_parts: tuple
+    vjp_ubar: tuple
+    vjp_pbar: tuple
+    eval_cost: tuple
+    vjp_cost: tuple
+    whole: tuple
+
+
+def _cones(prog: FieldProgram, outputs):
+    """The per-stage statements (instruction ids, per-row ones left out)
+    each output needs."""
+    by_id = {ins.out: ins for ins in prog.instrs}
+    memo = {}
+
+    def cone(r):
+        if not isinstance(r, int) or r not in by_id or r in prog.per_row:
+            return frozenset()
+        hit = memo.get(r)
+        if hit is None:
+            stack, seen = [r], set()
+            while stack:
+                x = stack.pop()
+                if x in seen or x not in by_id or x in prog.per_row:
+                    continue
+                seen.add(x)
+                stack.extend(a for a in by_id[x].args if isinstance(a, int))
+            hit = memo[r] = frozenset(seen)
+        return hit
+    return [cone(r) for r in outputs]
+
+
+def _partition(cones, count):
+    """Greedy: the outputs by falling cone size (then index), each to the
+    slice whose statements grow least with it, ties to the lower slice.
+    Returns (owner of each output, statements of each slice)."""
+    owner = [0] * len(cones)
+    sets = [set() for _ in range(count)]
+    for o in sorted(range(len(cones)), key=lambda o: (-len(cones[o]), o)):
+        g = min(range(count), key=lambda g: (len(sets[g] | cones[o]), g))
+        owner[o] = g
+        sets[g] |= cones[o]
+    return owner, [len(x) for x in sets]
+
+
+def plan_slices(prog: FieldProgram) -> SlicePlan:
+    """Cut ``eval`` and ``vjp`` into slices (module docstring). For each
+    count of ``SLICE_COUNTS``, both programs' outputs are partitioned
+    (``_partition``); a count costs the longest eval slice plus the longest
+    vjp slice, in statements; the plan takes the smallest count within
+    ``SLICE_SLACK`` of the cheapest."""
+    ev_cones = _cones(prog, prog.dy)
+    vj_cones = _cones(prog, list(prog.ubar) + list(prog.pbar))
+    cands = {}
+    for count in SLICE_COUNTS:
+        ev = _partition(ev_cones, count)
+        vj = _partition(vj_cones, count)
+        cands[count] = (max(ev[1]) + max(vj[1]), ev, vj)
+    best = min(c[0] for c in cands.values())
+    count = min(c for c in SLICE_COUNTS if cands[c][0] <= SLICE_SLACK * best)
+    _, (ev_own, ev_cost), (vj_own, vj_cost) = cands[count]
+    dim = prog.dim
+    whole = tuple(len(frozenset().union(*c)) for c in (ev_cones, vj_cones))
+    return SlicePlan(
+        count,
+        tuple(tuple(i for i, o in enumerate(ev_own) if o == g)
+              for g in range(count)),
+        tuple(tuple(i for i, o in enumerate(vj_own[:dim]) if o == g)
+              for g in range(count)),
+        tuple(tuple(q for q, o in enumerate(vj_own[dim:]) if o == g)
+              for g in range(count)),
+        tuple(ev_cost), tuple(vj_cost), whole)
 
 
 def _lit(v: float) -> str:
@@ -260,7 +358,8 @@ def functor_source(prog: FieldProgram, name: str = "GenRhs") -> str:
     used = {i.op for i in prog.instrs}
     helpers = "".join(text + "\n" for op, text in _HELPERS.items()
                       if op in used)
-    sweep = "false" if maps_fit(prog.dim, prog.pdim) else "true"
+    sweep = not maps_fit(prog.dim, prog.pdim)
+    sliced = _slices_source(pr, prog) if sweep else ""
     return f"""// The field {prog.name!r} (dim {prog.dim}, pdim {prog.pdim}, {prog.ncst} run-time
 // constants), lowered by latentdiffeq_torch/ops/rhs_trace.py: {len(prog.instrs)} scalar
 // operations, {len(fields)} of them kept a row.
@@ -269,7 +368,7 @@ def functor_source(prog: FieldProgram, name: str = "GenRhs") -> str:
   static constexpr int PDIM = {prog.pdim};
   static constexpr int NTRIG = 0;
   static constexpr bool FAST_TRIG = false;
-  static constexpr bool SWEEP = {sweep};
+  static constexpr bool SWEEP = {"true" if sweep else "false"};
   struct Row {{{members} }};
   LDQ_GEN_FN static Row row(const float* p, const float* cst) {{
     Row r;
@@ -293,8 +392,75 @@ def functor_source(prog: FieldProgram, name: str = "GenRhs") -> str:
     (void)y;
     (void)t;
   }}
-}};
+{sliced}}};
 """
+
+
+def _index_fns(name: str, parts) -> str:
+    """``<name>_count(g)`` and ``<name>_index(g, a)``: how many outputs of
+    one kind slice g owns, and the a-th of them."""
+    width = max(1, max(len(p) for p in parts))
+    rows = ", ".join("{" + ", ".join(map(str, list(p) or [0])) + "}"
+                     for p in parts)
+    return (f"  LDQ_GEN_CX static constexpr int {name}_count(int g) {{\n"
+            f"    constexpr short n[{len(parts)}] = "
+            f"{{{', '.join(str(len(p)) for p in parts)}}};\n"
+            f"    return n[g];\n  }}\n"
+            f"  LDQ_GEN_CX static constexpr int {name}_index(int g, int a) {{\n"
+            f"    constexpr short i[{len(parts)}][{width}] = {{{rows}}};\n"
+            f"    return i[g][a];\n  }}\n")
+
+
+def _slices_source(pr: _Printer, prog: FieldProgram) -> str:
+    """The members of a sweep functor that carry its slices (plan_slices):
+    ``SLICES``; the outputs each slice owns (``ev_*`` the dy entries,
+    ``ub_*`` the ubar entries, ``pb_*`` the pbar entries: ``_count(g)``,
+    ``_index(g, a)``); each slice's ``eval_s<g>`` and ``vjp_s<g>`` (the
+    whole programs' statements for the outputs it owns, in program order,
+    its outputs packed: dy[a], ubar[a] and pbar[b] are its a-th / b-th
+    owned entries, pbar added into); and the ``eval_slice<g>`` /
+    ``vjp_slice<g>`` templates the kernel calls."""
+    plan = plan_slices(prog)
+    out = [f"  // {plan.count} slices (of {', '.join(map(str, SLICE_COUNTS))}:"
+           f" the fewest within {SLICE_SLACK} x the cheapest, longest eval "
+           f"slice + longest vjp slice);\n"
+           f"  // statements a stage: eval {list(plan.eval_cost)} (whole "
+           f"{plan.whole[0]}), vjp {list(plan.vjp_cost)} (whole "
+           f"{plan.whole[1]})\n",
+           f"  static constexpr int SLICES = {plan.count};\n",
+           _index_fns("ev", plan.eval_parts),
+           _index_fns("ub", plan.vjp_ubar),
+           _index_fns("pb", plan.vjp_pbar)]
+    for g in range(plan.count):
+        ev, _ = pr.body([prog.dy[i] for i in plan.eval_parts[g]])
+        ev += [f"    dy[{a}] = {pr.ref(prog.dy[i], False)};"
+               for a, i in enumerate(plan.eval_parts[g])]
+        vj, _ = pr.body([prog.ubar[i] for i in plan.vjp_ubar[g]]
+                        + [prog.pbar[q] for q in plan.vjp_pbar[g]])
+        vj += [f"    ubar[{a}] = {pr.ref(prog.ubar[i], False)};"
+               for a, i in enumerate(plan.vjp_ubar[g])]
+        vj += [f"    pbar[{b}] = pbar[{b}] + {pr.ref(prog.pbar[q], False)};"
+               for b, q in enumerate(plan.vjp_pbar[g])]
+        unused = "".join(f"    (void){v};\n" for v in ("r", "y", "t"))
+        out.append(
+            f"  LDQ_GEN_FN static void eval_s{g}(const Row& r, const float* y,"
+            f" float t, float* dy) {{\n" + "".join(x + "\n" for x in ev)
+            + unused + "    (void)dy;\n  }\n"
+            f"  LDQ_GEN_FN static void vjp_s{g}(const Row& r, const float* y, "
+            f"float t, const float* kb, float* ubar, float* pbar) {{\n"
+            + "".join(x + "\n" for x in vj) + unused
+            + "    (void)kb;\n    (void)ubar;\n    (void)pbar;\n  }\n")
+    for fn, args, call in (
+            ("eval_slice", "const float* y, float t, float* dy", "y, t, dy"),
+            ("vjp_slice", "const float* y, float t, const float* kb, "
+             "float* ubar, float* pbar", "y, t, kb, ubar, pbar")):
+        short = fn.split("_")[0] + "_s"
+        cases = "\n    else ".join(
+            f"if constexpr (g == {g}) {short}{g}(r, {call});"
+            for g in range(plan.count))
+        out.append(f"  template <int g>\n  LDQ_GEN_FN static void {fn}("
+                   f"const Row& r, {args}) {{\n    {cases}\n  }}\n")
+    return "".join(out)
 
 
 def kernel_source(prog: FieldProgram) -> str:
@@ -306,6 +472,7 @@ def kernel_source(prog: FieldProgram) -> str:
 #include "rk_fixed_grid.cuh"
 
 #define LDQ_GEN_FN __device__ __forceinline__
+#define LDQ_GEN_CX __host__ __device__
 
 namespace {{
 {functor_source(prog)}}}  // namespace
@@ -327,11 +494,14 @@ def kuramoto_source(n: int) -> str:
 def host_source(prog: FieldProgram) -> str:
     """The functor for a host compiler, with C entry points over rows:
     ``ldq_gen_eval(n, y, p, t, cst, dy)`` and ``ldq_gen_vjp(n, y, p, t,
-    cst, kb, ubar, pbar)`` (pbar accumulated into, as the kernel does)."""
+    cst, kb, ubar, pbar)`` (pbar accumulated into, as the kernel does);
+    ``ldq_gen_slices()`` (0 unless a sweep functor) and a sweep functor's
+    slices (``_host_slices``)."""
     D, P = prog.dim, prog.pdim
     return f"""#include <math.h>
 static inline float rsqrtf(float x) {{ return 1.0f / sqrtf(x); }}
 #define LDQ_GEN_FN inline
+#define LDQ_GEN_CX
 
 namespace {{
 {functor_source(prog)}}}  // namespace
@@ -351,6 +521,77 @@ extern "C" void ldq_gen_vjp(int n, const float* y, const float* p,
     const GenRhs::Row r = GenRhs::row(p + i * {P}, cst);
     GenRhs::vjp(r, y + i * {D}, t[i], nullptr, nullptr, kb + i * {D},
                 ubar + i * {D}, pbar + i * {P});
+  }}
+}}
+{_host_slices(prog) if not maps_fit(D, P) else _NO_SLICES}
+"""
+
+
+_NO_SLICES = 'extern "C" int ldq_gen_slices() { return 0; }\n'
+
+
+def _host_slices(prog: FieldProgram) -> str:
+    """host_source's entry points for a sweep functor's slices:
+    ``ldq_gen_slices()``, ``ldq_gen_owner(which, i)`` (which 0: dy, 1:
+    ubar, 2: pbar) and ``ldq_gen_eval_slice(g, ...)`` /
+    ``ldq_gen_vjp_slice(g, ...)``, ``ldq_gen_eval`` / ``ldq_gen_vjp``'s
+    arguments after the slice, writing only the outputs slice g owns (its
+    packed outputs put back at their indices)."""
+    D, P = prog.dim, prog.pdim
+    plan = plan_slices(prog)
+    count = plan.count
+    width = max(1, max(len(p) for p in plan.eval_parts + plan.vjp_ubar
+                       + plan.vjp_pbar))
+
+    def switch(call):
+        return "".join(f"      case {g}: GenRhs::{call.format(g=g)}; break;\n"
+                       for g in range(count))
+    vjp_call = (f"vjp_slice<{{g}}>(r, y + i * {D}, t[i], kb + i * {D}, ub, "
+                f"pb)")
+    return f"""extern "C" int ldq_gen_slices() {{ return GenRhs::SLICES; }}
+
+extern "C" int ldq_gen_owner(int which, int i) {{
+  for (int g = 0; g < GenRhs::SLICES; ++g) {{
+    const int n = which == 0 ? GenRhs::ev_count(g)
+                  : which == 1 ? GenRhs::ub_count(g) : GenRhs::pb_count(g);
+    for (int a = 0; a < n; ++a) {{
+      const int at = which == 0 ? GenRhs::ev_index(g, a)
+                     : which == 1 ? GenRhs::ub_index(g, a)
+                                  : GenRhs::pb_index(g, a);
+      if (at == i) return g;
+    }}
+  }}
+  return -1;
+}}
+
+extern "C" void ldq_gen_eval_slice(int g, int n, const float* y,
+                                   const float* p, const float* t,
+                                   const float* cst, float* dy) {{
+  for (int i = 0; i < n; ++i) {{
+    const GenRhs::Row r = GenRhs::row(p + i * {P}, cst);
+    float out[{width}];
+    switch (g) {{
+{switch(f"eval_slice<{{g}}>(r, y + i * {D}, t[i], out)")}    }}
+    for (int a = 0; a < GenRhs::ev_count(g); ++a)
+      dy[i * {D} + GenRhs::ev_index(g, a)] = out[a];
+  }}
+}}
+
+extern "C" void ldq_gen_vjp_slice(int g, int n, const float* y,
+                                  const float* p, const float* t,
+                                  const float* cst, const float* kb,
+                                  float* ubar, float* pbar) {{
+  for (int i = 0; i < n; ++i) {{
+    const GenRhs::Row r = GenRhs::row(p + i * {P}, cst);
+    float ub[{width}], pb[{width}];
+    for (int b = 0; b < GenRhs::pb_count(g); ++b)
+      pb[b] = pbar[i * {P} + GenRhs::pb_index(g, b)];
+    switch (g) {{
+{switch(vjp_call)}    }}
+    for (int a = 0; a < GenRhs::ub_count(g); ++a)
+      ubar[i * {D} + GenRhs::ub_index(g, a)] = ub[a];
+    for (int b = 0; b < GenRhs::pb_count(g); ++b)
+      pbar[i * {P} + GenRhs::pb_index(g, b)] = pb[b];
   }}
 }}
 """

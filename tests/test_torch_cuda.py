@@ -30,7 +30,7 @@ plain float32 versions are then as far from float64 as the kernel is, so
 relu fields get 1e-2 against the float64 sweep and against autograd.
 """
 import copy
-
+import ctypes
 
 import pytest
 import torch
@@ -41,7 +41,8 @@ from latentdiffeq_torch.adjoint import SolveOptions
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
                                        LatentODE, NODE, ODEDynamics,
                                        default_layers, goku_default_layers)
-from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
+from latentdiffeq_torch.ops import (node_cuda, ode_cuda, recurrent_cuda,
+                                    rhs_codegen)
 from latentdiffeq_torch.pendulum import (Pendulum, pendulum_f,
                                          pendulum_friction_f)
 from latentdiffeq_torch.solve import rk as trk
@@ -883,20 +884,53 @@ ZOO_RHS = {**{name: (f, dim, pdim, name)
            "lorenz96-40": (lorenz96_40, 40, 1, "lorenz96-12")}
 # Kuramoto past the lane groups: the block kernels at 32 and 33 (one warp,
 # and a second warp with one lane busy), 64 and 1100 (past the block's 512
-# threads: a lane takes up to three oscillators).
+# threads: a lane takes up to three oscillators); and a width on each side
+# of each change in what the backward keeps in shared memory at 6 stages
+# (Tsit5, Dopri5) and 4 sub-steps (ode_cuda.bwd_switches): the stages with
+# the recompute spread to 227, without to 2,233, the sub-step starts to
+# 4,840, nothing past that.
 KURAMOTO_BLOCK_N = (32, 33, 64, 1100)
+KURAMOTO_SWITCH_N = (227, 228, 2233, 2234, 4840, 4841)
+# The sliced sweep kernel against the one-thread sweep kernel it replaces:
+# Lorenz-96-40's functor built with every row past the sliced kernel's
+# shared memory (LDQ_RK_SWEEP_ROW_FLOATS 1), so that its backward runs
+# rk_fixed_grid_sweep_bwd_thread_kernel at every tableau.
+THREAD_SWEEP_LEVER = "#define LDQ_RK_SWEEP_ROW_FLOATS 1\n"
+
+
+def thread_sweep_library():
+    """(library name, typed library) of Lorenz-96-40 on the one-thread
+    sweep kernel (THREAD_SWEEP_LEVER), registered and loaded."""
+    from latentdiffeq_torch.ops import _build, rhs_codegen, rhs_trace
+    prog = rhs_trace.trace_field(lorenz96_40, 40, 1)
+    name = _build.register_generated(
+        "rk_gen", THREAD_SWEEP_LEVER + rhs_codegen.kernel_source(prog))
+    return name, ode_cuda.typed_library(_build.load_kernel(name))
 
 
 @pytest.fixture(scope="module")
 def gen_built():
-    """Every generated instance of these tests and the Kuramoto ones,
-    built in parallel."""
+    """Every generated instance of these tests and the Kuramoto ones, and
+    the one-thread sweep library, built in parallel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    from latentdiffeq_torch.ops import _build, rhs_codegen, rhs_trace
+    prog = rhs_trace.trace_field(lorenz96_40, 40, 1)
+    lever = _build.register_generated(
+        "rk_gen", THREAD_SWEEP_LEVER + rhs_codegen.kernel_source(prog))
     ode_cuda.build_instances(
         [(f, 2, pdim) for f, pdim, _ in GEN_RHS.values()]
         + [(f, dim, pdim) for f, dim, pdim, _ in ZOO_RHS.values()]
-        + [(cdyn.kuramoto_f(n), n, 2) for n in (7,) + KURAMOTO_BLOCK_N])
+        + [(cdyn.kuramoto_f(n), n, 2)
+           for n in (7,) + KURAMOTO_BLOCK_N + KURAMOTO_SWITCH_N])
+    _build.build_kernels([lever])
+
+
+def expected_plan(route, dim, solver, substeps):
+    """(keep, spread) the header's plans choose on the H100 (227 KB a
+    block), from ode_cuda's mirror of its formulas."""
+    return ode_cuda.bwd_keep(route, dim, trk.n_solution_stages(
+        solver.tableau), substeps, ode_cuda.SMEM_OPTIN)
 
 
 def gen_inputs(dev, name, B, T, seed):
@@ -1002,8 +1036,9 @@ def test_rk_generated_functor_bwd_matches_plain_on_card(dev, gen_built,
     through the float64 plain solve): the interval maps' float32 order can
     stand farther from float64 than the reverse sweep's (PERF.md, open
     questions). A wider field runs rk_fixed_grid_sweep_bwd_kernel, one
-    launch, held to its plain version, the plain reverse sweep over the
-    same trajectory, within 1e-5 of each gradient's size, and forms no
+    launch of its slices' warps (more than one), keeping every sub-step's
+    stage inputs, held to its plain version, the plain reverse sweep over
+    the same trajectory, within 1e-5 of each gradient's size, and forms no
     maps."""
     f, dim, pdim, sub, u0s, ps, saveat, w = gen_inputs(dev, name, B, T,
                                                        seed=41)
@@ -1013,6 +1048,10 @@ def test_rk_generated_functor_bwd_matches_plain_on_card(dev, gen_built,
         ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
                                                        substeps=sub)
     if rk.backward == "sweep":
+        plan = ode_cuda.bwd_plan(f, s, dim, B, sub, pdim)
+        slices = rhs_codegen.plan_slices(rk.program).count
+        assert slices > 1 and plan["threads"] == 32 * slices
+        assert (plan["keep"], False) == expected_plan("sweep", dim, s, sub)
         bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches
         before = bwd.get(rk.name, 0)
         got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
@@ -1063,6 +1102,74 @@ def sweep_gate(f, s, sub, u0s, ps, saveat, ys, w, got, two):
             ref = version(torch.float64)
             for a, b, c in zip(got, two, ref):
                 assert rel_err(a.double(), c) <= 2 * rel_err(b.double(), c)
+
+
+def thread_sweep_bwd(lib, s, saveat, ys, ps, g, substeps):
+    """The one-thread sweep kernel's (du0, dp) from THREAD_SWEEP_LEVER's
+    library, launched as solve_fixed_grid_batched_bwd_cuda launches its
+    instance's."""
+    from latentdiffeq_torch.solve.rk import tableau_f32
+    n, a, b, c = tableau_f32(s)
+    B, T, D = ys.shape
+    du0 = torch.empty(B, D, device=ys.device)
+    dp = torch.empty(B, ps.shape[1], device=ys.device)
+    err = lib.ldq_rk_fixed_grid_bwd(
+        0, ode_cuda.tableau_instance(s), n, a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), saveat.data_ptr(), ys.data_ptr(), ps.data_ptr(), None,
+        g.data_ptr(), du0.data_ptr(), dp.data_ptr(), None, None, B, T,
+        substeps, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return du0, dp
+
+
+def sweep_switch_cases():
+    """(solver, sub-steps): 4 under every tableau, and at Tsit5 and RK4 each
+    side of each change in what a Lorenz-96-40 row keeps (the last count
+    that keeps the stages, the starts, and the next)."""
+    cases = [(name, 4) for name in ("Tsit5", "RK4", "Dopri5")]
+    for name, stages in (("Tsit5", 6), ("RK4", 4)):
+        for last, *_ in ode_cuda.bwd_switches("sweep", 40, stages, 4)[:2]:
+            cases += [(name, last), (name, last + 1)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,sub", sweep_switch_cases())
+def test_rk_generated_functor_sweep_keeps_what_fits_on_card(dev, gen_built,
+                                                            solver, sub):
+    """Lorenz-96-40's sliced sweep (16 warps a row) keeps every stage
+    input, else the sub-step starts, else nothing, as its plan says and
+    ode_cuda's mirror of the header's formulas predicts, on each side of
+    each change (sweep_switch_cases); whatever it keeps, its gradients
+    equal the one-thread sweep kernel's (the design before, built with
+    THREAD_SWEEP_LEVER, whose plan says so) bit for bit: the same
+    operations in the same order, only spread over warps. At 4 sub-steps
+    also the plain reverse sweep within 1e-5 of each gradient's size. B 5,
+    2 save points."""
+    f, dim, pdim, _, u0s, ps, saveat, w = gen_inputs(dev, "lorenz96-40", 5,
+                                                     2, seed=43)
+    s = getattr(trk, solver)()
+    with torch.no_grad():
+        ys, _ = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps, saveat,
+                                                       substeps=sub)
+    plan = ode_cuda.bwd_plan(f, s, dim, 5, sub, pdim)
+    assert (plan["keep"], False) == expected_plan("sweep", dim, s, sub)
+    assert plan["threads"] == 32 * rhs_codegen.plan_slices(
+        ode_cuda.rhs_kernel(f, dim, pdim).program).count
+    got = ode_cuda.solve_fixed_grid_batched_bwd_cuda(f, s, saveat, ys, ps, w,
+                                                     substeps=sub)
+    name, lib = thread_sweep_library()
+    out = (ctypes.c_int * 5)()
+    assert lib.ldq_rk_bwd_plan(trk.n_solution_stages(s.tableau), 5, sub,
+                               out) == 0 and out[0] == -1
+    ref = thread_sweep_bwd(lib, s, saveat, ys, ps, w, sub)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if sub == 4:
+        sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
+            f, s, saveat, ys, ps, w, substeps=sub)
+        for a, b in zip(got, sweep):
+            assert rel_err(a, b) <= ATOL
 
 
 @pytest.mark.cuda
@@ -1143,17 +1250,20 @@ def test_goku_user_field_kernel_path_on_card(dev, gen_built):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sub", [1, 4])
 @pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
-@pytest.mark.parametrize("n", KURAMOTO_BLOCK_N)
+@pytest.mark.parametrize("n", KURAMOTO_BLOCK_N + KURAMOTO_SWITCH_N)
 def test_rk_kuramoto_block_kernels_match_plain_on_card(dev, gen_built, n,
-                                                       solver):
-    """Kuramoto at N >= 32 with frequency offsets, 4 sub-steps, B 26 / T 21
-    (B 2 / T 4 at 1100): rk_kuramoto_block_kernel equal to the plain
-    version bit for bit with its flags, a baked tableau instance equal to
-    the run-time one; rk_kuramoto_block_bwd_kernel within 1e-5 of each
-    gradient's size of the plain reverse sweep over the same trajectory,
-    its plain version (the baked tableaus and the run-time one), and no
-    maps."""
+                                                       solver, sub):
+    """Kuramoto at N >= 32 with frequency offsets, 1 and 4 sub-steps, B 26
+    / T 21 (B 2 / T 4 past 512): rk_kuramoto_block_kernel equal to the
+    plain version bit for bit with its flags, a baked tableau instance
+    equal to the run-time one; rk_kuramoto_block_bwd_kernel keeping in
+    shared memory what its plan says and ode_cuda's mirror of the header's
+    formulas predicts (KURAMOTO_SWITCH_N: each side of each change), within
+    1e-5 of each gradient's size of the plain reverse sweep over the same
+    trajectory, its plain version (the baked tableaus and the run-time
+    one), and no maps."""
     f = cdyn.Kuramoto(n, omega_spread=0.5).f
     B, T = (2, 4) if n > 512 else (26, 21)
     g = torch.Generator().manual_seed(60 + n)
@@ -1166,23 +1276,25 @@ def test_rk_kuramoto_block_kernels_match_plain_on_card(dev, gen_built, n,
     assert ode_cuda.rhs_kernel(f, n).backward == "block"
     with torch.no_grad():
         got, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
-                                                         saveat, substeps=4)
+                                                         saveat, substeps=sub)
         ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
-            f, s, u0s, ps, saveat, substeps=4)
+            f, s, u0s, ps, saveat, substeps=sub)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(ok, ok_p) and bool(ok.all())
     if ode_cuda.tableau_instance(s) != 0:
         gen = ode_cuda.solve_fixed_grid_batched_cuda(
-            f, s, u0s, ps, saveat, substeps=4, generic=True)
+            f, s, u0s, ps, saveat, substeps=sub, generic=True)
         assert torch.equal(got.view(torch.int32), gen[0].view(torch.int32))
+    plan = ode_cuda.bwd_plan(f, s, n, B, sub)
+    assert (plan["keep"], plan["spread"]) == expected_plan("block", n, s, sub)
     du0, dp = ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-        f, s, saveat, got, ps, w, substeps=4)
+        f, s, saveat, got, ps, w, substeps=sub)
     sweep = ode_cuda.solve_fixed_grid_batched_backward_reference(
-        f, s, saveat, got, ps, w, substeps=4)
+        f, s, saveat, got, ps, w, substeps=sub)
     assert rel_err(du0, sweep[0]) <= ATOL and rel_err(dp, sweep[1]) <= ATOL
     with pytest.raises(ValueError, match="no interval maps"):
         ode_cuda.solve_fixed_grid_batched_bwd_cuda(
-            f, s, saveat, got, ps, w, substeps=4, maps=True)
+            f, s, saveat, got, ps, w, substeps=sub, maps=True)
 
 
 @pytest.mark.cuda
