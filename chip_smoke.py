@@ -141,10 +141,11 @@ Phases, each printing one line (any failure exits non-zero):
               custom_data (4l's instances are checked against their
               plain versions and timed in phase 5); then (4m) every field
               JAX's Pallas solve runs: Lorenz-96 at 40 sites with its
-              forcing in p, written with torch.roll (a generated forward
-              and, its interval maps past MAX_MAP_FLOATS, the
-              reverse-sweep backward), and Kuramoto at 64 oscillators
-              (the block kernels): GOKU at the custom dynamics' width on
+              forcing in p, written with torch.roll (a generated functor,
+              its interval maps past MAX_MAP_FLOATS: the sliced forward
+              and the reverse-sweep backward), and Kuramoto at 64
+              oscillators (the block kernels, the forward's sines spread
+              over the block): GOKU at the custom dynamics' width on
               each for 2 epochs (launches, no plain solve, the kernel
               against the plain path), and the kernel and plain routes
               from the same seed for one step and a validation pass
@@ -176,9 +177,13 @@ Phases, each printing one line (any failure exits non-zero):
               version, its bound on the tensor cores and the float32 SIMT
               bound; 4l's and 4m's instances (the generated functors,
               Kuramoto-7 on the lane groups, Lorenz-96-40 on the sliced
-              reverse sweep, Kuramoto-64 on the block kernels; the two
-              reverse-sweep backwards' plans, what each keeps in shared
-              memory and the sweep's slices, and where they change),
+              forward and reverse sweep, Kuramoto-64 on the block
+              kernels; both plans of the wide routes, the design of the
+              forward, what each backward keeps in shared memory and the
+              sweep's slices, and where they change; the two new
+              forwards against the designs before them, built from the
+              same source with FWD_BEFORE, on the same inputs, bit for
+              bit, states and flags, and both timed),
               forward and backward, against the plain versions at their
               train and
               validation shapes with the gates of phase 2 and 3 (float32
@@ -4634,23 +4639,27 @@ def gen_inputs(label, B, T, gen):
     return u0s, ps, saveat
 
 
-def route_kernels(rk):
+def route_kernels(rk, fwd=None):
     """The profiler's names of the CUDA kernels (forward, backward) that an
-    instance's route launches."""
-    return {"lanes": ("rk_kuramoto_kernel", "rk_kuramoto_bwd_kernel"),
-            "block": ("rk_kuramoto_block_kernel",
-                      "rk_kuramoto_block_bwd_kernel"),
-            "sweep": ("rk_fixed_grid_kernel",
-                      "rk_fixed_grid_sweep_bwd_kernel"),
-            "maps": ("rk_fixed_grid_kernel",
-                     "rk_fixed_grid_bwd_kernel")}[rk.backward]
+    instance's route launches; ``fwd``, the forward's design
+    (ode_cuda.fwd_plan's), names the sliced forward of a sweep functor."""
+    kf, kb = {"lanes": ("rk_kuramoto_kernel", "rk_kuramoto_bwd_kernel"),
+              "block": ("rk_kuramoto_block_kernel",
+                        "rk_kuramoto_block_bwd_kernel"),
+              "sweep": ("rk_fixed_grid_kernel",
+                        "rk_fixed_grid_sweep_bwd_kernel"),
+              "maps": ("rk_fixed_grid_kernel",
+                       "rk_fixed_grid_bwd_kernel")}[rk.backward]
+    return ("rk_fixed_grid_sliced_kernel" if fwd == "sliced" else kf), kb
 
 
-def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock, plan=None):
+def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock, plan=None,
+               fwd=None):
     """((bytes, operations) of the forward, of the backward, (forward,
     backward) latency model ms) of an instance on its route: Kuramoto's by
     rhs_ops, a generated functor's from its program's operation count; the
-    reverse-sweep routes' models by their ``plan`` (ode_cuda.bwd_plan)."""
+    reverse-sweep routes' models by their ``plan`` (ode_cuda.bwd_plan), the
+    forward's by its design ``fwd`` (ode_cuda.fwd_plan's)."""
     if rk.program is None:  # Kuramoto: the lane groups or the block
         work = (rk_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto", dim),
                 rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, "kuramoto",
@@ -4660,7 +4669,8 @@ def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock, plan=None):
                                           dim),
                             rk_bwd_latency_ms(T, sub, n_st, clock,
                                               "kuramoto", dim)),)
-        return work + ((block_latency_ms(T, sub, n_st, dim, clock),
+        return work + ((block_latency_ms(T, sub, n_st, dim, clock,
+                                         spread=fwd == "spread"),
                         block_latency_ms(T, sub, n_st, dim, clock, bwd=True,
                                          keep=plan["keep"],
                                          spread=plan["spread"])),)
@@ -4670,9 +4680,64 @@ def route_work(rk, B, T, dim, pdim, sub, tab, n_st, clock, plan=None):
                                    keep=plan["keep"])
     else:
         bwd_lat = gen_bwd_latency_ms(rk.program, T, sub, tab, n_st, clock)
+    fwd_lat = (sliced_fwd_latency_ms(rk.program, T, sub, tab, n_st, clock)
+               if fwd == "sliced" else
+               gen_latency_ms(rk.program, T, sub, tab, n_st, clock))
     return (rk_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
             rk_bwd_work(B, T, dim, pdim, sub, tab, n_st, ops=ops),
-            (gen_latency_ms(rk.program, T, sub, tab, n_st, clock), bwd_lat))
+            (fwd_lat, bwd_lat))
+
+
+# A source built with every forward on the design before the sliced and
+# the spread ones (the header's LDQ_RK_FWD_FLOATS at 1): the one-thread
+# kernel for a sweep functor, the Kuramoto block forward's sines on the
+# oscillators' own lanes.
+FWD_BEFORE = "#define LDQ_RK_FWD_FLOATS 1\n"
+
+
+def forward_before_libraries(fields):
+    """{label: the registered FWD_BEFORE library of its instance} of the
+    fields whose forward at Tsit5 runs a design past a thread or a warp
+    (ode_cuda.fwd_design: "sliced", "spread")."""
+    from latentdiffeq_torch.ops import _build, ode_cuda, rhs_codegen
+    out = {}
+    for label, (f, dim, pdim, *_) in fields.items():
+        rk = ode_cuda.rhs_kernel(f, dim, pdim)
+        if ode_cuda.fwd_design(rk.backward, dim, 6) not in ("sliced",
+                                                            "spread"):
+            continue
+        if rk.program is not None:
+            out[label] = _build.register_generated(
+                "rk_gen", FWD_BEFORE + rhs_codegen.kernel_source(rk.program))
+        else:
+            out[label] = _build.register_generated(
+                "rk_kuramoto", FWD_BEFORE + rhs_codegen.kuramoto_source(dim))
+    return out
+
+
+def forward_from(library, f, s, u0s, ps, saveat, sub):
+    """(ys, success) from the forward entry point of ``library`` (a build of
+    ``f``'s instance source, as forward_before_libraries registers it),
+    launched as ode_cuda.solve_fixed_grid_batched_cuda launches the
+    instance's own; not counted."""
+    from latentdiffeq_torch.ops import _build, ode_cuda
+    from latentdiffeq_torch.solve.rk import tableau_f32
+    B, dim = u0s.shape
+    rk = ode_cuda.rhs_kernel(f, dim, ps.shape[1])
+    lib = ode_cuda.typed_library(_build.load_kernel(library))
+    n, a, b, c = tableau_f32(s)
+    cst = ode_cuda._rhs_consts(f, u0s.device, rk.ncst)
+    ys = torch.empty(B, saveat.shape[0], dim, device=u0s.device)
+    ok = torch.empty(B, dtype=torch.bool, device=u0s.device)
+    err = lib.ldq_rk_fixed_grid(
+        0, ode_cuda.tableau_instance(s), n, a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), saveat.data_ptr(), u0s.data_ptr(), ps.data_ptr(),
+        None if cst is None else cst.data_ptr(), ys.data_ptr(),
+        ok.data_ptr(), B, saveat.shape[0], sub,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"{library}: forward launch failed, CUDA error {err}")
+    return ys, ok
 
 
 def exact_forward(rk):
@@ -4713,24 +4778,32 @@ def gen_kernel_checks(gen, clock, fields):
     generated ones. Returns ({kernels-line name: largest absolute error
     against the plain version}, {name: (ms, plain_ms, bound_ms, bound_by,
     library_ms)} at the train shape)."""
-    from latentdiffeq_torch.ops import ode_cuda
+    from latentdiffeq_torch.ops import _build, ode_cuda
     from latentdiffeq_torch.solve.rk import Tsit5, n_solution_stages
     s = Tsit5()
     tab = s.tableau
     n_st = n_solution_stages(tab)
     bwd = ode_cuda.solve_fixed_grid_batched_bwd_cuda
+    old_libs = forward_before_libraries(fields)
+    _build.build_kernels(list(old_libs.values()))  # built in phase 1
     worst, times = {}, {}
     for label, (f, dim, pdim, sub, _, twin) in fields.items():
         rk = ode_cuda.rhs_kernel(f, dim, pdim)
         fn = rk_name("rk_fixed_grid", f, dim, pdim)
         bn = rk_name("rk_fixed_grid_bwd", f, dim, pdim)
-        kf, kb = route_kernels(rk)
         maps = rk.backward in ("maps", "lanes")
         for shape, B, T in gen_shapes(label):
             u0s, ps, saveat = gen_inputs(label, B, T, gen)
             w = torch.randn(B, T, dim, generator=gen, device="cuda")
             plan = None
             at = f"{label} {shape} B={B} T={T} substeps={sub}"
+            fplan = ode_cuda.fwd_plan(f, s, dim, B, pdim)
+            kf, kb = route_kernels(rk, fplan["design"])
+            if rk.backward in ("sweep", "block"):
+                log("kernels", f"{fn} ({rk.backward} route) {at} Tsit5: "
+                               f"forward plan {fplan}; where the design "
+                               f"changes at 227 KB (last width, design): "
+                               f"{ode_cuda.fwd_switches(rk.backward, n_st)}")
             if rk.backward in ("sweep", "block"):
                 plan = ode_cuda.bwd_plan(f, s, dim, B, sub, pdim)
                 over = ("width" if rk.backward == "block"
@@ -4744,7 +4817,7 @@ def gen_kernel_checks(gen, clock, fields):
                                + f"); where it changes at 227 KB (last "
                                f"{over}, keeps, spread): {runs}")
             fw, bw, lat = route_work(rk, B, T, dim, pdim, sub, tab, n_st,
-                                     clock, plan)
+                                     clock, plan, fplan["design"])
 
             def timing(name, kname, kernel, p_ms, work, lat_ms):
                 k_ms = time_ms(kernel)
@@ -4790,6 +4863,31 @@ def gen_kernel_checks(gen, clock, fields):
             with torch.no_grad():
                 timing(fn, kf, lambda: ode_cuda.solve_fixed_grid_batched_cuda(
                     f, s, u0s, ps, saveat, substeps=sub), p_ms, fw, lat[0])
+            if label in old_libs:  # the design before, on the same inputs
+                old_k = ("rk_fixed_grid_kernel" if rk.program is not None
+                         else "rk_kuramoto_block_kernel")
+                with torch.no_grad():
+                    def old():
+                        return forward_from(old_libs[label], f, s, u0s, ps,
+                                            saveat, sub)
+                    ys_o, ok_o = old()
+                    same = (torch.equal(got.view(torch.int32),
+                                        ys_o.view(torch.int32))
+                            and torch.equal(ok, ok_o))
+                    log("kernels", f"{fn} ({fplan['design']}) {at}: against"
+                                   f" the design before ({old_k}, "
+                                   f"{old_libs[label]}) on the same inputs: "
+                                   f"states and flags bit for bit {same}")
+                    if not same:
+                        fail(f"forward {label} {shape}: the "
+                             f"{fplan['design']} design differs from the "
+                             f"design before")
+                    old_lat = route_work(rk, B, T, dim, pdim, sub, tab,
+                                         n_st, clock, plan)[2][0]
+                    log("timing", f"{fn} {at}, the design before ({old_k}):"
+                                  f" {time_ms(old):.4f} ms per call "
+                                  f"({fmt_ms(device_ms(old, old_k))} on the "
+                                  f"device), latency model {old_lat:.6f} ms")
 
             before = bwd.launches.get(rk.name, 0)
             out = bwd(f, s, saveat, got, ps, w, substeps=sub, maps=maps)
@@ -5075,9 +5173,10 @@ def gen_ops(prog):
 
 # ---------------------------------------------------------------------------
 # Phase 4m: every field JAX's Pallas solve runs goes through the RK kernel:
-# GOKU on Lorenz-96 at 40 (a generated forward, the reverse-sweep backward
-# rk_fixed_grid_sweep_bwd_kernel) and on Kuramoto at 64 (the block kernels
-# rk_kuramoto_block_kernel, rk_kuramoto_block_bwd_kernel); the kernels
+# GOKU on Lorenz-96 at 40 (a generated functor on the sliced kernels
+# rk_fixed_grid_sliced_kernel and rk_fixed_grid_sweep_bwd_kernel) and on
+# Kuramoto at 64 (the block kernels rk_kuramoto_block_kernel, its sines
+# spread over the block, and rk_kuramoto_block_bwd_kernel); the kernels
 # against their plain versions in phase 5 (gen_kernel_checks).
 
 LOSS_TOL = 1e-4  # kernel route against the plain route, of each loss's size
@@ -5213,7 +5312,6 @@ def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz, keep=2):
     one-thread kernel (keep -1): per interval and sub-step j, j + 1 steps
     of `gen_step_cycles`, then the whole VJP program of each stage in
     reverse and its updates."""
-    from latentdiffeq_torch.ops import rhs_codegen
     if keep == -1:
         ready = {i: 0 for i in prog.u_ids + prog.kb_ids + [prog.t_id]}
         vjp = max(program_cycles(prog, prog.ubar + prog.pbar, ready))
@@ -5221,6 +5319,20 @@ def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz, keep=2):
         per = (substeps * (substeps + 1) // 2 * step
                + substeps * n_stages * (vjp + 2 * FMA_CYC))
         return (T - 1) * per / (clock_mhz * 1e3)
+    fwd, bwd = sliced_stage_cycles(prog, tab, n_stages)
+    per = RECOMPUTED[keep](substeps) * fwd + substeps * bwd
+    return (T - 1) * per / (clock_mhz * 1e3)
+
+
+def sliced_stage_cycles(prog, tab, n_stages, unrolled=False):
+    """(a sub-step's stages, a sub-step's sweep) in cycles, in the sliced
+    kernels (sweep_latency_ms): per stage its inputs' terms (a shared-memory
+    load of a_sq and of the slope, a multiply and an add a nonzero a_sq,
+    one chain for all the slice's entries; ``unrolled``, as the sliced
+    forward takes them, every load at once and then the multiplies and
+    adds), a barrier and the longest eval slice; per swept stage a barrier,
+    the longest vjp slice and the cotangent updates, then a barrier."""
+    from latentdiffeq_torch.ops import rhs_codegen
     plan = rhs_codegen.plan_slices(prog)
     share = math.ceil(plan.count / 4)
 
@@ -5230,13 +5342,24 @@ def sweep_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz, keep=2):
     ev = stage([[prog.dy[i] for i in part] for part in plan.eval_parts])
     vj = stage([[prog.ubar[i] for i in u] + [prog.pbar[q] for q in pq]
                 for u, pq in zip(plan.vjp_ubar, plan.vjp_pbar)])
-    terms = [sum(1 for a in tab.a[s][:s] if a != 0.0) * (LDS_CYC
-                                                         + 2 * FMA_CYC)
-             for s in range(n_stages)]
-    fwd = sum(t + BAR_CYC + ev for t in terms)
+    counts = [sum(1 for a in tab.a[s][:s] if a != 0.0)
+              for s in range(n_stages)]
+    terms = [c * (LDS_CYC + 2 * FMA_CYC) for c in counts]
+    fwd = sum((LDS_CYC * (c > 0) + 2 * FMA_CYC * c if unrolled else t)
+              + BAR_CYC + ev for c, t in zip(counts, terms))
     bwd = sum(BAR_CYC + vj + FMA_CYC + t for t in terms) + BAR_CYC
-    per = RECOMPUTED[keep](substeps) * fwd + substeps * bwd
-    return (T - 1) * per / (clock_mhz * 1e3)
+    return fwd, bwd
+
+
+def sliced_fwd_latency_ms(prog, T, substeps, tab, n_stages, clock_mhz):
+    """The sliced forward's chain for a trajectory: (T - 1) * substeps
+    sub-steps of the sliced stages, their terms unrolled
+    (sliced_stage_cycles), and the update, the slopes' shared-memory loads
+    at once, then a multiply and an add a nonzero b_s."""
+    fwd, _ = sliced_stage_cycles(prog, tab, n_stages, unrolled=True)
+    update = LDS_CYC + (sum(1 for b in tab.b[:n_stages] if b != 0.0)
+                        * 2 * FMA_CYC)
+    return (T - 1) * substeps * (fwd + update) / (clock_mhz * 1e3)
 
 
 def block_threads(dim):
@@ -5250,30 +5373,30 @@ def block_threads(dim):
 
 def block_latency_ms(T, substeps, n_stages, dim, clock_mhz, bwd=False,
                      keep=2, spread=False):
-    """The Kuramoto block kernels' chain for a trajectory. The forward, per
-    stage a barrier and each of a lane's oscillators' N sines issued one
-    after another (`kuramoto_stage_cycles` with the diagonal's). The
-    backward (its ``ode_cuda.bwd_plan``: keep, spread), per interval the
-    recomputed sub-steps (RECOMPUTED[keep]) of stages as the forward's or,
-    spread, per stage a barrier, the N^2 pairs' sines over the block's
-    warps (ceil(warps / 4) a scheduler, each issuing its lanes' share), a
-    barrier and lane i's N dependent adds; then per swept sub-step and
+    """The Kuramoto block kernels' chain for a trajectory. A stage of the
+    forward (its ``ode_cuda.fwd_plan``: spread or not) and of the
+    backward's recompute (its ``ode_cuda.bwd_plan``: keep, spread): a
+    barrier and each of a lane's oscillators' N sines issued one after
+    another (`kuramoto_stage_cycles` with the diagonal's) or, spread, a
+    barrier, the N^2 pairs' sines over the block's warps (ceil(warps / 4)
+    a scheduler, each issuing its lanes' share), a barrier and lane i's N
+    dependent adds. The backward, per interval the recomputed sub-steps
+    (RECOMPUTED[keep]) of those stages; then per swept sub-step and
     stage three barriers (the cotangent row, the block sum), each lane's
     ceil(N / G) sines and cosines with the three sums (SINCOS_ISSUE each,
     ceil(warps / 4) warps a scheduler), the group's xor tree and the block
     sum's shuffles (SHFL_CYC + FMA_CYC a level) and its cotangent
     updates."""
     th, osc, lanes = block_threads(dim)
-    fwd_stage = osc * kuramoto_stage_cycles(dim + 1) + BAR_CYC
-    if not bwd:
-        return ((T - 1) * substeps * n_stages * fwd_stage) / (clock_mhz * 1e3)
     share = math.ceil(th * lanes // 32 / 4)
     if spread:
         rec = (2 * BAR_CYC + 3 * FMA_CYC
                + share * math.ceil(dim * dim / (th * lanes)) * SINF_ISSUE
                + SINF_STEPS * FMA_CYC + LDS_CYC + dim * FMA_CYC)
     else:
-        rec = fwd_stage
+        rec = osc * kuramoto_stage_cycles(dim + 1) + BAR_CYC
+    if not bwd:
+        return ((T - 1) * substeps * n_stages * rec) / (clock_mhz * 1e3)
     rev = (3 * BAR_CYC + share * osc * math.ceil(dim / lanes) * SINCOS_ISSUE
            + (int(math.log2(lanes)) + 5) * (SHFL_CYC + FMA_CYC) + 4 * FMA_CYC)
     per = (RECOMPUTED[keep](substeps) * n_stages * rec
@@ -5367,8 +5490,12 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    # the port's sources and phase 4l's and 4m's instances, all at once
-    built = ode_cuda.build_instances(gen_specs())
+    # the port's sources, phase 4l's and 4m's instances and phase 5's
+    # builds of them on the forwards before, all at once
+    built = _build.build_kernels(list(dict.fromkeys(
+        list(_build.KERNEL_SOURCES)
+        + [ode_cuda.rhs_kernel(*spec).library for spec in gen_specs()]
+        + list(forward_before_libraries(gen_fields()).values()))))
     log("build", f"{sorted(built)} in {time.perf_counter() - t0:.2f} s "
                  f"(compiled now: {sorted(n for n, b in built.items() if b)})"
                  f"; card: {gpu}; torch {torch.__version__} cuda "

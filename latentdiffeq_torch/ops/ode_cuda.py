@@ -27,6 +27,12 @@ launchers count their launches by that name):
 kernel), "sweep", "lanes" or "block". The two reverse-sweep routes keep
 what they can of an interval in shared memory, decided at each launch
 (``bwd_plan`` asks the library; ``bwd_switches`` says where it changes).
+The forward's design is the library's choice too, from sizes (``fwd_plan``;
+``fwd_design`` and ``fwd_switches`` mirror it): a functor on the "sweep"
+route too wide for one thread's registers runs forward on warp slices of
+its program (``rk_fixed_grid_sliced_kernel``), and Kuramoto's block
+forward spreads a stage's sines over the block where they fit beside its
+stage inputs.
 Generated sources build at first use into build/kernels/, named by their
 hash (ops/_build.py). A field the kernel cannot run raises ValueError
 naming the graph node while it is traced, before the device is looked at,
@@ -60,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 from typing import Callable, Optional
 
 import torch
@@ -82,7 +89,8 @@ __all__ = ["solve_fixed_grid_batched", "solve_fixed_grid_batched_cuda",
            "BAKED_TABLEAUS", "DEVICE_RHS", "RHS_VJP", "RhsKernel",
            "rhs_kernel", "rhs_instance", "field_vjp", "build_instances",
            "BWD_KEEP", "SMEM_OPTIN", "bwd_floats", "bwd_switches",
-           "bwd_keep", "bwd_plan"]
+           "bwd_keep", "bwd_plan", "FWD_DESIGN", "FWD_THREAD_FLOATS",
+           "fwd_floats", "fwd_design", "fwd_switches", "fwd_plan"]
 
 # device_rhs family -> {state width: (functor index in csrc/rk_fixed_grid.cu,
 # parameter width, instance name)}: the widths each hand-written functor is
@@ -286,6 +294,93 @@ def bwd_plan(f: Callable, solver: AbstractSolver, dim: int, B: int,
         raise RuntimeError(f"ldq_rk_bwd_plan failed: CUDA error {err}")
     return dict(keep=out[0], threads=out[1], rows=out[2], smem=out[3],
                 spread=bool(out[4]))
+
+
+# The forward kernel's design (the header's FwdPlan, ``ldq_rk_fwd_plan``):
+# rk_fixed_grid_kernel, a thread a row; rk_fixed_grid_sliced_kernel, a
+# warp a slice of a sweep functor's program; the Kuramoto lane groups; the
+# Kuramoto block kernel with each oscillator's sines on its own lane, or
+# with a stage's sines spread over the block.
+FWD_DESIGN = {0: "one-thread", 1: "sliced", 2: "lanes", 3: "block",
+              4: "spread"}
+DT_TABLE = 1024  # the block forward's static table of step sizes, floats
+FWD_FLAGS = 32  # the sliced forward's row flags, ints
+# The one-thread forward's stage inputs and slopes (2 NS dim floats) up to
+# which a sweep functor keeps it (a thread's registers; the header's
+# LDQ_RK_FWD_THREAD_FLOATS).
+FWD_THREAD_FLOATS = 255
+
+
+def fwd_floats(design: str, dim: int, n_stages: int) -> int:
+    """The header's shared-memory floats of a forward block: the Kuramoto
+    block kernel's (``kur_block_fwd_floats`` and the step sizes' table;
+    "spread" with a stage's pairs) or the sliced kernel's with one row
+    (the tableau, the flags and ``fwd_row_floats``)."""
+    if design in ("block", "spread"):
+        pairs = dim * (dim + 1) if design == "spread" else 0
+        return DT_TABLE + n_stages * dim + pairs
+    return (n_stages * (n_stages + 2) + FWD_FLAGS
+            + (2 * n_stages * dim | 1))
+
+
+def fwd_design(route: str, dim: int, n_stages: int,
+               smem: int = SMEM_OPTIN) -> str:
+    """The forward design the header's plans choose at ``smem`` bytes a
+    block for an instance whose backward takes ``route`` (``RhsKernel
+    .backward``): the block kernel spreads its sines where the block has
+    lanes to spread over (at most 256 oscillators) and the pairs fit; a
+    sweep functor runs the sliced kernel where the sliced sweep runs it
+    (its leanest row fits) and the one-thread kernel's stage inputs and
+    slopes pass ``FWD_THREAD_FLOATS``."""
+    cap = smem // 4
+    if route == "block":
+        lanes = -(-dim // 32) * 32 * 2 <= 512  # kKurBlockBwdLanes > 1
+        return ("spread" if lanes and fwd_floats("spread", dim, n_stages)
+                <= cap else "block")
+    if route == "sweep":
+        sliced = (n_stages * (n_stages + 2) + (3 * n_stages * dim | 1)
+                  <= cap and 2 * n_stages * dim > FWD_THREAD_FLOATS
+                  and fwd_floats("sliced", dim, n_stages) <= cap)
+        return "sliced" if sliced else "one-thread"
+    return "lanes" if route == "lanes" else "one-thread"
+
+
+def fwd_switches(route: str, n_stages: int, smem: int = SMEM_OPTIN) -> list:
+    """Where the forward design changes over the width, at ``smem`` bytes a
+    block: [(last width, design), ...] in order. Route "block": Kuramoto's
+    block widths up to ``rhs_codegen.KURAMOTO_MAX_N`` (1 and 32 on); route
+    "sweep": a sweep functor's state width, up to the first width past the
+    sliced kernel's that runs the one-thread kernel."""
+    runs = []
+    for x in itertools.count(1):
+        if route == "block" and 2 <= x <= rhs_codegen.KURAMOTO_LANES_MAX_N:
+            continue
+        if route == "block" and x > rhs_codegen.KURAMOTO_MAX_N:
+            break
+        design = fwd_design(route, x, n_stages, smem)
+        if runs and runs[-1][1] == design:
+            runs[-1] = (x, design)
+        else:
+            runs.append((x, design))
+        if (route == "sweep" and design == "one-thread"
+                and len(runs) > 1):
+            break
+    return runs
+
+
+def fwd_plan(f: Callable, solver: AbstractSolver, dim: int, B: int,
+             pdim: Optional[int] = None) -> dict:
+    """The forward kernel's plan for ``f`` at ``B`` rows on this card (the
+    library's ``ldq_rk_fwd_plan``): ``design`` (a value of ``FWD_DESIGN``),
+    threads and rows a block, dynamic shared memory bytes. Generated and
+    one-line Kuramoto libraries only."""
+    lib = _lib(rhs_kernel(f, dim, pdim).library)
+    out = (ctypes.c_int * 4)()
+    err = lib.ldq_rk_fwd_plan(n_solution_stages(solver.tableau), B, out)
+    if err != 0:
+        raise RuntimeError(f"ldq_rk_fwd_plan failed: CUDA error {err}")
+    return dict(design=FWD_DESIGN[out[0]], threads=out[1], rows=out[2],
+                smem=out[3])
 
 
 def _rhs_consts(f: Callable, device, n: Optional[int]):
@@ -540,7 +635,7 @@ def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a loaded csrc/rk_fixed_grid.cu library
     or a generated one (also for scripts/rk_levers.py, which builds it with
     other flags); ``ldq_rk_sincos`` only the first has, ``ldq_rk_bwd_plan``
-    only the others."""
+    and ``ldq_rk_fwd_plan`` only the others."""
     if not getattr(lib, "_ldq_typed", False):
         lib.ldq_rk_fixed_grid.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
@@ -554,6 +649,9 @@ def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
             lib.ldq_rk_bwd_plan.argtypes = ([ctypes.c_int] * 3
                                             + [ctypes.c_void_p])
             lib.ldq_rk_bwd_plan.restype = ctypes.c_int
+            lib.ldq_rk_fwd_plan.argtypes = ([ctypes.c_int] * 2
+                                            + [ctypes.c_void_p])
+            lib.ldq_rk_fwd_plan.restype = ctypes.c_int
         if hasattr(lib, "ldq_rk_sincos"):
             lib.ldq_rk_sincos.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 2

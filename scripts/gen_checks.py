@@ -6,9 +6,12 @@ the rest of the script:
     python3 scripts/gen_checks.py [--fields pendulum-untagged,lorenz96-40,kuramoto64]
 
 --fields names chip_smoke.gen_fields() labels. Prints the check and
-timing lines, then each 4m kernel's launches, largest error against its
-plain version and timing row, the card's name and power limit, and
-"gen_checks: ok"; exits 1 (through chip_smoke.fail) if a check fails.
+timing lines (for Lorenz-96-40 and Kuramoto-64 also their forwards held bit
+for bit against, and timed beside, the designs before: the one-thread
+forward, the block forward's sines on the oscillators' lanes), then each 4m
+kernel's launches, largest error against its plain version and timing row,
+the card's name and power limit, and "gen_checks: ok"; exits 1 (through
+chip_smoke.fail) if a check fails.
 
     python3 scripts/gen_checks.py --zoo
 
@@ -17,7 +20,7 @@ tests' first shape (B 64, T 50, dt 0.05, 2 sub-steps, Tsit5, the zoo's
 draws): each instance's forward and backward kernel per call and on the
 device, its plain version (the plain solve; the plain reverse sweep) on
 the same inputs, its bound (the traced program's operations) and latency
-model (the route's: chip_smoke.route_work), with the backward's plan. One
+model (the route's: chip_smoke.route_work), with both plans. One
 line each, and chiprun_out/zoo_timing.json. Needs a CUDA GPU.
 """
 from __future__ import annotations
@@ -35,7 +38,7 @@ import json  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from latentdiffeq_torch.ops import ode_cuda  # noqa: E402
+from latentdiffeq_torch.ops import _build, ode_cuda  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import rhs_zoo  # noqa: E402
@@ -60,9 +63,10 @@ def zoo_timing(clock):
             device="cuda").manual_seed(1), device="cuda")
         plan = (ode_cuda.bwd_plan(f, s, dim, B, sub, pdim)
                 if rk.backward == "sweep" else None)
+        fplan = ode_cuda.fwd_plan(f, s, dim, B, pdim)
         fw, bw, lat = cs.route_work(rk, B, T, dim, pdim, sub, tab, n_st,
-                                    clock, plan)
-        kf, kb = cs.route_kernels(rk)
+                                    clock, plan, fplan["design"])
+        kf, kb = cs.route_kernels(rk, fplan["design"])
         with torch.no_grad():
             def fwd():
                 return ode_cuda.solve_fixed_grid_batched_cuda(
@@ -74,7 +78,8 @@ def zoo_timing(clock):
             _, p_b = cs.plain_timed(
                 lambda: ode_cuda.solve_fixed_grid_batched_backward_reference(
                     f, s, saveat, ys, ps, w, substeps=sub))
-            row = {"instance": rk.name, "route": rk.backward, "plan": plan}
+            row = {"instance": rk.name, "route": rk.backward, "plan": plan,
+                   "fwd_plan": fplan}
             for part, kname, fn, p_ms, work, lat_ms in (
                     ("fwd", kf, fwd, p_f, fw, lat[0]),
                     ("bwd", kb, lambda: bwd(f, s, saveat, ys, ps, w,
@@ -116,8 +121,16 @@ def main():
     fields = cs.gen_fields()
     keep = {k: fields[k] for k in args.fields.split(",")}
     t0 = time.perf_counter()
-    ode_cuda.build_instances([(f, d, p) for f, d, p, *_ in keep.values()])
+    _build.build_kernels(list(dict.fromkeys(
+        list(_build.KERNEL_SOURCES)
+        + [ode_cuda.rhs_kernel(f, d, p).library
+           for f, d, p, *_ in keep.values()]
+        + list(cs.forward_before_libraries(keep).values()))))
     print("built in", time.perf_counter() - t0, flush=True)
+    for label, (f, d, p, *_) in keep.items():
+        lib = ode_cuda.rhs_kernel(f, d, p).library
+        print(label, lib, "spills:", cs.spill_lines(lib) or "none",
+              flush=True)
     t0 = time.perf_counter()
     errs, times = cs.gen_kernel_checks(
         torch.Generator(device=dev).manual_seed(16), cs.max_sm_clock_mhz(),

@@ -35,6 +35,17 @@ checkout's root and the card's name and power limit:
     seed; ``kuramoto10_step_busy_ms``: the device time of one such step
     (torch.profiler, every CUDA op summed), and ``kuramoto10_step_ops``
     its device ops.
+
+    python3 scripts/rk_turns.py --wide
+
+times instead chip_smoke.py's phase 4m instances, Lorenz-96 at 40 and
+Kuramoto at 64 (``lorenz96_40_*``, ``kuramoto64_*``), the same way: the
+forward and backward per call and on the device (whichever kernels the
+checkout launches: the one-thread or the sliced forward, the block forward
+with or without its sines spread) at the 4m train (B 64, T 50) and
+validation (B 26, T 100) shapes, Tsit5, 4 sub-steps, chip_smoke.gen_inputs'
+draws, and the median GOKU step and validation pass at the custom width
+with the device's busy time of a step, as for Kuramoto-10 above.
 """
 from __future__ import annotations
 
@@ -87,17 +98,30 @@ def main():
               and any(k in e.name for k in kernels)]
         return sum(us) / 1e3 / len(us) if us else None
 
-    fwd_kernels = ("rk_fixed_grid_kernel", "rk_kuramoto_kernel")
-    bwd_kernels = ("rk_fixed_grid_bwd_kernel", "rk_kuramoto_bwd_kernel")
+    fwd_kernels = ("rk_fixed_grid_kernel", "rk_kuramoto_kernel",
+                   "rk_fixed_grid_sliced_kernel", "rk_kuramoto_block_kernel")
+    bwd_kernels = ("rk_fixed_grid_bwd_kernel", "rk_kuramoto_bwd_kernel",
+                   "rk_fixed_grid_sweep_bwd_kernel",
+                   "rk_kuramoto_block_bwd_kernel")
     g = torch.Generator(device=dev).manual_seed(0)
     kuramoto = cdyn.kuramoto_f(10)
     res = {"tree": root}
-    cases = [("", pendulum_f, "train", 64, 50, 1),
-             ("", pendulum_f, "val", 45, 100, 1),
-             ("kuramoto10_", kuramoto, "train", 64, 50, 4),
-             ("kuramoto10_", kuramoto, "val", 26, 100, 4)]
-    for pre, f, label, B, T, sub in cases:
-        if f is pendulum_f:
+    wide = "--wide" in sys.argv[1:]
+    if wide:
+        import chip_smoke as cs
+        fields = cs.gen_fields()
+        cases = [(field.replace("-", "_") + "_", fields[field][0], shape,
+                  B, T, fields[field][3], field)
+                 for field in cs.WIDE for shape, B, T in cs.CUSTOM_SHAPES]
+    else:
+        cases = [("", pendulum_f, "train", 64, 50, 1, None),
+                 ("", pendulum_f, "val", 45, 100, 1, None),
+                 ("kuramoto10_", kuramoto, "train", 64, 50, 4, None),
+                 ("kuramoto10_", kuramoto, "val", 26, 100, 4, None)]
+    for pre, f, label, B, T, sub, field in cases:
+        if wide:
+            u0s, ps, saveat = cs.gen_inputs(field, B, T, g)
+        elif f is pendulum_f:
             u0s = torch.rand(B, 2, generator=g, device=dev) * 2 - 1
             ps = 1 + torch.rand(B, 1, generator=g, device=dev)
             dt = 0.05
@@ -108,7 +132,8 @@ def main():
                               0.2 + 1.8 * torch.rand(B, generator=g,
                                                      device=dev)], dim=1)
             dt = 0.1
-        saveat = torch.arange(T, dtype=torch.float32, device=dev) * dt
+        if not wide:
+            saveat = torch.arange(T, dtype=torch.float32, device=dev) * dt
         w = torch.randn(B, T, u0s.shape[1], generator=g, device=dev)
 
         def fwd():
@@ -141,44 +166,53 @@ def main():
 
     from latentdiffeq_torch.adjoint import SolveOptions
     from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
-                                           goku_default_layers)
+                                           ODEDynamics, goku_default_layers)
     from latentdiffeq_torch.train import TrainConfig, Trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    diffeq = cdyn.Kuramoto(10, options=SolveOptions(adaptive=False,
-                                                    substeps=4))
-    enc, dec = goku_default_layers(
-        64, diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
-        generator=torch.Generator().manual_seed(0), device=dev)
-    model = LatentDiffEqModel.build(
-        GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), enc, dec)
-    trainer = Trainer(model, TrainConfig(dt=0.1, save_best=False),
-                      device=dev)
-    data = torch.rand(64, 50, 64, generator=g, device=dev)
-    val = torch.rand(26, 100, 64, generator=g, device=dev)
-    step, vals = [], []
-    for i in range(9):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(data, 0.003)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        trainer.val_step(val, 0.003)
-        torch.cuda.synchronize()
-        if i >= 2:
-            step.append(1e3 * (t1 - t0))
-            vals.append(1e3 * (time.perf_counter() - t1))
-    res["kuramoto10_step_ms"] = sorted(step)[len(step) // 2]
-    res["kuramoto10_val_ms"] = sorted(vals)[len(vals) // 2]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(data, 0.003)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    res["kuramoto10_step_busy_ms"] = sum(
-        getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
-        for e in evs) / 1e3
-    res["kuramoto10_step_ops"] = len(evs)
+    opts = SolveOptions(adaptive=False, substeps=4)
+    if wide:
+        steps = [("lorenz96_40_", ODEDynamics(
+                     f=cs.lorenz96, z_dim=cs.L96_N, theta_dim=1,
+                     solver=solver, options=opts)),
+                 ("kuramoto64_", cdyn.Kuramoto(cs.KURAMOTO_WIDE_N,
+                                               options=opts))]
+    else:
+        steps = [("kuramoto10_", cdyn.Kuramoto(10, options=opts))]
+    for pre, diffeq in steps:
+        enc, dec = goku_default_layers(
+            64, diffeq, hidden_dim_resnet=100, latent_to_diffeq_dim=100,
+            generator=torch.Generator().manual_seed(0), device=dev)
+        model = LatentDiffEqModel.build(
+            GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), enc,
+            dec)
+        trainer = Trainer(model, TrainConfig(dt=0.1, save_best=False),
+                          device=dev)
+        data = torch.rand(64, 50, 64, generator=g, device=dev)
+        val = torch.rand(26, 100, 64, generator=g, device=dev)
+        step, vals = [], []
+        for i in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(data, 0.003)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.val_step(val, 0.003)
+            torch.cuda.synchronize()
+            if i >= 2:
+                step.append(1e3 * (t1 - t0))
+                vals.append(1e3 * (time.perf_counter() - t1))
+        res[f"{pre}step_ms"] = sorted(step)[len(step) // 2]
+        res[f"{pre}val_ms"] = sorted(vals)[len(vals) // 2]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(data, 0.003)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        res[f"{pre}step_busy_ms"] = sum(
+            getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+            for e in evs) / 1e3
+        res[f"{pre}step_ops"] = len(evs)
     res["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

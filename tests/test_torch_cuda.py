@@ -891,6 +891,24 @@ ZOO_RHS = {**{name: (f, dim, pdim, name)
 # 4,840, nothing past that.
 KURAMOTO_BLOCK_N = (32, 33, 64, 1100)
 KURAMOTO_SWITCH_N = (227, 228, 2233, 2234, 4840, 4841)
+# The block forward spreads a stage's sines over the block up to N 235 at 6
+# stages (Tsit5, Dopri5) and 236 at RK4 (ode_cuda.fwd_switches): each side.
+KURAMOTO_FWD_SWITCH_N = (235, 236, 237)
+# A source built with the forwards before the sliced and the spread ones
+# (the header's LDQ_RK_FWD_FLOATS at 1), whose plans then take the
+# one-thread forward and the block forward's sines on the oscillators' own
+# lanes; and Lorenz-96-40 built with LDQ_RK_FWD_FLOATS at the sliced
+# forward's block at 6 stages (48 floats of tableau, 32 flags, a row of
+# 481) and one float less: each side of its fit.
+FWD_BEFORE = "#define LDQ_RK_FWD_FLOATS 1\n"
+FWD_EDGE = {"fits": "#define LDQ_RK_FWD_FLOATS 561\n",
+            "short": "#define LDQ_RK_FWD_FLOATS 560\n"}
+# A source built to run the sliced forward for every sweep functor, also
+# those whose stage inputs and slopes fit a thread's registers, for which
+# the plan keeps the one-thread forward (the zoo's).
+FWD_SLICED = "#define LDQ_RK_FWD_THREAD_FLOATS 0\n"
+# the fields whose forward is held against its design before
+SLICED_FWD = ("lorenz96-12", "lorenz96-40", "linear5", "mlp")
 # The sliced sweep kernel against the one-thread sweep kernel it replaces:
 # Lorenz-96-40's functor built with every row past the sliced kernel's
 # shared memory (LDQ_RK_SWEEP_ROW_FLOATS 1), so that its backward runs
@@ -908,22 +926,72 @@ def thread_sweep_library():
     return name, ode_cuda.typed_library(_build.load_kernel(name))
 
 
+def prefixed_library(prefix, name, n=None):
+    """The registered library of ZOO_RHS field ``name`` (or, with ``n``,
+    Kuramoto at n oscillators) built from its instance source with
+    ``prefix`` before it."""
+    from latentdiffeq_torch.ops import _build, rhs_trace
+    if n is not None:
+        return _build.register_generated(
+            "rk_kuramoto", prefix + rhs_codegen.kuramoto_source(n))
+    f, dim, pdim, _ = ZOO_RHS[name]
+    return _build.register_generated("rk_gen", prefix + rhs_codegen
+                                     .kernel_source(rhs_trace.trace_field(
+                                         f, dim, pdim)))
+
+
+def forward_of(library, f, s, u0s, ps, saveat, sub):
+    """(ys, success, plan) from the forward entry point of ``library`` (a
+    build of ``f``'s instance source), launched as
+    solve_fixed_grid_batched_cuda launches its instance's; the plan
+    (ldq_rk_fwd_plan: design, threads, rows, bytes) it launched by."""
+    from latentdiffeq_torch.ops import _build
+    B, dim = u0s.shape
+    rk = ode_cuda.rhs_kernel(f, dim, ps.shape[1])
+    lib = ode_cuda.typed_library(_build.load_kernel(library))
+    n, a, b, c = trk.tableau_f32(s)
+    cst = (f.rhs_consts(u0s.device, torch.float32).contiguous()
+           if rk.ncst else None)
+    ys = torch.empty(B, saveat.shape[0], dim, device=u0s.device)
+    ok = torch.empty(B, dtype=torch.bool, device=u0s.device)
+    err = lib.ldq_rk_fixed_grid(
+        0, ode_cuda.tableau_instance(s), n, a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), saveat.data_ptr(), u0s.data_ptr(), ps.data_ptr(),
+        None if cst is None else cst.data_ptr(), ys.data_ptr(),
+        ok.data_ptr(), B, saveat.shape[0], sub,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    out = (ctypes.c_int * 4)()
+    assert lib.ldq_rk_fwd_plan(n, B, out) == 0
+    return ys, ok, ode_cuda.FWD_DESIGN[out[0]]
+
+
 @pytest.fixture(scope="module")
 def gen_built():
-    """Every generated instance of these tests and the Kuramoto ones, and
-    the one-thread sweep library, built in parallel."""
+    """Every generated instance of these tests and the Kuramoto ones, the
+    one-thread sweep library and the builds on the forwards before (and at
+    the sliced forward's fit), built in parallel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
     from latentdiffeq_torch.ops import _build, rhs_codegen, rhs_trace
     prog = rhs_trace.trace_field(lorenz96_40, 40, 1)
     lever = _build.register_generated(
         "rk_gen", THREAD_SWEEP_LEVER + rhs_codegen.kernel_source(prog))
-    ode_cuda.build_instances(
-        [(f, 2, pdim) for f, pdim, _ in GEN_RHS.values()]
-        + [(f, dim, pdim) for f, dim, pdim, _ in ZOO_RHS.values()]
-        + [(cdyn.kuramoto_f(n), n, 2)
-           for n in (7,) + KURAMOTO_BLOCK_N + KURAMOTO_SWITCH_N])
-    _build.build_kernels([lever])
+    specs = ([(f, 2, pdim) for f, pdim, _ in GEN_RHS.values()]
+             + [(f, dim, pdim) for f, dim, pdim, _ in ZOO_RHS.values()]
+             + [(cdyn.kuramoto_f(n), n, 2)
+                for n in ((7,) + KURAMOTO_BLOCK_N + KURAMOTO_SWITCH_N
+                          + KURAMOTO_FWD_SWITCH_N)])
+    extra = ([lever]
+             + [prefixed_library(FWD_BEFORE, name) for name in SLICED_FWD]
+             + [prefixed_library(FWD_SLICED, name) for name in SLICED_FWD
+                if name != "lorenz96-40"]
+             + [prefixed_library(FWD_BEFORE, None, n)
+                for n in KURAMOTO_BLOCK_N[:3]]
+             + [prefixed_library(p, "lorenz96-40") for p in FWD_EDGE.values()])
+    _build.build_kernels(list(dict.fromkeys(
+        list(_build.KERNEL_SOURCES)
+        + [ode_cuda.rhs_kernel(*spec).library for spec in specs] + extra)))
 
 
 def expected_plan(route, dim, solver, substeps):
@@ -1173,6 +1241,84 @@ def test_rk_generated_functor_sweep_keeps_what_fits_on_card(dev, gen_built,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 26, 37, 300])
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("name", SLICED_FWD)
+def test_rk_sliced_forward_equals_one_thread_forward_on_card(dev, gen_built,
+                                                            name, solver, B):
+    """rk_fixed_grid_sliced_kernel (a warp a slice, the rows spread over
+    the SMs: one a block up to 132 rows, three at B 300, the warp's other
+    lanes repeating a block's first row and storing nothing) against
+    rk_fixed_grid_kernel, the one-thread forward it replaces (the source
+    built with FWD_BEFORE), on the same inputs: states and success flags
+    bit for bit. The sliced kernel is the instance's own where its plan
+    takes it (Lorenz-96-40: its stage inputs and slopes pass a thread's
+    registers), else the source built with FWD_SLICED (the zoo's sweep
+    functors, whose plan keeps the one-thread forward, as ode_cuda's mirror
+    of the header's formulas predicts). T 21, the field's sub-steps."""
+    f, dim, pdim, sub, u0s, ps, saveat, _ = gen_inputs(dev, name, B, 21,
+                                                       seed=44)
+    s = getattr(trk, solver)()
+    n_st = trk.n_solution_stages(s.tableau)
+    plan = ode_cuda.fwd_plan(f, s, dim, B, pdim)
+    assert plan["design"] == ode_cuda.fwd_design("sweep", dim, n_st)
+    own = plan["design"] == "sliced"
+    assert own == (name == "lorenz96-40")
+    if own:
+        slices = rhs_codegen.plan_slices(
+            ode_cuda.rhs_kernel(f, dim, pdim).program).count
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert (plan["threads"], plan["rows"]) == (32 * slices,
+                                                   min(32, -(-B // sms)))
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=sub)
+        ref, ok_r, design = forward_of(prefixed_library(FWD_BEFORE, name), f,
+                                       s, u0s, ps, saveat, sub)
+        sliced = (ode_cuda.rhs_kernel(f, dim, pdim).library if own
+                  else prefixed_library(FWD_SLICED, name))
+        ys_s, ok_s, design_s = forward_of(sliced, f, s, u0s, ps, saveat, sub)
+    assert design == "one-thread" and design_s == "sliced"
+    for ys, flags in ((got, ok), (ys_s, ok_s)):
+        assert torch.equal(ys.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(flags, ok_r)
+    assert bool(ok.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4"])
+@pytest.mark.parametrize("edge", sorted(FWD_EDGE))
+def test_rk_sliced_forward_fit_is_chosen_by_size_on_card(dev, gen_built,
+                                                        edge, solver):
+    """Lorenz-96-40 built with LDQ_RK_FWD_FLOATS at the sliced forward's
+    block at 6 stages and one float less: at Tsit5 the first takes the
+    sliced forward and the second the one-thread one, at RK4 (a smaller
+    block) both the sliced, each plan as ode_cuda.fwd_floats says; every
+    build's states and flags equal the library's own forward bit for bit.
+    A row with a NaN and a row with an infinity fail, and only they, in
+    blocks of one row and (B 300) of three."""
+    B = 300 if edge == "fits" else 37
+    f, dim, pdim, sub, u0s, ps, saveat, _ = gen_inputs(dev, "lorenz96-40",
+                                                       B, 11, seed=45)
+    u0s[1, 3], u0s[30, 0] = float("nan"), float("inf")
+    s = getattr(trk, solver)()
+    n_st = trk.n_solution_stages(s.tableau)
+    fits = ode_cuda.fwd_floats("sliced", dim, n_st) <= int(
+        FWD_EDGE[edge].split()[-1])
+    assert fits == (edge == "fits" or solver == "RK4")
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(
+            f, s, u0s, ps, saveat, substeps=sub)
+        ref, ok_r, design = forward_of(
+            prefixed_library(FWD_EDGE[edge], "lorenz96-40"), f, s, u0s, ps,
+            saveat, sub)
+    assert design == ("sliced" if fits else "one-thread")
+    assert sorted((~ok).nonzero().flatten().tolist()) == [1, 30]
+    assert torch.equal(ok, ok_r)
+    assert torch.equal(got[ok].view(torch.int32), ref[ok].view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [(64, 50), (26, 100), (37, 21), (3, 21)])
 @pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
 def test_rk_kuramoto7_lane_groups_match_plain_on_card(dev, gen_built, solver,
@@ -1295,6 +1441,84 @@ def test_rk_kuramoto_block_kernels_match_plain_on_card(dev, gen_built, n,
     with pytest.raises(ValueError, match="no interval maps"):
         ode_cuda.solve_fixed_grid_batched_bwd_cuda(
             f, s, saveat, got, ps, w, substeps=sub, maps=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("n", KURAMOTO_BLOCK_N[:3] + KURAMOTO_FWD_SWITCH_N)
+def test_rk_kuramoto_block_spread_forward_matches_plain_on_card(
+        dev, gen_built, n, solver):
+    """The block forward with a stage's sines spread over the block, where
+    its plan takes it (N 32, 33, 64; 235 at every tableau and 236 at RK4),
+    and with them on the oscillators' lanes past that (236 at 6 stages,
+    237), as ode_cuda's mirror of the header's formulas predicts: equal to
+    the plain version bit for bit with its flags, B 26, T 21, 4 sub-steps,
+    frequency offsets; at 32, 33, 64 also to the design before (the same
+    source built with FWD_BEFORE, whose plan keeps the sines on the
+    oscillators' lanes) bit for bit, states and flags."""
+    f = cdyn.Kuramoto(n, omega_spread=0.5).f
+    B, T = 26, 21
+    g = torch.Generator().manual_seed(80 + n)
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    saveat = torch.arange(T, dtype=torch.float32, device=dev) * 0.1
+    s = getattr(trk, solver)()
+    n_st = trk.n_solution_stages(s.tableau)
+    plan = ode_cuda.fwd_plan(f, s, n, B)
+    assert plan["design"] == ode_cuda.fwd_design("block", n, n_st)
+    assert plan["design"] == ("spread" if n <= 235 or (n == 236 and
+                                                       solver == "RK4")
+                              else "block")
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                         saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=4)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(ok, ok_p) and bool(ok.all())
+    if n in KURAMOTO_BLOCK_N:
+        with torch.no_grad():
+            old, ok_o, design = forward_of(
+                prefixed_library(FWD_BEFORE, None, n), f, s, u0s, ps, saveat,
+                4)
+        assert design == "block"
+        assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+        assert torch.equal(ok, ok_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["Tsit5", "RK4", "Dopri5"])
+@pytest.mark.parametrize("n", [33, 64])
+def test_rk_kuramoto_block_spread_non_finite_rows_on_card(dev, gen_built, n,
+                                                         solver):
+    """The spread block forward on rows that start from a NaN or infinite
+    phase, or carry a NaN coupling: the plain version's flags and the
+    design before's, and only those rows fail; the others equal both bit for
+    bit."""
+    f = cdyn.kuramoto_f(n)
+    g = torch.Generator().manual_seed(71)
+    B = 5
+    u0s = ((torch.rand(B, n, generator=g) * 2 - 1) * torch.pi).to(dev)
+    ps = torch.stack([1 + 2 * torch.rand(B, generator=g),
+                      0.2 + 1.8 * torch.rand(B, generator=g)], 1).to(dev)
+    u0s[1, 0], u0s[2, -1] = float("nan"), float("inf")
+    ps[B - 1, 1] = float("nan")
+    saveat = torch.arange(11, dtype=torch.float32, device=dev) * 0.1
+    s = getattr(trk, solver)()
+    assert ode_cuda.fwd_plan(f, s, n, B)["design"] == "spread"
+    with torch.no_grad():
+        got, ok = ode_cuda.solve_fixed_grid_batched_cuda(f, s, u0s, ps,
+                                                         saveat, substeps=4)
+        ref, ok_p, _ = ode_cuda.solve_fixed_grid_batched_reference(
+            f, s, u0s, ps, saveat, substeps=4)
+        old, ok_o, _ = forward_of(prefixed_library(FWD_BEFORE, None, n), f,
+                                  s, u0s, ps, saveat, 4)
+    assert torch.equal(ok, ok_p) and torch.equal(ok, ok_o)
+    assert sorted((~ok).nonzero().flatten().tolist()) == [1, 2, B - 1]
+    for other in (ref, old):
+        assert torch.equal(got[ok].view(torch.int32),
+                           other[ok].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -12,6 +12,15 @@ Pallas solve's ``custom_vjp`` on Lorenz-96-12 at the tolerance of
 tests/test_torch_rhs_wide.py. Where the backward kernels change what they
 keep in shared memory (``ode_cuda.bwd_switches``) is checked against the
 header's formulas.
+
+The same functors can run forward on the sliced forward kernel
+(``rk_fixed_grid_sliced_kernel``, which the plan takes for the wide ones
+such as Lorenz-96-40): a float32 emulation of its sub-step, each
+slice forming the stage inputs of the entries it owns and evaluating its
+slice of the program, equals the one-thread forward's (the whole program a
+row) bit for bit, and is held against JAX's Pallas solve; which forward
+design each instance takes (``ode_cuda.fwd_design``, ``fwd_switches``) is
+checked against the header's formulas.
 """
 import ctypes
 import os
@@ -286,3 +295,218 @@ def test_plain_reverse_sweep_matches_pallas_custom_vjp_lorenz96_12():
             ref = np.asarray(ref)
             assert (np.abs(got.numpy() - ref).max()
                     <= 1e-5 * np.abs(ref).max())
+
+
+# ---------------------------------------------------------------------------
+# The forward kernels' designs
+
+
+def jf_linear5(u, p, t):
+    return p.reshape(5, 5) @ u - 0.01 * jnp.linalg.norm(u) * u
+
+
+def jf_mlp(u, p, t):
+    h = jnp.tanh(p[:32].reshape(8, 4) @ u + p[32:40])
+    return p[40:72].reshape(4, 8) @ h + p[72:76]
+
+
+def jf_lorenz96(u, p, t):
+    return (jnp.roll(u, -1) - jnp.roll(u, 2)) * jnp.roll(u, 1) - u + p[0]
+
+
+# the zoo's sweep fields in jnp (one row, as JAX's Pallas solve vmaps it)
+JNP = {"lorenz96-12": jf_lorenz96, "linear5": jf_linear5, "mlp": jf_mlp}
+
+
+def forward_emulated(lib, plan, solver, u0s, ps, saveat, substeps):
+    """The batched RK forward in float32, stage by stage as the kernels run
+    it: with ``plan`` (rhs_codegen.plan_slices) as the sliced forward runs a
+    sub-step, slice g forming the stage inputs of the entries it owns,
+    y + sum_q (dt a_sq) k_q in q order, into a row shared by the slices
+    (each entry written once), then, after that row is complete, taking the
+    slopes it owns from the whole row with ``ldq_gen_eval_slice``, and
+    updating its own entries, y + sum_s (dt b_s) k_s; with ``plan`` None as
+    the one-thread forward runs it, the whole program a row
+    (``ldq_gen_eval``). Returns (ys (R, T, dim), success (R,))."""
+    n, a, b, c = trk.tableau_f32(solver)
+    R, dim = u0s.shape
+    cst = torch.zeros(1)
+    parts = ([list(range(dim))] if plan is None
+             else [list(x) for x in plan.eval_parts])
+    y = u0s.clone()
+    ys = [y.clone()]
+    sub = torch.tensor(float(substeps))
+    for m in range(saveat.shape[0] - 1):
+        ta = saveat[m]
+        dt = (saveat[m + 1] - ta) / sub
+        for u in range(substeps):
+            t = ta + torch.tensor(float(u)) * dt
+            ks = torch.full((n, R, dim), float("nan"))
+            for st in range(n):
+                row = torch.full((R, dim), float("nan"))
+                written = torch.zeros(dim, dtype=torch.int64)
+                for own in parts:
+                    Y = y[:, own]
+                    for q in range(st):
+                        if a[st, q] != 0.0:
+                            Y = Y + (dt * a[st, q]) * ks[q][:, own]
+                    row[:, own] = Y
+                    written[own] += 1
+                assert bool((written == 1).all())  # one slice an entry
+                ts = (t + c[st] * dt).expand(R).contiguous()
+                k = torch.full((R, dim), float("nan"))
+                if plan is None:
+                    lib.ldq_gen_eval(R, ptr(row), ptr(ps), ptr(ts), ptr(cst),
+                                     ptr(k))
+                else:
+                    for g in range(plan.count):
+                        lib.ldq_gen_eval_slice(g, R, ptr(row), ptr(ps),
+                                               ptr(ts), ptr(cst), ptr(k))
+                ks[st] = k
+            for own in parts:
+                for st in range(n):
+                    if b[st] != 0.0:
+                        y[:, own] = y[:, own] + (dt * b[st]) * ks[st][:, own]
+        ys.append(y.clone())
+    ys = torch.stack(ys, 1)
+    return ys, torch.isfinite(ys).flatten(1).all(1)
+
+
+@pytest.mark.parametrize("solver,sub", [("Tsit5", 3), ("RK4", 1)])
+@pytest.mark.parametrize("name", [k for k in FIELDS if k in JNP])
+def test_sliced_forward_equals_one_thread_forward_and_pallas(name, solver,
+                                                             sub, programs,
+                                                             libs):
+    """The sliced forward's sub-steps, emulated in float32 with the
+    functor's compiled slices (forward_emulated), equal the one-thread
+    forward's over the same rows bit for bit, states and flags (the slices
+    compute every slope with the whole program's statements, and each
+    entry's stage inputs and update take the same terms in the same
+    order); that trajectory against JAX's Pallas solve in interpret mode at
+    tests/test_torch_rhs_wide.py's tolerance (atol 1e-5). 4 rows, 7 save
+    points, dt 0.05."""
+    lib, plan = libs[name], rhs_codegen.plan_slices(programs[name])
+    assert plan.count > 1
+    u0s, ps = rhs_zoo.draws(name, 4, 21)
+    saveat = (np.arange(7) * 0.05).astype(np.float32)
+    s = getattr(trk, solver)()
+    args = (s, torch.from_numpy(u0s), torch.from_numpy(ps),
+            torch.from_numpy(saveat), sub)
+    ys, ok = forward_emulated(lib, plan, *args)
+    ys1, ok1 = forward_emulated(lib, None, *args)
+    assert torch.equal(bits(ys), bits(ys1)) and torch.equal(ok, ok1)
+    assert bool(ok.all())
+    ys_j = pallas_solve_fixed_grid_batched(
+        JNP[name], getattr(jrk, solver)(), jnp.asarray(u0s),
+        jnp.asarray(ps), jnp.asarray(saveat), substeps=sub,
+        interpret=True)[0]
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-5)
+
+
+def test_sliced_forward_keeps_the_flags_of_non_finite_rows(libs):
+    """A row that starts from a NaN or an infinity fails, and only it, as
+    the one-thread forward's AND over every stored value fails it (each
+    slice ANDs its own entries; the kernel ANDs the slices)."""
+    name = "lorenz96-12"
+    lib, plan = libs[name], rhs_codegen.plan_slices(
+        rhs_trace.trace_field(*FIELDS[name][:3]))
+    u0s, ps = (torch.from_numpy(x) for x in rhs_zoo.draws(name, 4, 22))
+    u0s[1, 3], u0s[2, 0] = float("nan"), float("inf")
+    saveat = torch.arange(4, dtype=torch.float32) * 0.05
+    ys, ok = forward_emulated(lib, plan, trk.Tsit5(), u0s, ps, saveat, 2)
+    ys1, ok1 = forward_emulated(lib, None, trk.Tsit5(), u0s, ps, saveat, 2)
+    assert ok.tolist() == ok1.tolist() == [True, False, False, True]
+    assert torch.equal(bits(ys[ok]), bits(ys1[ok1]))
+
+
+HEADER = os.path.join(ROOT, "latentdiffeq_torch", "csrc",
+                      "rk_fixed_grid.cuh")
+
+
+def test_fwd_plan_constants_are_the_headers():
+    """ode_cuda's mirror of the forward plans reads the header's sizes:
+    the 227 KB a forward block may take, the sliced forward's row flags and
+    row floats, the block forward's table of step sizes."""
+    text = open(HEADER).read()
+    assert f"#define LDQ_RK_FWD_FLOATS {ode_cuda.SMEM_OPTIN // 4}" in text
+    assert f"constexpr int kFwdFlags = {ode_cuda.FWD_FLAGS};" in text
+    assert f"constexpr int kDtChunk = {ode_cuda.DT_TABLE};" in text
+    assert (f"#define LDQ_RK_FWD_THREAD_FLOATS {ode_cuda.FWD_THREAD_FLOATS}"
+            in text)
+    assert "return (2 * NS * D) | 1;" in text
+    assert ode_cuda.fwd_floats("sliced", 40, 6) == 6 * 8 + 32 + (480 | 1)
+    assert ode_cuda.fwd_floats("spread", 64, 6) == 1024 + 6 * 64 + 64 * 65
+    assert ode_cuda.fwd_floats("block", 64, 6) == 1024 + 6 * 64
+
+
+# csrc/rk_fixed_grid.cuh's forward plans at 227 KB a block. The Kuramoto
+# block forward spreads a stage's sines over the block while the block has
+# lanes to spread over (N <= 256) and the step sizes' table, the stage
+# inputs and the pairs fit (1,024 + NS N + N (N + 1) floats): at Tsit5 to N
+# 235, RK4 236, 7 stages 234, one stage 237; past that the sines stay on the
+# oscillators' lanes, to 6,144. A sweep functor runs the sliced forward
+# where the one-thread forward's stage inputs and slopes (2 NS DIM floats)
+# pass a thread's 255 registers and the sliced sweep runs (its leanest row,
+# 3 NS DIM floats and the tableau, fits): DIM 22 to 3,225 at 6 stages, 19
+# to 2,764 at 7, 128 to 19,369 at one.
+@pytest.mark.parametrize("route,n_stages,want", [
+    ("block", 6, [(235, "spread"), (6144, "block")]),
+    ("block", 4, [(236, "spread"), (6144, "block")]),
+    ("block", 7, [(234, "spread"), (6144, "block")]),
+    ("block", 1, [(237, "spread"), (6144, "block")]),
+    ("sweep", 6, [(21, "one-thread"), (3225, "sliced"),
+                  (3226, "one-thread")]),
+    ("sweep", 7, [(18, "one-thread"), (2764, "sliced"),
+                  (2765, "one-thread")]),
+    ("sweep", 1, [(127, "one-thread"), (19369, "sliced"),
+                  (19370, "one-thread")])])
+def test_fwd_switches_follow_the_header_formulas(route, n_stages, want):
+    """fwd_switches against the header's formulas (above): the last width
+    of each new design fits it and the next does not (a sweep functor's
+    first sliced width passes the thread's registers and the one before
+    does not); the lanes rule alone decides past the fit (256 spread, 257
+    not, whatever the shared memory)."""
+    assert ode_cuda.fwd_switches(route, n_stages) == want
+    cap = ode_cuda.SMEM_OPTIN // 4
+    if route == "sweep":
+        first = want[0][0] + 1
+        assert (2 * n_stages * (first - 1) <= ode_cuda.FWD_THREAD_FLOATS
+                < 2 * n_stages * first)
+        want = want[1:]
+    last = want[0][0]
+    if route == "block":
+        floats = [ode_cuda.fwd_floats("spread", n, n_stages)
+                  for n in (last, last + 1)]
+        assert floats[0] <= cap < floats[1]
+        assert ode_cuda.fwd_floats("block", rhs_codegen.KURAMOTO_MAX_N,
+                                   n_stages) <= cap
+        big = 1 << 30
+        assert ode_cuda.fwd_design(route, 256, n_stages, big) == "spread"
+        assert ode_cuda.fwd_design(route, 257, n_stages, big) == "block"
+    else:
+        rows = [n_stages * (n_stages + 2) + (3 * n_stages * d | 1)
+                for d in (last, last + 1)]
+        assert rows[0] <= cap < rows[1]
+        assert ode_cuda.fwd_floats("sliced", last, n_stages) <= cap
+
+
+@pytest.mark.parametrize("n_stages", [4, 6, 7])
+def test_which_instances_take_the_new_forwards(n_stages):
+    """Lorenz-96-40 takes the sliced forward; the zoo's sweep functors
+    (at most 2 x 7 x 12 floats of stage inputs and slopes) and the
+    functors whose maps fit keep the one-thread forward and Kuramoto's lane
+    groups theirs; Kuramoto-64 spreads its sines, and Kuramoto past the fit
+    keeps them on the oscillators' lanes."""
+    from latentdiffeq_torch import custom_dynamics as cdyn
+    for f, dim, pdim, route in rhs_zoo.ZOO.values():
+        rk = ode_cuda.rhs_kernel(f, dim, pdim)
+        assert rk.backward == route
+        assert ode_cuda.fwd_design(rk.backward, dim, n_stages) \
+            == "one-thread"
+    rk = ode_cuda.rhs_kernel(FIELDS["lorenz96-40"][0], 40, 1)
+    assert ode_cuda.fwd_design(rk.backward, 40, n_stages) == "sliced"
+    for n, design in ((7, "lanes"), (33, "spread"), (64, "spread"),
+                      (300, "block"), (1100, "block")):
+        rk = ode_cuda.rhs_kernel(cdyn.kuramoto_f(n), n)
+        assert ode_cuda.fwd_design(rk.backward, n, n_stages) == design
