@@ -150,7 +150,20 @@ Phases, each printing one line (any failure exits non-zero):
               against the plain path), and the kernel and plain routes
               from the same seed for one step and a validation pass
               (losses within 1e-4 of their size; 4m's instances too are
-              checked and timed in phase 5);
+              checked and timed in phase 5); and (4n, after 4j, before
+              phase 5) block mode, the Trainer's default (epochs as CUDA
+              graphs, the best on the device): full-width GOKU on the
+              pendulum and full-width LatentODE, 2 blocks of 3 epochs
+              (replays under sync debug mode "error") beside
+              jit_epoch=False from the same seed, every epoch's losses,
+              the weights, Adam's state, the best and the streams bit for
+              bit, the launch counters (replay-aware) equal and as
+              expected with no plain call; one more block of each in a
+              profiler window (the hand-written kernels' device records
+              equal), steady epoch seconds, step + validation ms, device
+              busy and idle share beside the per-step loop's; the earlier
+              phases' Trainers run jit_epoch=False (the per-step numbers
+              recorded), 4j's CLIs and 4l's tutorial and GOKU block mode;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (a torch.profiler window armed by
               utils.device_profile, its lost_kernel_records beside each
@@ -940,7 +953,8 @@ def latent_ode_path(train_set, val_set, dev, gpu):
                    + [lyr.out_dim for lyr in node.dudt.layers])
     if widths != NODE_WIDTHS:
         fail(f"LatentODE field widths {widths}, expected {NODE_WIDTHS}")
-    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False)
+    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False,
+                      jit_epoch=False)
     trainer = Trainer(model, cfg, device=dev)
     counters = {"node_field_fwd": node_cuda.solve_neural_field_cuda,
                 "node_field_bwd": node_cuda.neural_field_sweep_cuda,
@@ -1401,7 +1415,8 @@ def latent_ode_population_path(train_set, val_set, dev, gpu):
             mt, 784, node, generator=g, device=dev))
 
     S = len(NODE_POP_SEEDS)
-    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False)
+    cfg = TrainConfig(decay=1e-4, seed=1, epochs=1500, save_best=False,
+                      jit_epoch=False)
     steps = 2 * (train_set.shape[0] // cfg.batch_size)
     counters = {"node_field_fwd": node_cuda.solve_neural_field_cuda,
                 "node_field_bwd": node_cuda.neural_field_sweep_cuda,
@@ -1432,7 +1447,8 @@ def latent_ode_population_path(train_set, val_set, dev, gpu):
                  f"{rec['epoch']}")
     i = NODE_POP_SEEDS.index(2)
     solo = Trainer(init(2), TrainConfig(decay=1e-4, seed=2, epochs=1500,
-                                        save_best=False), device=dev)
+                                        save_best=False, jit_epoch=False),
+                   device=dev)
     reset_counts()
     t1 = time.perf_counter()
     shist = solo.fit(train_set, val_set, epochs=2, verbose=False)
@@ -2306,19 +2322,8 @@ def goku_timing(heads, gen, clock, dev):
 def reset_counts():
     """Every kernel wrapper's launch count (the RK launchers' by instance)
     and the plain versions' call counts to 0."""
-    from latentdiffeq_torch.ops import node_cuda, ode_cuda, recurrent_cuda
-    for fn in (recurrent_cuda.goku_heads_cuda,
-               recurrent_cuda.goku_heads_bwd_cuda,
-               node_cuda.solve_neural_field_cuda,
-               node_cuda.neural_field_sweep_cuda,
-               node_cuda.neural_field_dw_cuda):
-        fn.launches = 0
-    recurrent_cuda.goku_heads_cuda.bf16_launches = 0
-    recurrent_cuda.goku_heads_bwd_cuda.bf16_launches = 0
-    ode_cuda.solve_fixed_grid_batched_cuda.launches.clear()
-    ode_cuda.solve_fixed_grid_batched_bwd_cuda.launches.clear()
-    recurrent_cuda.goku_heads_reference.calls = 0
-    ode_cuda.solve_fixed_grid_batched_reference.calls = 0
+    from latentdiffeq_torch.ops import launches
+    launches.reset()
 
 
 def log_epochs(what, hist):
@@ -2450,12 +2455,14 @@ def custom_dataset(which, dev):
     t0 = time.perf_counter()
     if which == "vdp":
         x, _, _, diffeq = make_vdp_data(mu_max=4.0, device=dev)
-        cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+        cfg = TrainConfig(jit_epoch=False, batch_size=64, seq_len=50,
+                          dt=CUSTOM_DT, seed=7,
                           epochs=300, save_best=False)
     else:
         x, _, _, diffeq = make_kuramoto_data(
             n_osc=int(which[len("kuramoto"):]), device=dev)
-        cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+        cfg = TrainConfig(jit_epoch=False, batch_size=64, seq_len=50,
+                          dt=CUSTOM_DT, seed=7,
                           epochs=300, start_beta=0.0, end_beta=0.01,
                           n_cycle=1, save_best=False)
     torch.cuda.synchronize()
@@ -2638,7 +2645,7 @@ def spendulum_path(train_set, val_set, dev, gpu):
                                           load_checkpoint, loss_batch)
 
     what = "spendulum"
-    cfg = TrainConfig(epochs=1500, save_best=False)
+    cfg = TrainConfig(jit_epoch=False, epochs=1500, save_best=False)
     layers = goku_default_layers(
         784, SPendulum(), generator=torch.Generator().manual_seed(333),
         device=dev)
@@ -3016,7 +3023,8 @@ def autosize_check(trained, train_set, dev, gpu):
     data = train_set[:64, :50]
     before = adaptive_forward(model, data, dev)
     old = model.decoder.diffeq.adaptive_cfg
-    tr = Trainer(model, TrainConfig(save_best=False, mask_failures=True),
+    tr = Trainer(model, TrainConfig(save_best=False, mask_failures=True,
+                                    jit_epoch=False),
                  device=dev)
     t0 = time.perf_counter()
     sized = tr.autosize_adaptive_budget(train_set)
@@ -3103,7 +3111,8 @@ def population_path(train_set, val_set, sde_model, dev, gpu, gen,
                                  .manual_seed(seed), device=dev,
                                  dtype=dtype))
 
-    cfg = TrainConfig(epochs=1500, save_best=False, progressive_training=True,
+    cfg = TrainConfig(jit_epoch=False, epochs=1500, save_best=False,
+                      progressive_training=True,
                       start_seq_len=20, prog_training_duration=300)
     steps = train_set.shape[0] // cfg.batch_size
     heads_fwd = recurrent_cuda.goku_heads_cuda
@@ -3532,7 +3541,7 @@ def bf16_solo_path(train_set, val_set, dev, gpu):
 
     what = "bf16 pendulum"
     diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
-    cfg = TrainConfig(epochs=1500, save_best=False)
+    cfg = TrainConfig(jit_epoch=False, epochs=1500, save_best=False)
     model = LatentDiffEqModel.build(
         GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
         *goku_default_layers(784, diffeq, generator=torch.Generator()
@@ -3874,6 +3883,196 @@ def cli_path(video, dev, gpu):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4n: block mode (TrainConfig.jit_epoch, epochs_per_dispatch; the
+# Trainer's default): make_block_fn's epochs as CUDA graphs, replayed with
+# no host read inside a block, the best tracked on the device, against the
+# per-step loop (jit_epoch=False) from the same seed.
+
+BLOCK_E = 3         # epochs a block
+BLOCK_N = 2         # blocks held against the per-step loop before the window
+HAND_KERNEL = r"(goku_heads_\w+?_kernel|rk_\w+?_kernel|node_field_\w+?_kernel)"
+
+
+def block_models(train_set, dev):
+    """{path: (build, cfg, kernels an epoch)}: phase 4's full-width GOKU on
+    the pendulum and phase 4b's full-width LatentODE, with the launches
+    each kernel counter gains an epoch (a forward a step and a validation
+    pass, a backward a step)."""
+    from latentdiffeq_torch.adjoint import SolveOptions
+    from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
+                                           LatentODE, NODE, default_layers,
+                                           goku_default_layers)
+    from latentdiffeq_torch.pendulum import Pendulum
+    from latentdiffeq_torch.train import TrainConfig
+
+    steps = train_set.shape[0] // 64
+
+    def goku():
+        diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+        return LatentDiffEqModel.build(
+            GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+            *goku_default_layers(784, diffeq,
+                                 generator=torch.Generator().manual_seed(333),
+                                 device=dev))
+
+    def latent_ode():
+        g = torch.Generator().manual_seed(1)
+        mt = LatentODE(use_kernel_solve=True)
+        node = NODE(16, options=SolveOptions(adaptive=False, substeps=1),
+                    generator=g, device=dev)
+        return LatentDiffEqModel.build(
+            mt, *default_layers(mt, 784, node, generator=g, device=dev))
+
+    return {
+        "GOKU": (goku, TrainConfig(epochs=1500, save_best=False),
+                 {"goku_heads": 2 * steps, "goku_heads_bwd": steps,
+                  "rk_fixed_grid": 2 * steps, "rk_fixed_grid_bwd": steps}),
+        "LatentODE": (latent_ode, TrainConfig(decay=1e-4, seed=1,
+                                              epochs=1500, save_best=False),
+                      {"node_field_fwd": 2 * steps, "node_field_bwd": steps,
+                       "node_field_dw": steps})}
+
+
+def block_differences(a, b):
+    """What differs between two Trainers, bit for bit: each epoch's
+    history (less its times), the weights, the optimizer's state and step
+    count, the best (epoch, validation loss, weights) and the three random
+    streams."""
+    keys = ("epoch", "train_loss", "val_loss", "kl", "n_failed", "beta",
+            "seq_len")
+    same = {
+        "history": ([[h[k] for k in keys] for h in a.history]
+                    == [[h[k] for k in keys] for h in b.history]),
+        "weights": all(torch.equal(p, q) for p, q in
+                       zip(a.model.parameters(), b.model.parameters())),
+        "optimizer": (a.opt.t == b.opt.t and all(
+            torch.equal(p, q) for p, q in zip(a.opt.state_tensors(),
+                                              b.opt.state_tensors()))),
+        "best": ((a.best is None) == (b.best is None) and (
+            a.best is None or (a.best["epoch"] == b.best["epoch"]
+                               and a.best["val"] == b.best["val"]
+                               and all(torch.equal(v, b.best["model"][k])
+                                       for k, v in a.best["model"].items())))
+                 and a.best_val_loss == b.best_val_loss),
+        "streams": (a.np_rng.bit_generator.state
+                    == b.np_rng.bit_generator.state
+                    and torch.equal(a.window_gen.get_state(),
+                                    b.window_gen.get_state())
+                    and torch.equal(a.noise_gen.get_state(),
+                                    b.noise_gen.get_state()))}
+    return [k for k, v in same.items() if not v]
+
+
+def kernel_counts(prof):
+    """{hand-written kernel: device records} of a profiler window."""
+    import re
+    out = {}
+    for e in device_events(prof):
+        m = re.search(HAND_KERNEL, e.name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out
+
+
+def block_window(tr, train_set, val_set, epochs):
+    """Fit ``tr`` on to ``epochs`` in a utils.device_profile window: (its
+    hand-written kernels' device records, device ops, busy ms, span ms,
+    lost_kernel_records)."""
+    prof, lost = profiler_window(
+        lambda: tr.fit(train_set, val_set, epochs=epochs, verbose=False))
+    evs = device_events(prof)
+    busy = sum(getattr(e, "device_time", None)
+               or getattr(e, "cuda_time", 0) for e in evs) / 1e3
+    span = ((max(e.time_range.end for e in evs)
+             - min(e.time_range.start for e in evs)) / 1e3 if evs else 0)
+    return kernel_counts(prof), len(evs), busy, span, lost
+
+
+def block_path(train_set, val_set, dev, gpu):
+    """Phase 4n: for full-width GOKU (pendulum) and LatentODE, a Trainer in
+    block mode (blocks of BLOCK_E epochs, replays under
+    torch.cuda.set_sync_debug_mode("error")) and one with jit_epoch=False,
+    same seed, fitted BLOCK_N blocks: every epoch's losses, the weights,
+    the optimizer state, the best and the streams bit for bit; the launch
+    counters (replay-aware) equal, as expected and with no plain call. Then
+    one more block of each in a profiler window: the hand-written kernels'
+    device records equal, the states again bit for bit; steady epoch
+    seconds, step + validation ms, device busy and idle share of each.
+    Returns {path: (per-step, block) steady epoch s}."""
+    import dataclasses
+
+    from latentdiffeq_torch.ops import launches
+    from latentdiffeq_torch.train import Trainer
+
+    out = {}
+    n = BLOCK_E * BLOCK_N
+    for what, (build, cfg, per_epoch) in block_models(train_set,
+                                                      dev).items():
+        steps = train_set.shape[0] // cfg.batch_size
+        want = {k: n * v for k, v in per_epoch.items()}
+        runs = {}
+        for mode, kw in (("per-step", dict(jit_epoch=False)),
+                         ("block", dict(epochs_per_dispatch=BLOCK_E))):
+            tr = Trainer(build(), dataclasses.replace(cfg, **kw), device=dev)
+            tr.sync_debug = "error"       # the block's replays
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(train_set, val_set, epochs=n, verbose=False)
+            torch.cuda.synchronize()
+            counts = launches.snapshot()
+            got = {k: (sum(v.values()) if isinstance(v, dict) else v)
+                   for k, v in counts.items()}
+            runs[mode] = (tr, time.perf_counter() - t0, got)
+            log("block", f"{what} {mode}: {n} epochs in "
+                         f"{runs[mode][1]:.3f} s; launches "
+                         f"{ {k: v for k, v in got.items() if v} }")
+        (ref, _, got_ref), (blk, _, got_blk) = runs["per-step"], \
+            runs["block"]
+        log_epochs(f"{what} block", blk.history)
+        bad = block_differences(ref, blk)
+        kernels = {k: got_blk[k] for k in want}
+        plain = {k: v for k, v in got_blk.items() if k.startswith("plain")}
+        log("block", f"{what}: block mode vs per-step loop after {BLOCK_N} "
+                     f"blocks of {BLOCK_E} epochs: differences {bad or 'none'}"
+                     f" (bit for bit: history, weights, optimizer, best "
+                     f"epoch {blk.best and blk.best['epoch']}, streams); "
+                     f"launches {kernels} (expected {want}, per-step "
+                     f"{ {k: got_ref[k] for k in want} }); plain calls "
+                     f"{plain}; replays under sync debug mode 'error'")
+        if bad:
+            fail(f"{what}: block mode differs from the per-step loop in {bad}")
+        if got_blk != got_ref or kernels != want or any(plain.values()):
+            fail(f"{what}: block launches {got_blk}, per-step {got_ref}, "
+                 f"expected {want}")
+        # one more block of each in a profiler window
+        wins = {}
+        for mode, (tr, _, _) in runs.items():
+            wins[mode] = block_window(tr, train_set, val_set, n + BLOCK_E)
+        bad = block_differences(ref, blk)
+        if bad or wins["block"][0] != wins["per-step"][0]:
+            fail(f"{what}: profiled block: differences {bad}, device "
+                 f"records {wins['block'][0]} vs {wins['per-step'][0]}")
+        steady = {}
+        for mode, (tr, _, _) in runs.items():
+            ep_s = sum(h["epoch_s"] for h in tr.history[-BLOCK_E:]) / BLOCK_E
+            rec, ops, busy, span, lost = wins[mode]
+            steady[mode] = ep_s
+            log("block", f"{what} {mode}, epochs {n}-{n + BLOCK_E - 1} "
+                         f"(synchronised at each epoch's end / the block's): "
+                         f"steady epoch {ep_s:.4f} s, step + validation "
+                         f"{1e3 * ep_s / steps:.3f} ms; profiler window of "
+                         f"the {BLOCK_E} epochs: {ops} device ops, busy "
+                         f"{busy:.3f} ms of a {span:.3f} ms span (idle "
+                         f"{100 * (1 - busy / span) if span else 0:.1f} %, "
+                         f"busy {busy / BLOCK_E / steps:.3f} ms a step + "
+                         f"validation), hand-written kernels' records "
+                         f"{rec} ({lost_str(lost)}); card {gpu}")
+        out[what] = (steady["per-step"], steady["block"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4k: train_goku.py --data-parallel (parallel/, Trainer(mesh=),
 # MultiSeedTrainer(mesh=)) on one rank in this process and on two ranks on
 # the one card (torch.distributed.run, gloo: NCCL refuses two ranks on one
@@ -3929,7 +4128,8 @@ def goku_333(dev, mesh=None, batch_size=64):
                                  generator=torch.Generator().manual_seed(333))
     model = LatentDiffEqModel.build(
         GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
-    return Trainer(model, TrainConfig(epochs=1500, save_best=False,
+    return Trainer(model, TrainConfig(jit_epoch=False, epochs=1500,
+                                      save_best=False,
                                       batch_size=batch_size),
                    device=dev, mesh=mesh)
 
@@ -4410,7 +4610,8 @@ def dp_path(solo, train_set, val_set, dev, gpu):
     initialize_distributed(device=dev)
     try:
         tr = Trainer(copy.deepcopy(solo.model),
-                     TrainConfig(epochs=1500, save_best=False), device=dev,
+                     TrainConfig(jit_epoch=False, epochs=1500,
+                                 save_best=False), device=dev,
                      mesh=make_mesh(1))
         x, beta = train_set[:64, :50], float(solo.history[-1]["beta"])
         step_ms, _ = step_times(tr, x, val_set, beta)
@@ -5209,7 +5410,8 @@ def lorenz96_dataset(dev):
     diffeq = ODEDynamics(f=lorenz96, z_dim=L96_N, theta_dim=1,
                          solver=Tsit5(), options=SolveOptions(
                              adaptive=False, substeps=CUSTOM_SUBSTEPS))
-    cfg = TrainConfig(batch_size=64, seq_len=50, dt=CUSTOM_DT, seed=7,
+    cfg = TrainConfig(jit_epoch=False, batch_size=64, seq_len=50,
+                      dt=CUSTOM_DT, seed=7,
                       epochs=300, save_best=False)
     train_set, val_set = splitobs(x, 0.9)
     return train_set, val_set, diffeq, cfg
@@ -5557,7 +5759,7 @@ def main():
         device=dev)
     launches, trainer, data, beta = goku_path(
         "pendulum", train_set, val_set, diffeq, layers,
-        TrainConfig(epochs=1500, save_best=False), dev, gpu)
+        TrainConfig(jit_epoch=False, epochs=1500, save_best=False), dev, gpu)
 
     log_phase("phase 4b")
     # ---- 4b. second main path: LatentODE training on the same video ------
@@ -5621,6 +5823,12 @@ def main():
     log_phase("phase 4j")
     # ---- 4j. the training CLIs through their main(argv) -------------------
     _, cli_goku = cli_path((latent, u0s_d, ps_d, frames), dev, gpu)
+
+    log_phase("phase 4n")
+    # ---- 4n. block mode: the epochs as CUDA graphs against the per-step
+    # loop, bit for bit (before phase 5 and 4k, whose profiler sessions
+    # come after every window it opens) ------------------------------------
+    block_path(train_set, val_set, dev, gpu)
 
     log_phase("phase 5")
     # ---- 5. kernel timing -------------------------------------------------

@@ -63,23 +63,22 @@ from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig, Trainer,
 from latentdiffeq_torch.train.trainer import _epoch_length, _prog_seq_lengths
 from latentdiffeq_torch.train.visualize import visualize_val_image
 
-__all__ = ["OUTPUT_DIR", "EPOCHS_PER_DISPATCH", "build_parser",
+__all__ = ["OUTPUT_DIR", "build_parser",
            "figure_epochs", "data_parallel_mesh", "main"]
 
 OUTPUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "output")
-# JAX's TrainConfig.epochs_per_dispatch default: the block length of its
-# fit, and so the figures' cadence
-EPOCHS_PER_DISPATCH = 25
 
 
 def figure_epochs(cfg: TrainConfig, start: int = 0):
     """The epochs at which JAX's ``Trainer.fit`` calls its callbacks in
-    block mode from epoch ``start`` (trainer.py:759-819): the last epoch of
-    each block. A block holds at most EPOCHS_PER_DISPATCH epochs and ends
-    at ``cfg.epochs``; in the sliced curriculum it also ends where the
-    window length changes (the masked curriculum runs one length)."""
-    epochs, per_dispatch = cfg.epochs, EPOCHS_PER_DISPATCH
+    block mode from epoch ``start`` (trainer.py:759-819), as the port's
+    does: the last epoch of each block. A block holds at most
+    ``cfg.epochs_per_dispatch`` epochs and ends at ``cfg.epochs``; in the
+    sliced curriculum it also ends where the window length changes (the
+    masked curriculum runs one length). The per-step runs (``--seeds``,
+    ``--data-parallel``) draw on the same epochs."""
+    epochs, per_dispatch = cfg.epochs, cfg.epochs_per_dispatch
     prog = _prog_seq_lengths(cfg)
     masked = cfg.masked_curriculum and cfg.progressive_training
     out, ep0 = [], start

@@ -166,6 +166,11 @@ def main(argv=None):
     # compressing 784 pixels to a 32-dim feature per frame. Weights are
     # drawn on the CPU from one seeded generator, then moved to the device.
     # ---------------------------------------------------------------------
+    # the tour's forward passes show shapes and values and take no gradient:
+    # no autograd graph through the weights outlives them (one would keep
+    # their gradient accumulators on this stream, and the Trainer could not
+    # capture its epochs as CUDA graphs; section 13 turns gradients back on)
+    torch.set_grad_enabled(False)
     gen = torch.Generator().manual_seed(333)
     init = nn.default_init      # kaiming_uniform(gain=1/sqrt(3)), Flux's
     kw = dict(winit=init, generator=gen)
@@ -338,6 +343,7 @@ def main(argv=None):
     # the pendulum_f above as another (use_kernel_solver, JAX's
     # use_pallas_solver): the field is traced and its device functor
     # generated and built at first use
+    torch.set_grad_enabled(True)
     on_card = dev.type == "cuda"
     model = LatentDiffEqModel.build(
         GOKUBasic(use_kernel_encoder=on_card, use_kernel_solver=on_card),

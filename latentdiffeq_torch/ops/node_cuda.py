@@ -615,6 +615,10 @@ _DW_SEMS = {}
 
 
 def _dw_semaphores(dev, stream: int, n: int):
+    if torch.cuda.is_current_stream_capturing():
+        # a CUDA graph's own: allocated in its pool and zeroed by each
+        # replay, never cached (the pool may go before the cache would)
+        return torch.zeros(max(n, 1024), device=dev, dtype=torch.int32)
     key = (dev, stream)
     sem = _DW_SEMS.get(key)
     if sem is None or sem.numel() < n:

@@ -7,7 +7,7 @@ from .optim import (FluxAdam, Optimizer, adam, adamw, adabelief, sgd,
                     apply_updates, clip_by_global_norm, chain)
 from .checkpoint import (jax_param_paths, load_jax_params, save_checkpoint,
                          load_checkpoint)
-from .trainer import TrainConfig, Trainer
+from .trainer import TrainConfig, Trainer, make_block_fn
 from .multiseed import MultiSeedTrainer, StackedModels
 from .selectors import (temporal_agreement, observation_forecast_scores,
                         observation_composite_scores, combine_composite)
@@ -24,6 +24,7 @@ __all__ = [
     "apply_updates", "clip_by_global_norm", "chain",
     "jax_param_paths", "load_jax_params",
     "save_checkpoint", "load_checkpoint", "TrainConfig", "Trainer",
+    "make_block_fn",
     "MultiSeedTrainer", "StackedModels",
     "temporal_agreement", "observation_forecast_scores",
     "observation_composite_scores", "combine_composite",

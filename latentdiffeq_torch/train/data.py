@@ -11,8 +11,7 @@ import torch
 
 __all__ = ["normalize_to_unit_segment", "denormalize_unit_segment",
            "rand_time", "time_loader", "splitobs", "window_start",
-           "sample_window",
-           "DataLoader"]
+           "sample_window", "gather_window", "DataLoader"]
 
 
 def normalize_to_unit_segment(x):
@@ -67,6 +66,17 @@ def sample_window(x, seq_len: int,
     if start is None:
         start = window_start(x.shape[1], seq_len, generator)
     return x[:, start:start + seq_len]
+
+
+def gather_window(data, rows, start, seq_len: int):
+    """The window of ``sample_window`` read with device indices, as JAX's
+    ``dynamic_slice_in_dim`` reads it (trainer.py:334-335): the rows
+    ``rows`` (B,) of ``data`` (samples, time, features), frames ``start``
+    (a one-element integer tensor) to ``start + seq_len``. Nothing is read
+    back to the host, so a CUDA graph can replay it with new indices.
+    Returns a contiguous (B, seq_len, features) copy."""
+    frames = start + torch.arange(seq_len, device=start.device)
+    return data.index_select(0, rows).index_select(1, frames)
 
 
 class DataLoader:

@@ -59,7 +59,10 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
                cur_len=None, anchor=None, anchor_weight: float = 0.0,
                anchor_frames=None, key=None, shards=None):
     """reconstruction + beta * KL (model_train.jl:225-238). Returns
-    ``(loss, metrics)``.
+    ``(loss, metrics)``. ``beta``: a float, or a 0-d float32 tensor on
+    the model's device, as the Trainer passes it and JAX's step takes it
+    (a float32 array: a bf16 KL term promotes to float32 against it), in
+    block mode read from the block's table on the card.
 
     ``mask_failures``: samples whose solve failed are left out of the
     reconstruction term. ``cur_len``: only the first ``cur_len`` frames are

@@ -356,6 +356,10 @@ class MultiSeedTrainer:
         if steps < 1:
             raise ValueError(f"batch_size={cfg.batch_size} exceeds the "
                              f"training set size n={n}")
+        if cfg.jit_epoch:
+            warnings.warn("MultiSeedTrainer.fit runs the per-step loop: "
+                          "block mode (jit_epoch) covers the solo Trainer",
+                          stacklevel=2)
         if cfg.autosize_adaptive and self.epoch == 0:
             self.autosize_adaptive_budget(train_set, verbose=verbose)
         if self._best is None:

@@ -25,6 +25,16 @@ each update is computed in float32 and rounded once into the parameter's
 dtype (ADAM's is JAX's arithmetic, where the float32 bias corrections
 promote, optim.py:69-72).
 
+A scalar that an update reads and that changes from step to step (ADAM's
+bias corrections) is a float32 tensor on the parameters' device, so that
+the step's arithmetic is the same whether it comes from the host or from a
+table on the card: ``step_scalars(n)`` gives the next n steps' values as
+float32 numpy arrays, and ``use_step_scalars`` hands the update 0-d device
+tensors read from such a table in their place (train/trainer.py's CUDA
+graphs, which replay an epoch with no Python in between). ``advance(n)``
+moves the step counters without a step, and ``state_tensors()`` lists the
+tensors an update changes in place.
+
 Checkpoints name an optimizer's state by JAX's pytree paths
 (``state_arrays``): ``m/<path>``, ``t`` and ``v/<path>`` for ADAM(W),
 ``m/<path>`` and ``s/<path>`` for AdaBelief, nothing for SGD and clipping,
@@ -104,6 +114,25 @@ class Optimizer:
                           paths: Sequence[str]):
         """Set the state from ``state_arrays``' names (a checkpoint's)."""
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The state tensors an update changes in place (the moments)."""
+        return []
+
+    def advance(self, n: int):
+        """Move the step counters by ``n`` steps (negative: back) without
+        updating anything."""
+
+    def step_scalars(self, n: int) -> Dict[str, np.ndarray]:
+        """The scalars the next ``n`` updates read that change from step to
+        step, by name: float32 arrays of length n."""
+        return {}
+
+    def use_step_scalars(self, scalars: Optional[Dict[str, torch.Tensor]]):
+        """Make the next updates read ``scalars`` (``step_scalars``' names,
+        0-d float32 tensors on the parameters' device) in place of the
+        values they compute from their step counters; None: compute them
+        again."""
+
 
 def _copy_into(dsts, srcs):
     with torch.no_grad():
@@ -128,16 +157,29 @@ class FluxAdam(Optimizer):
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
         self.t = 0
+        self._scalars = None
+
+    def _corrections(self, t: int):
+        """The bias corrections 1 - b^t of step ``t``, in float32 as the
+        JAX package computes them (one scalar at a time: numpy's array
+        power may round otherwise)."""
+        t = np.float32(t)
+        return (np.float32(1) - np.float32(self.b1) ** t,
+                np.float32(1) - np.float32(self.b2) ** t)
 
     @torch.no_grad()
     def update(self, grads):
         self.t += 1
         b1, b2 = self.b1, self.b2
-        # bias corrections in float32, as the JAX package computes them
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.t))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.t))
+        params = self._bound()
+        if self._scalars is not None:
+            c1, c2 = self._scalars["c1"], self._scalars["c2"]
+        elif params:
+            c1, c2 = (torch.full((), float(c), dtype=torch.float32,
+                                 device=params[0].device)
+                      for c in self._corrections(self.t))
         out = []
-        for p, g, m, v in zip(self._bound(), grads, self.m, self.v):
+        for p, g, m, v in zip(params, grads, self.m, self.v):
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             ct = _compute_dtype(p)
@@ -167,6 +209,21 @@ class FluxAdam(Optimizer):
         _copy_into(self.m, [arrays[f"m/{p}"] for p in paths])
         _copy_into(self.v, [arrays[f"v/{p}"] for p in paths])
         self.t = int(np.asarray(arrays["t"]))
+
+    def state_tensors(self):
+        return self.m + self.v
+
+    def advance(self, n):
+        self.t += n
+
+    def step_scalars(self, n):
+        c = np.array([self._corrections(t)
+                      for t in range(self.t + 1, self.t + n + 1)],
+                     np.float32).reshape(n, 2)
+        return {"c1": c[:, 0], "c2": c[:, 1]}
+
+    def use_step_scalars(self, scalars):
+        self._scalars = scalars
 
 
 class AdaBelief(Optimizer):
@@ -203,6 +260,9 @@ class AdaBelief(Optimizer):
     def load_state_arrays(self, arrays, paths):
         _copy_into(self.m, [arrays[f"m/{p}"] for p in paths])
         _copy_into(self.s, [arrays[f"s/{p}"] for p in paths])
+
+    def state_tensors(self):
+        return self.m + self.s
 
 
 class SGD(Optimizer):
@@ -269,9 +329,30 @@ class Chain(Optimizer):
 
     def load_state_arrays(self, arrays, paths):
         for i, o in enumerate(self.opts):
-            pre = f"{i}/"
-            o.load_state_arrays({k[len(pre):]: a for k, a in arrays.items()
-                                 if k.startswith(pre)}, paths)
+            o.load_state_arrays(_member(arrays, i), paths)
+
+    def state_tensors(self):
+        return [t for o in self.opts for t in o.state_tensors()]
+
+    def advance(self, n):
+        for o in self.opts:
+            o.advance(n)
+
+    def step_scalars(self, n):
+        return {f"{i}/{k}": a for i, o in enumerate(self.opts)
+                for k, a in o.step_scalars(n).items()}
+
+    def use_step_scalars(self, scalars):
+        for i, o in enumerate(self.opts):
+            o.use_step_scalars(None if scalars is None
+                               else _member(scalars, i))
+
+
+def _member(named, i: int):
+    """The entries of chain member ``i`` (``i/<name>``), without the
+    prefix."""
+    pre = f"{i}/"
+    return {k[len(pre):]: a for k, a in named.items() if k.startswith(pre)}
 
 
 def adam(params=None, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,

@@ -1,25 +1,42 @@
 """The training loop (counterpart of latentdiffeq/train/trainer.py:37-139,
-294-421, 717-870).
+294-421, 604-870).
 
-A plain per-step loop with the semantics of the JAX fused epoch: each
-minibatch takes one random window shared by the batch, a variational ELBO
-step with Flux ADAMW, then (``val_every_batch``) the deterministic
+Each minibatch takes one random window shared by the batch, a variational
+ELBO step with Flux ADAMW, then (``val_every_batch``) the deterministic
 validation loss on the full sequences of the whole validation set
 (model_train.jl:204). The best validation loss is tracked NaN-safely (a NaN
 never counts as an improvement) together with the weights and optimizer
-state that produced it. The JAX epoch-fusion knobs (``jit_epoch``,
-``epochs_per_dispatch``, ``unroll``) only schedule work and are not ported.
+state that produced it.
+
+Block mode (``jit_epoch``, ``epochs_per_dispatch``; the default, as in
+JAX): ``fit`` runs blocks of up to ``epochs_per_dispatch`` epochs through
+``make_block_fn``, JAX's fused epoch block. A block draws its permutations
+and window starts on the host up front, moves them to the device in one
+copy, runs its epochs with the step counters, the tables' indices and the
+best (weights, optimizer state, validation loss, epoch) on the device, and
+reads its summaries once, at its end; callbacks fire once a block, on its
+last record, and the best checkpoint is written after a block in which the
+best improved (trainer.py:755-819). On the card each epoch is a CUDA graph,
+captured once per ``(seq_len, steps, val_len)`` and replayed with no host
+read inside the block; on the CPU the same code runs eagerly. A block of
+one epoch (``epochs_per_dispatch=1``) is JAX's per-epoch program.
+``jit_epoch=False`` runs the per-step loop, which SDE dynamics, adaptive
+solves, a ``mesh`` and ``MultiSeedTrainer`` run whatever the setting
+(``fit`` warns). The two draw the same numbers in the same order from each
+random stream and compute the same operations, so a fit equals itself bit
+for bit whatever its blocking.
 
 Curricula (trainer.py:55-78, 163-173): ``progressive_training`` ramps the
 window length over the first ``prog_training_duration`` epochs
 (``_prog_seq_lengths``); each epoch trains on windows of its length.
-``masked_curriculum`` is taken for parity with the JAX option and trains the
-same sliced windows. JAX's masked mode keeps a ``seq_len`` buffer with the
+``masked_curriculum`` keeps JAX's block cadence (a block does not break
+where the length changes) and, as JAX's, needs block mode; its epochs train
+the sliced windows. JAX's masked mode keeps a ``seq_len`` buffer with the
 length carried as ``cur_len`` only so that its fused blocks compile once; it
 draws the same starts and averages the loss over the same frames, so its
-steps equal the sliced ones. The port runs per step and has no fused
-blocks, and the sliced windows keep the encoder on its kernel and solve only
-the epoch's frames. ``loss_batch(cur_len=)`` still takes the masked form.
+steps equal the sliced ones. Here each length has its graph, and the sliced
+windows keep the encoder on its kernel and solve only the epoch's frames.
+``loss_batch(cur_len=)`` still takes the masked form.
 
 ``autosize_adaptive`` (trainer.py:103-139, 176-276, 673-712) probes the
 adaptive solve once at the start of a fit and shrinks the dynamics' step
@@ -36,7 +53,9 @@ state, so a run restored from it goes on exactly as if it had not stopped
 (trainer.py:873-913 stores ``np_rng`` and the key). The noise generator's
 state is the device's own (Philox on the card, mt19937 on the CPU): a
 checkpoint restored on the other device type reseeds it from ``seed``,
-with a warning, and restores the other two.
+with a warning, and restores the other two. A captured epoch registers the
+noise generator with its graph, so each replay advances it as the eager
+draws do.
 
 Data parallelism (``mesh``, a 1-D mesh of ``parallel.make_mesh``; JAX's
 GSPMD ``Trainer(mesh=)``, trainer.py:425-486): every rank runs this
@@ -52,6 +71,7 @@ writes checkpoints, and ``restore`` leaves every rank with the same state.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -68,15 +88,16 @@ from .. import random as jr
 from ..core import resolve_device
 from ..models.dynamics import ODEDynamics, SDEDynamics
 from ..models.template import _noise_dtype, _noise_widths
+from ..ops import launches
 from ..parallel.data_parallel import BatchShards, reduce_metrics
 from ..parallel.mesh import mesh_rank, mesh_size
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import load_checkpoint, save_checkpoint
-from .data import sample_window
+from .data import gather_window, sample_window, window_start
 from .losses import loss_batch
 
-__all__ = ["TrainConfig", "Trainer"]
+__all__ = ["TrainConfig", "Trainer", "make_block_fn"]
 
 
 @dataclasses.dataclass
@@ -106,14 +127,22 @@ class TrainConfig:
     prog_training_duration: int = 200
     start_seq_len: int = 10
     prog_seq_len_step: Optional[int] = 5
-    # parity with JAX's masked curriculum, which trains the same sliced
-    # windows (module docstring)
+    # JAX's masked curriculum: its block cadence, the same sliced windows
+    # (module docstring); needs block mode (jit_epoch, epochs_per_dispatch
+    # > 1)
     masked_curriculum: bool = False
 
     # the reference computes the full val loss every minibatch
     val_every_batch: bool = True
     mask_failures: bool = False
     free_bits: float = 0.0
+
+    # block mode (module docstring): run the epochs in blocks of
+    # epochs_per_dispatch through make_block_fn, each epoch a CUDA graph on
+    # the card, the best tracked on the device; 1: a block an epoch.
+    # jit_epoch=False: the per-step loop. Same numbers either way.
+    jit_epoch: bool = True
+    epochs_per_dispatch: int = 25
 
     checkpoint_dir: str = "output"
     save_best: bool = True
@@ -239,6 +268,334 @@ def _autosize_probe(model, cfg: TrainConfig, train_set, seq_len=None,
     return sized, new_de
 
 
+def _grid(n: int, dt: float, device):
+    return torch.arange(n, dtype=torch.float32, device=device) * dt
+
+
+def _elbo_step(net, opt, loss_fn, cfg: TrainConfig, x, t, beta, *,
+               generator=None, eps=None, **kw):
+    """One ELBO gradient step of ``opt`` on the window ``x``; returns the
+    step's metrics (detached, not synchronised)."""
+    opt.zero_grad()
+    loss, metrics = loss_fn(
+        net, x, t, beta, variational=cfg.variational, generator=generator,
+        eps=eps, mask_failures=cfg.mask_failures, free_bits=cfg.free_bits,
+        **kw)
+    loss.backward()
+    opt.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def _val_metrics(model, loss_fn, cfg: TrainConfig, val, t, beta, **kw):
+    """The loss on the full validation sequences at the posterior mean."""
+    _, metrics = loss_fn(model, val, t, beta, variational=False,
+                         mask_failures=cfg.mask_failures,
+                         free_bits=cfg.free_bits, **kw)
+    return metrics
+
+
+def block_best(model: torch.nn.Module, opt: optim.Optimizer,
+               val: float = float("inf"), epoch: int = 0):
+    """A block's best state on the model's device, as JAX's carry holds it
+    (trainer.py:621-625): copies of the weights and of the optimizer's
+    state tensors, the validation loss (float64, so that it compares as the
+    host's float does) and the epoch."""
+    dev = next(model.parameters()).device
+    return {"model": [p.detach().clone() for p in model.parameters()],
+            "opt_state": [t.detach().clone() for t in opt.state_tensors()],
+            "val": torch.tensor(val, dtype=torch.float64, device=dev),
+            "epoch": torch.tensor(epoch, dtype=torch.int64, device=dev)}
+
+
+@contextlib.contextmanager
+def _sync_debug(mode):
+    """``torch.cuda.set_sync_debug_mode(mode)`` for the region (None: as
+    it is)."""
+    if mode is None:
+        yield
+        return
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+
+
+class _Tables:
+    """A block's inputs on the device, indexed by the device step counter
+    ``k`` and epoch counter ``e``, and its summaries."""
+
+    def __init__(self, dev, capacity: int, steps: int, batch: int,
+                 scalars, eps):
+        n = capacity * steps
+        self.capacity, self.batch = capacity, batch
+        self.rows = torch.empty(n, batch, dtype=torch.int64, device=dev)
+        self.starts = torch.empty(n, dtype=torch.int64, device=dev)
+        self.betas = torch.empty(capacity, dtype=torch.float32, device=dev)
+        self.ids = torch.empty(capacity, dtype=torch.int64, device=dev)
+        self.scalars = {k: torch.empty(n, dtype=torch.float32, device=dev)
+                        for k in scalars}
+        self.eps = (None if eps is None else
+                    [torch.empty(n, *a.shape[2:], dtype=a.dtype, device=dev)
+                     for a in eps])
+        self.flat = torch.empty(n * (batch + 1 + len(scalars))
+                                + 2 * capacity, dtype=torch.float64,
+                                device=dev)
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.e = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.summ = {}
+
+    def fits(self, E: int, batch: int, scalars, eps) -> bool:
+        return (E <= self.capacity and batch == self.batch
+                and set(scalars) == set(self.scalars)
+                and (eps is None) == (self.eps is None)
+                and (eps is None or [(tuple(a.shape[2:]), a.dtype)
+                                     for a in eps]
+                     == [(tuple(a.shape[1:]), a.dtype) for a in self.eps]))
+
+
+class BlockFn:
+    """JAX's fused multi-epoch program (``make_block_fn``,
+    trainer.py:294-421) on PyTorch, for one ``(seq_len, steps, val_len)``.
+
+    ``block_fn(model, best, data, val_data, idx_blocks, starts, betas,
+    epoch_ids, eps=None)`` runs E = len(betas) epochs. Epoch i's step s
+    takes the rows ``idx_blocks[i, s]`` (B,) of ``data`` (samples, time,
+    features, on the model's device) and the window of ``seq_len`` frames
+    from ``starts[i, s]`` (``gather_window``), one ELBO step of the
+    optimizer at ``betas[i]`` (the noise drawn from ``noise_gen``, or
+    ``eps[i, s]``: a tensor (E, steps, B, w) or a tuple of them in the
+    structure of the posterior's mean), then with ``val_every_batch`` the
+    validation loss on the whole ``val_data``. After each epoch the
+    summaries (JAX's ``train_loss``, ``val_loss`` — the last step's
+    validation —, ``rhs_evals``, ``n_failed``, ``beta``, ``kl``) and,
+    where the validation loss fell below ``best["val"]`` (NaN never
+    does), the whole ``best`` (``block_best``: weights, optimizer state,
+    validation loss and ``epoch_ids[i]``), in place. Returns the summaries, each (E,) on the
+    device. The weights and the optimizer's state change in place, as the
+    per-step loop changes them; JAX's ``keys`` are the starts and the
+    noise here, drawn by the caller.
+
+    The inputs move to the device in one copy. Everything an epoch reads
+    (rows, starts, beta, the optimizer's step scalars, the epoch id) it
+    reads from tables at device counters, so on a CUDA device the first
+    epoch run runs eagerly on a side stream (building every kernel library
+    and filling every cache a launch keeps), the next is captured as a CUDA
+    graph with ``noise_gen`` registered, and every later epoch replays it
+    with no host read; the kernels' launch counters gain on each replay
+    what they gained at the capture (``ops.launches``). New tensors in any
+    of those roles (another ``data``, ``best`` or table size) start over
+    with an eager epoch. ``sync_debug`` (None, "warn" or "error") runs the
+    replays under ``torch.cuda.set_sync_debug_mode``. A capture or replay
+    that fails raises. On the CPU every epoch runs eagerly."""
+
+    def __init__(self, cfg: TrainConfig, opt: optim.Optimizer,
+                 loss_fn: Callable, seq_len: int, steps: int, val_len: int,
+                 *, noise_gen: Optional[torch.Generator] = None,
+                 train_step: Optional[Callable] = None,
+                 val_step: Optional[Callable] = None):
+        self.cfg, self.opt, self.loss_fn = cfg, opt, loss_fn
+        self.seq_len, self.steps, self.val_len = seq_len, steps, val_len
+        self.noise_gen = noise_gen
+        self.train_step = train_step or self._train_step
+        self.val_step = val_step or self._val_step
+        self.sync_debug = None
+        self._tabs = None
+        self._sig = None
+        self._warm = False
+        self._graph = None
+        self._delta = None
+        self._stream = None
+
+    def _train_step(self, model, x, beta, eps):
+        return _elbo_step(model, self.opt, self.loss_fn, self.cfg, x,
+                          _grid(x.shape[1], self.cfg.dt, x.device), beta,
+                          generator=self.noise_gen, eps=eps)
+
+    def _val_step(self, model, val, beta):
+        return _val_metrics(model, self.loss_fn, self.cfg, val,
+                            _grid(self.val_len, self.cfg.dt, val.device),
+                            beta)
+
+    def _upload(self, dev, idx_blocks, starts, betas, epoch_ids, eps):
+        """The block's inputs into the tables (one host-to-device copy, of
+        every number as float64, which holds each exactly), counters at
+        0."""
+        E, n = len(betas), len(betas) * self.steps
+        idx = np.asarray(idx_blocks).reshape(n, -1)
+        scalars = self.opt.step_scalars(n)
+        if eps is not None:
+            eps = eps if isinstance(eps, (tuple, list)) else (eps,)
+            eps = [torch.as_tensor(a) for a in eps]
+        tabs = self._tabs
+        if tabs is None or not tabs.fits(E, idx.shape[1], scalars, eps):
+            tabs = self._tabs = _Tables(dev, E, self.steps, idx.shape[1],
+                                        scalars, eps)
+        parts = [idx, np.asarray(starts), np.asarray(betas, np.float32),
+                 np.asarray(epoch_ids)] + [scalars[k] for k in tabs.scalars]
+        host = np.concatenate([np.asarray(a, np.float64).ravel()
+                               for a in parts])
+        flat = tabs.flat[:host.size]
+        flat.copy_(torch.from_numpy(host))
+        o = 0
+        for dst, m in ((tabs.rows, idx.size), (tabs.starts, n),
+                       (tabs.betas, E), (tabs.ids, E),
+                       *((tabs.scalars[k], n) for k in tabs.scalars)):
+            dst.view(-1)[:m].copy_(flat[o:o + m])
+            o += m
+        if eps is not None:
+            for dst, a in zip(tabs.eps, eps):
+                dst[:n].copy_(a.reshape(n, *a.shape[2:]))
+        tabs.k.zero_()
+        tabs.e.zero_()
+        return tabs
+
+    def _epoch(self, model, best, data, val, tabs, live):
+        """One epoch, reading every input at the device counters (the code
+        a graph captures)."""
+        cfg = self.cfg
+        e = tabs.e
+        beta = tabs.betas.index_select(0, e).view(())
+        ms, vm = [], None
+        for _ in range(self.steps):
+            k = tabs.k
+            x = gather_window(data, tabs.rows.index_select(0, k).view(-1),
+                              tabs.starts.index_select(0, k), self.seq_len)
+            self.opt.use_step_scalars({
+                n: t.index_select(0, k).view(())
+                for n, t in tabs.scalars.items()})
+            eps = None
+            if tabs.eps is not None:
+                eps = [t.index_select(0, k)[0] for t in tabs.eps]
+                eps = tuple(eps) if len(eps) > 1 else eps[0]
+            ms.append(self.train_step(model, x, beta, eps))
+            if cfg.val_every_batch:
+                vm = self.val_step(model, val, beta)
+            k.add_(1)
+        if vm is None:
+            vm = self.val_step(model, val, beta)
+        st = {n: torch.stack([m[n] for m in ms])
+              for n in ("loss", "kl", "n_rhs_evals", "n_failed")}
+        summ = {"train_loss": st["loss"].mean(), "val_loss": vm["loss"],
+                "rhs_evals": st["n_rhs_evals"].sum(),
+                "n_failed": st["n_failed"].sum(), "beta": beta,
+                "kl": st["kl"].mean()}
+        with torch.no_grad():
+            for n, v in summ.items():
+                if n not in tabs.summ:
+                    tabs.summ[n] = torch.zeros(tabs.capacity, dtype=v.dtype,
+                                               device=v.device)
+                tabs.summ[n].index_copy_(0, e, v.reshape(1))
+            # JAX's carry (trainer.py:395-404): weights, optimizer state,
+            # val and epoch together, NaN-safe (a NaN compares False)
+            val_loss = vm["loss"].double()
+            improved = val_loss < best["val"]
+            for b, a in zip(best["model"] + best["opt_state"], live):
+                b.copy_(torch.where(improved, a, b))
+            best["val"].copy_(torch.where(improved, val_loss, best["val"]))
+            best["epoch"].copy_(torch.where(
+                improved, tabs.ids.index_select(0, e).view(()),
+                best["epoch"]))
+            e.add_(1)
+
+    def __call__(self, model, best, data, val_data, idx_blocks, starts,
+                 betas, epoch_ids, eps=None):
+        E = len(betas)
+        if val_data.shape[1] != self.val_len:
+            raise ValueError(f"val_data has {val_data.shape[1]} frames, "
+                             f"the block function {self.val_len}")
+        tabs = self._upload(data.device, idx_blocks, starts, betas,
+                            epoch_ids, eps)
+        live = list(model.parameters()) + self.opt.state_tensors()
+        bests = best["model"] + best["opt_state"]
+        if len(bests) != len(live):
+            raise ValueError(f"best holds {len(bests)} tensors, the model "
+                             f"and optimizer {len(live)}")
+        try:
+            if data.device.type != "cuda":
+                for _ in range(E):
+                    self._epoch(model, best, data, val_data, tabs, live)
+            else:
+                self._run_cuda(E, model, best, data, val_data, tabs, live)
+        finally:
+            self.opt.use_step_scalars(None)
+        return {n: v[:E] for n, v in tabs.summ.items()}
+
+    def _run_cuda(self, E, model, best, data, val, tabs, live):
+        sig = (id(tabs), data.data_ptr(), val.data_ptr(),
+               *(t.data_ptr() for t in live + best["model"]
+                 + best["opt_state"]),
+               best["val"].data_ptr(), best["epoch"].data_ptr())
+        if sig != self._sig:
+            self._sig, self._graph, self._warm = sig, None, False
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(data.device)
+        cur = torch.cuda.current_stream(data.device)
+        i = 0
+        if not self._warm:
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                self._epoch(model, best, data, val, tabs, live)
+            cur.wait_stream(self._stream)
+            self._warm = True
+            i = 1
+        if i == E:
+            return
+        if self._graph is None:
+            self._capture(model, best, data, val, tabs, live)
+        with _sync_debug(self.sync_debug):
+            for _ in range(E - i):
+                self._graph.replay()
+                launches.add(self._delta)
+                self.opt.advance(self.steps)
+
+    def _capture(self, model, best, data, val, tabs, live):
+        """Capture one epoch as a CUDA graph (nothing runs: the counters,
+        the optimizer's step count and the noise generator are where they
+        were)."""
+        graph = torch.cuda.CUDAGraph()
+        if self.noise_gen is not None and self.noise_gen.device.type \
+                == "cuda":
+            graph.register_generator_state(self.noise_gen)
+        before = launches.snapshot()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                self._epoch(model, best, data, val, tabs, live)
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"capturing the epoch as a CUDA graph failed ({err}). One "
+                f"cause: an autograd graph through the weights still alive "
+                f"from before the fit (a loss computed and kept, not "
+                f"backpropagated) holds their gradient accumulators on the "
+                f"stream it was built on, which a capture cannot wait on; "
+                f"drop it, or fit with TrainConfig(jit_epoch=False)") from err
+        finally:
+            self._delta = launches.gained(before, launches.snapshot())
+            launches.restore(before)
+            self.opt.advance(-self.steps)
+        self._graph = graph
+
+
+def make_block_fn(cfg: TrainConfig, opt: optim.Optimizer, loss_fn: Callable,
+                  seq_len: int, steps: int, val_len: int, *,
+                  noise_gen: Optional[torch.Generator] = None,
+                  train_step: Optional[Callable] = None,
+                  val_step: Optional[Callable] = None) -> BlockFn:
+    """The fused multi-epoch program (JAX's ``make_block_fn``,
+    trainer.py:294-421): a ``BlockFn`` for windows of ``seq_len`` frames,
+    ``steps`` minibatch steps an epoch and validation sequences of
+    ``val_len`` frames, stepping ``opt`` (bound to the model's parameters)
+    on ``loss_fn``. ``noise_gen``: the reparameterisation noise's
+    generator. ``train_step(model, x, beta, eps)`` and ``val_step(model,
+    val, beta)`` replace the plain ELBO step and validation pass (the
+    Trainer passes its own)."""
+    return BlockFn(cfg, opt, loss_fn, seq_len, steps, val_len,
+                   noise_gen=noise_gen, train_step=train_step,
+                   val_step=val_step)
+
+
 class Trainer:
     """``optimizer``: a ``train.optim`` optimizer, bound to the model's
     parameters or unbound (then bound here); default Flux ADAMW(cfg.lr,
@@ -270,6 +627,12 @@ class Trainer:
         self.window_gen = torch.Generator().manual_seed(cfg.seed)
         self.noise_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        # block mode: a BlockFn per (seq_len, steps, val_len), and the best
+        # on the device (block_best), kept across blocks
+        self._block_fns = {}
+        self._best_dev = None
+        # torch.cuda.set_sync_debug_mode for the blocks' replays (BlockFn)
+        self.sync_debug = None
         decoder = getattr(model, "decoder", None)
         self._sde = isinstance(getattr(decoder, "diffeq", None), SDEDynamics)
         self.mesh = mesh
@@ -289,8 +652,7 @@ class Trainer:
                             if self.device.type == "cuda" else None))
 
     def _grid(self, n: int):
-        return torch.arange(n, dtype=torch.float32,
-                            device=self.device) * self.cfg.dt
+        return _grid(n, self.cfg.dt, self.device)
 
     def _key_kw(self, key):
         """``{"key": key}`` for SDE dynamics (a key drawn from the noise
@@ -326,28 +688,19 @@ class Trainer:
         given ``eps``) are this rank's rows of the global minibatch and the
         metrics its share: their mean over the ranks (the sum for ``n_*``)
         is the global batch's."""
-        cfg = self.cfg
         kw = self._key_kw(key)
         if self.mesh is not None:
             eps, kw = self._shard_randomness(x.shape[0], eps, kw)
-        self.opt.zero_grad()
-        loss, metrics = self.loss_fn(
-            self._net, x, self._grid(x.shape[1]), beta,
-            variational=cfg.variational, generator=self.noise_gen, eps=eps,
-            mask_failures=cfg.mask_failures, free_bits=cfg.free_bits, **kw)
-        loss.backward()
-        self.opt.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return _elbo_step(self._net, self.opt, self.loss_fn, self.cfg, x,
+                          self._grid(x.shape[1]), beta,
+                          generator=self.noise_gen, eps=eps, **kw)
 
-    @torch.no_grad()
     def val_step(self, val, beta: float, *, key=None):
         """Loss on the full validation sequences at the posterior mean
         (for SDE dynamics on one Brownian path, ``key`` or a drawn one)."""
-        _, metrics = self.loss_fn(
-            self.model, val, self._grid(val.shape[1]), beta,
-            variational=False, mask_failures=self.cfg.mask_failures,
-            free_bits=self.cfg.free_bits, **self._key_kw(key))
-        return metrics
+        return _val_metrics(self.model, self.loss_fn, self.cfg, val,
+                            self._grid(val.shape[1]), beta,
+                            **self._key_kw(key))
 
     def autosize_adaptive_budget(self, train_set, *, seq_len=None,
                                  safety: Optional[float] = None,
@@ -370,10 +723,70 @@ class Trainer:
         return {"model": copy.deepcopy(self.model.state_dict()),
                 "epoch": epoch, "val": self.best_val_loss}
 
+    def _per_step_only(self) -> Optional[str]:
+        """Why this Trainer runs the per-step loop whatever ``jit_epoch``
+        says (None: block mode can run)."""
+        if self.mesh is not None:
+            return "a mesh (data parallelism)"
+        if self._sde:
+            return "SDE dynamics"
+        options = getattr(getattr(getattr(self.model, "decoder", None),
+                                  "diffeq", None), "options", None)
+        if getattr(options, "adaptive", False):
+            return "an adaptive solve"
+        return None
+
+    def _block_fn(self, seq_len: int, steps: int, val_len: int) -> BlockFn:
+        key = (seq_len, steps, val_len)
+        fn = self._block_fns.get(key)
+        if fn is None:
+            fn = self._block_fns[key] = make_block_fn(
+                self.cfg, self.opt, self.loss_fn, seq_len, steps, val_len,
+                noise_gen=self.noise_gen,
+                train_step=lambda m, x, beta, eps: self.train_step(
+                    x, beta, eps=eps),
+                val_step=lambda m, val, beta: self.val_step(val, beta))
+        return fn
+
+    def run_block(self, data, val, betas, seq_len=None, cur_lens=None):
+        """Run len(betas) epochs from ``self.epoch`` as one block
+        (trainer.py:604-635): the permutations and window starts drawn here
+        from the host streams, in the per-step loop's order, the epochs
+        through ``make_block_fn``, the best on the device. ``cur_lens``
+        (the masked curriculum): each epoch's window length, else
+        ``seq_len`` for all. Returns the summaries, each (E,) on the
+        device; reads nothing back."""
+        cfg = self.cfg
+        n, T = data.shape[0], data.shape[1]
+        steps = n // cfg.batch_size
+        E = len(betas)
+        lens = (list(cur_lens) if cur_lens is not None
+                else [seq_len or cfg.seq_len] * E)
+        idx = np.stack([self.np_rng.permutation(n)[:steps * cfg.batch_size]
+                        .reshape(steps, cfg.batch_size) for _ in range(E)])
+        starts = np.array([[window_start(T, lens[i], self.window_gen)
+                            for _ in range(steps)] for i in range(E)])
+        if self._best_dev is None:
+            self._best_dev = block_best(self.model, self.opt,
+                                        self.best_val_loss, self.epoch)
+        ids = np.arange(self.epoch, self.epoch + E)
+        out, i = [], 0
+        while i < E:                    # the runs of one window length
+            j = i
+            while j < E and lens[j] == lens[i]:
+                j += 1
+            fn = self._block_fn(lens[i], steps, val.shape[1])
+            fn.sync_debug = self.sync_debug
+            out.append(fn(self.model, self._best_dev, data, val, idx[i:j],
+                          starts[i:j], betas[i:j], ids[i:j]))
+            i = j
+        return {k: torch.cat([o[k] for o in out]) for k in out[0]}
+
     def fit(self, train_set, val_set, *, epochs: Optional[int] = None,
             callbacks=(), verbose: bool = True):
         """Train on (samples, time, features) sets; returns the history of
-        per-epoch summaries."""
+        per-epoch summaries. Block mode unless ``jit_epoch`` is off or the
+        configuration runs per step (module docstring)."""
         cfg = self.cfg
         epochs = cfg.epochs if epochs is None else epochs
         schedule = frange_cycle_linear(cfg.epochs, cfg.start_beta,
@@ -389,15 +802,88 @@ class Trainer:
         if steps < 1:
             raise ValueError(f"batch_size={cfg.batch_size} exceeds the "
                              f"training set size n={n}")
+        masked = cfg.masked_curriculum and cfg.progressive_training
+        if cfg.masked_curriculum and not (cfg.jit_epoch
+                                          and cfg.epochs_per_dispatch > 1):
+            raise ValueError(
+                "masked_curriculum requires block mode (jit_epoch=True, "
+                "epochs_per_dispatch > 1) — it is a property of the fused "
+                "block program")
+        use_blocks = cfg.jit_epoch
+        why = self._per_step_only() if use_blocks else None
+        if why is not None:
+            warnings.warn(f"Trainer.fit runs the per-step loop for {why}: "
+                          f"block mode (jit_epoch) covers fixed-grid ODE "
+                          f"dynamics on one process", stacklevel=2)
+            use_blocks = False
 
         if cfg.autosize_adaptive and self.epoch == 0:
             self.autosize_adaptive_budget(train_set, verbose=verbose)
         prog = _prog_seq_lengths(cfg)
-        b = cfg.batch_size // self.world          # this rank's rows
 
+        while use_blocks and self.epoch < epochs:
+            ep0 = self.epoch
+            seq_len = _epoch_length(cfg, prog, ep0)
+            if masked:
+                # JAX's masked block does not break for the length
+                e = min(epochs, ep0 + cfg.epochs_per_dispatch)
+                cur_lens = [_epoch_length(cfg, prog, i)
+                            for i in range(ep0, e)]
+            else:
+                # extend the block while seq_len stays the same
+                e = ep0
+                while (e < epochs and e - ep0 < cfg.epochs_per_dispatch
+                       and _epoch_length(cfg, prog, e) == seq_len):
+                    e += 1
+                cur_lens = None
+            betas = [float(schedule[min(i, len(schedule) - 1)])
+                     for i in range(ep0, e)]
+            t0 = time.perf_counter()
+            summ = self.run_block(data, val, betas, seq_len, cur_lens)
+            summ = {k: v.cpu() for k, v in summ.items()}   # the block's read
+            wall = time.perf_counter() - t0
+            per_ep = wall / len(betas)
+            for i in range(len(betas)):
+                self.history.append({
+                    "epoch": ep0 + i,
+                    "train_loss": float(summ["train_loss"][i]),
+                    "val_loss": float(summ["val_loss"][i]),
+                    "beta": betas[i],
+                    "seq_len": cur_lens[i] if masked else seq_len,
+                    "epoch_s": per_ep,
+                    "rhs_evals_per_s": int(summ["rhs_evals"][i]) / per_ep,
+                    "kl": float(summ["kl"][i]),
+                    "n_failed": int(summ["n_failed"][i])})
+            prev_best = self.best_val_loss
+            self.best_val_loss = float(self._best_dev["val"])
+            if verbose:
+                r = self.history[-1]
+                print(f"epochs {ep0:4d}-{e - 1:4d}  "
+                      f"loss {r['train_loss']:10.4f}  "
+                      f"val {r['val_loss']:10.4f}  best "
+                      f"{self.best_val_loss:10.4f}  "
+                      f"{per_ep:7.4f}s/epoch", flush=True)
+            self.epoch = e
+            if self.best_val_loss < prev_best:
+                best_ep = int(self._best_dev["epoch"])
+                self.best = self._best_snapshot(best_ep)
+                # after every block, so that an interrupted run leaves its
+                # best behind (trainer.py:811-815)
+                if cfg.save_best:
+                    self._save_best(f"{cfg.checkpoint_dir}/best_model.npz",
+                                    best_ep, steps * (e - 1 - best_ep))
+            for cb in callbacks:
+                cb(self, self.history[-1])
+        if use_blocks:
+            return self.history
+
+        b = cfg.batch_size // self.world          # this rank's rows
         while self.epoch < epochs:
             ep = self.epoch
             beta = float(schedule[min(ep, len(schedule) - 1)])
+            # the block's beta: a float32 scalar on the device
+            beta_t = torch.full((), beta, dtype=torch.float32,
+                                device=self.device)
             seq_len = _epoch_length(cfg, prog, ep)
             t0 = time.perf_counter()
             perm = torch.as_tensor(self.np_rng.permutation(n))
@@ -405,13 +891,14 @@ class Trainer:
             for s in range(steps):
                 idx = perm[s * cfg.batch_size:(s + 1) * cfg.batch_size]
                 idx = idx[self.rank * b:(self.rank + 1) * b]
+                # contiguous, as the block's gather_window is
                 x = sample_window(data[idx.to(self.device)], seq_len,
-                                  self.window_gen)
-                ms.append(self.train_step(x, beta))
+                                  self.window_gen).contiguous()
+                ms.append(self.train_step(x, beta_t))
                 if cfg.val_every_batch:
-                    vm = self.val_step(val, beta)
+                    vm = self.val_step(val, beta_t)
             if vm is None:
-                vm = self.val_step(val, beta)
+                vm = self.val_step(val, beta_t)
             st = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
             if self.mesh is not None:             # the global batches'
                 st = reduce_metrics(st, self.mesh.get_group(), self.world)
@@ -441,6 +928,39 @@ class Trainer:
                 cb(self, rec)
         return self.history
 
+    def _best_snapshot(self, epoch: int):
+        """``_snapshot`` of the device best: the state dict with the best
+        weights."""
+        sd = {k: v.detach().clone() for k, v in
+              self.model.state_dict().items()}
+        for (name, _), b in zip(self.model.named_parameters(),
+                                self._best_dev["model"]):
+            sd[name] = b.detach().clone()
+        return {"model": sd, "epoch": epoch, "val": self.best_val_loss}
+
+    def _save_best(self, path: str, epoch: int, lag: int):
+        """Write the device best as JAX's ``_save_best`` does
+        (trainer.py:890-901): its weights and optimizer state, ``epoch`` +
+        1, its validation loss, and the current random streams (resuming
+        from it replays from the best epoch with the moments that produced
+        it). ``lag``: the optimizer steps taken since the best epoch's
+        end. The best is swapped into the live tensors for the write and
+        back after it."""
+        live = list(self.model.parameters()) + self.opt.state_tensors()
+        best = self._best_dev["model"] + self._best_dev["opt_state"]
+        kept = [t.detach().clone() for t in live]
+        with torch.no_grad():
+            for t, b in zip(live, best):
+                t.copy_(b)
+        self.opt.advance(-lag)
+        try:
+            self._write(path, epoch + 1)
+        finally:
+            self.opt.advance(lag)
+            with torch.no_grad():
+                for t, k in zip(live, kept):
+                    t.copy_(k)
+
     @property
     def best_model(self) -> torch.nn.Module:
         """The best-validation weights seen so far as a model (a copy with
@@ -460,16 +980,18 @@ class Trainer:
         mesh every rank calls it: rank 0 writes (every rank holds the same
         state) and the others wait until the file is there."""
         if self.rank == 0:
-            save_checkpoint(
-                path, self.model, self.opt,
-                meta={"epoch": self.epoch,
-                      "best_val_loss": self.best_val_loss,
-                      "np_rng": self.np_rng.bit_generator.state,
-                      "noise_gen_device": self.noise_gen.device.type},
-                arrays={"window_gen": self.window_gen.get_state().numpy(),
-                        "noise_gen": self.noise_gen.get_state().numpy()})
+            self._write(path, self.epoch)
         if self.mesh is not None:
             torch.distributed.barrier(group=self.mesh.get_group())
+
+    def _write(self, path: str, epoch: int):
+        save_checkpoint(
+            path, self.model, self.opt,
+            meta={"epoch": epoch, "best_val_loss": self.best_val_loss,
+                  "np_rng": self.np_rng.bit_generator.state,
+                  "noise_gen_device": self.noise_gen.device.type},
+            arrays={"window_gen": self.window_gen.get_state().numpy(),
+                    "noise_gen": self.noise_gen.get_state().numpy()})
 
     def restore(self, path: str):
         """Load a checkpoint of ``save`` (or the JAX Trainer's, or a bare
@@ -480,6 +1002,7 @@ class Trainer:
         be set here: it is reseeded from ``cfg.seed``, with a warning."""
         extra = {}
         meta = load_checkpoint(path, self.model, self.opt, arrays=extra)
+        self._best_dev = None    # the next block tracks from this state
         self.epoch = int(meta.get("epoch", 0))
         self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
         if "np_rng" in meta and {"window_gen", "noise_gen"} <= set(extra):

@@ -180,7 +180,8 @@ def test_fit_probes_at_the_start_and_population_probes_replica_0(video):
     same budget a solo probe of that replica gives."""
     acfg = SDEAdaptiveConfig(**SDE_KW)
     cfg = TrainConfig(batch_size=4, seq_len=10, epochs=1, save_best=False,
-                      autosize_adaptive=True, mask_failures=True)
+                      autosize_adaptive=True, mask_failures=True,
+                      jit_epoch=False)
     x = video[:, :12]
     solo = _small(SPendulum(adaptive=True, adaptive_cfg=acfg), 11)
     want, want_de = _autosize_probe(solo, cfg, x)

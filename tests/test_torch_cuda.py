@@ -2413,3 +2413,99 @@ def test_bf16_goku_step_runs_the_bf16_kernels_on_card(dev):
     assert bf16_close(lk, lp, lf)
     for a, b, c in zip(gk, gp, gf):
         assert a.dtype == torch.bfloat16 and bf16_close(a, b, c)
+
+
+# -- block mode: the epochs as CUDA graphs (train/trainer.py, BlockFn) -------
+
+def block_trainers(dev, which, dtype=torch.float32, **kw):
+    """A small GOKU (the heads and RK kernels; bf16 NN stages with
+    ``dtype``) or LatentODE (the neural-field kernels) in a Trainer on the
+    card, seed 3, 2 steps of 8 an epoch."""
+    from latentdiffeq_torch.train import TrainConfig, Trainer
+    g = torch.Generator().manual_seed(3)
+    if which == "goku":
+        diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+        model = LatentDiffEqModel.build(
+            GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
+            *goku_default_layers(64, diffeq, hidden_dim_resnet=32,
+                                 latent_to_diffeq_dim=32, generator=g,
+                                 device=dev, dtype=dtype))
+    else:
+        mt = LatentODE(use_kernel_solve=True)
+        node = NODE(6, hidden_dim=32, generator=g, device=dev,
+                    options=SolveOptions(adaptive=False, substeps=1))
+        model = LatentDiffEqModel.build(
+            mt, *default_layers(mt, 64, node, generator=g, device=dev,
+                                hidden_dim_resnet=32))
+    cfg = TrainConfig(batch_size=8, seq_len=10, epochs=50, save_best=False,
+                      **kw)
+    return Trainer(model, cfg, device=dev)
+
+
+def block_data(dev):
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(20, 16, 64, generator=g).to(dev)
+    return x[:16], x[16:]
+
+
+def launch_counts():
+    from latentdiffeq_torch.ops import launches
+    return launches.snapshot()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,dtype", [("goku", torch.float32),
+                                         ("goku", torch.bfloat16),
+                                         ("latent_ode", torch.float32)])
+def test_block_graphs_equal_the_eager_epochs(dev, which, dtype):
+    """Blocks of 2 epochs (the first epoch eager on the side stream, every
+    later one a replay of the captured graph, under sync debug mode
+    "error") against the per-step loop from the same seed, 5 epochs: every
+    epoch's losses, the weights, Adam's state and step count, the best and
+    the three streams bit for bit, and the same kernel launches."""
+    tr_set, va_set = block_data(dev)
+    runs = []
+    for kw in (dict(jit_epoch=False), dict(epochs_per_dispatch=2)):
+        tr = block_trainers(dev, which, dtype, **kw)
+        tr.sync_debug = "error"
+        before = launch_counts()
+        tr.fit(tr_set, va_set, epochs=5, verbose=False)
+        torch.cuda.synchronize()
+        from latentdiffeq_torch.ops import launches
+        runs.append((tr, launches.gained(before, launch_counts())))
+    (a, na), (b, nb) = runs
+    assert na == nb
+    assert not na["plain goku_heads"] and not na["plain rk_fixed_grid"]
+    assert sum(v if isinstance(v, int) else sum(v.values())
+               for v in na.values()) > 0
+    keys = ("train_loss", "val_loss", "kl", "n_failed")
+    assert [[h[k] for k in keys] for h in a.history] == \
+        [[h[k] for k in keys] for h in b.history]
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q)
+    assert a.opt.t == b.opt.t == 10
+    for p, q in zip(a.opt.state_tensors(), b.opt.state_tensors()):
+        assert torch.equal(p, q)
+    assert a.best["epoch"] == b.best["epoch"]
+    for k, v in a.best["model"].items():
+        assert torch.equal(v, b.best["model"][k]), k
+    assert torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state())
+    assert torch.equal(a.window_gen.get_state(), b.window_gen.get_state())
+    assert a.np_rng.bit_generator.state == b.np_rng.bit_generator.state
+
+
+@pytest.mark.cuda
+def test_block_graphs_recapture_for_new_tensors(dev):
+    """A second fit on another copy of the data starts over (an eager
+    epoch, then a new capture) and still equals the per-step loop."""
+    tr_set, va_set = block_data(dev)
+    a = block_trainers(dev, "goku", jit_epoch=False)
+    b = block_trainers(dev, "goku", epochs_per_dispatch=3)
+    for n, data in ((3, tr_set), (6, tr_set.clone())):
+        a.fit(data, va_set, epochs=n, verbose=False)
+        b.fit(data, va_set, epochs=n, verbose=False)
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q)
+    assert [h["val_loss"] for h in a.history] == \
+        [h["val_loss"] for h in b.history]
+    assert torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state())

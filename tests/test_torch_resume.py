@@ -108,9 +108,10 @@ def test_resumed_fit_equals_uninterrupted_fit_bit_for_bit(which, sets,
 def test_best_checkpoint_written_by_fit_resumes_exactly(sets, tmp_path):
     """The best checkpoint that ``fit`` writes holds the streams of its
     epoch: resuming from it and fitting to the end gives the weights of
-    the run that wrote it."""
+    the run that wrote it (epochs_per_dispatch=1: written after each
+    epoch, JAX's per-epoch cadence)."""
     tr_set, va_set = sets
-    cfg = cfg_for(tmp_path, epochs=3)
+    cfg = cfg_for(tmp_path, epochs=3, epochs_per_dispatch=1)
     ref = Trainer(goku(3), cfg, device="cpu")
     ref.fit(tr_set, va_set, verbose=False)
     best_epoch = int(np.argmin([h["val_loss"] for h in ref.history]))

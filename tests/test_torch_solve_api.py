@@ -405,9 +405,6 @@ def test_root_exports_the_jax_roots_ported_names():
     # the subpackages' __all__ (sys.modules: the roots rebind ``solve`` to
     # the function), less the names that have no port by design
     by_design = {
-        # JAX's fused epoch-block program: the port's Trainer steps one
-        # batch at a time (train/trainer.py module docstring)
-        "train": {"make_block_fn"},
         # the Pallas TPU kernels themselves; their ports are the CUDA
         # kernels' wrappers in ops/ (goku_heads, solve_fixed_grid_batched,
         # solve_neural_field)
