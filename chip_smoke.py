@@ -151,18 +151,27 @@ Phases, each printing one line (any failure exits non-zero):
               from the same seed for one step and a validation pass
               (losses within 1e-4 of their size; 4m's instances too are
               checked and timed in phase 5); and (4n, after 4j, before
-              phase 5) block mode, the Trainer's default (epochs as CUDA
+              phase 5; the parts from (a) on after 4m) block mode, the
+              Trainer's and MultiSeedTrainer's default (epochs as CUDA
               graphs, the best on the device): full-width GOKU on the
-              pendulum and full-width LatentODE, 2 blocks of 3 epochs
-              (replays under sync debug mode "error") beside
-              jit_epoch=False from the same seed, every epoch's losses,
-              the weights, Adam's state, the best and the streams bit for
-              bit, the launch counters (replay-aware) equal and as
-              expected with no plain call; one more block of each in a
-              profiler window (the hand-written kernels' device records
-              equal), steady epoch seconds, step + validation ms, device
-              busy and idle share beside the per-step loop's; the earlier
-              phases' Trainers run jit_epoch=False (the per-step numbers
+              pendulum and full-width LatentODE; (after 4m) (a) GOKU on
+              the stochastic pendulum, (b) the adaptive
+              pendulum and adaptive SPendulum at train_goku.py
+              --adaptive's settings, autosized (one block each, of 2
+              epochs for the adaptive SPendulum), (c) 4g's
+              population of 8 in float32 and bf16 (replica 3 against a
+              solo block-mode Trainer), (d) 4 LatentODE seeds, (e) 4
+              SPendulum seeds: 2 blocks of 3 epochs (replays under sync
+              debug mode "error") beside jit_epoch=False from the same
+              seeds, every epoch's losses, the weights, Adam's state, the
+              best and the streams bit for bit, the launch counters
+              (replay-aware) equal and as expected with no plain call,
+              each graph's capture seconds and kernel nodes; one more
+              block of each in a profiler window (one epoch for (b); the
+              hand-written kernels' device records equal), steady epoch
+              seconds, step + validation ms, device busy and idle share
+              beside the per-step loop's; the earlier phases' Trainers
+              and populations run jit_epoch=False (the per-step numbers
               recorded), 4j's CLIs and 4l's tutorial and GOKU block mode;
   5. timing   each kernel's time per call (CUDA events, wrapper included)
               and on the device alone (a torch.profiler window armed by
@@ -223,6 +232,7 @@ started by the phase itself under torch.distributed.run.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -335,17 +345,22 @@ PROFILE_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "build", "profile_window.json")
 
 
-def profiler_window(fn):
+def profiler_window(fn, count_lost: bool = True, device_only: bool = False):
     """Run ``fn`` (and a synchronize) in a torch.profiler window opened
     with utils.device_profile, which arms device tracing before the region
     (a plain window opened late in a run loses the kernel records of its
     first launches, PERF.md section 7). Returns (the profiler, its
     lost_kernel_records: the launches of the window with no kernel
-    record)."""
+    record; None without ``count_lost``, which skips the window's Chrome
+    trace). ``device_only``: record the device's activity alone."""
     from latentdiffeq_torch.utils import device_profile, lost_kernel_records
-    with device_profile() as prof:
+    kw = ({"activities": [torch.profiler.ProfilerActivity.CUDA]}
+          if device_only else {})
+    with device_profile(**kw) as prof:
         fn()
         torch.cuda.synchronize()
+    if not count_lost:
+        return prof, None
     os.makedirs(os.path.dirname(PROFILE_TRACE), exist_ok=True)
     prof.export_chrome_trace(PROFILE_TRACE)
     lost = lost_kernel_records(PROFILE_TRACE)
@@ -362,6 +377,8 @@ def device_events(prof):
 
 
 def lost_str(lost) -> str:
+    if lost is None:
+        return "lost_kernel_records not counted"
     return (f"lost_kernel_records {lost['lost']} of {lost['launches']} "
             f"launches")
 
@@ -3884,83 +3901,199 @@ def cli_path(video, dev, gpu):
 
 # ---------------------------------------------------------------------------
 # Phase 4n: block mode (TrainConfig.jit_epoch, epochs_per_dispatch; the
-# Trainer's default): make_block_fn's epochs as CUDA graphs, replayed with
-# no host read inside a block, the best tracked on the device, against the
-# per-step loop (jit_epoch=False) from the same seed.
+# Trainer's and MultiSeedTrainer's default): make_block_fn's epochs as CUDA
+# graphs, replayed with no host read inside a block, the best tracked on the
+# device, against the per-step loop (jit_epoch=False) from the same seeds:
+# full-width GOKU and LatentODE, GOKU on the stochastic pendulum (SRA1 on
+# the grid), the adaptive pendulum and adaptive SPendulum (whole step
+# budgets in the captured epochs), and the populations of 8 GOKU (float32
+# and bf16), 4 LatentODE and 4 SPendulum seeds.
 
 BLOCK_E = 3         # epochs a block
 BLOCK_N = 2         # blocks held against the per-step loop before the window
+# block_parts' paths that run before phase 5, and those that run last
+BLOCK_FIRST = ("GOKU", "LatentODE")
+BLOCK_LAST = ("(a) SDE GOKU", "(b) adaptive GOKU", "(b) adaptive SDE GOKU",
+              "(c) population of 8", "(c) bf16 population of 8",
+              "(d) LatentODE population of 4",
+              "(e) SPendulum population of 4")
 HAND_KERNEL = r"(goku_heads_\w+?_kernel|rk_\w+?_kernel|node_field_\w+?_kernel)"
 
 
-def block_models(train_set, dev):
-    """{path: (build, cfg, kernels an epoch)}: phase 4's full-width GOKU on
-    the pendulum and phase 4b's full-width LatentODE, with the launches
-    each kernel counter gains an epoch (a forward a step and a validation
-    pass, a backward a step)."""
+@dataclasses.dataclass
+class BlockPart:
+    """A configuration of phase 4n: ``make(**cfg changes)`` builds its
+    Trainer or MultiSeedTrainer; ``per_epoch`` the launches each kernel
+    counter gains an epoch, ``extra`` those of a fit's start (the autosize
+    probe's encoder); ``blocks`` blocks of ``epochs`` epochs held against
+    the per-step loop, then ``window`` epochs of each in a profiler window
+    (``lean``: device activity only, without the Chrome trace and its
+    lost-record count: the window of an adaptive SDE epoch holds ~1e6
+    device ops)."""
+    make: object
+    per_epoch: dict
+    extra: dict = dataclasses.field(default_factory=dict)
+    blocks: int = BLOCK_N
+    window: int = BLOCK_E
+    lean: bool = False
+    epochs: int = BLOCK_E      # a block's
+    solo: object = None     # (replica, make a solo block-mode Trainer, rtol)
+
+
+def block_parts(train_set, dev):
+    """{path: BlockPart}: phase 4's full-width GOKU on the pendulum, phase
+    4b's full-width LatentODE; (a) GOKU on SPendulum(); (b) GOKU on the
+    adaptive pendulum and the adaptive SPendulum at train_goku.py
+    --adaptive's settings (ADAPTIVE_SDE), autosized at the fit's start,
+    mask_failures; (c) 4g's population of 8 seeds in float32 and in
+    bf16 (4h), replica 3 against a solo block-mode Trainer of seed 336;
+    (d) 4i's population of 4 LatentODE seeds; (e) 4 SPendulum seeds. A
+    forward a step and a validation pass, a backward a step."""
     from latentdiffeq_torch.adjoint import SolveOptions
     from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
                                            LatentODE, NODE, default_layers,
                                            goku_default_layers)
-    from latentdiffeq_torch.pendulum import Pendulum
-    from latentdiffeq_torch.train import TrainConfig
+    from latentdiffeq_torch.pendulum import Pendulum, SPendulum
+    from latentdiffeq_torch.solve import make_options
+    from latentdiffeq_torch.solve.sde import SDEAdaptiveConfig
+    from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig,
+                                          Trainer)
 
     steps = train_set.shape[0] // 64
+    grid = dict(options=SolveOptions(adaptive=False, substeps=1))
+    dynamics = {
+        "pendulum": lambda: Pendulum(**grid),
+        "spendulum": lambda: SPendulum(),
+        "adaptive": lambda: Pendulum(options=make_options(adaptive=True)),
+        "adaptive spendulum": lambda: SPendulum(
+            adaptive=True, adaptive_cfg=SDEAdaptiveConfig(**ADAPTIVE_SDE))}
 
-    def goku():
-        diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+    def goku(which, seed=333, dtype=torch.float32):
         return LatentDiffEqModel.build(
             GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True),
-            *goku_default_layers(784, diffeq,
-                                 generator=torch.Generator().manual_seed(333),
-                                 device=dev))
+            *goku_default_layers(784, dynamics[which](), device=dev,
+                                 generator=torch.Generator().manual_seed(
+                                     seed), dtype=dtype))
 
-    def latent_ode():
-        g = torch.Generator().manual_seed(1)
+    def latent_ode(seed):
+        g = torch.Generator().manual_seed(seed)
         mt = LatentODE(use_kernel_solve=True)
-        node = NODE(16, options=SolveOptions(adaptive=False, substeps=1),
-                    generator=g, device=dev)
+        node = NODE(16, generator=g, device=dev, **grid)
         return LatentDiffEqModel.build(
             mt, *default_layers(mt, 784, node, generator=g, device=dev))
 
+    def cfg(**kw):
+        return TrainConfig(epochs=1500, save_best=False, **kw)
+
+    def solo(build, **c):
+        return lambda **kw: Trainer(build(), cfg(**c, **kw), device=dev)
+
+    def pop(init, seeds, **c):
+        return lambda **kw: MultiSeedTrainer(init, cfg(**c, **kw), seeds,
+                                             device=dev)
+
+    heads = {"goku_heads": 2 * steps, "goku_heads_bwd": steps}
+    rk = {"rk_fixed_grid": 2 * steps, "rk_fixed_grid_bwd": steps}
+    bf = {"goku_heads[bf16]": 2 * steps, "goku_heads_bwd[bf16]": steps}
+    node = {"node_field_fwd": 2 * steps, "node_field_bwd": steps,
+            "node_field_dw": steps}
+    # autosized at the fit's start: rows that outgrow the budget as the
+    # weights train fail and are masked (the validation sequences, 99
+    # intervals, outrun the adaptive SPendulum's budget sized on 49)
+    sized = dict(autosize_adaptive=True, mask_failures=True)
+    short = dict(window=1, lean=True)     # a one-epoch device-only window
+    s336 = POP_SEEDS.index(336)
     return {
-        "GOKU": (goku, TrainConfig(epochs=1500, save_best=False),
-                 {"goku_heads": 2 * steps, "goku_heads_bwd": steps,
-                  "rk_fixed_grid": 2 * steps, "rk_fixed_grid_bwd": steps}),
-        "LatentODE": (latent_ode, TrainConfig(decay=1e-4, seed=1,
-                                              epochs=1500, save_best=False),
-                      {"node_field_fwd": 2 * steps, "node_field_bwd": steps,
-                       "node_field_dw": steps})}
+        "GOKU": BlockPart(solo(lambda: goku("pendulum")), {**heads, **rk}),
+        "LatentODE": BlockPart(solo(lambda: latent_ode(1), decay=1e-4,
+                                    seed=1), node),
+        "(a) SDE GOKU": BlockPart(solo(lambda: goku("spendulum")), heads,
+                                  **short),
+        "(b) adaptive GOKU": BlockPart(
+            solo(lambda: goku("adaptive"), **sized), heads,
+            {"goku_heads": 1}, blocks=1, **short),
+        # blocks of 2: the graph of ~1e6 nodes costs ~30-50 s to capture
+        "(b) adaptive SDE GOKU": BlockPart(
+            solo(lambda: goku("adaptive spendulum"), **sized), heads,
+            {"goku_heads": 1}, blocks=1, epochs=2, **short),
+        "(c) population of 8": BlockPart(
+            pop(lambda s: goku("pendulum", s), POP_SEEDS), {**heads, **rk},
+            blocks=1, solo=(s336, solo(lambda: goku("pendulum", 336),
+                                       seed=336), POP_RTOL), **short),
+        "(c) bf16 population of 8": BlockPart(
+            pop(lambda s: goku("pendulum", s, BF), POP_SEEDS),
+            {**heads, **rk, **bf}, blocks=1,
+            solo=(s336, solo(lambda: goku("pendulum", 336, BF), seed=336),
+                  BF16_POP_RTOL), **short),
+        "(d) LatentODE population of 4": BlockPart(
+            pop(latent_ode, NODE_POP_SEEDS, decay=1e-4, seed=1), node,
+            blocks=1, **short),
+        "(e) SPendulum population of 4": BlockPart(
+            pop(lambda s: goku("spendulum", s), POP_SEEDS[:4]), heads,
+            blocks=1, **short)}
+
+
+def block_state(tr):
+    """What block mode must reproduce bit for bit, of a Trainer or a
+    MultiSeedTrainer: each epoch's history (less its times), the weights,
+    the optimizer's step count and state, the best (each replica's) and
+    the random streams."""
+    import numpy as np
+    keys = ("epoch", "train_loss", "val_loss", "kl", "n_failed", "beta",
+            "seq_len")
+    hist = [[np.asarray(h[k]).tobytes() for k in keys if k in h]
+            for h in tr.history]
+    if hasattr(tr, "params"):           # a population
+        b = tr._best
+        return {"history": hist, "weights": list(tr.params.values()),
+                "optimizer": [tr.opt.t, tr.opt.state_tensors()],
+                "best": [list(b["params"].values()), b["m"], b["v"],
+                         np.asarray(b["val"]).tobytes(),
+                         np.asarray(b["epoch"]).tobytes()],
+                "streams": [[r.bit_generator.state for r in tr.np_rngs],
+                            [g.get_state() for g in tr.window_gens
+                             + tr.noise_gens]]}
+    best = (None if tr.best is None else
+            [tr.best["epoch"], tr.best["val"],
+             list(tr.best["model"].values())])
+    return {"history": hist, "weights": list(tr.model.parameters()),
+            "optimizer": [tr.opt.t, tr.opt.state_tensors()],
+            "best": [best, tr.best_val_loss],
+            "streams": [tr.np_rng.bit_generator.state,
+                        [tr.window_gen.get_state(),
+                         tr.noise_gen.get_state()]]}
+
+
+def _same(x, y) -> bool:
+    """Equal, tensors bit for bit (a NaN equals the same NaN)."""
+    if isinstance(x, torch.Tensor):
+        return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                and x.shape == y.shape and torch.equal(
+                    x.detach().reshape(-1).view(torch.uint8),
+                    y.detach().reshape(-1).view(torch.uint8)))
+    if isinstance(x, (list, tuple)):
+        return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                and all(_same(a, b) for a, b in zip(x, y)))
+    return x == y
 
 
 def block_differences(a, b):
-    """What differs between two Trainers, bit for bit: each epoch's
-    history (less its times), the weights, the optimizer's state and step
-    count, the best (epoch, validation loss, weights) and the three random
-    streams."""
-    keys = ("epoch", "train_loss", "val_loss", "kl", "n_failed", "beta",
-            "seq_len")
-    same = {
-        "history": ([[h[k] for k in keys] for h in a.history]
-                    == [[h[k] for k in keys] for h in b.history]),
-        "weights": all(torch.equal(p, q) for p, q in
-                       zip(a.model.parameters(), b.model.parameters())),
-        "optimizer": (a.opt.t == b.opt.t and all(
-            torch.equal(p, q) for p, q in zip(a.opt.state_tensors(),
-                                              b.opt.state_tensors()))),
-        "best": ((a.best is None) == (b.best is None) and (
-            a.best is None or (a.best["epoch"] == b.best["epoch"]
-                               and a.best["val"] == b.best["val"]
-                               and all(torch.equal(v, b.best["model"][k])
-                                       for k, v in a.best["model"].items())))
-                 and a.best_val_loss == b.best_val_loss),
-        "streams": (a.np_rng.bit_generator.state
-                    == b.np_rng.bit_generator.state
-                    and torch.equal(a.window_gen.get_state(),
-                                    b.window_gen.get_state())
-                    and torch.equal(a.noise_gen.get_state(),
-                                    b.noise_gen.get_state()))}
-    return [k for k, v in same.items() if not v]
+    """The parts of ``block_state`` in which two trainers differ (for the
+    weights, how many tensors and how many of them hold a non-finite
+    value)."""
+    sa, sb = block_state(a), block_state(b)
+    out = [k for k in sa if not _same(sa[k], sb[k])]
+    if "weights" in out:
+        pairs = list(zip(sa["weights"], sb["weights"]))
+
+        def nonfinite(ts):
+            return sum(not bool(torch.isfinite(t).all()) for t in ts)
+
+        out.append(f"{sum(not _same(x, y) for x, y in pairs)} of "
+                   f"{len(pairs)} weight tensors, non-finite in "
+                   f"{nonfinite(sa['weights'])} / "
+                   f"{nonfinite(sb['weights'])}")
+    return out
 
 
 def kernel_counts(prof):
@@ -3974,12 +4107,36 @@ def kernel_counts(prof):
     return out
 
 
-def block_window(tr, train_set, val_set, epochs):
+def lean_window(prof):
+    """(hand-written kernels' device records, device ops, busy ms, span
+    ms) of a profiler window read from its raw kineto records, without
+    building the profiler's event objects (~1e6 device ops a window)."""
+    import re
+    out, busy, lo, hi, n = {}, 0, None, None, 0
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or e.name().startswith("ProfilerStep"):
+            continue
+        n += 1
+        busy += e.duration_ns()
+        lo = e.start_ns() if lo is None else min(lo, e.start_ns())
+        hi = e.end_ns() if hi is None else max(hi, e.end_ns())
+        m = re.search(HAND_KERNEL, e.name())
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + 1
+    return out, n, busy / 1e6, (hi - lo) / 1e6 if n else 0
+
+
+def block_window(tr, train_set, val_set, epochs, lean=False):
     """Fit ``tr`` on to ``epochs`` in a utils.device_profile window: (its
     hand-written kernels' device records, device ops, busy ms, span ms,
-    lost_kernel_records)."""
+    lost_kernel_records), or with ``lean`` device activity only, read by
+    ``lean_window``, lost_kernel_records None (no trace)."""
     prof, lost = profiler_window(
-        lambda: tr.fit(train_set, val_set, epochs=epochs, verbose=False))
+        lambda: tr.fit(train_set, val_set, epochs=epochs, verbose=False),
+        count_lost=not lean, device_only=lean)
+    if lean:
+        return (*lean_window(prof), None)
     evs = device_events(prof)
     busy = sum(getattr(e, "device_time", None)
                or getattr(e, "cuda_time", 0) for e in evs) / 1e3
@@ -3988,87 +4145,134 @@ def block_window(tr, train_set, val_set, epochs):
     return kernel_counts(prof), len(evs), busy, span, lost
 
 
-def block_path(train_set, val_set, dev, gpu):
-    """Phase 4n: for full-width GOKU (pendulum) and LatentODE, a Trainer in
-    block mode (blocks of BLOCK_E epochs, replays under
-    torch.cuda.set_sync_debug_mode("error")) and one with jit_epoch=False,
-    same seed, fitted BLOCK_N blocks: every epoch's losses, the weights,
-    the optimizer state, the best and the streams bit for bit; the launch
-    counters (replay-aware) equal, as expected and with no plain call. Then
-    one more block of each in a profiler window: the hand-written kernels'
-    device records equal, the states again bit for bit; steady epoch
-    seconds, step + validation ms, device busy and idle share of each.
-    Returns {path: (per-step, block) steady epoch s}."""
-    import dataclasses
-
+def launch_totals():
+    """Every launch counter, the RK launchers' summed over instances."""
     from latentdiffeq_torch.ops import launches
-    from latentdiffeq_torch.train import Trainer
+    return {k: (sum(v.values()) if isinstance(v, dict) else v)
+            for k, v in launches.snapshot().items()}
 
+
+def block_path(train_set, val_set, dev, gpu, only=None):
+    """Phase 4n: for each of ``block_parts`` (or those named in ``only``, in
+    that order), a trainer in block mode (blocks of its ``epochs``, replays
+    under torch.cuda.set_sync_debug_mode("error")) and one with
+    jit_epoch=False, same seeds, fitted ``blocks`` blocks: every epoch's
+    losses, the weights, the optimizer state, the best and the streams bit
+    for bit;
+    the launch counters (replay-aware) equal, as expected and with no plain
+    call; each graph's capture seconds and nodes. Then ``window`` more
+    epochs of each in a profiler window: the hand-written kernels' device
+    records equal, the states again bit for bit; steady epoch seconds,
+    step + validation ms, device busy and idle share of each. Returns
+    {path: (per-step, block) steady epoch s}."""
+    import numpy as np
+
+    parts = block_parts(train_set, dev)
     out = {}
-    n = BLOCK_E * BLOCK_N
-    for what, (build, cfg, per_epoch) in block_models(train_set,
-                                                      dev).items():
-        steps = train_set.shape[0] // cfg.batch_size
-        want = {k: n * v for k, v in per_epoch.items()}
+    for what in only or parts:
+        part = parts[what]
+        t_part = time.perf_counter()
+        steps = train_set.shape[0] // 64
+        n = part.epochs * part.blocks
+        want = {k: n * v + part.extra.get(k, 0)
+                for k, v in part.per_epoch.items()}
         runs = {}
         for mode, kw in (("per-step", dict(jit_epoch=False)),
-                         ("block", dict(epochs_per_dispatch=BLOCK_E))):
-            tr = Trainer(build(), dataclasses.replace(cfg, **kw), device=dev)
+                         ("block", dict(epochs_per_dispatch=part.epochs))):
+            tr = part.make(**kw)
             tr.sync_debug = "error"       # the block's replays
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr.fit(train_set, val_set, epochs=n, verbose=False)
             torch.cuda.synchronize()
-            counts = launches.snapshot()
-            got = {k: (sum(v.values()) if isinstance(v, dict) else v)
-                   for k, v in counts.items()}
+            got = launch_totals()
             runs[mode] = (tr, time.perf_counter() - t0, got)
             log("block", f"{what} {mode}: {n} epochs in "
                          f"{runs[mode][1]:.3f} s; launches "
                          f"{ {k: v for k, v in got.items() if v} }")
         (ref, _, got_ref), (blk, _, got_blk) = runs["per-step"], \
             runs["block"]
-        log_epochs(f"{what} block", blk.history)
         bad = block_differences(ref, blk)
+        for h in blk.history:
+            log("train", f"{what} block epoch {h['epoch']}: train loss "
+                         f"{h['train_loss']} val loss {h['val_loss']} beta "
+                         f"{h['beta']:.4f} failed rows {h['n_failed']} "
+                         f"{h['epoch_s']:.4f} s (the per-step loop's "
+                         f"differ in {bad or 'nothing'})")
+            if not (np.isfinite(h["train_loss"]).all()
+                    and np.isfinite(h["val_loss"]).all()):
+                fail(f"{what}: non-finite loss in epoch {h['epoch']}")
         kernels = {k: got_blk[k] for k in want}
         plain = {k: v for k, v in got_blk.items() if k.startswith("plain")}
-        log("block", f"{what}: block mode vs per-step loop after {BLOCK_N} "
-                     f"blocks of {BLOCK_E} epochs: differences {bad or 'none'}"
-                     f" (bit for bit: history, weights, optimizer, best "
-                     f"epoch {blk.best and blk.best['epoch']}, streams); "
-                     f"launches {kernels} (expected {want}, per-step "
+        graphs = [(fn.seq_len, round(fn.capture_s, 3), fn.graph_nodes)
+                  for fn in blk._block_fns.values()]
+        de = (blk.model if hasattr(blk, "model") else
+              blk.base).decoder.diffeq
+        acfg = getattr(de, "adaptive_cfg", None) or getattr(
+            getattr(de, "options", None), "adaptive_cfg", None)
+        log("block", f"{what}: block mode vs per-step loop after "
+                     f"{part.blocks} block(s) of {part.epochs} epochs: "
+                     f"differences {bad or 'none'} (bit for bit: history, "
+                     f"weights, optimizer, best, streams); launches "
+                     f"{kernels} (expected {want}, per-step "
                      f"{ {k: got_ref[k] for k in want} }); plain calls "
-                     f"{plain}; replays under sync debug mode 'error'")
+                     f"{plain}; replays under sync debug mode 'error'; "
+                     f"graphs (window length, capture s, nodes) {graphs}"
+                     + (f"; step budget max_steps {acfg.max_steps}"
+                        + (f", depth_cap {acfg.depth_cap}"
+                           if hasattr(acfg, "depth_cap") else "")
+                        if part.extra else ""))
         if bad:
             fail(f"{what}: block mode differs from the per-step loop in {bad}")
         if got_blk != got_ref or kernels != want or any(plain.values()):
             fail(f"{what}: block launches {got_blk}, per-step {got_ref}, "
                  f"expected {want}")
-        # one more block of each in a profiler window
+        if not graphs or any(g[1] is None or not g[2] for g in graphs):
+            fail(f"{what}: no graph was captured: {graphs}")
+        if part.solo is not None:
+            i, make_solo, rtol = part.solo
+            s = make_solo(epochs_per_dispatch=part.epochs)
+            s.fit(train_set, val_set, epochs=n, verbose=False)
+            pop_v = np.array([float(h["val_loss"][i]) for h in blk.history])
+            solo_v = np.array([h["val_loss"] for h in s.history])
+            rel = float(np.abs(pop_v - solo_v).max() / np.abs(solo_v).max())
+            log("block", f"{what}: replica {i} (seed {blk.seeds[i]}) val "
+                         f"losses {pop_v.tolist()} vs a solo block-mode "
+                         f"Trainer's {solo_v.tolist()}: max rel err "
+                         f"{rel:.3e} (tol {rtol:.1e})")
+            if not rel <= rtol:
+                fail(f"{what}: replica {i} vs the solo Trainer: {rel}")
+        # more epochs of each in a profiler window
         wins = {}
         for mode, (tr, _, _) in runs.items():
-            wins[mode] = block_window(tr, train_set, val_set, n + BLOCK_E)
+            wins[mode] = block_window(tr, train_set, val_set,
+                                      n + part.window, part.lean)
         bad = block_differences(ref, blk)
         if bad or wins["block"][0] != wins["per-step"][0]:
             fail(f"{what}: profiled block: differences {bad}, device "
                  f"records {wins['block'][0]} vs {wins['per-step'][0]}")
         steady = {}
         for mode, (tr, _, _) in runs.items():
-            ep_s = sum(h["epoch_s"] for h in tr.history[-BLOCK_E:]) / BLOCK_E
+            ep_s = sum(h["epoch_s"] for h in
+                       tr.history[-part.window:]) / part.window
             rec, ops, busy, span, lost = wins[mode]
             steady[mode] = ep_s
-            log("block", f"{what} {mode}, epochs {n}-{n + BLOCK_E - 1} "
-                         f"(synchronised at each epoch's end / the block's): "
-                         f"steady epoch {ep_s:.4f} s, step + validation "
-                         f"{1e3 * ep_s / steps:.3f} ms; profiler window of "
-                         f"the {BLOCK_E} epochs: {ops} device ops, busy "
-                         f"{busy:.3f} ms of a {span:.3f} ms span (idle "
+            log("block", f"{what} {mode}, epochs {n}-{n + part.window - 1}"
+                         f" (synchronised at each epoch's end / the "
+                         f"block's): steady epoch {ep_s:.4f} s, step + "
+                         f"validation {1e3 * ep_s / steps:.3f} ms; profiler "
+                         f"window of the {part.window} epoch(s): {ops} "
+                         f"device ops, busy {busy:.3f} ms of a {span:.3f} "
+                         f"ms span (idle "
                          f"{100 * (1 - busy / span) if span else 0:.1f} %, "
-                         f"busy {busy / BLOCK_E / steps:.3f} ms a step + "
-                         f"validation), hand-written kernels' records "
+                         f"busy {busy / part.window / steps:.3f} ms a step "
+                         f"+ validation), hand-written kernels' records "
                          f"{rec} ({lost_str(lost)}); card {gpu}")
         out[what] = (steady["per-step"], steady["block"])
+        log("block", f"{what}: {time.perf_counter() - t_part:.1f} s")
+        del runs, ref, blk, wins
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5827,8 +6031,8 @@ def main():
     log_phase("phase 4n")
     # ---- 4n. block mode: the epochs as CUDA graphs against the per-step
     # loop, bit for bit (before phase 5 and 4k, whose profiler sessions
-    # come after every window it opens) ------------------------------------
-    block_path(train_set, val_set, dev, gpu)
+    # come after every window it opens); parts (a)-(e) run last ---------
+    block_path(train_set, val_set, dev, gpu, only=BLOCK_FIRST)
 
     log_phase("phase 5")
     # ---- 5. kernel timing -------------------------------------------------
@@ -5873,6 +6077,13 @@ def main():
     # 64 (the block kernels), kernel route against plain route ------------
     gen_launches.update(wide_path(dev, gpu))
     launches.update(gen_launches)
+
+    log_phase("phase 4n, continued")
+    # ---- 4n. block mode for SDE dynamics, adaptive solves and populations:
+    # last, since phase 5's node_field check reads torch.profiler, which
+    # dropped its forward kernel's records after these windows (~1e6
+    # device ops in the adaptive SPendulum's) ------------------------------
+    block_path(train_set, val_set, dev, gpu, only=BLOCK_LAST)
 
     heads_src = "latentdiffeq_torch/csrc/goku_heads.cu"
     rk_src = "latentdiffeq_torch/csrc/rk_fixed_grid.cu"

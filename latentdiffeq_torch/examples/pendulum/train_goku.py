@@ -60,7 +60,7 @@ from latentdiffeq_torch.pendulum import Pendulum, PendulumFriction, SPendulum
 from latentdiffeq_torch.solve import SDEAdaptiveConfig, make_options
 from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig, Trainer,
                                       splitobs)
-from latentdiffeq_torch.train.trainer import _epoch_length, _prog_seq_lengths
+from latentdiffeq_torch.train.trainer import _prog_seq_lengths, block_end
 from latentdiffeq_torch.train.visualize import visualize_val_image
 
 __all__ = ["OUTPUT_DIR", "build_parser",
@@ -76,23 +76,13 @@ def figure_epochs(cfg: TrainConfig, start: int = 0):
     does: the last epoch of each block. A block holds at most
     ``cfg.epochs_per_dispatch`` epochs and ends at ``cfg.epochs``; in the
     sliced curriculum it also ends where the window length changes (the
-    masked curriculum runs one length). The per-step runs (``--seeds``,
-    ``--data-parallel``) draw on the same epochs."""
-    epochs, per_dispatch = cfg.epochs, cfg.epochs_per_dispatch
+    masked curriculum runs one length). The per-step runs
+    (``--data-parallel``) draw on the same epochs."""
     prog = _prog_seq_lengths(cfg)
-    masked = cfg.masked_curriculum and cfg.progressive_training
     out, ep0 = [], start
-    while ep0 < epochs:
-        e = ep0
-        if masked:
-            e = min(epochs, ep0 + per_dispatch)
-        else:
-            length = _epoch_length(cfg, prog, ep0)
-            while (e < epochs and e - ep0 < per_dispatch
-                   and _epoch_length(cfg, prog, e) == length):
-                e += 1
-        out.append(e - 1)
-        ep0 = e
+    while ep0 < cfg.epochs:
+        ep0 = block_end(cfg, prog, ep0, cfg.epochs)[0]
+        out.append(ep0 - 1)
     return out
 
 

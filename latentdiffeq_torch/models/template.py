@@ -12,6 +12,7 @@ path.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -105,11 +106,26 @@ class Decoder(nn.Module):
         self.model_type = model_type
 
     def forward(self, l, t, key=None):
+        """``((x_hat, z, l_hat), aux)``. A row whose solve failed is NaN
+        in ``z`` and ``x_hat`` (``diffeq_layer``'s NaN-fill), as in JAX.
+        The reconstructor sees zeros there and the NaNs are added to its
+        output, so that its weights' gradients stay finite where a masked
+        loss gives the row a zero cotangent (``loss_batch(mask_failures=
+        True)``); fed the NaNs, they would multiply them by that zero.
+        Unmasked, the row's NaN cotangent still reaches them, as in
+        JAX."""
         mt = self.model_type
         l_hat = mt.apply_latent_out(self, l)
         z, aux = mt.diffeq_layer(self, l_hat, t, key=key)
-        x_hat = mt.apply_reconstructor(self, z)
-        return (x_hat, z, l_hat), aux
+        ok = aux.get("success") if isinstance(aux, dict) else None
+        if ok is None:
+            return (mt.apply_reconstructor(self, z), z, l_hat), aux
+        rows = ok.view(ok.shape + (1,) * (z.dim() - ok.dim()))
+        x_hat = mt.apply_reconstructor(
+            self, torch.where(rows, z, torch.zeros_like(z)))
+        fill = torch.where(rows, torch.zeros_like(x_hat),
+                           torch.full_like(x_hat, math.nan))
+        return (x_hat + fill, z, l_hat), aux
 
 
 class LatentDiffEqModel(nn.Module):

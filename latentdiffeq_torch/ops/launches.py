@@ -7,7 +7,11 @@ captured without calling any wrapper: ``train/trainer.py`` takes what each
 counter gained while an epoch was captured (``snapshot`` before and after,
 ``gained``), puts the counters back (the capture ran nothing), and adds the
 gain on every replay (``add``), so that the counters keep counting the
-kernels that ran. The RK launchers count by kernel instance, in a dict."""
+kernels that ran. The RK launchers count by kernel instance, in a dict. A
+population's launches with a replica axis (``goku_heads`` on a (B, S) grid,
+the vmapped RK solve, ``node_field`` with grid z the replica) count one a
+call in the same counters, so a captured population epoch's counts replay
+the same way."""
 from __future__ import annotations
 
 from typing import Dict, Union

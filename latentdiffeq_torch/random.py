@@ -66,10 +66,12 @@ def threefry2x32(k0, k1, c0, c1):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """The key of ``jax.random.PRNGKey(seed)``: (2,) int64."""
+    """The key of ``jax.random.PRNGKey(seed)``: (2,) int64, its words
+    filled on ``device`` (no copy from the host)."""
     seed = int(seed)
-    return torch.tensor([(seed >> 32) & _M32, seed & _M32],
-                        dtype=torch.int64, device=device)
+    key = torch.full((2,), seed & _M32, dtype=torch.int64, device=device)
+    key[0] = (seed >> 32) & _M32
+    return key
 
 
 def as_key(key, device=None) -> torch.Tensor:
@@ -85,10 +87,15 @@ def as_key(key, device=None) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: key (..., 2), data an int or an integer tensor
-    broadcastable to the keys' batch shape; returns (batch..., 2)."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device)
-    x0, x1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
-                          data & _M32)
+    broadcastable to the keys' batch shape; returns (batch..., 2). An int
+    enters the arithmetic as a number (nothing is copied to the device, so
+    a CUDA graph can capture it)."""
+    if isinstance(data, torch.Tensor) or np.ndim(data):
+        data = torch.as_tensor(data).to(device=key.device, dtype=torch.int64)
+        c0, c1 = torch.zeros_like(data), data & _M32
+    else:
+        c0, c1 = 0, int(data) & _M32
+    x0, x1 = threefry2x32(key[..., 0], key[..., 1], c0, c1)
     return torch.stack(torch.broadcast_tensors(x0, x1), dim=-1)
 
 
@@ -155,7 +162,9 @@ _ERFINV64_GE16 = (
 def _tables(device, dtype):
     """XLA's erfinv coefficients for ``dtype`` as a (regions, terms) tensor
     on ``device`` (rows padded with zeros past each region's degree), and
-    the normal's constants nextafter(-1, 0), 1 and sqrt(2)."""
+    the normal's constants nextafter(-1, 0), 1 and sqrt(2). Copied to the
+    device once, at the first draw (a block's eager first epoch: a CUDA
+    graph captured after it reads the cached tensors)."""
     regions = ((_ERFINV32_LT5, _ERFINV32_GE5) if dtype == torch.float32
                else (_ERFINV64_LT625, _ERFINV64_LT16, _ERFINV64_GE16))
     width = len(regions[0])
@@ -252,15 +261,18 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     shape = tuple(shape)
     n = math.prod(shape)
     b1, b2 = _bits(key, n)
+    # the float in [1, 2) whose mantissa is the draw's top bits, as 1 + m
+    # 2^-bits: exact in the float type (m has as many bits as its
+    # mantissa), and no reinterpreting view, which torch.func.vmap may
+    # not batch
     if dtype == torch.float32:
-        mant = ((b1 ^ b2) >> 9) | 0x3F800000           # < 2^31
-        one_two = mant.to(torch.int32).view(torch.float32)
+        mant, bits = (b1 ^ b2) >> 9, 23
     elif dtype == torch.float64:
         # the top 52 of the 64 bits b1 << 32 | b2, without passing 2^63
-        mant = (b1 << 20) | (b2 >> 12) | 0x3FF0000000000000
-        one_two = mant.view(torch.float64)
+        mant, bits = (b1 << 20) | (b2 >> 12), 52
     else:
         raise TypeError(f"normal draws float32 or float64, not {dtype}")
+    one_two = 1.0 + mant.to(dtype) * (2.0 ** -bits)
     _, (lo, hi, sqrt2) = _tables(key.device, dtype)
     u = torch.maximum(lo, (one_two - 1.0) * (hi - lo) + lo)
     z = sqrt2 * erfinv_xla(u)
@@ -290,8 +302,13 @@ def randint(key: torch.Tensor, shape=(), minval=0, maxval=1) -> torch.Tensor:
     as JAX's (random.py ``_randint``)."""
     shape = tuple(shape)
     dev = key.device
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+
+    def bound(v):   # a number is filled on the device, not copied there
+        if isinstance(v, torch.Tensor) or np.ndim(v):
+            return torch.as_tensor(v).to(device=dev, dtype=torch.int64)
+        return torch.full((), int(v), dtype=torch.int64, device=dev)
+
+    lo, hi = bound(minval), bound(maxval)
     out_of_range = hi > _I32_MAX
     lo, hi = lo.clamp(_I32_MIN, _I32_MAX), hi.clamp(_I32_MIN, _I32_MAX)
     k1, k2 = split(key)

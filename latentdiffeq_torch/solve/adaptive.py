@@ -8,7 +8,14 @@ one steps a whole batch at once: ``u0`` (..., dim) gives ``ys``
 has failed takes masked no-op steps, exactly like the JAX ``scan`` body.
 The loop is a Python loop of at most the step budget and stops once every
 row is done or has failed; the masked steps it skips change nothing, so
-the results equal the JAX solve's for both values of ``early_exit``.
+the results equal the JAX solve's for both values of ``early_exit``. Where
+that flag cannot steer Python (under ``torch.func.vmap``, or while a CUDA
+graph is being captured) the loop runs its whole budget, as JAX's bounded
+scan does, with the same results: a masked step changes no row's state,
+and its gradient contributions are zeros (a row that is done steps by at
+most ``1e-6 * span``, one that has failed by less than ``dtmin``, from
+its last accepted state), so the gradients equal the early-exiting loop's
+too (tests/test_torch_full_budget.py).
 
 The RHS is called as ``f(y, p, t)`` with ``y`` (N, dim) and ``t`` (N, 1),
 one time per row. The PI step-size controller follows Hairer, Nørsett &
@@ -79,13 +86,23 @@ def _hairer_hinit(f, y0, p, t0, f0, span, order, rtol, atol):
     return torch.minimum(torch.minimum(100.0 * h0, h1), span)
 
 
+def _stream_capturing(t) -> bool:
+    """Whether ``t`` lies on a CUDA device whose current stream is being
+    captured into a CUDA graph (train/trainer.py's epochs)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def all_inactive(active) -> bool:
     """True when no row of ``active`` is left, so a masked step loop may
     stop early. Under ``torch.func.vmap`` (a population of replicas,
     train/multiseed.py) the flags are batched and cannot steer Python
-    control flow; the loop then runs its whole budget of masked no-op
-    steps, as the JAX package's bounded scan always does."""
+    control flow, and while a CUDA graph is captured reading them would
+    sync with the host (a graph replays without Python); the loop then runs
+    its whole budget of masked no-op steps, as the JAX package's bounded
+    scan always does."""
     if torch._C._functorch.is_batchedtensor(active):
+        return False
+    if _stream_capturing(active):
         return False
     return not bool(active.any())
 

@@ -45,6 +45,14 @@ def _div(x, c: float):
     return x / x.new_full((), c)
 
 
+def _width(h, dtype, device):
+    """A cell width as a tensor: a number is filled on the device (no copy
+    from the host, so a CUDA graph can capture it)."""
+    if isinstance(h, torch.Tensor):
+        return h.to(device=device, dtype=dtype)
+    return torch.full((), float(h), dtype=dtype, device=device)
+
+
 def _normals(key, shape, dtype):
     """The two normals of a cell, each (..., *shape): JAX draws them as one
     (2, *shape) array."""
@@ -76,7 +84,7 @@ def interval_root(key, h, shape, dtype=torch.float32):
     number or a tensor of the keys' batch shape; returns two (...,
     *shape)."""
     shape = tuple(shape)
-    h = torch.as_tensor(h, dtype=dtype, device=key.device)
+    h = _width(h, dtype, key.device)
     return _root(_normals(key, shape, dtype), _trailing(h, len(shape)))
 
 
@@ -85,7 +93,7 @@ def bridge_split(key, w, i, h):
     halves, one key (..., 2) a cell. Returns ``(w_left, i_left, w_right,
     i_right)``, each ``I`` relative to its own half's start."""
     shape = w.shape[key.dim() - 1:]
-    h = torch.as_tensor(h, dtype=w.dtype, device=w.device)
+    h = _width(h, w.dtype, w.device)
     if h.dim():
         h = _trailing(h, len(shape))
     return _split(_normals(key, shape, w.dtype), w, i, h)
@@ -159,8 +167,7 @@ def vbt_query(key, interval_idx, h_interval, k, m, shape, depth_cap: int,
     node_keys = _node_key(interval_key[:, None, :], levels, parent)
     keys = torch.cat([interval_key[:, None, :], node_keys], dim=1)
     z0, z1 = _normals(keys, shape, dtype)                 # (N, D+1, *)
-    h = _trailing(torch.as_tensor(h_interval, dtype=dtype, device=dev),
-                  len(shape))
+    h = _trailing(_width(h_interval, dtype, dev), len(shape))
     w, i = _root((z0[:, 0], z1[:, 0]), h)
     for j in range(depth_cap):
         on = _trailing(active[:, j], len(shape))

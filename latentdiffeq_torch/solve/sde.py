@@ -230,9 +230,12 @@ def solve_sde_adaptive(f: Callable, g: Callable, solver: AbstractSDESolver,
     Each row has its own interval index ``i``, cell ``m``, depth ``k``,
     state and counters; a row that is done or has failed takes masked
     no-op steps, as in the JAX scan, so the loop stops once every row has
-    (the steps skipped change nothing). The error norm is taken on detached
-    values (JAX's ``stop_gradient``); gradients flow through the accepted
-    steps. Only SRA1 and SRIW1/SOSRI carry an embedded error estimate."""
+    (the steps skipped change nothing). Under ``torch.func.vmap`` or while
+    a CUDA graph is captured it runs its whole budget instead
+    (``adaptive.all_inactive``), with the same results and gradients. The
+    error norm is taken on detached values (JAX's ``stop_gradient``);
+    gradients flow through the accepted steps. Only SRA1 and SRIW1/SOSRI
+    carry an embedded error estimate."""
     step, evals_per = _stepper(solver)
     if not isinstance(solver, _EMBEDDED):
         raise ValueError("adaptive SDE stepping requires an embedded error "

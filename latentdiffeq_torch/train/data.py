@@ -74,9 +74,14 @@ def gather_window(data, rows, start, seq_len: int):
     ``rows`` (B,) of ``data`` (samples, time, features), frames ``start``
     (a one-element integer tensor) to ``start + seq_len``. Nothing is read
     back to the host, so a CUDA graph can replay it with new indices.
-    Returns a contiguous (B, seq_len, features) copy."""
-    frames = start + torch.arange(seq_len, device=start.device)
-    return data.index_select(0, rows).index_select(1, frames)
+    Returns a contiguous (B, seq_len, features) copy. A population's:
+    ``rows`` (S, B) and ``start`` (S,), replica s's rows in its own
+    window, (S, B, seq_len, features)."""
+    if rows.dim() == 1:
+        frames = start + torch.arange(seq_len, device=start.device)
+        return data.index_select(0, rows).index_select(1, frames)
+    frames = start[:, None] + torch.arange(seq_len, device=start.device)
+    return data[rows[:, :, None], frames[:, None, :]]
 
 
 class DataLoader:

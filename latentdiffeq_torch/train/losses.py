@@ -65,7 +65,11 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     block mode read from the block's table on the card.
 
     ``mask_failures``: samples whose solve failed are left out of the
-    reconstruction term. ``cur_len``: only the first ``cur_len`` frames are
+    reconstruction term, and out of its gradient: their NaN reconstruction
+    is replaced by the data before the squared error, so no zero cotangent
+    meets a NaN derivative (JAX's single ``where``, losses.py:115-119,
+    passes NaN gradients to the decoder there; the loss and every other
+    gradient are the same). ``cur_len``: only the first ``cur_len`` frames are
     real (masked curriculum). ``generator``/``eps``: the reparameterisation
     noise source and ``key`` the Brownian path of SDE dynamics (see
     LatentDiffEqModel.forward).
@@ -87,6 +91,9 @@ def loss_batch(model, x, t, beta, *, variational: bool = True,
     (x_hat, z_hat, l_hat), mu, logvar, aux = model(
         x, t, variational=variational, generator=generator, eps=eps,
         cur_len=cur_len, key=key)
+    if mask_failures:
+        x_hat = torch.where(aux["success"][:, None, None], x_hat,
+                            x.to(x_hat.dtype))
     se = (x - x_hat) ** 2
     if cur_len is not None:
         tmask = torch.arange(x.shape[1], device=x.device) < cur_len

@@ -26,6 +26,21 @@ Each replica keeps its own NaN-safe best (weights, Adam moments, epoch):
 a NaN validation loss never replaces a finite best, and a replica that
 never recorded one loses every selection.
 
+Block mode (``TrainConfig.jit_epoch``, ``epochs_per_dispatch``; JAX's
+``fit`` is ``jax.jit(jax.vmap(make_block_fn))``, multiseed.py:186-266):
+``fit`` runs blocks of epochs through the Trainer's ``make_block_fn`` with
+the population's steps. A block draws every replica's permutations and
+window starts on the host up front, in the per-step loop's order, moves
+them to the device in one copy, gathers each step's windows there from the
+tables (rows (S, B), starts (S,)), and keeps each replica's best on the
+device (an (S,) mask over the stacked weights and Adam moments, the
+validation losses in float64 and the epochs), read once at the block's
+end. On the card every epoch after a block's first is a CUDA graph replay
+with all S noise generators registered. History is written an epoch at a
+time; the progress line, ``save_best``, ``save_population`` and the
+callbacks run once a block, as in JAX. ``jit_epoch=False`` runs the
+per-step loop; both give the same numbers bit for bit.
+
 Population parallelism (``mesh``, JAX's ``mesh=``, multiseed.py:82-132):
 the seed axis is sharded over the mesh's ranks. Rank r trains the r-th
 block of S / ranks seeds with their own streams, and nothing is collective
@@ -59,10 +74,11 @@ from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import (_np, jax_param_paths, load_arrays, save_arrays,
                          trainer_arrays)
-from .data import window_start
+from .data import gather_window, window_start
 from .losses import loss_batch
 from .trainer import (TrainConfig, _autosize_probe, _epoch_length,
-                      _prog_seq_lengths)
+                      _prog_seq_lengths, block_end, length_runs,
+                      make_block_fn)
 
 __all__ = ["MultiSeedTrainer", "StackedModels"]
 
@@ -110,6 +126,10 @@ class StackedModels:
 
     def __len__(self) -> int:
         return next(iter(self.params.values())).shape[0]
+
+    def parameters(self):
+        """The stacked parameter tensors (what a block steps and tracks)."""
+        return iter(self.params.values())
 
     def map(self, fn: Callable, *args, in_dims=None):
         dims = (0, 0) + (tuple(in_dims) if in_dims is not None
@@ -176,6 +196,13 @@ class MultiSeedTrainer:
         self.epoch = 0
         self._best = None
         self.history = []
+        # block mode: a BlockFn per (seq_len, steps, val_len) and the best
+        # on the device (aliasing _best's tensors), both rebuilt when the
+        # population's tensors change
+        self._block_fns = {}
+        self._best_dev = None
+        # torch.cuda.set_sync_debug_mode for the blocks' replays (BlockFn)
+        self.sync_debug = None
 
     @property
     def n_seeds(self) -> int:
@@ -257,8 +284,7 @@ class MultiSeedTrainer:
         T = data.shape[1]
         starts = torch.tensor([window_start(T, seq_len, g)
                                for g in self.window_gens])
-        tix = (starts[:, None] + torch.arange(seq_len)).to(self.device)
-        return data[idx[:, :, None], tix[:, None, :]]
+        return gather_window(data, idx, starts.to(self.device), seq_len)
 
     # ------------------------------------------------------------------
     def train_step(self, xs, beta: float, *, eps=None, keys=None):
@@ -322,6 +348,7 @@ class MultiSeedTrainer:
         improved = val_loss < self._best["val"]
         if not improved.any():
             return
+        self._best_dev = None      # the best's tensors are replaced
         mask = torch.as_tensor(improved, device=self.device)
 
         def sel(new, old):
@@ -336,11 +363,69 @@ class MultiSeedTrainer:
         b["val"] = np.where(improved, val_loss, b["val"])
         b["epoch"] = np.where(improved, epoch, b["epoch"])
 
+    def _block_fn(self, seq_len: int, steps: int, val_len: int):
+        key = (seq_len, steps, val_len)
+        fn = self._block_fns.get(key)
+        if fn is None:
+            fn = self._block_fns[key] = make_block_fn(
+                self.cfg, self.opt, self.loss_fn, seq_len, steps, val_len,
+                noise_gen=self.noise_gens,
+                train_step=lambda m, xs, beta, eps, keys: self.train_step(
+                    xs, beta, eps=eps, keys=keys),
+                val_step=lambda m, val, beta, keys: self.val_step(
+                    val, beta, keys=keys))
+        return fn
+
+    def _device_best(self):
+        """The block's best: ``_best``'s weights and moments (the block
+        updates them in place), its validation losses (float64) and epochs
+        on the device."""
+        if self._best_dev is None:
+            b = self._best
+            self._best_dev = {
+                "model": list(b["params"].values()),
+                "opt_state": list(b["m"]) + list(b["v"]),
+                "val": torch.as_tensor(np.asarray(b["val"], np.float64),
+                                       device=self.device),
+                "epoch": torch.as_tensor(np.asarray(b["epoch"], np.int64),
+                                         device=self.device)}
+        return self._best_dev
+
+    def run_block(self, data, val, betas, seq_len=None, cur_lens=None):
+        """Run len(betas) epochs of every replica from ``self.epoch`` as one
+        block (``Trainer.run_block`` for the population): each replica's
+        permutations and window starts drawn here, in the per-step loop's
+        order, the epochs through ``make_block_fn``, the best on the
+        device. Returns the summaries, each (E, S) on the device; reads
+        nothing back."""
+        cfg = self.cfg
+        n, T = data.shape[0], data.shape[1]
+        steps, bs = n // cfg.batch_size, cfg.batch_size
+        E = len(betas)
+        lens = (list(cur_lens) if cur_lens is not None
+                else [seq_len or cfg.seq_len] * E)
+        idx = np.stack([
+            np.stack([r.permutation(n)[:steps * bs].reshape(steps, bs)
+                      for r in self.np_rngs], axis=1) for _ in range(E)])
+        starts = np.array([[[window_start(T, lens[i], g)
+                             for g in self.window_gens]
+                            for _ in range(steps)] for i in range(E)])
+        best = self._device_best()
+        ids = np.arange(self.epoch, self.epoch + E)
+        out = []
+        for i, j in length_runs(lens):
+            fn = self._block_fn(lens[i], steps, val.shape[1])
+            fn.sync_debug = self.sync_debug
+            out.append(fn(self.stacked_models, best, data, val, idx[i:j],
+                          starts[i:j], betas[i:j], ids[i:j]))
+        return {k: torch.cat([o[k] for o in out]) for k in out[0]}
+
     def fit(self, train_set, val_set, *, epochs: Optional[int] = None,
             callbacks=(), verbose: bool = True):
         """Train every replica; returns the history of per-epoch summaries,
-        ``train_loss`` and ``val_loss`` per replica (arrays of shape (S,)).
-        Data handling, curricula and autosize as in ``Trainer.fit``."""
+        ``train_loss``, ``val_loss`` and ``n_failed`` per replica (arrays
+        of shape (S,)). Data handling, curricula, autosize and block mode
+        as in ``Trainer.fit``."""
         cfg = self.cfg
         epochs = cfg.epochs if epochs is None else epochs
         schedule = frange_cycle_linear(cfg.epochs, cfg.start_beta,
@@ -356,20 +441,47 @@ class MultiSeedTrainer:
         if steps < 1:
             raise ValueError(f"batch_size={cfg.batch_size} exceeds the "
                              f"training set size n={n}")
-        if cfg.jit_epoch:
-            warnings.warn("MultiSeedTrainer.fit runs the per-step loop: "
-                          "block mode (jit_epoch) covers the solo Trainer",
-                          stacklevel=2)
         if cfg.autosize_adaptive and self.epoch == 0:
             self.autosize_adaptive_budget(train_set, verbose=verbose)
         if self._best is None:
             self._best = self._init_best()
         prog = _prog_seq_lengths(cfg)
-        bs = cfg.batch_size
 
+        while cfg.jit_epoch and self.epoch < epochs:
+            ep0 = self.epoch
+            seq_len = _epoch_length(cfg, prog, ep0)
+            e, cur_lens = block_end(cfg, prog, ep0, epochs)
+            betas = [float(schedule[min(i, len(schedule) - 1)])
+                     for i in range(ep0, e)]
+            t0 = time.perf_counter()
+            summ = self.run_block(data, val, betas, seq_len, cur_lens)
+            summ = {k: v.cpu() for k, v in summ.items()}   # the block's read
+            self._best["val"] = self._best_dev["val"].cpu().numpy()
+            self._best["epoch"] = self._best_dev["epoch"].cpu().numpy()
+            per_ep = (time.perf_counter() - t0) / len(betas)
+            for i in range(len(betas)):
+                train_loss, val_loss, n_failed = self._gather(
+                    summ["train_loss"][i].double().numpy(),
+                    summ["val_loss"][i].double().numpy(),
+                    summ["n_failed"][i].numpy())
+                self.history.append({
+                    "epoch": ep0 + i, "train_loss": train_loss,
+                    "val_loss": val_loss, "beta": betas[i],
+                    "seq_len": seq_len if cur_lens is None else cur_lens[i],
+                    "epoch_s": per_ep, "n_failed": n_failed})
+            self.epoch = e
+            self._after(f"epochs {ep0:4d}-{e - 1:4d}", per_ep,
+                        "s/epoch", verbose, callbacks)
+        if cfg.jit_epoch:
+            return self.history
+
+        bs = cfg.batch_size
         while self.epoch < epochs:
             ep = self.epoch
             beta = float(schedule[min(ep, len(schedule) - 1)])
+            # the block's beta: a float32 scalar on the device
+            beta_t = torch.full((), beta, dtype=torch.float32,
+                                device=self.device)
             seq_len = _epoch_length(cfg, prog, ep)
             t0 = time.perf_counter()
             perms = np.stack([r.permutation(n) for r in self.np_rngs])
@@ -378,11 +490,11 @@ class MultiSeedTrainer:
                 idx = torch.as_tensor(perms[:, s * bs:(s + 1) * bs]).to(
                     self.device)
                 xs = self._windows(data, idx, seq_len)
-                ms.append(self.train_step(xs, beta))
+                ms.append(self.train_step(xs, beta_t))
                 if cfg.val_every_batch:
-                    vm = self.val_step(val, beta)
+                    vm = self.val_step(val, beta_t)
             if vm is None:
-                vm = self.val_step(val, beta)
+                vm = self.val_step(val, beta_t)
             val_loss = vm["loss"].double().cpu().numpy()   # synchronises
             train_loss = torch.stack([m["loss"] for m in ms]).mean(
                 dim=0).double().cpu().numpy()
@@ -398,21 +510,28 @@ class MultiSeedTrainer:
                    "n_failed": n_failed}
             self.history.append(rec)
             self.epoch += 1
-            if verbose:
-                vals = self.per_seed_best_vals
-                j = _argmin_finite(vals)
-                if self.rank == 0:
-                    print(f"epoch {ep:4d}  [{self.n_seeds} seeds]  best val "
-                          f"{vals[j]:10.4f} (seed {self.seeds[j]})"
-                          f"  {wall:7.3f}s", flush=True)
-            if cfg.save_best:
-                self.save_best(os.path.join(cfg.checkpoint_dir,
-                                            "best_model.npz"))
-                self.save_population(os.path.join(cfg.checkpoint_dir,
-                                                  "population.npz"))
-            for cb in callbacks:
-                cb(self, rec)
+            self._after(f"epoch {ep:4d}", wall, "s", verbose, callbacks)
         return self.history
+
+    def _after(self, what: str, secs: float, unit: str, verbose: bool,
+               callbacks):
+        """After an epoch (the per-step loop) or a block: the progress
+        line, the checkpoints and the callbacks, on the last record."""
+        cfg = self.cfg
+        if verbose:
+            vals = self.per_seed_best_vals
+            j = _argmin_finite(vals)
+            if self.rank == 0:
+                print(f"{what}  [{self.n_seeds} seeds]  best val "
+                      f"{vals[j]:10.4f} (seed {self.seeds[j]})"
+                      f"  {secs:7.3f}{unit}", flush=True)
+        if cfg.save_best:
+            self.save_best(os.path.join(cfg.checkpoint_dir,
+                                        "best_model.npz"))
+            self.save_population(os.path.join(cfg.checkpoint_dir,
+                                              "population.npz"))
+        for cb in callbacks:
+            cb(self, self.history[-1])
 
     # ------------------------------------------------------------------
     def warm_start(self, warm_fn: Callable) -> "MultiSeedTrainer":
@@ -463,6 +582,7 @@ class MultiSeedTrainer:
         if sized is None:
             return None
         self.base.decoder.diffeq = new_de
+        self._block_fns = {}     # graphs captured with the old budget
         return sized
 
     # ------------------------------------------------------------------
@@ -689,6 +809,8 @@ class MultiSeedTrainer:
                                0.999, self.cfg.decay)
         self.opt.load_state_dict({"m": live[1], "v": live[2],
                                   "t": int(arrays["live/opt_state/t"])})
+        # new tensors, optimizer and streams: new block functions
+        self._block_fns, self._best_dev = {}, None
         self._best = None
         if meta["has_best"]:
             self._best = {"params": dict(zip(self.params, best[0])),

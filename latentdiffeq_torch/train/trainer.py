@@ -19,12 +19,18 @@ last record, and the best checkpoint is written after a block in which the
 best improved (trainer.py:755-819). On the card each epoch is a CUDA graph,
 captured once per ``(seq_len, steps, val_len)`` and replayed with no host
 read inside the block; on the CPU the same code runs eagerly. A block of
-one epoch (``epochs_per_dispatch=1``) is JAX's per-epoch program.
-``jit_epoch=False`` runs the per-step loop, which SDE dynamics, adaptive
-solves, a ``mesh`` and ``MultiSeedTrainer`` run whatever the setting
-(``fit`` warns). The two draw the same numbers in the same order from each
-random stream and compute the same operations, so a fit equals itself bit
-for bit whatever its blocking.
+one epoch (``epochs_per_dispatch=1``) is JAX's per-epoch program. SDE
+dynamics (on the grid or adaptive) and adaptive solves train in blocks
+too: their keys are drawn from the noise generator inside the epoch, and a
+captured adaptive solve runs its whole step budget of masked steps
+(``solve.adaptive.all_inactive``), as JAX's bounded scan does, with the
+early-exiting loop's results. ``MultiSeedTrainer`` runs the same blocks
+over its stacked replicas. ``jit_epoch=False`` runs the per-step loop,
+which a ``mesh`` runs whatever the setting (``fit`` warns: capturing the
+gradient all-reduce needs NCCL, which takes one rank a card). The two
+draw the same numbers in the same order from each random stream and
+compute the same operations, so a fit equals itself bit for bit whatever
+its blocking.
 
 Curricula (trainer.py:55-78, 163-173): ``progressive_training`` ramps the
 window length over the first ``prog_training_duration`` epochs
@@ -91,6 +97,7 @@ from ..models.template import _noise_dtype, _noise_widths
 from ..ops import launches
 from ..parallel.data_parallel import BatchShards, reduce_metrics
 from ..parallel.mesh import mesh_rank, mesh_size
+from ..utils.profiling import graph_nodes
 from . import optim
 from .annealing import frange_cycle_linear
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -268,6 +275,40 @@ def _autosize_probe(model, cfg: TrainConfig, train_set, seq_len=None,
     return sized, new_de
 
 
+def block_end(cfg: TrainConfig, prog, ep0: int, epochs: int):
+    """``(e, cur_lens)``: the block that starts at epoch ``ep0`` runs
+    epochs ``ep0`` to ``e - 1`` (JAX's cadence, trainer.py:759-781: at
+    most ``epochs_per_dispatch``, up to ``epochs``, and in the sliced
+    curriculum only while the window length stays; the masked curriculum
+    does not break for it and gets each epoch's length, ``cur_lens``,
+    else None)."""
+    if cfg.masked_curriculum and cfg.progressive_training:
+        e = min(epochs, ep0 + cfg.epochs_per_dispatch)
+        return e, [_epoch_length(cfg, prog, i) for i in range(ep0, e)]
+    seq_len, e = _epoch_length(cfg, prog, ep0), ep0
+    while (e < epochs and e - ep0 < cfg.epochs_per_dispatch
+           and _epoch_length(cfg, prog, e) == seq_len):
+        e += 1
+    return e, None
+
+
+def length_runs(lens):
+    """``(i, j)`` of each run ``lens[i:j]`` of one window length: a block's
+    epochs that one ``BlockFn`` (one graph) runs."""
+    i = 0
+    while i < len(lens):
+        j = i
+        while j < len(lens) and lens[j] == lens[i]:
+            j += 1
+        yield i, j
+        i = j
+
+
+def _fed(key) -> dict:
+    """``{"key": key}``, or nothing for None (a step that draws its own)."""
+    return {} if key is None else {"key": key}
+
+
 def _grid(n: int, dt: float, device):
     return torch.arange(n, dtype=torch.float32, device=device) * dt
 
@@ -323,37 +364,65 @@ def _sync_debug(mode):
         torch.cuda.set_sync_debug_mode(old)
 
 
+def _steps_of(a):
+    """``a`` (E, steps, ...) as (E * steps, ...)."""
+    return a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+
+
+def _layout(arrays):
+    """What a table's shape and dtype depend on: each array's entries past
+    its (E, steps) axes (None: no table)."""
+    return None if arrays is None else tuple(
+        (tuple(a.shape[2:]), a.dtype) for a in arrays)
+
+
+def _at(table, i):
+    """Entry ``i`` (a one-element device index) of ``table``."""
+    return table.index_select(0, i)[0]
+
+
 class _Tables:
     """A block's inputs on the device, indexed by the device step counter
-    ``k`` and epoch counter ``e``, and its summaries."""
+    ``k`` and epoch counter ``e``, and its summaries. A table holds a
+    step's entry after its first axis: (B,) rows and a start for the
+    Trainer, (S, B) rows and (S,) starts for a population. ``eps`` and
+    ``keys`` (the train steps' keys, then the validation passes': one a
+    step with ``val_every_batch``, else one an epoch) are optional."""
 
-    def __init__(self, dev, capacity: int, steps: int, batch: int,
-                 scalars, eps):
+    def __init__(self, dev, capacity: int, steps: int, layout, scalars,
+                 val_per_step: bool):
         n = capacity * steps
-        self.capacity, self.batch = capacity, batch
-        self.rows = torch.empty(n, batch, dtype=torch.int64, device=dev)
-        self.starts = torch.empty(n, dtype=torch.int64, device=dev)
+        row, start, eps, keys = layout
+        self.capacity, self.layout = capacity, layout
+        self.rows = torch.empty(n, *row, dtype=torch.int64, device=dev)
+        self.starts = torch.empty(n, *start, dtype=torch.int64, device=dev)
         self.betas = torch.empty(capacity, dtype=torch.float32, device=dev)
         self.ids = torch.empty(capacity, dtype=torch.int64, device=dev)
         self.scalars = {k: torch.empty(n, dtype=torch.float32, device=dev)
                         for k in scalars}
         self.eps = (None if eps is None else
-                    [torch.empty(n, *a.shape[2:], dtype=a.dtype, device=dev)
-                     for a in eps])
-        self.flat = torch.empty(n * (batch + 1 + len(scalars))
-                                + 2 * capacity, dtype=torch.float64,
-                                device=dev)
+                    [torch.empty(n, *shape, dtype=dtype, device=dev)
+                     for shape, dtype in eps])
+        self.keys = self.val_keys = None
+        if keys is not None:
+            (train, _), (val, _) = keys
+            self.keys = torch.empty(n, *train, dtype=torch.int64, device=dev)
+            # (E, steps, ...) read a step; (E, ...) read an epoch (its
+            # layout counts the first axis past E as a step's)
+            self.val_keys = (
+                torch.empty(n, *val, dtype=torch.int64, device=dev)
+                if val_per_step else
+                torch.empty(capacity, *train, dtype=torch.int64, device=dev))
+        self.flat = torch.empty(
+            n * (math.prod(row) + math.prod(start) + len(scalars))
+            + 2 * capacity, dtype=torch.float64, device=dev)
         self.k = torch.zeros(1, dtype=torch.int64, device=dev)
         self.e = torch.zeros(1, dtype=torch.int64, device=dev)
         self.summ = {}
 
-    def fits(self, E: int, batch: int, scalars, eps) -> bool:
-        return (E <= self.capacity and batch == self.batch
-                and set(scalars) == set(self.scalars)
-                and (eps is None) == (self.eps is None)
-                and (eps is None or [(tuple(a.shape[2:]), a.dtype)
-                                     for a in eps]
-                     == [(tuple(a.shape[1:]), a.dtype) for a in self.eps]))
+    def fits(self, E: int, layout, scalars) -> bool:
+        return (E <= self.capacity and layout == self.layout
+                and set(scalars) == set(self.scalars))
 
 
 class BlockFn:
@@ -361,44 +430,61 @@ class BlockFn:
     trainer.py:294-421) on PyTorch, for one ``(seq_len, steps, val_len)``.
 
     ``block_fn(model, best, data, val_data, idx_blocks, starts, betas,
-    epoch_ids, eps=None)`` runs E = len(betas) epochs. Epoch i's step s
-    takes the rows ``idx_blocks[i, s]`` (B,) of ``data`` (samples, time,
-    features, on the model's device) and the window of ``seq_len`` frames
-    from ``starts[i, s]`` (``gather_window``), one ELBO step of the
-    optimizer at ``betas[i]`` (the noise drawn from ``noise_gen``, or
-    ``eps[i, s]``: a tensor (E, steps, B, w) or a tuple of them in the
-    structure of the posterior's mean), then with ``val_every_batch`` the
-    validation loss on the whole ``val_data``. After each epoch the
-    summaries (JAX's ``train_loss``, ``val_loss`` — the last step's
-    validation —, ``rhs_evals``, ``n_failed``, ``beta``, ``kl``) and,
-    where the validation loss fell below ``best["val"]`` (NaN never
-    does), the whole ``best`` (``block_best``: weights, optimizer state,
-    validation loss and ``epoch_ids[i]``), in place. Returns the summaries, each (E,) on the
-    device. The weights and the optimizer's state change in place, as the
-    per-step loop changes them; JAX's ``keys`` are the starts and the
-    noise here, drawn by the caller.
+    epoch_ids, eps=None, keys=None)`` runs E = len(betas) epochs. Epoch
+    i's step s takes the rows ``idx_blocks[i, s]`` (B,) of ``data``
+    (samples, time, features, on the model's device) and the window of
+    ``seq_len`` frames from ``starts[i, s]`` (``gather_window``), one ELBO
+    step of the optimizer at ``betas[i]`` (the noise drawn from
+    ``noise_gen``, or ``eps[i, s]``: a tensor (E, steps, B, w) or a tuple
+    of them in the structure of the posterior's mean), then with
+    ``val_every_batch`` the validation loss on the whole ``val_data``.
+    ``keys`` (SDE dynamics' Brownian keys, the decoder's): ``(train,
+    val)``, the train steps' (E, steps, 2) and the validation passes' (E,
+    steps, 2), or (E, 2) without ``val_every_batch``; without them the
+    steps draw their own (the Trainer's from its noise generator). After
+    each epoch the summaries (JAX's ``train_loss``, ``val_loss`` — the
+    last step's validation —, ``rhs_evals``, ``n_failed``, ``beta``,
+    ``kl``) and, where the validation loss fell below ``best["val"]`` (NaN
+    never does), the whole ``best`` (``block_best``: weights, optimizer
+    state, validation loss and ``epoch_ids[i]``), in place. Returns the
+    summaries, each (E,) on the device. The weights and the optimizer's
+    state change in place, as the per-step loop changes them; JAX's
+    ``keys`` are the starts, the noise and the Brownian keys here, drawn
+    by the caller.
+
+    A population (``MultiSeedTrainer``) passes its stacked replicas as
+    ``model`` (``StackedModels``, whose ``parameters()`` are the stacked
+    tensors), rows (E, steps, S, B), starts (E, steps, S) and every fed
+    table with its replica axis after the step's; its steps return metrics
+    (S,), so the summaries are (E, S), and ``best`` holds (S,) validation
+    losses and epochs: each replica's best changes where its own loss
+    improved.
 
     The inputs move to the device in one copy. Everything an epoch reads
-    (rows, starts, beta, the optimizer's step scalars, the epoch id) it
-    reads from tables at device counters, so on a CUDA device the first
-    epoch run runs eagerly on a side stream (building every kernel library
-    and filling every cache a launch keeps), the next is captured as a CUDA
-    graph with ``noise_gen`` registered, and every later epoch replays it
-    with no host read; the kernels' launch counters gain on each replay
-    what they gained at the capture (``ops.launches``). New tensors in any
-    of those roles (another ``data``, ``best`` or table size) start over
-    with an eager epoch. ``sync_debug`` (None, "warn" or "error") runs the
-    replays under ``torch.cuda.set_sync_debug_mode``. A capture or replay
-    that fails raises. On the CPU every epoch runs eagerly."""
+    (rows, starts, beta, the optimizer's step scalars, the epoch id, fed
+    noise and keys) it reads from tables at device counters, so on a CUDA
+    device the first epoch run runs eagerly on a side stream (building
+    every kernel library and filling every cache a launch keeps), the next
+    is captured as a CUDA graph with the noise generators (``noise_gen``:
+    one, or a list) registered, and every later epoch replays it with no
+    host read; the kernels' launch counters gain on each replay what they
+    gained at the capture (``ops.launches``). An adaptive solve in a
+    captured epoch runs its whole step budget (``solve.adaptive``). New
+    tensors in any of those roles (another ``data``, ``best`` or table
+    size) start over with an eager epoch. ``sync_debug`` (None, "warn" or
+    "error") runs the replays under ``torch.cuda.set_sync_debug_mode``. A
+    capture or replay that fails raises. On the CPU every epoch runs
+    eagerly."""
 
     def __init__(self, cfg: TrainConfig, opt: optim.Optimizer,
                  loss_fn: Callable, seq_len: int, steps: int, val_len: int,
-                 *, noise_gen: Optional[torch.Generator] = None,
-                 train_step: Optional[Callable] = None,
+                 *, noise_gen=None, train_step: Optional[Callable] = None,
                  val_step: Optional[Callable] = None):
         self.cfg, self.opt, self.loss_fn = cfg, opt, loss_fn
         self.seq_len, self.steps, self.val_len = seq_len, steps, val_len
-        self.noise_gen = noise_gen
+        self.noise_gens = ([] if noise_gen is None else [noise_gen]
+                           if isinstance(noise_gen, torch.Generator)
+                           else list(noise_gen))
         self.train_step = train_step or self._train_step
         self.val_step = val_step or self._val_step
         self.sync_debug = None
@@ -408,46 +494,62 @@ class BlockFn:
         self._graph = None
         self._delta = None
         self._stream = None
+        # the last capture's seconds (instantiation included) and its
+        # graph's node counts (utils.graph_nodes)
+        self.capture_s = None
+        self.graph_nodes = None
 
-    def _train_step(self, model, x, beta, eps):
+    def _train_step(self, model, x, beta, eps, key):
         return _elbo_step(model, self.opt, self.loss_fn, self.cfg, x,
                           _grid(x.shape[1], self.cfg.dt, x.device), beta,
-                          generator=self.noise_gen, eps=eps)
+                          generator=(self.noise_gens[0] if self.noise_gens
+                                     else None), eps=eps,
+                          **_fed(key))
 
-    def _val_step(self, model, val, beta):
+    def _val_step(self, model, val, beta, key):
         return _val_metrics(model, self.loss_fn, self.cfg, val,
                             _grid(self.val_len, self.cfg.dt, val.device),
-                            beta)
+                            beta, **_fed(key))
 
-    def _upload(self, dev, idx_blocks, starts, betas, epoch_ids, eps):
+    def _upload(self, dev, idx_blocks, starts, betas, epoch_ids, eps, keys):
         """The block's inputs into the tables (one host-to-device copy, of
-        every number as float64, which holds each exactly), counters at
-        0."""
+        every number as float64, which holds each exactly; fed noise and
+        keys one copy each), counters at 0."""
         E, n = len(betas), len(betas) * self.steps
-        idx = np.asarray(idx_blocks).reshape(n, -1)
+        idx, starts = np.asarray(idx_blocks), np.asarray(starts)
         scalars = self.opt.step_scalars(n)
         if eps is not None:
             eps = eps if isinstance(eps, (tuple, list)) else (eps,)
             eps = [torch.as_tensor(a) for a in eps]
+        if keys is not None:
+            keys = [torch.as_tensor(np.asarray(a, np.int64)) for a in keys]
+        layout = (idx.shape[2:], starts.shape[2:], _layout(eps),
+                  _layout(keys))
         tabs = self._tabs
-        if tabs is None or not tabs.fits(E, idx.shape[1], scalars, eps):
-            tabs = self._tabs = _Tables(dev, E, self.steps, idx.shape[1],
-                                        scalars, eps)
-        parts = [idx, np.asarray(starts), np.asarray(betas, np.float32),
+        if tabs is None or not tabs.fits(E, layout, scalars):
+            tabs = self._tabs = _Tables(dev, E, self.steps, layout, scalars,
+                                        self.cfg.val_every_batch)
+        parts = [idx, starts, np.asarray(betas, np.float32),
                  np.asarray(epoch_ids)] + [scalars[k] for k in tabs.scalars]
         host = np.concatenate([np.asarray(a, np.float64).ravel()
                                for a in parts])
         flat = tabs.flat[:host.size]
         flat.copy_(torch.from_numpy(host))
         o = 0
-        for dst, m in ((tabs.rows, idx.size), (tabs.starts, n),
+        for dst, m in ((tabs.rows, idx.size), (tabs.starts, starts.size),
                        (tabs.betas, E), (tabs.ids, E),
                        *((tabs.scalars[k], n) for k in tabs.scalars)):
             dst.view(-1)[:m].copy_(flat[o:o + m])
             o += m
         if eps is not None:
             for dst, a in zip(tabs.eps, eps):
-                dst[:n].copy_(a.reshape(n, *a.shape[2:]))
+                dst[:n].copy_(_steps_of(a))
+        if keys is not None:
+            train, val = keys
+            tabs.keys[:n].copy_(_steps_of(train))
+            if self.cfg.val_every_batch:
+                val = _steps_of(val)
+            tabs.val_keys[:len(val)].copy_(val)
         tabs.k.zero_()
         tabs.e.zero_()
         return tabs
@@ -461,39 +563,49 @@ class BlockFn:
         ms, vm = [], None
         for _ in range(self.steps):
             k = tabs.k
-            x = gather_window(data, tabs.rows.index_select(0, k).view(-1),
-                              tabs.starts.index_select(0, k), self.seq_len)
+            start = tabs.starts.index_select(0, k)
+            x = gather_window(data, _at(tabs.rows, k),
+                              start[0] if start.dim() > 1 else start,
+                              self.seq_len)
             self.opt.use_step_scalars({
                 n: t.index_select(0, k).view(())
                 for n, t in tabs.scalars.items()})
             eps = None
             if tabs.eps is not None:
-                eps = [t.index_select(0, k)[0] for t in tabs.eps]
+                eps = [_at(t, k) for t in tabs.eps]
                 eps = tuple(eps) if len(eps) > 1 else eps[0]
-            ms.append(self.train_step(model, x, beta, eps))
+            key = None if tabs.keys is None else _at(tabs.keys, k)
+            ms.append(self.train_step(model, x, beta, eps, key))
             if cfg.val_every_batch:
-                vm = self.val_step(model, val, beta)
+                vm = self.val_step(model, val, beta,
+                                   None if tabs.keys is None
+                                   else _at(tabs.val_keys, k))
             k.add_(1)
         if vm is None:
-            vm = self.val_step(model, val, beta)
+            vm = self.val_step(model, val, beta, None if tabs.keys is None
+                               else _at(tabs.val_keys, e))
         st = {n: torch.stack([m[n] for m in ms])
               for n in ("loss", "kl", "n_rhs_evals", "n_failed")}
-        summ = {"train_loss": st["loss"].mean(), "val_loss": vm["loss"],
-                "rhs_evals": st["n_rhs_evals"].sum(),
-                "n_failed": st["n_failed"].sum(), "beta": beta,
-                "kl": st["kl"].mean()}
+        summ = {"train_loss": st["loss"].mean(0), "val_loss": vm["loss"],
+                "rhs_evals": st["n_rhs_evals"].sum(0),
+                "n_failed": st["n_failed"].sum(0), "beta": beta,
+                "kl": st["kl"].mean(0)}
         with torch.no_grad():
             for n, v in summ.items():
                 if n not in tabs.summ:
-                    tabs.summ[n] = torch.zeros(tabs.capacity, dtype=v.dtype,
-                                               device=v.device)
-                tabs.summ[n].index_copy_(0, e, v.reshape(1))
+                    tabs.summ[n] = torch.zeros(tabs.capacity, *v.shape,
+                                               dtype=v.dtype, device=v.device)
+                tabs.summ[n].index_copy_(0, e, v.unsqueeze(0))
             # JAX's carry (trainer.py:395-404): weights, optimizer state,
-            # val and epoch together, NaN-safe (a NaN compares False)
+            # val and epoch together, NaN-safe (a NaN compares False); a
+            # population's (S,) mask picks each replica's row of the
+            # stacked tensors
             val_loss = vm["loss"].double()
             improved = val_loss < best["val"]
             for b, a in zip(best["model"] + best["opt_state"], live):
-                b.copy_(torch.where(improved, a, b))
+                mask = improved.view(improved.shape
+                                     + (1,) * (a.dim() - improved.dim()))
+                b.copy_(torch.where(mask, a, b))
             best["val"].copy_(torch.where(improved, val_loss, best["val"]))
             best["epoch"].copy_(torch.where(
                 improved, tabs.ids.index_select(0, e).view(()),
@@ -501,13 +613,13 @@ class BlockFn:
             e.add_(1)
 
     def __call__(self, model, best, data, val_data, idx_blocks, starts,
-                 betas, epoch_ids, eps=None):
+                 betas, epoch_ids, eps=None, keys=None):
         E = len(betas)
         if val_data.shape[1] != self.val_len:
             raise ValueError(f"val_data has {val_data.shape[1]} frames, "
                              f"the block function {self.val_len}")
         tabs = self._upload(data.device, idx_blocks, starts, betas,
-                            epoch_ids, eps)
+                            epoch_ids, eps, keys)
         live = list(model.parameters()) + self.opt.state_tensors()
         bests = best["model"] + best["opt_state"]
         if len(bests) != len(live):
@@ -553,12 +665,13 @@ class BlockFn:
 
     def _capture(self, model, best, data, val, tabs, live):
         """Capture one epoch as a CUDA graph (nothing runs: the counters,
-        the optimizer's step count and the noise generator are where they
-        were)."""
-        graph = torch.cuda.CUDAGraph()
-        if self.noise_gen is not None and self.noise_gen.device.type \
-                == "cuda":
-            graph.register_generator_state(self.noise_gen)
+        the optimizer's step count and the noise generators are where they
+        were), its graph's nodes counted before it is instantiated."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in self.noise_gens:
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
         before = launches.snapshot()
         try:
             with torch.cuda.graph(graph, stream=self._stream):
@@ -575,22 +688,25 @@ class BlockFn:
             self._delta = launches.gained(before, launches.snapshot())
             launches.restore(before)
             self.opt.advance(-self.steps)
+        self.graph_nodes = graph_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
         self._graph = graph
+        self.capture_s = time.perf_counter() - t0
 
 
 def make_block_fn(cfg: TrainConfig, opt: optim.Optimizer, loss_fn: Callable,
                   seq_len: int, steps: int, val_len: int, *,
-                  noise_gen: Optional[torch.Generator] = None,
-                  train_step: Optional[Callable] = None,
+                  noise_gen=None, train_step: Optional[Callable] = None,
                   val_step: Optional[Callable] = None) -> BlockFn:
     """The fused multi-epoch program (JAX's ``make_block_fn``,
     trainer.py:294-421): a ``BlockFn`` for windows of ``seq_len`` frames,
     ``steps`` minibatch steps an epoch and validation sequences of
     ``val_len`` frames, stepping ``opt`` (bound to the model's parameters)
     on ``loss_fn``. ``noise_gen``: the reparameterisation noise's
-    generator. ``train_step(model, x, beta, eps)`` and ``val_step(model,
-    val, beta)`` replace the plain ELBO step and validation pass (the
-    Trainer passes its own)."""
+    generator (a population's: one a replica). ``train_step(model, x,
+    beta, eps, key)`` and ``val_step(model, val, beta, key)`` replace the
+    plain ELBO step and validation pass (the Trainer and MultiSeedTrainer
+    pass their own); ``key`` is the block's fed key, or None."""
     return BlockFn(cfg, opt, loss_fn, seq_len, steps, val_len,
                    noise_gen=noise_gen, train_step=train_step,
                    val_step=val_step)
@@ -717,6 +833,7 @@ class Trainer:
         if sized is None:
             return None
         self.model.decoder.diffeq = new_de
+        self._block_fns = {}     # graphs captured with the old budget
         return sized
 
     def _snapshot(self, epoch: int):
@@ -725,15 +842,10 @@ class Trainer:
 
     def _per_step_only(self) -> Optional[str]:
         """Why this Trainer runs the per-step loop whatever ``jit_epoch``
-        says (None: block mode can run)."""
+        says (None: block mode can run): a mesh, whose gradient all-reduce
+        a CUDA graph could capture only on NCCL, one rank a card."""
         if self.mesh is not None:
             return "a mesh (data parallelism)"
-        if self._sde:
-            return "SDE dynamics"
-        options = getattr(getattr(getattr(self.model, "decoder", None),
-                                  "diffeq", None), "options", None)
-        if getattr(options, "adaptive", False):
-            return "an adaptive solve"
         return None
 
     def _block_fn(self, seq_len: int, steps: int, val_len: int) -> BlockFn:
@@ -743,9 +855,10 @@ class Trainer:
             fn = self._block_fns[key] = make_block_fn(
                 self.cfg, self.opt, self.loss_fn, seq_len, steps, val_len,
                 noise_gen=self.noise_gen,
-                train_step=lambda m, x, beta, eps: self.train_step(
-                    x, beta, eps=eps),
-                val_step=lambda m, val, beta: self.val_step(val, beta))
+                train_step=lambda m, x, beta, eps, key: self.train_step(
+                    x, beta, eps=eps, **_fed(key)),
+                val_step=lambda m, val, beta, key: self.val_step(
+                    val, beta, **_fed(key)))
         return fn
 
     def run_block(self, data, val, betas, seq_len=None, cur_lens=None):
@@ -770,16 +883,12 @@ class Trainer:
             self._best_dev = block_best(self.model, self.opt,
                                         self.best_val_loss, self.epoch)
         ids = np.arange(self.epoch, self.epoch + E)
-        out, i = [], 0
-        while i < E:                    # the runs of one window length
-            j = i
-            while j < E and lens[j] == lens[i]:
-                j += 1
+        out = []
+        for i, j in length_runs(lens):
             fn = self._block_fn(lens[i], steps, val.shape[1])
             fn.sync_debug = self.sync_debug
             out.append(fn(self.model, self._best_dev, data, val, idx[i:j],
                           starts[i:j], betas[i:j], ids[i:j]))
-            i = j
         return {k: torch.cat([o[k] for o in out]) for k in out[0]}
 
     def fit(self, train_set, val_set, *, epochs: Optional[int] = None,
@@ -802,7 +911,6 @@ class Trainer:
         if steps < 1:
             raise ValueError(f"batch_size={cfg.batch_size} exceeds the "
                              f"training set size n={n}")
-        masked = cfg.masked_curriculum and cfg.progressive_training
         if cfg.masked_curriculum and not (cfg.jit_epoch
                                           and cfg.epochs_per_dispatch > 1):
             raise ValueError(
@@ -813,8 +921,8 @@ class Trainer:
         why = self._per_step_only() if use_blocks else None
         if why is not None:
             warnings.warn(f"Trainer.fit runs the per-step loop for {why}: "
-                          f"block mode (jit_epoch) covers fixed-grid ODE "
-                          f"dynamics on one process", stacklevel=2)
+                          f"block mode (jit_epoch) runs on one process",
+                          stacklevel=2)
             use_blocks = False
 
         if cfg.autosize_adaptive and self.epoch == 0:
@@ -824,18 +932,7 @@ class Trainer:
         while use_blocks and self.epoch < epochs:
             ep0 = self.epoch
             seq_len = _epoch_length(cfg, prog, ep0)
-            if masked:
-                # JAX's masked block does not break for the length
-                e = min(epochs, ep0 + cfg.epochs_per_dispatch)
-                cur_lens = [_epoch_length(cfg, prog, i)
-                            for i in range(ep0, e)]
-            else:
-                # extend the block while seq_len stays the same
-                e = ep0
-                while (e < epochs and e - ep0 < cfg.epochs_per_dispatch
-                       and _epoch_length(cfg, prog, e) == seq_len):
-                    e += 1
-                cur_lens = None
+            e, cur_lens = block_end(cfg, prog, ep0, epochs)
             betas = [float(schedule[min(i, len(schedule) - 1)])
                      for i in range(ep0, e)]
             t0 = time.perf_counter()
@@ -849,7 +946,7 @@ class Trainer:
                     "train_loss": float(summ["train_loss"][i]),
                     "val_loss": float(summ["val_loss"][i]),
                     "beta": betas[i],
-                    "seq_len": cur_lens[i] if masked else seq_len,
+                    "seq_len": seq_len if cur_lens is None else cur_lens[i],
                     "epoch_s": per_ep,
                     "rhs_evals_per_s": int(summ["rhs_evals"][i]) / per_ep,
                     "kl": float(summ["kl"][i]),

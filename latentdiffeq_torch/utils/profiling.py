@@ -4,7 +4,7 @@
 Wall-clock phase timers that synchronise with the card when asked, a
 context manager around ``torch.profiler`` with device tracing armed before
 its region, one that writes its Chrome trace, a count of the kernel
-records such a trace lost, and a
+records such a trace lost, the node counts of a captured CUDA graph, and a
 NaN debug switch that raises where a NaN is produced instead of letting the
 NaN-fill convention flow into the loss (the counterpart of
 ``jax_debug_nans``).
@@ -22,7 +22,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["PhaseTimer", "device_profile", "trace_profile",
-           "lost_kernel_records", "enable_debug_nans"]
+           "lost_kernel_records", "graph_nodes", "enable_debug_nans"]
 
 
 def _cuda_devices(tree, out):
@@ -188,6 +188,29 @@ class _RaiseOnNaN(TorchDispatchMode):
 
 
 _DEBUG_NANS: Optional[_RaiseOnNaN] = None
+
+
+def graph_nodes(raw_graph: int) -> Dict[str, int]:
+    """``{"kernel": n, "all": m}``: the kernel nodes and all the nodes of
+    a captured CUDA graph, ``raw_graph`` its ``cudaGraph_t``
+    (``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``), read
+    with ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` of libcuda."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(raw_graph)
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(0), 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    return {"kernel": kernels, "all": n.value}
 
 
 def enable_debug_nans(on: bool = True):

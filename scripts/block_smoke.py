@@ -1,9 +1,13 @@
 """Run chip_smoke.py's phase 4n alone on the card: block mode (the epochs
 as CUDA graphs, the best on the device) against the per-step loop, bit for
-bit, for full-width GOKU on the pendulum and full-width LatentODE, with the
-launch counts, the profiler windows and the steady epoch times.
+bit, for each of its paths (chip_smoke.block_parts: full-width GOKU and
+LatentODE, SDE and adaptive GOKU, the populations), with the launch counts,
+the graphs' capture seconds and nodes, the profiler windows and the steady
+epoch times.
 
-    python3 scripts/block_smoke.py
+    python3 scripts/block_smoke.py ["(a) SDE GOKU" ...]
+
+Arguments name the paths to run (default: all).
 
 Builds the port's kernels, generates the 450-video pendulum set on the card
 (chip_smoke's phase 4 data), runs chip_smoke.block_path and prints its
@@ -41,7 +45,8 @@ def main():
                     f"{torch.__version__} cuda {torch.version.cuda}")
     _, _, _, frames = generate_dataset(device="cuda")
     train_set, val_set = splitobs(frames.reshape(450, 100, 784), 0.9)
-    steady = cs.block_path(train_set, val_set, torch.device("cuda"), gpu)
+    steady = cs.block_path(train_set, val_set, torch.device("cuda"), gpu,
+                           only=sys.argv[1:] or None)
     cs.log("block", f"steady epoch s (per-step, block): {steady}")
     print(gpu, flush=True)
     print("block_smoke: ok", flush=True)

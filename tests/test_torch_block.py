@@ -18,9 +18,10 @@ on the CPU, against its per-step loop and against JAX's ``make_block_fn``.
   run bit for bit; the best checkpoint of block mode holds JAX's fields
   (the best weights and optimizer state, epoch + 1, its validation loss)
   and equals the per-step loop's checkpoint of that epoch.
-- SDE dynamics, adaptive solves, a mesh and MultiSeedTrainer warn and run
-  the per-step loop; the masked curriculum without block mode raises
-  JAX's ValueError.
+- SDE dynamics, adaptive solves and MultiSeedTrainer run blocks with no
+  warning, bit for bit with their per-step loops; a mesh warns and runs the
+  per-step loop; the masked curriculum without block mode raises JAX's
+  ValueError.
 The CUDA graphs themselves run only on the card (tests/test_torch_cuda.py,
 ``test_block_graphs_*``)."""
 import dataclasses
@@ -412,8 +413,9 @@ def per_step_cases():
 
 @pytest.mark.parametrize("case", ["sde", "adaptive", "mesh"])
 def test_out_of_scope_configurations_warn_and_run_per_step(case, sets):
-    """SDE dynamics, an adaptive solve and a mesh: fit warns once and runs
-    the per-step loop, bit for bit with jit_epoch=False."""
+    """A mesh: fit warns once and runs the per-step loop. SDE dynamics and
+    an adaptive solve: fit runs blocks with no warning. Each bit for bit
+    with jit_epoch=False."""
     import torch.distributed as dist
 
     from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
@@ -439,18 +441,31 @@ def test_out_of_scope_configurations_warn_and_run_per_step(case, sets):
         if started:
             dist.destroy_process_group()
     (ref, none), (tr, said) = runs
-    assert none == [] and len(said) == 1
+    assert none == [] and len(said) == (1 if case == "mesh" else 0)
+    assert bool(tr._block_fns) == (case != "mesh")
     assert_same_run(ref, tr)
 
 
 def test_population_warns_and_runs_per_step(sets):
-    with pytest.warns(UserWarning, match="per-step loop"):
-        MultiSeedTrainer(goku, cfg_of(epochs=1), [1, 2],
-                         device="cpu").fit(*sets, verbose=False)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        MultiSeedTrainer(goku, cfg_of(epochs=1, jit_epoch=False), [1, 2],
-                         device="cpu").fit(*sets, verbose=False)
+    """A population fits in blocks with no warning, bit for bit with its
+    per-step loop (jit_epoch=False), which warns neither."""
+    runs = []
+    for kw in ({}, dict(jit_epoch=False)):
+        ms = MultiSeedTrainer(goku, cfg_of(epochs=2, **kw), [1, 2],
+                              device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            ms.fit(*sets, verbose=False)
+        runs.append(ms)
+    blk, ref = runs
+    assert blk._block_fns and not ref._block_fns
+    for a, b in zip(blk.history, ref.history):
+        for k in ("train_loss", "val_loss", "n_failed"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for k in blk.params:
+        assert torch.equal(blk.params[k], ref.params[k]), k
+        assert torch.equal(blk._best["params"][k], ref._best["params"][k])
+    np.testing.assert_array_equal(blk._best["val"], ref._best["val"])
 
 
 @pytest.mark.parametrize("kw", [dict(jit_epoch=False),
