@@ -110,10 +110,10 @@ Phases, each printing one line (any failure exits non-zero):
               groups and profiler session follow every measurement)
               train_goku.py --data-parallel 1 in this
               process on NCCL (24 / 12 launches of each GOKU kernel, the
-              weights within 1e-6 of 4j's solo run, bit for bit or not),
-              then two ranks on the one card under torch.distributed.run
-              with gloo (this script's --dp-worker mode; each rank's exit
-              code and results checked): --data-parallel 2 (24 / 12
+              weights within 1e-6 of 4j's solo run, bit for bit or not,
+              in blocks), then two ranks on the one card under torch.distributed.run
+              with gloo, per step (this script's --dp-worker mode; each
+              rank's exit code and results checked): --data-parallel 2 (24 / 12
               launches a rank at B 32, the ranks' weights bit for bit,
               the first step's gradient against the solo step's, each
               epoch's validation loss against the solo run's, the step
@@ -154,7 +154,12 @@ Phases, each printing one line (any failure exits non-zero):
               phase 5; the parts from (a) on after 4m) block mode, the
               Trainer's and MultiSeedTrainer's default (epochs as CUDA
               graphs, the best on the device): full-width GOKU on the
-              pendulum and full-width LatentODE; (after 4m) (a) GOKU on
+              pendulum and full-width LatentODE, then the two as
+              Trainer(mesh=make_mesh(1)) on a one-rank NCCL group (DDP's
+              all-reduces in each captured epoch, after 2 eager epochs of
+              its warm-up; against the mesh's per-step loop and the solo
+              block Trainer, bit for bit; a one-epoch device-only
+              window); (after 4m) (a) GOKU on
               the stochastic pendulum, (b) the adaptive
               pendulum and adaptive SPendulum at train_goku.py
               --adaptive's settings, autosized (one block each, of 2
@@ -348,11 +353,12 @@ PROFILE_TRACE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def profiler_window(fn, count_lost: bool = True, device_only: bool = False):
     """Run ``fn`` (and a synchronize) in a torch.profiler window opened
     with utils.device_profile, which arms device tracing before the region
-    (a plain window opened late in a run loses the kernel records of its
-    first launches, PERF.md section 7). Returns (the profiler, its
-    lost_kernel_records: the launches of the window with no kernel
-    record; None without ``count_lost``, which skips the window's Chrome
-    trace). ``device_only``: record the device's activity alone."""
+    and pads it on both sides (the profiler drops the device records that
+    a device clock mapped a few ms off puts outside the window). Returns
+    (the profiler, its lost_kernel_records: the region's launches with no
+    kernel record, the pads' apart; None without ``count_lost``, which
+    skips the window's Chrome trace). ``device_only``: record the
+    device's activity alone."""
     from latentdiffeq_torch.utils import device_profile, lost_kernel_records
     kw = ({"activities": [torch.profiler.ProfilerActivity.CUDA]}
           if device_only else {})
@@ -368,12 +374,21 @@ def profiler_window(fn, count_lost: bool = True, device_only: bool = False):
     return prof, lost
 
 
+def region_device_op(name: str) -> bool:
+    """Whether a CUDA event of a device_profile window is one of its
+    region's operations: not the step annotation the profiler's schedule
+    records over the whole window (ProfilerStep#N, a GPU user annotation),
+    nor device_profile's pads (their annotations and spin kernels)."""
+    from latentdiffeq_torch.utils import PAD, PAD_KERNEL
+    return not (name.startswith("ProfilerStep") or name == PAD
+                or PAD_KERNEL in name)
+
+
 def device_events(prof):
-    """The device's operations in a profiler window: its CUDA events less
-    the step annotation device_profile's schedule records over the whole
-    window (ProfilerStep#N, a GPU user annotation, not an operation)."""
+    """The device's operations in a profiler window's region: its CUDA
+    events that region_device_op keeps."""
     return [e for e in prof.events() if e.device_type.name == "CUDA"
-            and not e.name.startswith("ProfilerStep")]
+            and region_device_op(e.name)]
 
 
 def lost_str(lost) -> str:
@@ -3944,9 +3959,10 @@ def block_parts(train_set, dev):
     """{path: BlockPart}: phase 4's full-width GOKU on the pendulum, phase
     4b's full-width LatentODE; (a) GOKU on SPendulum(); (b) GOKU on the
     adaptive pendulum and the adaptive SPendulum at train_goku.py
-    --adaptive's settings (ADAPTIVE_SDE), autosized at the fit's start,
-    mask_failures; (c) 4g's population of 8 seeds in float32 and in
-    bf16 (4h), replica 3 against a solo block-mode Trainer of seed 336;
+    --adaptive's settings (ADAPTIVE_SDE), autosized at the fit's start
+    (the SPendulum's budget without the safety factor), mask_failures;
+    (c) 4g's population of 8 seeds in float32 and in bf16 (4h), replica 3
+    against a solo block-mode Trainer of seed 336;
     (d) 4i's population of 4 LatentODE seeds; (e) 4 SPendulum seeds. A
     forward a step and a validation pass, a backward a step."""
     from latentdiffeq_torch.adjoint import SolveOptions
@@ -3986,7 +4002,8 @@ def block_parts(train_set, dev):
         return TrainConfig(epochs=1500, save_best=False, **kw)
 
     def solo(build, **c):
-        return lambda **kw: Trainer(build(), cfg(**c, **kw), device=dev)
+        return lambda mesh=None, **kw: Trainer(build(), cfg(**c, **kw),
+                                               device=dev, mesh=mesh)
 
     def pop(init, seeds, **c):
         return lambda **kw: MultiSeedTrainer(init, cfg(**c, **kw), seeds,
@@ -4012,9 +4029,12 @@ def block_parts(train_set, dev):
         "(b) adaptive GOKU": BlockPart(
             solo(lambda: goku("adaptive"), **sized), heads,
             {"goku_heads": 1}, blocks=1, **short),
-        # blocks of 2: the graph of ~1e6 nodes costs ~30-50 s to capture
+        # blocks of 2, and the step budget at the probe's most attempts
+        # (autosize_safety 1, not 1.5): the graph of ~0.9e6 nodes at 1.5
+        # cost 35-52 s to capture, and the part ~155-216 s of the run
         "(b) adaptive SDE GOKU": BlockPart(
-            solo(lambda: goku("adaptive spendulum"), **sized), heads,
+            solo(lambda: goku("adaptive spendulum"), **sized,
+                 autosize_safety=1.0), heads,
             {"goku_heads": 1}, blocks=1, epochs=2, **short),
         "(c) population of 8": BlockPart(
             pop(lambda s: goku("pendulum", s), POP_SEEDS), {**heads, **rk},
@@ -4108,22 +4128,24 @@ def kernel_counts(prof):
 
 
 def lean_window(prof):
-    """(hand-written kernels' device records, device ops, busy ms, span
-    ms) of a profiler window read from its raw kineto records, without
-    building the profiler's event objects (~1e6 device ops a window)."""
+    """(hand-written kernels' device records, and NCCL's under "nccl",
+    device ops, busy ms, span ms) of a profiler window read from its raw
+    kineto records, without building the profiler's event objects (~1e6
+    device ops a window)."""
     import re
     out, busy, lo, hi, n = {}, 0, None, None, 0
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != cuda or e.name().startswith("ProfilerStep"):
+        if e.device_type() != cuda or not region_device_op(e.name()):
             continue
         n += 1
         busy += e.duration_ns()
         lo = e.start_ns() if lo is None else min(lo, e.start_ns())
         hi = e.end_ns() if hi is None else max(hi, e.end_ns())
-        m = re.search(HAND_KERNEL, e.name())
+        m = re.search(HAND_KERNEL + "|(nccl)", e.name())
         if m:
-            out[m.group(1)] = out.get(m.group(1), 0) + 1
+            k = m.group(1) or m.group(2)
+            out[k] = out.get(k, 0) + 1
     return out, n, busy / 1e6, (hi - lo) / 1e6 if n else 0
 
 
@@ -4152,7 +4174,7 @@ def launch_totals():
             for k, v in launches.snapshot().items()}
 
 
-def block_path(train_set, val_set, dev, gpu, only=None):
+def block_path(train_set, val_set, dev, gpu, only=None, mesh=None):
     """Phase 4n: for each of ``block_parts`` (or those named in ``only``, in
     that order), a trainer in block mode (blocks of its ``epochs``, replays
     under torch.cuda.set_sync_debug_mode("error")) and one with
@@ -4163,14 +4185,27 @@ def block_path(train_set, val_set, dev, gpu, only=None):
     call; each graph's capture seconds and nodes. Then ``window`` more
     epochs of each in a profiler window: the hand-written kernels' device
     records equal, the states again bit for bit; steady epoch seconds,
-    step + validation ms, device busy and idle share of each. Returns
+    step + validation ms, device busy and idle share of each. With
+    ``mesh`` (a one-rank NCCL mesh: mesh_block_path) both are
+    ``Trainer(mesh=mesh)``s, whose block runs DDP's warm-up of eager epochs
+    before its capture, the window is one epoch, device activity only
+    (NCCL's records counted), and a solo block-mode Trainer fitted alike
+    must equal the mesh's blocks bit for bit (at one rank DDP's mean and
+    the loss's sums are exact), its graph's nodes beside theirs. Returns
     {path: (per-step, block) steady epoch s}."""
     import numpy as np
 
+    from latentdiffeq_torch.train.trainer import DDP_WARMUP_STEPS
+
     parts = block_parts(train_set, dev)
     out = {}
-    for what in only or parts:
-        part = parts[what]
+    for name in only or parts:
+        part, what = parts[name], name
+        if mesh is not None:
+            part = dataclasses.replace(
+                part, make=lambda make=part.make, **kw: make(mesh=mesh, **kw),
+                window=1, lean=True)
+            what = f"{name} on a one-rank NCCL mesh"
         t_part = time.perf_counter()
         steps = train_set.shape[0] // 64
         n = part.epochs * part.blocks
@@ -4230,6 +4265,23 @@ def block_path(train_set, val_set, dev, gpu, only=None):
                  f"expected {want}")
         if not graphs or any(g[1] is None or not g[2] for g in graphs):
             fail(f"{what}: no graph was captured: {graphs}")
+        if mesh is not None:
+            solo = parts[name].make(epochs_per_dispatch=part.epochs)
+            solo.sync_debug = "error"
+            solo.fit(train_set, val_set, epochs=n, verbose=False)
+            bad = block_differences(solo, blk)
+            solo_graphs = [(fn.seq_len, round(fn.capture_s, 3),
+                            fn.graph_nodes)
+                           for fn in solo._block_fns.values()]
+            log("block", f"{what}: DDP's forwards run by the host "
+                         f"{blk._ddp_steps} of {n * steps} (eager warm-up "
+                         f"of {-(-DDP_WARMUP_STEPS // steps)} epochs, then "
+                         f"the capture); against a solo block-mode Trainer: "
+                         f"differences {bad or 'none'}; its graphs "
+                         f"{solo_graphs}")
+            if bad:
+                fail(f"{what}: the mesh's blocks differ from the solo "
+                     f"Trainer's in {bad}")
         if part.solo is not None:
             i, make_solo, rtol = part.solo
             s = make_solo(epochs_per_dispatch=part.epochs)
@@ -4276,6 +4328,24 @@ def block_path(train_set, val_set, dev, gpu, only=None):
     return out
 
 
+def mesh_block_path(train_set, val_set, dev, gpu, only=BLOCK_FIRST):
+    """Phase 4n on a mesh: ``block_path(..., mesh=)`` for the paths named
+    in ``only`` (full-width GOKU and LatentODE) as Trainer(mesh=
+    make_mesh(1)) block fits on a one-rank NCCL group set up here and
+    ended after. Run before phase 5: a profiler window opened after phase
+    5's loses kernel records (PERF.md section 7), and block_path compares
+    two windows' records."""
+    from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
+    initialize_distributed(device=dev)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"the one-rank group runs {torch.distributed.get_backend()}")
+        return block_path(train_set, val_set, dev, gpu, only=only,
+                          mesh=make_mesh(1))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # Phase 4k: train_goku.py --data-parallel (parallel/, Trainer(mesh=),
 # MultiSeedTrainer(mesh=)) on one rank in this process and on two ranks on
@@ -4320,9 +4390,9 @@ def weights_of(model):
             for k, v in model.state_dict().items()}
 
 
-def goku_333(dev, mesh=None, batch_size=64):
+def goku_333(dev, mesh=None, batch_size=64, **cfg):
     """train_goku.py's model (seed 333, both kernel switches) in a Trainer
-    of its configuration."""
+    of its configuration (per step, unless ``cfg`` says otherwise)."""
     from latentdiffeq_torch.examples.pendulum import train_goku
     from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,
                                            goku_default_layers)
@@ -4332,10 +4402,9 @@ def goku_333(dev, mesh=None, batch_size=64):
                                  generator=torch.Generator().manual_seed(333))
     model = LatentDiffEqModel.build(
         GOKUBasic(use_kernel_encoder=True, use_kernel_solver=True), *layers)
-    return Trainer(model, TrainConfig(jit_epoch=False, epochs=1500,
-                                      save_best=False,
-                                      batch_size=batch_size),
-                   device=dev, mesh=mesh)
+    return Trainer(model, TrainConfig(**dict(
+        dict(jit_epoch=False, epochs=1500, save_best=False,
+             batch_size=batch_size), **cfg)), device=dev, mesh=mesh)
 
 
 def dp_first_step(tr, x, rank=0, world=1):
@@ -4424,7 +4493,10 @@ def dp_worker(argv):
     train_goku.py --data-parallel N twice, with every counter at 0 before
     each (its launches, losses, weights and step times), with ``--seeds``
     also --seeds S --data-parallel N, and one first step of goku_333 on
-    its rows; rank 0 then runs both in one process, and the run again with
+    its rows; where the Trainer runs blocks (not gloo over a card's
+    tensors), goku_333 on the mesh in 2 blocks of 3 epochs (DDP's warm-up,
+    then the captured epochs on the card) and in the per-step loop; rank
+    0 then runs both in one process, and the run again with
     split_step's emulation of N ranks. Writes OUT/rank<r>.json and .npz
     (keys ``<run>/<tensor>``)."""
     import argparse
@@ -4471,7 +4543,8 @@ def dp_worker(argv):
             "plain": [recurrent_cuda.goku_heads_reference.calls,
                       ode_cuda.solve_fixed_grid_batched_reference.calls],
             "val": [np.asarray(h["val_loss"]).tolist() for h in got.history],
-            "epoch_s": got.history[-1]["epoch_s"]}
+            "epoch_s": got.history[-1]["epoch_s"],
+            "blocks": bool(got._block_fns)}
         if "--seeds" in extra:
             r.update(best_seed=got.best_seed, best_val=got.best_val_loss,
                      local_seeds=got.local_seeds)
@@ -4499,6 +4572,25 @@ def dp_worker(argv):
     res["dp"]["first_loss"], g = dp_first_step(
         goku_333(dev, mesh, bs), x[0][:, :seq], rank, world)
     arrays.update({f"dp/{k}": v for k, v in g.items()})
+    if not (res["backend"] == "gloo" and dev.type == "cuda"):
+        for tag, kw in (("mesh_blocks", dict(epochs_per_dispatch=3)),
+                        ("mesh_per_step", {})):
+            tr = goku_333(dev, mesh, bs, seq_len=seq, **kw)
+            if dev.type == "cuda":
+                tr.sync_debug = "error"
+            t0 = time.perf_counter()
+            tr.fit(*x, epochs=6, verbose=False)
+            sync()
+            res[tag] = {
+                "wall_s": time.perf_counter() - t0,
+                "history": [[h[k] for k in ("train_loss", "val_loss", "kl",
+                                            "n_failed")]
+                            for h in tr.history],
+                "epoch_s": tr.history[-1]["epoch_s"],
+                "graphs": [(fn.seq_len, fn.capture_s, fn.graph_nodes)
+                           for fn in tr._block_fns.values()]}
+            arrays.update({f"{tag}/{k}": v
+                           for k, v in weights_of(tr.model).items()})
     torch.distributed.barrier()
     if rank == 0:
         run("one", [], False)
@@ -4607,6 +4699,18 @@ def dp_check(ranks, what, want=None, gpu=""):
                      f" {want}")
             if not np.isfinite(c["val"]).all():
                 fail(f"{what} rank {r} {case}: non-finite validation loss")
+    # the Trainer runs blocks on NCCL and on the CPU; gloo over a card's
+    # tensors runs the per-step loop
+    blocks = not (summary["backend"] == "gloo"
+                  and summary["device"][0].startswith("cuda"))
+    ran = [info[c]["blocks"] for info, _ in ranks for c in ("dp", "again")]
+    log("dp", f"{what}: train_goku's Trainer(mesh) ran "
+              f"{'blocks' if all(ran) else 'per step' if not any(ran) else ran}"
+              f" (expected {'blocks' if blocks else 'per step'})")
+    if ran != [blocks] * len(ran):
+        fail(f"{what}: Trainer(mesh) ran blocks {ran}, expected {blocks}")
+    if blocks:
+        mesh_blocks_check(ranks, what, gpu)
     keys = [k[3:] for k in a0 if k.startswith("dp/")]
     again = all(np.array_equal(a[f"again/{k}"], a[f"dp/{k}"])
                 for _, a in ranks for k in keys if not k.startswith(
@@ -4704,12 +4808,41 @@ def dp_check(ranks, what, want=None, gpu=""):
     return summary
 
 
+def mesh_blocks_check(ranks, what, gpu):
+    """dp_check's gate on the worker's goku_333 fits on the mesh: the
+    blocks bit for bit with the per-step loop (history and weights) on
+    every rank, the ranks bit for bit, and on the card a graph captured."""
+    import numpy as np
+    a0 = ranks[0][1]
+    keys = [k[12:] for k in a0 if k.startswith("mesh_blocks/")]
+    for r, (info, a) in enumerate(ranks):
+        blk, ref = info["mesh_blocks"], info["mesh_per_step"]
+        same = blk["history"] == ref["history"] and all(
+            np.array_equal(a[f"mesh_blocks/{k}"], a[f"mesh_per_step/{k}"])
+            and np.array_equal(a[f"mesh_blocks/{k}"], a0[f"mesh_blocks/{k}"])
+            for k in keys)
+        log("dp", f"{what}, rank {r}: goku_333 on the mesh, 2 blocks of 3 "
+                  f"epochs against the per-step loop: bit for bit (history, "
+                  f"weights, and with rank 0) {same}; graphs (window length, "
+                  f"capture s, nodes) {blk['graphs']}; steady epoch "
+                  f"{blk['epoch_s']:.4f} s against {ref['epoch_s']:.4f} s; "
+                  f"{gpu}")
+        if not same:
+            fail(f"{what}, rank {r}: the mesh's blocks differ from its "
+                 f"per-step loop or from rank 0")
+        if info["device"].startswith("cuda") and not blk["graphs"]:
+            fail(f"{what}, rank {r}: no graph was captured")
+
+
 def dp_path(solo, train_set, val_set, dev, gpu):
     """Phase 4k. (a) train_goku.py --data-parallel 1 in this process, on
     NCCL (its own one-rank group) and on gloo: every GOKU kernel launched
     as often as the solo run's (24 / 12, no figure), no plain call, weights
-    within DP_TOL of the solo run of 4j (and whether bit for bit). (b), (c)
-    two ranks on the one card under torch.distributed.run, gloo, the
+    within DP_TOL of the solo run of 4j (and whether bit for bit), blocks
+    on NCCL and the per-step loop on gloo (the mesh's block fits at full
+    width run in phase 4n: mesh_block_path). (b), (c)
+    two ranks on the one card under torch.distributed.run, gloo (the
+    Trainer's per-step loop: gloo cannot be captured), the
     launch's exit code checked (dp_launch): dp_check's gates against the
     one-process run in rank 0's process (each rank 24 / 12 launches at
     B 32, runs and ranks bit for bit, the first step, the validation
@@ -4760,13 +4893,19 @@ def dp_path(solo, train_set, val_set, dev, gpu):
             fail("train_goku --data-parallel 1 left its group behind")
         diff = max(float(np.abs(a - solo_w[k]).max())
                    for k, a in weights_of(dp1.model).items())
+        # a gloo group over the card's tensors cannot be captured
+        blocks = bool(dp1._block_fns)
         log("dp", f"--data-parallel 1 ({backend}, one rank) against the solo "
                   f"run of 4j, seed 333: weights max |difference| {diff:.3e} "
                   f"(gate {DP_TOL:.0e}); "
-                  f"{'bit for bit' if diff == 0 else 'not bit for bit'}")
+                  f"{'bit for bit' if diff == 0 else 'not bit for bit'}; "
+                  f"Trainer(mesh) ran {'blocks' if blocks else 'per step'} "
+                  f"(expected {'blocks' if backend == 'nccl' else 'per step'})")
         if not diff <= DP_TOL:
             fail(f"--data-parallel 1 ({backend}): weights {diff} off the "
                  f"solo run")
+        if blocks != (backend == "nccl"):
+            fail(f"--data-parallel 1 ({backend}) ran blocks: {blocks}")
 
     # (b), (c) two ranks on the one card, under torch.distributed.run
     ranks, launch_s = dp_launch(DP_DIR, 2, ["--device", "cuda:0", "--seeds",
@@ -4822,8 +4961,8 @@ def dp_path(solo, train_set, val_set, dev, gpu):
         trace_dir = os.path.join("chiprun_out", "trace_4k")
         shutil.rmtree(trace_dir, ignore_errors=True)
         # the control: a plain torch.profiler window around the same step,
-        # which late in this process loses the kernel records of the
-        # step's first launches (trace_profile arms its window)
+        # which can lose the kernel records of the step's first launches
+        # (trace_profile arms its window and pads it on both sides)
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             tr.train_step(x, beta)
@@ -6033,6 +6172,10 @@ def main():
     # loop, bit for bit (before phase 5 and 4k, whose profiler sessions
     # come after every window it opens); parts (a)-(e) run last ---------
     block_path(train_set, val_set, dev, gpu, only=BLOCK_FIRST)
+    # the same two as Trainer(mesh=make_mesh(1)) on a one-rank NCCL group:
+    # DDP's all-reduces inside the captured epochs
+    log_phase("phase 4n, on a mesh")
+    mesh_block_path(train_set, val_set, dev, gpu)
 
     log_phase("phase 5")
     # ---- 5. kernel timing -------------------------------------------------

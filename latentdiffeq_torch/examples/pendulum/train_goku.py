@@ -26,7 +26,10 @@ other than N raises. Each rank trains on ``cuda:LOCAL_RANK`` (a
 ``--device`` with an index pins every rank to that card) or on the CPU
 with ``--device cpu``; the group uses NCCL on the card and gloo on the
 CPU or where ranks share a card (NCCL refuses two ranks on one device).
-Rank 0 prints, draws the figures and writes the checkpoints.
+It trains in blocks, as a solo run does (on NCCL each epoch's CUDA graph
+holds the gradient all-reduces), but for ranks that share a card, which
+run the per-step loop. Rank 0 prints, draws the figures and writes the
+checkpoints.
 
 Differences from the JAX script, each on purpose:
 - the model runs the hand-written kernels (``GOKUBasic(use_kernel_encoder=
@@ -76,8 +79,8 @@ def figure_epochs(cfg: TrainConfig, start: int = 0):
     does: the last epoch of each block. A block holds at most
     ``cfg.epochs_per_dispatch`` epochs and ends at ``cfg.epochs``; in the
     sliced curriculum it also ends where the window length changes (the
-    masked curriculum runs one length). The per-step runs
-    (``--data-parallel``) draw on the same epochs."""
+    masked curriculum runs one length). A per-step run (``--data-parallel``
+    on ranks that share a card) draws on the same epochs."""
     prog = _prog_seq_lengths(cfg)
     out, ep0 = [], start
     while ep0 < cfg.epochs:

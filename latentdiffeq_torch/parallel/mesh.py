@@ -39,7 +39,13 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     host starts more ranks (``LOCAL_WORLD_SIZE``) than it has cards: ranks
     that share a card need gloo, which also reduces CUDA tensors, since
     NCCL refuses two ranks on one device. A second call does nothing, as
-    JAX's does (mesh.py:20-41)."""
+    JAX's does (mesh.py:20-41).
+
+    An NCCL group needs no setting before it starts for a CUDA graph to
+    capture its collectives (``Trainer(mesh=)``'s epochs): with the
+    defaults of PyTorch 2.11 and NCCL 2.28, error handling and the
+    watchdog on, a one-rank group's captured epochs replay as their
+    per-step loop runs (``chip_smoke.py`` phase 4n on a mesh)."""
     if dist.is_initialized():
         return dist.get_world_size()
     if backend is None:

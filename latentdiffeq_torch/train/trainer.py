@@ -25,12 +25,10 @@ too: their keys are drawn from the noise generator inside the epoch, and a
 captured adaptive solve runs its whole step budget of masked steps
 (``solve.adaptive.all_inactive``), as JAX's bounded scan does, with the
 early-exiting loop's results. ``MultiSeedTrainer`` runs the same blocks
-over its stacked replicas. ``jit_epoch=False`` runs the per-step loop,
-which a ``mesh`` runs whatever the setting (``fit`` warns: capturing the
-gradient all-reduce needs NCCL, which takes one rank a card). The two
-draw the same numbers in the same order from each random stream and
-compute the same operations, so a fit equals itself bit for bit whatever
-its blocking.
+over its stacked replicas, and a ``mesh`` its rows of each minibatch.
+``jit_epoch=False`` runs the per-step loop. The two draw the same numbers
+in the same order from each random stream and compute the same
+operations, so a fit equals itself bit for bit whatever its blocking.
 
 Curricula (trainer.py:55-78, 163-173): ``progressive_training`` ramps the
 window length over the first ``prog_training_duration`` epochs
@@ -72,14 +70,25 @@ wrapped in ``DistributedDataParallel``, which averages the gradients over
 the ranks; each rank cuts the global batch's noise (and SDE keys) to its
 rows, and the loss's batch couplings are made global (``loss_batch(
 shards=)``), so the run equals the solo Trainer's up to the order of the
-reductions. Validation stays whole on every rank; rank 0 alone prints and
+reductions. An epoch's summaries are each rank's share, made global once
+an epoch or a block (``reduce_metrics``: the counts summed, the means
+averaged), so every rank records the same history. Validation stays whole
+on every rank, so every rank keeps the same best; rank 0 alone prints and
 writes checkpoints, and ``restore`` leaves every rank with the same state.
+A mesh trains in blocks as a solo Trainer does: on the card its group
+runs NCCL (one rank a card) and each epoch's graph captures DDP's
+gradient all-reduces and the loss's sums, after the eager epochs that
+DDP's warm-up needs (``DDP_WARMUP_STEPS``); on the CPU (gloo) the blocks
+run eagerly. Only a gloo group over CUDA tensors (ranks that share a
+card), whose collectives a CUDA graph cannot capture, runs the per-step
+loop, and ``fit`` warns.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import dataclasses
+import gc
 import math
 import time
 import warnings
@@ -87,7 +96,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from .. import random as jr
@@ -105,6 +114,12 @@ from .data import gather_window, sample_window, window_start
 from .losses import loss_batch
 
 __all__ = ["TrainConfig", "Trainer", "make_block_fn"]
+
+# DistributedDataParallel's eager iterations before a CUDA graph may capture
+# one (PyTorch's whole-network capture of DDP): it rebuilds its buckets
+# after the first and samples runtime statistics, with host syncs, in the
+# first ten
+DDP_WARMUP_STEPS = 11
 
 
 @dataclasses.dataclass
@@ -364,6 +379,17 @@ def _sync_debug(mode):
         torch.cuda.set_sync_debug_mode(old)
 
 
+def epoch_summaries(ms):
+    """An epoch's train summaries from its steps' metrics, under JAX's
+    names: the mean loss and KL, the RHS evaluations and failed rows
+    summed (each (S,) for a population's (S,) metrics)."""
+    st = {n: torch.stack([m[n] for m in ms])
+          for n in ("loss", "kl", "n_rhs_evals", "n_failed")}
+    return {"train_loss": st["loss"].mean(0), "kl": st["kl"].mean(0),
+            "rhs_evals": st["n_rhs_evals"].sum(0),
+            "n_failed": st["n_failed"].sum(0)}
+
+
 def _steps_of(a):
     """``a`` (E, steps, ...) as (E * steps, ...)."""
     return a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
@@ -468,7 +494,10 @@ class BlockFn:
     is captured as a CUDA graph with the noise generators (``noise_gen``:
     one, or a list) registered, and every later epoch replays it with no
     host read; the kernels' launch counters gain on each replay what they
-    gained at the capture (``ops.launches``). An adaptive solve in a
+    gained at the capture (``ops.launches``). ``can_capture()`` says
+    whether the next epoch may be captured (a mesh's DDP wants its warm-up
+    of eager steps first); until it does, the epochs run eagerly on the
+    side stream: ``stream``, or one of its own. An adaptive solve in a
     captured epoch runs its whole step budget (``solve.adaptive``). New
     tensors in any of those roles (another ``data``, ``best`` or table
     size) start over with an eager epoch. ``sync_debug`` (None, "warn" or
@@ -479,7 +508,9 @@ class BlockFn:
     def __init__(self, cfg: TrainConfig, opt: optim.Optimizer,
                  loss_fn: Callable, seq_len: int, steps: int, val_len: int,
                  *, noise_gen=None, train_step: Optional[Callable] = None,
-                 val_step: Optional[Callable] = None):
+                 val_step: Optional[Callable] = None,
+                 can_capture: Optional[Callable[[], bool]] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.cfg, self.opt, self.loss_fn = cfg, opt, loss_fn
         self.seq_len, self.steps, self.val_len = seq_len, steps, val_len
         self.noise_gens = ([] if noise_gen is None else [noise_gen]
@@ -487,13 +518,14 @@ class BlockFn:
                            else list(noise_gen))
         self.train_step = train_step or self._train_step
         self.val_step = val_step or self._val_step
+        self.can_capture = can_capture or (lambda: True)
         self.sync_debug = None
         self._tabs = None
         self._sig = None
         self._warm = False
         self._graph = None
         self._delta = None
-        self._stream = None
+        self._stream = stream
         # the last capture's seconds (instantiation included) and its
         # graph's node counts (utils.graph_nodes)
         self.capture_s = None
@@ -584,12 +616,7 @@ class BlockFn:
         if vm is None:
             vm = self.val_step(model, val, beta, None if tabs.keys is None
                                else _at(tabs.val_keys, e))
-        st = {n: torch.stack([m[n] for m in ms])
-              for n in ("loss", "kl", "n_rhs_evals", "n_failed")}
-        summ = {"train_loss": st["loss"].mean(0), "val_loss": vm["loss"],
-                "rhs_evals": st["n_rhs_evals"].sum(0),
-                "n_failed": st["n_failed"].sum(0), "beta": beta,
-                "kl": st["kl"].mean(0)}
+        summ = dict(epoch_summaries(ms), val_loss=vm["loss"], beta=beta)
         with torch.no_grad():
             for n, v in summ.items():
                 if n not in tabs.summ:
@@ -646,13 +673,13 @@ class BlockFn:
             self._stream = torch.cuda.Stream(data.device)
         cur = torch.cuda.current_stream(data.device)
         i = 0
-        if not self._warm:
+        while i < E and not (self._warm and self.can_capture()):
             self._stream.wait_stream(cur)
             with torch.cuda.stream(self._stream):
                 self._epoch(model, best, data, val, tabs, live)
             cur.wait_stream(self._stream)
             self._warm = True
-            i = 1
+            i += 1
         if i == E:
             return
         if self._graph is None:
@@ -673,6 +700,10 @@ class BlockFn:
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
         before = launches.snapshot()
+        # no collection inside the capture: freeing a dead trainer's graph
+        # there (cudaGraphExecDestroy) would end it
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self._stream):
                 self._epoch(model, best, data, val, tabs, live)
@@ -685,6 +716,8 @@ class BlockFn:
                 f"stream it was built on, which a capture cannot wait on; "
                 f"drop it, or fit with TrainConfig(jit_epoch=False)") from err
         finally:
+            if collecting:
+                gc.enable()
             self._delta = launches.gained(before, launches.snapshot())
             launches.restore(before)
             self.opt.advance(-self.steps)
@@ -697,7 +730,9 @@ class BlockFn:
 def make_block_fn(cfg: TrainConfig, opt: optim.Optimizer, loss_fn: Callable,
                   seq_len: int, steps: int, val_len: int, *,
                   noise_gen=None, train_step: Optional[Callable] = None,
-                  val_step: Optional[Callable] = None) -> BlockFn:
+                  val_step: Optional[Callable] = None,
+                  can_capture: Optional[Callable[[], bool]] = None,
+                  stream: Optional[torch.cuda.Stream] = None) -> BlockFn:
     """The fused multi-epoch program (JAX's ``make_block_fn``,
     trainer.py:294-421): a ``BlockFn`` for windows of ``seq_len`` frames,
     ``steps`` minibatch steps an epoch and validation sequences of
@@ -706,10 +741,12 @@ def make_block_fn(cfg: TrainConfig, opt: optim.Optimizer, loss_fn: Callable,
     generator (a population's: one a replica). ``train_step(model, x,
     beta, eps, key)`` and ``val_step(model, val, beta, key)`` replace the
     plain ELBO step and validation pass (the Trainer and MultiSeedTrainer
-    pass their own); ``key`` is the block's fed key, or None."""
+    pass their own); ``key`` is the block's fed key, or None.
+    ``can_capture``, ``stream``: see ``BlockFn``."""
     return BlockFn(cfg, opt, loss_fn, seq_len, steps, val_len,
                    noise_gen=noise_gen, train_step=train_step,
-                   val_step=val_step)
+                   val_step=val_step, can_capture=can_capture,
+                   stream=stream)
 
 
 class Trainer:
@@ -753,19 +790,30 @@ class Trainer:
         self._sde = isinstance(getattr(decoder, "diffeq", None), SDEDynamics)
         self.mesh = mesh
         self.rank, self.world = mesh_rank(mesh), mesh_size(mesh)
-        self._net, self._shards = model, None
+        self._net, self._shards, self._stream = model, None, None
+        self._ddp_steps = 0     # DDP's forwards run by the host
         if mesh is not None:
             if cfg.batch_size % self.world:
                 raise ValueError(f"batch_size {cfg.batch_size} not divisible "
                                  f"by mesh size {self.world}")
             group = mesh.get_group()
             self._shards = BatchShards(group, self.world)
+            if self.device.type == "cuda":
+                # the stream of every train step and every block's epochs:
+                # DDP's gradient accumulators keep the stream they were
+                # made on, and a capture cannot wait on another
+                self._stream = torch.cuda.Stream(self.device)
             # replicates rank 0's parameters and buffers; the gradients are
             # averaged in its backward hooks
-            self._net = DistributedDataParallel(
-                model, process_group=group,
-                device_ids=([self.device.index]
-                            if self.device.type == "cuda" else None))
+            with self._on_stream():
+                self._net = DistributedDataParallel(
+                    model, process_group=group,
+                    device_ids=([self.device.index]
+                                if self.device.type == "cuda" else None))
+            # DDP samples its runtime statistics, syncing on CUDA events,
+            # in the first ten forwards and then every 100th, which a
+            # captured epoch may hold: only in the first ten
+            self._net._set_ddp_runtime_logging_sample_rate(2 ** 31 - 1)
 
     def _grid(self, n: int):
         return _grid(n, self.cfg.dt, self.device)
@@ -804,12 +852,14 @@ class Trainer:
         given ``eps``) are this rank's rows of the global minibatch and the
         metrics its share: their mean over the ranks (the sum for ``n_*``)
         is the global batch's."""
-        kw = self._key_kw(key)
-        if self.mesh is not None:
-            eps, kw = self._shard_randomness(x.shape[0], eps, kw)
-        return _elbo_step(self._net, self.opt, self.loss_fn, self.cfg, x,
-                          self._grid(x.shape[1]), beta,
-                          generator=self.noise_gen, eps=eps, **kw)
+        with self._on_stream():
+            kw = self._key_kw(key)
+            if self.mesh is not None:
+                eps, kw = self._shard_randomness(x.shape[0], eps, kw)
+                self._ddp_steps += 1
+            return _elbo_step(self._net, self.opt, self.loss_fn, self.cfg, x,
+                              self._grid(x.shape[1]), beta,
+                              generator=self.noise_gen, eps=eps, **kw)
 
     def val_step(self, val, beta: float, *, key=None):
         """Loss on the full validation sequences at the posterior mean
@@ -842,11 +892,37 @@ class Trainer:
 
     def _per_step_only(self) -> Optional[str]:
         """Why this Trainer runs the per-step loop whatever ``jit_epoch``
-        says (None: block mode can run): a mesh, whose gradient all-reduce
-        a CUDA graph could capture only on NCCL, one rank a card."""
-        if self.mesh is not None:
-            return "a mesh (data parallelism)"
+        says (None: block mode can run): a mesh whose group runs gloo over
+        CUDA tensors (ranks that share a card), whose collectives a CUDA
+        graph cannot capture. A mesh on NCCL captures them in each epoch's
+        graph; a mesh on the CPU runs its blocks eagerly."""
+        if (self.mesh is not None and self.device.type == "cuda"
+                and dist.get_backend(self.mesh.get_group()) != "nccl"):
+            return (f"a {dist.get_backend(self.mesh.get_group())} group "
+                    f"over CUDA tensors (ranks sharing a card)")
         return None
+
+    def _use_blocks(self) -> bool:
+        """Whether ``fit`` runs blocks: ``jit_epoch``, unless
+        ``_per_step_only`` names a reason, which it warns of."""
+        why = self._per_step_only() if self.cfg.jit_epoch else None
+        if why is not None:
+            warnings.warn(f"Trainer.fit runs the per-step loop for {why}: a "
+                          f"CUDA graph captures a mesh's collectives only on "
+                          f"NCCL, one rank a card", stacklevel=3)
+        return self.cfg.jit_epoch and why is None
+
+    def _global(self, summ):
+        """A mesh's epoch summaries (each rank's share) made global as
+        ``reduce_metrics`` makes a step's metrics: the counts summed over
+        the ranks, the means averaged. Without a mesh, ``summ``."""
+        if self.mesh is None:
+            return summ
+        names = {"train_loss": "loss", "kl": "kl", "rhs_evals": "n_rhs_evals",
+                 "n_failed": "n_failed"}
+        red = reduce_metrics({m: summ[k] for k, m in names.items()},
+                             self.mesh.get_group(), self.world)
+        return dict(summ, **{k: red[m] for k, m in names.items()})
 
     def _block_fn(self, seq_len: int, steps: int, val_len: int) -> BlockFn:
         key = (seq_len, steps, val_len)
@@ -858,25 +934,31 @@ class Trainer:
                 train_step=lambda m, x, beta, eps, key: self.train_step(
                     x, beta, eps=eps, **_fed(key)),
                 val_step=lambda m, val, beta, key: self.val_step(
-                    val, beta, **_fed(key)))
+                    val, beta, **_fed(key)),
+                can_capture=(None if self.mesh is None else
+                             lambda: self._ddp_steps >= DDP_WARMUP_STEPS),
+                stream=self._stream)
         return fn
 
     def run_block(self, data, val, betas, seq_len=None, cur_lens=None):
         """Run len(betas) epochs from ``self.epoch`` as one block
         (trainer.py:604-635): the permutations and window starts drawn here
         from the host streams, in the per-step loop's order, the epochs
-        through ``make_block_fn``, the best on the device. ``cur_lens``
-        (the masked curriculum): each epoch's window length, else
-        ``seq_len`` for all. Returns the summaries, each (E,) on the
-        device; reads nothing back."""
+        through ``make_block_fn``, the best on the device. With a mesh
+        each step trains on this rank's rows of its minibatch.
+        ``cur_lens`` (the masked curriculum): each epoch's window length,
+        else ``seq_len`` for all. Returns the summaries, each (E,) on the
+        device (a mesh's made global); reads nothing back."""
         cfg = self.cfg
         n, T = data.shape[0], data.shape[1]
         steps = n // cfg.batch_size
         E = len(betas)
         lens = (list(cur_lens) if cur_lens is not None
                 else [seq_len or cfg.seq_len] * E)
+        b = cfg.batch_size // self.world          # this rank's rows
         idx = np.stack([self.np_rng.permutation(n)[:steps * cfg.batch_size]
-                        .reshape(steps, cfg.batch_size) for _ in range(E)])
+                        .reshape(steps, cfg.batch_size) for _ in range(E)]
+                       )[..., self.rank * b:(self.rank + 1) * b]
         starts = np.array([[window_start(T, lens[i], self.window_gen)
                             for _ in range(steps)] for i in range(E)])
         if self._best_dev is None:
@@ -889,7 +971,8 @@ class Trainer:
             fn.sync_debug = self.sync_debug
             out.append(fn(self.model, self._best_dev, data, val, idx[i:j],
                           starts[i:j], betas[i:j], ids[i:j]))
-        return {k: torch.cat([o[k] for o in out]) for k in out[0]}
+        return self._global({k: torch.cat([o[k] for o in out])
+                             for k in out[0]})
 
     def fit(self, train_set, val_set, *, epochs: Optional[int] = None,
             callbacks=(), verbose: bool = True):
@@ -917,13 +1000,7 @@ class Trainer:
                 "masked_curriculum requires block mode (jit_epoch=True, "
                 "epochs_per_dispatch > 1) — it is a property of the fused "
                 "block program")
-        use_blocks = cfg.jit_epoch
-        why = self._per_step_only() if use_blocks else None
-        if why is not None:
-            warnings.warn(f"Trainer.fit runs the per-step loop for {why}: "
-                          f"block mode (jit_epoch) runs on one process",
-                          stacklevel=2)
-            use_blocks = False
+        use_blocks = self._use_blocks()
 
         if cfg.autosize_adaptive and self.epoch == 0:
             self.autosize_adaptive_budget(train_set, verbose=verbose)
@@ -953,7 +1030,7 @@ class Trainer:
                     "n_failed": int(summ["n_failed"][i])})
             prev_best = self.best_val_loss
             self.best_val_loss = float(self._best_dev["val"])
-            if verbose:
+            if verbose and self.rank == 0:
                 r = self.history[-1]
                 print(f"epochs {ep0:4d}-{e - 1:4d}  "
                       f"loss {r['train_loss']:10.4f}  "
@@ -996,18 +1073,16 @@ class Trainer:
                     vm = self.val_step(val, beta_t)
             if vm is None:
                 vm = self.val_step(val, beta_t)
-            st = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-            if self.mesh is not None:             # the global batches'
-                st = reduce_metrics(st, self.mesh.get_group(), self.world)
+            summ = self._global(epoch_summaries(ms))
             val_loss = float(vm["loss"])          # synchronises
-            train_loss = float(st["loss"].mean())
+            train_loss = float(summ["train_loss"])
             wall = time.perf_counter() - t0
             rec = {"epoch": ep, "train_loss": train_loss,
                    "val_loss": val_loss, "beta": beta,
                    "seq_len": seq_len, "epoch_s": wall,
-                   "rhs_evals_per_s": int(st["n_rhs_evals"].sum()) / wall,
-                   "kl": float(st["kl"].mean()),
-                   "n_failed": int(st["n_failed"].sum())}
+                   "rhs_evals_per_s": int(summ["rhs_evals"]) / wall,
+                   "kl": float(summ["kl"]),
+                   "n_failed": int(summ["n_failed"])}
             self.history.append(rec)
             if verbose and self.rank == 0:
                 print(f"epoch {ep:4d}  loss {train_loss:10.4f}  "
@@ -1024,6 +1099,23 @@ class Trainer:
             for cb in callbacks:
                 cb(self, rec)
         return self.history
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The region on a CUDA mesh's stream, on which its DDP was built
+        (autograd accumulates a parameter's gradient on the stream where
+        DDP's hooks made its accumulator), joined with the caller's
+        stream on both sides; without one, or on it already, where it
+        is."""
+        if (self._stream is None
+                or torch.cuda.current_stream(self.device) == self._stream):
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)
 
     def _best_snapshot(self, epoch: int):
         """``_snapshot`` of the device best: the state dict with the best
@@ -1042,7 +1134,13 @@ class Trainer:
         from it replays from the best epoch with the moments that produced
         it). ``lag``: the optimizer steps taken since the best epoch's
         end. The best is swapped into the live tensors for the write and
-        back after it."""
+        back after it. With a mesh every rank calls it, as ``save``."""
+        if self.rank == 0:
+            self._write_best(path, epoch, lag)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group())
+
+    def _write_best(self, path: str, epoch: int, lag: int):
         live = list(self.model.parameters()) + self.opt.state_tensors()
         best = self._best_dev["model"] + self._best_dev["opt_state"]
         kept = [t.detach().clone() for t in live]
@@ -1079,7 +1177,7 @@ class Trainer:
         if self.rank == 0:
             self._write(path, self.epoch)
         if self.mesh is not None:
-            torch.distributed.barrier(group=self.mesh.get_group())
+            dist.barrier(group=self.mesh.get_group())
 
     def _write(self, path: str, epoch: int):
         save_checkpoint(

@@ -21,8 +21,9 @@ from typing import Dict, Iterator, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["PhaseTimer", "device_profile", "trace_profile",
-           "lost_kernel_records", "graph_nodes", "enable_debug_nans"]
+__all__ = ["PhaseTimer", "device_profile", "trace_profile", "PAD",
+           "PAD_KERNEL", "lost_kernel_records", "graph_nodes",
+           "enable_debug_nans"]
 
 
 def _cuda_devices(tree, out):
@@ -89,9 +90,37 @@ class PhaseTimer:
 _ARM_ROUNDS = 20
 _ARM_PAUSE_S = 1e-3
 
+# device_profile's pads, the first and the last thing its recorded step
+# runs: rounds of one spin kernel (PAD_KERNEL, ~1 us), a wait for it and a
+# host pause, for _PAD_S each, inside host annotations named PAD. The
+# profiler keeps a device record only if its time, mapped onto the host
+# clock, falls inside the window, and on an H100 that mapping was off by
+# -6.3 to +12.2 ms in some windows (the kept records' start less their
+# launch's, scripts/profiler_window.py): the region's first launches, or
+# its last, then lost their records, as many as ran that long after the
+# window opened or before it closed (a whole 100-launch burst; both
+# forward kernels of a training step). The pads, ~8 times the largest
+# offset seen, take that loss; readers of the region leave their records
+# out (PAD, PAD_KERNEL), and lost_kernel_records counts their launches
+# apart.
+PAD = "device_profile pad"
+PAD_KERNEL = "spin_kernel"
+_PAD_S = 0.1
+_PAD_SPIN_CYCLES = 1000
+
+
+def _pad():
+    with torch.profiler.record_function(PAD):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < _PAD_S:
+            torch.cuda._sleep(_PAD_SPIN_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(_ARM_PAUSE_S)
+
 
 @contextlib.contextmanager
-def device_profile(**kwargs) -> Iterator[torch.profiler.profile]:
+def device_profile(pads: bool = True,
+                   **kwargs) -> Iterator[torch.profiler.profile]:
     """``torch.profiler.profile`` over the enclosed region (host and, when
     the process has a card, CUDA activity; ``kwargs`` go to the profiler),
     with device tracing armed before the region opens.
@@ -102,7 +131,12 @@ def device_profile(**kwargs) -> Iterator[torch.profiler.profile]:
     launch records and no kernel records (``lost_kernel_records`` counts
     them). So the profile starts in a warm-up step, which launches a few
     kernels and waits for them (their records fall before the window and
-    are dropped), and records from the next step on."""
+    are dropped), and records from the next step on. On a card and with
+    ``pads``, that step runs a pad before the region and one after it
+    (spin kernels, ``PAD_KERNEL``, and waits in host annotations ``PAD``),
+    so that a device clock mapped a few ms off puts none of the region's
+    records outside the window; the region's device records are the
+    window's less the pads'."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     cuda = torch.cuda.is_available()
     if cuda:
@@ -117,7 +151,12 @@ def device_profile(**kwargs) -> Iterator[torch.profiler.profile]:
                 torch.cuda.synchronize()
                 time.sleep(_ARM_PAUSE_S)
         prof.step()
+        pads = cuda and pads
+        if pads:
+            _pad()
         yield prof
+        if pads:
+            _pad()
 
 
 @contextlib.contextmanager
@@ -125,7 +164,9 @@ def trace_profile(logdir: str):
     """Profile the enclosed region with ``device_profile`` (host and, when
     the process has a card, CUDA activity) and write it as a Chrome trace,
     ``logdir/trace_<time>_<pid>.json`` (Perfetto or chrome://tracing).
-    Yields the profiler, whose ``key_averages()`` tabulate the region."""
+    Yields the profiler, whose ``key_averages()`` tabulate the region and,
+    on a card, ``device_profile``'s pads (a ``PAD`` row and a
+    ``PAD_KERNEL`` row)."""
     os.makedirs(logdir, exist_ok=True)
     with device_profile() as prof:
         yield prof
@@ -139,7 +180,9 @@ def lost_kernel_records(path: str) -> dict:
     launch record has no kernel record with its correlation id: their
     count (``lost``), the launches' count, whether the lost ones are the
     window's first launches, and the host time (us) from the first launch
-    to the last lost one."""
+    to the last lost one. These count the region's launches: those outside
+    ``device_profile``'s pads where the trace has them, whose own launches
+    and lost ones are ``pad_launches`` and ``pad_lost``."""
     with open(path) as f:
         ev = json.load(f)["traceEvents"]
     launches = sorted((e for e in ev
@@ -148,12 +191,22 @@ def lost_kernel_records(path: str) -> dict:
                       key=lambda e: e["ts"])
     kernels = {e.get("args", {}).get("correlation") for e in ev
                if e.get("cat") == "kernel"}
-    lost = [i for i, e in enumerate(launches)
-            if e.get("args", {}).get("correlation") not in kernels]
+    pads = [(e["ts"], e["ts"] + e.get("dur", 0.0)) for e in ev
+            if e.get("cat") == "user_annotation" and e.get("name") == PAD]
+    in_pad = [any(lo <= e["ts"] <= hi for lo, hi in pads) for e in launches]
+    pad = [e for e, p in zip(launches, in_pad) if p]
+    launches = [e for e, p in zip(launches, in_pad) if not p]
+
+    def lost_in(ls):
+        return [i for i, e in enumerate(ls)
+                if e.get("args", {}).get("correlation") not in kernels]
+
+    lost = lost_in(launches)
     return {"launches": len(launches), "lost": len(lost),
             "lost_are_a_prefix": lost == list(range(len(lost))),
             "lost_span_us": (launches[lost[-1]]["ts"] - launches[0]["ts"]
-                             if lost else 0.0)}
+                             if lost else 0.0),
+            "pad_launches": len(pad), "pad_lost": len(lost_in(pad))}
 
 
 # Operations that make tensors without computing them: a NaN they hold is

@@ -6,8 +6,14 @@ the graphs' capture seconds and nodes, the profiler windows and the steady
 epoch times.
 
     python3 scripts/block_smoke.py ["(a) SDE GOKU" ...]
+    python3 scripts/block_smoke.py --mesh [GOKU LatentODE]
 
-Arguments name the paths to run (default: all).
+Arguments name the paths to run (default: all). ``--mesh``: phase 4n's
+mesh check instead (chip_smoke.mesh_block_path), on a one-rank NCCL
+group set up there: each path as
+``Trainer(mesh=make_mesh(1))`` in blocks (DDP's all-reduces in the
+captured epochs) against the mesh's per-step loop and the solo block
+Trainer, bit for bit (default paths: GOKU and LatentODE).
 
 Builds the port's kernels, generates the 450-video pendulum set on the card
 (chip_smoke's phase 4 data), runs chip_smoke.block_path and prints its
@@ -45,8 +51,14 @@ def main():
                     f"{torch.__version__} cuda {torch.version.cuda}")
     _, _, _, frames = generate_dataset(device="cuda")
     train_set, val_set = splitobs(frames.reshape(450, 100, 784), 0.9)
-    steady = cs.block_path(train_set, val_set, torch.device("cuda"), gpu,
-                           only=sys.argv[1:] or None)
+    names = [a for a in sys.argv[1:] if a != "--mesh"]
+    dev = torch.device("cuda")
+    if "--mesh" not in sys.argv[1:]:
+        steady = cs.block_path(train_set, val_set, dev, gpu,
+                               only=names or None)
+    else:
+        steady = cs.mesh_block_path(train_set, val_set, dev, gpu,
+                                    only=names or cs.BLOCK_FIRST)
     cs.log("block", f"steady epoch s (per-step, block): {steady}")
     print(gpu, flush=True)
     print("block_smoke: ok", flush=True)

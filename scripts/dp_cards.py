@@ -8,11 +8,15 @@ gates (phase 4k):
 Builds the kernels and makes the pendulum video once, then starts N ranks
 of ``chip_smoke.py --dp-worker`` under torch.distributed.run: each runs
 train_goku.py --data-parallel N --epochs 2 --no-viz twice on its card
-(``cuda:LOCAL_RANK``) and one step of train_goku's seed-333 model on its
-rows of a minibatch; rank 0 then runs both in one process.
-``chip_smoke.dp_check`` holds them (launches, runs and ranks bit for bit,
-the first step, each epoch's validation loss, the weights) and the script
-prints the card line and its summary as one JSON line. ``--device cpu``
+(``cuda:LOCAL_RANK``; the Trainer in blocks), one step of train_goku's
+seed-333 model on its rows of a minibatch, and that model's
+``Trainer(mesh=)`` in 2 blocks of 3 epochs (DDP's warm-up, then captured
+epochs with NCCL's all-reduces inside) and per step; rank 0 then runs
+train_goku in one process. ``chip_smoke.dp_check`` holds them (launches,
+runs and ranks bit for bit, the blocks bit for bit with the per-step
+loop and a graph captured, the first step, each epoch's validation loss,
+the weights) and the script prints the card line and its summary as one
+JSON line. ``--device cpu``
 rehearses the flow on a small synthetic video (40 trajectories of 12
 frames, batch 8, windows of 8).
 """

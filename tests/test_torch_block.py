@@ -18,10 +18,11 @@ on the CPU, against its per-step loop and against JAX's ``make_block_fn``.
   run bit for bit; the best checkpoint of block mode holds JAX's fields
   (the best weights and optimizer state, epoch + 1, its validation loss)
   and equals the per-step loop's checkpoint of that epoch.
-- SDE dynamics, adaptive solves and MultiSeedTrainer run blocks with no
-  warning, bit for bit with their per-step loops; a mesh warns and runs the
-  per-step loop; the masked curriculum without block mode raises JAX's
-  ValueError.
+- SDE dynamics, adaptive solves, MultiSeedTrainer and a one-rank gloo
+  mesh on the CPU run blocks with no warning, bit for bit with their
+  per-step loops; a gloo mesh over CUDA tensors (ranks sharing a card)
+  warns and runs the per-step loop; the masked curriculum without block
+  mode raises JAX's ValueError.
 The CUDA graphs themselves run only on the card (tests/test_torch_cuda.py,
 ``test_block_graphs_*``)."""
 import dataclasses
@@ -413,8 +414,8 @@ def per_step_cases():
 
 @pytest.mark.parametrize("case", ["sde", "adaptive", "mesh"])
 def test_out_of_scope_configurations_warn_and_run_per_step(case, sets):
-    """A mesh: fit warns once and runs the per-step loop. SDE dynamics and
-    an adaptive solve: fit runs blocks with no warning. Each bit for bit
+    """SDE dynamics, an adaptive solve and a one-rank gloo mesh on the CPU:
+    fit runs blocks with no warning (the mesh's eagerly), each bit for bit
     with jit_epoch=False."""
     import torch.distributed as dist
 
@@ -441,9 +442,46 @@ def test_out_of_scope_configurations_warn_and_run_per_step(case, sets):
         if started:
             dist.destroy_process_group()
     (ref, none), (tr, said) = runs
-    assert none == [] and len(said) == (1 if case == "mesh" else 0)
-    assert bool(tr._block_fns) == (case != "mesh")
+    assert none == [] and said == []
+    assert tr._block_fns and not ref._block_fns
     assert_same_run(ref, tr)
+
+
+def test_gloo_mesh_over_cuda_tensors_warns_and_runs_per_step(monkeypatch):
+    """The one mesh left on the per-step loop: a gloo group over CUDA
+    tensors (ranks that share a card), whose collectives a CUDA graph
+    cannot capture; fit warns. A gloo mesh on the CPU and an NCCL mesh on
+    the card run blocks (the backend and device monkeypatched: no card
+    here)."""
+    import torch.distributed as dist
+
+    from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
+    started = not dist.is_initialized()
+    initialize_distributed(device="cpu")
+    try:
+        tr = Trainer(goku(6), cfg_of(epochs=2), device="cpu",
+                     mesh=make_mesh(1))
+        cases = (("cpu", "gloo", False), ("cuda", "gloo", True),
+                 ("cuda", "nccl", False))
+        for device, backend, per_step in cases:
+            monkeypatch.setattr(tr, "device", torch.device(device))
+            monkeypatch.setattr(dist, "get_backend",
+                                lambda group=None, b=backend: b)
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                blocks = tr._use_blocks()
+            said = [str(w.message) for w in got
+                    if "per-step loop" in str(w.message)]
+            why = tr._per_step_only()
+            assert (why is not None) == per_step, (device, backend)
+            assert blocks != per_step and len(said) == per_step
+            if per_step:
+                assert "gloo group over CUDA tensors" in why
+                assert why in said[0]
+    finally:
+        monkeypatch.undo()
+        if started:
+            dist.destroy_process_group()
 
 
 def test_population_warns_and_runs_per_step(sets):

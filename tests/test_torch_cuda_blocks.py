@@ -1,6 +1,8 @@
 """Block mode on the card for the configurations that trained per step
 before: SDE dynamics (SRA1 on the grid and adaptive), an adaptive ODE
-solve, and populations (MultiSeedTrainer). Each fit runs blocks whose
+solve, populations (MultiSeedTrainer) and a one-rank NCCL mesh
+(Trainer(mesh=), DDP's all-reduces in the captured epochs after its
+eager warm-up). Each fit runs blocks whose
 first epoch is eager on a side stream and whose later epochs replay a
 captured CUDA graph, under torch.cuda.set_sync_debug_mode("error"), and
 must equal its per-step loop (jit_epoch=False, every epoch eager) from the
@@ -97,6 +99,24 @@ def fit_both(make, epochs=EPOCHS):
     return runs
 
 
+def assert_same_trainer(a, b):
+    """Two Trainers bit for bit: losses, weights, Adam's state, the best
+    and every random stream."""
+    same_history(a, b, ("train_loss", "val_loss", "kl", "n_failed"))
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q)
+    assert a.opt.t == b.opt.t
+    for p, q in zip(a.opt.state_tensors(), b.opt.state_tensors()):
+        assert torch.equal(p, q)
+    assert a.best["epoch"] == b.best["epoch"]
+    assert a.best_val_loss == b.best_val_loss
+    for k, v in a.best["model"].items():
+        assert torch.equal(v, b.best["model"][k]), k
+    assert torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state())
+    assert torch.equal(a.window_gen.get_state(), b.window_gen.get_state())
+    assert a.np_rng.bit_generator.state == b.np_rng.bit_generator.state
+
+
 def same_history(a, b, keys):
     for ha, hb in zip(a.history, b.history):
         for k in keys:
@@ -116,19 +136,46 @@ def test_captured_epochs_equal_the_per_step_loop(dev, which):
                                 for f in b._block_fns.values())
     assert na == nb
     assert not na["plain goku_heads"] and na["goku_heads"] > 0
-    same_history(a, b, ("train_loss", "val_loss", "kl", "n_failed"))
-    for p, q in zip(a.model.parameters(), b.model.parameters()):
-        assert torch.equal(p, q)
-    assert a.opt.t == b.opt.t
-    for p, q in zip(a.opt.state_tensors(), b.opt.state_tensors()):
-        assert torch.equal(p, q)
-    assert a.best["epoch"] == b.best["epoch"]
-    assert a.best_val_loss == b.best_val_loss
-    for k, v in a.best["model"].items():
-        assert torch.equal(v, b.best["model"][k]), k
-    assert torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state())
-    assert torch.equal(a.window_gen.get_state(), b.window_gen.get_state())
-    assert a.np_rng.bit_generator.state == b.np_rng.bit_generator.state
+    assert_same_trainer(a, b)
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A one-rank NCCL group and its mesh (this process's own)."""
+    import torch.distributed as dist
+
+    from latentdiffeq_torch.parallel import initialize_distributed, make_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up")
+    initialize_distributed(device=dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["pendulum", "sde"])
+def test_captured_mesh_epochs_equal_the_per_step_loop(dev, nccl_mesh, which):
+    """Trainer(mesh=) on a one-rank NCCL mesh, 2 steps an epoch: blocks of
+    2 (6 eager epochs of DDP's warm-up, then graphs captured and replayed
+    with the all-reduces inside) against the mesh's per-step loop and
+    against the solo block Trainer, 10 epochs, bit for bit (at one rank
+    DDP's mean and the loss's sums are exact), the same launches."""
+    def make(mesh, **kw):
+        return Trainer(goku(dev, which), dataclasses.replace(CFG, **kw),
+                       device=dev, mesh=mesh)
+
+    (a, na), (b, nb) = fit_both(lambda **kw: make(nccl_mesh, **kw),
+                                epochs=10)
+    assert b._block_fns and all(f._graph is not None
+                                for f in b._block_fns.values())
+    assert na == nb and not na["plain goku_heads"] and na["goku_heads"] > 0
+    assert_same_trainer(a, b)
+    solo = make(None, epochs_per_dispatch=2)
+    solo.fit(*data(dev), epochs=10, verbose=False)
+    assert_same_trainer(solo, b)
 
 
 POPULATIONS = {

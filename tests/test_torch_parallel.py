@@ -22,10 +22,14 @@ JAX is the reference):
   only (a row fails when its first pixel exceeds ``FAIL_AT``: JAX's GSPMD
   step divides by the global count of good rows, its shard_map step by
   each rank's);
-- ``Trainer(mesh)`` for 2 epochs against the solo Trainer (rtol 2e-4),
-  plain and with ``mask_failures`` on rows that fall unevenly on the
-  ranks; the ranks' weights equal bit for bit, the checkpoint written once
-  and restored on both ranks;
+- ``Trainer(mesh)`` in block mode, 2 blocks of 2 epochs, against the
+  same mesh's per-step loop (``jit_epoch=False``) bit for bit (weights,
+  optimizer state, every history record, the best epoch and weights) and
+  against the solo block Trainer (rtol 2e-4), plain and with
+  ``mask_failures`` on rows that fall unevenly on the ranks; the ranks'
+  weights equal bit for bit, the checkpoint written once and restored on
+  both ranks; GOKU on ``SPendulum`` (each rank's cut of the global batch's
+  Brownian keys) bit for bit with its per-step loop;
 - ``MultiSeedTrainer(mesh)``, 4 seeds on 2 ranks, against the unsharded
   population: replica for replica (rtol 2e-4), the same best seed and
   selection, the population file, a prune to 2 survivors and one more
@@ -56,7 +60,7 @@ from latentdiffeq_torch.examples.pendulum import (  # noqa: E402
     create_data as pcreate, train_goku as ptg)
 from latentdiffeq_torch.models import (GOKUBasic, LatentDiffEqModel,  # noqa: E402
                                        goku_default_layers)
-from latentdiffeq_torch.pendulum import Pendulum  # noqa: E402
+from latentdiffeq_torch.pendulum import Pendulum, SPendulum  # noqa: E402
 from latentdiffeq_torch.train import (MultiSeedTrainer, TrainConfig,  # noqa: E402
                                       Trainer, jax_param_paths,
                                       load_jax_params, loss_batch, optim)
@@ -88,8 +92,9 @@ def fail_rows_loss(m, x, t, beta, **kw):
     return loss_batch(_FailRows(m), x, t, beta, **kw)
 
 
-def port_model(seed=0):
-    diffeq = Pendulum(options=SolveOptions(adaptive=False, substeps=1))
+def port_model(seed=0, diffeq=None):
+    diffeq = diffeq or Pendulum(options=SolveOptions(adaptive=False,
+                                                     substeps=1))
     enc, dec = goku_default_layers(
         D, diffeq, device="cpu", generator=torch.Generator().manual_seed(seed),
         **SMALL)
@@ -128,6 +133,10 @@ def one_torch_thread():
 # the shard_map step unmasked adds nothing its masked case does not check
 STEP_CASES = [("dp", False), ("dp", True), ("shardmap", True)]
 FIT_CFG = dict(batch_size=8, seq_len=SEQ, epochs=2, seed=3, lr=3e-3)
+# Trainer(mesh)'s cases: two blocks
+MESH_CFG = dict(FIT_CFG, epochs=4, epochs_per_dispatch=2)
+MESH_CASES = {"fit": {}, "fit_masked": {"mask_failures": True},
+              "fit_sde": {}}
 
 
 def synthetic_video(n=20, T=12, seed=0):
@@ -146,6 +155,22 @@ def seed_cache(data_dir):
 def params_of(model):
     return {p: v.detach().numpy().copy()
             for p, v in zip(jax_param_paths(model), model.parameters())}
+
+
+def run_state(tr):
+    """A Trainer's state that block mode must reproduce bit for bit:
+    (arrays: weights, optimizer state, best weights; info: history,
+    optimizer step, best epoch and validation loss)."""
+    arrays = {f"w/{p}": a for p, a in params_of(tr.model).items()}
+    arrays.update({f"opt/{i}": t.numpy().copy()
+                   for i, t in enumerate(tr.opt.state_tensors())})
+    arrays.update({f"best/{k}": v.numpy().copy()
+                   for k, v in tr.best["model"].items()})
+    keys = ("epoch", "train_loss", "val_loss", "kl", "n_failed", "beta",
+            "seq_len")
+    return arrays, {"history": [[h[k] for k in keys] for h in tr.history],
+                    "t": tr.opt.t, "best_epoch": tr.best["epoch"],
+                    "best_val": tr.best_val_loss}
 
 
 def score_fn(stacked):
@@ -188,17 +213,22 @@ def worker(out):
         res.update({f"{case}/{p}": a for p, a in params_of(m).items()})
         info[case] = {k: float(v) for k, v in met.items()}
 
-    # Trainer(mesh), plain and with failing rows
+    # Trainer(mesh) in blocks and per step: plain, with failing rows, SDE
     train, val = fit_data()
-    for case, kw in (("fit", {}), ("fit_masked", {"mask_failures": True})):
-        cfg = TrainConfig(**FIT_CFG, checkpoint_dir=os.path.join(out, case),
-                          **kw)
-        tr = Trainer(port_model(7), cfg, device="cpu", mesh=mesh,
-                     loss_fn=fail_rows_loss)
-        tr.fit(train, val, verbose=False)
-        res.update({f"{case}/{p}": a for p, a in params_of(tr.model).items()})
-        info[case] = [{k: h[k] for k in ("train_loss", "val_loss", "kl",
-                                          "n_failed")} for h in tr.history]
+    for case, kw in MESH_CASES.items():
+        sde = case == "fit_sde"
+        for mode, jit in (("", True), ("_per_step", False)):
+            cfg = TrainConfig(**MESH_CFG, jit_epoch=jit, **kw,
+                              checkpoint_dir=os.path.join(out, case + mode))
+            tr = Trainer(port_model(7, SPendulum() if sde else None), cfg,
+                         device="cpu", mesh=mesh,
+                         loss_fn=loss_batch if sde else fail_rows_loss)
+            tr.fit(train, val, verbose=False)
+            arrays, info[case + mode] = run_state(tr)
+            info[case + mode]["blocks"] = bool(tr._block_fns)
+            res.update({f"{case}{mode}/{k}": a for k, a in arrays.items()})
+        if sde:
+            continue
         again = Trainer(port_model(8), cfg, device="cpu", mesh=mesh)
         again.restore(os.path.join(out, case, "best_model.npz"))
         res.update({f"{case}_restored/{p}": a
@@ -416,31 +446,50 @@ def test_step_matches_jax_on_two_ranks(launch, kind, masked):
     assert met["n_failed"] == (3 if masked else 0)
 
 
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_blocks_equal_the_mesh_per_step_loop_bit_for_bit(launch, name):
+    """Trainer(mesh) on 2 ranks in block mode (2 blocks of 2 epochs, eager
+    on the CPU) against the same mesh's per-step loop: the weights, the
+    optimizer's state and step, every history record, the best epoch,
+    validation loss and weights bit for bit on each rank; the ranks
+    agree."""
+    for arrays, info in launch[2]:
+        blk, ref = info[name], info[name + "_per_step"]
+        assert blk["blocks"] and not ref["blocks"]
+        assert blk == dict(ref, blocks=True)
+        close(case(arrays, name), case(arrays, name + "_per_step"), 0.0)
+    assert launch[2][0][1][name] == launch[2][1][1][name]
+    close(case(launch[2][1][0], name), case(launch[2][0][0], name), 0.0)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_trainer_on_two_ranks_equals_solo_trainer(launch, masked):
-    """Trainer(mesh) on 2 ranks, 2 epochs, against the solo Trainer with
-    the same seed: weights and the history's losses rtol 2e-4 (the order
-    of the gradient reduction), the failure counts equal; the ranks agree
-    bit for bit; rank 0's best checkpoint restores its state on both."""
+    """Trainer(mesh) on 2 ranks in block mode, 2 blocks of 2 epochs,
+    against the solo block Trainer with the same seed: weights rtol 2e-4
+    / atol 1e-6 and the history's losses rtol 2e-4 (the order of the
+    gradient reduction), the failure counts equal; the ranks agree bit for bit;
+    rank 0's best checkpoint restores its state on both."""
     out, _, ranks = launch
     name = "fit_masked" if masked else "fit"
     train, val = fit_data()
-    cfg = TrainConfig(**FIT_CFG, save_best=False, mask_failures=masked)
+    cfg = TrainConfig(**MESH_CFG, save_best=False, mask_failures=masked)
     solo = Trainer(port_model(7), cfg, device="cpu", loss_fn=fail_rows_loss)
     solo.fit(train, val, verbose=False)
-    got = case(ranks[0][0], name)
+    got = {k[2:]: v for k, v in case(ranks[0][0], name).items()
+           if k.startswith("w/")}
     close(got, params_of(solo.model), 2e-4, 1e-6)
-    close(case(ranks[1][0], name), got, 0.0)
-    for h, s in zip(ranks[0][1][name], solo.history):
-        for k in ("train_loss", "val_loss", "kl"):
-            np.testing.assert_allclose(h[k], s[k], rtol=2e-4, err_msg=k)
-        assert h["n_failed"] == s["n_failed"]
+    close(case(ranks[1][0], name), case(ranks[0][0], name), 0.0)
+    for h, s in zip(ranks[0][1][name]["history"], solo.history):
+        for i, k in ((1, "train_loss"), (2, "val_loss"), (3, "kl")):
+            np.testing.assert_allclose(h[i], s[k], rtol=2e-4, err_msg=k)
+        assert h[4] == s["n_failed"]
     assert ranks[1][1][name] == ranks[0][1][name]
     assert sum(h["n_failed"] for h in solo.history) > 0
     # the failing rows fall unevenly on the ranks in some step
     perm_rng, failing = np.random.default_rng(3), train[:, 0, 0] > FAIL_AT
     uneven = [int(failing[idx[:4]].sum()) != int(failing[idx[4:8]].sum())
-              for _ in range(2) for perm in [perm_rng.permutation(40)]
+              for _ in range(MESH_CFG["epochs"])
+              for perm in [perm_rng.permutation(40)]
               for idx in perm[:40].reshape(5, 8)]
     assert any(uneven)
     assert os.listdir(os.path.join(out, name)) == ["best_model.npz"]

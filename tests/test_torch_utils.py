@@ -5,7 +5,8 @@ package's, on the CPU.
   value types and rounding as JAX's; ``block_on`` accepts nested results;
 - ``trace_profile`` writes a Chrome trace naming the region's operations;
   ``device_profile`` records its region from the step after its warm-up;
-  ``lost_kernel_records`` counts launches that have no kernel record;
+  ``lost_kernel_records`` counts launches that have no kernel record,
+  the region's apart from those of ``device_profile``'s pads;
 - ``enable_debug_nans``: the same inputs through both packages, a NaN made
   in the forward (the KL of an infinite log-variance, a log of a negative
   number) raises ``FloatingPointError`` in both, clean inputs in neither,
@@ -95,21 +96,32 @@ def _kernel(corr, ts):
 
 LOSS_CASES = {
     # the first two launches of the window have no kernel record
-    "a prefix": ([1, 2], {"launches": 5, "lost": 2,
-                          "lost_are_a_prefix": True, "lost_span_us": 10.0}),
-    "one inside": ([3], {"launches": 5, "lost": 1,
-                         "lost_are_a_prefix": False, "lost_span_us": 20.0}),
-    "none": ([], {"launches": 5, "lost": 0, "lost_are_a_prefix": True,
-                  "lost_span_us": 0.0}),
+    "a prefix": ([1, 2], [], {"launches": 5, "lost": 2,
+                              "lost_are_a_prefix": True,
+                              "lost_span_us": 10.0}),
+    "one inside": ([3], [], {"launches": 5, "lost": 1,
+                             "lost_are_a_prefix": False,
+                             "lost_span_us": 20.0}),
+    "none": ([], [], {"launches": 5, "lost": 0, "lost_are_a_prefix": True,
+                      "lost_span_us": 0.0}),
+    # device_profile's pads span 5-25 us and 45-60 us: launches 1, 2 and 5
+    # are theirs (1 lost), the region's are 3 and 4 (4 lost)
+    "between pads": ([1, 4], [(5.0, 25.0), (45.0, 60.0)],
+                     {"launches": 2, "lost": 1, "lost_are_a_prefix": False,
+                      "lost_span_us": 10.0, "pad_launches": 3,
+                      "pad_lost": 1}),
 }
 
 
 @pytest.mark.parametrize("case", list(LOSS_CASES))
 def test_lost_kernel_records(tmp_path, case):
-    lost, want = LOSS_CASES[case]
+    lost, pads, want = LOSS_CASES[case]
+    want = {"pad_launches": 0, "pad_lost": 0, **want}
     ev = [{"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 50.0,
            "args": {}}, {"cat": "cuda_driver", "name": "cuGetProcAddress",
                          "ts": 1.0, "dur": 1.0, "args": {}}]
+    ev += [{"cat": "user_annotation", "name": utils.PAD, "ts": lo,
+            "dur": hi - lo, "args": {}} for lo, hi in pads]
     for c in range(1, 6):
         ev.append(_launch(c, 10.0 * c))
         if c not in lost:
